@@ -13,6 +13,12 @@ it by path:
 
 Dtypes are kept: a bf16 array becomes a bf16 tensor.  Nothing here
 imports JAX; the tree only has to hold numpy arrays.
+
+``flax_opt_state_to_torch(opt_state)`` maps the JAX optimizer state
+(``FP32MasterState(inner=adamw state, master=tree)``, or the bare adamw
+state of fp32-resident params) onto the port's (ops/optim.py) by the
+same path map: a test can start both packages mid-schedule.  Gradient
+trees have the param tree's paths and convert with ``flax_to_torch``.
 """
 
 from __future__ import annotations
@@ -79,4 +85,25 @@ def flax_to_torch(params: Mapping) -> "dict[str, torch.Tensor]":
     return state
 
 
-__all__ = ["flax_to_torch", "to_tensor"]
+def flax_opt_state_to_torch(opt_state):
+    """The JAX ``optax.adamw`` state (``(ScaleByAdamState(count, mu, nu),
+    EmptyState(), ScaleByScheduleState(count))``), optionally inside
+    ``FP32MasterState(inner, master)``, as the port's ``AdamWState`` /
+    ``FP32MasterState``.  Read by attribute, so numpy leaves (e.g.
+    ``jax.device_get`` of the state) are all it needs."""
+    from ray_lightning_tpu_torch.ops.optim import AdamWState, FP32MasterState
+    master = getattr(opt_state, "master", None)
+    inner = opt_state.inner if master is not None else opt_state
+    adam, schedule = inner[0], inner[-1]
+    count = int(np.asarray(adam.count))
+    if int(np.asarray(schedule.count)) != count:
+        raise ValueError("adam and schedule counts differ: not an "
+                         "optax.adamw state")
+    state = AdamWState(count=count, mu=flax_to_torch(adam.mu),
+                       nu=flax_to_torch(adam.nu))
+    if master is None:
+        return state
+    return FP32MasterState(inner=state, master=flax_to_torch(master))
+
+
+__all__ = ["flax_opt_state_to_torch", "flax_to_torch", "to_tensor"]

@@ -1,8 +1,9 @@
-"""GPT-style decoder LM in PyTorch: the serve path's model.
+"""GPT-style decoder LM in PyTorch: the serve and training paths' model.
 
 Counterpart of ``ray_lightning_tpu/models/gpt.py`` (``GPTConfig``,
 ``CONFIGS``, ``MLP``, ``Block``, ``GPT.hidden`` / ``__call__`` /
-``decode``, ``GPTLightningModule``'s serve hooks).  Parameter names map
+``decode``, ``synthetic_lm_dataset``, ``GPTLightningModule``'s serve and
+training hooks).  Parameter names map
 one to one onto the flax tree (``convert.flax_to_torch``): ``wte``,
 ``wpe``, ``h.{i}.ln1|attn.qkv|attn.proj|ln2|mlp.fc|mlp.out``, ``ln_f``.
 
@@ -27,13 +28,18 @@ import math
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ray_lightning_tpu_torch._device import resolve_device
+from ray_lightning_tpu_torch.core.data import ArrayDataset, DataLoader
 from ray_lightning_tpu_torch.core.module import LightningModule
 from ray_lightning_tpu_torch.ops.attention import MultiHeadAttention, linear
+from ray_lightning_tpu_torch.ops.losses import (
+    chunked_softmax_cross_entropy, fused_lm_cross_entropy)
+from ray_lightning_tpu_torch.ops.optim import AdamW, fp32_master
 
 
 @dataclasses.dataclass(frozen=True)
@@ -247,18 +253,56 @@ class GPT(nn.Module):
         return self.head(self.ln_f(x))[:, 0]
 
 
-class GPTLightningModule(LightningModule):
-    """The serve hooks of the JAX package's LM module over :class:`GPT`
-    (training is a later slice)."""
+def synthetic_lm_dataset(n: int, block_size: int, vocab_size: int,
+                         seed: int = 0) -> ArrayDataset:
+    """Deterministic token sequences with learnable structure (each token
+    depends on the previous one), so loss decreases measurably fast: the
+    JAX package's generator, draw for draw."""
+    rng = np.random.default_rng(seed)
+    perm = np.random.default_rng(7).permutation(vocab_size)
+    first = rng.integers(0, vocab_size, size=(n, 1))
+    seqs = [first]
+    for _ in range(block_size):
+        # next token = perm[prev] with 10% noise
+        nxt = perm[seqs[-1]]
+        noise = rng.integers(0, vocab_size, size=(n, 1))
+        mask = rng.random((n, 1)) < 0.1
+        seqs.append(np.where(mask, noise, nxt))
+    toks = np.concatenate(seqs, axis=1).astype(np.int32)
+    return ArrayDataset(toks[:, :-1], toks[:, 1:])
 
-    def __init__(self, config: "GPTConfig | str" = "tiny"):
+
+class GPTLightningModule(LightningModule):
+    """LM module over :class:`GPT`: next-token cross-entropy training and
+    the serve hooks."""
+
+    def __init__(self, config: "GPTConfig | str" = "tiny",
+                 lr: float = 3e-4, weight_decay: float = 0.01,
+                 warmup_steps: int = 10, dataset_size: int = 256,
+                 batch_size: int = 8):
         super().__init__()
         if isinstance(config, str):
             config = CONFIGS[config]
         self.config = config
+        self.save_hyperparameters("lr", "weight_decay", "batch_size")
+        self.lr = lr
+        self.weight_decay = weight_decay
+        self.warmup_steps = warmup_steps
+        self.dataset_size = dataset_size
+        self.batch_size = batch_size
 
     def configure_model(self, device=None):
-        return GPT(self.config, device=device)
+        """The training model.  Dropout and remat are not ported
+        (ROADMAP.md queue 1: remat with long-context training, dropout
+        with the rest of the trainer); gpt2-small and tiny use neither."""
+        cfg = self.config
+        if cfg.dropout > 0 or cfg.remat:
+            raise NotImplementedError(
+                f"dropout={cfg.dropout} / remat={cfg.remat} are not ported "
+                f"yet (ROADMAP.md queue 1: remat with long-context "
+                f"training, dropout with the rest of the trainer); "
+                f"gpt2-small and tiny train without them")
+        return GPT(cfg, device=device)
 
     def configure_decode_model(self, device=None):
         """Serve-plane model: the training model's parameter tree with
@@ -279,6 +323,66 @@ class GPTLightningModule(LightningModule):
         return (torch.bfloat16
                 if os.environ.get("RLT_BF16_PARAMS", "1") != "0" else None)
 
+    def configure_optimizers(self):
+        """``adamw(linear_schedule(0, lr, warmup_steps), b1=0.9, b2=0.95,
+        weight_decay, mu_dtype=bf16)`` (``RLT_BF16_MOMENTS=0`` keeps mu in
+        fp32), wrapped in ``fp32_master`` when the params are
+        bf16-resident (ops/optim.py)."""
+        mu_dtype = (torch.bfloat16
+                    if os.environ.get("RLT_BF16_MOMENTS", "1") != "0"
+                    else None)
+        tx = AdamW(self.lr, warmup_steps=self.warmup_steps,
+                   weight_decay=self.weight_decay, b1=0.9, b2=0.95,
+                   mu_dtype=mu_dtype)
+        if self.param_dtype is not None:
+            tx = fp32_master(tx)
+        return tx
+
+    def _loss(self, ctx, batch):
+        """Fused full-vocab CE by default; the chunked CE when
+        ``chunked_ce > 0``; the fp32-logits CE under ``RLT_FUSED_CE=0``
+        (ops/losses.py)."""
+        x, y = batch
+        model = ctx.model
+        if self.config.chunked_ce > 0:
+            h, _ = model.hidden(x)
+            return chunked_softmax_cross_entropy(h, model.wte.weight, y,
+                                                 self.config.chunked_ce)
+        if os.environ.get("RLT_FUSED_CE", "1") != "0":
+            h, _ = model.hidden(x)
+            return fused_lm_cross_entropy(h, model.wte.weight, y)
+        logits = model(x)
+        return (torch.logsumexp(logits, dim=-1)
+                - logits.gather(-1, y.long()[..., None])[..., 0]).mean()
+
+    def training_step(self, ctx, batch):
+        loss = self._loss(ctx, batch)
+        ctx.log("loss", loss)
+        return loss
+
+    def validation_step(self, ctx, batch):
+        ctx.log("val_loss", self._loss(ctx, batch))
+
+    def test_step(self, ctx, batch):
+        ctx.log("test_loss", self._loss(ctx, batch))
+
+    def _loader(self, seed):
+        ds = synthetic_lm_dataset(self.dataset_size, self.config.block_size,
+                                  self.config.vocab_size, seed)
+        return DataLoader(ds, batch_size=self.batch_size, drop_last=True)
+
+    def train_dataloader(self):
+        return self._loader(0)
+
+    def val_dataloader(self):
+        return self._loader(1)
+
+    def test_dataloader(self):
+        return self._loader(2)
+
+    def predict_dataloader(self):
+        return self._loader(3)
+
 
 __all__ = ["CONFIGS", "GPT", "GPTConfig", "GPTLightningModule", "Block",
-           "LayerNorm", "MLP"]
+           "LayerNorm", "MLP", "synthetic_lm_dataset"]

@@ -4,9 +4,10 @@ Counterpart of ``ray_lightning_tpu/ops/attention.py``:
 
 - :func:`dot_product_attention` — plain attention (materialized scores,
   fp32 softmax);
-- :func:`auto_attention` — a CUDA tensor takes the flash kernel
-  (ops/flash_attention.py), a CPU tensor the plain attention, as the
-  JAX package picks the Pallas kernel on the TPU only;
+- :func:`auto_attention` — a CUDA tensor takes the flash kernels
+  (ops/flash_attention.py: forward and, under autograd, backward), a
+  CPU tensor the plain attention (differentiable by autograd), as the
+  JAX package picks the Pallas kernels on the TPU only;
 - :func:`cached_attention` — single-query attention against the slot KV
   cache (the decode core): the flash-decode kernel or the dense path;
 - :class:`MultiHeadAttention` — fused-QKV attention whose submodule
@@ -47,7 +48,7 @@ def dot_product_attention(q, k, v, *, causal: bool = True,
 
 
 def auto_attention(q, k, v, **kw):
-    """Device choice: CUDA -> the flash kernel, CPU -> plain attention."""
+    """Device choice: CUDA -> the flash kernels, CPU -> plain attention."""
     if q.device.type == "cuda":
         return flash_attention(q, k, v, **kw)
     return dot_product_attention(q, k, v, **kw)

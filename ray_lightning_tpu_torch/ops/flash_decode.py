@@ -105,9 +105,18 @@ def flash_decode_attention(q, k_cache, v_cache, positions):
     ``positions`` [S] int32 on the same device; returns [S, 1, H, D].
     A CUDA tensor launches ``csrc/flash_decode.cu`` (bf16, head_dim in
     :data:`HEAD_DIMS`, unit stride over D, 16-byte-aligned rows); a CPU
-    tensor takes :func:`flash_decode_attention_plain`.
+    tensor takes :func:`flash_decode_attention_plain`.  It has no
+    backward (nor has the JAX kernel): under grad mode with an input that
+    requires grad it raises rather than return an output that autograd
+    would silently cut off from its inputs.
     """
     _check(q, k_cache, v_cache, positions)
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (q, k_cache, v_cache)):
+        raise RuntimeError(
+            "flash_decode_attention has no backward: call it under "
+            "torch.no_grad() / torch.inference_mode(), or with inputs "
+            "that do not require grad")
     if q.device.type == "cpu":
         return flash_decode_attention_plain(q, k_cache, v_cache, positions)
     if q.device.type != "cuda":

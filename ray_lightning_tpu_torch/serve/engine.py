@@ -207,14 +207,19 @@ class ServeEngine:
 
     # -- evidence ----------------------------------------------------------
 
+    #: the kernels the serve path runs (prefill, decode)
+    KERNELS = ("flash_fwd", "flash_decode")
+
     def stats(self) -> dict:
         """Which decode attention serves the hot path, the steps served,
-        and every kernel's launch count in this process."""
+        and the launch counts in this process of the serve path's
+        kernels."""
+        counts = _kernels.launch_counts()
         return {
             "decode_kernel": self.decode_kernel,
             "calls": dict(self.calls),
             "seconds": dict(self.seconds),
-            "kernel_launches": _kernels.launch_counts(),
+            "kernel_launches": {k: counts[k] for k in self.KERNELS},
         }
 
 

@@ -1,6 +1,12 @@
 """PyTorch/CUDA port, kernels on the card: each hand-written CUDA kernel
 of ``ray_lightning_tpu_torch`` against its plain PyTorch version, at the
-serve path's shapes and at edge lengths, in bf16 within 2e-2.
+serve and training paths' shapes and at edge lengths, in bf16: outputs
+within 2e-2 in max abs error; the backward's dq, dk, dv in per-tensor
+relative L2, within 1e-3 of the plain backward (same rounding points)
+and within 1e-2 of plain attention under autograd (which rounds
+elsewhere).  A max abs error would have to allow for the few rows whose
+gradients grow past 1 with T, and would then miss a fault confined to a
+tile of small gradients.
 
 Every test here is marked ``cuda`` and skips without a card (decided
 when the test runs, never while the module is imported).  The file
@@ -18,11 +24,14 @@ import numpy as np
 import pytest
 import torch
 
-from ray_lightning_tpu_torch import (GPT, GPTLightningModule, Scheduler,
-                                     ServeEngine, ServeWorker)
+from ray_lightning_tpu_torch import (GPT, Callback, GPTLightningModule,
+                                     Scheduler, ServeEngine, ServeWorker,
+                                     Trainer)
 from ray_lightning_tpu_torch.models.gpt import GPTConfig
 from ray_lightning_tpu_torch.ops import _kernels
+from ray_lightning_tpu_torch.ops.attention import dot_product_attention
 from ray_lightning_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
     flash_attention_fwd, flash_attention_fwd_plain)
 from ray_lightning_tpu_torch.ops.flash_decode import (
     flash_decode_attention, flash_decode_attention_plain)
@@ -53,6 +62,69 @@ def test_cuda_flash_fwd_kernel_matches_plain(T, cuda_device):
     assert (lse - lse_ref).abs().max().item() <= 1e-3
 
 
+def _rel_l2(got, want) -> float:
+    """||got - want|| / ||want||, the denominator at least that of a
+    tensor of RMS 1e-3: dq and dk at T=1 are zero but for rounding."""
+    got, want = got.float(), want.float()
+    floor = 1e-3 * want.numel() ** 0.5
+    return ((got - want).norm() / want.norm().clamp_min(floor)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("T", [1, 16, 128, 200, 1024])
+def test_cuda_flash_bwd_kernel_matches_plain(T, D, causal, cuda_device):
+    """dq, dk, dv of the kernel against the plain backward on the same
+    o, lse and do, with q/k/v the strided views of a fused projection;
+    one launch per backward call."""
+    g = torch.Generator(device=cuda_device).manual_seed(T * D)
+    B, H = 2, 12
+    qkv = torch.randn(B, T, 3 * H * D, generator=g,
+                      device=cuda_device).to(torch.bfloat16)
+    q, k, v = (x.view(B, T, H, D) for x in qkv.split(H * D, dim=-1))
+    do = torch.randn(B, T, H, D, generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    before = _kernels.REGISTRY["flash_bwd"].launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert _kernels.REGISTRY["flash_bwd"].launches == before + 1
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == (B, T, H, D)
+        assert torch.isfinite(a.float()).all(), name
+        assert _rel_l2(a, b) <= 1e-3, (name, _rel_l2(a, b))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_trains_through_the_kernels(cuda_device):
+    """The fault this guards: ``flash_attention`` on a CUDA tensor used to
+    launch the forward on raw pointers, so q/k/v got no gradient.  Now
+    autograd reaches the backward kernel: one forward and one backward
+    launch, non-zero gradients that match plain attention's within 1e-2
+    relative L2 (the two round at different points)."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    B, T, H, D = 2, 256, 12, 64
+    qkv = torch.randn(B, T, 3 * H * D, generator=g, device=cuda_device).to(
+        torch.bfloat16).requires_grad_()
+    w = torch.randn(B, T, H, D, generator=g, device=cuda_device)
+
+    def grads(attend):
+        q, k, v = (x.view(B, T, H, D) for x in qkv.split(H * D, dim=-1))
+        out = attend(q, k, v, causal=True, dtype=torch.bfloat16)
+        return torch.autograd.grad((out.float() * w).sum(), qkv)[0]
+
+    _kernels.reset_launches()
+    got = grads(flash_attention)
+    counts = _kernels.launch_counts()
+    assert counts["flash_fwd"] == 1 and counts["flash_bwd"] == 1
+    want = grads(dot_product_attention)
+    for part, ref in zip(got.split(H * D, -1), want.split(H * D, -1)):
+        assert part.float().abs().max().item() > 0
+        assert _rel_l2(part, ref) <= 1e-2, _rel_l2(part, ref)
+
+
 @pytest.mark.cuda
 def test_cuda_flash_decode_kernel_matches_plain(cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(0)
@@ -80,6 +152,9 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
     x = torch.zeros(1, 8, 2, 64, device=cuda_device)      # fp32
     with pytest.raises(TypeError, match="bf16"):
         flash_attention_fwd(x, x, x)
+    lse = torch.zeros(1, 2, 8, device=cuda_device)
+    with pytest.raises(TypeError, match="bf16"):
+        flash_attention_bwd(x, x, x, x, lse, x)
 
 
 @pytest.mark.cuda
@@ -145,3 +220,30 @@ def test_cuda_engine_serves_through_the_kernels(cuda_device):
         for i, tok in enumerate(gen):
             best = int(logits[i].argmax())
             assert tok == best or logits[i, tok] >= logits[i, best] - 2e-2
+
+
+@pytest.mark.cuda
+def test_cuda_trainer_fits_tiny_through_the_kernels(cuda_device):
+    """A 3-step ``Trainer.fit`` of tiny on the card: finite losses, bf16
+    params beside the fp32 master, and each attention kernel launched
+    once per layer per step (2 layers x 3 steps)."""
+    losses = []
+
+    class Losses(Callback):
+        def on_train_batch_end(self, trainer, module, outputs, batch, i):
+            losses.append(float(outputs["loss"]))
+
+    module = GPTLightningModule("tiny", warmup_steps=2, dataset_size=32)
+    trainer = Trainer(max_steps=3, enable_checkpointing=False, seed=0,
+                      num_sanity_val_steps=0, limit_val_batches=0,
+                      callbacks=[Losses()], device=cuda_device)
+    _kernels.reset_launches()
+    trainer.fit(module)
+    counts = _kernels.launch_counts()
+    assert counts["flash_fwd"] == counts["flash_bwd"] == 2 * 3
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    assert trainer.global_step == 3
+    assert {p.dtype for p in module.model.parameters()} == {torch.bfloat16}
+    master = trainer.state.opt_state.master
+    assert all(m.dtype == torch.float32 and m.is_cuda
+               for m in master.values())
