@@ -41,17 +41,39 @@ Phases, each fatal on failure:
    989 TFLOP/s);
 5. profile: where a decode step, a bucket-1024 prefill and a train step
    spend their time (host wall, device kernel time by name, device busy
-   share).
+   share);
+6. long context, with the serve engine and the gpt2-small trainer freed:
+   (a) flash_fwd and flash_bwd at the long-context path's shapes
+   against their plain versions over all heads (run in head groups so
+   their [B, g, T, T] scores fit), timed beside them, SDPA and their
+   bounds, the backward's dk/dv and dq passes timed with the profiler:
+   B=8 T=2048 H=32 (gpt2-1p3b), B=2 T=4096, B=1 T=8192 and B=1 T=16384
+   at H=12; (b) ``Trainer(max_steps=6).fit(GPTLightningModule(
+   "gpt2-1p3b", batch_size=8))`` at full width and depth (24 layers, 32
+   heads, n_embd 2048), T=2048, remat "full", chunked CE 16: finite
+   losses, the first batch's loss lower after the fit, flash_fwd 2 x 24
+   and flash_bwd 24 launches a step, step ms, tokens/s, MFU, peak
+   memory, one more step profiled; (c) a 2-layer cut of it at B=1,
+   T=2048: gradients with flash against ``attention_impl="dot"`` (both
+   under remat; per-tensor relative L2 within 2e-2) and remat "full"
+   against "off" (within 1e-6); (d) 3-step fits at gpt2-small width with
+   ``block_size`` T = 4096, 8192, 16384, B = max(1, 8192 // T), remat
+   "full", chunked CE 16 at T >= 8192 (benchmarks/bench_longcontext.py's
+   shapes): finite losses, 2 x 12 flash_fwd and 12 flash_bwd launches a
+   step, step ms and peak memory; the T=16384 step profiled.
 
-The next-to-last line is the ``{"kernels": [...]}`` JSON record; the
-last is ``{"ok": true, "device": {...}}``.  Without CUDA the script
-prints an error and exits 1.
+The next-to-last line is the ``{"kernels": [...]}`` JSON record, one
+entry per TPU kernel row ported (1, 2, 3, 6, 7, 8, 9, 13; ``launches``
+from the path phases that route to it); the last is ``{"ok": true,
+"device": {...}}``.  Without CUDA the script prints an error and exits
+1.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -168,14 +190,14 @@ def bound(nbytes: float, flops: float) -> "tuple[float, str]":
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def record(name: str, replaces: str, shape: str, err: float,
+def record(name: str, row: int, replaces: str, shape: str, err: float,
            r: dict, tol: float = BF16_TOL) -> dict:
-    """One entry of the ``kernels`` JSON line.  ``max_abs_err``/``ms``
-    and ``max_err``/``kernel_ms`` carry the same numbers under the two
-    names readers of the line use; ``launches`` is filled in from the
-    serve and train phases."""
+    """One entry of the ``kernels`` JSON line, for TPU kernel ``row``
+    (PERF.md's table).  ``max_abs_err``/``ms`` and ``max_err``/
+    ``kernel_ms`` carry the same numbers under the two names readers of
+    the line use; ``launches`` is filled in from the path phases."""
     return {
-        "name": name, "route": "cuda",
+        "name": name, "row": row, "route": "cuda",
         "source": f"ray_lightning_tpu_torch/csrc/{name}.cu",
         "replaces": replaces, "shape": shape,
         "max_abs_err": err, "max_err": err, "tol": tol,
@@ -231,7 +253,7 @@ def kernel_flash_fwd(gen: torch.Generator) -> dict:
             f"ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
         rows[T] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=b_ms, bound_by=b_by)
-    entry = record("flash_fwd",
+    entry = record("flash_fwd", 1,
                    "ray_lightning_tpu/ops/flash_attention.py:298",
                    "B=1 T=1024 H=12 D=64 causal bf16", worst, rows[1024])
     entry["ms_by_T"] = {str(t): rows[t]["ms"] for t in rows}
@@ -342,7 +364,7 @@ def kernel_flash_bwd(gen: torch.Generator) -> dict:
     log(f"  flash_bwd B={B} T={T}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
         f"ms, sdpa backward {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
         f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB")
-    entry = record("flash_bwd",
+    entry = record("flash_bwd", 6,
                    "ray_lightning_tpu/ops/flash_attention.py:329",
                    f"B={B} T={T} H=12 D=64 causal bf16", worst_abs,
                    dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
@@ -396,7 +418,8 @@ def kernel_flash_decode(gen: torch.Generator, flush) -> dict:
     log(f"  flash_decode: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
         f"{live_rows} live rows, L2 flushed before each launch")
-    return record("flash_decode", "ray_lightning_tpu/ops/flash_decode.py:158",
+    return record("flash_decode", 13,
+                  "ray_lightning_tpu/ops/flash_decode.py:158",
                   "S=16 L=1024 H=12 D=64 bf16, mixed positions", err,
                   dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=b_ms, bound_by=b_by))
@@ -571,12 +594,25 @@ def first_batch(module):
 def step_grads(attention_impl: str, seed: int, batch) -> dict:
     """One step's gradients of the loss on ``batch`` for gpt2-small with
     the seeded init cast to bf16, as the trainer makes it."""
-    module = gpt2_small(attention_impl)
+    return module_grads(gpt2_small(attention_impl), seed, batch)
+
+
+def module_grads(module, seed: int, batch) -> dict:
+    """One step's gradients of ``module``'s loss on ``batch`` from its
+    seeded init cast to bf16, as the trainer makes it."""
     module.init_params(torch.Generator(device="cuda").manual_seed(seed))
     module.model.to(dtype=module.param_dtype)
     params = dict(module.model.named_parameters())
     loss = module.training_step(StepContext(module, training=True), batch)
     return dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+
+
+def grads_rel_l2(got: dict, want: dict) -> dict:
+    """Per-tensor relative L2 error of one gradient dict against
+    another."""
+    return {k: ((got[k].float() - want[k].float()).norm()
+                / want[k].float().norm().clamp_min(1e-30)).item()
+            for k in want}
 
 
 def model_flops_per_step(cfg, B: int, T: int) -> float:
@@ -585,6 +621,39 @@ def model_flops_per_step(cfg, B: int, T: int) -> float:
     sequence forward, times 3 for forward and backward."""
     L, Cm, V = cfg.n_layer, cfg.n_embd, cfg.vocab_size
     return 6 * B * T * (12 * L * Cm * Cm + V * Cm) + 6 * B * L * T * T * Cm
+
+
+def check_fit(clock, trainer, launches: dict, n_layer: int, n: int,
+              what: str, remat: bool = True) -> None:
+    """Every step ran with a finite loss, and per step each layer
+    launched flash_bwd once and flash_fwd once, or twice under remat
+    (the forward and its recompute in the backward pass)."""
+    losses = clock.losses
+    if len(losses) != n or trainer.global_step != n:
+        raise AssertionError(f"{what}: fit ran {len(losses)} steps, want {n}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{what}: non-finite loss: {losses}")
+    want = {"flash_fwd": (1 + remat) * n_layer * n, "flash_bwd": n_layer * n}
+    for name, w in want.items():
+        if launches[name] != w:
+            raise AssertionError(
+                f"{what}: {name} launched {launches[name]} times; "
+                f"{n_layer} layers x {n} steps (remat {remat}) want {w}")
+
+
+def fit_stats(module, clock, B: int, T: int, card: str,
+              first: int) -> dict:
+    cfg = module.config
+    step_ms = float(np.median(clock.ms[first:]))
+    flops = model_flops_per_step(cfg, B, T)
+    return {"card": card, "batch": B, "seq": T, "layers": cfg.n_layer,
+            "heads": cfg.n_head, "n_embd": cfg.n_embd,
+            "step_ms_median": step_ms, "step_ms": clock.ms,
+            "tokens_per_s": B * T / (step_ms / 1e3),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "model_flops_per_step": flops,
+            "mfu": flops / (step_ms / 1e3) / BF16_FLOPS_PER_S,
+            "losses": clock.losses}
 
 
 def train_phase(seed: int, card: str) -> dict:
@@ -597,23 +666,15 @@ def train_phase(seed: int, card: str) -> dict:
     trainer, clock = fit(module, n, seed)
     wall = time.monotonic() - t0
     launches = _kernels.launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = clock.losses
     log(f"  fit: {n} steps in {wall:.2f} s (set-up included); losses "
         + " ".join(f"{x:.4f}" for x in losses))
-    if len(losses) != n or trainer.global_step != n:
-        raise AssertionError(f"fit ran {len(losses)} steps, want {n}")
-    if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite loss: {losses}")
+    cfg = module.config
+    check_fit(clock, trainer, launches, cfg.n_layer, n, "gpt2-small",
+              remat=False)
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses[0]} -> "
                              f"{losses[-1]}")
-    cfg = module.config
-    for name in ("flash_fwd", "flash_bwd"):
-        if launches[name] != cfg.n_layer * n:
-            raise AssertionError(
-                f"{name} launched {launches[name]} times in the fit; "
-                f"{cfg.n_layer} layers x {n} steps want {cfg.n_layer * n}")
     log(f"  launches in the fit: {launches} (= {cfg.n_layer} x {n} for "
         f"flash_fwd and flash_bwd)")
     p_dtypes = {str(p.dtype) for p in module.model.parameters()}
@@ -621,22 +682,15 @@ def train_phase(seed: int, card: str) -> dict:
     log(f"  params {sorted(p_dtypes)}, fp32 master of {len(master)} "
         f"tensors")
 
-    step_ms = float(np.median(clock.ms[2:]))
-    tokens = TRAIN_B * TRAIN_T
-    flops = model_flops_per_step(cfg, TRAIN_B, TRAIN_T)
-    mfu = flops / (step_ms / 1e3) / BF16_FLOPS_PER_S
-    stats = {"card": card, "steps": n, "batch": TRAIN_B, "seq": TRAIN_T,
-             "step_ms_median": step_ms, "step_ms": clock.ms,
-             "tokens_per_s": tokens / (step_ms / 1e3),
-             "peak_memory_gb": peak_gb,
-             "memory_before_fit_gb": base_gb, "model_flops_per_step": flops,
-             "mfu": mfu, "losses": losses}
-    log(f"  [{card}] step {step_ms:.3f} ms (median of steps 3-{n}, host "
-        f"wall, synced), {stats['tokens_per_s']:.0f} tokens/s, peak "
-        f"memory {peak_gb:.2f} GB ({base_gb:.2f} GB held before the fit: "
-        f"the serve engine), model flops {flops / 1e12:.3f} TFLOP a "
-        f"step (6 x (12 L C^2 + V C) x B T + 6 B L T^2 C), MFU {mfu:.4f} "
-        f"of 989 TFLOP/s")
+    stats = fit_stats(module, clock, TRAIN_B, TRAIN_T, card, first=2)
+    stats.update(steps=n, memory_before_fit_gb=base_gb)
+    log(f"  [{card}] step {stats['step_ms_median']:.3f} ms (median of "
+        f"steps 3-{n}, host wall, synced), {stats['tokens_per_s']:.0f} "
+        f"tokens/s, peak memory {stats['peak_memory_gb']:.2f} GB "
+        f"({base_gb:.2f} GB held before the fit: the serve engine), model "
+        f"flops {stats['model_flops_per_step'] / 1e12:.3f} TFLOP a step "
+        f"(6 x (12 L C^2 + V C) x B T + 6 B L T^2 C), MFU "
+        f"{stats['mfu']:.4f} of 989 TFLOP/s")
 
     # the profile phase runs the fit's own step on its state and batch
     batch = first_batch(module)
@@ -648,9 +702,7 @@ def train_phase(seed: int, card: str) -> dict:
     # attention under autograd as the reference
     g_flash = step_grads("auto", seed, batch)
     g_dot = step_grads("dot", seed, batch)
-    rel = {k: ((g_flash[k].float() - g_dot[k].float()).norm()
-               / g_dot[k].float().norm().clamp_min(1e-30)).item()
-           for k in g_dot}
+    rel = grads_rel_l2(g_flash, g_dot)
     worst = sorted(rel.items(), key=lambda kv: -kv[1])
     log(f"  grad parity vs dot attention: per-tensor relative L2 max "
         f"{worst[0][1]:.3e} ({worst[0][0]}), median "
@@ -687,7 +739,10 @@ def _device_us(event) -> float:
 
 
 #: device-kernel name fragments -> the layer they belong to
-CATEGORIES = (("flash_", "attention kernels"), ("nvjet", "GEMM"),
+CATEGORIES = (("flash_", "attention kernels"),
+              # full-fp32 products (TF32 off): the chunked CE's logits
+              ("sgemm", "GEMM fp32"), ("nvjet_sss", "GEMM fp32"),
+              ("f32f32_f32f32", "GEMM fp32"), ("nvjet", "GEMM"),
               ("gemm", "GEMM"), ("cutlass", "GEMM"), ("xmma", "GEMM"),
               ("multi_tensor_apply", "optimizer (foreach)"),
               ("layer_norm", "layer norm"), ("reduce_kernel", "reductions"),
@@ -700,80 +755,468 @@ def category(name: str) -> str:
     return next((c for frag, c in CATEGORIES if frag in low), "other")
 
 
-def profile_phase(engine, train_step, steps: int = 5) -> dict:
-    """Where the time goes: ``steps`` decode steps with all 16 slots live
-    at position 512, one prefill at bucket 1024 and one gpt2-small train
-    step at B=8, T=1024 (``train_step()``, 3 times), each timed bare (host
-    clock, ending in a sync) and under torch.profiler (device kernel time
-    by name).  The device busy share is kernel time over the profiled
-    wall; the profiler's own host cost makes it a lower bound."""
+def profile_fn(kind: str, fn, steps: int) -> dict:
+    """``fn`` timed bare (host clock, ending in a sync) and under
+    torch.profiler over ``steps`` calls after one warm call: device
+    kernel time by name and by category, the device busy share (kernel
+    time over the profiled wall; the profiler's own host cost makes it a
+    lower bound), the top host ops."""
     from torch.profiler import ProfilerActivity, profile
-    S = engine.slots
-    toks = np.ones(S, np.int32)
-    pos = np.full(S, 512, np.int32)
-    prompt = np.ones((1, 1024), np.int32)
-    out = {}
-    for kind, fn, steps in (
-            ("decode", lambda: engine.decode(toks, pos), steps),
-            ("prefill_1024", lambda: engine.prefill(0, prompt, 1000, 1024),
-             steps),
-            ("train_step", train_step, 3)):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
         fn()
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    bare_ms = (time.perf_counter() - t0) / steps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
-        bare_ms = (time.perf_counter() - t0) / steps * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                fn()
-            torch.cuda.synchronize()
-            prof_ms = (time.perf_counter() - t0) / steps * 1e3
-        averages = prof.key_averages()
-        events = [e for e in averages if _device_us(e) > 0]
-        device_ms = sum(_device_us(e) for e in events) / steps / 1e3
-        top = sorted(events, key=_device_us, reverse=True)[:10]
-        by_cat: "dict[str, float]" = {}
-        for e in events:
-            c = category(e.key)
-            by_cat[c] = by_cat.get(c, 0.0) + _device_us(e) / steps / 1e3
-        host_top = sorted((e for e in averages if _device_us(e) == 0),
-                          key=lambda e: e.self_cpu_time_total,
-                          reverse=True)[:8]
-        out[kind] = {
-            "host_ms": bare_ms, "profiled_host_ms": prof_ms,
-            "device_ms": device_ms,
-            "device_busy_share": device_ms / prof_ms if prof_ms else None,
-            "device_share_of_bare_ms": device_ms / bare_ms,
-            "kernels_launched": sum(e.count for e in events) // steps,
-            "top_device_ms": [[e.key[:100], _device_us(e) / steps / 1e3]
-                              for e in top],
-            "device_ms_by_category": dict(sorted(
-                by_cat.items(), key=lambda kv: -kv[1])),
-            "top_host_self_ms": {
-                e.key[:60]: e.self_cpu_time_total / steps / 1e3
-                for e in host_top},
-            "host_calls": {e.key[:60]: e.count // steps for e in host_top},
-        }
-        log(f"  {kind}: host {bare_ms:.3f} ms/step bare, {prof_ms:.3f} "
-            f"profiled; device {device_ms:.3f} ms "
-            f"({out[kind]['kernels_launched']} kernels); busy share "
-            f"{out[kind]['device_busy_share']:.3f} of the profiled wall, "
-            f"{out[kind]['device_share_of_bare_ms']:.3f} of the bare one")
-        for name, ms in out[kind]["device_ms_by_category"].items():
-            log(f"    device {ms:.4f} ms  [{name}]")
-        for name, ms in out[kind]["top_device_ms"]:
-            log(f"    device {ms:.4f} ms  {name}")
-        for name, ms in out[kind]["top_host_self_ms"].items():
-            log(f"    host {ms:.4f} ms  {out[kind]['host_calls'][name]}x "
-                f"{name}")
+        prof_ms = (time.perf_counter() - t0) / steps * 1e3
+    averages = prof.key_averages()
+    events = [e for e in averages if _device_us(e) > 0]
+    device_ms = sum(_device_us(e) for e in events) / steps / 1e3
+    top = sorted(events, key=_device_us, reverse=True)[:12]
+    by_cat: "dict[str, float]" = {}
+    for e in events:
+        c = category(e.key)
+        by_cat[c] = by_cat.get(c, 0.0) + _device_us(e) / steps / 1e3
+    host_top = sorted((e for e in averages if _device_us(e) == 0),
+                      key=lambda e: e.self_cpu_time_total,
+                      reverse=True)[:8]
+    out = {
+        "host_ms": bare_ms, "profiled_host_ms": prof_ms,
+        "device_ms": device_ms,
+        "device_busy_share": device_ms / prof_ms if prof_ms else None,
+        "device_share_of_bare_ms": device_ms / bare_ms,
+        "kernels_launched": sum(e.count for e in events) // steps,
+        "top_device_ms": [[e.key[:100], _device_us(e) / steps / 1e3]
+                          for e in top],
+        "device_ms_by_category": dict(sorted(
+            by_cat.items(), key=lambda kv: -kv[1])),
+        "top_host_self_ms": {
+            e.key[:60]: e.self_cpu_time_total / steps / 1e3
+            for e in host_top},
+        "host_calls": {e.key[:60]: e.count // steps for e in host_top},
+    }
+    log(f"  {kind}: host {bare_ms:.3f} ms/step bare, {prof_ms:.3f} "
+        f"profiled; device {device_ms:.3f} ms "
+        f"({out['kernels_launched']} kernels); busy share "
+        f"{out['device_busy_share']:.3f} of the profiled wall, "
+        f"{out['device_share_of_bare_ms']:.3f} of the bare one")
+    for name, ms in out["device_ms_by_category"].items():
+        log(f"    device {ms:.4f} ms  [{name}]")
+    for name, ms in out["top_device_ms"]:
+        log(f"    device {ms:.4f} ms  {name}")
+    for name, ms in out["top_host_self_ms"].items():
+        log(f"    host {ms:.4f} ms  {out['host_calls'][name]}x {name}")
+    return out
+
+
+def profile_phase(engine, train_step, steps: int = 5) -> dict:
+    """Where the time goes: ``steps`` decode steps with all 16 slots live
+    at position 512, one prefill at bucket 1024 and one gpt2-small train
+    step at B=8, T=1024 (``train_step()``, 3 times), each through
+    :func:`profile_fn`."""
+    S = engine.slots
+    toks = np.ones(S, np.int32)
+    pos = np.full(S, 512, np.int32)
+    prompt = np.ones((1, 1024), np.int32)
+    out = {
+        "decode": profile_fn("decode", lambda: engine.decode(toks, pos),
+                             steps),
+        "prefill_1024": profile_fn(
+            "prefill_1024", lambda: engine.prefill(0, prompt, 1000, 1024),
+            steps),
+        "train_step": profile_fn("train_step", train_step, 3),
+    }
     if not out["decode"]["device_ms"] > 0:
         raise AssertionError("the profiler saw no device time")
     log("profile " + json.dumps(out))
     return out
+
+
+# -- phase 6: long context ---------------------------------------------------
+
+#: gpt2-1p3b at full width and depth (24 layers, 32 heads, n_embd 2048,
+#: vocab 50304) at its block size T=2048, remat "full", chunked CE 16
+BIG_B = 8
+BIG_STEPS = 6
+#: the long-context shapes of benchmarks/bench_longcontext.py:38-43:
+#: gpt2-small width, block_size T, remat "full", chunked CE 16 at
+#: T >= 8192, B = max(1, 8192 // T)
+LONG_TS = (4096, 8192, 16384)
+LONG_STEPS = 3
+#: remat "full" against "off": the same kernels and GEMMs in the same
+#: order, so the gradients should agree bit for bit
+REMAT_TOL = 1e-6
+#: a plain version's [B, heads, T, T] fp32 scores stay within this many
+#: bytes: it runs over the heads in groups
+PLAIN_SCORE_BYTES = 2 ** 30
+
+
+def long_batch(T: int) -> int:
+    return max(1, 8192 // T)
+
+
+def long_module(T: int):
+    cfg = dataclasses.replace(CONFIGS["gpt2-small"], block_size=T,
+                              remat=True, chunked_ce=16 if T >= 8192 else 0)
+    B = long_batch(T)
+    return GPTLightningModule(cfg, batch_size=B, warmup_steps=2,
+                              dataset_size=B * LONG_STEPS)
+
+
+def attention_inputs(gen, B: int, T: int, heads: int):
+    """q, k, v as the split views of a fused qkv projection, and dO."""
+    c = heads * D
+    qkv = torch.randn(B, T, 3 * c, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q, k, v = (x.view(B, T, heads, D) for x in qkv.split(c, dim=-1))
+    do = torch.randn(B, T, heads, D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    return q, k, v, do
+
+
+def by_heads(plain, q, *rest, lse=None):
+    """``plain`` over groups of heads (heads are independent), so its
+    [B, g, T, T] fp32 scores stay within ``PLAIN_SCORE_BYTES``; outputs
+    concatenated back over the heads (dim 2 of [B, T, H, D], dim 1 of an
+    lse [B, H, T])."""
+    B, T, heads, _ = q.shape
+    g = max(1, min(heads, PLAIN_SCORE_BYTES // (B * T * T * 4)))
+    parts = []
+    for h in range(0, heads, g):
+        args = [x[:, :, h:h + g] for x in (q, *rest)]
+        if lse is not None:
+            args.insert(4, lse[:, h:h + g])
+        parts.append(plain(*args, causal=True))
+    return tuple(torch.cat([p[i] for p in parts],
+                           dim=1 if t.dim() == 3 else 2)
+                 for i, t in enumerate(parts[0]))
+
+
+def bwd_pass_ms(fn, calls: int = 3) -> dict:
+    """Device ms per call of each pass of ``flash_bwd`` (one launch of
+    three kernels), read from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    names = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
+             "flash_bwd_dq_kernel")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        for n in names:
+            if n in e.key:
+                out[n] += _device_us(e) / calls / 1e3
+    if not all(v > 0 for v in out.values()):
+        raise AssertionError(f"the profiler saw no flash_bwd pass: {out}")
+    return out
+
+
+def long_kernel_shape(gen, B: int, T: int, heads: int) -> dict:
+    """flash_fwd and flash_bwd at one long-context shape, causal, bf16,
+    on fused-qkv views: against the plain versions over all heads (in
+    groups), timed beside them, the SDPA yardstick and their bounds; the
+    backward's dk/dv and dq passes timed with the profiler."""
+    shape = f"B={B} T={T} H={heads} D={D} causal bf16"
+    q, k, v, do = attention_inputs(gen, B, T, heads)
+    c = heads * D
+    o, lse = flash_attention_fwd(q, k, v, causal=True)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    o_ref, lse_ref = by_heads(flash_attention_fwd_plain, q, k, v)
+    want = by_heads(flash_attention_bwd_plain, q, k, v, o, do, lse=lse)
+    torch.cuda.synchronize()
+    fwd_err = (o.float() - o_ref.float()).abs().max().item()
+    lse_err = (lse - lse_ref).abs().max().item()
+    del o_ref, lse_ref
+    names = ("dq", "dk", "dv")
+    errs = {n: rel_l2(a, b) for n, a, b in zip(names, got, want)}
+    abs_errs = {n: (a.float() - b.float()).abs().max().item()
+                for n, a, b in zip(names, got, want)}
+    bwd_abs = max(abs_errs.values())
+    finite = (bool(torch.isfinite(o.float()).all())
+              and all(bool(torch.isfinite(a.float()).all()) for a in got))
+    del got, want
+    log(f"  {shape}: flash_fwd max_abs_err {fwd_err:.3e} (tol {BF16_TOL}), "
+        f"lse {lse_err:.3e} (tol {LSE_TOL}); flash_bwd relative L2 "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + f" (tol {BWD_TOL}), max abs {bwd_abs:.3e}; finite {finite}")
+    check_close(f"flash_fwd {shape}", fwd_err, BF16_TOL)
+    check_close(f"flash_fwd lse {shape}", lse_err, LSE_TOL)
+    for n, e in errs.items():
+        check_close(f"flash_bwd {n} {shape} (relative L2)", e, BWD_TOL)
+    if not finite:
+        raise AssertionError(f"{shape}: non-finite kernel output")
+
+    fwd_ms = time_ms(lambda: flash_attention_fwd(q, k, v, causal=True),
+                     iters=10, warmup=2)
+    fwd_plain_ms = time_ms(lambda: by_heads(flash_attention_fwd_plain,
+                                            q, k, v), iters=2, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    fwd_lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), iters=10, warmup=2)
+    bwd_ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                 causal=True),
+                     iters=10, warmup=2)
+    bwd_plain_ms = time_ms(lambda: by_heads(flash_attention_bwd_plain, q, k,
+                                            v, o, do, lse=lse),
+                           iters=2, warmup=1)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    gout = do.transpose(1, 2)
+    bwd_lib_ms = time_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), gout, retain_graph=True), iters=10, warmup=2)
+    del out
+    passes = bwd_pass_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                     causal=True))
+
+    # each input read once, each output written once; causal products
+    # of T(T+1)/2 D multiply-adds a head, two flops each
+    tri = B * heads * 2 * D * T * (T + 1) / 2
+    lse_bytes = B * heads * T * 4
+    fwd_b = bound(B * 4 * T * c * 2 + lse_bytes, 2 * tri)  # q k v o; PV QK
+    bwd_b = bound(B * 8 * T * c * 2 + lse_bytes, 5 * tri)
+    # dk/dv pass: q, k, v, dO, lse, delta in, dk, dv out; s, dp, dv, dk
+    dkdv_b = bound(B * 6 * T * c * 2 + 2 * lse_bytes, 4 * tri)
+    # dq pass: q, k, v, dO, lse, delta in, dq out; s, dp, dq
+    dq_b = bound(B * 5 * T * c * 2 + 2 * lse_bytes, 3 * tri)
+    dkdv_ms = passes["flash_bwd_dkdv_kernel"]
+    dq_ms = passes["flash_bwd_dq_kernel"]
+    log(f"  {shape}: flash_fwd {fwd_ms:.4f} ms (plain {fwd_plain_ms:.4f}, "
+        f"sdpa {fwd_lib_ms:.4f}, bound {fwd_b[0]:.5f} {fwd_b[1]}); "
+        f"flash_bwd {bwd_ms:.4f} ms (plain {bwd_plain_ms:.4f}, sdpa "
+        f"backward {bwd_lib_ms:.4f}, bound {bwd_b[0]:.5f} {bwd_b[1]}); "
+        f"passes (profiler): delta "
+        f"{passes['flash_bwd_delta_kernel']:.4f}, dk/dv {dkdv_ms:.4f} "
+        f"(bound {dkdv_b[0]:.5f}), dq {dq_ms:.4f} (bound {dq_b[0]:.5f})")
+
+    def part(ms, plain_ms, lib_ms, b, err, tol, **extra):
+        return dict(shape=shape, max_abs_err=err, tol=tol, ms=ms,
+                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b[0],
+                    bound_by=b[1], **extra)
+
+    def bwd_part(ms, b, tensors, **extra):
+        return part(ms, bwd_plain_ms, bwd_lib_ms, b,
+                    max(abs_errs[n] for n in tensors), BWD_TOL,
+                    err_metric="per-tensor relative L2 (tol applies)",
+                    rel_l2=max(errs[n] for n in tensors), **extra)
+
+    pass_extra = dict(plain_and_library_compute="dq, dk and dv together",
+                      pass_ms_from="torch.profiler, mean of 3 calls")
+    return {
+        "fwd": part(fwd_ms, fwd_plain_ms, fwd_lib_ms, fwd_b, fwd_err,
+                    BF16_TOL, lse_max_abs_err=lse_err),
+        "bwd": bwd_part(bwd_ms, bwd_b, names, passes_ms=passes),
+        "dkdv": bwd_part(dkdv_ms, dkdv_b, ("dk", "dv"), **pass_extra),
+        "dq": bwd_part(dq_ms, dq_b, ("dq",), **pass_extra),
+    }
+
+
+def long_kernel_entries(gen) -> "dict[int, dict]":
+    """The ``kernels`` entries of TPU kernel rows 2, 3, 7, 8 and 9 at the
+    long-context path's shapes: gpt2-1p3b's (B=8, T=2048, H=32), where
+    the JAX package takes rows 3 + 9, and the long-context ones at
+    gpt2-small width (H=12): T=4096 (B=2) and 8192 (B=1), rows 3 + 7 +
+    8, and T=16384 (B=1), rows 2 + 7 + 8.  Each entry carries its first
+    shape's numbers and every shape under ``by_shape``."""
+    shapes = {2048: (BIG_B, 32)}
+    shapes.update({T: (long_batch(T), H) for T in LONG_TS})
+    res = {T: long_kernel_shape(gen, B, T, heads)
+           for T, (B, heads) in shapes.items()}
+    src = "ray_lightning_tpu/ops/flash_attention.py"
+    rows = {3: ("flash_fwd", ":673", "fwd", (2048, 4096, 8192)),
+            9: ("flash_bwd", ":753", "bwd", (2048,)),
+            7: ("flash_bwd", ":465", "dkdv", LONG_TS),
+            8: ("flash_bwd", ":511", "dq", LONG_TS),
+            2: ("flash_fwd", ":349", "fwd", (16384,))}
+    entries = {}
+    for row, (name, line, key, ts) in rows.items():
+        first = res[ts[0]][key]
+        e = record(name, row, src + line, first["shape"],
+                   first["max_abs_err"], first, tol=first["tol"])
+        e.update({k: v for k, v in first.items() if k not in e})
+        if key in ("dkdv", "dq"):
+            e["pass"] = {"dkdv": "dk/dv", "dq": "dq"}[key]
+        e["by_shape"] = {str(T): res[T][key] for T in ts}
+        entries[row] = e
+    return entries
+
+
+def free_cuda() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def big_fit(seed: int, card: str) -> dict:
+    """gpt2-1p3b through ``Trainer.fit`` at full width and depth, B=8,
+    T=2048: finite losses, the launch counts of remat, and the first
+    batch's loss lower after the fit than at its first step (the
+    trained model, evaluated on the batch it started from: each step's
+    loss is on a new batch, whose spread is as large as six steps'
+    progress).  One more step of the fit's own state is profiled."""
+    module = GPTLightningModule("gpt2-1p3b", batch_size=BIG_B,
+                                warmup_steps=2,
+                                dataset_size=BIG_B * BIG_STEPS)
+    cfg = module.config
+    free_cuda()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    t0 = time.monotonic()
+    trainer, clock = fit(module, BIG_STEPS, seed)
+    wall = time.monotonic() - t0
+    launches = _kernels.launch_counts()
+    stats = fit_stats(module, clock, BIG_B, cfg.block_size, card, first=2)
+    log(f"  gpt2-1p3b fit: {BIG_STEPS} steps in {wall:.2f} s (set-up "
+        f"included), remat {module.model.remat_policy}; losses "
+        + " ".join(f"{x:.4f}" for x in clock.losses))
+    check_fit(clock, trainer, launches, cfg.n_layer, BIG_STEPS, "gpt2-1p3b")
+    batch = first_batch(module)
+    with torch.no_grad():
+        after = float(module._loss(StepContext(module, training=False),
+                                   batch))
+    log(f"  launches {launches} (= 2 x {cfg.n_layer} x {BIG_STEPS} "
+        f"flash_fwd, {cfg.n_layer} x {BIG_STEPS} flash_bwd); first batch "
+        f"loss {clock.losses[0]:.4f} at step 1, {after:.4f} after the fit")
+    if not after < clock.losses[0]:
+        raise AssertionError(f"gpt2-1p3b: the first batch's loss did not "
+                             f"fall ({clock.losses[0]} -> {after})")
+    n_params = sum(p.numel() for p in module.model.parameters())
+    stats.update(params=n_params, memory_before_fit_gb=base_gb,
+                 first_batch_loss_after=after)
+    log(f"  [{card}] gpt2-1p3b B={BIG_B} T={cfg.block_size}: step "
+        f"{stats['step_ms_median']:.3f} ms (median of steps 3-{BIG_STEPS}, "
+        f"host wall, synced), {stats['tokens_per_s']:.0f} tokens/s, MFU "
+        f"{stats['mfu']:.4f} ({stats['model_flops_per_step'] / 1e12:.3f} "
+        f"TFLOP a step), peak memory {stats['peak_memory_gb']:.2f} GB "
+        f"({base_gb:.2f} GB held before the fit), {n_params / 1e9:.4f} B "
+        f"params")
+
+    def train_step():
+        trainer.state, _ = trainer._train_step(trainer.state, batch)
+
+    stats["profile"] = profile_fn("train_step_gpt2_1p3b", train_step, 1)
+    del trainer, module, batch, train_step
+    free_cuda()
+    return {"launches": launches, "stats": stats}
+
+
+def remat_grad_parity(seed: int) -> dict:
+    """A 2-layer cut of gpt2-1p3b at B=1, T=2048: one step's gradients
+    with flash attention against ``attention_impl="dot"`` (both under
+    remat "full"; per-tensor relative L2 within ``GRAD_TOL``), and remat
+    "full" against "off" with flash (within ``REMAT_TOL``)."""
+    def module(attention_impl="auto", remat=True):
+        cfg = dataclasses.replace(CONFIGS["gpt2-1p3b"], n_layer=2,
+                                  remat=remat,
+                                  attention_impl=attention_impl)
+        return GPTLightningModule(cfg, batch_size=1, dataset_size=1)
+
+    batch = first_batch(module())
+    g_flash = module_grads(module(), seed, batch)
+    g_dot = module_grads(module("dot"), seed, batch)
+    rel = grads_rel_l2(g_flash, g_dot)
+    del g_dot
+    g_off = module_grads(module(remat=False), seed, batch)
+    rel_remat = grads_rel_l2(g_flash, g_off)
+    identical = all(torch.equal(g_flash[k], g_off[k]) for k in g_off)
+    del g_flash, g_off
+    free_cuda()
+    worst = max(rel.items(), key=lambda kv: kv[1])
+    worst_remat = max(rel_remat.items(), key=lambda kv: kv[1])
+    B, T = batch[0].shape
+    log(f"  2-layer gpt2-1p3b B={B} T={T}: flash vs dot per-tensor "
+        f"relative L2 max {worst[1]:.3e} ({worst[0]}), median "
+        f"{float(np.median(list(rel.values()))):.3e} (tol {GRAD_TOL}); "
+        f"remat full vs off max {worst_remat[1]:.3e} ({worst_remat[0]}; "
+        f"tol {REMAT_TOL}), bit-identical {identical}")
+    if not all(np.isfinite(v) and v <= GRAD_TOL for v in rel.values()):
+        raise AssertionError(f"flash vs dot gradients: {worst}")
+    if not all(np.isfinite(v) and v <= REMAT_TOL
+               for v in rel_remat.values()):
+        raise AssertionError(f"remat full vs off gradients: {worst_remat}")
+    return {"grad_rel_l2_flash_vs_dot_max": worst[1],
+            "grad_rel_l2_remat_vs_off_max": worst_remat[1],
+            "remat_bit_identical": identical}
+
+
+def long_fits(seed: int, card: str) -> dict:
+    """The long-context fits: ``LONG_STEPS`` steps at each T of
+    ``LONG_TS`` (finite losses, remat launch counts, step ms, peak
+    memory); one more step of the T=16384 fit profiled."""
+    out = {}
+    for T in LONG_TS:
+        module = long_module(T)
+        B = long_batch(T)
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launches()
+        trainer, clock = fit(module, LONG_STEPS, seed)
+        launches = _kernels.launch_counts()
+        check_fit(clock, trainer, launches, module.config.n_layer,
+                  LONG_STEPS, f"T={T}")
+        stats = fit_stats(module, clock, B, T, card, first=1)
+        stats["launches"] = launches
+        log(f"  [{card}] T={T} B={B} (gpt2-small width, remat "
+            f"{module.model.remat_policy}, chunked CE "
+            f"{module.config.chunked_ce}): losses "
+            + " ".join(f"{x:.4f}" for x in clock.losses)
+            + f"; step {stats['step_ms_median']:.3f} ms (median of steps "
+            f"2-{LONG_STEPS}), {stats['tokens_per_s']:.0f} tokens/s, MFU "
+            f"{stats['mfu']:.4f}, peak memory "
+            f"{stats['peak_memory_gb']:.2f} GB; launches {launches}")
+        if T == LONG_TS[-1]:
+            batch = first_batch(module)
+
+            def train_step():
+                trainer.state, _ = trainer._train_step(trainer.state, batch)
+
+            stats["profile"] = profile_fn(f"train_step_T{T}", train_step, 1)
+            del batch, train_step
+        out[T] = stats
+        del trainer, module
+    free_cuda()
+    return out
+
+
+def long_context_phase(seed: int, card: str) -> dict:
+    """Phase 6 (the serve engine and the gpt2-small trainer already
+    freed): the kernel entries of rows 2, 3, 7, 8 and 9, the gpt2-1p3b
+    fit, the 2-layer gradient parity, the long-context fits.  Returns
+    the entries (launches filled in from the fits) and the stats."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    entries = long_kernel_entries(gen)
+    free_cuda()
+    big = big_fit(seed, card)
+    parity = remat_grad_parity(seed)
+    longs = long_fits(seed, card)
+    fwd = {T: longs[T]["launches"]["flash_fwd"] for T in LONG_TS}
+    bwd = {T: longs[T]["launches"]["flash_bwd"] for T in LONG_TS}
+    by_path = {
+        3: {"gpt2-1p3b": big["launches"]["flash_fwd"],
+            "T4096": fwd[4096], "T8192": fwd[8192]},
+        9: {"gpt2-1p3b": big["launches"]["flash_bwd"]},
+        7: {f"T{T}": bwd[T] for T in LONG_TS},
+        8: {f"T{T}": bwd[T] for T in LONG_TS},
+        2: {"T16384": fwd[16384]},
+    }
+    for row, e in entries.items():
+        e["launches"] = sum(by_path[row].values())
+        e["launches_by_path"] = by_path[row]
+    stats = {"gpt2_1p3b": big["stats"], "grad_parity": parity,
+             "long": {str(T): v for T, v in longs.items()}}
+    log("longctx " + json.dumps(stats))
+    return {"entries": [entries[r] for r in sorted(entries)],
+            "stats": stats}
 
 
 def main(argv=None) -> int:
@@ -816,6 +1259,13 @@ def main(argv=None) -> int:
 
     log("profile phase")
     profile_phase(served["engine"], trained["train_step"])
+    del served, trained
+    free_cuda()
+
+    log("long-context phase")
+    t0 = time.monotonic()
+    entries += long_context_phase(args.seed, card)["entries"]
+    log(f"long-context phase: {time.monotonic() - t0:.1f} s")
 
     log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

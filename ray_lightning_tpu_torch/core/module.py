@@ -119,10 +119,11 @@ class LightningModule:
     def configure_decode_model(self,
                                device=None) -> Optional[torch.nn.Module]:
         """Serve-plane hook: a module for the KV-cache generation path
-        with this module's parameter names.  Its ``hidden(tokens)``
-        returns the pre-head representation and every layer's ``(k,
-        v)`` (the prefill), ``decode(tokens, positions, k_caches,
-        v_caches)`` one step over the slot cache (see models/gpt.py).
+        with this module's parameter names.  Its
+        ``hidden_with_kv(tokens)`` returns the pre-head representation
+        and every layer's ``(k, v)`` (the prefill), ``decode(tokens,
+        positions, k_caches, v_caches)`` one step over the slot cache
+        (see models/gpt.py).
         Default: the training model."""
         return self.configure_model(device)
 

@@ -146,7 +146,7 @@ def build_prefill_step(model: torch.nn.Module,
         if tokens.shape != (1, bucket_len):
             raise ValueError(f"prefill_{bucket_len} takes tokens "
                              f"[1, {bucket_len}], got {tuple(tokens.shape)}")
-        x, kvs = model.hidden(tokens)
+        x, kvs = model.hidden_with_kv(tokens)
         # only row length-1 feeds the first token: no [T, V] logits
         logits = model.head(x[0, length - 1])
         for i, (k, v) in enumerate(kvs):

@@ -1,10 +1,19 @@
 // flash_bwd: causal (or full) attention backward for Hopper, FA2-style.
 //
-// Replaces: ray_lightning_tpu/ops/flash_attention.py `_bwd_packed_kernel`
-// (launched by `_bwd_packed`, reached from the `_flash` custom VJP ->
-// `_flash_bwd` -> `_bwd`), the single-block head-packed Pallas backward
-// that every training step at T <= 1024 takes (gpt2-small, B=8, T=1024).
-// Its math is `_single_block_bwd_math`: delta = rowsum(dO * O), p =
+// Replaces four Pallas backwards of ray_lightning_tpu/ops/flash_attention.py,
+// all reached from the `_flash` custom VJP -> `_flash_bwd` -> `_bwd` for
+// packable heads (head_dim 64 in packs of two, w = 128 lanes), causal:
+// - `_bwd_packed_kernel` (:329, TPU kernel row 6), the single block: every
+//   training step at T <= 1024 (gpt2-small, B=8, T=1024);
+// - `_bwd_rowres_kernel` (:753, row 9), fused, k/v resident with fp32
+//   dk/dv accumulators in VMEM: 1024 < T with t*w <= 2048*128, i.e.
+//   T = 2048 (gpt2-1p3b);
+// - `_bwd_dkdv_tri_packed_kernel` (:465, row 7) and
+//   `_bwd_dq_tri_packed_kernel` (:511, row 8), triangular grids, dk/dv then
+//   dq: t*w > 2048*128, i.e. T = 4096-16384 (or any multi-block T under
+//   RLT_FLASH_ROWRES=0). Row 7 maps to this file's dk/dv pass, row 8 to
+//   its dq pass, rows 6 and 9 to both.
+// Their math is `_single_block_bwd_math`: delta = rowsum(dO * O), p =
 // exp(s - lse), dv = p^T dO with p rounded to bf16, dp = dO v^T, ds =
 // p * (dp - delta) rounded to bf16, dk = ds^T q * scale, dq = ds k * scale,
 // fp32 accumulation throughout.
@@ -12,16 +21,19 @@
 // What bounds it on this card: at B=8, T=1024, H=12, D=64 the five causal
 // products are 5 * T^2 * D flops a head (32.2 GFLOP, 0.033 ms at 989
 // TFLOP/s); q, k, v, o, dO in and dq, dk, dv out are 8 * 12.6 MB (0.030 ms
-// at 3.35 TB/s). So the work sits at the ridge, operations by a little.
+// at 3.35 TB/s). So the work sits at the ridge, operations by a little;
+// products grow as T^2 and bytes as T, so from T=2048 on (B=8, H=32: 344
+// GFLOP, 0.35 ms) operations bound it clearly.
 // A simple kernel is bound by neither: it is bound by the mma.sync rate
 // that wmma reaches without wgmma, shared-memory traffic and latency.
 //
 // What the design does about that, simply and correctly first. The TPU
-// kernel keeps a whole T <= 1024 row of q/k/v/dO of a two-head pack in
-// VMEM and walks a 256-row staircase; at T=1024 that is >= 512 KB a head,
-// which does not fit 227 KB of shared memory, and blocks here run in
-// parallel in no order. So the port is the FA2 backward in three passes of
-// one call:
+// kernels keep a whole row of q/k/v/dO of a two-head pack in VMEM (row 6,
+// >= 512 KB a head at T=1024), or k/v and fp32 [T, 128] dk/dv accumulators
+// resident across a sequential grid (row 9), or walk a triangular grid in
+// order (rows 7, 8). None of that fits 227 KB of shared memory or blocks
+// that run in parallel in no order. So the port is the FA2 backward in
+// three passes of one call, for any T:
 // - delta: one warp per (b, t, h) row, rowsum(dO * O) in fp32;
 // - dk/dv: a block per (64-row k/v tile, b * h) holds its k/v tile in
 //   shared memory and walks the q tiles at or below it (causal tile
@@ -30,7 +42,8 @@
 // - dq: a block per (64-row q tile, b * h) walks the k tiles at or before
 //   it and recomputes s, p and dp, with dq in registers.
 // The two-pass form is deterministic (no atomics), at the price of seven
-// [T, T]-sized products where the TPU kernel does five (s and dp twice).
+// [T, T]-sized products where the fused TPU kernels (rows 6, 9) do five
+// (s and dp twice); the triangular pair (rows 7, 8) does the same seven.
 // Rows past a ragged T load as zeros and their p is set to 0, so they add
 // nothing (0 * NaN would survive). q, k, v, o and dO are read by strides
 // (the split views of the fused qkv projection); dq, dk, dv are written

@@ -1,15 +1,27 @@
 // flash_fwd: causal (or full) attention forward for Hopper, FA2-style.
 //
-// Replaces: ray_lightning_tpu/ops/flash_attention.py `_fwd_packed_kernel`
-// (launched by `_fwd_packed`, reached from `flash_attention` -> `_fwd`),
-// the single-block head-packed Pallas forward that serves every prefill
-// bucket T <= 1024 at head_dim 64.
+// Replaces three Pallas forwards of ray_lightning_tpu/ops/flash_attention.py,
+// all reached from `flash_attention` -> `_fwd` for packable heads (head_dim
+// 64 in packs of two, w = 128 lanes), causal:
+// - `_fwd_packed_kernel` (:298, TPU kernel row 1), the single block: every
+//   prefill bucket and training step at T <= 1024;
+// - `_fwd_rowres_kernel` (:673, row 3), k/v resident in VMEM: 1024 < T
+//   with t*w <= 8192*128, i.e. T = 2048-8192 (gpt2-1p3b at T=2048, the
+//   long-context shapes at 4096 and 8192);
+// - `_fwd_tri_packed_kernel` (:349, row 2), a triangular grid: t*w >
+//   8192*128, i.e. T = 16384 (or any multi-block T under
+//   RLT_FLASH_ROWRES=0).
+// They differ only in what they keep in VMEM; the function is one. This
+// kernel computes it for any T, so no VMEM gate is carried over.
 //
-// What bounds it on this card: at the serve path's shapes (B=1, H=12,
-// D=64, T <= 1024) the work is small. One layer's q, k, v and o are
-// 4 * T * 768 * 2 bytes (6.3 MB at T=1024), about 2 us at 3.35 TB/s; its
-// causal matmuls are 2 * 2 * T^2/2 * 64 * 12 flops (1.6 GFLOP), about 2 us
-// at 989 TFLOP/s. So it sits near the ridge and a simple kernel is bound
+// What bounds it on this card: at the long-context shapes the causal
+// products dominate (B=8, T=2048, H=32: 137 GFLOP, 0.14 ms at 989
+// TFLOP/s, against 0.04 ms for the bytes), so the bound is operations.
+// At the serve path's shapes (B=1, H=12, D=64, T <= 1024) the work is
+// small. One layer's q, k, v and o are 4 * T * 768 * 2 bytes (6.3 MB at
+// T=1024), about 2 us at 3.35 TB/s; its causal matmuls are
+// 2 * 2 * T^2/2 * 64 * 12 flops (1.6 GFLOP), about 2 us at 989 TFLOP/s.
+// So at those shapes it sits near the ridge and a simple kernel is bound
 // by neither: it is bound by latency, shared-memory traffic and the
 // mma.sync rate that wmma reaches without wgmma.
 //

@@ -36,6 +36,7 @@ from torch import nn
 from ray_lightning_tpu_torch._device import resolve_device
 from ray_lightning_tpu_torch.core.data import ArrayDataset, DataLoader
 from ray_lightning_tpu_torch.core.module import LightningModule
+from ray_lightning_tpu_torch.core.remat import model_policy, policy_object
 from ray_lightning_tpu_torch.ops.attention import MultiHeadAttention, linear
 from ray_lightning_tpu_torch.ops.losses import (
     chunked_softmax_cross_entropy, fused_lm_cross_entropy)
@@ -147,6 +148,9 @@ class Block(nn.Module):
         self.mlp = MLP(cfg)
 
     def forward(self, x):
+        return self.forward_with_kv(x)[0]
+
+    def forward_with_kv(self, x):
         """Returns ``(x', (k, v))``: the layer's K/V for the prefill."""
         a, kv = self.attn(self.ln1(x))
         x = x + a
@@ -160,9 +164,18 @@ class Block(nn.Module):
 
 class GPT(nn.Module):
     """Decoder-only transformer.  ``hidden`` -> pre-head representation,
+    ``hidden_with_kv`` -> that and every layer's K/V (the prefill),
     ``forward`` -> fp32 logits, ``decode`` -> one continuous-batching
     step over the slot cache.  Dropout is not ported (the serve path
     runs with it off, as ``configure_decode_model`` sets it).
+
+    With ``config.remat`` each block of ``hidden`` runs under the remat
+    policy (core/remat.py: ``RLT_REMAT_POLICY``, else
+    ``config.remat_policy``) whenever autograd records, as ``nn.remat``
+    wraps each block in the JAX package; an unported policy raises
+    here.  The checkpointed function returns the block's output alone:
+    its K/V are views of the fused qkv projection, and returning them
+    would keep every layer's qkv alive through the backward pass.
 
     The parameters are made on ``device``: the card unless the caller
     asks for the CPU (``device="cpu"``); without CUDA the default
@@ -175,6 +188,8 @@ class GPT(nn.Module):
             raise NotImplementedError(
                 "MoE blocks (ops/moe.py) are not ported yet")
         self.config = config
+        self.remat_policy = model_policy(config.remat, config.remat_policy)
+        self._remat = policy_object(self.remat_policy)
         with torch.device(resolve_device(device)):
             self.wte = nn.Embedding(config.vocab_size, config.n_embd)
             self.wpe = nn.Parameter(torch.zeros(config.block_size,
@@ -217,22 +232,33 @@ class GPT(nn.Module):
         dt = self.config.dtype
         return (x.to(dt) @ self.wte.weight.to(dt).t()).float()
 
-    def hidden(self, idx):
-        """Pre-head representation ``[B, T, C]`` in the compute dtype,
-        and every layer's ``(k, v)``."""
+    def _embed(self, idx):
         dt = self.config.dtype
         T = idx.shape[1]
-        x = self.wte.weight[idx].to(dt) + self.wpe[:T].to(dt)
+        return self.wte.weight[idx].to(dt) + self.wpe[:T].to(dt)
+
+    def hidden(self, idx):
+        """Pre-head representation ``[B, T, C]`` in the compute dtype;
+        each block under the remat policy while autograd records."""
+        x = self._embed(idx)
+        remat = self._remat if torch.is_grad_enabled() else None
+        for blk in self.h:
+            x = remat(blk, x) if remat is not None else blk(x)
+        return self.ln_f(x)
+
+    def hidden_with_kv(self, idx):
+        """The prefill's forward: :meth:`hidden` without remat, and every
+        layer's ``(k, v)`` [B, T, H, D]."""
+        x = self._embed(idx)
         kvs = []
         for blk in self.h:
-            x, kv = blk(x)
+            x, kv = blk.forward_with_kv(x)
             kvs.append(kv)
         return self.ln_f(x), kvs
 
     def forward(self, idx):
         """Whole-sequence forward: fp32 logits ``[B, T, V]``."""
-        x, _ = self.hidden(idx)
-        return self.head(x)
+        return self.head(self.hidden(idx))
 
     def decode(self, tokens, positions, k_caches, v_caches,
                impl: "str | None" = None):
@@ -292,16 +318,15 @@ class GPTLightningModule(LightningModule):
         self.batch_size = batch_size
 
     def configure_model(self, device=None):
-        """The training model.  Dropout and remat are not ported
-        (ROADMAP.md queue 1: remat with long-context training, dropout
-        with the rest of the trainer); gpt2-small and tiny use neither."""
+        """The training model, with its remat policy (core/remat.py:
+        "full" and "off" are ported).  Dropout is not ported (ROADMAP.md
+        queue 1, with the rest of the trainer); no shipped config uses
+        it."""
         cfg = self.config
-        if cfg.dropout > 0 or cfg.remat:
+        if cfg.dropout > 0:
             raise NotImplementedError(
-                f"dropout={cfg.dropout} / remat={cfg.remat} are not ported "
-                f"yet (ROADMAP.md queue 1: remat with long-context "
-                f"training, dropout with the rest of the trainer); "
-                f"gpt2-small and tiny train without them")
+                f"dropout={cfg.dropout} is not ported yet (ROADMAP.md "
+                f"queue 1, with the rest of the trainer)")
         return GPT(cfg, device=device)
 
     def configure_decode_model(self, device=None):
@@ -345,12 +370,12 @@ class GPTLightningModule(LightningModule):
         x, y = batch
         model = ctx.model
         if self.config.chunked_ce > 0:
-            h, _ = model.hidden(x)
-            return chunked_softmax_cross_entropy(h, model.wte.weight, y,
+            return chunked_softmax_cross_entropy(model.hidden(x),
+                                                 model.wte.weight, y,
                                                  self.config.chunked_ce)
         if os.environ.get("RLT_FUSED_CE", "1") != "0":
-            h, _ = model.hidden(x)
-            return fused_lm_cross_entropy(h, model.wte.weight, y)
+            return fused_lm_cross_entropy(model.hidden(x), model.wte.weight,
+                                          y)
         logits = model(x)
         return (torch.logsumexp(logits, dim=-1)
                 - logits.gather(-1, y.long()[..., None])[..., 0]).mean()

@@ -2,13 +2,38 @@
 versions.
 
 Counterpart of ``ray_lightning_tpu/ops/flash_attention.py``
-``flash_attention`` -> the ``_flash`` custom VJP, whose forward takes
-``_fwd`` -> ``_fwd_packed`` -> ``_fwd_packed_kernel`` and whose backward
-takes ``_bwd`` -> ``_bwd_packed`` -> ``_bwd_packed_kernel``: the Pallas
-pair every prefill bucket and every training step at T <= 1024 run at
-gpt2-small.  Here the kernels are ``csrc/flash_fwd.cu`` and
-``csrc/flash_bwd.cu`` (CUDA C++ for ``sm_90a``), bound through
-:mod:`._kernels`.
+``flash_attention`` -> the ``_flash`` custom VJP, whose ``_fwd`` and
+``_bwd`` pick a Pallas kernel by the shape.  For the packable heads the
+port's models have (``_head_pack(d, h) > 0``, e.g. d=64 in packs of
+two: w = 128 lanes), causal:
+
+============================  ===========================  ==========
+JAX kernel (TPU kernel row)   reached at                   port
+============================  ===========================  ==========
+``_fwd_packed_kernel`` (1)    one block: T <= 1024         flash_fwd
+``_fwd_rowres_kernel`` (3)    T > 1024, t*w <= 8192*128    flash_fwd
+                              (T = 2048-8192 at d=64)
+``_fwd_tri_packed_kernel``    t*w > 8192*128 (T = 16384),  flash_fwd
+(2)                           or ``RLT_FLASH_ROWRES=0``
+``_bwd_packed_kernel`` (6)    one block: T <= 1024         flash_bwd
+``_bwd_rowres_kernel`` (9)    T > 1024, t*w <= 2048*128    flash_bwd
+                              (T = 2048 at d=64)
+``_bwd_dkdv_tri_packed_       t*w > 2048*128 (T = 4096-    flash_bwd
+kernel`` (7) and              16384), or                   dk/dv and
+``_bwd_dq_tri_packed_kernel`` ``RLT_FLASH_ROWRES=0``       dq passes
+(8)
+============================  ===========================  ==========
+
+(T > 1024 splits into 512-row blocks, ``RLT_FLASH_BLOCK_Q/K`` override;
+the multi-block kernels need causal square blocks.)  The TPU kernels
+differ only in what they keep in VMEM (whole rows, resident k/v,
+triangular grids); they compute one function: fp32 scores, a causal
+softmax, ``p`` rounded to the input dtype before PV and dV, ``ds``
+before dK and dQ.  The port computes that function with one CUDA
+forward, ``csrc/flash_fwd.cu``, and one CUDA backward,
+``csrc/flash_bwd.cu`` (CUDA C++ for ``sm_90a``, bound through
+:mod:`._kernels`), for every T: 64-row tiles, causal tile skipping and
+masked ragged tails, so no VMEM gate is carried over.
 
 :func:`flash_attention_fwd` and :func:`flash_attention_bwd` are the
 wrappers: a CUDA tensor launches the kernel (or raises on what the
@@ -68,6 +93,14 @@ def _check_kernel_operands(kernel: str, **tensors) -> None:
             raise ValueError(f"{name} strides overflow int32")
 
 
+def _check_grid(kernel: str, B: int, H: int) -> None:
+    """The kernels run a block per (64-row tile, b * h): grid y is B * H,
+    which CUDA caps at 65535."""
+    if B * H > 65535:
+        raise ValueError(f"{kernel} kernel takes B * H <= 65535, got "
+                         f"{B} * {H}")
+
+
 def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
                               sm_scale: "float | None" = None):
     """The kernel's function in plain PyTorch: ``(o, lse)``.
@@ -113,6 +146,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
         return flash_attention_fwd_plain(q, k, v, causal=causal,
                                          sm_scale=sm_scale)
     _check_kernel_operands("flash_fwd", q=q, k=k, v=v)
+    _check_grid("flash_fwd", B, H)
     o = torch.empty(B, T, H, D, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     if T == 0 or B == 0:
@@ -184,6 +218,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          sm_scale=sm_scale)
     _check_kernel_operands("flash_bwd", q=q, k=k, v=v, o=o, do=do)
+    _check_grid("flash_bwd", B, H)
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise TypeError("flash_bwd kernel takes a contiguous fp32 lse")
     dq, dk, dv = (torch.empty(B, T, H, D, dtype=q.dtype, device=q.device)
@@ -206,7 +241,9 @@ class FlashAttentionFunction(torch.autograd.Function):
     the forward saves ``q, k, v, o, lse`` (the JAX ``_flash_fwd``
     residuals), the backward is :func:`flash_attention_bwd`.  q, k, v
     may be the split views of one fused projection: autograd sums their
-    gradients into its gradient."""
+    gradients into its gradient.  Under a remat checkpoint the forward
+    runs again in the backward pass; the kernels use no atomics, so the
+    recompute gives the same ``o`` and ``lse`` bit for bit."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, sm_scale: "float | None"):

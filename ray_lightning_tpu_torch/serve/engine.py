@@ -119,7 +119,7 @@ class ServeEngine:
         # cache geometry from one prefill capture at the smallest bucket
         probe = torch.zeros((1, self.buckets[0]), dtype=torch.long,
                             device=dev)
-        _, kvs = model.hidden(probe)
+        _, kvs = model.hidden_with_kv(probe)
         k0 = kvs[0][0]
         self.kv_spec = KVCacheSpec.from_capture(
             [k for k, _ in kvs], self.slots, self.max_seq_len)

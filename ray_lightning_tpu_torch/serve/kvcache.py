@@ -52,7 +52,8 @@ class KVCacheSpec:
         n_layer = len(kv_shapes)
         if n_layer == 0:
             raise ValueError("model captured no K/V entries; does its "
-                             "hidden() return every layer's (k, v)? "
+                             "hidden_with_kv() return every layer's "
+                             "(k, v)? "
                              "(models/gpt.py)")
         _, _, n_head, head_dim = kv_shapes[0].shape
         return cls(n_layer=n_layer, slots=slots, max_seq_len=max_seq_len,

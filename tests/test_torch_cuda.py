@@ -98,6 +98,52 @@ def test_cuda_flash_bwd_kernel_matches_plain(T, D, causal, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T", [2048, 2050, 4096])
+def test_cuda_flash_kernels_match_plain_at_long_context(T, cuda_device):
+    """The long-context lengths: T=2048 (where the JAX package takes its
+    row-resident kernels), 4096 (its triangular backward) and a ragged
+    2050, two heads of 64 on fused-qkv views.  o within 2e-2, lse within
+    1e-3, dq, dk, dv within 1e-3 relative L2 of the plain versions; one
+    launch each.  A second forward (the remat recompute) gives the same
+    o and lse bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(T)
+    B, H, D = 2, 2, 64
+    qkv = torch.randn(B, T, 3 * H * D, generator=g,
+                      device=cuda_device).to(torch.bfloat16)
+    q, k, v = (x.view(B, T, H, D) for x in qkv.split(H * D, dim=-1))
+    do = torch.randn(B, T, H, D, generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    _kernels.reset_launches()
+    o, lse = flash_attention_fwd(q, k, v, causal=True)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["flash_fwd"] == 1
+    assert _kernels.launch_counts()["flash_bwd"] == 1
+    o2, lse2 = flash_attention_fwd(q, k, v, causal=True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, causal=True)
+    assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a.float()).all(), name
+        assert _rel_l2(a, b) <= 1e-3, (name, _rel_l2(a, b))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_kernels_refuse_a_grid_past_cuda_limits(cuda_device):
+    """Grid y is B * H, which CUDA caps at 65535: past it the wrappers
+    raise instead of launching a grid the card refuses."""
+    x = torch.zeros(65536, 1, 1, 64, dtype=torch.bfloat16,
+                    device=cuda_device)
+    with pytest.raises(ValueError, match="65535"):
+        flash_attention_fwd(x, x, x)
+    lse = torch.zeros(65536, 1, 1, device=cuda_device)
+    with pytest.raises(ValueError, match="65535"):
+        flash_attention_bwd(x, x, x, x, lse, x)
+
+
+@pytest.mark.cuda
 def test_cuda_flash_attention_trains_through_the_kernels(cuda_device):
     """The fault this guards: ``flash_attention`` on a CUDA tensor used to
     launch the forward on raw pointers, so q/k/v got no gradient.  Now
@@ -247,3 +293,28 @@ def test_cuda_trainer_fits_tiny_through_the_kernels(cuda_device):
     master = trainer.state.opt_state.master
     assert all(m.dtype == torch.float32 and m.is_cuda
                for m in master.values())
+
+
+@pytest.mark.cuda
+def test_cuda_trainer_fits_under_remat_through_the_kernels(cuda_device):
+    """A 3-step fit of a 2-layer model with remat "full" at T=256: the
+    attention forward launches twice a layer a step (forward and the
+    recompute in the backward pass), the backward once; losses finite."""
+    losses = []
+
+    class Losses(Callback):
+        def on_train_batch_end(self, trainer, module, outputs, batch, i):
+            losses.append(float(outputs["loss"]))
+
+    cfg = GPTConfig(vocab_size=512, block_size=256, n_layer=2, n_head=2,
+                    n_embd=128, remat=True)
+    module = GPTLightningModule(cfg, warmup_steps=2, dataset_size=24)
+    trainer = Trainer(max_steps=3, enable_checkpointing=False, seed=0,
+                      num_sanity_val_steps=0, limit_val_batches=0,
+                      callbacks=[Losses()], device=cuda_device)
+    _kernels.reset_launches()
+    trainer.fit(module)
+    counts = _kernels.launch_counts()
+    assert module.model.remat_policy == "full"
+    assert counts["flash_fwd"] == 2 * 2 * 3 and counts["flash_bwd"] == 2 * 3
+    assert len(losses) == 3 and np.isfinite(losses).all()

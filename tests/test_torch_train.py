@@ -190,12 +190,12 @@ def test_lm_losses_match_jax(loss, dtype):
 # -- (c) optimizer --------------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
-def _tiny_params():
-    """Seeded fp32 params of TINY in the JAX package's tree (the same in
-    every compute dtype): LayerNorm scales 1, biases 0, every other leaf
-    N(0, 0.02) from numpy.  The tree comes from ``jax.eval_shape`` of
-    the JAX init, which compiles nothing."""
-    jcfg = JaxConfig(**TINY, dtype=jnp.float32)
+def _seeded_params(**config):
+    """Seeded fp32 params of the JAX ``GPTConfig(**config)`` in the JAX
+    package's tree (the same in every compute dtype): LayerNorm scales 1,
+    biases 0, every other leaf N(0, 0.02) from numpy.  The tree comes
+    from ``jax.eval_shape`` of the JAX init, which compiles nothing."""
+    jcfg = JaxConfig(**config, dtype=jnp.float32)
     shapes = jax.eval_shape(lambda r: JaxGPT(jcfg).init(
         r, jnp.zeros((1, 8), jnp.int32))["params"], jax.random.PRNGKey(0))
     rng = np.random.default_rng(0)
@@ -211,7 +211,7 @@ def _tiny_params():
 
 def _tiny_init(dtype: str = "bfloat16"):
     """TINY's config in the given compute dtype and its params."""
-    return JaxConfig(**TINY, dtype=DTYPES[dtype][0]), _tiny_params()
+    return JaxConfig(**TINY, dtype=DTYPES[dtype][0]), _seeded_params(**TINY)
 
 
 @pytest.mark.parametrize("count", [0, 3])
