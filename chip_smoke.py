@@ -16,7 +16,10 @@ Phases, each fatal on failure:
    989 TFLOP/s, whichever is larger, from this run's inputs): flash_fwd
    at the serve shapes (B=1) and the training shape (B=8, T=1024),
    flash_bwd at B=8, T=128, 200 (ragged) and 1024, flash_decode at 16
-   slots;
+   slots, flash_decode_paged at the same shape with page sizes 16 and 64
+   under the identity table and a permuted one (each also equal, bit for
+   bit, to flash_decode on the same logical cache; timed beside SDPA on
+   the slot-contiguous cache);
 3. serve: gpt2-small at full width (12 layers, 12 heads, n_embd 768,
    vocab 50304, context 1024), bf16, seeded weights, buckets
    (128, 256, 512, 1024), 16 slots; 16 requests from two tenants over
@@ -42,7 +45,29 @@ Phases, each fatal on failure:
 5. profile: where a decode step, a bucket-1024 prefill and a train step
    spend their time (host wall, device kernel time by name, device busy
    share);
-6. long context, with the serve engine and the gpt2-small trainer freed:
+6. paged serve, with the earlier engine and trainer freed: gpt2-small at
+   full width, 16 slots, the same buckets, ``ServeEngine(paged=
+   PageConfig(page_size=16))`` under ``RLT_DECODE_IMPL=paged``; 24
+   requests from two tenants, each tenant's prompts its 256-token system
+   prefix (16 pages) and a distinct 16-64-token tail, arriving in waves
+   of 4 every 6 steps, 32 new tokens each.  Every request completes and
+   passes the teacher-forced parity rule against a cold whole-sequence
+   forward with plain attention; at least half of the admissions reuse
+   a prefix (page copy + suffix steps), so fewer prefill tokens are
+   computed than requested; flash_decode_paged launches 12 times per
+   decode step and per suffix step, flash_fwd 12 per cold prefill,
+   flash_decode never; TTFT p50, decode-step, suffix-step and kv-copy
+   ms, tokens/s, one paged decode step profiled;
+7. speculative serve: the same engine with ``SpecConfig(k=4)`` and the
+   default draft (the first 6 of 12 layers, its parameters the target's
+   tensors) over 16 such requests: every request completes with greedy
+   parity, ``emitted == accepted + corrected``, flash_decode_paged
+   launches 12 x (k+1) per verify and 6 x (k+1) per draft round (k
+   drafts and the last draft's row), flash_fwd 12 per prefill and 6 per
+   draft prefill; acceptance, tokens per target forward, round ms, one
+   round profiled; then a full-clone draft (12 layers) over the same 16
+   requests, 1 + 6 (k+1) tokens each, must reach acceptance 0.9;
+8. long context, with the serve engines and the gpt2-small trainer freed:
    (a) flash_fwd and flash_bwd at the long-context path's shapes
    against their plain versions over all heads (run in head groups so
    their [B, g, T, T] scores fit), timed beside them, SDPA and their
@@ -63,18 +88,20 @@ Phases, each fatal on failure:
    step, step ms and peak memory; the T=16384 step profiled.
 
 The next-to-last line is the ``{"kernels": [...]}`` JSON record, one
-entry per TPU kernel row ported (1, 2, 3, 6, 7, 8, 9, 13; ``launches``
-from the path phases that route to it); the last is ``{"ok": true,
-"device": {...}}``.  Without CUDA the script prints an error and exits
+entry per TPU kernel row ported (1, 2, 3, 6, 7, 8, 9, 13, 14;
+``launches`` from the path phases that route to it, each counted from 0
+just before its phase); the last is ``{"ok": true, "device": {...}}``.  Without CUDA the script prints an error and exits
 1.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -96,9 +123,10 @@ from ray_lightning_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
     flash_attention_fwd_plain)
 from ray_lightning_tpu_torch.ops.flash_decode import (  # noqa: E402
-    flash_decode_attention, flash_decode_attention_plain)
+    flash_decode_attention, flash_decode_attention_plain,
+    flash_decode_paged_attention, flash_decode_paged_attention_plain)
 from ray_lightning_tpu_torch.serve import (  # noqa: E402
-    Scheduler, ServeEngine, ServeWorker)
+    PageConfig, Scheduler, ServeEngine, ServeWorker, SpecConfig)
 
 #: H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, dense bf16
 HBM_BYTES_PER_S = 3.35e12
@@ -191,14 +219,15 @@ def bound(nbytes: float, flops: float) -> "tuple[float, str]":
 
 
 def record(name: str, row: int, replaces: str, shape: str, err: float,
-           r: dict, tol: float = BF16_TOL) -> dict:
+           r: dict, tol: float = BF16_TOL, source: "str | None" = None
+           ) -> dict:
     """One entry of the ``kernels`` JSON line, for TPU kernel ``row``
     (PERF.md's table).  ``max_abs_err``/``ms`` and ``max_err``/
     ``kernel_ms`` carry the same numbers under the two names readers of
     the line use; ``launches`` is filled in from the path phases."""
     return {
         "name": name, "row": row, "route": "cuda",
-        "source": f"ray_lightning_tpu_torch/csrc/{name}.cu",
+        "source": source or f"ray_lightning_tpu_torch/csrc/{name}.cu",
         "replaces": replaces, "shape": shape,
         "max_abs_err": err, "max_err": err, "tol": tol,
         "ms": r["ms"], "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -378,11 +407,7 @@ def kernel_flash_decode(gen: torch.Generator, flush) -> dict:
     """flash_decode at S=16, L=1024, H=12, D=64, bf16; positions span
     the tile edges and the ends, the rest random."""
     S, L = SERVE_SLOTS, 1024
-    fixed = [0, 1, 127, 128, 500, 1023]
-    rand = torch.randint(0, L, (S - len(fixed),), generator=gen,
-                         device="cuda")
-    positions = torch.cat([torch.tensor(fixed, device="cuda"),
-                           rand]).to(torch.int32)
+    positions = decode_positions(gen, S, L)
     qkv = torch.randn(S, 1, 3 * C, generator=gen, device="cuda").to(
         torch.bfloat16)
     q = qkv[..., :C].view(S, 1, H, D)
@@ -423,6 +448,109 @@ def kernel_flash_decode(gen: torch.Generator, flush) -> dict:
                   "S=16 L=1024 H=12 D=64 bf16, mixed positions", err,
                   dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=b_ms, bound_by=b_by))
+
+
+def decode_positions(gen, S: int, L: int) -> torch.Tensor:
+    """The decode checks' positions: the tile edges and the ends, the
+    rest random."""
+    fixed = [0, 1, 127, 128, 500, 1023]
+    rand = torch.randint(0, L, (S - len(fixed),), generator=gen,
+                         device="cuda")
+    return torch.cat([torch.tensor(fixed, device="cuda"),
+                      rand]).to(torch.int32)
+
+
+def kernel_flash_decode_paged(gen, flush) -> dict:
+    """flash_decode_paged (TPU row 14) at the row-13 shape, S=16, L=1024,
+    H=12, D=64, bf16, mixed positions, page sizes 16 and 64: the slot
+    cache's page view under the identity table (the engine's) and the
+    same logical cache scattered over a random permutation of the
+    physical pages.  Each within ``BF16_TOL`` of the plain version; the
+    identity table equals the slot-contiguous kernel bit for bit, and so
+    does the permuted one (the same rows, read in the same order).
+    Timed at page size 16 with L2 flushed before each launch; the
+    yardstick is SDPA on the slot-contiguous cache (the same function
+    without the indirection)."""
+    S, L = SERVE_SLOTS, 1024
+    positions = decode_positions(gen, S, L)
+    q = torch.randn(S, 1, 3 * C, generator=gen, device="cuda").to(
+        torch.bfloat16)[..., :C].view(S, 1, H, D)
+    kc = torch.randn(S, L, H, D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    vc = torch.randn(S, L, H, D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    flat = flash_decode_attention(q, kc, vc, positions)
+    worst = 0.0
+    timed = {}
+    for ps in (16, 64):
+        P = L // ps
+        ident = torch.arange(S * P, dtype=torch.int32,
+                             device="cuda").view(S, P)
+        perm = torch.randperm(S * P, generator=gen, device="cuda").to(
+            torch.int32).view(S, P)
+        kp, vp = kc.view(S * P, ps, H, D), vc.view(S * P, ps, H, D)
+        # logical page p of slot s stored at physical page perm[s, p]
+        kq, vq = torch.empty_like(kp), torch.empty_like(vp)
+        kq[perm.flatten().long()] = kp
+        vq[perm.flatten().long()] = vp
+        for name, args in (("identity", (kp, vp, ident)),
+                           ("permuted", (kq, vq, perm))):
+            o = flash_decode_paged_attention(q, args[0], args[1],
+                                             positions, args[2])
+            o_ref = flash_decode_paged_attention_plain(
+                q, args[0], args[1], positions, args[2])
+            torch.cuda.synchronize()
+            err = (o.float() - o_ref.float()).abs().max().item()
+            same = torch.equal(o, flat)
+            log(f"  flash_decode_paged page {ps} {name} table: max_abs_err "
+                f"{err:.3e} (tol {BF16_TOL}), equal to flash_decode "
+                f"{same}")
+            check_close(f"flash_decode_paged page {ps} {name}", err,
+                        BF16_TOL)
+            if not same or not bool(torch.isfinite(o.float()).all()):
+                raise AssertionError(
+                    f"flash_decode_paged page {ps} {name}: not the slot-"
+                    f"contiguous kernel's output")
+            worst = max(worst, err)
+            timed[(ps, name)] = (
+                lambda a=args: flash_decode_paged_attention(
+                    q, a[0], a[1], positions, a[2]),
+                lambda a=args: flash_decode_paged_attention_plain(
+                    q, a[0], a[1], positions, a[2]))
+    ms_by = {f"page{ps}_{name}": time_ms(fn, flush=flush)
+             for (ps, name), (fn, _) in timed.items()}
+    plain_ms = time_ms(timed[(16, "identity")][1], flush=flush)
+    mask = (torch.arange(L, device="cuda")[None, :]
+            <= positions[:, None].long())[:, None, None, :]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, kc, vc))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask), flush=flush)
+    flat_ms = time_ms(lambda: flash_decode_attention(q, kc, vc, positions),
+                      flush=flush)
+    live_rows = int((positions.long() + 1).sum())
+    live_pages = int((positions.long() // 16 + 1).sum())
+    # q and o, the live K/V rows, positions, the live pages' table entries
+    nbytes = (2 * S * C * 2 + 2 * live_rows * C * 2 + S * 4
+              + live_pages * 4)
+    b_ms, b_by = bound(nbytes, 4 * live_rows * C)
+    ms = ms_by["page16_identity"]
+    log(f"  flash_decode_paged: kernel {ms:.4f} ms (page 16, identity; "
+        + ", ".join(f"{k} {v:.4f}" for k, v in ms_by.items())
+        + f"), flash_decode {flat_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa on the slot cache {lib_ms:.4f} ms, bound {b_ms:.5f} ms "
+        f"({b_by}); {live_rows} live rows, L2 flushed before each launch")
+    entry = record(
+        "flash_decode_paged", 14,
+        "ray_lightning_tpu/ops/flash_decode.py:166",
+        "S=16 L=1024 H=12 D=64 bf16, page 16, identity table, mixed "
+        "positions", worst,
+        dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+             bound_by=b_by),
+        source="ray_lightning_tpu_torch/csrc/flash_decode.cu")
+    entry.update(ms_by_table=ms_by, flash_decode_ms_same_inputs=flat_ms,
+                 library="scaled_dot_product_attention on the "
+                         "slot-contiguous cache (no page table)")
+    return entry
 
 
 # -- phase 3: serve ----------------------------------------------------------
@@ -839,7 +967,296 @@ def profile_phase(engine, train_step, steps: int = 5) -> dict:
     return out
 
 
-# -- phase 6: long context ---------------------------------------------------
+# -- phases 6 and 7: paged serve with prefix reuse, speculative serve --------
+
+#: paged KV: tokens per page, and each tenant's shared system prefix (16
+#: pages) ahead of a distinct tail of 16-64 tokens
+PAGE_SIZE = 16
+SYSTEM_PREFIX = 256
+PAGED_REQUESTS = 24
+SPEC_REQUESTS = 16
+#: speculation depth; the default draft is the first 6 of 12 layers
+SPEC_K = 4
+#: arrivals: waves of this many requests, this many steps apart
+WAVE, WAVE_GAP = 4, 6
+
+
+@contextlib.contextmanager
+def decode_impl(value: str):
+    """``RLT_DECODE_IMPL`` set for the block, restored after it."""
+    old = os.environ.get("RLT_DECODE_IMPL")
+    os.environ["RLT_DECODE_IMPL"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["RLT_DECODE_IMPL"]
+        else:
+            os.environ["RLT_DECODE_IMPL"] = old
+
+
+def tenant_traffic(seed: int, vocab: int, n: int) -> list:
+    """``n`` (tenant, prompt) pairs from two tenants: each tenant's
+    prompts share its 256-token system prefix, then a distinct random
+    tail of 16-64 tokens."""
+    rng = np.random.default_rng(seed)
+    prefix = {t: rng.integers(0, vocab, SYSTEM_PREFIX)
+              for t in ("alice", "bob")}
+    out = []
+    for i in range(n):
+        t = ("alice", "bob")[i % 2]
+        tail = rng.integers(0, vocab, int(rng.integers(16, 65)))
+        out.append((t, np.concatenate([prefix[t], tail])))
+    return out
+
+
+def serve_in_waves(sched, worker, traffic) -> "tuple[list, int]":
+    """Submit ``traffic`` in waves of ``WAVE``, ``WAVE_GAP`` steps apart,
+    and step until every request is done."""
+    reqs, steps, i = [], 0, 0
+    while i < len(traffic) or not sched.idle():
+        if i < len(traffic) and steps % WAVE_GAP == 0:
+            reqs += [sched.submit(p, tenant=t)
+                     for t, p in traffic[i:i + WAVE]]
+            i += WAVE
+        plan = sched.plan()
+        if plan is not None:
+            sched.apply(plan, worker.serve_step(plan))
+        steps += 1
+        if steps > 20_000:
+            raise AssertionError("scheduler stalled with work left")
+    torch.cuda.synchronize()
+    return reqs, steps
+
+
+def check_requests(reqs, engine, new_tokens: int = NEW_TOKENS
+                   ) -> "tuple[int, int]":
+    """Every request completed with ``new_tokens`` valid tokens, and each
+    passes the teacher-forced parity rule against a cold whole-sequence
+    forward with plain attention on the engine's weights.  Returns
+    (exact, near-ties) over all of them."""
+    vocab = engine.model.config.vocab_size
+    for r in reqs:
+        if not (r.done() and r.error is None):
+            raise AssertionError(f"request {r.id} did not complete")
+        toks = r.result(0)
+        if len(toks) != new_tokens or toks.min() < 0 or toks.max() >= vocab:
+            raise AssertionError(f"request {r.id}: bad tokens {toks}")
+    ref = GPT(dataclasses.replace(engine.model.config,
+                                  attention_impl="dot"))
+    ref.load_state_dict(engine.model.state_dict())
+    ref.to(dtype=torch.bfloat16).eval()
+    exact = ties = 0
+    for r in reqs:
+        e, t = check_parity(ref, r)
+        exact, ties = exact + e, ties + t
+    del ref
+    return exact, ties
+
+
+def calls_since(engine, calls0: dict, secs0: dict) -> "tuple[dict, dict]":
+    return ({k: engine.calls[k] - calls0[k] for k in engine.calls},
+            {k: engine.seconds[k] - secs0[k] for k in engine.seconds})
+
+
+def per_call_ms(secs: dict, calls: dict, name: str):
+    return secs[name] / calls[name] * 1e3 if calls[name] else None
+
+
+def ttft_ms(reqs, which=None) -> "float | None":
+    xs = [r.ttft_s for r in reqs if which is None or which(r)]
+    return float(np.percentile(xs, 50)) * 1e3 if xs else None
+
+
+def paged_serve_phase(seed: int, card: str) -> dict:
+    """gpt2-small at full width, 16 slots, buckets (128, 256, 512, 1024),
+    page size 16, ``RLT_DECODE_IMPL=paged``: two tenants' prompts behind
+    their shared 256-token prefixes, in waves.  The decode steps and the
+    prefix-reuse suffix steps launch flash_decode_paged once per layer,
+    at least half of the admissions reuse a prefix, every request passes
+    greedy parity against a cold forward."""
+    pages = PageConfig(enabled=True, page_size=PAGE_SIZE)
+    with decode_impl("paged"):
+        module = GPTLightningModule("gpt2-small")
+        cfg = module.config
+        engine = ServeEngine(module, buckets=SERVE_BUCKETS,
+                             slots=SERVE_SLOTS, max_seq_len=cfg.block_size,
+                             seed=seed, device="cuda", paged=pages).setup()
+    if engine.decode_kernel != "paged":
+        raise AssertionError(f"decode runs {engine.decode_kernel}, not the "
+                             f"paged kernel")
+    sched = Scheduler(buckets=engine.buckets, slots=engine.slots,
+                      max_seq_len=engine.max_seq_len,
+                      default_max_new_tokens=NEW_TOKENS, paged=pages)
+    traffic = tenant_traffic(seed, cfg.vocab_size, PAGED_REQUESTS)
+    calls0, secs0 = dict(engine.calls), dict(engine.seconds)
+    _kernels.reset_launches()
+    t0 = time.monotonic()
+    reqs, steps = serve_in_waves(sched, ServeWorker(engine), traffic)
+    wall = time.monotonic() - t0
+    launches = _kernels.launch_counts()
+    calls, secs = calls_since(engine, calls0, secs0)
+    n = cfg.n_layer
+    want = {"flash_decode_paged": n * (calls["decode"] + calls["suffix"]),
+            "flash_fwd": n * calls["prefill"], "flash_decode": 0}
+    for name, w in want.items():
+        if launches[name] != w:
+            raise AssertionError(
+                f"{name} launched {launches[name]} times in the paged "
+                f"serve phase; {n} layers x steps want {w}")
+    if not calls["decode"] or not calls["suffix"]:
+        raise AssertionError(f"paged phase ran no decode or suffix: {calls}")
+    st = sched.pages.stats()
+    if not st["prefill_tokens_computed"] < st["prefill_tokens_requested"] \
+            or 2 * st["reused_prefills"] < len(reqs):
+        raise AssertionError(f"prefix reuse too rare: {st}")
+    exact, ties = check_requests(reqs, engine)
+    stats = {
+        "card": card, "requests": len(reqs), "steps": steps,
+        "wall_s": wall, "calls": calls,
+        "tokens_per_s": len(reqs) * NEW_TOKENS / wall,
+        "ttft_p50_ms": ttft_ms(reqs),
+        "decode_step_ms": per_call_ms(secs, calls, "decode"),
+        "suffix_step_ms": per_call_ms(secs, calls, "suffix"),
+        "kv_copy_ms": per_call_ms(secs, calls, "kv_copy"),
+        "prefill_ms": per_call_ms(secs, calls, "prefill"),
+        "pages": st, "parity_exact": exact, "parity_near_ties": ties,
+    }
+    log(f"  paged: {len(reqs)} requests in {steps} steps, {wall:.3f} s; "
+        f"calls {calls}; launches {launches} (= {n} x (decode + suffix) "
+        f"and {n} x prefills); prefill tokens computed "
+        f"{st['prefill_tokens_computed']} of "
+        f"{st['prefill_tokens_requested']} requested, "
+        f"{st['reused_prefills']} reused admissions; parity {exact} exact, "
+        f"{ties} near-ties")
+    log(f"  [{card}] paged: TTFT p50 {stats['ttft_p50_ms']:.2f} ms, decode "
+        f"step {stats['decode_step_ms']:.3f} ms, suffix step "
+        f"{stats['suffix_step_ms']:.3f} ms, kv copy "
+        f"{stats['kv_copy_ms']:.3f} ms, cold prefill "
+        f"{stats['prefill_ms']:.3f} ms, {stats['tokens_per_s']:.1f} "
+        f"tokens/s")
+    S = engine.slots
+    toks, pos = np.ones(S, np.int32), np.full(S, 512, np.int32)
+    stats["profile_decode"] = profile_fn(
+        "decode_paged", lambda: engine.decode(toks, pos), 5)
+    log("paged " + json.dumps(stats))
+    del engine, sched, reqs
+    free_cuda()
+    return {"launches": launches, "stats": stats}
+
+
+def spec_run(seed: int, draft_layers: int, n_requests: int,
+             new_tokens: int = NEW_TOKENS):
+    """A speculative engine (k = SPEC_K, the given draft depth) on the
+    paged engine, serving ``n_requests`` of the tenant traffic."""
+    pages = PageConfig(enabled=True, page_size=PAGE_SIZE)
+    spec = SpecConfig(enabled=True, k=SPEC_K, draft_layers=draft_layers)
+    with decode_impl("paged"):
+        module = GPTLightningModule("gpt2-small")
+        engine = ServeEngine(module, buckets=SERVE_BUCKETS,
+                             slots=SERVE_SLOTS,
+                             max_seq_len=module.config.block_size,
+                             seed=seed, device="cuda", paged=pages,
+                             spec=spec).setup()
+    if engine.decode_kernel != "paged":
+        raise AssertionError(f"decode runs {engine.decode_kernel}")
+    if not engine.stats()["spec"]["draft_shares_weights"]:
+        raise AssertionError("the draft holds weights of its own")
+    sched = Scheduler(buckets=engine.buckets, slots=engine.slots,
+                      max_seq_len=engine.max_seq_len,
+                      default_max_new_tokens=new_tokens, paged=pages,
+                      spec=spec)
+    traffic = tenant_traffic(seed + 1, module.config.vocab_size,
+                             n_requests)
+    calls0, secs0 = dict(engine.calls), dict(engine.seconds)
+    _kernels.reset_launches()
+    t0 = time.monotonic()
+    reqs, steps = serve_in_waves(sched, ServeWorker(engine), traffic)
+    wall = time.monotonic() - t0
+    launches = _kernels.launch_counts()
+    calls, secs = calls_since(engine, calls0, secs0)
+    return engine, sched, reqs, steps, wall, launches, calls, secs
+
+
+def spec_serve_phase(seed: int, card: str) -> dict:
+    """Speculative decoding, k = 4, the default draft (the first 6 of 12
+    layers, sharing the target's tensors) on the paged engine, over the
+    tenant traffic: every request completes with greedy parity, the
+    fold's identity ``emitted == accepted + corrected`` holds, a verify
+    launches flash_decode_paged 12 x (k+1) times and a draft round
+    6 x (k+1); then a full-clone-draft run (12 layers) over the same
+    requests must reach acceptance 0.9: the draft is the target, and
+    only rounding separates its 16-row GEMMs from the verify's 80-row
+    ones, which flips an argmax where random weights leave near-ties."""
+    engine, sched, reqs, steps, wall, launches, calls, secs = spec_run(
+        seed, 0, SPEC_REQUESTS)
+    n, nd, k = engine.model.config.n_layer, engine.draft_layers, SPEC_K
+    want = {"flash_decode_paged": n * (calls["decode"] + calls["suffix"])
+            + n * (k + 1) * calls["verify"] + nd * (k + 1) * calls["draft"],
+            "flash_fwd": n * calls["prefill"] + nd * calls["draft_prefill"],
+            "flash_decode": 0}
+    for name, w in want.items():
+        if launches[name] != w:
+            raise AssertionError(
+                f"{name} launched {launches[name]} times in the spec phase; "
+                f"want {w} (calls {calls})")
+    if not calls["verify"]:
+        raise AssertionError("no speculative round ran")
+    sp = sched.stats()["spec"]
+    if sp["emitted"] != sp["accepted"] + sp["corrected"]:
+        raise AssertionError(f"spec fold identity broken: {sp}")
+    exact, ties = check_requests(reqs, engine)
+    rounds = calls["verify"]
+    stats = {
+        "card": card, "requests": len(reqs), "steps": steps, "wall_s": wall,
+        "k": k, "draft_layers": nd, "calls": calls, "spec": sp,
+        "tokens_per_s": len(reqs) * NEW_TOKENS / wall,
+        "ttft_p50_ms": ttft_ms(reqs),
+        "round_ms": (secs["draft"] + secs["verify"]) / rounds * 1e3,
+        "draft_ms": per_call_ms(secs, calls, "draft"),
+        "verify_ms": per_call_ms(secs, calls, "verify"),
+        "parity_exact": exact, "parity_near_ties": ties,
+    }
+    log(f"  spec (k={k}, draft {nd} of {n} layers): {len(reqs)} requests in "
+        f"{steps} steps, {wall:.3f} s; calls {calls}; launches {launches}; "
+        f"parity {exact} exact, {ties} near-ties")
+    log(f"  [{card}] spec: acceptance {sp['acceptance_rate']}, "
+        f"{sp['tokens_per_target_forward']} tokens per target forward, "
+        f"round {stats['round_ms']:.3f} ms (draft {stats['draft_ms']:.3f}, "
+        f"verify {stats['verify_ms']:.3f}), TTFT p50 "
+        f"{stats['ttft_p50_ms']:.2f} ms, {stats['tokens_per_s']:.1f} "
+        f"tokens/s")
+    S = engine.slots
+    toks, pos = np.ones(S, np.int32), np.full(S, 512, np.int32)
+
+    def spec_round():
+        engine.verify(toks, pos, engine.draft(toks, pos))
+
+    stats["profile_round"] = profile_fn("spec_round", spec_round, 5)
+    del engine, sched, reqs
+    free_cuda()
+
+    # 1 + 6 (k+1) tokens: the first from the prefill, then six whole
+    # rounds, so no round is cut short by max_new (a cut round counts
+    # its unemitted drafts as not accepted)
+    clone_tokens = 1 + 6 * (k + 1)
+    engine, sched, reqs, _, wall, _, _, _ = spec_run(
+        seed, n, SPEC_REQUESTS, clone_tokens)
+    clone = sched.stats()["spec"]
+    check_requests(reqs, engine, clone_tokens)
+    log(f"  spec full-clone draft ({n} layers): acceptance "
+        f"{clone['acceptance_rate']}, {clone['tokens_per_target_forward']} "
+        f"tokens per target forward, {len(reqs)} requests in {wall:.3f} s")
+    if not clone["acceptance_rate"] >= 0.9:
+        raise AssertionError(f"full-clone draft acceptance {clone}")
+    stats["full_clone"] = clone
+    log("spec " + json.dumps(stats))
+    del engine, sched, reqs
+    free_cuda()
+    return {"launches": launches, "stats": stats}
+
+
+# -- phase 8: long context ---------------------------------------------------
 
 #: gpt2-1p3b at full width and depth (24 layers, 32 heads, n_embd 2048,
 #: vocab 50304) at its block size T=2048, remat "full", chunked CE 16
@@ -1189,7 +1606,7 @@ def long_fits(seed: int, card: str) -> dict:
 
 
 def long_context_phase(seed: int, card: str) -> dict:
-    """Phase 6 (the serve engine and the gpt2-small trainer already
+    """Phase 8 (the serve engines and the gpt2-small trainer already
     freed): the kernel entries of rows 2, 3, 7, 8 and 9, the gpt2-1p3b
     fit, the 2-layer gradient parity, the long-context fits.  Returns
     the entries (launches filled in from the fits) and the stats."""
@@ -1233,16 +1650,18 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)}")
     build_s = _kernels.build()
     log(f"build: {build_s:.2f} s for {sorted(_kernels.REGISTRY)}")
-    for name, k in _kernels.REGISTRY.items():
+    by_source = {k.source: k for k in _kernels.REGISTRY.values()}
+    for source, k in sorted(by_source.items()):
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+                log(f"  ptxas {source}: {line.strip()}")
 
     log("kernel phase")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     entries = [kernel_flash_fwd(gen), kernel_flash_bwd(gen),
-               kernel_flash_decode(gen, flush)]
+               kernel_flash_decode(gen, flush),
+               kernel_flash_decode_paged(gen, flush)]
     del flush
     torch.cuda.empty_cache()
 
@@ -1261,6 +1680,18 @@ def main(argv=None) -> int:
     profile_phase(served["engine"], trained["train_step"])
     del served, trained
     free_cuda()
+
+    t0 = time.monotonic()
+    log("paged serve phase")
+    paged = paged_serve_phase(args.seed, card)
+    log("spec serve phase")
+    spec = spec_serve_phase(args.seed, card)
+    for e in entries:
+        e["launches_by_path"].update(
+            paged_serve=paged["launches"][e["name"]],
+            spec_serve=spec["launches"][e["name"]])
+        e["launches"] = sum(e["launches_by_path"].values())
+    log(f"paged and spec serve phases: {time.monotonic() - t0:.1f} s")
 
     log("long-context phase")
     t0 = time.monotonic()

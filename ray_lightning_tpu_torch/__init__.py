@@ -2,8 +2,10 @@
 
 A second package beside the JAX one, which stays as the reference.  Two
 paths are ported.  Serving: ``GPTLightningModule`` -> ``ServeEngine``
-(per-bucket prefill + one decode step over a slot KV cache) driven by
-the continuous-batching ``Scheduler`` through ``ServeWorker.serve_step``.
+(per-bucket prefill + one decode step over a slot KV cache; with
+``paged=`` prefix reuse over the page-table decode kernel, with
+``spec=`` speculative decoding) driven by the continuous-batching
+``Scheduler`` through ``ServeWorker.serve_step``.
 Training: ``Trainer(...).fit(GPTLightningModule(...))`` on one device
 (fused CE, AdamW with an fp32 master, accumulation).  Their attention
 kernels are hand-written CUDA C++ for Hopper (``csrc/flash_fwd.cu``,

@@ -14,13 +14,15 @@ import torch
 def resolve_device(device: "str | torch.device | None" = None
                    ) -> torch.device:
     """``None`` -> ``cuda``; a CUDA request without CUDA raises; an
-    explicit ``"cpu"`` is always honoured (the CPU tests pass it)."""
+    explicit ``"cpu"`` is always honoured (the CPU tests pass it), and
+    so is ``"meta"`` (a module made without storage, whose parameters
+    are then pointed at existing tensors: the speculative draft)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch versions of the kernels on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

@@ -127,6 +127,20 @@ class LightningModule:
         Default: the training model."""
         return self.configure_model(device)
 
+    def configure_draft(self, layers: "int | None" = None, device=None
+                        ) -> Optional[torch.nn.Module]:
+        """Speculative-decode hook (serve/engine.py): a smaller sibling of
+        the decode model — fewer layers, the same tokenizer and
+        parameter names — whose parameters are a subset of the decode
+        model's by name, so the engine shares the target's tensors with
+        it.  It needs the decode model's ``hidden_with_kv`` and
+        ``decode`` surface.  ``layers`` overrides the draft depth
+        (``RLT_SPEC_DRAFT_LAYERS`` through ``SpecConfig``).  Default:
+        ``None`` — no draft, and the engine refuses ``spec=`` rather than
+        serve without speculation (models/gpt.py has the layer-cut
+        reference)."""
+        return None
+
     def setup_model(self, device=None) -> None:
         """Materialize ``self.model`` on ``device`` (idempotent)."""
         if self.model is None:

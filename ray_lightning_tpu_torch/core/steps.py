@@ -1,9 +1,11 @@
-"""Step builders: init, train and eval steps; the serve prefill and
-decode programs.
+"""Step builders: init, train and eval steps; the serve programs
+(prefill, decode, the paged KV copy and suffix step, the speculative
+draft and verify).
 
 Counterpart of ``ray_lightning_tpu/core/steps.py`` ``build_init_fn`` /
 ``build_train_step`` (the ``grad_sync=None`` path) / ``build_eval_step``
-/ ``build_prefill_step`` / ``build_decode_step``.  A torch module holds
+/ ``build_prefill_step`` / ``build_decode_step`` / ``build_kv_copy`` /
+``build_suffix_step`` / ``build_draft_step`` / ``build_verify_step``.  A torch module holds
 its own parameters, so the builders close over the model (the JAX
 builders take the params as an argument of the jitted program) and the
 train step updates them IN PLACE where the JAX program returns new ones;
@@ -158,23 +160,134 @@ def build_prefill_step(model: torch.nn.Module,
 
 
 def build_decode_step(model: torch.nn.Module,
-                      impl: "str | None" = None) -> Callable:
+                      impl: "str | None" = None,
+                      page_table: "torch.Tensor | None" = None) -> Callable:
     """Continuous-batching decode: THE serving hot path.
 
     ``(k_caches, v_caches, tokens, positions) -> next_tokens``: advances
     every slot one token; ``tokens``/``positions`` [S] int32 on the
     model's device, caches [n_layer, S, L, H, D] written in place.
-    ``impl`` is the decode attention (``dense`` | ``flash_decode``,
-    ops/flash_decode.py ``resolve_decode_impl``).  Returns [S] long
-    (not yet synced).
+    ``impl`` is the decode attention (``dense`` | ``flash_decode`` |
+    ``paged``, ops/flash_decode.py ``resolve_decode_impl``);
+    ``page_table`` ([S, L / page_size] int32 on the device,
+    serve/fleet/pages.py ``identity_page_table``) is what the paged
+    kernel walks.  Returns [S] long (not yet synced).
     """
     def step_fn(k_caches, v_caches, tokens, positions):
         logits = model.decode(tokens, positions, k_caches, v_caches,
-                              impl=impl)
+                              impl=impl, page_table=page_table)
         return torch.argmax(logits, dim=-1)
 
     return step_fn
 
 
-__all__ = ["build_decode_step", "build_eval_step", "build_init_fn",
-           "build_prefill_step", "build_train_step"]
+def build_draft_step(model: torch.nn.Module, k: int,
+                     impl: "str | None" = None,
+                     page_table: "torch.Tensor | None" = None) -> Callable:
+    """Speculative-decode draft: ``k`` greedy decode steps of the DRAFT
+    model over its own KV cache.
+
+    ``(dk_caches, dv_caches, tokens, positions) -> drafts``:
+    ``tokens``/``positions`` [S] are each slot's last emitted token at
+    its position (the plain decode inputs); ``drafts`` [S, k] long (not
+    yet synced).  Each step writes its row of the draft cache and feeds
+    its argmax forward; a row past the cache end is dropped (an idle
+    slot's dummy row at ``L - 1`` plus the step).  Rows drafted past the
+    accepted prefix are masked and overwritten by the next round, which
+    restarts at the corrected position.
+
+    One forward more than the JAX program: the k-th draft's own row
+    (position ``pos + k``) is written too, its logits unused.  When a
+    round accepts all k drafts the next one starts at ``pos + k + 1``,
+    and the JAX draft cache holds a stale row at ``pos + k`` there, so
+    even a draft identical to the target can disagree; here the draft
+    cache always holds the accepted stream.  The drafts themselves are
+    the JAX program's, and the emitted tokens are the target's either
+    way.
+    """
+    def step_fn(dk_caches, dv_caches, tokens, positions):
+        toks, pos, drafts = tokens, positions, []
+        for i in range(k + 1):
+            logits = model.decode(toks, pos, dk_caches, dv_caches,
+                                  impl=impl, page_table=page_table,
+                                  drop_past_end=True)
+            if i == k:
+                break
+            toks = torch.argmax(logits, dim=-1).to(tokens.dtype)
+            pos = pos + 1
+            drafts.append(toks)
+        return torch.stack(drafts, dim=1)
+
+    return step_fn
+
+
+def build_verify_step(model: torch.nn.Module, impl: "str | None" = None,
+                      page_table: "torch.Tensor | None" = None
+                      ) -> Callable:
+    """Speculative-decode verify: ONE batched target forward over the k
+    drafted positions per slot.
+
+    ``(k_caches, v_caches, tokens, positions) -> argmaxes`` with
+    ``tokens``/``positions`` [S, k+1] — per slot the last emitted token
+    and its k drafts at consecutive positions; ``argmaxes`` [S, k+1]
+    long: column j is the token the target emits after the prefix
+    extended by drafts ``1..j``.  The scheduler accepts the longest
+    agreeing prefix plus one corrected token (serve/scheduler.py), so
+    the output equals target-only greedy decode.  Rides
+    ``GPT.verify``'s multi-query cached attention: the decode kernels
+    and per-query masks of the plain path, k+1 launches a layer.
+    """
+    def step_fn(k_caches, v_caches, tokens, positions):
+        logits = model.verify(tokens, positions, k_caches, v_caches,
+                              impl=impl, page_table=page_table)
+        return torch.argmax(logits, dim=-1)
+
+    return step_fn
+
+
+def build_kv_copy() -> Callable:
+    """Paged-KV copy (serve/fleet/pages.py prefix reuse).
+
+    ``(k_caches, v_caches, src, dst, length)`` copies cache rows
+    ``[0, length)`` of slot ``src`` into slot ``dst`` in every layer, in
+    place: the device half of a prefix-cache hit, the matched pages
+    moved instead of recomputed.  Sound because a cache row is a pure
+    per-(token, position) value: identical prefixes have identical rows
+    wherever they were computed.
+    """
+    def copy_fn(k_caches, v_caches, src: int, dst: int, length: int):
+        for c in (k_caches, v_caches):
+            c[:, dst, :length].copy_(c[:, src, :length])
+
+    return copy_fn
+
+
+def build_suffix_step(model: torch.nn.Module, impl: "str | None" = None,
+                      page_table: "torch.Tensor | None" = None
+                      ) -> Callable:
+    """Single-slot suffix step (the compute leg of prefix reuse).
+
+    ``(k_caches, v_caches, token, pos, slot) -> next_token``: advances
+    ONE slot one token through the decode forward on the one-slot slice
+    of the cache (a view, written in place).  After a prefix-cache hit
+    copies the matched pages (:func:`build_kv_copy`), the unmatched
+    suffix is teacher-forced through this step one token at a time.  It
+    writes nothing outside ``slot``, so it needs no dispatch-order
+    contract.  ``page_table`` is the ONE-slot table
+    (``identity_page_table(1, L, page_size)``): the slice's pages are
+    slice-relative, the same for every slot.  Returns a 0-d long tensor
+    (not yet synced).
+    """
+    def step_fn(k_caches, v_caches, token, pos, slot: int):
+        logits = model.decode(token.reshape(1), pos.reshape(1),
+                              k_caches[:, slot:slot + 1],
+                              v_caches[:, slot:slot + 1], impl=impl,
+                              page_table=page_table)
+        return torch.argmax(logits[0], dim=-1)
+
+    return step_fn
+
+
+__all__ = ["build_decode_step", "build_draft_step", "build_eval_step",
+           "build_init_fn", "build_kv_copy", "build_prefill_step",
+           "build_suffix_step", "build_train_step", "build_verify_step"]

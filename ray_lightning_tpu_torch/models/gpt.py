@@ -2,8 +2,8 @@
 
 Counterpart of ``ray_lightning_tpu/models/gpt.py`` (``GPTConfig``,
 ``CONFIGS``, ``MLP``, ``Block``, ``GPT.hidden`` / ``__call__`` /
-``decode``, ``synthetic_lm_dataset``, ``GPTLightningModule``'s serve and
-training hooks).  Parameter names map
+``decode`` / ``verify``, ``synthetic_lm_dataset``,
+``GPTLightningModule``'s serve, speculative-draft and training hooks).  Parameter names map
 one to one onto the flax tree (``convert.flax_to_torch``): ``wte``,
 ``wpe``, ``h.{i}.ln1|attn.qkv|attn.proj|ln2|mlp.fc|mlp.out``, ``ln_f``.
 
@@ -37,7 +37,8 @@ from ray_lightning_tpu_torch._device import resolve_device
 from ray_lightning_tpu_torch.core.data import ArrayDataset, DataLoader
 from ray_lightning_tpu_torch.core.module import LightningModule
 from ray_lightning_tpu_torch.core.remat import model_policy, policy_object
-from ray_lightning_tpu_torch.ops.attention import MultiHeadAttention, linear
+from ray_lightning_tpu_torch.ops.attention import (CacheWrite,
+                                                   MultiHeadAttention, linear)
 from ray_lightning_tpu_torch.ops.losses import (
     chunked_softmax_cross_entropy, fused_lm_cross_entropy)
 from ray_lightning_tpu_torch.ops.optim import AdamW, fp32_master
@@ -156,9 +157,10 @@ class Block(nn.Module):
         x = x + a
         return x + self.mlp(self.ln2(x)), kv
 
-    def decode(self, x, k_cache, v_cache, positions, impl=None):
+    def decode(self, x, k_cache, v_cache, positions, impl=None,
+               page_table=None, write=None):
         x = x + self.attn.decode(self.ln1(x), k_cache, v_cache, positions,
-                                 impl)
+                                 impl, page_table, write)
         return x + self.mlp(self.ln2(x))
 
 
@@ -166,7 +168,8 @@ class GPT(nn.Module):
     """Decoder-only transformer.  ``hidden`` -> pre-head representation,
     ``hidden_with_kv`` -> that and every layer's K/V (the prefill),
     ``forward`` -> fp32 logits, ``decode`` -> one continuous-batching
-    step over the slot cache.  Dropout is not ported (the serve path
+    step over the slot cache, ``verify`` -> the speculative verify's
+    multi-token step.  Dropout is not ported (the serve path
     runs with it off, as ``configure_decode_model`` sets it).
 
     With ``config.remat`` each block of ``hidden`` runs under the remat
@@ -260,23 +263,62 @@ class GPT(nn.Module):
         """Whole-sequence forward: fp32 logits ``[B, T, V]``."""
         return self.head(self.hidden(idx))
 
+    def _pos_embed(self, positions):
+        """``wpe`` rows at ``positions`` in the compute dtype.  A draft or
+        verify position past the table reads its last row: the JAX
+        gather fills NaN there; either way the output it feeds is cut by
+        the scheduler's ``max_new`` cap before anything is emitted, and
+        its K/V row is past the cache and dropped."""
+        idx = positions.long().clamp_max(self.config.block_size - 1)
+        return self.wpe[idx].to(self.config.dtype)
+
     def decode(self, tokens, positions, k_caches, v_caches,
-               impl: "str | None" = None):
+               impl: "str | None" = None, page_table=None,
+               drop_past_end: bool = False):
         """One decode step over ``S`` slots.
 
         ``tokens``/``positions`` [S] int32 — each slot's current token
         and its absolute position; ``k_caches``/``v_caches``
-        [n_layer, S, L, H, D]; ``impl`` picks the decode attention
+        [n_layer, S, L, H, D]; ``impl`` picks the decode attention and
+        ``page_table`` ([S, L / page_size] int32 on the device,
+        serve/fleet/pages.py) the paged kernel's table
         (ops/attention.py ``cached_attention``).  Writes every slot's K/V
-        row in place and returns fp32 logits ``[S, V]``.  Shapes do not depend on which
-        slots are live: insertion and eviction are slot-index changes in
-        the host-side scheduler."""
+        row in place and returns fp32 logits ``[S, V]``.  With
+        ``drop_past_end`` a position past the cache writes nothing, as
+        the JAX scatter drops it (the draft step's positions run past
+        the end); otherwise positions must lie in the cache.  Shapes do
+        not depend on which slots are live: insertion and eviction are
+        slot-index changes in the host-side scheduler."""
         dt = self.config.dtype
         x = self.wte.weight[tokens.long()].to(dt)[:, None, :]
-        x = x + self.wpe[positions.long()].to(dt)[:, None, :]
+        x = x + self._pos_embed(positions)[:, None, :]
+        write = CacheWrite(positions, k_caches.shape[2], drop_past_end)
         for i, blk in enumerate(self.h):
-            x = blk.decode(x, k_caches[i], v_caches[i], positions, impl)
+            x = blk.decode(x, k_caches[i], v_caches[i], positions, impl,
+                           page_table, write)
         return self.head(self.ln_f(x))[:, 0]
+
+    def verify(self, tokens, positions, k_caches, v_caches,
+               impl: "str | None" = None, page_table=None):
+        """Multi-token decode over ``S`` slots: the speculative verify
+        forward (core/steps.py ``build_verify_step``).
+
+        ``tokens``/``positions`` [S, T] int32 — per slot the last
+        emitted token followed by the k drafted tokens at consecutive
+        positions (T = k + 1); caches as in :meth:`decode`.  One batched
+        forward writes every query's K/V row (a row past the cache end
+        is dropped, as the JAX scatter drops it) and scores each query
+        under its own position bound, so the argmax of query j is the
+        token plain decode would emit after accepting drafts 1..j.
+        Returns fp32 logits ``[S, T, V]``."""
+        dt = self.config.dtype
+        x = self.wte.weight[tokens.long()].to(dt)
+        x = x + self._pos_embed(positions)
+        write = CacheWrite(positions, k_caches.shape[2], drop_past_end=True)
+        for i, blk in enumerate(self.h):
+            x = blk.decode(x, k_caches[i], v_caches[i], positions, impl,
+                           page_table, write)
+        return self.head(self.ln_f(x))
 
 
 def synthetic_lm_dataset(n: int, block_size: int, vocab_size: int,
@@ -339,6 +381,28 @@ class GPTLightningModule(LightningModule):
                 "routing is batch-shaped and has no single-token cache "
                 "path yet (models/gpt.py GPT.decode)")
         return GPT(dataclasses.replace(self.config, remat=False,
+                                       dropout=0.0), device=device)
+
+    def configure_draft(self, layers: "int | None" = None, device=None):
+        """Speculative-decode draft (serve/engine.py): the same
+        architecture cut to its first ``layers`` blocks (default
+        ``n_layer // 2``).  Its parameter names — ``wte``, ``wpe``,
+        ``h.0..h.{layers-1}``, ``ln_f`` — are a subset of the target's,
+        so the engine points them at the target's own tensors by path
+        and the draft adds no weight memory.  ``device="meta"`` makes it
+        without storage for that.  ``layers == n_layer`` is the
+        full-clone draft (acceptance 1.0 up to near-ties)."""
+        if self.config.n_experts > 0:
+            raise ValueError(
+                "speculative decode does not support MoE configs: the "
+                "draft/verify path rides GPT.decode/verify, which "
+                "reject expert routing (configure_decode_model)")
+        cfg = self.config
+        n = int(layers) if layers else max(1, cfg.n_layer // 2)
+        if not 1 <= n <= cfg.n_layer:
+            raise ValueError(
+                f"draft layers {n} must be in [1, {cfg.n_layer}]")
+        return GPT(dataclasses.replace(cfg, n_layer=n, remat=False,
                                        dropout=0.0), device=device)
 
     @property

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled
 at first use with ``nvcc`` into its own shared library under
 ``build/ray_lightning_tpu_torch/`` at the repository root, keyed by a
-hash of the sources, then loaded with ``ctypes``.  No PyTorch headers
+hash of the sources, then loaded with ``ctypes``; kernels whose entry
+points live in one source share its library.  No PyTorch headers
 are involved, so a build takes seconds, not minutes.  :func:`build`
 starts one ``nvcc`` per source at once (the smoke script's set-up).
 
@@ -135,9 +136,12 @@ def build(kernels: "Optional[Sequence[Kernel]]" = None) -> float:
     a failed build."""
     import time
     t0 = time.monotonic()
-    todo = [k for k in (kernels if kernels is not None
-                        else REGISTRY.values())
-            if not k.library_path().is_file()]
+    # kernels whose entry points share a source share its library: one
+    # nvcc each library
+    todo: "dict[Path, list[Kernel]]" = {}
+    for k in (kernels if kernels is not None else REGISTRY.values()):
+        if not k.library_path().is_file():
+            todo.setdefault(k.library_path(), []).append(k)
     if not todo:
         return 0.0
     nvcc = find_nvcc()
@@ -145,14 +149,17 @@ def build(kernels: "Optional[Sequence[Kernel]]" = None) -> float:
     procs = []
     failures = []
     try:
-        for k in todo:
+        for group in todo.values():
+            k = group[0]
             cmd, tmp, out = k.build_command(nvcc)
-            procs.append((k, tmp, out, subprocess.Popen(
+            procs.append((group, tmp, out, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
-        for k, tmp, out, p in procs:
+        for group, tmp, out, p in procs:
+            k = group[0]
             log, _ = p.communicate()
-            k.build_log = log
+            for g in group:
+                g.build_log = log
             if p.returncode != 0:
                 failures.append(f"{k.source}:\n{log}")
                 tmp.unlink(missing_ok=True)

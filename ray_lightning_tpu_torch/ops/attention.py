@@ -8,8 +8,11 @@ Counterpart of ``ray_lightning_tpu/ops/attention.py``:
   (ops/flash_attention.py: forward and, under autograd, backward), a
   CPU tensor the plain attention (differentiable by autograd), as the
   JAX package picks the Pallas kernels on the TPU only;
-- :func:`cached_attention` — single-query attention against the slot KV
-  cache (the decode core): the flash-decode kernel or the dense path;
+- :func:`cached_attention` — attention against the slot KV cache (the
+  decode core; its multi-query form is the speculative verify): the
+  flash-decode kernel, its paged form, or the dense path;
+- :class:`CacheWrite` — where a decode or verify forward's K/V rows
+  land in the cache, dropping rows past its end as jax's scatter does;
 - :class:`MultiHeadAttention` — fused-QKV attention whose submodule
   names (``qkv``, ``proj``) match the JAX parameter paths.
 """
@@ -26,7 +29,8 @@ from torch import nn
 from ray_lightning_tpu_torch.ops.flash_attention import (NEG_INF,
                                                           flash_attention)
 from ray_lightning_tpu_torch.ops.flash_decode import (
-    flash_decode_attention, resolve_decode_impl)
+    flash_decode_attention, flash_decode_paged_attention,
+    resolve_decode_impl)
 
 
 def dot_product_attention(q, k, v, *, causal: bool = True,
@@ -69,24 +73,55 @@ def resolve_attention(impl: str) -> Callable:
 
 def cached_attention(q, k_cache, v_cache, positions, *,
                      dtype: torch.dtype = torch.bfloat16,
-                     impl: "str | None" = None):
-    """Single-token attention against a slot-indexed KV cache.
+                     impl: "str | None" = None, page_table=None):
+    """Attention of new tokens against a slot-indexed KV cache.
 
     ``q`` [S, 1, H, D] — one new token per slot; ``k_cache``/``v_cache``
     [S, L, H, D]; ``positions`` [S] int32 — slot s attends cache rows
     ``<= positions[s]`` (rows past it hold stale padding or a previous
     tenant's leftovers).  ``impl`` (explicit > ``RLT_DECODE_IMPL`` >
     ``auto``): ``flash_decode`` is the length-aware kernel
-    (ops/flash_decode.py; its plain version on a CPU tensor), ``dense``
-    the masked product below.  Every geometry the kernel takes goes to
-    it: the JAX fallback to dense answered a TPU lane constraint.  The
-    multi-query (speculative verify) form is not ported yet.
+    (ops/flash_decode.py; its plain version on a CPU tensor), ``paged``
+    the same kernel walking ``page_table`` ([S, P] int32 on the cache's
+    device, serve/fleet/pages.py) over the cache's page view
+    ``[S * P, L / P, H, D]`` (without a table it is ``flash_decode``),
+    ``dense`` the masked product below.  Every geometry the kernels take
+    goes to them: the JAX fallback to dense answered a TPU lane
+    constraint.  A table whose pages do not tile L raises.
+
+    Multi-query form (speculative verify, core/steps.py
+    ``build_verify_step``): ``q`` [S, T, H, D] with ``positions``
+    [S, T], each query masked to its OWN position, lowered as T
+    single-query calls as the JAX package lowers it, so every query
+    takes the plain decode path's kernel and masking.
     """
-    if q.shape[1] != 1 or positions.dim() != 1:
-        raise NotImplementedError(
-            "multi-query cached_attention (speculative verify) is not "
-            "ported yet")
+    if positions.dim() == 2:
+        if q.shape[1] == 1:
+            positions = positions[:, 0]
+        else:
+            return torch.cat(
+                [cached_attention(q[:, j:j + 1], k_cache, v_cache,
+                                  positions[:, j].contiguous(), dtype=dtype,
+                                  impl=impl, page_table=page_table)
+                 for j in range(q.shape[1])], dim=1)
+    if q.shape[1] != 1:
+        raise ValueError(f"q [S, T, H, D] with T={q.shape[1]} needs "
+                         f"positions [S, T], got {tuple(positions.shape)}")
     impl = resolve_decode_impl(impl, q.device)
+    if impl == "paged" and page_table is None:
+        impl = "flash_decode"    # no table plumbed: slot-contiguous kernel
+    if impl == "paged":
+        S, L = k_cache.shape[:2]
+        n_pages = page_table.shape[-1]
+        if L % n_pages:
+            raise ValueError(
+                f"page table with {n_pages} pages cannot tile L={L}")
+        ps = L // n_pages
+        # the page view of a slot-contiguous cache (a view, no copy)
+        view = (S * n_pages, ps) + tuple(k_cache.shape[2:])
+        return flash_decode_paged_attention(
+            q, k_cache.view(view), v_cache.view(view), positions,
+            page_table).to(dtype)
     if impl == "flash_decode":
         return flash_decode_attention(q, k_cache, v_cache,
                                       positions).to(dtype)
@@ -101,6 +136,59 @@ def cached_attention(q, k_cache, v_cache, positions, *,
     probs = torch.softmax(scores, dim=-1).to(dtype)
     out = torch.einsum("shql,slhd->sqhd", probs.float(), v_cache.float())
     return out.to(torch.promote_types(dtype, v_cache.dtype))
+
+
+class CacheWrite:
+    """Where one forward's K/V rows land in a layer's cache.
+
+    ``positions`` [S] or [S, T] (consecutive per slot, as decode, draft
+    and verify send them) on the cache's device; ``L`` the cache length.
+    The JAX package scatters with ``.at[].set``, which DROPS a row whose
+    position is past the cache end (a slot speculating past it, an idle
+    slot's dummy row at ``L - 1`` plus a draft or verify offset);
+    torch's ``index_put_`` would fault there instead.  With
+    ``drop_past_end`` such a row is redirected, without a host sync, to
+    a write that changes nothing: to the position of the slot's last
+    in-range row with that row's own value (positions are consecutive,
+    so the clamp lands there), or, when none of the slot's rows is in
+    range, to row ``L - 1`` with the value it already holds.  Without
+    it the positions must lie in the cache (the engine checks them on
+    the host) and the write is one ``index_put_``."""
+
+    def __init__(self, positions, L: int, drop_past_end: bool = False):
+        pos = positions.long()
+        self.two_d = pos.dim() == 2
+        if not self.two_d:
+            pos = pos[:, None]
+        S, T = pos.shape
+        self.slots = torch.arange(S, device=pos.device)[:, None].expand(S, T)
+        self.drop = drop_past_end
+        if not drop_past_end:
+            self.idx = pos
+            return
+        inside = pos < L
+        n_in = inside.sum(dim=1, keepdim=True)                  # [S, 1]
+        last = (n_in - 1).clamp_min(0)
+        #: which of the slot's rows each entry writes
+        self.src = torch.where(inside, torch.arange(T, device=pos.device),
+                               last)
+        self.idx = pos.clamp_max(L - 1)
+        #: slots with no row in range rewrite the row they land on
+        self.none_in = (n_in == 0)[..., None, None]              # [S,1,1,1]
+
+    def __call__(self, cache, rows):
+        """Write ``rows`` [S, T, H, D] (or [S, H, D] for 1-D positions)
+        into ``cache`` [S, L, H, D] in place."""
+        if not self.two_d:
+            rows = rows[:, None]
+        rows = rows.to(cache.dtype)
+        if self.drop:
+            if rows.shape[1] > 1:
+                rows = rows.gather(1, self.src[..., None, None].expand(
+                    rows.shape))
+            rows = torch.where(self.none_in, cache[self.slots, self.idx],
+                               rows)
+        cache.index_put_((self.slots, self.idx), rows)
 
 
 def linear(layer: nn.Linear, x, dtype: torch.dtype):
@@ -151,25 +239,32 @@ class MultiHeadAttention(nn.Module):
         return linear(self.proj, y.reshape(B, T, C), self.dtype), (k, v)
 
     def decode(self, x, k_cache, v_cache, positions,
-               impl: "str | None" = None):
-        """Serve decode: ``x`` [S, 1, C], caches [S, L, H, D] of this
-        layer, ``positions`` [S] int32; ``impl`` as in
-        :func:`cached_attention`.  Writes each slot's new k/v row at its
-        position IN PLACE (``index_put_`` where the JAX package returns a
-        new cache from ``.at[].set`` on a donated buffer), then attends
-        over the updated cache.  Slots with no live request write a dummy
-        row at position 0 that their admitting prefill overwrites (hence
-        decode before prefill in ``ServeWorker.serve_step``)."""
+               impl: "str | None" = None, page_table=None,
+               write: "CacheWrite | None" = None):
+        """Serve decode (T = 1) or speculative verify (T = k + 1): ``x``
+        [S, T, C], caches [S, L, H, D] of this layer, ``positions`` [S]
+        or [S, T] int32; ``impl`` and ``page_table`` as in
+        :func:`cached_attention`; ``write`` places the K/V rows (default:
+        a :class:`CacheWrite` of ``positions``).  Writes every query's
+        k/v row IN PLACE (where the JAX package returns a new cache from
+        ``.at[].set`` on a donated buffer), then attends each query over
+        the updated cache under its own position bound (causal by the
+        bound: query j never sees rows of queries after it).  Slots with
+        no live request write a dummy row (position 0, or ``L - 1`` under
+        paging) that no live query reads before it is overwritten
+        (serve/worker.py ``serve_step``)."""
         S, T, C = x.shape
         q, k, v = self._qkv(x)
-        slots = torch.arange(S, device=x.device)
-        idx = (slots, positions.long())
-        k_cache.index_put_(idx, k[:, 0].to(k_cache.dtype))
-        v_cache.index_put_(idx, v[:, 0].to(v_cache.dtype))
+        if write is None:
+            write = CacheWrite(positions, k_cache.shape[1])
+        write(k_cache, k if T > 1 else k[:, 0])
+        write(v_cache, v if T > 1 else v[:, 0])
         y = cached_attention(q, k_cache, v_cache, positions,
-                             dtype=self.dtype, impl=impl)
+                             dtype=self.dtype, impl=impl,
+                             page_table=page_table)
         return linear(self.proj, y.reshape(S, T, C), self.dtype)
 
 
-__all__ = ["MultiHeadAttention", "auto_attention", "cached_attention",
-           "dot_product_attention", "linear", "resolve_attention"]
+__all__ = ["CacheWrite", "MultiHeadAttention", "auto_attention",
+           "cached_attention", "dot_product_attention", "linear",
+           "resolve_attention"]

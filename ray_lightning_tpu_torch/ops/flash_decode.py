@@ -1,15 +1,18 @@
-"""Flash-decode: the per-token serve kernel and its plain version.
+"""Flash-decode: the per-token serve kernels and their plain versions.
 
 Counterpart of ``ray_lightning_tpu/ops/flash_decode.py``
-``flash_decode_attention`` -> ``flash_decode_kernel`` (``_decode_body``).
+``flash_decode_attention`` -> ``flash_decode_kernel`` (``_decode_body``)
+over the slot-contiguous cache, and ``flash_decode_attention(...,
+page_table=)`` -> ``flash_decode_paged_kernel`` over the page view.
 Decode is bandwidth-bound — one query token per slot against its cache
-rows — so the win is bytes not read: the kernel (``csrc/flash_decode.cu``)
-walks each slot's cache only up to ``positions[s]``.
+rows — so the win is bytes not read: the kernels
+(``csrc/flash_decode.cu``) walk each slot's cache only up to
+``positions[s]``; the paged one finds each row through the page table.
 
-:func:`flash_decode_attention` is the wrapper: a CUDA tensor launches
-the kernel (or raises), a CPU tensor takes
-:func:`flash_decode_attention_plain`.  :func:`resolve_decode_impl`
-reads ``RLT_DECODE_IMPL`` as the JAX package does.
+:func:`flash_decode_attention` and :func:`flash_decode_paged_attention`
+are the wrappers: a CUDA tensor launches the kernel (or raises), a CPU
+tensor takes the plain version.  :func:`resolve_decode_impl` reads
+``RLT_DECODE_IMPL`` as the JAX package does.
 """
 
 from __future__ import annotations
@@ -26,22 +29,25 @@ VALID_DECODE_IMPLS = ("auto", "dense", "flash_decode", "paged")
 
 KERNEL = Kernel("flash_decode", "flash_decode.cu", "rlt_flash_decode",
                 "ppppp" + "i" * 12 + "f" + "i" + "p")
+#: the page-table walk: the same library, its own entry point and count
+PAGED_KERNEL = Kernel("flash_decode_paged", "flash_decode.cu",
+                      "rlt_flash_decode_paged",
+                      "pppppp" + "i" * 14 + "f" + "i" + "p")
 
 
 def resolve_decode_impl(value: "str | None" = None,
                         device: "torch.device | str" = "cuda") -> str:
     """Decode attention impl: explicit value > ``RLT_DECODE_IMPL`` env >
     ``auto`` (CUDA -> ``flash_decode``; elsewhere the dense path stays
-    the default, as the JAX package keeps it off the TPU).  ``dense`` is
-    an explicit choice on any device; ``paged`` is not ported yet."""
+    the default, as the JAX package keeps it off the TPU).  ``dense``,
+    ``flash_decode`` and ``paged`` are explicit choices on any device
+    (a CPU tensor takes the kernels' plain versions); ``paged`` walks a
+    page table where the caller has one (serve/engine.py)."""
     v = (value or os.environ.get("RLT_DECODE_IMPL") or "auto").lower()
     if v not in VALID_DECODE_IMPLS:
         raise ValueError(
             f"RLT_DECODE_IMPL must be one of {VALID_DECODE_IMPLS}, "
             f"got {v!r}")
-    if v == "paged":
-        raise NotImplementedError(
-            "the paged flash-decode kernel is not ported yet")
     if v == "auto":
         return ("flash_decode" if torch.device(device).type == "cuda"
                 else "dense")
@@ -67,6 +73,15 @@ def _check(q, k_cache, v_cache, positions) -> None:
     if len({q.device, k_cache.device, v_cache.device,
             positions.device}) != 1:
         raise ValueError("q, caches and positions must be on one device")
+    _check_int32(positions, "positions")
+
+
+def _check_int32(x, name: str) -> None:
+    """The kernels read ``positions`` and the page table as packed int32;
+    checked on every device, so the CPU tests see what the card needs."""
+    if x.dtype != torch.int32 or not x.is_contiguous():
+        raise TypeError(f"{name} must be contiguous int32, got {x.dtype} "
+                        f"with strides {x.stride()}")
 
 
 def flash_decode_attention_plain(q, k_cache, v_cache, positions):
@@ -135,8 +150,6 @@ def flash_decode_attention(q, k_cache, v_cache, positions):
                 f"16-byte aligned rows; {name} has strides {x.stride()}")
         if max(x.stride()[:3]) >= 2 ** 31:
             raise ValueError(f"{name} strides overflow int32")
-    if positions.dtype != torch.int32 or not positions.is_contiguous():
-        raise TypeError("positions must be contiguous int32")
     o = torch.empty(S, 1, H, D, dtype=q.dtype, device=q.device)
     if S == 0:
         return o
@@ -150,6 +163,120 @@ def flash_decode_attention(q, k_cache, v_cache, positions):
     return o
 
 
-__all__ = ["KERNEL", "NEG_INF", "VALID_DECODE_IMPLS",
+def _check_paged(q, k_pages, v_pages, positions, table) -> None:
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"q must be [S, 1, H, D], got {tuple(q.shape)}")
+    S, _, H, D = q.shape
+    if k_pages.dim() != 4 or k_pages.shape != v_pages.shape \
+            or (k_pages.shape[2], k_pages.shape[3]) != (H, D):
+        raise ValueError(
+            f"page views must be [N, page_size, H, D] = [N, page_size, "
+            f"{H}, {D}], got {tuple(k_pages.shape)}, "
+            f"{tuple(v_pages.shape)}")
+    if table.dim() != 2 or table.shape[0] != S or table.shape[1] < 1:
+        raise ValueError(f"page table must be [S, P] = [{S}, P], got "
+                         f"{tuple(table.shape)}")
+    if positions.shape != (S,):
+        raise ValueError(
+            f"positions must be [S] = [{S}], got {tuple(positions.shape)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(
+            f"head_dim {D} not supported; the kernel takes {HEAD_DIMS}")
+    if len({q.device, k_pages.device, v_pages.device, positions.device,
+            table.device}) != 1:
+        raise ValueError(
+            "q, page views, positions and table must be on one device")
+    _check_int32(positions, "positions")
+    _check_int32(table, "page table")
+
+
+def _gather_pages(pages, table):
+    """``pages`` [N, page_size, H, D] and ``table`` [S, P] -> each
+    slot's logical rows [S, P * page_size, H, D]: logical page ``p`` of
+    slot ``s`` is physical page ``table[s, p]`` (clamped into
+    ``[0, N)``, as the kernel clamps it)."""
+    N, ps = pages.shape[:2]
+    S, P = table.shape
+    idx = table.long().clamp(0, N - 1)
+    return pages[idx].reshape(S, P * ps, *pages.shape[2:])
+
+
+def flash_decode_paged_attention_plain(q, k_pages, v_pages, positions,
+                                       table):
+    """The paged kernel's function in plain PyTorch: gather each slot's
+    logical rows through the table, then exactly
+    :func:`flash_decode_attention_plain` (the same rounding points), so
+    over the identity table it equals the slot-contiguous version bit
+    for bit."""
+    return flash_decode_attention_plain(q, _gather_pages(k_pages, table),
+                                        _gather_pages(v_pages, table),
+                                        positions)
+
+
+def flash_decode_paged_attention(q, k_pages, v_pages, positions, table):
+    """Length-aware decode attention through a page table.
+
+    ``q`` [S, 1, H, D]; ``k_pages``/``v_pages`` [N, page_size, H, D],
+    the physical page view (the slot cache ``[S, L, H, D]`` viewed as
+    ``[S * L / page_size, page_size, H, D]``); ``positions`` [S] int32;
+    ``table`` [S, P] int32: logical page ``p`` of slot ``s`` lives in
+    physical page ``table[s, p]``; slot ``s`` attends its logical rows
+    ``<= positions[s]`` of ``L = P * page_size``.  Returns
+    [S, 1, H, D].  A CUDA tensor launches the row-14 kernel of
+    ``csrc/flash_decode.cu`` (bf16, head_dim in :data:`HEAD_DIMS`, any
+    page_size, unit stride over D, 16-byte-aligned rows, a contiguous
+    table); a CPU tensor takes
+    :func:`flash_decode_paged_attention_plain`.  The table's values stay
+    on the device (reading them would sync every layer): a physical page
+    id outside ``[0, N)`` is clamped into it, never read out of bounds.
+    No backward, as :func:`flash_decode_attention`.
+    """
+    _check_paged(q, k_pages, v_pages, positions, table)
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (q, k_pages, v_pages)):
+        raise RuntimeError(
+            "flash_decode_paged_attention has no backward: call it under "
+            "torch.no_grad() / torch.inference_mode(), or with inputs "
+            "that do not require grad")
+    if q.device.type == "cpu":
+        return flash_decode_paged_attention_plain(q, k_pages, v_pages,
+                                                  positions, table)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode_paged_attention: unsupported "
+                         f"device {q.device}")
+    S, _, H, D = q.shape
+    N, ps = k_pages.shape[:2]
+    P = table.shape[1]
+    for name, x in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"flash_decode_paged kernel takes bf16, "
+                            f"{name} is {x.dtype}")
+        if x.stride(3) != 1 or x.data_ptr() % 16 \
+                or any(st % 8 for st in x.stride()[:3]):
+            raise ValueError(
+                f"flash_decode_paged kernel needs unit stride over D and "
+                f"16-byte aligned rows; {name} has strides {x.stride()}")
+        if max(x.stride()[:3]) >= 2 ** 31:
+            raise ValueError(f"{name} strides overflow int32")
+    if P * ps >= 2 ** 31 or N >= 2 ** 31:
+        raise ValueError(f"{P} pages of {ps} rows overflow int32")
+    if S > 2 ** 31 - 1 or H > 65535:
+        raise ValueError(f"grid ({S}, {H}) past CUDA's limits")
+    o = torch.empty(S, 1, H, D, dtype=q.dtype, device=q.device)
+    if S == 0:
+        return o
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    PAGED_KERNEL.launch(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        positions.data_ptr(), table.data_ptr(), o.data_ptr(),
+        S, N, P, ps, H, D, q.stride(0), q.stride(2),
+        k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
+        v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),
+        1.0 / math.sqrt(D), q.device.index or 0, stream)
+    return o
+
+
+__all__ = ["KERNEL", "NEG_INF", "PAGED_KERNEL", "VALID_DECODE_IMPLS",
            "flash_decode_attention", "flash_decode_attention_plain",
-           "resolve_decode_impl"]
+           "flash_decode_paged_attention",
+           "flash_decode_paged_attention_plain", "resolve_decode_impl"]

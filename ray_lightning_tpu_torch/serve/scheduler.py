@@ -1,7 +1,7 @@
 """Driver-side request queue + continuous-batching scheduler (a copy of
-``ray_lightning_tpu/serve/scheduler.py`` without the paged-KV,
-speculative-decode and KV-shipping branches, which are not ported yet:
-asking for them raises).
+``ray_lightning_tpu/serve/scheduler.py`` with its paged-KV prefix reuse
+and speculative-decode branches; KV shipping and the fleet router's
+hooks are not ported yet, and asking for them raises).
 
 Admission control and batch formation for the serve plane.  The
 scheduler owns every piece of host-side generation state — per-tenant
@@ -28,7 +28,7 @@ Scheduling policy:
   slot outside ``decode_slots``, and the admitting prefill must land
   after that write, not before (worker.py serve_step).
 
-Invariants (pinned by tests/test_serve.py and tests/test_torch_serve.py):
+Invariants (pinned by tests/test_serve.py and tests/test_torch_*.py):
 slot indices are unique among live requests; per-tenant active count
 never exceeds its quota; a submitted request is eventually completed
 (no starvation) while the pump keeps stepping.
@@ -90,6 +90,13 @@ class ServeRequest:
         #: broadcast to the workers, whose prefill/decode spans carry it
         #: back, so the aggregator reassembles this request's span tree
         self.trace = _tracing.mint_trace_id()
+        #: speculative-decode per-request state (serve/spec.py): the
+        #: rolling window of per-round accepted counts the fallback
+        #: watches, and the ``spec_off`` latch — once acceptance
+        #: collapses below the floor this request takes only the
+        #: verify's first (= plain-decode) token for its remaining life
+        self.spec_off = False
+        self._spec_window = None
         self.t_submit = time.monotonic()
         #: wall-clock twins of the monotonic stamps — the trace plane's
         #: synthetic driver spans must share the workers' wall timeline
@@ -159,6 +166,10 @@ class _Tenant:
     queue: list = field(default_factory=list)
     active: int = 0
     served_tokens: int = 0
+    # per-tenant speculative-decode accounting (acceptance_rate rides
+    # the same per_tenant stats block quotas do)
+    spec_drafted: int = 0
+    spec_accepted: int = 0
 
 
 class Scheduler:
@@ -175,12 +186,23 @@ class Scheduler:
         self.buckets = tuple(buckets)
         self.max_seq_len = int(max_seq_len)
         self.allocator = SlotAllocator(slots)
+        #: paged-KV prefix reuse (serve/fleet/pages.py): page free-list
+        #: accounting, the prefix-hash index, and donor retention of
+        #: finished slots.  None = pre-fleet behavior, byte-identical.
+        self.pages = None
         if paged is not None and getattr(paged, "enabled", False):
-            raise NotImplementedError(
-                "paged KV with prefix reuse is not ported yet")
-        if spec is not None and getattr(spec, "enabled", False):
-            raise NotImplementedError(
-                "speculative decoding is not ported yet")
+            from ray_lightning_tpu_torch.serve.fleet.pages import PagedKV
+            self.pages = PagedKV(paged, slots, self.max_seq_len)
+        #: speculative decoding (serve/spec.py SpecConfig): when set,
+        #: decode steps are planned as draft→verify rounds and apply()
+        #: folds multi-token results; the emitted stream stays EXACTLY
+        #: greedy-parity (only the target's verify decides tokens)
+        self.spec = spec \
+            if spec is not None and getattr(spec, "enabled", False) \
+            else None
+        self._spec = {"drafted": 0, "accepted": 0, "corrected": 0,
+                      "emitted": 0, "slot_steps": 0, "rounds": 0,
+                      "fallbacks": 0}
         self.max_prefills_per_step = max(1, int(max_prefills_per_step))
         self.default_max_new_tokens = int(default_max_new_tokens)
         self.eos_token = eos_token
@@ -233,6 +255,9 @@ class Scheduler:
         req = ServeRequest(next(self._ids), tenant, tokens,
                            max(1, min(int(want), cap)), self.eos_token)
         req.bucket = bucket
+        if self.spec is not None:
+            from collections import deque
+            req._spec_window = deque(maxlen=self.spec.window)
         with self._lock:
             self._order[req.id] = next(self._arrival)
             self._tenant(tenant).queue.append(req)
@@ -279,8 +304,28 @@ class Scheduler:
                 tenant = min(candidates, key=lambda t: (
                     t.active, t.served_tokens, self._order[t.queue[0].id]))
                 req = tenant.queue[0]
+                # prefix match BEFORE any donor eviction, so admission
+                # pressure never evicts the one donor this request is
+                # about to copy from (its LRU stamp refreshes here too)
+                hit = self.pages.match(req.tokens) \
+                    if self.pages is not None else None
                 if self.allocator.free_count == 0:
-                    break               # a full allocator ends admission
+                    # admission pressure evicts the least-recently-
+                    # useful retained prefix donor (fleet/pages.py);
+                    # without paging a full allocator ends admission
+                    evicted = None
+                    if self.pages is not None:
+                        evicted = self.pages.evict_lru_donor(
+                            exclude=hit[0] if hit is not None else None)
+                        if evicted is None and hit is not None:
+                            # the hit donor is the ONLY reclaimable
+                            # slot: admission beats reuse
+                            evicted = self.pages.evict_lru_donor()
+                            if evicted is not None:
+                                hit = None
+                    if evicted is None:
+                        break
+                    self.allocator.release(evicted)
                 tenant.queue.pop(0)
                 slot = self.allocator.acquire()
                 req.slot = slot
@@ -297,6 +342,26 @@ class Scheduler:
                     # carries it back on the queue channel)
                     "trace": req.trace,
                 }
+                if self.spec is not None:
+                    # prime the draft KV cache alongside the target's
+                    # (worker.py runs engine.draft_prefill after the
+                    # target prefill) so round one can draft immediately
+                    entry["draft"] = True
+                computed = len(req.tokens)
+                reuse_src = None
+                if self.pages is not None:
+                    if hit is not None and hit[1] >= self.pages.page_size:
+                        src, matched = hit
+                        reuse_src = int(src)
+                        entry["reuse"] = {"src": int(src),
+                                          "matched": int(matched)}
+                        computed = max(1, len(req.tokens) - matched)
+                    self.pages.on_admit(slot, req.tokens, computed,
+                                        src=reuse_src)
+                    self._count("rlt_serve_prefill_tokens_total",
+                                len(req.tokens), kind="requested")
+                    self._count("rlt_serve_prefill_tokens_total",
+                                computed, kind="computed")
                 prefills.append(entry)
                 budget -= 1
                 # the queue-wait phase of this request's span tree +
@@ -315,9 +380,15 @@ class Scheduler:
         if decode_slots:
             S = self.allocator.slots
             tokens = np.zeros((S,), dtype=np.int32)
-            # dummy decode writes for idle slots land at position 0,
-            # overwritten by the slot's admitting prefill
-            positions = np.zeros((S,), dtype=np.int32)
+            # dummy decode writes for idle slots: position 0 normally
+            # (overwritten by the slot's admitting prefill), but under
+            # paging the LAST row — position 0 is the first page of
+            # every retained prefix donor, and a dummy write there
+            # would corrupt the donated K/V (fleet/pages.py docstring;
+            # the last row is never registered, and a live slot
+            # overwrites it before it can ever be attended)
+            fill = self.max_seq_len - 1 if self.pages is not None else 0
+            positions = np.full((S,), fill, dtype=np.int32)
             for s in decode_slots:
                 r = self._by_slot[s]
                 tokens[s] = r.generated[-1]
@@ -329,6 +400,12 @@ class Scheduler:
                       # live request's tree (aggregator._span_trace_ids)
                       "traces": {s: self._by_slot[s].trace
                                  for s in decode_slots}}
+            # speculative round only while at least one live slot still
+            # speculates — when EVERY request has fallen back the plain
+            # decode program runs and the draft cost disappears
+            if self.spec is not None and any(
+                    not self._by_slot[s].spec_off for s in decode_slots):
+                decode["spec"] = True
         if not prefills and decode is None:
             return None
         if decode is not None:
@@ -366,13 +443,98 @@ class Scheduler:
                 req = self._by_slot.get(slot)
                 if req is None:      # finished by a racing eviction
                     continue
-                tok = int(result["decode"][slot])
+                res = result["decode"][slot]
+                if isinstance(res, dict):
+                    self._apply_spec(req, slot, res)
+                    continue
+                tok = int(res)
                 req.generated.append(tok)
                 req.pos += 1
+                if self.pages is not None:
+                    # lazy page charge as the decode tail grows
+                    self.pages.on_advance(slot, req.pos)
                 self._count("rlt_serve_tokens_total", 1,
                             tenant=req.tenant)
                 self._tenant(req.tenant).served_tokens += 1
                 self._maybe_finish(req, tok)
+            if plan["decode"].get("spec") and self._spec["drafted"]:
+                self._spec["rounds"] += 1
+                self._gauge("rlt_spec_acceptance_rate",
+                            self._spec["accepted"]
+                            / self._spec["drafted"])
+
+    def _apply_spec(self, req: ServeRequest, slot: int,
+                    res: dict) -> None:
+        """Fold one slot's draft→verify round.
+
+        The worker returns the raw programs' outputs — ``draft`` (the
+        k tokens the draft model proposed) and ``verify`` (the target's
+        k+1 greedy argmaxes over [last_token, d1..dk]).  THE SCHEDULER
+        decides acceptance: the longest prefix where draft and target
+        agree, plus the target's one corrected token.  ``verify[0]`` is
+        by construction exactly what the plain decode program would have
+        produced (same query token, same position, same cache rows), and
+        each later ``verify[j]`` conditions on ``d1..dj`` which equal
+        the accepted stream — so the emitted tokens are token-level
+        IDENTICAL to target-only greedy decode for ANY draft quality.
+
+        KV soundness: verify wrote target rows for all k+1 positions;
+        the rows past the accepted prefix hold rejected-draft garbage,
+        but the per-query position mask hides them and the next round's
+        verify overwrites them before they can ever be attended.
+
+        A ``spec_off`` request (acceptance collapsed below
+        ``min_accept``) rides the same batch but takes only
+        ``verify[0]`` and charges no draft accounting."""
+        d = [int(x) for x in res["draft"]]
+        g = [int(x) for x in res["verify"]]
+        k = len(d)
+        m = 0
+        while m < k and d[m] == g[m]:
+            m += 1
+        emit = g[:1] if req.spec_off else g[:m + 1]
+        appended = 0
+        for tok in emit:
+            req.generated.append(tok)
+            req.pos += 1
+            appended += 1
+            if self.pages is not None:
+                self.pages.on_advance(slot, req.pos)
+            self._count("rlt_serve_tokens_total", 1, tenant=req.tenant)
+            self._tenant(req.tenant).served_tokens += 1
+            self._maybe_finish(req, tok)
+            if req.state != "active":
+                break                # eos / max_new: drop the tail
+        if req.spec_off:
+            return
+        # acceptance accounting: identity ``emitted == accepted +
+        # corrected``; a truncated emission counts
+        # only what actually reached the stream
+        accepted = min(appended, m)
+        self._spec["drafted"] += k
+        self._spec["accepted"] += accepted
+        self._spec["corrected"] += appended - accepted
+        self._spec["emitted"] += appended
+        self._spec["slot_steps"] += 1
+        t = self._tenant(req.tenant)
+        t.spec_drafted += k
+        t.spec_accepted += accepted
+        self._count("rlt_spec_drafted_total", k, tenant=req.tenant)
+        self._count("rlt_spec_accepted_total", accepted,
+                    tenant=req.tenant)
+        # per-request fallback: rolling model-level agreement (m, not
+        # the truncated count — acceptance measures draft quality)
+        w = req._spec_window
+        if w is None or self.spec.min_accept <= 0.0 \
+                or req.state != "active":
+            return
+        w.append(m)
+        if len(w) >= max(1, w.maxlen // 2) \
+                and sum(w) / (len(w) * k) < self.spec.min_accept:
+            req.spec_off = True
+            self._spec["fallbacks"] += 1
+            self._count("rlt_spec_fallbacks_total", 1,
+                        tenant=req.tenant)
 
     def _maybe_finish(self, req: ServeRequest, last_token: int) -> None:
         hit_eos = (req.eos_token is not None
@@ -381,7 +543,14 @@ class Scheduler:
             return
         with self._lock:
             self._by_slot.pop(req.slot, None)
-            self.allocator.release(req.slot)
+            # under paging a finished slot with registered prefix pages
+            # is RETAINED as a donor (allocator keeps it; admission
+            # pressure evicts LRU donors in plan()) — the cross-request
+            # half of "shared system prompts prefill once per replica"
+            retained = self.pages.retain(req.slot) \
+                if self.pages is not None else False
+            if not retained:
+                self.allocator.release(req.slot)
             self._tenant(req.tenant).active -= 1
             self.completed += 1
         req._finish()     # stamps t_done — tpot_s is defined only after
@@ -424,6 +593,8 @@ class Scheduler:
                 t.active = 0
             self._by_slot.clear()
             self.allocator = SlotAllocator(self.allocator.slots)
+            if self.pages is not None:
+                self.pages.drop_all()
             self.failed += len(live) + len(queued)
         for r in live + queued:
             r._finish(error)
@@ -446,7 +617,23 @@ class Scheduler:
     # -- stats -------------------------------------------------------------
 
     def stats(self) -> dict:
+        pages = {"pages": self.pages.stats()} \
+            if self.pages is not None else {}
+        spec = {}
+        if self.spec is not None:
+            s = dict(self._spec)
+            s["k"] = self.spec.k
+            s["acceptance_rate"] = round(
+                s["accepted"] / s["drafted"], 4) if s["drafted"] else 0.0
+            # tokens emitted per target forward — the CPU-proxy win
+            # metric (>1 means speculation amortized target compute)
+            s["tokens_per_target_forward"] = round(
+                s["emitted"] / s["slot_steps"], 4) \
+                if s["slot_steps"] else 0.0
+            spec = {"spec": s}
         return {
+            **pages,
+            **spec,
             "completed": self.completed,
             "failed": self.failed,
             "queued": self.queued_count,
@@ -458,7 +645,11 @@ class Scheduler:
             "per_tenant": {
                 name: {"active": t.active, "queued": len(t.queue),
                        "served_tokens": t.served_tokens,
-                       "quota": t.quota}
+                       "quota": t.quota,
+                       **({"acceptance_rate": round(
+                           t.spec_accepted / t.spec_drafted, 4)
+                           if t.spec_drafted else 0.0}
+                          if self.spec is not None else {})}
                 for name, t in self._tenants.items()},
         }
 

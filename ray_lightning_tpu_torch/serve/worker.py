@@ -22,8 +22,11 @@ class ServeWorker:
         self._engine = engine
 
     def serve_step(self, plan: dict) -> dict:
-        """Execute one scheduler plan: one decode over every live slot,
-        then the admitting prefills (scheduler.py plan format).
+        """Execute one scheduler plan: one decode over every live slot
+        (or, under speculative decoding, one draft round and one verify),
+        then the admitting prefills — fresh, or a prefix-cache hit's copy
+        and suffix — each followed by its draft prefill under speculative
+        decoding (scheduler.py plan format).
 
         The order is load-bearing.  The decode step has static shapes,
         so it writes K/V for EVERY slot — slots outside ``decode_slots``
@@ -44,9 +47,22 @@ class ServeWorker:
         result: dict[str, Any] = {"prefill": {}, "decode": {}}
         decode = plan.get("decode")
         if decode is not None and decode.get("spec"):
-            raise NotImplementedError(
-                "speculative decoding is not ported yet")
-        if decode is not None:
+            # speculative round: k draft steps then ONE batched target
+            # verify; the SCHEDULER decides acceptance from the raw
+            # outputs (scheduler._apply_spec), the worker stays stateless
+            with span("draft", traces=decode.get("traces"),
+                      slots=len(decode["slots"])):
+                drafts = engine.draft(decode["tokens"],
+                                      decode["positions"])
+            with span("verify", traces=decode.get("traces"),
+                      slots=len(decode["slots"])):
+                ver = engine.verify(decode["tokens"],
+                                    decode["positions"], drafts)
+            for s in decode["slots"]:
+                result["decode"][s] = {
+                    "draft": [int(x) for x in drafts[s]],
+                    "verify": [int(x) for x in ver[s]]}
+        elif decode is not None:
             # ONE span for the shared decode step
             with span("decode", traces=decode.get("traces"),
                       slots=len(decode["slots"])):
@@ -55,16 +71,28 @@ class ServeWorker:
             for s in decode["slots"]:
                 result["decode"][s] = int(toks[s])
         for p in plan["prefills"]:
-            if p.get("reuse") is not None or p.get("draft") \
-                    or p.get("export_kv") is not None:
+            if p.get("export_kv") is not None:
                 raise NotImplementedError(
-                    "prefix reuse, draft prefill and KV export are not "
-                    "ported yet")
+                    "KV export (disaggregated serving) is not ported yet")
+            reuse = p.get("reuse")
             with span("prefill", trace=p.get("trace"),
-                      bucket=p["bucket"], slot=p["slot"]):
-                result["prefill"][p["slot"]] = engine.prefill(
-                    p["slot"], p["tokens"], p["length"], p["bucket"])
+                      bucket=p["bucket"], slot=p["slot"],
+                      reused=(reuse or {}).get("matched", 0)):
+                if reuse is not None:
+                    # prefix-cache hit (serve/fleet/pages.py): copy the
+                    # matched donor pages, compute only the suffix
+                    result["prefill"][p["slot"]] = engine.prefill_reused(
+                        p["slot"], reuse["src"], p["tokens"],
+                        p["length"], reuse["matched"])
+                else:
+                    result["prefill"][p["slot"]] = engine.prefill(
+                        p["slot"], p["tokens"], p["length"], p["bucket"])
+            if p.get("draft"):
+                # prime the draft cache for the admitted prompt (fresh
+                # AND reused admissions: the draft cache has no copy
+                # plane, it always recomputes the full prefix)
+                engine.draft_prefill(p["slot"], p["tokens"], p["length"],
+                                     p["bucket"])
         return result
-
 
 __all__ = ["ServeWorker"]

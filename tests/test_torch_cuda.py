@@ -34,7 +34,9 @@ from ray_lightning_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
     flash_attention_fwd, flash_attention_fwd_plain)
 from ray_lightning_tpu_torch.ops.flash_decode import (
-    flash_decode_attention, flash_decode_attention_plain)
+    flash_decode_attention, flash_decode_attention_plain,
+    flash_decode_paged_attention, flash_decode_paged_attention_plain)
+from ray_lightning_tpu_torch.serve import PageConfig, SpecConfig
 
 
 @pytest.fixture
@@ -318,3 +320,141 @@ def test_cuda_trainer_fits_under_remat_through_the_kernels(cuda_device):
     assert module.model.remat_policy == "full"
     assert counts["flash_fwd"] == 2 * 2 * 3 and counts["flash_bwd"] == 2 * 3
     assert len(losses) == 3 and np.isfinite(losses).all()
+
+
+# -- the paged decode kernel (TPU row 14) and the paths that run it -----------
+
+def _paged_inputs(g, S, L, H, D, ps, device):
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device=device).to(
+            torch.bfloat16)
+
+    P = L // ps
+    pages_k, pages_v = rand(S * P, ps, H, D), rand(S * P, ps, H, D)
+    perm = torch.randperm(S * P, generator=g, device=device)
+    return rand(S, 1, H, D), pages_k, pages_v, perm.view(S, P).to(
+        torch.int32).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_size", [1, 16, 64])
+def test_cuda_flash_decode_paged_kernel_matches_plain(page_size,
+                                                      cuda_device):
+    """Row 14 against its plain version over a randomly permuted table,
+    positions on and around page (and 64-row tile) boundaries; over the
+    identity table it equals the slot-contiguous kernel bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(page_size)
+    S, L, H, D, ps = 8, 1024, 12, 64, page_size
+    q, kp, vp, table = _paged_inputs(g, S, L, H, D, ps, cuda_device)
+    pos = torch.tensor([0, ps - 1, ps, 2 * ps + 1, 63, 64, 700, L - 1],
+                       dtype=torch.int32, device=cuda_device)
+    before = _kernels.REGISTRY["flash_decode_paged"].launches
+    o = flash_decode_paged_attention(q, kp, vp, pos, table)
+    o_ref = flash_decode_paged_attention_plain(q, kp, vp, pos, table)
+    torch.cuda.synchronize()
+    assert _kernels.REGISTRY["flash_decode_paged"].launches == before + 1
+    assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2
+    ident = torch.arange(S * (L // ps), dtype=torch.int32,
+                         device=cuda_device).view(S, L // ps)
+    flat = flash_decode_attention(q, kp.view(S, L, H, D),
+                                  vp.view(S, L, H, D), pos)
+    assert torch.equal(flash_decode_paged_attention(q, kp, vp, pos, ident),
+                       flat)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_wrapper_raises(cuda_device):
+    """What the paged kernel does not take raises on a CUDA tensor: no
+    fall back to the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q, kp, vp, table = _paged_inputs(g, 2, 64, 2, 64, 16, cuda_device)
+    pos = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError, match="bf16"):
+        flash_decode_paged_attention(q.float(), kp, vp, pos, table)
+    with pytest.raises(TypeError, match="contiguous int32"):
+        flash_decode_paged_attention(q, kp, vp, pos, table.long())
+    with pytest.raises(TypeError, match="contiguous int32"):
+        flash_decode_paged_attention(q, kp, vp, pos, table.t().contiguous(
+            ).t())
+    with pytest.raises(ValueError, match="page table must be"):
+        flash_decode_paged_attention(q, kp, vp, pos, table[:1])
+    strided = torch.empty(*kp.shape[:3], 2 * kp.shape[3],
+                          dtype=kp.dtype, device=cuda_device)[..., ::2]
+    with pytest.raises(ValueError, match="unit stride"):
+        flash_decode_paged_attention(q, strided, vp, pos, table)
+    with pytest.raises(ValueError, match="one device"):
+        flash_decode_paged_attention(q, kp, vp, pos, table.cpu())
+    k = kp.view(2, 64, 2, 64)
+    from ray_lightning_tpu_torch.ops.attention import cached_attention
+    with pytest.raises(ValueError, match="cannot tile"):
+        cached_attention(q, k, k, pos, impl="paged", page_table=table[:, :3])
+
+
+def _paged_engine(spec=None):
+    """A 12-layer narrow model on the card, paged at page size 16."""
+    cfg = GPTConfig(vocab_size=256, block_size=128, n_layer=12, n_head=2,
+                    n_embd=64, remat=False)
+    return ServeEngine(GPTLightningModule(cfg), buckets=(32, 64), slots=4,
+                       max_seq_len=128, seed=0, paged=PageConfig(True, 16),
+                       spec=spec).setup()
+
+
+def _drive(eng, spec=None):
+    sched = Scheduler(buckets=(32, 64), slots=4, max_seq_len=128,
+                      default_max_new_tokens=9, paged=PageConfig(True, 16),
+                      spec=spec)
+    shared = np.arange(1, 33)
+    reqs = [sched.submit(np.concatenate([shared, [40 + i] * (1 + i)]))
+            for i in range(6)]
+    worker = ServeWorker(eng)
+    while not sched.idle():
+        sched.apply(plan := sched.plan(), worker.serve_step(plan))
+    assert all(r.done() and len(r.result(0)) == 9 for r in reqs)
+    return sched
+
+
+@pytest.mark.cuda
+def test_cuda_paged_engine_launches_the_paged_kernel(cuda_device,
+                                                     monkeypatch):
+    """Paged serving with prefix reuse: each decode step and each suffix
+    step launches the paged kernel once per layer (12), and nothing runs
+    the slot-contiguous one."""
+    monkeypatch.setenv("RLT_DECODE_IMPL", "paged")
+    eng = _paged_engine()
+    assert eng.decode_kernel == "paged"
+    _kernels.reset_launches()
+    calls0 = dict(eng.calls)
+    sched = _drive(eng)
+    counts = _kernels.launch_counts()
+    steps = {k: eng.calls[k] - calls0[k] for k in eng.calls}
+    assert steps["decode"] > 0 and steps["suffix"] > 0
+    assert sched.pages.stats()["reused_prefills"] >= 3
+    assert counts["flash_decode_paged"] == 12 * (steps["decode"]
+                                                 + steps["suffix"])
+    assert counts["flash_decode"] == 0
+    assert counts["flash_fwd"] == 12 * steps["prefill"]
+
+
+@pytest.mark.cuda
+def test_cuda_verify_round_launches_k_plus_one_per_layer(cuda_device,
+                                                         monkeypatch):
+    """A speculative round on the paged engine: the verify launches the
+    paged kernel 12 x (k+1) times, the draft (6 layers) 6 x (k+1) (k
+    drafts and the row of the last)."""
+    monkeypatch.setenv("RLT_DECODE_IMPL", "paged")
+    k = 3
+    eng = _paged_engine(SpecConfig(True, k=k))
+    assert eng.draft_layers == 6
+    S = eng.slots
+    toks = np.ones(S, np.int32)
+    pos = np.array([5, 64, 126, 127], np.int32)
+    _kernels.reset_launches()
+    drafts = eng.draft(toks, pos)
+    assert _kernels.launch_counts()["flash_decode_paged"] == 6 * (k + 1)
+    _kernels.reset_launches()
+    ver = eng.verify(toks, pos, drafts)
+    assert _kernels.launch_counts()["flash_decode_paged"] == 12 * (k + 1)
+    assert drafts.shape == (S, k) and ver.shape == (S, k + 1)
+    sched = _drive(eng, SpecConfig(True, k=k))
+    st = sched.stats()["spec"]
+    assert st["emitted"] == st["accepted"] + st["corrected"] > 0

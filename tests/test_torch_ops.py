@@ -195,8 +195,10 @@ def test_resolve_decode_impl(monkeypatch):
     assert resolve_decode_impl("dense", "cuda") == "dense"
     monkeypatch.setenv("RLT_DECODE_IMPL", "flash_decode")
     assert resolve_decode_impl(None, "cpu") == "flash_decode"
-    with pytest.raises(NotImplementedError, match="not ported"):
-        resolve_decode_impl("paged", "cuda")
+    # the paged kernel is ported: an explicit choice on any device
+    monkeypatch.setenv("RLT_DECODE_IMPL", "paged")
+    assert resolve_decode_impl(None, "cuda") == "paged"
+    assert resolve_decode_impl(None, "cpu") == "paged"
     with pytest.raises(ValueError, match="RLT_DECODE_IMPL"):
         resolve_decode_impl("bogus", "cuda")
 
@@ -220,6 +222,38 @@ def test_kernel_library_is_keyed_by_its_source(tmp_path, monkeypatch):
     k.library_path().write_bytes(b"")
     assert _kernels.build() == 0.0
     assert _kernels.launch_counts() == {"k": 0}
+
+
+def test_entry_points_of_one_source_share_one_build(tmp_path, monkeypatch):
+    """The slot-contiguous and paged decode kernels live in one source:
+    ``build`` runs one compiler for it (two would race on one output),
+    and both bind the same library."""
+    monkeypatch.setattr(_kernels, "REGISTRY", {})
+    monkeypatch.setattr(_kernels, "CSRC", tmp_path / "csrc")
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / "build")
+    (tmp_path / "csrc").mkdir()
+    (tmp_path / "csrc" / "k.cu").write_text("// two entry points\n")
+    (tmp_path / "csrc" / "j.cu").write_text("// one\n")
+    log = tmp_path / "calls"
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    # a stand-in compiler: records each call, writes its -o output
+    nvcc.write_text("#!/bin/sh\necho \"$@\" >> " + str(log) + "\n"
+                    "while [ $# -gt 0 ]; do\n"
+                    "  if [ \"$1\" = -o ]; then : > \"$2\"; fi; shift\n"
+                    "done\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    a = _kernels.Kernel("a", "k.cu", "rlt_a", "p")
+    b = _kernels.Kernel("b", "k.cu", "rlt_b", "p")
+    c = _kernels.Kernel("c", "j.cu", "rlt_c", "p")
+    assert a.library_path() == b.library_path() != c.library_path()
+    _kernels.build()
+    calls = log.read_text().splitlines()
+    assert len(calls) == 2 and sum("k.cu" in x for x in calls) == 1
+    assert a.library_path().is_file() and c.library_path().is_file()
+    assert a.build_log == b.build_log
+    assert _kernels.build() == 0.0
 
 
 def test_missing_nvcc_raises(tmp_path, monkeypatch):

@@ -11,7 +11,6 @@ the teacher-forced near-tie rule at 2e-2 against the JAX package's
 whole-sequence forward, as the JAX engine's own do.
 """
 
-import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -34,8 +33,8 @@ from ray_lightning_tpu_torch import (GPT, GPTLightningModule, Scheduler,
                                      flax_to_torch)
 from ray_lightning_tpu_torch.models.gpt import GPTConfig
 from ray_lightning_tpu_torch.serve import (KVCacheSpec, SlotAllocator,
-                                           bucket_for, pad_to_bucket,
-                                           resolve_buckets)
+                                           SpecConfig, bucket_for,
+                                           pad_to_bucket, resolve_buckets)
 
 TINY = dict(vocab_size=128, block_size=32, n_layer=2, n_head=2, n_embd=32,
             remat=False)
@@ -161,7 +160,8 @@ def test_serve_slice_matches_jax_engine(jax_served, impls, monkeypatch):
                     (prompt, mine, theirs)
     stats = eng.stats()
     assert stats["calls"]["prefill"] == len(PROMPTS)
-    assert stats["kernel_launches"] == {"flash_fwd": 0, "flash_decode": 0}
+    assert stats["kernel_launches"] == {"flash_fwd": 0, "flash_decode": 0,
+                                        "flash_decode_paged": 0}
 
 
 def test_engine_without_device_needs_cuda(monkeypatch):
@@ -181,19 +181,22 @@ def test_engine_without_device_needs_cuda(monkeypatch):
 
 
 def test_engine_rejects_what_is_not_ported():
+    """Paged KV and speculative decoding are ported (tests/test_torch_
+    paged.py, tests/test_torch_spec.py); the mesh, the compile cache, KV
+    shipping and int8-resident drafts still raise."""
     mod = GPTLightningModule(GPTConfig(**TINY))
-    for kw in ({"strategy": object()}, {"paged": object()},
-               {"spec": object()}, {"kvship": True},
-               {"compile_cache": "dir"}):
+    for kw in ({"strategy": object()}, {"kvship": True},
+               {"compile_cache": "dir"},
+               {"spec": SpecConfig(True, draft_quant="int8")}):
         with pytest.raises(NotImplementedError, match="not ported"):
             ServeEngine(mod, buckets=BUCKETS, slots=SLOTS,
                         max_seq_len=32, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="not ported"):
-        Scheduler(buckets=BUCKETS, slots=SLOTS, max_seq_len=32,
-                  spec=dataclasses.make_dataclass("S", ["enabled"])(True))
-    with pytest.raises(NotImplementedError, match="not ported"):
         Scheduler(buckets=BUCKETS, slots=SLOTS,
                   max_seq_len=32).submit([1, 2], ship_kv=True)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        ServeWorker(None).serve_step({"prefills": [{"export_kv": {}}],
+                                      "decode": None})
 
 
 def test_engine_seeded_init_and_position_validation():
@@ -226,6 +229,17 @@ def test_serve_step_keeps_decode_before_prefill():
             calls.append("prefill")
             return 1
 
+        def draft(self, tokens, positions):
+            calls.append("draft")
+            return np.full((SLOTS, 2), 5, np.int32)
+
+        def verify(self, tokens, positions, drafts):
+            calls.append("verify")
+            return np.full((SLOTS, 3), 6, np.int32)
+
+        def draft_prefill(self, slot, tokens, length, bucket):
+            calls.append("draft_prefill")
+
     plan = {"prefills": [{"slot": 1, "tokens": pad_to_bucket([1], 8),
                           "length": 1, "bucket": 8}],
             "decode": {"tokens": np.zeros(SLOTS, np.int32),
@@ -234,9 +248,14 @@ def test_serve_step_keeps_decode_before_prefill():
     out = ServeWorker(Recorder()).serve_step(plan)
     assert calls == ["decode", "prefill"]
     assert out == {"prefill": {1: 1}, "decode": {0: 0}}
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ServeWorker(Recorder()).serve_step(
-            {"prefills": [], "decode": {**plan["decode"], "spec": True}})
+    # the speculative round (draft, then verify) also runs before the
+    # admitting prefill and its draft prefill: its dummy rows land first
+    calls.clear()
+    spec_plan = {"prefills": [{**plan["prefills"][0], "draft": True}],
+                 "decode": {**plan["decode"], "spec": True}}
+    out = ServeWorker(Recorder()).serve_step(spec_plan)
+    assert calls == ["draft", "verify", "prefill", "draft_prefill"]
+    assert out["decode"] == {0: {"draft": [5, 5], "verify": [6, 6, 6]}}
 
 
 # -- the copied host modules -------------------------------------------------
