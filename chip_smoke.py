@@ -85,13 +85,39 @@ Phases, each fatal on failure:
    ``block_size`` T = 4096, 8192, 16384, B = max(1, 8192 // T), remat
    "full", chunked CE 16 at T >= 8192 (benchmarks/bench_longcontext.py's
    shapes): finite losses, 2 x 12 flash_fwd and 12 flash_bwd launches a
-   step, step ms and peak memory; the T=16384 step profiled.
+   step, step ms and peak memory; the T=16384 step profiled;
+9. BERT and the folded routes, everything earlier freed: (a) flash_fwd
+   and flash_bwd at the shapes where the JAX package folds its heads to
+   [B*H, T, D] (``tpu_rows`` asserted for each): GPT-2 XL's 25 heads of
+   64 at B=8 T=1024 (rows 5 + 10, causal) and B=4 T=2048 (rows 4 + 11 +
+   12), bert-base B=32 T=512 H=12 non-causal under
+   ``RLT_FLASH_BLOCK_Q=K=128`` (rows 5 + 15 + 16; by default rows 1 + 6,
+   the same kernels), and the tiny fits' D=32 shapes; each against the
+   plain versions, timed as in phase 8; (b) ``Trainer(max_steps=20).fit(
+   BertMLMModule("bert-base", batch_size=32))`` at full width (12
+   layers, 12 heads, n_embd 768, vocab 30592, T=512), fp32 params, bf16
+   compute: finite losses, the last below the first, flash_fwd and
+   flash_bwd 12 x 20 launches (rows 1 + 6, non-causal), step ms,
+   tokens/s, MFU (6 x (12 L C^2 + V C) x B T + 12 B L T^2 C over 989
+   TFLOP/s), peak memory, one step profiled; one step's gradients
+   against ``attention_impl="dot"`` on the same weights, tokens and mask
+   (per-tensor relative L2 within 2e-2); its launches count again for
+   rows 5 + 15 + 16, the route the block override gives the JAX package
+   (the port reads no block size: the override runs the same launches);
+   a 10-step ``BertLightningModule("bert-base", batch_size=32)``
+   fine-tune (accuracy logged); (c) 8-step fits at GPT-2 XL's width cut
+   to 4 layers, block_size 1024 at B=8 (rows 5 + 10 causal) and 2048 at
+   B=4 (rows 4 + 11 + 12), 4 + 4 launches a step, step ms, tokens/s,
+   MFU; 5-step fits of the tiny BERT (rows 5 + 10 non-causal, D=32) and
+   of the tiny GPT at block_size 1024 (rows 5 + 10) and 2048 (rows 4 +
+   11 + 12), B=8, 2 + 2 launches a step.
 
 The next-to-last line is the ``{"kernels": [...]}`` JSON record, one
-entry per TPU kernel row ported (1, 2, 3, 6, 7, 8, 9, 13, 14;
-``launches`` from the path phases that route to it, each counted from 0
-just before its phase); the last is ``{"ok": true, "device": {...}}``.  Without CUDA the script prints an error and exits
-1.
+entry per TPU kernel row, 1 to 16 (``launches`` from the path phases
+that route to it by ``tpu_rows``, each counted from 0 just before its
+phase; rows 1 and 6 also carry their non-causal times under
+``noncausal``); the last is ``{"ok": true, "device": {...}}``.  Without
+CUDA the script prints an error and exits 1.
 """
 
 from __future__ import annotations
@@ -116,12 +142,14 @@ sys.path.insert(0, str(ROOT))
 
 from ray_lightning_tpu_torch import Callback, Trainer  # noqa: E402
 from ray_lightning_tpu_torch.core.module import StepContext  # noqa: E402
+from ray_lightning_tpu_torch.models.bert import (  # noqa: E402
+    CONFIGS as BERT_CONFIGS, BertLightningModule, BertMLMModule)
 from ray_lightning_tpu_torch.models.gpt import (  # noqa: E402
     CONFIGS, GPT, GPTLightningModule)
 from ray_lightning_tpu_torch.ops import _kernels  # noqa: E402
 from ray_lightning_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
-    flash_attention_fwd_plain)
+    flash_attention_fwd_plain, tpu_rows)
 from ray_lightning_tpu_torch.ops.flash_decode import (  # noqa: E402
     flash_decode_attention, flash_decode_attention_plain,
     flash_decode_paged_attention, flash_decode_paged_attention_plain)
@@ -743,12 +771,14 @@ def grads_rel_l2(got: dict, want: dict) -> dict:
             for k in want}
 
 
-def model_flops_per_step(cfg, B: int, T: int) -> float:
-    """6 x (matmul params + tied head) x tokens + causal attention: the
-    QK^T and PV products, 2 T^2 C multiply-adds over two a layer per
-    sequence forward, times 3 for forward and backward."""
+def model_flops_per_step(cfg, B: int, T: int, causal: bool = True,
+                         lm_head: bool = True) -> float:
+    """6 x (matmul params + the vocab head, if any) x tokens + attention:
+    the QK^T and PV products, 2 T^2 C multiply-adds a layer per sequence
+    forward, over two when causal, times 3 for forward and backward."""
     L, Cm, V = cfg.n_layer, cfg.n_embd, cfg.vocab_size
-    return 6 * B * T * (12 * L * Cm * Cm + V * Cm) + 6 * B * L * T * T * Cm
+    return (6 * B * T * (12 * L * Cm * Cm + lm_head * V * Cm)
+            + (6 if causal else 12) * B * L * T * T * Cm)
 
 
 def check_fit(clock, trainer, launches: dict, n_layer: int, n: int,
@@ -770,10 +800,12 @@ def check_fit(clock, trainer, launches: dict, n_layer: int, n: int,
 
 
 def fit_stats(module, clock, B: int, T: int, card: str,
-              first: int) -> dict:
+              first: int, causal: bool = True) -> dict:
     cfg = module.config
     step_ms = float(np.median(clock.ms[first:]))
-    flops = model_flops_per_step(cfg, B, T)
+    # the classifier has no vocab head
+    flops = model_flops_per_step(
+        cfg, B, T, causal, not isinstance(module, BertLightningModule))
     return {"card": card, "batch": B, "seq": T, "layers": cfg.n_layer,
             "heads": cfg.n_head, "n_embd": cfg.n_embd,
             "step_ms_median": step_ms, "step_ms": clock.ms,
@@ -982,17 +1014,23 @@ WAVE, WAVE_GAP = 4, 6
 
 
 @contextlib.contextmanager
-def decode_impl(value: str):
-    """``RLT_DECODE_IMPL`` set for the block, restored after it."""
-    old = os.environ.get("RLT_DECODE_IMPL")
-    os.environ["RLT_DECODE_IMPL"] = value
+def scoped_env(**values: str):
+    """Environment variables set for the block, restored after it."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
     try:
         yield
     finally:
-        if old is None:
-            del os.environ["RLT_DECODE_IMPL"]
-        else:
-            os.environ["RLT_DECODE_IMPL"] = old
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def decode_impl(value: str):
+    """``RLT_DECODE_IMPL`` set for the block, restored after it."""
+    return scoped_env(RLT_DECODE_IMPL=value)
 
 
 def tenant_traffic(seed: int, vocab: int, n: int) -> list:
@@ -1287,18 +1325,18 @@ def long_module(T: int):
                               dataset_size=B * LONG_STEPS)
 
 
-def attention_inputs(gen, B: int, T: int, heads: int):
+def attention_inputs(gen, B: int, T: int, heads: int, d: int = D):
     """q, k, v as the split views of a fused qkv projection, and dO."""
-    c = heads * D
+    c = heads * d
     qkv = torch.randn(B, T, 3 * c, generator=gen, device="cuda").to(
         torch.bfloat16)
-    q, k, v = (x.view(B, T, heads, D) for x in qkv.split(c, dim=-1))
-    do = torch.randn(B, T, heads, D, generator=gen, device="cuda").to(
+    q, k, v = (x.view(B, T, heads, d) for x in qkv.split(c, dim=-1))
+    do = torch.randn(B, T, heads, d, generator=gen, device="cuda").to(
         torch.bfloat16)
     return q, k, v, do
 
 
-def by_heads(plain, q, *rest, lse=None):
+def by_heads(plain, q, *rest, lse=None, causal: bool = True):
     """``plain`` over groups of heads (heads are independent), so its
     [B, g, T, T] fp32 scores stay within ``PLAIN_SCORE_BYTES``; outputs
     concatenated back over the heads (dim 2 of [B, T, H, D], dim 1 of an
@@ -1310,47 +1348,65 @@ def by_heads(plain, q, *rest, lse=None):
         args = [x[:, :, h:h + g] for x in (q, *rest)]
         if lse is not None:
             args.insert(4, lse[:, h:h + g])
-        parts.append(plain(*args, causal=True))
+        parts.append(plain(*args, causal=causal))
     return tuple(torch.cat([p[i] for p in parts],
                            dim=1 if t.dim() == 3 else 2)
                  for i, t in enumerate(parts[0]))
 
 
-def bwd_pass_ms(fn, calls: int = 3) -> dict:
-    """Device ms per call of each pass of ``flash_bwd`` (one launch of
-    three kernels), read from torch.profiler."""
+def bwd_pass_ms(fn, calls: int = 3, sessions: int = 6) -> dict:
+    """Device ms per launch of each pass of ``flash_bwd`` (one call, three
+    kernels), read from torch.profiler: each kernel's device time over
+    the launches the traces hold.  After earlier profiler sessions in
+    one process a trace can lack some or all of a window's kernels, so
+    the mean is taken over the kernels seen, never over the calls made,
+    and windows of ``calls`` calls are profiled again, up to
+    ``sessions``, until every pass has been seen ``calls`` times; the
+    counts are returned under ``seen``."""
     from torch.profiler import ProfilerActivity, profile
     names = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
              "flash_bwd_dq_kernel")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = dict.fromkeys(names, 0.0)
-    for e in prof.key_averages():
-        for n in names:
-            if n in e.key:
-                out[n] += _device_us(e) / calls / 1e3
-    if not all(v > 0 for v in out.values()):
-        raise AssertionError(f"the profiler saw no flash_bwd pass: {out}")
+    us = dict.fromkeys(names, 0.0)
+    seen = dict.fromkeys(names, 0)
+    made = 0
+    while made < sessions * calls and min(seen.values()) < calls:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        made += calls
+        for e in prof.key_averages():
+            for n in names:
+                if n in e.key and _device_us(e) > 0:
+                    us[n] += _device_us(e)
+                    seen[n] += e.count
+    if not all(seen.values()):
+        raise AssertionError(f"the profiler saw no flash_bwd pass in "
+                             f"{made} calls: {seen}")
+    out = {n: us[n] / seen[n] / 1e3 for n in names}
+    out["seen"] = {n: f"{seen[n]} of {made}" for n in names}
     return out
 
 
-def long_kernel_shape(gen, B: int, T: int, heads: int) -> dict:
-    """flash_fwd and flash_bwd at one long-context shape, causal, bf16,
-    on fused-qkv views: against the plain versions over all heads (in
+def long_kernel_shape(gen, B: int, T: int, heads: int, causal: bool = True,
+                      d: int = D) -> dict:
+    """flash_fwd and flash_bwd at one shape, causal or not, bf16, on
+    fused-qkv views: against the plain versions over all heads (in
     groups), timed beside them, the SDPA yardstick and their bounds; the
     backward's dk/dv and dq passes timed with the profiler."""
-    shape = f"B={B} T={T} H={heads} D={D} causal bf16"
-    q, k, v, do = attention_inputs(gen, B, T, heads)
-    c = heads * D
-    o, lse = flash_attention_fwd(q, k, v, causal=True)
-    got = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
-    o_ref, lse_ref = by_heads(flash_attention_fwd_plain, q, k, v)
-    want = by_heads(flash_attention_bwd_plain, q, k, v, o, do, lse=lse)
+    shape = (f"B={B} T={T} H={heads} D={d} "
+             f"{'causal' if causal else 'non-causal'} bf16")
+    q, k, v, do = attention_inputs(gen, B, T, heads, d)
+    c = heads * d
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    o_ref, lse_ref = by_heads(flash_attention_fwd_plain, q, k, v,
+                              causal=causal)
+    want = by_heads(flash_attention_bwd_plain, q, k, v, o, do, lse=lse,
+                    causal=causal)
     torch.cuda.synchronize()
     fwd_err = (o.float() - o_ref.float()).abs().max().item()
     lse_err = (lse - lse_ref).abs().max().item()
@@ -1374,31 +1430,34 @@ def long_kernel_shape(gen, B: int, T: int, heads: int) -> dict:
     if not finite:
         raise AssertionError(f"{shape}: non-finite kernel output")
 
-    fwd_ms = time_ms(lambda: flash_attention_fwd(q, k, v, causal=True),
+    fwd_ms = time_ms(lambda: flash_attention_fwd(q, k, v, causal=causal),
                      iters=10, warmup=2)
     fwd_plain_ms = time_ms(lambda: by_heads(flash_attention_fwd_plain,
-                                            q, k, v), iters=2, warmup=1)
+                                            q, k, v, causal=causal),
+                           iters=2, warmup=1)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     fwd_lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), iters=10, warmup=2)
+        qt, kt, vt, is_causal=causal), iters=10, warmup=2)
     bwd_ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
-                                                 causal=True),
+                                                 causal=causal),
                      iters=10, warmup=2)
     bwd_plain_ms = time_ms(lambda: by_heads(flash_attention_bwd_plain, q, k,
-                                            v, o, do, lse=lse),
+                                            v, o, do, lse=lse,
+                                            causal=causal),
                            iters=2, warmup=1)
     qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
-    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
     gout = do.transpose(1, 2)
     bwd_lib_ms = time_ms(lambda: torch.autograd.grad(
         out, (qg, kg, vg), gout, retain_graph=True), iters=10, warmup=2)
     del out
     passes = bwd_pass_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
-                                                     causal=True))
+                                                     causal=causal))
 
-    # each input read once, each output written once; causal products
-    # of T(T+1)/2 D multiply-adds a head, two flops each
-    tri = B * heads * 2 * D * T * (T + 1) / 2
+    # each input read once, each output written once; the products of
+    # T(T+1)/2 D multiply-adds a head when causal, T^2 D when not, two
+    # flops each
+    tri = B * heads * 2 * d * T * ((T + 1) / 2 if causal else T)
     lse_bytes = B * heads * T * 4
     fwd_b = bound(B * 4 * T * c * 2 + lse_bytes, 2 * tri)  # q k v o; PV QK
     bwd_b = bound(B * 8 * T * c * 2 + lse_bytes, 5 * tri)
@@ -1414,7 +1473,8 @@ def long_kernel_shape(gen, B: int, T: int, heads: int) -> dict:
         f"backward {bwd_lib_ms:.4f}, bound {bwd_b[0]:.5f} {bwd_b[1]}); "
         f"passes (profiler): delta "
         f"{passes['flash_bwd_delta_kernel']:.4f}, dk/dv {dkdv_ms:.4f} "
-        f"(bound {dkdv_b[0]:.5f}), dq {dq_ms:.4f} (bound {dq_b[0]:.5f})")
+        f"(bound {dkdv_b[0]:.5f}), dq {dq_ms:.4f} (bound {dq_b[0]:.5f}); "
+        f"launches in the trace {passes['seen']}")
 
     def part(ms, plain_ms, lib_ms, b, err, tol, **extra):
         return dict(shape=shape, max_abs_err=err, tol=tol, ms=ms,
@@ -1428,7 +1488,8 @@ def long_kernel_shape(gen, B: int, T: int, heads: int) -> dict:
                     rel_l2=max(errs[n] for n in tensors), **extra)
 
     pass_extra = dict(plain_and_library_compute="dq, dk and dv together",
-                      pass_ms_from="torch.profiler, mean of 3 calls")
+                      pass_ms_from="torch.profiler, mean over the launches "
+                                   "its traces hold")
     return {
         "fwd": part(fwd_ms, fwd_plain_ms, fwd_lib_ms, fwd_b, fwd_err,
                     BF16_TOL, lse_max_abs_err=lse_err),
@@ -1636,6 +1697,276 @@ def long_context_phase(seed: int, card: str) -> dict:
             "stats": stats}
 
 
+# -- phase 9: BERT and the folded routes ----------------------------------------
+
+#: bert-base masked LM at benchmarks/bench_bert_zero1.py's shape (B=32,
+#: max_len 512); the steps of each fit of this phase
+BERT_B = 32
+BERT_STEPS = 20
+FINETUNE_STEPS = 10
+FOLDED_STEPS = 5
+#: RLT_FLASH_BLOCK_Q/K below T=512: the JAX package then runs bert-base on
+#: rows 5, 15 and 16
+OVERRIDE_BLOCK = 128
+#: GPT-2 XL's published width (n_embd 1600, 25 heads of 64, vocab 50257
+#: padded to 50304; Radford et al. 2019, the gpt2-xl config.json), its 48
+#: layers cut to XL_LAYERS: the heads do not pack, so the JAX package
+#: folds them (rows 5 + 10 at T=1024, rows 4 + 11 + 12 at T=2048)
+XL_LAYERS = 4
+XL_STEPS = 8
+XL_BATCH = {1024: 8, 2048: 4}
+FA_SRC = "ray_lightning_tpu/ops/flash_attention.py"
+#: the folded rows' kernel shapes: name -> (B, T, H, D, causal, blocks).
+#: GPT-2 XL's 25 heads of 64 do not pack, so the JAX package folds them:
+#: T=1024 one block, T=2048 the triangular grid; bert-base under the
+#: override; the tiny fits' shapes (h=2, d=32)
+FOLDED_SHAPES = {
+    "xl_T1024": (8, 1024, 25, 64, True, None),
+    "xl_T2048": (4, 2048, 25, 64, True, None),
+    "base_T512": (BERT_B, 512, 12, 64, False, OVERRIDE_BLOCK),
+    "tiny_T64": (8, 64, 2, 32, False, None),
+    "tiny_T1024": (8, 1024, 2, 32, True, None),
+    "tiny_T2048": (8, 2048, 2, 32, True, None),
+}
+#: TPU kernel row -> (kernel, def line, part of the shape's result, the
+#: shapes at which the JAX package runs it; the first is the entry's)
+FOLDED_ROWS = {
+    4: ("flash_fwd", ":149", "fwd", ("xl_T2048", "tiny_T2048")),
+    5: ("flash_fwd", ":98", "fwd",
+        ("xl_T1024", "base_T512", "tiny_T64", "tiny_T1024")),
+    10: ("flash_bwd", ":1190", "bwd", ("xl_T1024", "tiny_T64",
+                                       "tiny_T1024")),
+    11: ("flash_bwd", ":1225", "dkdv", ("xl_T2048", "tiny_T2048")),
+    12: ("flash_bwd", ":1269", "dq", ("xl_T2048", "tiny_T2048")),
+    15: ("flash_bwd", ":994", "dkdv", ("base_T512",)),
+    16: ("flash_bwd", ":1045", "dq", ("base_T512",)),
+}
+
+
+def folded_kernel_entries(gen) -> "tuple[dict[int, dict], dict]":
+    """The ``kernels`` entries of TPU kernel rows 4, 5, 10, 11, 12, 15 and
+    16, each at the shapes where the JAX package's dispatch
+    (``tpu_rows``, asserted here) takes it; and the bert-base shape's
+    result, which is also rows 1 and 6 non-causal (the default blocks)."""
+    res = {}
+    for name, (B, T, heads, d, causal, blk) in FOLDED_SHAPES.items():
+        fwd_row, bwd_rows = tpu_rows(T, heads, d, causal, blk, blk)
+        want = {r for r, (_, _, _, names) in FOLDED_ROWS.items()
+                if name in names}
+        if want != {fwd_row, *bwd_rows}:
+            raise AssertionError(f"{name}: tpu_rows gives {fwd_row}, "
+                                 f"{bwd_rows}; the table says {want}")
+        res[name] = long_kernel_shape(gen, B, T, heads, causal, d)
+        free_cuda()
+    if tpu_rows(512, 12, 64, False) != (1, (6,)):
+        raise AssertionError("bert-base by default: not rows 1 and 6")
+    entries = {}
+    for row, (kname, line, part, names) in FOLDED_ROWS.items():
+        first = res[names[0]][part]
+        e = record(kname, row, FA_SRC + line, first["shape"],
+                   first["max_abs_err"], first, tol=first["tol"])
+        e.update({k: v for k, v in first.items() if k not in e})
+        if part in ("dkdv", "dq"):
+            e["pass"] = {"dkdv": "dk/dv", "dq": "dq"}[part]
+        e["by_shape"] = {n: res[n][part] for n in names}
+        entries[row] = e
+    return entries, res["base_T512"]
+
+
+def path_run(path: str, module, steps: int, seed: int, T: int, causal: bool,
+             card: str, first: int = 1) -> "tuple[dict, Trainer]":
+    """``steps`` of ``Trainer.fit`` of ``module`` (remat off), launches
+    counted from 0 at its start: finite losses, flash_fwd and flash_bwd
+    each once per layer per step.  ``rows`` are the TPU kernel rows the
+    JAX package takes at the shape (``tpu_rows``).  Returns the run's
+    record and the trainer."""
+    cfg = module.config
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    trainer, clock = fit(module, steps, seed)
+    launches = _kernels.launch_counts()
+    check_fit(clock, trainer, launches, cfg.n_layer, steps, path,
+              remat=False)
+    rows = tpu_rows(T, cfg.n_head, cfg.head_dim, causal)
+    stats = fit_stats(module, clock, module.batch_size, T, card, first,
+                      causal)
+    log(f"  [{card}] {path}: B={module.batch_size} T={T} H={cfg.n_head} "
+        f"D={cfg.head_dim} {'causal' if causal else 'non-causal'}, rows "
+        f"{rows}; losses " + " ".join(f"{x:.4f}" for x in clock.losses)
+        + f"; step {stats['step_ms_median']:.3f} ms; launches {launches}")
+    return {"path": path, "rows": rows, "launches": launches,
+            "stats": stats}, trainer
+
+
+def bert_grad_parity(seed: int, tokens) -> dict:
+    """One step's gradients of bert-base's masked-LM loss with flash
+    attention against ``attention_impl="dot"``, on the same seeded
+    weights, tokens and mask: per-tensor relative L2 within
+    ``GRAD_TOL``."""
+    mask = torch.rand(tokens.shape, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(
+                          seed)) < 0.15
+
+    def grads(impl):
+        cfg = dataclasses.replace(BERT_CONFIGS["bert-base"],
+                                  attention_impl=impl)
+        module = BertMLMModule(cfg, batch_size=BERT_B)
+        module.init_params(torch.Generator(device="cuda").manual_seed(seed))
+        params = dict(module.model.named_parameters())
+        loss = module._mlm_loss(StepContext(module, training=True), tokens,
+                                mask=mask)
+        return dict(zip(params, torch.autograd.grad(loss,
+                                                    list(params.values()))))
+
+    g_flash = grads("auto")
+    g_dot = grads("dot")
+    rel = grads_rel_l2(g_flash, g_dot)
+    del g_flash, g_dot
+    free_cuda()
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])
+    log(f"  bert-base grad parity vs dot attention: per-tensor relative L2 "
+        f"max {worst[0][1]:.3e} ({worst[0][0]}), median "
+        f"{float(np.median(list(rel.values()))):.3e} (tol {GRAD_TOL}); "
+        f"{int(mask.sum())} of {mask.numel()} positions masked")
+    if not all(np.isfinite(v) and v <= GRAD_TOL for v in rel.values()):
+        raise AssertionError(f"bert-base gradient parity: {worst[:4]}")
+    return {"grad_rel_l2_max": worst[0][1], "grad_rel_l2_worst": worst[:4]}
+
+
+def bert_runs(seed: int, card: str) -> "tuple[list, dict]":
+    """bert-base at full width: the 20-step masked-LM fit (rows 1 + 6,
+    non-causal), its profiled step and gradient parity; the 10-step
+    fine-tune (rows 1 + 6).  The masked-LM fit's launches are counted a
+    second time under the route ``RLT_FLASH_BLOCK_Q=K=128`` gives the JAX
+    package (rows 5 + 15 + 16): the port reads no block size, so that
+    override runs the very same launches."""
+    T = BERT_CONFIGS["bert-base"].max_len
+    mlm, trainer = path_run("bert_mlm", BertMLMModule(
+        "bert-base", batch_size=BERT_B, train_size=BERT_B * BERT_STEPS),
+        BERT_STEPS, seed, T, False, card, first=2)
+    losses = mlm["stats"]["losses"]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"bert-base MLM loss did not fall: "
+                             f"{losses[0]} -> {losses[-1]}")
+    module = trainer.lightning_module
+    if any(p.dtype != torch.float32 for p in module.model.parameters()):
+        raise AssertionError("bert-base params are not fp32-resident")
+    stats = mlm["stats"]
+    log(f"  [{card}] bert-base MLM B={BERT_B} T={T}: step "
+        f"{stats['step_ms_median']:.3f} ms (median of steps 3-{BERT_STEPS}, "
+        f"host wall, synced), {stats['tokens_per_s']:.0f} tokens/s, MFU "
+        f"{stats['mfu']:.4f} ({stats['model_flops_per_step'] / 1e12:.3f} "
+        f"TFLOP a step: 6 x (12 L C^2 + V C) x B T + 12 B L T^2 C), peak "
+        f"memory {stats['peak_memory_gb']:.2f} GB")
+    batch = first_batch(module)
+
+    def train_step():
+        trainer.state, _ = trainer._train_step(trainer.state, batch)
+
+    stats["profile"] = profile_fn("train_step_bert_base", train_step, 2)
+    del trainer, module, train_step
+    free_cuda()
+    stats["grad_parity"] = bert_grad_parity(seed, batch[0])
+    del batch
+
+    over = {"path": f"bert_mlm@block{OVERRIDE_BLOCK}",
+            "rows": tpu_rows(T, 12, 64, False, OVERRIDE_BLOCK,
+                             OVERRIDE_BLOCK),
+            "launches": mlm["launches"], "stats": {}}
+    tune, trainer = path_run("bert_finetune", BertLightningModule(
+        "bert-base", batch_size=BERT_B, train_size=BERT_B * FINETUNE_STEPS),
+        FINETUNE_STEPS, seed, T, False, card, first=2)
+    acc = trainer.callback_metrics.get("train_accuracy")
+    del trainer
+    log(f"  bert-base fine-tune: train_accuracy {acc} (epoch mean)")
+    if acc is None or not 0.0 <= acc <= 1.0:
+        raise AssertionError(f"fine-tune logged no accuracy: {acc}")
+    tune["stats"]["train_accuracy"] = acc
+    if (mlm["rows"], over["rows"], tune["rows"]) != (
+            (1, (6,)), (5, (15, 16)), (1, (6,))):
+        raise AssertionError("bert-base routes: "
+                             f"{mlm['rows']}, {over['rows']}, {tune['rows']}")
+    return [mlm, over, tune], stats
+
+
+def folded_fits(seed: int, card: str) -> list:
+    """The fits whose heads fold: GPT-2 XL's width cut to XL_LAYERS
+    layers with block_size 1024 (B=8, rows 5 + 10 causal) and 2048 (B=4,
+    rows 4 + 11 + 12), the folded rows' path at a public width; then the
+    tiny fits (h=2, d=32), the D=32 kernels on a path: the tiny BERT
+    (T=64, non-causal: rows 5 + 10) and the tiny GPT with block_size
+    1024 and 2048, B=8.  The tiny fits' step times are the host's."""
+    runs = []
+    for T, B in XL_BATCH.items():
+        cfg = dataclasses.replace(CONFIGS["gpt2-small"], n_layer=XL_LAYERS,
+                                  n_head=25, n_embd=1600, block_size=T)
+        runs.append(path_run(
+            f"gpt_xl{XL_LAYERS}_T{T}", GPTLightningModule(
+                cfg, batch_size=B, warmup_steps=2,
+                dataset_size=B * XL_STEPS),
+            XL_STEPS, seed, T, True, card, first=2)[0])
+        free_cuda()
+    runs.append(path_run("bert_tiny", BertMLMModule("tiny"), FOLDED_STEPS,
+                         seed, 64, False, card)[0])
+    for T in (1024, 2048):
+        cfg = dataclasses.replace(CONFIGS["tiny"], block_size=T)
+        runs.append(path_run(
+            f"gpt_tiny_T{T}", GPTLightningModule(
+                cfg, batch_size=8, warmup_steps=2,
+                dataset_size=8 * FOLDED_STEPS),
+            FOLDED_STEPS, seed, T, True, card)[0])
+    want = [(5, (10,)), (4, (11, 12)), (5, (10,)), (5, (10,)),
+            (4, (11, 12))]
+    if [r["rows"] for r in runs] != want:
+        raise AssertionError(f"folded routes: {[r['rows'] for r in runs]}")
+    return runs
+
+
+def folded_phase(seed: int, card: str) -> dict:
+    """Phase 9 (everything earlier freed): the folded rows' kernel
+    entries, the bert-base runs, the folded fits.  Returns the entries
+    by row, the path runs (each with its rows and launches) and the
+    bert-base shape's kernel result (rows 1 and 6 non-causal)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    entries, base = folded_kernel_entries(gen)
+    runs, bert_stats = bert_runs(seed, card)
+    runs += folded_fits(seed, card)
+    free_cuda()
+    log("bert " + json.dumps({"mlm": bert_stats, "runs": {
+        r["path"]: {"rows": r["rows"], "launches": r["launches"],
+                    **{k: v for k, v in r["stats"].items()
+                       if k != "profile"}} for r in runs}}))
+    return {"entries": entries, "runs": runs, "base": base}
+
+
+def attribute(by_row: dict, runs: list) -> None:
+    """Add each path run's launches to the rows it takes: flash_fwd's to
+    its forward row, flash_bwd's to each backward row."""
+    for r in runs:
+        fwd_row, bwd_rows = r["rows"]
+        for row, name in [(fwd_row, "flash_fwd")] + [
+                (b, "flash_bwd") for b in bwd_rows]:
+            e = by_row[row]
+            e.setdefault("launches_by_path", {})[r["path"]] = \
+                r["launches"][name]
+            e["launches"] = sum(e["launches_by_path"].values())
+
+
+def speed_order(entries: list) -> list:
+    """The kernel entries in the order the speed work takes them: first
+    those slower than their library call, the largest factor first; then
+    the rest by launches x (ms - bound), the most device time above the
+    bound first."""
+    def slower(e):
+        return bool(e["library_ms"]) and e["ms"] > e["library_ms"]
+
+    return (sorted((e for e in entries if slower(e)),
+                   key=lambda e: -e["ms"] / e["library_ms"])
+            + sorted((e for e in entries if not slower(e)),
+                     key=lambda e: -e["launches"] * (e["ms"] - e["bound_ms"])))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1697,6 +2028,29 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     entries += long_context_phase(args.seed, card)["entries"]
     log(f"long-context phase: {time.monotonic() - t0:.1f} s")
+
+    log("folded and BERT phase")
+    t0 = time.monotonic()
+    folded = folded_phase(args.seed, card)
+    by_row = {e["row"]: e for e in entries}
+    by_row.update(folded["entries"])
+    attribute(by_row, folded["runs"])
+    by_row[1]["noncausal"] = folded["base"]["fwd"]
+    by_row[6]["noncausal"] = folded["base"]["bwd"]
+    entries = [by_row[r] for r in sorted(by_row)]
+    if sorted(by_row) != list(range(1, 17)) \
+            or not all(e["launches"] > 0 for e in entries):
+        raise AssertionError("the kernels line must hold rows 1-16, each "
+                             "launched on a path: " + str(
+                                 {r: e.get("launches") for r, e in
+                                  by_row.items()}))
+    log(f"folded and BERT phase: {time.monotonic() - t0:.1f} s")
+    log("speed order (rows slower than their library call by that factor, "
+        "then by launches x (ms - bound)): " + ", ".join(
+            f"row {e['row']} {e['ms'] / e['library_ms']:.2f}x"
+            if e["library_ms"] and e["ms"] > e["library_ms"] else
+            f"row {e['row']} {e['launches'] * (e['ms'] - e['bound_ms']):.1f}"
+            for e in speed_order(entries)))
 
     log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

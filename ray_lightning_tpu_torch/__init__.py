@@ -7,7 +7,10 @@ paths are ported.  Serving: ``GPTLightningModule`` -> ``ServeEngine``
 ``spec=`` speculative decoding) driven by the continuous-batching
 ``Scheduler`` through ``ServeWorker.serve_step``.
 Training: ``Trainer(...).fit(GPTLightningModule(...))`` on one device
-(fused CE, AdamW with an fp32 master, accumulation).  Their attention
+(fused CE, AdamW with an fp32 master, accumulation), and the BERT
+family: ``Trainer(...).fit(BertMLMModule("bert-base", batch_size=32))``
+(masked-LM pretraining) and ``BertLightningModule`` (sequence
+classification), whose attention is bidirectional.  Their attention
 kernels are hand-written CUDA C++ for Hopper (``csrc/flash_fwd.cu``,
 ``csrc/flash_bwd.cu``, ``csrc/flash_decode.cu``), built with nvcc at
 first use.  Entry points run on the card unless the caller passes
@@ -24,6 +27,9 @@ from ray_lightning_tpu_torch.core.callbacks import Callback
 from ray_lightning_tpu_torch.core.data import ArrayDataset, DataLoader
 from ray_lightning_tpu_torch.core.module import LightningModule
 from ray_lightning_tpu_torch.core.trainer import Trainer
+from ray_lightning_tpu_torch.models.bert import (BertConfig,
+                                                 BertLightningModule,
+                                                 BertMLMModule)
 from ray_lightning_tpu_torch.models.gpt import (CONFIGS, GPT, GPTConfig,
                                                 GPTLightningModule)
 from ray_lightning_tpu_torch.serve import (Scheduler, ServeEngine,
@@ -33,6 +39,9 @@ __version__ = "0.1.0"
 
 __all__ = [
     "ArrayDataset",
+    "BertConfig",
+    "BertLightningModule",
+    "BertMLMModule",
     "CONFIGS",
     "Callback",
     "DataLoader",

@@ -1,24 +1,30 @@
-"""Weight bridge: the JAX package's flax param tree -> this package's
-``state_dict``.
+"""Weight bridge: the JAX package's flax param trees -> this package's
+``state_dict`` objects.
 
-``flax_to_torch(params)`` takes the GPT param tree (nested dicts of
-numpy arrays, e.g. ``jax.device_get`` of a JAX engine's params) and maps
-it by path:
+``flax_to_torch(params)`` takes a GPT or BERT param tree (nested dicts
+of numpy arrays, e.g. ``jax.device_get`` of a JAX engine's params) and
+maps it by path:
 
-- ``h{i}/attn/qkv|proj``, ``h{i}/mlp/fc|out``: ``kernel [in, out]``
+- GPT: ``h{i}/attn/qkv|proj``, ``h{i}/mlp/fc|out``: ``kernel [in, out]``
   transposes to ``Linear.weight [out, in]``, ``bias`` is copied (the qkv
   column order stays ``jnp.split(qkv, 3, -1)``'s q|k|v);
-- ``h{i}/ln1|ln2``, ``ln_f``: ``scale`` -> ``weight``, ``bias``;
-- ``wte/embedding`` -> ``wte.weight`` (the tied embedding), ``wpe`` as is.
+  ``h{i}/ln1|ln2``, ``ln_f``: ``scale`` -> ``weight``, ``bias``;
+  ``wte/embedding`` -> ``wte.weight`` (the tied embedding), ``wpe`` as
+  is;
+- BERT: the same under ``encoder/`` (-> ``encoder.``), with the
+  layer's ``fc|out`` directly under ``h{i}`` (no ``mlp/``), and the
+  heads ``mlm_head``, ``pooler``, ``classifier`` as linear layers.
 
-Dtypes are kept: a bf16 array becomes a bf16 tensor.  Nothing here
-imports JAX; the tree only has to hold numpy arrays.
+An unknown path raises.  Dtypes are kept: a bf16 array becomes a bf16
+tensor.  Nothing here imports JAX; the tree only has to hold numpy
+arrays.
 
 ``flax_opt_state_to_torch(opt_state)`` maps the JAX optimizer state
 (``FP32MasterState(inner=adamw state, master=tree)``, or the bare adamw
-state of fp32-resident params) onto the port's (ops/optim.py) by the
-same path map: a test can start both packages mid-schedule.  Gradient
-trees have the param tree's paths and convert with ``flax_to_torch``.
+state of fp32-resident params, with a schedule or a constant rate) onto
+the port's (ops/optim.py) by the same path map: a test can start both
+packages mid-schedule.  Gradient trees have the param tree's paths and
+convert with ``flax_to_torch``.
 """
 
 from __future__ import annotations
@@ -52,33 +58,45 @@ def _flatten(tree: Mapping, prefix: str = "") -> "dict[str, object]":
     return out
 
 
-_LINEAR = re.compile(r"^h(\d+)/(attn/qkv|attn/proj|mlp/fc|mlp/out)/"
-                     r"(kernel|bias)$")
-_NORM = re.compile(r"^(?:h(\d+)/)?(ln1|ln2|ln_f)/(scale|bias)$")
+_LINEAR = re.compile(r"^(?:(encoder)/h(\d+)/(attn/qkv|attn/proj|fc|out)"
+                     r"|h(\d+)/(attn/qkv|attn/proj|mlp/fc|mlp/out)"
+                     r"|(mlm_head|pooler|classifier))/(kernel|bias)$")
+_NORM = re.compile(r"^(?:(encoder)/)?(?:h(\d+)/)?(ln1|ln2|ln_f)/"
+                   r"(scale|bias)$")
+_EMBED = re.compile(r"^(?:(encoder)/)?(wte/embedding|wpe)$")
+
+
+def _name(prefix, layer, mod) -> str:
+    """The torch module path of a flax path's parts."""
+    parts = [p for p in (prefix, layer and f"h.{layer}") if p]
+    return ".".join(parts + [mod.replace("/", ".")])
 
 
 def flax_to_torch(params: Mapping) -> "dict[str, torch.Tensor]":
-    """The flax GPT param tree as a ``models.gpt.GPT`` state_dict.  A
-    ``{"params": tree}`` wrapper is accepted; an unknown path raises."""
+    """A flax GPT or BERT param tree as the port's model's state_dict
+    (models/gpt.py ``GPT``, models/bert.py ``BertForMaskedLM`` /
+    ``BertClassifier``).  A ``{"params": tree}`` wrapper is accepted; an
+    unknown path raises."""
     if "params" in params and isinstance(params["params"], Mapping):
         params = params["params"]
     state = {}
     for path, arr in _flatten(params).items():
         t = to_tensor(arr)
-        if path == "wte/embedding":
-            state["wte.weight"] = t
-        elif path == "wpe":
-            state["wpe"] = t
+        if m := _EMBED.match(path):
+            prefix, leaf = m.groups()
+            state[_name(prefix, None,
+                        leaf.replace("/embedding", ".weight"))] = t
         elif m := _LINEAR.match(path):
-            layer, mod, leaf = m.groups()
-            name = f"h.{layer}.{mod.replace('/', '.')}"
+            enc, enc_layer, enc_mod, layer, mod, head, leaf = m.groups()
+            name = (_name(enc, enc_layer, enc_mod) if enc
+                    else _name(None, layer, mod) if mod else head)
             if leaf == "kernel":
                 state[f"{name}.weight"] = t.t().contiguous()
             else:
                 state[f"{name}.bias"] = t
         elif m := _NORM.match(path):
-            layer, mod, leaf = m.groups()
-            name = mod if layer is None else f"h.{layer}.{mod}"
+            prefix, layer, mod, leaf = m.groups()
+            name = _name(prefix, layer, mod)
             state[f"{name}.{'weight' if leaf == 'scale' else 'bias'}"] = t
         else:
             raise KeyError(f"no mapping for flax param {path!r}")
@@ -86,17 +104,21 @@ def flax_to_torch(params: Mapping) -> "dict[str, torch.Tensor]":
 
 
 def flax_opt_state_to_torch(opt_state):
-    """The JAX ``optax.adamw`` state (``(ScaleByAdamState(count, mu, nu),
-    EmptyState(), ScaleByScheduleState(count))``), optionally inside
+    """The JAX ``optax.adamw`` state, optionally inside
     ``FP32MasterState(inner, master)``, as the port's ``AdamWState`` /
-    ``FP32MasterState``.  Read by attribute, so numpy leaves (e.g.
+    ``FP32MasterState``.  Over a schedule the state is
+    ``(ScaleByAdamState(count, mu, nu), EmptyState(),
+    ScaleByScheduleState(count))``; at a constant rate (``adamw(float)``)
+    its last entry is an ``EmptyState`` and the count is the adam
+    state's alone.  Read by attribute, so numpy leaves (e.g.
     ``jax.device_get`` of the state) are all it needs."""
     from ray_lightning_tpu_torch.ops.optim import AdamWState, FP32MasterState
     master = getattr(opt_state, "master", None)
     inner = opt_state.inner if master is not None else opt_state
     adam, schedule = inner[0], inner[-1]
     count = int(np.asarray(adam.count))
-    if int(np.asarray(schedule.count)) != count:
+    if "count" in getattr(schedule, "_fields", ()) \
+            and int(np.asarray(schedule.count)) != count:
         raise ValueError("adam and schedule counts differ: not an "
                          "optax.adamw state")
     state = AdamWState(count=count, mu=flax_to_torch(adam.mu),

@@ -14,24 +14,52 @@ import copy
 import inspect
 from typing import Any, Mapping, Optional
 
+import numpy as np
 import torch
 
 
 class StepContext:
     """What a ``training_step`` / ``validation_step`` receives:
-    ``ctx.model`` (the module's ``torch.nn.Module``), ``ctx.training``
-    and ``ctx.log`` / ``ctx.log_dict`` / ``ctx.logged``."""
+    ``ctx.model`` (the module's ``torch.nn.Module``), ``ctx.training``,
+    ``ctx.make_rng()`` and ``ctx.log`` / ``ctx.log_dict`` /
+    ``ctx.logged``.
 
-    __slots__ = ("module", "training", "_logged")
+    ``rng`` is the step's entropy, a tuple of non-negative ints (the
+    train step passes the ``Trainer`` seed, the global step and the
+    microbatch index; ``None``: the step draws nothing, as the JAX eval
+    step has no key)."""
 
-    def __init__(self, module: "LightningModule", training: bool):
+    __slots__ = ("module", "training", "_logged", "_rng", "_rng_calls",
+                 "_device")
+
+    def __init__(self, module: "LightningModule", training: bool,
+                 rng: "tuple[int, ...] | None" = None,
+                 device: "torch.device | str | None" = None):
         self.module = module
         self.training = training
         self._logged: "dict[str, torch.Tensor]" = {}
+        self._rng = rng
+        self._rng_calls = 0
+        self._device = device
 
     @property
     def model(self) -> Optional[torch.nn.Module]:
         return self.module.model
+
+    def make_rng(self) -> torch.Generator:
+        """A fresh ``torch.Generator`` on the step's device, seeded from
+        the step's entropy and this call's index within the step: the
+        counterpart of the JAX ``make_rng``, which splits the step's key.
+        It never touches the global RNG state.  The numbers differ from
+        ``jax.random``'s; tests that compare the two packages hand both
+        the same draws."""
+        if self._rng is None:
+            raise RuntimeError("No PRNG key available in this step context.")
+        words = (*self._rng, self._rng_calls)
+        self._rng_calls += 1
+        seed = int(np.random.SeedSequence(words).generate_state(
+            1, np.uint64)[0])
+        return torch.Generator(device=self._device or "cpu").manual_seed(seed)
 
     def log(self, name: str, value, **_ignored) -> None:
         if isinstance(value, torch.Tensor):

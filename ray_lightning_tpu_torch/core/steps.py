@@ -66,8 +66,8 @@ def build_train_step(module, tx, accumulate_grad_batches: int = 1
     """
     k = max(1, int(accumulate_grad_batches))
 
-    def grads_of(params, batch):
-        ctx = StepContext(module, training=True)
+    def grads_of(params, batch, rng, device):
+        ctx = StepContext(module, training=True, rng=rng, device=device)
         loss, extra = _split_loss(module.training_step(ctx, batch))
         grads = torch.autograd.grad(loss, list(params.values()))
         return loss.detach().float(), {**ctx.logged, **extra}, grads
@@ -83,8 +83,12 @@ def build_train_step(module, tx, accumulate_grad_batches: int = 1
 
     def step_fn(state: TrainState, batch: Any):
         params = dict(module.model.named_parameters())
+        # the step's entropy: the seed, the step, the microbatch (the JAX
+        # step folds the step and the microbatch index into its key)
+        seed, dev = state.generator.initial_seed(), state.generator.device
         if k == 1:
-            loss, logged, grads = grads_of(params, batch)
+            loss, logged, grads = grads_of(params, batch,
+                                           (seed, state.step, 0), dev)
         else:
             acc = [torch.zeros_like(p, dtype=torch.float32)
                    for p in params.values()]
@@ -93,7 +97,8 @@ def build_train_step(module, tx, accumulate_grad_batches: int = 1
                 mb = (type(batch)(micro(x, i) for x in batch)
                       if isinstance(batch, (tuple, list))
                       else micro(batch, i))
-                loss_i, logged_i, grads_i = grads_of(params, mb)
+                loss_i, logged_i, grads_i = grads_of(
+                    params, mb, (seed, state.step, i), dev)
                 torch._foreach_add_(acc, [g.float() for g in grads_i])
                 losses.append(loss_i)
                 logs.append(logged_i)

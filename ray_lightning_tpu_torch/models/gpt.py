@@ -126,6 +126,34 @@ def gelu_tanh(x):
     return x * (0.5 * (1.0 + torch.tanh(c1 * (x + c0 * (x * x * x)))))
 
 
+@torch.no_grad()
+def init_weights(model: nn.Module, embeddings, generator: torch.Generator
+                 ) -> None:
+    """Seeded init of ``model`` in place, drawn from ``generator`` (which
+    must live on the parameters' device): ``embeddings`` N(0, 0.02),
+    linear kernels flax's lecun_normal (truncated normal, variance
+    1/fan_in), biases 0, LayerNorm scale 1.  The numbers differ from
+    ``jax.random``'s; tests that compare the two packages convert the
+    JAX weights instead."""
+    for p in embeddings:
+        p.copy_(torch.randn(p.shape, generator=generator,
+                            device=p.device) * 0.02)
+    for mod in model.modules():
+        if isinstance(mod, nn.Linear):
+            fan_in = mod.weight.shape[1]
+            # variance_scaling(1, fan_in, truncated_normal): the stddev
+            # of a unit normal truncated to [-2, 2]
+            std = math.sqrt(1.0 / fan_in) / .87962566103423978
+            w = torch.empty(mod.weight.shape, device=mod.weight.device)
+            nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                  generator=generator)
+            mod.weight.copy_(w * std)
+            mod.bias.zero_()
+        elif isinstance(mod, LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+
+
 class MLP(nn.Module):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
@@ -201,34 +229,10 @@ class GPT(nn.Module):
                                    for _ in range(config.n_layer))
             self.ln_f = LayerNorm(config.n_embd, config.dtype)
 
-    @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
-        """Seeded init in place, drawn from ``generator`` (which must
-        live on the parameters' device): embeddings N(0, 0.02), linear
-        kernels flax's lecun_normal (truncated normal, variance 1/fan_in),
-        biases 0, LayerNorm scale 1.  The numbers differ from
-        ``jax.random``'s; tests that compare the two packages convert the
-        JAX weights instead."""
-        def normal(p, std):
-            p.copy_(torch.randn(p.shape, generator=generator,
-                                device=p.device) * std)
-
-        normal(self.wte.weight, 0.02)
-        normal(self.wpe, 0.02)
-        for mod in self.modules():
-            if isinstance(mod, nn.Linear):
-                fan_in = mod.weight.shape[1]
-                # variance_scaling(1, fan_in, truncated_normal): the
-                # stddev of a unit normal truncated to [-2, 2]
-                std = math.sqrt(1.0 / fan_in) / .87962566103423978
-                w = torch.empty(mod.weight.shape, device=mod.weight.device)
-                nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
-                                      generator=generator)
-                mod.weight.copy_(w * std)
-                mod.bias.zero_()
-            elif isinstance(mod, LayerNorm):
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
+        """Seeded init in place (:func:`init_weights`): ``wte`` and
+        ``wpe`` N(0, 0.02)."""
+        init_weights(self, (self.wte.weight, self.wpe), generator)
 
     def head(self, x):
         """fp32 logits from the tied embedding (compute-dtype product)."""
@@ -474,4 +478,5 @@ class GPTLightningModule(LightningModule):
 
 
 __all__ = ["CONFIGS", "GPT", "GPTConfig", "GPTLightningModule", "Block",
-           "LayerNorm", "MLP", "synthetic_lm_dataset"]
+           "LayerNorm", "MLP", "gelu_tanh", "init_weights",
+           "synthetic_lm_dataset"]

@@ -3,37 +3,55 @@ versions.
 
 Counterpart of ``ray_lightning_tpu/ops/flash_attention.py``
 ``flash_attention`` -> the ``_flash`` custom VJP, whose ``_fwd`` and
-``_bwd`` pick a Pallas kernel by the shape.  For the packable heads the
-port's models have (``_head_pack(d, h) > 0``, e.g. d=64 in packs of
-two: w = 128 lanes), causal:
+``_bwd`` pick a Pallas kernel by the shape (:func:`tpu_rows` is the
+port's copy of those gates).  Heads that pack (``_head_pack(d, h) > 0``,
+e.g. d=64 in packs of two: w = 128 lanes) take the packed kernels;
+heads that do not (h % (128 // d) != 0: the ``tiny`` family's h=2,
+d=32, or GPT-2 XL's 25 heads of 64), and every multi-block shape that
+is not causal with square blocks, fold to ``[B*H, T, D]``:
 
-============================  ===========================  ==========
-JAX kernel (TPU kernel row)   reached at                   port
-============================  ===========================  ==========
-``_fwd_packed_kernel`` (1)    one block: T <= 1024         flash_fwd
-``_fwd_rowres_kernel`` (3)    T > 1024, t*w <= 8192*128    flash_fwd
-                              (T = 2048-8192 at d=64)
-``_fwd_tri_packed_kernel``    t*w > 8192*128 (T = 16384),  flash_fwd
-(2)                           or ``RLT_FLASH_ROWRES=0``
-``_bwd_packed_kernel`` (6)    one block: T <= 1024         flash_bwd
-``_bwd_rowres_kernel`` (9)    T > 1024, t*w <= 2048*128    flash_bwd
-                              (T = 2048 at d=64)
-``_bwd_dkdv_tri_packed_       t*w > 2048*128 (T = 4096-    flash_bwd
-kernel`` (7) and              16384), or                   dk/dv and
-``_bwd_dq_tri_packed_kernel`` ``RLT_FLASH_ROWRES=0``       dq passes
-(8)
-============================  ===========================  ==========
+==============================  =============================  ==========
+JAX kernel (TPU kernel row)     reached at                     port
+==============================  =============================  ==========
+``_fwd_packed_kernel`` (1)      packed, one block: T <= 1024,  flash_fwd
+                                causal or not (BERT)
+``_fwd_rowres_kernel`` (3)      packed, causal, T > 1024,      flash_fwd
+                                t*w <= 8192*128
+``_fwd_tri_packed_kernel`` (2)  packed, causal, t*w > 8192*128 flash_fwd
+                                or ``RLT_FLASH_ROWRES=0``
+``_fwd_tri_kernel`` (4)         folded, causal, square blocks, flash_fwd
+                                more than one (T > 1024)
+``_fwd_kernel`` (5)             folded, any other shape: one   flash_fwd
+                                block, non-causal multi-block,
+                                uneven blocks, ``RLT_FLASH_
+                                TRI=0``
+``_bwd_packed_kernel`` (6)      packed, one block, causal or   flash_bwd
+                                not
+``_bwd_rowres_kernel`` (9)      packed, causal, T > 1024,      flash_bwd
+                                t*w <= 2048*128
+``_bwd_dkdv_tri_packed_kernel`` packed, causal, t*w > 2048*128 flash_bwd
+(7), ``_bwd_dq_tri_packed_      or ``RLT_FLASH_ROWRES=0``      dk/dv, dq
+kernel`` (8)                                                   passes
+``_bwd_fused_kernel`` (10)      folded, one block              flash_bwd
+``_bwd_dkdv_tri_kernel`` (11),  folded, causal, square blocks, flash_bwd
+``_bwd_dq_tri_kernel`` (12)     more than one                  dk/dv, dq
+``_bwd_dkdv_kernel`` (15),      folded, any other multi-block  flash_bwd
+``_bwd_dq_kernel`` (16)         shape                          dk/dv, dq
+==============================  =============================  ==========
 
-(T > 1024 splits into 512-row blocks, ``RLT_FLASH_BLOCK_Q/K`` override;
-the multi-block kernels need causal square blocks.)  The TPU kernels
-differ only in what they keep in VMEM (whole rows, resident k/v,
-triangular grids); they compute one function: fp32 scores, a causal
-softmax, ``p`` rounded to the input dtype before PV and dV, ``ds``
+(Blocks default to T up to 1024, else 512, halved until they divide T;
+``RLT_FLASH_BLOCK_Q/K`` or :func:`tpu_rows`' arguments override them.)  The
+TPU kernels differ in layout (packed or folded) and in what they keep
+in VMEM (whole rows, resident k/v, triangular grids); they compute one
+function: fp32 scores, a causal or full softmax under ``NEG_INF``
+masking, ``p`` rounded to the input dtype before PV and dV, ``ds``
 before dK and dQ.  The port computes that function with one CUDA
 forward, ``csrc/flash_fwd.cu``, and one CUDA backward,
 ``csrc/flash_bwd.cu`` (CUDA C++ for ``sm_90a``, bound through
-:mod:`._kernels`), for every T: 64-row tiles, causal tile skipping and
-masked ragged tails, so no VMEM gate is carried over.
+:mod:`._kernels`), for every T and head count: 64-row tiles read by
+strides from ``[B, T, H, D]`` (no fold), causal tile skipping and
+masked ragged tails, so no VMEM gate is carried over and the block
+sizes change only the route that :func:`tpu_rows` names.
 
 :func:`flash_attention_fwd` and :func:`flash_attention_bwd` are the
 wrappers: a CUDA tensor launches the kernel (or raises on what the
@@ -46,6 +64,7 @@ the custom VJP does in the JAX package.
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
@@ -99,6 +118,75 @@ def _check_grid(kernel: str, B: int, H: int) -> None:
     if B * H > 65535:
         raise ValueError(f"{kernel} kernel takes B * H <= 65535, got "
                          f"{B} * {H}")
+
+
+def _pick_block(t: int, preferred: int) -> int:
+    """The JAX package's ``_pick_block``: ``preferred`` clamped to ``t``
+    and halved until it divides ``t``."""
+    b = min(preferred, t)
+    while t % b:
+        b //= 2
+    return max(b, 1)
+
+
+def _head_pack(d: int, h: int) -> int:
+    """The JAX package's ``_head_pack``: heads per 128-lane block (0 =
+    the layout does not pack, and the shape folds)."""
+    if d <= 128 and 128 % d == 0:
+        pack = 128 // d
+    elif d % 128 == 0:
+        pack = 1
+    else:
+        return 0
+    return pack if h % pack == 0 else 0
+
+
+def _flag(name: str) -> bool:
+    return os.environ.get(name, "1") != "0"
+
+
+def tpu_rows(T: int, H: int, D: int, causal: bool,
+             block_q: "int | None" = None,
+             block_k: "int | None" = None) -> "tuple[int, tuple[int, ...]]":
+    """The TPU kernel rows (PERF.md's table) that the JAX package's
+    ``flash_attention`` runs at this shape: ``(forward row, backward
+    rows)``.
+
+    A copy of its gates, in their order: the default blocks (T up to
+    1024, else 512; ``RLT_FLASH_BLOCK_Q/K`` or the arguments override,
+    clamped to T and halved until they divide it), ``_head_pack``,
+    ``_use_tri`` (causal, square blocks, more than one;
+    ``RLT_FLASH_TRI=0`` opts out), ``_use_row_resident_fwd`` /
+    ``_use_row_resident`` (``RLT_FLASH_ROWRES=0`` opts out), then
+    ``_fwd``'s and ``_bwd``'s branches.  The port runs every route on
+    ``flash_fwd`` and ``flash_bwd``; this names the one the reference
+    takes.  The ``RLT_FLASH_*`` variables are read here only: they change
+    the rows named, never what the port's kernels run."""
+    if T < 1:
+        raise ValueError(f"T must be positive, got {T}")
+    blocks = []
+    for given, env in ((block_q, "RLT_FLASH_BLOCK_Q"),
+                       (block_k, "RLT_FLASH_BLOCK_K")):
+        if given is None:
+            given = (int(os.environ[env]) if os.environ.get(env)
+                     else (T if T <= 1024 else 512))
+        blocks.append(_pick_block(T, min(given, T)))
+    bq, bk = blocks
+    nq, nk = T // bq, T // bk
+    single = nq == 1 and nk == 1
+    tri = causal and bq == bk and nq > 1 and _flag("RLT_FLASH_TRI")
+    pack = _head_pack(D, H)
+    if single and pack:
+        return 1, (6,)
+    if tri and pack:
+        w, rowres = pack * D, _flag("RLT_FLASH_ROWRES")
+        return (3 if rowres and T * w <= 8192 * 128 else 2,
+                (9,) if rowres and T * w <= 2048 * 128 else (7, 8))
+    if single:
+        return 5, (10,)
+    if tri:
+        return 4, (11, 12)
+    return 5, (15, 16)
 
 
 def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
@@ -269,7 +357,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """Flash attention over ``[B, T, H, D]`` (BTHD in, BTHD out): the
     drop-in for :func:`~ray_lightning_tpu_torch.ops.attention.
     dot_product_attention`, as in the JAX package, differentiable through
-    :class:`FlashAttentionFunction`."""
+    :class:`FlashAttentionFunction`.  The JAX signature's ``block_q``/
+    ``block_k`` are not taken: the port's kernels tile 64 rows for every
+    shape, and the blocks only pick the reference's route
+    (:func:`tpu_rows`)."""
     o = FlashAttentionFunction.apply(q, k, v, causal, sm_scale)
     return o.to(dtype)
 
@@ -277,4 +368,4 @@ def flash_attention(q, k, v, *, causal: bool = True,
 __all__ = ["BWD_KERNEL", "FlashAttentionFunction", "HEAD_DIMS", "KERNEL",
            "NEG_INF", "flash_attention", "flash_attention_bwd",
            "flash_attention_bwd_plain", "flash_attention_fwd",
-           "flash_attention_fwd_plain"]
+           "flash_attention_fwd_plain", "tpu_rows"]

@@ -1,10 +1,12 @@
-"""AdamW with a linear warmup, and the fp32 master for low-precision
-resident params.
+"""AdamW with a linear warmup or a constant rate, and the fp32 master
+for low-precision resident params.
 
-Counterpart of the JAX package's optimizer: ``optax.adamw(
+Counterpart of the JAX package's optimizers: ``optax.adamw(
 linear_schedule(0, lr, warmup), b1=0.9, b2=0.95, weight_decay,
 mu_dtype=bf16)`` (models/gpt.py ``configure_optimizers``) wrapped in
-``ops/optim.py`` ``fp32_master``.  ``torch.optim.AdamW`` cannot hold a
+``ops/optim.py`` ``fp32_master``, and ``optax.adamw(lr,
+weight_decay=0.01)`` (models/bert.py ``BertMLMModule``: a constant rate,
+b2 = 0.999, an fp32 first moment).  ``torch.optim.AdamW`` cannot hold a
 bf16 first moment beside an fp32 second moment and applies the decay
 before the moments, so the port carries its own, as functions over
 lists of tensors (``torch._foreach_*``), in optax's op order:
@@ -16,7 +18,8 @@ lists of tensors (``torch._foreach_*``), in optax's op order:
    alike; ``u = mu_hat / (sqrt(nu_hat) + eps)``;
 2. ``add_decayed_weights``: ``u += weight_decay * p`` on every parameter;
 3. ``scale_by_learning_rate``: ``u *= -lr(count before the increment)``,
-   so step 0 has lr 0 and moves nothing but the moments;
+   so under the warmup step 0 has lr 0 and moves nothing but the
+   moments; without one, ``u *= -lr``;
 4. ``p += u``.
 
 With the fp32 master (:class:`fp32_master`) ``p`` is the master, which
@@ -77,14 +80,20 @@ def _rounded(value: float, dtype: torch.dtype) -> float:
 
 
 class AdamW:
-    """``optax.adamw`` over a linear warmup schedule (module docstring).
-    ``mu_dtype=None`` keeps the first moment in fp32."""
+    """``optax.adamw`` (module docstring).  With ``warmup_steps`` the rate
+    is ``linear_schedule(0, lr, warmup_steps)``, as optax takes a
+    schedule: ``warmup_steps=0`` is then the constant 0.0, which trains
+    nothing, as in optax.  Without it the rate is the constant ``lr``, as
+    optax takes a float.  ``mu_dtype=None`` keeps the first moment in
+    fp32."""
 
-    def __init__(self, lr: float, *, warmup_steps: int,
+    def __init__(self, lr: float, *, warmup_steps: Optional[int] = None,
                  weight_decay: float, b1: float = 0.9, b2: float = 0.95,
                  eps: float = 1e-8,
                  mu_dtype: Optional[torch.dtype] = None):
-        self.schedule = linear_schedule(0.0, lr, warmup_steps)
+        self.schedule = (linear_schedule(0.0, lr, warmup_steps)
+                         if warmup_steps is not None
+                         else lambda count: lr)
         self.weight_decay = weight_decay
         self.b1, self.b2, self.eps = b1, b2, eps
         self.mu_dtype = mu_dtype

@@ -24,9 +24,10 @@ import numpy as np
 import pytest
 import torch
 
-from ray_lightning_tpu_torch import (GPT, Callback, GPTLightningModule,
-                                     Scheduler, ServeEngine, ServeWorker,
-                                     Trainer)
+from ray_lightning_tpu_torch import (GPT, BertLightningModule,
+                                     BertMLMModule, Callback,
+                                     GPTLightningModule, Scheduler,
+                                     ServeEngine, ServeWorker, Trainer)
 from ray_lightning_tpu_torch.models.gpt import GPTConfig
 from ray_lightning_tpu_torch.ops import _kernels
 from ray_lightning_tpu_torch.ops.attention import dot_product_attention
@@ -127,6 +128,44 @@ def test_cuda_flash_kernels_match_plain_at_long_context(T, cuda_device):
     assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2
     assert (lse - lse_ref).abs().max().item() <= 1e-3
     want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a.float()).all(), name
+        assert _rel_l2(a, b) <= 1e-3, (name, _rel_l2(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,D,causal", [
+    (4, 512, 12, 64, False),     # bert-base's heads, bidirectional
+    (2, 200, 12, 64, False),     # ragged, bidirectional
+    (2, 64, 2, 32, False),       # the tiny BERT: heads that do not pack
+    (2, 64, 2, 32, True),
+    (2, 1024, 2, 32, True),      # the tiny-width GPT fits
+    (2, 2048, 2, 32, True),
+    (2, 2050, 2, 32, False),
+])
+def test_cuda_flash_kernels_match_plain_on_folded_routes(B, T, H, D, causal,
+                                                         cuda_device):
+    """The shapes of the JAX package's folded routes and of BERT: non-
+    causal at T=512 and a ragged 200, and D=32 causal and not, on the
+    views of a fused projection (strides 3 H D).  o within 2e-2, lse
+    within 1e-3, dq, dk, dv within 1e-3 relative L2 of the plain
+    versions; one launch each."""
+    g = torch.Generator(device=cuda_device).manual_seed(T + D + causal)
+    qkv = torch.randn(B, T, 3 * H * D, generator=g,
+                      device=cuda_device).to(torch.bfloat16)
+    q, k, v = (x.view(B, T, H, D) for x in qkv.split(H * D, dim=-1))
+    do = torch.randn(B, T, H, D, generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    _kernels.reset_launches()
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    assert counts["flash_fwd"] == counts["flash_bwd"] == 1
+    o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, causal=causal)
+    assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert torch.isfinite(a.float()).all(), name
         assert _rel_l2(a, b) <= 1e-3, (name, _rel_l2(a, b))
@@ -295,6 +334,36 @@ def test_cuda_trainer_fits_tiny_through_the_kernels(cuda_device):
     master = trainer.state.opt_state.master
     assert all(m.dtype == torch.float32 and m.is_cuda
                for m in master.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("module", ["mlm", "finetune"])
+def test_cuda_bert_fits_tiny_through_the_kernels(module, cuda_device):
+    """A 3-step ``Trainer.fit`` of the tiny BERT on the card, masked LM
+    and fine-tune: finite losses, fp32-resident params and moments (no
+    master), each attention kernel launched once per layer per step,
+    non-causal (2 layers x 3 steps)."""
+    losses = []
+
+    class Losses(Callback):
+        def on_train_batch_end(self, trainer, module, outputs, batch, i):
+            losses.append(float(outputs["loss"]))
+
+    lm = (BertMLMModule("tiny", train_size=32) if module == "mlm"
+          else BertLightningModule("tiny", train_size=32, warmup_steps=1))
+    trainer = Trainer(max_steps=3, enable_checkpointing=False, seed=0,
+                      num_sanity_val_steps=0, limit_val_batches=0,
+                      callbacks=[Losses()], device=cuda_device)
+    _kernels.reset_launches()
+    trainer.fit(lm)
+    counts = _kernels.launch_counts()
+    assert counts["flash_fwd"] == counts["flash_bwd"] == 2 * 3
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    assert {p.dtype for p in lm.model.parameters()} == {torch.float32}
+    assert all(m.dtype == torch.float32 and m.is_cuda
+               for m in trainer.state.opt_state.mu.values())
+    if module == "finetune":
+        assert 0.0 <= trainer.callback_metrics["train_accuracy"] <= 1.0
 
 
 @pytest.mark.cuda
