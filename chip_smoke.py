@@ -1967,9 +1967,80 @@ def speed_order(entries: list) -> list:
                      key=lambda e: -e["launches"] * (e["ms"] - e["bound_ms"])))
 
 
+#: the forward's shapes of TPU kernel rows 1-5 on the paths above:
+#: (row, B, T, H, causal)
+FWD_ROW_SHAPES = (
+    (1, 1, 1024, 12, True), (1, 8, 1024, 12, True),
+    (1, 32, 512, 12, False), (5, 8, 1024, 25, True),
+    (4, 4, 2048, 25, True), (3, 8, 2048, 32, True),
+    (2, 1, 16384, 12, True))
+
+
+#: launches whose host wall gives ``fwd_rows``' host cost per call
+HOST_CALLS = 2000
+
+
+def fwd_rows(gen) -> list:
+    """``--fwd-only``: flash_fwd alone at every row 1-5 shape, on fused-qkv
+    views, against its plain version over all heads (o within BF16_TOL,
+    lse within LSE_TOL), two launches equal bit for bit, timed with CUDA
+    events beside SDPA and its bound; achieved TFLOP/s from the causal
+    (or full) product count.  First the host's cost of a call at a small
+    shape (its wall over ``HOST_CALLS`` calls queued without a sync)."""
+    q, k, v, _ = attention_inputs(gen, 1, 128, H)
+    flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        flash_attention_fwd(q, k, v)
+    host_us = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+    torch.cuda.synchronize()
+    log(f"  host: {host_us:.2f} us a flash_attention_fwd call at B=1 T=128 "
+        f"(the wrapper's checks and allocations, the launch)")
+    out = [dict(host_us_per_call=host_us)]
+    for row, B, T, heads, causal in FWD_ROW_SHAPES:
+        q, k, v, _ = attention_inputs(gen, B, T, heads)
+        o, lse = flash_attention_fwd(q, k, v, causal=causal)
+        o2, lse2 = flash_attention_fwd(q, k, v, causal=causal)
+        o_ref, lse_ref = by_heads(flash_attention_fwd_plain, q, k, v,
+                                  causal=causal)
+        torch.cuda.synchronize()
+        err = (o.float() - o_ref.float()).abs().max().item()
+        lse_err = (lse - lse_ref).abs().max().item()
+        same = bool(torch.equal(o, o2) and torch.equal(lse, lse2))
+        del o_ref, lse_ref, o2, lse2
+        shape = f"B={B} T={T} H={heads} {'causal' if causal else 'full'}"
+        check_close(f"flash_fwd {shape}", err, BF16_TOL)
+        check_close(f"flash_fwd lse {shape}", lse_err, LSE_TOL)
+        if not same:
+            raise AssertionError(f"flash_fwd {shape}: two launches differ")
+        ms = time_ms(lambda: flash_attention_fwd(q, k, v, causal=causal),
+                     iters=20)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal), iters=20)
+        flops = 4 * B * heads * D * T * ((T + 1) / 2 if causal else T)
+        b_ms, b_by = bound(B * (4 * T * heads * D * 2 + heads * T * 4),
+                           flops)
+        log(f"  row {row} {shape}: max_abs_err {err:.3e}, lse {lse_err:.3e}"
+            f"; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), sdpa "
+            f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), kernel/sdpa "
+            f"{ms / lib_ms:.2f}x")
+        out.append(dict(row=row, shape=shape, max_abs_err=err,
+                        lse_max_abs_err=lse_err, ms=ms, library_ms=lib_ms,
+                        bound_ms=b_ms, bound_by=b_by,
+                        tflops=flops / ms / 1e9))
+        del q, k, v, o, lse
+        free_cuda()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--fwd-only", action="store_true",
+                    help="build, then flash_fwd alone at the row 1-5 "
+                         "shapes (fwd_rows); no path is driven")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -1984,11 +2055,15 @@ def main(argv=None) -> int:
     by_source = {k.source: k for k in _kernels.REGISTRY.values()}
     for source, k in sorted(by_source.items()):
         for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill",
+                                       "entry function")):
                 log(f"  ptxas {source}: {line.strip()}")
 
-    log("kernel phase")
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    if args.fwd_only:
+        log("flash_fwd rows " + json.dumps(fwd_rows(gen)))
+        return 0
+    log("kernel phase")
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     entries = [kernel_flash_fwd(gen), kernel_flash_bwd(gen),
                kernel_flash_decode(gen, flush),

@@ -1,105 +1,117 @@
 // flash_fwd: causal (or full) attention forward for Hopper, FA2-style.
 //
-// Replaces three Pallas forwards of ray_lightning_tpu/ops/flash_attention.py,
-// all reached from `flash_attention` -> `_fwd` for packable heads (head_dim
-// 64 in packs of two, w = 128 lanes), causal:
-// - `_fwd_packed_kernel` (:298, TPU kernel row 1), the single block: every
-//   prefill bucket and training step at T <= 1024;
-// - `_fwd_rowres_kernel` (:673, row 3), k/v resident in VMEM: 1024 < T
-//   with t*w <= 8192*128, i.e. T = 2048-8192 (gpt2-1p3b at T=2048, the
-//   long-context shapes at 4096 and 8192);
-// - `_fwd_tri_packed_kernel` (:349, row 2), a triangular grid: t*w >
-//   8192*128, i.e. T = 16384 (or any multi-block T under
-//   RLT_FLASH_ROWRES=0).
-// They differ only in what they keep in VMEM; the function is one. This
-// kernel computes it for any T, so no VMEM gate is carried over.
+// Replaces the five Pallas forwards of ray_lightning_tpu/ops/flash_attention.py
+// (TPU kernel rows 1-5: `_fwd_packed_kernel` :298, `_fwd_tri_packed_kernel`
+// :349, `_fwd_rowres_kernel` :673, `_fwd_tri_kernel` :149, `_fwd_kernel`
+// :98). They differ only in layout and in what they keep in VMEM; the
+// function is one, and this kernel computes it for any T and head count.
 //
-// What bounds it on this card: at the long-context shapes the causal
-// products dominate (B=8, T=2048, H=32: 137 GFLOP, 0.14 ms at 989
-// TFLOP/s, against 0.04 ms for the bytes), so the bound is operations.
-// At the serve path's shapes (B=1, H=12, D=64, T <= 1024) the work is
-// small. One layer's q, k, v and o are 4 * T * 768 * 2 bytes (6.3 MB at
-// T=1024), about 2 us at 3.35 TB/s; its causal matmuls are
-// 2 * 2 * T^2/2 * 64 * 12 flops (1.6 GFLOP), about 2 us at 989 TFLOP/s.
-// So at those shapes it sits near the ridge and a simple kernel is bound
-// by neither: it is bound by latency, shared-memory traffic and the
-// mma.sync rate that wmma reaches without wgmma.
-//
-// What the design does about that, simply and correctly first:
-// - grid (q tile of 64 rows, batch * head), 4 warps, each warp owns 16
-//   query rows; a loop over 64-row k/v tiles held in shared memory, so
-//   k/v are read from device memory once per q tile, never the T x T
-//   scores;
-// - online softmax with fp32 running max, sum and accumulator (the
-//   accumulator lives in shared memory so rows can be rescaled; the
-//   TPU kernel's whole-row softmax and 256-row staircase answer VMEM
-//   and lane limits this card does not have);
-// - causal tile skipping: a q tile stops at the k tile holding its last
-//   row; masking of the ragged last tile (rows past T load as zeros,
-//   columns past T are masked), so any T >= 1 works;
-// - q/k/v are read in the caller's [B, T, H*D] layout by strides (the
-//   split views of the fused qkv projection), with no transpose;
-// - NEG_INF = -1e30 masking, scores scaled by sm_scale in fp32, p cast
-//   to bf16 before the PV product (as the TPU kernel does), bf16 in and
-//   out, fp32 lse [B, H, T] written for the backward pass to come.
-// wgmma, TMA and a producer warp are for a later, faster version.
+// Design: a block of 8 warps takes 128 query rows of one (batch, head);
+// each warp owns 16 rows. S = Q K^T, P and the O accumulator live in
+// mma.sync m16n8k16 fragments in registers; Q, K and V reach them by
+// ldmatrix from padded shared memory. The online softmax runs in
+// registers (a row's max from shuffles across the 4 threads that hold
+// it), the bf16 P fragment is reused directly as the A operand of P V,
+// and O is rescaled in registers. K/V tiles of 64 rows are double
+// buffered with cp.async, so tile j+1 loads while tile j computes.
+// Causal tiles past a warp's last row are skipped and the mask is
+// applied only where a tile crosses the diagonal or the ragged end.
+// Causal q tiles run heaviest first.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
+#include <atomic>
 #include <cstdint>
-
-using namespace nvcuda;
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int BM = 64;        // query rows per block
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int BM = 128;       // query rows per block
 constexpr int BN = 64;        // key rows per tile
-constexpr int NWARPS = 4;     // each warp owns 16 query rows
+constexpr int NWARPS = 8;     // each warp owns 16 query rows
 constexpr int NTHREADS = NWARPS * 32;
 
 typedef __nv_bfloat16 bf16;
 
 template <int D>
-struct Layout {
-  // padded row strides (elements) against shared-memory bank conflicts;
-  // every wmma tile start stays 32-byte aligned
-  static constexpr int LDB = D + 8;   // bf16 q/k/v tiles
-  static constexpr int LDS = BN + 4;  // fp32 scores
-  static constexpr int LDP = BN + 8;  // bf16 probabilities
-  static constexpr int LDO = D + 4;   // fp32 output accumulator
-  static constexpr size_t Q = 0;
-  static constexpr size_t K = Q + sizeof(bf16) * BM * LDB;
-  static constexpr size_t V = K + sizeof(bf16) * BN * LDB;
-  static constexpr size_t S = V + sizeof(bf16) * BN * LDB;
-  static constexpr size_t P = S + sizeof(float) * BM * LDS;
-  static constexpr size_t O = P + sizeof(bf16) * BM * LDP;
-  static constexpr size_t M = O + sizeof(float) * BM * LDO;
-  static constexpr size_t L = M + sizeof(float) * BM;
-  static constexpr size_t A = L + sizeof(float) * BM;
-  static constexpr size_t BYTES = A + sizeof(float) * BM;
+struct Smem {
+  // rows padded by 16 bytes: ldmatrix's 8 row addresses fall in 8
+  // distinct 16-byte bank groups
+  static constexpr int LD = D + 8;
+  static constexpr int Q = 0;
+  static constexpr int K = Q + BM * LD;      // two buffers
+  static constexpr int V = K + 2 * BN * LD;  // two buffers
+  static constexpr size_t BYTES = sizeof(bf16) * (V + 2 * BN * LD);
 };
 
-// rows [row0, row0 + nrows) of one head into shared memory, 16 bytes a
-// thread; rows at or past T are zero-filled (a NaN there would survive
-// 0 * NaN in the PV product)
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int row0, int nrows, int T,
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_size 0 zero-fills (rows past T: a NaN
+// there would survive 0 * NaN in the PV product)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// rows [row0, row0 + NROWS) of one head, read by the caller's row stride
+template <int D, int NROWS>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
+                                          int row0, int T,
                                           int64_t row_stride) {
   constexpr int CHUNKS = D / 8;
-  for (int idx = threadIdx.x; idx < nrows * CHUNKS; idx += NTHREADS) {
+  for (int idx = threadIdx.x; idx < NROWS * CHUNKS; idx += NTHREADS) {
     const int r = idx / CHUNKS;
     const int c = (idx % CHUNKS) * 8;
     const int t = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t < T) {
-      val = *reinterpret_cast<const uint4*>(src + t * row_stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * Layout<D>::LDB + c) = val;
+    const bool valid = t < T;
+    cp_async16(smem_u32(dst + r * Smem<D>::LD + c),
+               src + (valid ? t : 0) * row_stride + c, valid);
   }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a (16x16, row) * b (16x8, col), fp32 accumulation
+__device__ __forceinline__ void mma16816(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 template <int D>
@@ -110,143 +122,180 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  int64_t q_st, int64_t q_sh, int64_t k_sb, int64_t k_st,
                  int64_t k_sh, int64_t v_sb, int64_t v_st, int64_t v_sh,
                  int causal, float sm_scale) {
-  using Lay = Layout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + Lay::Q);
-  bf16* sK = reinterpret_cast<bf16*>(smem + Lay::K);
-  bf16* sV = reinterpret_cast<bf16*>(smem + Lay::V);
-  float* sS = reinterpret_cast<float*>(smem + Lay::S);
-  bf16* sP = reinterpret_cast<bf16*>(smem + Lay::P);
-  float* sO = reinterpret_cast<float*>(smem + Lay::O);
-  float* sM = reinterpret_cast<float*>(smem + Lay::M);
-  float* sL = reinterpret_cast<float*>(smem + Lay::L);
-  float* sA = reinterpret_cast<float*>(smem + Lay::A);
+  using L = Smem<D>;
+  constexpr int LD = L::LD;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
 
-  const int q0 = blockIdx.x * BM;
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  // causal q tiles heaviest first: the last ones hold the most k tiles
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BM;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;      // fragment row (and row + 8)
+  const int t4 = lane & 3;      // fragment column pair
   const int wrow = warp * 16;   // this warp's first row inside the tile
+  const int row_a = q0 + wrow + g;
 
   const bf16* qh = q + b * q_sb + h * q_sh;
   const bf16* kh = k + b * k_sb + h * k_sh;
   const bf16* vh = v + b * v_sb + h * v_sh;
 
-  load_tile<D>(sQ, qh, q0, BM, T, q_st);
-  for (int i = threadIdx.x; i < BM * Lay::LDO; i += NTHREADS) sO[i] = 0.f;
-  for (int i = threadIdx.x; i < BM; i += NTHREADS) {
-    sM[i] = NEG_INF;
-    sL[i] = 0.f;
-  }
-
   const int last_row = min(q0 + BM, T) - 1;
   const int n_tiles = causal ? last_row / BN + 1 : (T + BN - 1) / BN;
+  const int warp_last = min(q0 + wrow + 15, T - 1);
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BN;
-    __syncthreads();   // the previous tile's PV is done with sK/sV
-    load_tile<D>(sK, kh, k0, BN, T, k_st);
-    load_tile<D>(sV, vh, k0, BN, T, v_st);
-    __syncthreads();
+  load_rows<D, BM>(sm + L::Q, qh, q0, T, q_st);
+  load_rows<D, BN>(sm + L::K, kh, 0, T, k_st);
+  load_rows<D, BN>(sm + L::V, vh, 0, T, v_st);
+  cp_async_commit();
 
-    // S[wrow:wrow+16, :] = Q K^T for this warp's rows
-    for (int j = 0; j < BN / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
+  uint32_t qf[D / 16][4];
+  float acc[D / 8][4];
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-        wmma::load_matrix_sync(a, sQ + wrow * Lay::LDB + kk * 16, Lay::LDB);
-        wmma::load_matrix_sync(bt, sK + j * 16 * Lay::LDB + kk * 16,
-                               Lay::LDB);
-        wmma::mma_sync(acc, a, bt, acc);
-      }
-      wmma::store_matrix_sync(sS + wrow * Lay::LDS + j * 16, acc, Lay::LDS,
-                              wmma::mem_row_major);
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};   // this thread's share of each row's sum
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait_all();
+    __syncthreads();   // tile j landed; every warp is done with j - 1
+    if (j + 1 < n_tiles) {
+      const int nb = (j + 1) & 1;
+      load_rows<D, BN>(sm + L::K + nb * BN * LD, kh, (j + 1) * BN, T, k_st);
+      load_rows<D, BN>(sm + L::V + nb * BN * LD, vh, (j + 1) * BN, T, v_st);
+      cp_async_commit();
     }
-    __syncwarp();
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ldsm_x4(qf[kk], smem_u32(sm + L::Q + (wrow + (lane & 15)) * LD +
+                                 kk * 16 + (lane >> 4) * 8));
+    }
+    const int k0 = j * BN;
+    if (causal && k0 > warp_last) continue;   // every column is masked
+    const bf16* sK = sm + L::K + (j & 1) * BN * LD;
+    const bf16* sV = sm + L::V + (j & 1) * BN * LD;
 
-    // online softmax over this warp's 16 rows; lane covers columns
-    // lane and lane + 32 of the tile
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = wrow + rr;
-      const int row = q0 + r;
-      float s[BN / 32];
-      bool ok[BN / 32];
-      float mx = NEG_INF;
+    // S = Q K^T for this warp's 16 rows: BN / 8 fragments of 16 x 8
+    float s[BN / 8][4];
 #pragma unroll
-      for (int c = 0; c < BN / 32; ++c) {
-        const int col = k0 + lane + 32 * c;
-        ok[c] = col < T && (!causal || col <= row);
-        s[c] = ok[c] ? sS[r * Lay::LDS + lane + 32 * c] * sm_scale : NEG_INF;
-        mx = fmaxf(mx, s[c]);
-      }
+    for (int i = 0; i < BN / 8; ++i)
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
+      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
 #pragma unroll
-      for (int c = 0; c < BN / 32; ++c) {
-        const float p = ok[c] ? __expf(s[c] - m_new) : 0.f;
-        sum += p;
-        sP[r * Lay::LDP + lane + 32 * c] = __float2bfloat16(p);
-      }
+    for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float alpha = __expf(m_old - m_new);
-        sA[r] = alpha;
-        sL[r] = sL[r] * alpha + sum;
-        sM[r] = m_new;
+      for (int nn = 0; nn < BN / 16; ++nn) {
+        uint32_t kf[4];
+        ldsm_x4(kf, smem_u32(sK + (nn * 16 + (lane >> 4) * 8 + (lane & 7)) *
+                                      LD +
+                             kk * 16 + ((lane >> 3) & 1) * 8));
+        mma16816(s[2 * nn], qf[kk], kf[0], kf[1]);
+        mma16816(s[2 * nn + 1], qf[kk], kf[2], kf[3]);
       }
     }
-    __syncwarp();
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = wrow + rr;
-      const float alpha = sA[r];
-      for (int d = lane; d < D; d += 32) sO[r * Lay::LDO + d] *= alpha;
-    }
-    __syncwarp();
 
-    // O[wrow:wrow+16, :] += P V
-    for (int j = 0; j < D / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, sO + wrow * Lay::LDO + j * 16, Lay::LDO,
-                             wmma::mem_row_major);
+    // fp32 scores scaled by sm_scale; NEG_INF where the diagonal or the
+    // ragged end cuts the tile
+    const bool edge = k0 + BN > T || (causal && k0 + BN - 1 > q0 + wrow);
+    float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-        wmma::load_matrix_sync(a, sP + wrow * Lay::LDP + kk * 16, Lay::LDP);
-        wmma::load_matrix_sync(bv, sV + kk * 16 * Lay::LDB + j * 16,
-                               Lay::LDB);
-        wmma::mma_sync(acc, a, bv, acc);
+    for (int i = 0; i < BN / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[i][e] * sm_scale;
+        if (edge) {
+          const int col = k0 + i * 8 + 2 * t4 + (e & 1);
+          const int row = row_a + (e >> 1) * 8;
+          if (col >= T || (causal && col > row)) x = NEG_INF;
+        }
+        s[i][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
-      wmma::store_matrix_sync(sO + wrow * Lay::LDO + j * 16, acc, Lay::LDO,
-                              wmma::mem_row_major);
     }
-    __syncwarp();
+    float ml[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      const float alpha = exp2f((m[r] - m_new) * LOG2E);
+      m[r] = m_new;
+      ml[r] = m_new * LOG2E;
+      l[r] *= alpha;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        acc[i][2 * r] *= alpha;
+        acc[i][2 * r + 1] *= alpha;
+      }
+    }
+    // p = exp(s - m) in fp32 for the sum, rounded to bf16 for P V
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(fmaf(s[i][e], LOG2E, -ml[e >> 1]));
+        s[i][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+
+    // O += P V: the S fragments of a 16-column slab are P's A fragment
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint32_t pa[4] = {
+          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        uint32_t vf[4];
+        ldsm_x4_t(vf, smem_u32(sV + (kk * 16 + (lane & 7) +
+                                     ((lane >> 3) & 1) * 8) * LD +
+                               dn * 16 + (lane >> 4) * 8));
+        mma16816(acc[2 * dn], pa, vf[0], vf[1]);
+        mma16816(acc[2 * dn + 1], pa, vf[2], vf[3]);
+      }
+    }
   }
 
   // epilogue: o = acc / l in bf16, lse = m + log(l); rows past T are
   // not written
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = wrow + rr;
-    const int row = q0 + r;
-    if (row >= T) break;
-    const float l = sL[r];
-    const float inv = 1.f / l;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = row_a + r * 8;
+    if (row >= T) continue;
+    const float inv = 1.f / l[r];
     bf16* orow = o + ((static_cast<int64_t>(b) * T + row) * H + h) * D;
-    for (int d = lane; d < D; d += 32)
-      orow[d] = __float2bfloat16(sO[r * Lay::LDO + d] * inv);
-    if (lane == 0)
-      lse[(static_cast<int64_t>(b) * H + h) * T + row] = sM[r] + logf(l);
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(orow + i * 8 + 2 * t4) =
+          __floats2bfloat162_rn(acc[i][2 * r] * inv,
+                                acc[i][2 * r + 1] * inv);
+    if (t4 == 0)
+      lse[(static_cast<int64_t>(b) * H + h) * T + row] = m[r] + logf(l[r]);
   }
+}
+
+// cudaFuncSetAttribute once per instantiation and device
+template <int D>
+cudaError_t allow_smem(int device) {
+  static std::atomic<uint64_t> done{0};
+  const uint64_t bit = 1ull << (device & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(Smem<D>::BYTES));
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
 }
 
 template <int D>
@@ -254,14 +303,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int B, int T, int H, int64_t q_sb,
                    int64_t q_st, int64_t q_sh, int64_t k_sb, int64_t k_st,
                    int64_t k_sh, int64_t v_sb, int64_t v_st, int64_t v_sh,
-                   int causal, float sm_scale, cudaStream_t stream) {
-  constexpr size_t smem = Layout<D>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+                   int causal, float sm_scale, int device,
+                   cudaStream_t stream) {
+  cudaError_t err = allow_smem<D>(device);
   if (err != cudaSuccess) return err;
-  dim3 grid((T + BM - 1) / BM, B * H);
-  flash_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(
+  dim3 grid(B * H, (T + BM - 1) / BM);
+  flash_fwd_kernel<D><<<grid, NTHREADS, Smem<D>::BYTES, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
       static_cast<float*>(lse), T, H, q_sb, q_st, q_sh, k_sb, k_st, k_sh,
@@ -273,9 +320,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 // q, k, v: bf16 [B, T, H, D] with unit stride over D and strides (in
 // elements) *_sb over batch, *_st over rows, *_sh over heads; o: bf16
-// [B, T, H, D] contiguous; lse: fp32 [B, H, T] contiguous. Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for an
-// unsupported head_dim).
+// [B, T, H, D] contiguous; lse: fp32 [B, H, T] contiguous. The grid is
+// (B * H, ceil(T / 128)). Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for an unsupported head_dim).
 extern "C" int rlt_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int B, int T, int H, int D,
                              int q_sb, int q_st, int q_sh, int k_sb,
@@ -288,16 +335,20 @@ extern "C" int rlt_flash_fwd(const void* q, const void* k, const void* v,
   switch (D) {
     case 16:
       return launch<16>(q, k, v, o, lse, B, T, H, q_sb, q_st, q_sh, k_sb,
-                        k_st, k_sh, v_sb, v_st, v_sh, causal, sm_scale, s);
+                        k_st, k_sh, v_sb, v_st, v_sh, causal, sm_scale,
+                        device, s);
     case 32:
       return launch<32>(q, k, v, o, lse, B, T, H, q_sb, q_st, q_sh, k_sb,
-                        k_st, k_sh, v_sb, v_st, v_sh, causal, sm_scale, s);
+                        k_st, k_sh, v_sb, v_st, v_sh, causal, sm_scale,
+                        device, s);
     case 64:
       return launch<64>(q, k, v, o, lse, B, T, H, q_sb, q_st, q_sh, k_sb,
-                        k_st, k_sh, v_sb, v_st, v_sh, causal, sm_scale, s);
+                        k_st, k_sh, v_sb, v_st, v_sh, causal, sm_scale,
+                        device, s);
     case 128:
       return launch<128>(q, k, v, o, lse, B, T, H, q_sb, q_st, q_sh, k_sb,
-                         k_st, k_sh, v_sb, v_st, v_sh, causal, sm_scale, s);
+                         k_st, k_sh, v_sb, v_st, v_sh, causal, sm_scale,
+                         device, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

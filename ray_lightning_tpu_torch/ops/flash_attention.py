@@ -113,11 +113,19 @@ def _check_kernel_operands(kernel: str, **tensors) -> None:
 
 
 def _check_grid(kernel: str, B: int, H: int) -> None:
-    """The kernels run a block per (64-row tile, b * h): grid y is B * H,
-    which CUDA caps at 65535."""
+    """The backward runs a block per (64-row tile, b * h): grid y is
+    B * H, which CUDA caps at 65535."""
     if B * H > 65535:
         raise ValueError(f"{kernel} kernel takes B * H <= 65535, got "
                          f"{B} * {H}")
+
+
+def _check_fwd_grid(B: int, T: int, H: int) -> None:
+    """The forward runs a block per (b * h, 128-row q tile): grid x is
+    B * H (CUDA caps it at 2**31 - 1), grid y the q tiles (at 65535)."""
+    if B * H >= 2 ** 31 or -(-T // 128) > 65535:
+        raise ValueError(f"flash_fwd kernel takes B * H < 2**31 and T <= "
+                         f"{65535 * 128}, got B={B} T={T} H={H}")
 
 
 def _pick_block(t: int, preferred: int) -> int:
@@ -234,7 +242,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
         return flash_attention_fwd_plain(q, k, v, causal=causal,
                                          sm_scale=sm_scale)
     _check_kernel_operands("flash_fwd", q=q, k=k, v=v)
-    _check_grid("flash_fwd", B, H)
+    _check_fwd_grid(B, T, H)
     o = torch.empty(B, T, H, D, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     if T == 0 or B == 0:

@@ -65,6 +65,33 @@ def test_cuda_flash_fwd_kernel_matches_plain(T, cuda_device):
     assert (lse - lse_ref).abs().max().item() <= 1e-3
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 63, 65, 127, 129, 200, 1024, 2050])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_cuda_flash_fwd_kernel_grid(D, causal, T, cuda_device):
+    """Every head dim the kernel takes, causal and not, at lengths that
+    cross each 64- and 128-row tile boundary, 25 heads (GPT-2 XL's, which
+    the JAX package folds) as strided views of a fused qkv projection: o
+    within 2e-2 and lse within 1e-3 of the plain version, one launch, and
+    a second launch equal bit for bit (no atomics)."""
+    g = torch.Generator(device=cuda_device).manual_seed(T * D + causal)
+    B, H = 2, 25
+    qkv = torch.randn(B, T, 3 * H * D, generator=g,
+                      device=cuda_device).to(torch.bfloat16)
+    q, k, v = (x.view(B, T, H, D) for x in qkv.split(H * D, dim=-1))
+    before = _kernels.REGISTRY["flash_fwd"].launches
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    o2, lse2 = flash_attention_fwd(q, k, v, causal=causal)
+    o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _kernels.REGISTRY["flash_fwd"].launches == before + 2
+    assert o.shape == (B, T, H, D) and lse.shape == (B, H, T)
+    assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
 def _rel_l2(got, want) -> float:
     """||got - want|| / ||want||, the denominator at least that of a
     tensor of RMS 1e-3: dq and dk at T=1 are zero but for rounding."""

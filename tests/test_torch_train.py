@@ -464,3 +464,53 @@ def test_trainer_refuses_what_is_not_ported():
             GPTConfig(**TINY), dropout=0.1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GPTLightningModule(cfg).configure_model("cpu")
+
+
+@pytest.mark.parametrize("precision", ["32", "32-true", "64", "bf16",
+                                       "16-mixed", "bogus"])
+def test_trainer_precision_spellings_match_jax(precision, tmp_path,
+                                               monkeypatch):
+    """Each precision spelling does in the port what it does in the JAX
+    ``Trainer``: the fp32 ones construct and fit as fp32 (the same losses
+    as the default ``"32"``), the bf16 ones construct there and are not
+    ported here, and a spelling neither package knows raises
+    ``ValueError`` in both."""
+    kw = dict(enable_checkpointing=False, seed=0, max_steps=2,
+              limit_train_batches=2, num_sanity_val_steps=0,
+              limit_val_batches=0)
+    try:
+        JaxTrainer(logger=False, default_root_dir=str(tmp_path),
+                   precision=precision, **kw)
+    except ValueError:
+        with pytest.raises(ValueError, match="Unknown precision"):
+            Trainer(device="cpu", precision=precision, **kw)
+        assert precision == "bogus"
+        return
+    if precision.startswith(("bf16", "16")):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            Trainer(device="cpu", precision=precision, **kw)
+        return
+
+    monkeypatch.setenv("RLT_BF16_PARAMS", "0")
+    jcfg, params = _tiny_init("float32")
+
+    def losses(p):
+        class Losses(Callback):
+            def __init__(self):
+                self.losses = []
+
+            def on_train_batch_end(self, trainer, module, outputs, batch,
+                                   i):
+                self.losses.append(float(outputs["loss"]))
+
+        rec = Losses()
+        mod = _TorchFixed(params, config=GPTConfig(**TINY,
+                                                   dtype=torch.float32),
+                          warmup_steps=2, batch_size=4, dataset_size=16)
+        Trainer(callbacks=[rec], device="cpu", precision=p, **kw).fit(mod)
+        assert {x.dtype for x in mod.model.parameters()} == {torch.float32}
+        return rec.losses
+
+    got = losses(precision)
+    assert len(got) == 2 and np.isfinite(got).all()
+    assert got == losses("32")
