@@ -1,4 +1,4 @@
-// flash_fwd: causal (or full) attention forward for Hopper, FA2-style.
+// flash_fwd: causal (or full) attention forward for Hopper, FA3-style.
 //
 // Replaces the five Pallas forwards of ray_lightning_tpu/ops/flash_attention.py
 // (TPU kernel rows 1-5: `_fwd_packed_kernel` :298, `_fwd_tri_packed_kernel`
@@ -6,20 +6,47 @@
 // :98). They differ only in layout and in what they keep in VMEM; the
 // function is one, and this kernel computes it for any T and head count.
 //
-// Design: a block of 8 warps takes 128 query rows of one (batch, head);
-// each warp owns 16 rows. S = Q K^T, P and the O accumulator live in
-// mma.sync m16n8k16 fragments in registers; Q, K and V reach them by
-// ldmatrix from padded shared memory. The online softmax runs in
-// registers (a row's max from shuffles across the 4 threads that hold
-// it), the bf16 P fragment is reused directly as the A operand of P V,
-// and O is rescaled in registers. K/V tiles of 64 rows are double
-// buffered with cp.async, so tile j+1 loads while tile j computes.
-// Causal tiles past a warp's last row are skipped and the mask is
-// applied only where a tile crosses the diagonal or the ragged end.
-// Causal q tiles run heaviest first.
+// What bounds it on this card. At the long-context shapes the causal
+// products dominate (B=8, T=2048, H=32: 137 GFLOP, 0.139 ms at 989
+// TFLOP/s against 0.04 ms for the bytes): operations. At the serve
+// path's shapes (B=1, H=12, T <= 1024) the work is a few us of either
+// bytes or operations, so a launch is bound by its latency: one wave of
+// at most 96 blocks, each walking its k/v tiles in turn.
+//
+// What the design does about it:
+// - the products run on wgmma, the only path to the tensor cores'
+//   Hopper rate: S = Q K^T with both operands in shared memory, the
+//   result in registers; O += P V with P as a register A operand and V
+//   an MN-major B operand (bf16 allows the transpose);
+// - a block takes 128 query rows of one (batch, head): two consumer
+//   warpgroups of 64 rows each and a producer warp that keeps TMA loads
+//   of K/V in flight through a ring of STAGES tiles with full and empty
+//   mbarriers, so tile j + 1 loads while tile j computes; Q is loaded
+//   once by TMA; setmaxnreg moves registers from the producer to the
+//   consumers;
+// - S, P and O never leave registers: the online softmax takes a row's
+//   max and sum from shuffles across the 4 threads that hold it, the
+//   bf16 P fragment is reused as the A operand as it stands, and O is
+//   rescaled in place;
+// - q, k, v are read through 4-D tensor maps over [B, T, H, D] with the
+//   caller's strides (the split views of the fused qkv projection, no
+//   copy); TMA zero-fills rows past T (a NaN there would survive
+//   0 * NaN in P V) and writes each tile with the swizzle of its row
+//   width (32, 64 or 128 bytes; D=128 as two 64-column panels), which
+//   the wgmma descriptors name;
+// - causal: BM == BN, so a q tile's last k tile is the diagonal, the
+//   only one masked (with the ragged end); tiles past it are never
+//   loaded; q tiles run heaviest first.
+// Rounding points as `_fwd_packed_kernel`: fp32 scores scaled by
+// sm_scale, NEG_INF = -1e30 masking, p rounded to bf16 before P V with
+// fp32 accumulation, o = acc / l, lse = m + log(l). No atomics: the
+// output is the same from run to run.
 
+#include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched
+                    // from the driver at run time (no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cudaTypedefs.h>
 
 #include <atomic>
 #include <cstdint>
@@ -28,85 +55,117 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int BM = 128;       // query rows per block
-constexpr int BN = 64;        // key rows per tile
-constexpr int NWARPS = 8;     // each warp owns 16 query rows
-constexpr int NTHREADS = NWARPS * 32;
+constexpr int BM = 128;     // query rows per block, 64 per consumer warpgroup
+constexpr int BN = 128;     // key rows per tile; BM == BN (see above)
+constexpr int STAGES = 2;   // K/V ring depth
+constexpr int NTHREADS = 384;        // producer warpgroup + 2 consumers
+constexpr int CONSUMER_WARPS = 8;    // arrivals that free a stage
 
 typedef __nv_bfloat16 bf16;
 
+// Shared memory for head dim D. A tile of R rows is stored as D / PD
+// column panels of R rows x PD elements, each as TMA writes it with the
+// swizzle of its ROWB-byte rows; every panel starts on a 1024-byte
+// boundary (the swizzle pattern's period), so the descriptors' base
+// offset is 0.
 template <int D>
-struct Smem {
-  // rows padded by 16 bytes: ldmatrix's 8 row addresses fall in 8
-  // distinct 16-byte bank groups
-  static constexpr int LD = D + 8;
-  static constexpr int Q = 0;
-  static constexpr int K = Q + BM * LD;      // two buffers
-  static constexpr int V = K + 2 * BN * LD;  // two buffers
-  static constexpr size_t BYTES = sizeof(bf16) * (V + 2 * BN * LD);
+struct Cfg {
+  static constexpr int PD = D < 64 ? D : 64;
+  static constexpr int NP = D / PD;
+  static constexpr int ROWB = PD * 2;   // 32, 64 or 128 bytes
+  static constexpr int Q_PANEL = BM * ROWB;
+  static constexpr int KV_PANEL = BN * ROWB;
+  static constexpr int Q_BYTES = NP * Q_PANEL;
+  static constexpr int KV_BYTES = NP * KV_PANEL;   // one K or V tile
+  static constexpr int OFF_K = Q_BYTES;
+  static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
+  static constexpr int OFF_BAR = OFF_V + STAGES * KV_BYTES;
+  // q_full, full[STAGES], empty[STAGES]; 1024 bytes of slack to align
+  // the dynamic base
+  static constexpr int BYTES = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;
+  // wgmma descriptor layout type: 128-, 64- or 32-byte swizzle
+  static constexpr uint64_t LAYOUT = ROWB == 128 ? 1 : ROWB == 64 ? 2 : 3;
+  // 8-row group stride of a panel
+  static constexpr uint32_t SBO = 8 * ROWB;
+  static_assert(Q_PANEL % 1024 == 0 && KV_PANEL % 1024 == 0, "alignment");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared; src_size 0 zero-fills (rows past T: a NaN
-// there would survive 0 * NaN in the PV product)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0));
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// rows [row0, row0 + NROWS) of one head, read by the caller's row stride
-template <int D, int NROWS>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          int row0, int T,
-                                          int64_t row_stride) {
-  constexpr int CHUNKS = D / 8;
-  for (int idx = threadIdx.x; idx < NROWS * CHUNKS; idx += NTHREADS) {
-    const int r = idx / CHUNKS;
-    const int c = (idx % CHUNKS) * 8;
-    const int t = row0 + r;
-    const bool valid = t < T;
-    cp_async16(smem_u32(dst + r * Smem<D>::LD + c),
-               src + (valid ? t : 0) * row_stride + c, valid);
-  }
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
 }
 
-// d += a (16x16, row) * b (16x8, col), fp32 accumulation
-__device__ __forceinline__ void mma16816(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+// until the phase of parity `phase` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int phase) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(phase)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 4-D tensor map at coordinates (d, h, t, b) into shared
+// memory; completion counts its bytes on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int d, int h, int t,
+                                         int b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(h),
+      "r"(t), "r"(b)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride
+// byte offsets (16-byte units), swizzle layout
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from touching accumulator registers across the
+// asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -114,175 +173,352 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// d (64 x 128, fp32) (+)= A (64 x 16, smem desc) * B (128 x 16,
+// smem desc), both K-major
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 16, fp32) += A (64 x 16, bf16 registers) * B (16 x 16, smem
+// desc, MN-major)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 32, fp32) += A (64 x 16, bf16 registers) * B (16 x 32, smem
+// desc, MN-major)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64, fp32) += A (64 x 16, bf16 registers) * B (16 x 64, smem
+// desc, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int T, int H, int64_t q_sb,
-                 int64_t q_st, int64_t q_sh, int64_t k_sb, int64_t k_st,
-                 int64_t k_sh, int64_t v_sb, int64_t v_st, int64_t v_sh,
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 bf16* __restrict__ o, float* __restrict__ lse, int T, int H,
                  int causal, float sm_scale) {
-  using L = Smem<D>;
-  constexpr int LD = L::LD;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
+  using C = Cfg<D>;
+  constexpr int PD = C::PD;
+  constexpr int NP = C::NP;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sK = base + C::OFF_K;
+  const uint32_t sV = base + C::OFF_V;
+  const uint32_t q_full = base + C::OFF_BAR;
+  const uint32_t full = q_full + 8;                 // + 8 * stage
+  const uint32_t empty = full + 8 * STAGES;         // + 8 * stage
 
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
   // causal q tiles heaviest first: the last ones hold the most k tiles
   const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int q0 = qt * BM;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;      // fragment row (and row + 8)
-  const int t4 = lane & 3;      // fragment column pair
-  const int wrow = warp * 16;   // this warp's first row inside the tile
-  const int row_a = q0 + wrow + g;
-
-  const bf16* qh = q + b * q_sb + h * q_sh;
-  const bf16* kh = k + b * k_sb + h * k_sh;
-  const bf16* vh = v + b * v_sb + h * v_sh;
-
   const int last_row = min(q0 + BM, T) - 1;
   const int n_tiles = causal ? last_row / BN + 1 : (T + BN - 1) / BN;
-  const int warp_last = min(q0 + wrow + 15, T - 1);
 
-  load_rows<D, BM>(sm + L::Q, qh, q0, T, q_st);
-  load_rows<D, BN>(sm + L::K, kh, 0, T, k_st);
-  load_rows<D, BN>(sm + L::V, vh, 0, T, v_st);
-  cp_async_commit();
-
-  uint32_t qf[D / 16][4];
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-  float m[2] = {NEG_INF, NEG_INF};
-  float l[2] = {0.f, 0.f};   // this thread's share of each row's sum
-
-  for (int j = 0; j < n_tiles; ++j) {
-    cp_async_wait_all();
-    __syncthreads();   // tile j landed; every warp is done with j - 1
-    if (j + 1 < n_tiles) {
-      const int nb = (j + 1) & 1;
-      load_rows<D, BN>(sm + L::K + nb * BN * LD, kh, (j + 1) * BN, T, k_st);
-      load_rows<D, BN>(sm + L::V + nb * BN * LD, vh, (j + 1) * BN, T, v_st);
-      cp_async_commit();
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMER_WARPS);
     }
-    if (j == 0) {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        ldsm_x4(qf[kk], smem_u32(sm + L::Q + (wrow + (lane & 15)) * LD +
-                                 kk * 16 + (lane >> 4) * 8));
-    }
-    const int k0 = j * BN;
-    if (causal && k0 > warp_last) continue;   // every column is masked
-    const bf16* sK = sm + L::K + (j & 1) * BN * LD;
-    const bf16* sV = sm + L::V + (j & 1) * BN * LD;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // S = Q K^T for this warp's 16 rows: BN / 8 fragments of 16 x 8
-    float s[BN / 8][4];
-#pragma unroll
-    for (int i = 0; i < BN / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int nn = 0; nn < BN / 16; ++nn) {
-        uint32_t kf[4];
-        ldsm_x4(kf, smem_u32(sK + (nn * 16 + (lane >> 4) * 8 + (lane & 7)) *
-                                      LD +
-                             kk * 16 + ((lane >> 3) & 1) * 8));
-        mma16816(s[2 * nn], qf[kk], kf[0], kf[1]);
-        mma16816(s[2 * nn + 1], qf[kk], kf[2], kf[3]);
-      }
-    }
-
-    // fp32 scores scaled by sm_scale; NEG_INF where the diagonal or the
-    // ragged end cuts the tile
-    const bool edge = k0 + BN > T || (causal && k0 + BN - 1 > q0 + wrow);
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int i = 0; i < BN / 8; ++i) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[i][e] * sm_scale;
-        if (edge) {
-          const int col = k0 + i * 8 + 2 * t4 + (e & 1);
-          const int row = row_a + (e >> 1) * 8;
-          if (col >= T || (causal && col > row)) x = NEG_INF;
+  if (threadIdx.x < 128) {
+    // producer warpgroup: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, C::Q_BYTES);
+      for (int p = 0; p < NP; ++p)
+        tma_load(sQ + p * C::Q_PANEL, &tq, q_full, p * PD, h, q0, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES;
+        mbar_wait(empty + 8 * s, ((j / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * C::KV_BYTES);
+        for (int p = 0; p < NP; ++p) {
+          const uint32_t off = s * C::KV_BYTES + p * C::KV_PANEL;
+          tma_load(sK + off, &tk, full + 8 * s, p * PD, h, j * BN, b);
+          tma_load(sV + off, &tv, full + 8 * s, p * PD, h, j * BN, b);
         }
-        s[i][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
     }
-    float ml[2];
+  } else {
+    // consumer warpgroups: 64 query rows each; a thread holds rows
+    // row_a and row_a + 8 of the accumulator fragments
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int wg = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int t4 = lane & 3;
+    const int wg_row = q0 + 64 * wg;
+    const int row_a = wg_row + 16 * warp + (lane >> 2);
+
+    float acc[NP][PD / 2];
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int i = 0; i < PD / 2; ++i) acc[p][i] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF};
+    float l[2] = {0.f, 0.f};   // this thread's share of each row's sum
+
+    mbar_wait(q_full, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % STAGES;
+      mbar_wait(full + 8 * s, (j / STAGES) & 1);
+
+      // S = Q K^T: D / 16 steps of k16, both operands K-major
+      float sc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t koff = (kk * 16 / PD) * C::Q_PANEL + (kk * 16 % PD) * 2;
+        const uint32_t kvoff = s * C::KV_BYTES +
+                               (kk * 16 / PD) * C::KV_PANEL +
+                               (kk * 16 % PD) * 2;
+        wgmma_ss_n128(sc,
+                      make_desc(sQ + 64 * wg * C::ROWB + koff, C::SBO,
+                                C::SBO, C::LAYOUT),
+                      make_desc(sK + kvoff, C::SBO, C::SBO, C::LAYOUT),
+                      kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+
+      // fp32 scores scaled by sm_scale; NEG_INF where the diagonal or the
+      // ragged end cuts the tile
+      const int k0 = j * BN;
+      const bool edge = k0 + BN > T || (causal && k0 + BN - 1 > wg_row);
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * i + e] * sm_scale;
+          if (edge) {
+            const int col = k0 + 8 * i + 2 * t4 + (e & 1);
+            const int row = row_a + 8 * (e >> 1);
+            if (col >= T || (causal && col > row)) x = NEG_INF;
+          }
+          sc[4 * i + e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+      float ml[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        const float alpha = exp2f((m[r] - m_new) * LOG2E);
+        m[r] = m_new;
+        ml[r] = m_new * LOG2E;
+        l[r] *= alpha;
+#pragma unroll
+        for (int p = 0; p < NP; ++p)
+#pragma unroll
+          for (int i = 0; i < PD / 8; ++i) {
+            acc[p][4 * i + 2 * r] *= alpha;
+            acc[p][4 * i + 2 * r + 1] *= alpha;
+          }
+      }
+      // p = exp(s - m) in fp32 for the sum, rounded to bf16 for P V
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const float p = exp2f(fmaf(sc[i], LOG2E, -ml[(i >> 1) & 1]));
+        sc[i] = p;
+        l[(i >> 1) & 1] += p;
+      }
+
+      // O += P V: the S fragments of a 16-column slab are P's A
+      // fragment; V is MN-major, one k16 step is 16 of its rows
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        const uint32_t pa[4] = {pack_bf16(sc[8 * kk], sc[8 * kk + 1]),
+                                pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]),
+                                pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]),
+                                pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7])};
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          const uint64_t dv = make_desc(
+              sV + s * C::KV_BYTES + p * C::KV_PANEL + kk * 16 * C::ROWB,
+              C::SBO, C::SBO, C::LAYOUT);
+          if constexpr (PD == 16) wgmma_rs_n16(acc[p], pa, dv);
+          if constexpr (PD == 32) wgmma_rs_n32(acc[p], pa, dv);
+          if constexpr (PD == 64) wgmma_rs_n64(acc[p], pa, dv);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int p = 0; p < NP; ++p) fence_regs(acc[p]);
+      if (lane == 0) mbar_arrive(empty + 8 * s);   // stage s is free
+    }
+
+    // epilogue: o = acc / l in bf16, lse = m + log(l); rows past T are
+    // not written
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      const float alpha = exp2f((m[r] - m_new) * LOG2E);
-      m[r] = m_new;
-      ml[r] = m_new * LOG2E;
-      l[r] *= alpha;
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int row = row_a + 8 * r;
+      if (row >= T) continue;
+      const float inv = 1.f / l[r];
+      bf16* orow = o + ((static_cast<int64_t>(b) * T + row) * H + h) * D;
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        acc[i][2 * r] *= alpha;
-        acc[i][2 * r + 1] *= alpha;
-      }
-    }
-    // p = exp(s - m) in fp32 for the sum, rounded to bf16 for P V
+      for (int p = 0; p < NP; ++p)
 #pragma unroll
-    for (int i = 0; i < BN / 8; ++i) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(fmaf(s[i][e], LOG2E, -ml[e >> 1]));
-        s[i][e] = p;
-        l[e >> 1] += p;
-      }
-    }
-
-    // O += P V: the S fragments of a 16-column slab are P's A fragment
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        uint32_t vf[4];
-        ldsm_x4_t(vf, smem_u32(sV + (kk * 16 + (lane & 7) +
-                                     ((lane >> 3) & 1) * 8) * LD +
-                               dn * 16 + (lane >> 4) * 8));
-        mma16816(acc[2 * dn], pa, vf[0], vf[1]);
-        mma16816(acc[2 * dn + 1], pa, vf[2], vf[3]);
-      }
+        for (int i = 0; i < PD / 8; ++i)
+          *reinterpret_cast<__nv_bfloat162*>(orow + p * PD + 8 * i +
+                                             2 * t4) =
+              __floats2bfloat162_rn(acc[p][4 * i + 2 * r] * inv,
+                                    acc[p][4 * i + 2 * r + 1] * inv);
+      if (t4 == 0)
+        lse[(static_cast<int64_t>(b) * H + h) * T + row] = m[r] + logf(l[r]);
     }
   }
+}
 
-  // epilogue: o = acc / l in bf16, lse = m + log(l); rows past T are
-  // not written
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const int row = row_a + r * 8;
-    if (row >= T) continue;
-    const float inv = 1.f / l[r];
-    bf16* orow = o + ((static_cast<int64_t>(b) * T + row) * H + h) * D;
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-      *reinterpret_cast<__nv_bfloat162*>(orow + i * 8 + 2 * t4) =
-          __floats2bfloat162_rn(acc[i][2 * r] * inv,
-                                acc[i][2 * r + 1] * inv);
-    if (t4 == 0)
-      lse[(static_cast<int64_t>(b) * H + h) * T + row] = m[r] + logf(l[r]);
-  }
+// the driver's tensor-map encoder, fetched once through the runtime
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#endif
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }();
+  return fn;
+}
+
+// a 4-D map over [B, T, H, D] (innermost first: D, H, T, B) with the
+// caller's strides in elements; boxes of `rows` rows x one panel of one
+// head, swizzled by the panel's row width; rows past T read as zeros
+template <int D>
+bool encode_map(CUtensorMap* map, const void* ptr, int B, int T, int H,
+                int64_t sb, int64_t st, int64_t sh, int rows) {
+  using C = Cfg<D>;
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(st) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(C::PD), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      C::ROWB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : C::ROWB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                      : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // cudaFuncSetAttribute once per instantiation and device
@@ -293,7 +529,7 @@ cudaError_t allow_smem(int device) {
   if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(Smem<D>::BYTES));
+      Cfg<D>::BYTES);
   if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
   return err;
 }
@@ -307,22 +543,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    cudaStream_t stream) {
   cudaError_t err = allow_smem<D>(device);
   if (err != cudaSuccess) return err;
+  CUtensorMap tq, tk, tv;
+  if (!encode_map<D>(&tq, q, B, T, H, q_sb, q_st, q_sh, BM) ||
+      !encode_map<D>(&tk, k, B, T, H, k_sb, k_st, k_sh, BN) ||
+      !encode_map<D>(&tv, v, B, T, H, v_sb, v_st, v_sh, BN))
+    return cudaErrorInvalidValue;
   dim3 grid(B * H, (T + BM - 1) / BM);
-  flash_fwd_kernel<D><<<grid, NTHREADS, Smem<D>::BYTES, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), T, H, q_sb, q_st, q_sh, k_sb, k_st, k_sh,
-      v_sb, v_st, v_sh, causal, sm_scale);
+  flash_fwd_kernel<D><<<grid, NTHREADS, Cfg<D>::BYTES, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(lse), T, H,
+      causal, sm_scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k, v: bf16 [B, T, H, D] with unit stride over D and strides (in
-// elements) *_sb over batch, *_st over rows, *_sh over heads; o: bf16
-// [B, T, H, D] contiguous; lse: fp32 [B, H, T] contiguous. The grid is
-// (B * H, ceil(T / 128)). Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for an unsupported head_dim).
+// elements, multiples of 8) *_sb over batch, *_st over rows, *_sh over
+// heads; o: bf16 [B, T, H, D] contiguous; lse: fp32 [B, H, T]
+// contiguous. The grid is (B * H, ceil(T / 128)). Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for an
+// unsupported head_dim or operands no tensor map can describe).
 extern "C" int rlt_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, void* lse, int B, int T, int H, int D,
                              int q_sb, int q_st, int q_sh, int k_sb,
