@@ -11,7 +11,11 @@
 // TFLOP/s against 0.04 ms for the bytes): operations. At the serve
 // path's shapes (B=1, H=12, T <= 1024) the work is a few us of either
 // bytes or operations, so a launch is bound by its latency: one wave of
-// at most 96 blocks, each walking its k/v tiles in turn.
+// at most 96 blocks, each walking its k/v tiles in turn. Inside this
+// design the softmax holds it back at D=64: a 128 x 128 tile's
+// exponentials take the SM's 16 ex2 a clock about as long as the tile's
+// two products take the tensor cores, and the scaling, max, sum and
+// bf16 rounding add as much again on the FP32 pipes.
 //
 // What the design does about it:
 // - the products run on wgmma, the only path to the tensor cores'
@@ -28,6 +32,10 @@
 //   max and sum from shuffles across the 4 threads that hold it, the
 //   bf16 P fragment is reused as the A operand as it stands, and O is
 //   rescaled in place;
+// - the softmax runs beside the products: a warpgroup issues tile j's
+//   Q K^T together with tile j - 1's P V and computes tile j's softmax
+//   while P V runs, and the two warpgroups take turns at issuing (named
+//   barriers), so one's softmax runs while the other's products do;
 // - q, k, v are read through 4-D tensor maps over [B, T, H, D] with the
 //   caller's strides (the split views of the fused qkv projection, no
 //   copy); TMA zero-fills rows past T (a NaN there would survive
@@ -57,7 +65,7 @@ constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int BM = 128;     // query rows per block, 64 per consumer warpgroup
 constexpr int BN = 128;     // key rows per tile; BM == BN (see above)
-constexpr int STAGES = 2;   // K/V ring depth
+constexpr int STAGES = 3;   // K/V ring depth (D=128: 225 KB in all)
 constexpr int NTHREADS = 384;        // producer warpgroup + 2 consumers
 constexpr int CONSUMER_WARPS = 8;    // arrivals that free a stage
 
@@ -156,8 +164,21 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// until at most N committed groups of products are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// The two consumer warpgroups take turns at issuing products (named
+// barriers 1 and 2, 256 threads), so one's softmax runs while the
+// other's products do: wait for this warpgroup's turn, pass the turn on
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
+}
+
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
 }
 
 // keeps the compiler from touching accumulator registers across the
@@ -274,6 +295,111 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
 }
 
 
+// S = Q K^T for one warpgroup's 64 rows of Q (at sQw) against the K tile
+// at sK: D / 16 steps of k16, both operands K-major; issued, not waited
+// for
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[BN / 2], uint32_t sQw,
+                                         uint32_t sK) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t col = (kk * 16 % C::PD) * 2;
+    const uint32_t panel = kk * 16 / C::PD;
+    wgmma_ss_n128(
+        sc, make_desc(sQw + panel * C::Q_PANEL + col, C::SBO, C::SBO,
+                      C::LAYOUT),
+        make_desc(sK + panel * C::KV_PANEL + col, C::SBO, C::SBO, C::LAYOUT),
+        kk > 0);
+  }
+}
+
+// O += P V against the V tile at sV: BN / 16 steps of k16, P's bf16 A
+// fragments from registers, V an MN-major operand (one k16 step is 16 of
+// its rows); issued, not waited for
+template <int D>
+__device__ __forceinline__ void issue_pv(
+    float (&acc)[Cfg<D>::NP][Cfg<D>::PD / 2], const uint32_t (&pf)[BN / 16][4],
+    uint32_t sV) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+    for (int p = 0; p < C::NP; ++p) {
+      const uint64_t dv = make_desc(sV + p * C::KV_PANEL + kk * 16 * C::ROWB,
+                                    C::SBO, C::SBO, C::LAYOUT);
+      if constexpr (C::PD == 16) wgmma_rs_n16(acc[p], pf[kk], dv);
+      if constexpr (C::PD == 32) wgmma_rs_n32(acc[p], pf[kk], dv);
+      if constexpr (C::PD == 64) wgmma_rs_n64(acc[p], pf[kk], dv);
+    }
+  }
+}
+
+// the online softmax of one tile of scores whose first column is k0:
+// fp32 scores scaled by sm_scale, NEG_INF where the diagonal or the
+// ragged end cuts the tile; updates each row's max m and sum l, leaves
+// p = exp(s - m) in sc and the factor that rescales the accumulator in
+// alpha. A row's max comes from the 4 threads that hold it.
+__device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int k0,
+                                             int row_a, int wg_row, int T,
+                                             int causal, float sm_scale,
+                                             int t4) {
+  const bool edge = k0 + BN > T || (causal && k0 + BN - 1 > wg_row);
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    float x = sc[i] * sm_scale;
+    if (edge) {
+      const int col = k0 + 8 * (i / 4) + 2 * t4 + (i & 1);
+      const int row = row_a + 8 * ((i >> 1) & 1);
+      if (col >= T || (causal && col > row)) x = NEG_INF;
+    }
+    sc[i] = x;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+  }
+  float ml[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    alpha[r] = exp2f((m[r] - m_new) * LOG2E);
+    m[r] = m_new;
+    ml[r] = m_new * LOG2E;
+    l[r] *= alpha[r];
+  }
+  // p in fp32 for the sum; rounded to bf16 only for P V (pack_p)
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    const float p = exp2f(fmaf(sc[i], LOG2E, -ml[(i >> 1) & 1]));
+    sc[i] = p;
+    l[(i >> 1) & 1] += p;
+  }
+}
+
+// the accumulator fragments' rows times their alpha
+template <int D>
+__device__ __forceinline__ void rescale(
+    float (&acc)[Cfg<D>::NP][Cfg<D>::PD / 2], const float (&alpha)[2]) {
+#pragma unroll
+  for (int p = 0; p < Cfg<D>::NP; ++p)
+#pragma unroll
+    for (int i = 0; i < Cfg<D>::PD / 2; ++i) acc[p][i] *= alpha[(i >> 1) & 1];
+}
+
+// p rounded to bf16 as the A fragments of P V: the accumulator fragments
+// of a 16-column slab are an A fragment as they stand
+__device__ __forceinline__ void pack_p(const float (&sc)[BN / 2],
+                                       uint32_t (&pf)[BN / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      pf[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+}
+
 template <int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
@@ -331,119 +457,74 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     }
   } else {
     // consumer warpgroups: 64 query rows each; a thread holds rows
-    // row_a and row_a + 8 of the accumulator fragments
+    // row_a and row_a + 8 of the accumulator fragments. Tile j's
+    // S = Q K^T is issued before tile j - 1's O += P V, so the softmax
+    // of tile j runs while the tensor cores finish P V.
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
     const int wg = threadIdx.x / 128 - 1;
-    const int warp = (threadIdx.x / 32) % 4;
     const int lane = threadIdx.x % 32;
     const int t4 = lane & 3;
     const int wg_row = q0 + 64 * wg;
-    const int row_a = wg_row + 16 * warp + (lane >> 2);
+    const int row_a = wg_row + 16 * ((threadIdx.x / 32) % 4) + (lane >> 2);
+    const uint32_t sQw = sQ + 64 * wg * C::ROWB;
 
     float acc[NP][PD / 2];
 #pragma unroll
     for (int p = 0; p < NP; ++p)
 #pragma unroll
       for (int i = 0; i < PD / 2; ++i) acc[p][i] = 0.f;
+    float sc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
+    uint32_t pf[BN / 16][4];   // P of the previous tile, bf16 A fragments
     float m[2] = {NEG_INF, NEG_INF};
     float l[2] = {0.f, 0.f};   // this thread's share of each row's sum
+    float alpha[2];
 
+    if (wg == 1) turn_pass(wg);   // warpgroup 0 takes the first turn
     mbar_wait(q_full, 0);
-    for (int j = 0; j < n_tiles; ++j) {
+    mbar_wait(full, 0);
+    turn_wait(wg);
+    wgmma_fence();
+    issue_qk<D>(sc, sQw, sK);
+    wgmma_commit();
+    turn_pass(wg);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    softmax_tile(sc, m, l, alpha, 0, row_a, wg_row, T, causal, sm_scale, t4);
+    pack_p(sc, pf);
+    for (int j = 1; j < n_tiles; ++j) {
       const int s = j % STAGES;
+      const int sp = (j - 1) % STAGES;
       mbar_wait(full + 8 * s, (j / STAGES) & 1);
-
-      // S = Q K^T: D / 16 steps of k16, both operands K-major
-      float sc[BN / 2];
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
+      turn_wait(wg);
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t koff = (kk * 16 / PD) * C::Q_PANEL + (kk * 16 % PD) * 2;
-        const uint32_t kvoff = s * C::KV_BYTES +
-                               (kk * 16 / PD) * C::KV_PANEL +
-                               (kk * 16 % PD) * 2;
-        wgmma_ss_n128(sc,
-                      make_desc(sQ + 64 * wg * C::ROWB + koff, C::SBO,
-                                C::SBO, C::LAYOUT),
-                      make_desc(sK + kvoff, C::SBO, C::SBO, C::LAYOUT),
-                      kk > 0);
-      }
+      issue_qk<D>(sc, sQw, sK + s * C::KV_BYTES);
       wgmma_commit();
-      wgmma_wait_all();
+      issue_pv<D>(acc, pf, sV + sp * C::KV_BYTES);
+      wgmma_commit();
+      turn_pass(wg);
+      wgmma_wait<1>();   // S of tile j is in; P V of tile j - 1 may run on
       fence_regs(sc);
-
-      // fp32 scores scaled by sm_scale; NEG_INF where the diagonal or the
-      // ragged end cuts the tile
-      const int k0 = j * BN;
-      const bool edge = k0 + BN > T || (causal && k0 + BN - 1 > wg_row);
-      float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-      for (int i = 0; i < BN / 8; ++i) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = sc[4 * i + e] * sm_scale;
-          if (edge) {
-            const int col = k0 + 8 * i + 2 * t4 + (e & 1);
-            const int row = row_a + 8 * (e >> 1);
-            if (col >= T || (causal && col > row)) x = NEG_INF;
-          }
-          sc[4 * i + e] = x;
-          mx[e >> 1] = fmaxf(mx[e >> 1], x);
-        }
-      }
-      float ml[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m[r], mx[r]);
-        const float alpha = exp2f((m[r] - m_new) * LOG2E);
-        m[r] = m_new;
-        ml[r] = m_new * LOG2E;
-        l[r] *= alpha;
-#pragma unroll
-        for (int p = 0; p < NP; ++p)
-#pragma unroll
-          for (int i = 0; i < PD / 8; ++i) {
-            acc[p][4 * i + 2 * r] *= alpha;
-            acc[p][4 * i + 2 * r + 1] *= alpha;
-          }
-      }
-      // p = exp(s - m) in fp32 for the sum, rounded to bf16 for P V
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) {
-        const float p = exp2f(fmaf(sc[i], LOG2E, -ml[(i >> 1) & 1]));
-        sc[i] = p;
-        l[(i >> 1) & 1] += p;
-      }
-
-      // O += P V: the S fragments of a 16-column slab are P's A
-      // fragment; V is MN-major, one k16 step is 16 of its rows
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        const uint32_t pa[4] = {pack_bf16(sc[8 * kk], sc[8 * kk + 1]),
-                                pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]),
-                                pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]),
-                                pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7])};
-#pragma unroll
-        for (int p = 0; p < NP; ++p) {
-          const uint64_t dv = make_desc(
-              sV + s * C::KV_BYTES + p * C::KV_PANEL + kk * 16 * C::ROWB,
-              C::SBO, C::SBO, C::LAYOUT);
-          if constexpr (PD == 16) wgmma_rs_n16(acc[p], pa, dv);
-          if constexpr (PD == 32) wgmma_rs_n32(acc[p], pa, dv);
-          if constexpr (PD == 64) wgmma_rs_n64(acc[p], pa, dv);
-        }
-      }
-      wgmma_commit();
-      wgmma_wait_all();
+      softmax_tile(sc, m, l, alpha, j * BN, row_a, wg_row, T, causal,
+                   sm_scale, t4);
+      wgmma_wait<0>();
 #pragma unroll
       for (int p = 0; p < NP; ++p) fence_regs(acc[p]);
-      if (lane == 0) mbar_arrive(empty + 8 * s);   // stage s is free
+      if (lane == 0) mbar_arrive(empty + 8 * sp);   // stage sp is free
+      rescale<D>(acc, alpha);
+      pack_p(sc, pf);
     }
+    const int sl = (n_tiles - 1) % STAGES;
+    turn_wait(wg);
+    wgmma_fence();
+    issue_pv<D>(acc, pf, sV + sl * C::KV_BYTES);
+    wgmma_commit();
+    if (wg == 0) turn_pass(wg);   // warpgroup 1 has one turn left
+    wgmma_wait<0>();
+#pragma unroll
+    for (int p = 0; p < NP; ++p) fence_regs(acc[p]);
+    if (lane == 0) mbar_arrive(empty + 8 * sl);
 
     // epilogue: o = acc / l in bf16, lse = m + log(l); rows past T are
     // not written
