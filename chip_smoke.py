@@ -110,7 +110,11 @@ Phases, each fatal on failure:
    B=4 (rows 4 + 11 + 12), 4 + 4 launches a step, step ms, tokens/s,
    MFU; 5-step fits of the tiny BERT (rows 5 + 10 non-causal, D=32) and
    of the tiny GPT at block_size 1024 (rows 5 + 10) and 2048 (rows 4 +
-   11 + 12), B=8, 2 + 2 launches a step.
+   11 + 12), B=8, 2 + 2 launches a step; (d) at GPT-2 XL's width cut to
+   2 layers, B=2, T=1024 (rows 5 + 10) and T=2048 (rows 4 + 11 + 12):
+   one step's gradients against ``attention_impl="dot"`` on the same
+   weights and tokens, per-tensor relative L2 within 2e-2, one launch of
+   each kernel a layer.
 
 The next-to-last line is the ``{"kernels": [...]}`` JSON record, one
 entry per TPU kernel row, 1 to 16 (``launches`` from the path phases
@@ -118,6 +122,10 @@ that route to it by ``tpu_rows``, each counted from 0 just before its
 phase; rows 1 and 6 also carry their non-causal times under
 ``noncausal``); the last is ``{"ok": true, "device": {...}}``.  Without
 CUDA the script prints an error and exits 1.
+
+``--fwd-only`` builds the kernels and runs flash_fwd alone at every TPU
+row 1-5 shape (``fwd_rows``: checked against its plain version and for
+determinism, timed beside SDPA, TFLOP/s), then exits; no path is driven.
 """
 
 from __future__ import annotations
@@ -1923,9 +1931,60 @@ def folded_fits(seed: int, card: str) -> list:
     return runs
 
 
+#: the gradient check at GPT-2 XL's width: layers and batch
+XL_GRAD_LAYERS = 2
+XL_GRAD_B = 2
+
+
+def xl_grad_parity(seed: int) -> dict:
+    """One step's gradients at GPT-2 XL's width (n_embd 1600, 25 heads of
+    64), cut to ``XL_GRAD_LAYERS`` layers, at T=1024 (the JAX package's
+    rows 5 + 10) and T=2048 (rows 4 + 11 + 12): flash attention against
+    ``attention_impl="dot"`` on the same seeded weights and tokens,
+    per-tensor relative L2 within ``GRAD_TOL``; the flash step launches
+    flash_fwd and flash_bwd once per layer."""
+    out = {}
+    for T, rows in ((1024, (5, (10,))), (2048, (4, (11, 12)))):
+        if tpu_rows(T, 25, 64, True) != rows:
+            raise AssertionError(f"XL T={T}: not rows {rows}")
+
+        def module(impl):
+            cfg = dataclasses.replace(
+                CONFIGS["gpt2-small"], n_layer=XL_GRAD_LAYERS, n_head=25,
+                n_embd=1600, block_size=T, attention_impl=impl)
+            return GPTLightningModule(cfg, batch_size=XL_GRAD_B,
+                                      dataset_size=XL_GRAD_B)
+
+        batch = first_batch(module("auto"))
+        _kernels.reset_launches()
+        g_flash = module_grads(module("auto"), seed, batch)
+        launches = _kernels.launch_counts()
+        g_dot = module_grads(module("dot"), seed, batch)
+        rel = grads_rel_l2(g_flash, g_dot)
+        del g_flash, g_dot, batch
+        free_cuda()
+        worst = max(rel.items(), key=lambda kv: kv[1])
+        log(f"  {XL_GRAD_LAYERS}-layer GPT-2 XL width B={XL_GRAD_B} T={T} "
+            f"(rows {rows}): flash vs dot per-tensor relative L2 max "
+            f"{worst[1]:.3e} ({worst[0]}), median "
+            f"{float(np.median(list(rel.values()))):.3e} (tol {GRAD_TOL}); "
+            f"launches flash_fwd {launches['flash_fwd']}, flash_bwd "
+            f"{launches['flash_bwd']}")
+        if not all(np.isfinite(v) and v <= GRAD_TOL for v in rel.values()):
+            raise AssertionError(f"XL T={T} flash vs dot gradients: {worst}")
+        if (launches["flash_fwd"], launches["flash_bwd"]) != (
+                XL_GRAD_LAYERS, XL_GRAD_LAYERS):
+            raise AssertionError(f"XL T={T} gradient step launches: "
+                                 f"{launches}")
+        out[f"T{T}"] = {"rows": rows, "grad_rel_l2_max": worst[1],
+                        "grad_rel_l2_worst": worst}
+    return out
+
+
 def folded_phase(seed: int, card: str) -> dict:
     """Phase 9 (everything earlier freed): the folded rows' kernel
-    entries, the bert-base runs, the folded fits.  Returns the entries
+    entries, the bert-base runs, the folded fits, the gradient check at
+    GPT-2 XL's width (``xl_grad_parity``).  Returns the entries
     by row, the path runs (each with its rows and launches) and the
     bert-base shape's kernel result (rows 1 and 6 non-causal)."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
@@ -1933,10 +1992,12 @@ def folded_phase(seed: int, card: str) -> dict:
     runs, bert_stats = bert_runs(seed, card)
     runs += folded_fits(seed, card)
     free_cuda()
-    log("bert " + json.dumps({"mlm": bert_stats, "runs": {
-        r["path"]: {"rows": r["rows"], "launches": r["launches"],
-                    **{k: v for k, v in r["stats"].items()
-                       if k != "profile"}} for r in runs}}))
+    xl_grads = xl_grad_parity(seed)
+    log("bert " + json.dumps({
+        "mlm": bert_stats, "xl_grad_parity": xl_grads,
+        "runs": {r["path"]: {"rows": r["rows"], "launches": r["launches"],
+                             **{k: v for k, v in r["stats"].items()
+                                if k != "profile"}} for r in runs}}))
     return {"entries": entries, "runs": runs, "base": base}
 
 

@@ -50,8 +50,8 @@
 // fp32 accumulation, o = acc / l, lse = m + log(l). No atomics: the
 // output is the same from run to run.
 
-#include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched
-                    // from the driver at run time (no -lcuda)
+#include <cuda.h>   // CUtensorMap and its enums; libcuda's encoder is
+                    // looked up at run time (no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cudaTypedefs.h>
@@ -550,7 +550,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// the driver's tensor-map encoder, fetched once through the runtime
+// libcuda's tensor-map encoder, looked up once through the runtime
 PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
     void* p = nullptr;

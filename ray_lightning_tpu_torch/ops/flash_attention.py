@@ -48,10 +48,11 @@ masking, ``p`` rounded to the input dtype before PV and dV, ``ds``
 before dK and dQ.  The port computes that function with one CUDA
 forward, ``csrc/flash_fwd.cu``, and one CUDA backward,
 ``csrc/flash_bwd.cu`` (CUDA C++ for ``sm_90a``, bound through
-:mod:`._kernels`), for every T and head count: 64-row tiles read by
-strides from ``[B, T, H, D]`` (no fold), causal tile skipping and
-masked ragged tails, so no VMEM gate is carried over and the block
-sizes change only the route that :func:`tpu_rows` names.
+:mod:`._kernels`), for every T and head count: tiles (128 rows in the
+forward, 64 in the backward) read by strides from ``[B, T, H, D]`` (no
+fold), causal tile skipping and masked ragged tails, so no VMEM gate is
+carried over and the block sizes change only the route that
+:func:`tpu_rows` names.
 
 :func:`flash_attention_fwd` and :func:`flash_attention_bwd` are the
 wrappers: a CUDA tensor launches the kernel (or raises on what the
@@ -231,8 +232,10 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
 
     A CUDA tensor launches ``csrc/flash_fwd.cu``: bf16 only, head_dim in
     :data:`HEAD_DIMS`, unit stride over D and 16-byte-aligned rows (the
-    split views of a fused qkv projection qualify, with no copy).  A CPU
-    tensor takes :func:`flash_attention_fwd_plain`.
+    split views of a fused qkv projection qualify, with no copy: the
+    kernel reads them through TMA tensor maps built from these strides
+    at each launch).  A CPU tensor takes
+    :func:`flash_attention_fwd_plain`.
     """
     _check(q, k, v)
     B, T, H, D = q.shape
@@ -366,8 +369,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     drop-in for :func:`~ray_lightning_tpu_torch.ops.attention.
     dot_product_attention`, as in the JAX package, differentiable through
     :class:`FlashAttentionFunction`.  The JAX signature's ``block_q``/
-    ``block_k`` are not taken: the port's kernels tile 64 rows for every
-    shape, and the blocks only pick the reference's route
+    ``block_k`` are not taken: the port's kernels tile the same rows for
+    every shape, and the blocks only pick the reference's route
     (:func:`tpu_rows`)."""
     o = FlashAttentionFunction.apply(q, k, v, causal, sm_scale)
     return o.to(dtype)
