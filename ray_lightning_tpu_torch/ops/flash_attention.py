@@ -47,12 +47,14 @@ function: fp32 scores, a causal or full softmax under ``NEG_INF``
 masking, ``p`` rounded to the input dtype before PV and dV, ``ds``
 before dK and dQ.  The port computes that function with one CUDA
 forward, ``csrc/flash_fwd.cu``, and one CUDA backward,
-``csrc/flash_bwd.cu`` (CUDA C++ for ``sm_90a``, bound through
-:mod:`._kernels`), for every T and head count: tiles (128 rows in the
-forward, 64 in the backward) read by strides from ``[B, T, H, D]`` (no
-fold), causal tile skipping and masked ragged tails, so no VMEM gate is
-carried over and the block sizes change only the route that
-:func:`tpu_rows` names.
+``csrc/flash_bwd.cu`` (CUDA C++ for ``sm_90a`` on wgmma and TMA, bound
+through :mod:`._kernels`), for every T and head count: tiles read by
+strides from ``[B, T, H, D]`` (no fold; the forward's blocks take 128 q
+rows against 128-row k/v tiles, the backward's 128 resident rows against
+64-row streamed tiles), causal tile skipping and masked ragged tails, so
+no VMEM gate is carried over and the block sizes change only the route
+that :func:`tpu_rows` names.  The backward is three passes of one call
+(delta, dk/dv, dq) with no atomics, so two calls agree bit for bit.
 
 :func:`flash_attention_fwd` and :func:`flash_attention_bwd` are the
 wrappers: a CUDA tensor launches the kernel (or raises on what the
@@ -78,8 +80,16 @@ HEAD_DIMS = (16, 32, 64, 128)
 
 KERNEL = Kernel("flash_fwd", "flash_fwd.cu", "rlt_flash_fwd",
                 "ppppp" + "i" * 14 + "f" + "i" + "p")
+_BWD_SIGNATURE = "p" * 10 + "i" * 20 + "f" + "i" + "p"
 BWD_KERNEL = Kernel("flash_bwd", "flash_bwd.cu", "rlt_flash_bwd",
-                    "p" * 10 + "i" * 20 + "f" + "i" + "p")
+                    _BWD_SIGNATURE)
+#: each pass of ``flash_bwd`` alone, entry points of the same source and
+#: build, taking its arguments: for timing a pass (``chip_smoke.py``);
+#: the main path launches ``BWD_KERNEL``, so these count apart
+BWD_PASS_KERNELS = {
+    name: Kernel(f"flash_bwd_{name}", "flash_bwd.cu",
+                 f"rlt_flash_bwd_{name}", _BWD_SIGNATURE)
+    for name in ("delta", "dkdv", "dq")}
 
 
 def _check(q, k, v) -> None:
@@ -113,19 +123,12 @@ def _check_kernel_operands(kernel: str, **tensors) -> None:
             raise ValueError(f"{name} strides overflow int32")
 
 
-def _check_grid(kernel: str, B: int, H: int) -> None:
-    """The backward runs a block per (64-row tile, b * h): grid y is
-    B * H, which CUDA caps at 65535."""
-    if B * H > 65535:
-        raise ValueError(f"{kernel} kernel takes B * H <= 65535, got "
-                         f"{B} * {H}")
-
-
-def _check_fwd_grid(B: int, T: int, H: int) -> None:
-    """The forward runs a block per (b * h, 128-row q tile): grid x is
-    B * H (CUDA caps it at 2**31 - 1), grid y the q tiles (at 65535)."""
+def _check_grid(kernel: str, B: int, T: int, H: int) -> None:
+    """Both kernels run a block per (b * h, 128-row block of T): grid x
+    is B * H (CUDA caps it at 2**31 - 1), grid y the row blocks (at
+    65535)."""
     if B * H >= 2 ** 31 or -(-T // 128) > 65535:
-        raise ValueError(f"flash_fwd kernel takes B * H < 2**31 and T <= "
+        raise ValueError(f"{kernel} kernel takes B * H < 2**31 and T <= "
                          f"{65535 * 128}, got B={B} T={T} H={H}")
 
 
@@ -245,7 +248,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
         return flash_attention_fwd_plain(q, k, v, causal=causal,
                                          sm_scale=sm_scale)
     _check_kernel_operands("flash_fwd", q=q, k=k, v=v)
-    _check_fwd_grid(B, T, H)
+    _check_grid("flash_fwd", B, T, H)
     o = torch.empty(B, T, H, D, dtype=q.dtype, device=q.device)
     lse = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     if T == 0 or B == 0:
@@ -293,6 +296,39 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
                  for g, x in ((dq, q), (dk, k), (dv, v)))
 
 
+def _bwd_launch(q, k, v, o, lse, do, causal, sm_scale):
+    """The checked arguments of a ``flash_bwd`` entry point and the
+    outputs ``(dq, dk, dv)`` they fill (``None`` for the arguments when
+    the shape is empty); the CUDA side of :func:`flash_attention_bwd`."""
+    B, T, H, D = q.shape
+    _check_kernel_operands("flash_bwd", q=q, k=k, v=v, o=o, do=do)
+    _check_grid("flash_bwd", B, T, H)
+    if lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise TypeError("flash_bwd kernel takes a contiguous fp32 lse")
+    dq, dk, dv = (torch.empty(B, T, H, D, dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    if T == 0 or B == 0:
+        return None, (dq, dk, dv)
+    delta = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
+    strides = [st for x in (q, k, v, o, do) for st in x.stride()[:3]]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, T, H, D, *strides,
+            int(bool(causal)), float(sm_scale), q.device.index or 0, stream)
+    return (args, delta), (dq, dk, dv)
+
+
+def _bwd_operands(q, k, v, o, lse, do, sm_scale):
+    _check(q, k, v)
+    B, T, H, D = q.shape
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, T):
+        raise ValueError(
+            f"o and do must be {tuple(q.shape)} and lse {(B, H, T)}, got "
+            f"{tuple(o.shape)}, {tuple(do.shape)}, {tuple(lse.shape)}")
+    return 1.0 / math.sqrt(D) if sm_scale is None else sm_scale
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         sm_scale: "float | None" = None):
     """Attention backward over ``[B, T, H, D]``: ``(dq, dk, dv)`` from the
@@ -305,34 +341,39 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     q, k, v, o and do.  A CPU tensor takes
     :func:`flash_attention_bwd_plain`.
     """
-    _check(q, k, v)
-    B, T, H, D = q.shape
-    if o.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, T):
-        raise ValueError(
-            f"o and do must be {tuple(q.shape)} and lse {(B, H, T)}, got "
-            f"{tuple(o.shape)}, {tuple(do.shape)}, {tuple(lse.shape)}")
-    if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(D)
+    sm_scale = _bwd_operands(q, k, v, o, lse, do, sm_scale)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          sm_scale=sm_scale)
-    _check_kernel_operands("flash_bwd", q=q, k=k, v=v, o=o, do=do)
-    _check_grid("flash_bwd", B, H)
-    if lse.dtype != torch.float32 or not lse.is_contiguous():
-        raise TypeError("flash_bwd kernel takes a contiguous fp32 lse")
-    dq, dk, dv = (torch.empty(B, T, H, D, dtype=q.dtype, device=q.device)
-                  for _ in range(3))
-    if T == 0 or B == 0:
-        return dq, dk, dv
-    delta = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
-    strides = [st for x in (q, k, v, o, do) for st in x.stride()[:3]]
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    BWD_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                      do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, H,
-                      D, *strides, int(bool(causal)), float(sm_scale),
-                      q.device.index or 0, stream)
-    return dq, dk, dv
+    launch, grads = _bwd_launch(q, k, v, o, lse, do, causal, sm_scale)
+    if launch is not None:
+        BWD_KERNEL.launch(*launch[0])
+    return grads
+
+
+def flash_attention_bwd_passes(q, k, v, o, lse, do, *, causal: bool = True,
+                               sm_scale: "float | None" = None):
+    """The passes of :func:`flash_attention_bwd`'s kernel one by one, for
+    timing each: ``({"delta": fn, "dkdv": fn, "dq": fn}, (dq, dk, dv))``,
+    each ``fn()`` launching its pass alone (counted on
+    :data:`BWD_PASS_KERNELS`, not on :data:`BWD_KERNEL`) on the shared
+    scratch and outputs; called in that order they compute what one
+    :func:`flash_attention_bwd` call does.  CUDA tensors only: the plain
+    version has no passes."""
+    sm_scale = _bwd_operands(q, k, v, o, lse, do, sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention_bwd_passes launches the kernel's "
+                         f"passes: CUDA tensors only, got {q.device}")
+    launch, grads = _bwd_launch(q, k, v, o, lse, do, causal, sm_scale)
+    if launch is None:
+        return {name: (lambda: None) for name in BWD_PASS_KERNELS}, grads
+    args, delta = launch
+    fns = {}
+    for name, kern in BWD_PASS_KERNELS.items():
+        def run(kern=kern, delta=delta):   # delta: the scratch args point at
+            kern.launch(*args)
+        fns[name] = run
+    return fns, grads
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -376,7 +417,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     return o.to(dtype)
 
 
-__all__ = ["BWD_KERNEL", "FlashAttentionFunction", "HEAD_DIMS", "KERNEL",
-           "NEG_INF", "flash_attention", "flash_attention_bwd",
+__all__ = ["BWD_KERNEL", "BWD_PASS_KERNELS", "FlashAttentionFunction",
+           "HEAD_DIMS", "KERNEL", "NEG_INF", "flash_attention",
+           "flash_attention_bwd", "flash_attention_bwd_passes",
            "flash_attention_bwd_plain", "flash_attention_fwd",
            "flash_attention_fwd_plain", "tpu_rows"]

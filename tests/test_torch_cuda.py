@@ -32,7 +32,8 @@ from ray_lightning_tpu_torch.models.gpt import GPTConfig
 from ray_lightning_tpu_torch.ops import _kernels
 from ray_lightning_tpu_torch.ops.attention import dot_product_attention
 from ray_lightning_tpu_torch.ops.flash_attention import (
-    flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+    HEAD_DIMS, flash_attention, flash_attention_bwd,
+    flash_attention_bwd_passes, flash_attention_bwd_plain,
     flash_attention_fwd, flash_attention_fwd_plain)
 from ray_lightning_tpu_torch.ops.flash_decode import (
     flash_decode_attention, flash_decode_attention_plain,
@@ -111,6 +112,69 @@ def test_cuda_flash_bwd_kernel_matches_plain(T, D, causal, cuda_device):
         assert _rel_l2(a, b) <= 1e-3, (name, _rel_l2(a, b))
 
 
+def _bwd_inputs(g, B, T, H, D, device):
+    """q, k, v as the strided views of a fused qkv projection, and do."""
+    qkv = torch.randn(B, T, 3 * H * D, generator=g,
+                      device=device).to(torch.bfloat16)
+    q, k, v = (x.view(B, T, H, D) for x in qkv.split(H * D, dim=-1))
+    do = torch.randn(B, T, H, D, generator=g, device=device).to(
+        torch.bfloat16)
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 127, 128, 129, 200])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_cuda_flash_bwd_kernel_matches_plain_at_tile_edges(D, causal, T,
+                                                           cuda_device):
+    """The backward's tile edges: its 64-row streamed tiles and 128-row
+    resident blocks (T = 1, 63, 64, 65, 127, 128, 129, 200), every head
+    dim, causal and not, 25 heads as strided views of a fused qkv
+    projection.  dq, dk, dv within 1e-3 relative L2 of the plain
+    backward, one launch a call, and two calls equal bit for bit (no
+    atomics)."""
+    g = torch.Generator(device=cuda_device).manual_seed(T * D + causal)
+    B, H = 2, 25
+    q, k, v, do = _bwd_inputs(g, B, T, H, D, cuda_device)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    before = _kernels.REGISTRY["flash_bwd"].launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert _kernels.REGISTRY["flash_bwd"].launches == before + 2
+    for name, a, a2, b in zip(("dq", "dk", "dv"), got, again, want):
+        assert a.dtype == torch.bfloat16 and a.shape == (B, T, H, D)
+        assert torch.isfinite(a.float()).all(), name
+        assert torch.equal(a, a2), name
+        assert _rel_l2(a, b) <= 1e-3, (name, _rel_l2(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_bwd_passes_in_order_equal_one_call(causal, cuda_device):
+    """The per-pass entry points (delta, dk/dv, dq; for timing a pass)
+    called in order give one call's dq, dk, dv bit for bit, and count on
+    their own kernels, not on ``flash_bwd``."""
+    g = torch.Generator(device=cuda_device).manual_seed(3 + causal)
+    B, T, H, D = 2, 333, 4, 64
+    q, k, v, do = _bwd_inputs(g, B, T, H, D, cuda_device)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    want = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    _kernels.reset_launches()
+    passes, got = flash_attention_bwd_passes(q, k, v, o, lse, do,
+                                             causal=causal)
+    for name in ("delta", "dkdv", "dq"):
+        passes[name]()
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    assert counts["flash_bwd"] == 0
+    assert all(counts[f"flash_bwd_{n}"] == 1 for n in passes)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert torch.equal(a, b), name
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("T", [2048, 2050, 4096])
 def test_cuda_flash_kernels_match_plain_at_long_context(T, cuda_device):
@@ -184,11 +248,12 @@ def test_cuda_flash_kernels_match_plain_on_folded_routes(B, T, H, D, causal,
 
 @pytest.mark.cuda
 def test_cuda_flash_kernels_refuse_a_grid_past_cuda_limits(cuda_device):
-    """CUDA caps grid y at 65535. The backward's grid y is B * H: past it
-    the wrapper raises instead of launching a grid the card refuses. The
-    forward's is the 128-row q tiles (B * H is its grid x), so B * H =
-    65536 runs and matches the plain version, and a T past 65535 tiles
-    raises."""
+    """Both kernels run a block per (b * h, 128-row block of T): B * H is
+    grid x (CUDA caps it at 2**31 - 1) and the row blocks grid y (at
+    65535).  So B * H = 65536, past grid y's cap, runs the forward and
+    the backward and both match their plain versions, and a T past
+    65535 blocks raises in each wrapper instead of launching a grid the
+    card refuses."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
     x = torch.randn(65536, 1, 1, 64, generator=g,
                     device=cuda_device).to(torch.bfloat16)
@@ -196,12 +261,21 @@ def test_cuda_flash_kernels_refuse_a_grid_past_cuda_limits(cuda_device):
     o_ref, lse_ref = flash_attention_fwd_plain(x, x, x)
     assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2
     assert (lse - lse_ref).abs().max().item() <= 1e-3
-    with pytest.raises(ValueError, match="65535"):
-        flash_attention_bwd(x, x, x, x, lse, x)
+    do = torch.randn(65536, 1, 1, 64, generator=g,
+                     device=cuda_device).to(torch.bfloat16)
+    got = flash_attention_bwd(x, x, x, o, lse, do)
+    want = flash_attention_bwd_plain(x, x, x, o, lse, do)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a.float()).all(), name
+        assert _rel_l2(a, b) <= 1e-3, (name, _rel_l2(a, b))
+    T = 65535 * 128 + 1
     long = torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16,
-                       device=cuda_device).expand(1, 65535 * 128 + 1, 1, 64)
+                       device=cuda_device).expand(1, T, 1, 64)
     with pytest.raises(ValueError, match="T <= 8388480"):
         flash_attention_fwd(long, long, long)
+    long_lse = torch.zeros(1, 1, T, device=cuda_device)
+    with pytest.raises(ValueError, match="T <= 8388480"):
+        flash_attention_bwd(long, long, long, long, long_lse, long)
 
 
 @pytest.mark.cuda

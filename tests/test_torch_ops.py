@@ -29,6 +29,7 @@ from ray_lightning_tpu.ops.flash_attention import (
 from ray_lightning_tpu_torch.ops import _kernels
 from ray_lightning_tpu_torch.ops.attention import (cached_attention,
                                                    dot_product_attention)
+from ray_lightning_tpu_torch.ops import flash_attention as fa
 from ray_lightning_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_fwd)
 from ray_lightning_tpu_torch.ops.flash_decode import (
@@ -254,6 +255,66 @@ def test_entry_points_of_one_source_share_one_build(tmp_path, monkeypatch):
     assert a.library_path().is_file() and c.library_path().is_file()
     assert a.build_log == b.build_log
     assert _kernels.build() == 0.0
+
+
+def test_backward_passes_share_the_backward_build(tmp_path, monkeypatch):
+    """``flash_bwd``'s per-pass entry points (delta, dk/dv, dq, for timing
+    a pass) are entry points of ``flash_bwd.cu`` itself: one library,
+    one compiler run for all four, each entry point defined in the
+    source with the whole backward's arguments."""
+    source = (_kernels.CSRC / "flash_bwd.cu").read_text()
+    monkeypatch.setattr(_kernels, "CSRC", tmp_path / "csrc")
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / "build")
+    (tmp_path / "csrc").mkdir()
+    (tmp_path / "csrc" / "flash_bwd.cu").write_text(source)
+    log = tmp_path / "calls"
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text("#!/bin/sh\necho \"$@\" >> " + str(log) + "\n"
+                    "while [ $# -gt 0 ]; do\n"
+                    "  if [ \"$1\" = -o ]; then : > \"$2\"; fi; shift\n"
+                    "done\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    kernels = [fa.BWD_KERNEL, *fa.BWD_PASS_KERNELS.values()]
+    assert sorted(fa.BWD_PASS_KERNELS) == ["delta", "dkdv", "dq"]
+    assert len({k.library_path() for k in kernels}) == 1
+    assert len({k.entry for k in kernels}) == 4
+    assert all(k.signature == fa.BWD_KERNEL.signature for k in kernels)
+    for k in kernels:
+        assert f'extern "C" int {k.entry}(RLT_BWD_PARAMS)' in source
+        assert _kernels.REGISTRY[k.name] is k
+    _kernels.build(kernels)
+    assert len(log.read_text().splitlines()) == 1
+    assert len({k.build_log for k in kernels}) == 1
+
+
+def test_backward_passes_take_cuda_tensors_only():
+    """The passes are the kernel's: a CPU tensor (whose backward is the
+    plain version, which has none) raises."""
+    x = torch.zeros(1, 8, 2, 16)
+    lse = torch.zeros(1, 2, 8)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fa.flash_attention_bwd_passes(x, x, x, x, lse, x)
+
+
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd"])
+@pytest.mark.parametrize("B,T,H,ok", [
+    (65536, 1, 1, True),            # past grid y's cap: B * H is grid x
+    (2 ** 27, 1, 16, False),        # B * H = 2**31
+    (2 ** 27 - 1, 1, 16, True),
+    (1, 65535 * 128, 1, True),      # 65535 row blocks of 128
+    (1, 65535 * 128 + 1, 1, False),
+])
+def test_grid_check_follows_cuda_limits(kernel, B, T, H, ok):
+    """Both kernels run a block per (b * h, 128-row block of T): B * H
+    up to 2**31 - 1 (grid x) and T up to 65535 blocks (grid y) pass, and
+    one more raises before any launch."""
+    if ok:
+        fa._check_grid(kernel, B, T, H)
+    else:
+        with pytest.raises(ValueError, match=f"{kernel} kernel takes"):
+            fa._check_grid(kernel, B, T, H)
 
 
 def test_missing_nvcc_raises(tmp_path, monkeypatch):
