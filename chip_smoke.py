@@ -71,7 +71,8 @@ Phases, each fatal on failure:
    (a) flash_fwd and flash_bwd at the long-context path's shapes
    against their plain versions over all heads (run in head groups so
    their [B, g, T, T] scores fit), timed beside them, SDPA and their
-   bounds, the backward's dk/dv and dq passes timed with the profiler:
+   bounds, the backward's delta, dk/dv and dq passes each timed alone
+   with CUDA events (their own entry points, counted apart):
    B=8 T=2048 H=32 (gpt2-1p3b), B=2 T=4096, B=1 T=8192 and B=1 T=16384
    at H=12; (b) ``Trainer(max_steps=6).fit(GPTLightningModule(
    "gpt2-1p3b", batch_size=8))`` at full width and depth (24 layers, 32
@@ -126,6 +127,11 @@ CUDA the script prints an error and exits 1.
 ``--fwd-only`` builds the kernels and runs flash_fwd alone at every TPU
 row 1-5 shape (``fwd_rows``: checked against its plain version and for
 determinism, timed beside SDPA, TFLOP/s), then exits; no path is driven.
+``--bwd-only`` does the same for flash_bwd at every row 6-12, 15, 16
+shape (``bwd_rows``), its passes timed alone as well.  Either is the A/B
+tool for a kernel's versions: unpack each tree (``git archive``) under
+``build/``, copy this script in, and run it from each in turns (a tree
+without per-pass entry points times the whole backward only).
 """
 
 from __future__ import annotations
@@ -155,6 +161,7 @@ from ray_lightning_tpu_torch.models.bert import (  # noqa: E402
 from ray_lightning_tpu_torch.models.gpt import (  # noqa: E402
     CONFIGS, GPT, GPTLightningModule)
 from ray_lightning_tpu_torch.ops import _kernels  # noqa: E402
+from ray_lightning_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from ray_lightning_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
     flash_attention_fwd_plain, tpu_rows)
@@ -1362,41 +1369,43 @@ def by_heads(plain, q, *rest, lse=None, causal: bool = True):
                  for i, t in enumerate(parts[0]))
 
 
-def bwd_pass_ms(fn, calls: int = 3, sessions: int = 6) -> dict:
-    """Device ms per launch of each pass of ``flash_bwd`` (one call, three
-    kernels), read from torch.profiler: each kernel's device time over
-    the launches the traces hold.  After earlier profiler sessions in
-    one process a trace can lack some or all of a window's kernels, so
-    the mean is taken over the kernels seen, never over the calls made,
-    and windows of ``calls`` calls are profiled again, up to
-    ``sessions``, until every pass has been seen ``calls`` times; the
-    counts are returned under ``seen``."""
-    from torch.profiler import ProfilerActivity, profile
-    names = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel",
-             "flash_bwd_dq_kernel")
-    fn()
-    torch.cuda.synchronize()
-    us = dict.fromkeys(names, 0.0)
-    seen = dict.fromkeys(names, 0)
-    made = 0
-    while made < sessions * calls and min(seen.values()) < calls:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        made += calls
-        for e in prof.key_averages():
-            for n in names:
-                if n in e.key and _device_us(e) > 0:
-                    us[n] += _device_us(e)
-                    seen[n] += e.count
-    if not all(seen.values()):
-        raise AssertionError(f"the profiler saw no flash_bwd pass in "
-                             f"{made} calls: {seen}")
-    out = {n: us[n] / seen[n] / 1e3 for n in names}
-    out["seen"] = {n: f"{seen[n]} of {made}" for n in names}
-    return out
+def bwd_bounds(B: int, T: int, heads: int, d: int, causal: bool) -> dict:
+    """The bound of the whole backward and of each of its passes, each
+    input read once and each output written once: the products of
+    T(T+1)/2 d multiply-adds a head when causal, T^2 d when not, two
+    flops each; five for the backward (s, dp, dv, dk, dq), four for the
+    dk/dv pass, three for the dq pass."""
+    c = heads * d
+    tri = B * heads * 2 * d * T * ((T + 1) / 2 if causal else T)
+    stat = B * heads * T * 4            # an fp32 [B, H, T] row statistic
+    return {
+        "bwd": bound(B * 8 * T * c * 2 + stat, 5 * tri),
+        # o, dO in; delta out
+        "delta": bound(B * 2 * T * c * 2 + stat, 0),
+        # q, k, v, dO, lse, delta in; dk, dv out
+        "dkdv": bound(B * 6 * T * c * 2 + 2 * stat, 4 * tri),
+        # q, k, v, dO, lse, delta in; dq out
+        "dq": bound(B * 5 * T * c * 2 + 2 * stat, 3 * tri),
+        "tri_flops": tri,
+    }
+
+
+def bwd_pass_ms(q, k, v, o, lse, do, causal: bool,
+                iters: int = 20) -> dict:
+    """Device ms of each pass of ``flash_bwd`` (delta, dk/dv, dq), each
+    launched alone through its own entry point (``flash_attention_bwd_
+    passes``) and timed with CUDA events over ``iters`` launches; after
+    one run of the three in order, so dk/dv and dq read a real delta.
+    Empty where the package has no per-pass entry points (a tree from
+    before them, run for an A/B comparison)."""
+    passes_of = getattr(fa, "flash_attention_bwd_passes", None)
+    if passes_of is None:
+        return {}
+    passes, _ = passes_of(q, k, v, o, lse, do, causal=causal)
+    for fn in passes.values():
+        fn()
+    return {name: time_ms(fn, iters=iters, warmup=2)
+            for name, fn in passes.items()}
 
 
 def long_kernel_shape(gen, B: int, T: int, heads: int, causal: bool = True,
@@ -1404,7 +1413,7 @@ def long_kernel_shape(gen, B: int, T: int, heads: int, causal: bool = True,
     """flash_fwd and flash_bwd at one shape, causal or not, bf16, on
     fused-qkv views: against the plain versions over all heads (in
     groups), timed beside them, the SDPA yardstick and their bounds; the
-    backward's dk/dv and dq passes timed with the profiler."""
+    backward's delta, dk/dv and dq passes timed alone with CUDA events."""
     shape = (f"B={B} T={T} H={heads} D={d} "
              f"{'causal' if causal else 'non-causal'} bf16")
     q, k, v, do = attention_inputs(gen, B, T, heads, d)
@@ -1459,30 +1468,22 @@ def long_kernel_shape(gen, B: int, T: int, heads: int, causal: bool = True,
     bwd_lib_ms = time_ms(lambda: torch.autograd.grad(
         out, (qg, kg, vg), gout, retain_graph=True), iters=10, warmup=2)
     del out
-    passes = bwd_pass_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
-                                                     causal=causal))
+    passes = bwd_pass_ms(q, k, v, o, lse, do, causal)
 
-    # each input read once, each output written once; the products of
-    # T(T+1)/2 D multiply-adds a head when causal, T^2 D when not, two
-    # flops each
-    tri = B * heads * 2 * d * T * ((T + 1) / 2 if causal else T)
-    lse_bytes = B * heads * T * 4
-    fwd_b = bound(B * 4 * T * c * 2 + lse_bytes, 2 * tri)  # q k v o; PV QK
-    bwd_b = bound(B * 8 * T * c * 2 + lse_bytes, 5 * tri)
-    # dk/dv pass: q, k, v, dO, lse, delta in, dk, dv out; s, dp, dv, dk
-    dkdv_b = bound(B * 6 * T * c * 2 + 2 * lse_bytes, 4 * tri)
-    # dq pass: q, k, v, dO, lse, delta in, dq out; s, dp, dq
-    dq_b = bound(B * 5 * T * c * 2 + 2 * lse_bytes, 3 * tri)
-    dkdv_ms = passes["flash_bwd_dkdv_kernel"]
-    dq_ms = passes["flash_bwd_dq_kernel"]
+    # each input read once, each output written once (``bwd_bounds``)
+    bb = bwd_bounds(B, T, heads, d, causal)
+    fwd_b = bound(B * 4 * T * c * 2 + B * heads * T * 4,
+                  2 * bb["tri_flops"])                    # q k v o; QK PV
+    bwd_b, dkdv_b, dq_b = bb["bwd"], bb["dkdv"], bb["dq"]
+    dkdv_ms = passes["dkdv"]
+    dq_ms = passes["dq"]
     log(f"  {shape}: flash_fwd {fwd_ms:.4f} ms (plain {fwd_plain_ms:.4f}, "
         f"sdpa {fwd_lib_ms:.4f}, bound {fwd_b[0]:.5f} {fwd_b[1]}); "
         f"flash_bwd {bwd_ms:.4f} ms (plain {bwd_plain_ms:.4f}, sdpa "
         f"backward {bwd_lib_ms:.4f}, bound {bwd_b[0]:.5f} {bwd_b[1]}); "
-        f"passes (profiler): delta "
-        f"{passes['flash_bwd_delta_kernel']:.4f}, dk/dv {dkdv_ms:.4f} "
-        f"(bound {dkdv_b[0]:.5f}), dq {dq_ms:.4f} (bound {dq_b[0]:.5f}); "
-        f"launches in the trace {passes['seen']}")
+        f"passes (CUDA events): delta {passes['delta']:.4f} (bound "
+        f"{bb['delta'][0]:.5f}), dk/dv {dkdv_ms:.4f} (bound "
+        f"{dkdv_b[0]:.5f}), dq {dq_ms:.4f} (bound {dq_b[0]:.5f})")
 
     def part(ms, plain_ms, lib_ms, b, err, tol, **extra):
         return dict(shape=shape, max_abs_err=err, tol=tol, ms=ms,
@@ -1496,8 +1497,8 @@ def long_kernel_shape(gen, B: int, T: int, heads: int, causal: bool = True,
                     rel_l2=max(errs[n] for n in tensors), **extra)
 
     pass_extra = dict(plain_and_library_compute="dq, dk and dv together",
-                      pass_ms_from="torch.profiler, mean over the launches "
-                                   "its traces hold")
+                      pass_ms_from="CUDA events over launches of the pass "
+                                   "alone")
     return {
         "fwd": part(fwd_ms, fwd_plain_ms, fwd_lib_ms, fwd_b, fwd_err,
                     BF16_TOL, lse_max_abs_err=lse_err),
@@ -2096,12 +2097,87 @@ def fwd_rows(gen) -> list:
     return out
 
 
+#: the backward's shapes of TPU kernel rows 6-12, 15 and 16 on the paths
+#: above: (rows, B, T, H, D, causal)
+BWD_ROW_SHAPES = (
+    ("6", 8, 1024, 12, 64, True), ("6, 15, 16", 32, 512, 12, 64, False),
+    ("9", 8, 2048, 32, 64, True), ("7, 8", 2, 4096, 12, 64, True),
+    ("7, 8", 1, 8192, 12, 64, True), ("7, 8", 1, 16384, 12, 64, True),
+    ("10", 8, 1024, 25, 64, True), ("10", 8, 64, 2, 32, False),
+    ("10", 8, 1024, 2, 32, True), ("11, 12", 4, 2048, 25, 64, True),
+    ("11, 12", 8, 2048, 2, 32, True))
+
+
+def bwd_rows(gen) -> list:
+    """``--bwd-only``: flash_bwd alone at every row 6-12, 15, 16 shape, on
+    fused-qkv views, the forward's o and lse, against the plain backward
+    over all heads (dq, dk, dv within ``BWD_TOL`` relative L2), two calls
+    equal bit for bit; the whole backward and each pass timed with CUDA
+    events beside the SDPA backward and the bounds; achieved TFLOP/s
+    over the five products the bound counts and over the seven the
+    kernel computes (s and dp in both passes)."""
+    out = []
+    for rows, B, T, heads, d, causal in BWD_ROW_SHAPES:
+        shape = (f"B={B} T={T} H={heads} D={d} "
+                 f"{'causal' if causal else 'full'}")
+        q, k, v, do = attention_inputs(gen, B, T, heads, d)
+        o, lse = flash_attention_fwd(q, k, v, causal=causal)
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        want = by_heads(flash_attention_bwd_plain, q, k, v, o, do, lse=lse,
+                        causal=causal)
+        torch.cuda.synchronize()
+        names = ("dq", "dk", "dv")
+        errs = {n: rel_l2(a, b) for n, a, b in zip(names, got, want)}
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+        del got, again, want
+        for n, e in errs.items():
+            check_close(f"flash_bwd {n} {shape} (relative L2)", e, BWD_TOL)
+        if not (same and finite):
+            raise AssertionError(f"flash_bwd {shape}: two calls equal "
+                                 f"{same}, finite {finite}")
+        ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                 causal=causal), iters=20)
+        passes = bwd_pass_ms(q, k, v, o, lse, do, causal)
+        qg, kg, vg = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        out_t = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            out_t, (qg, kg, vg), do.transpose(1, 2), retain_graph=True),
+            iters=20)
+        del out_t
+        bb = bwd_bounds(B, T, heads, d, causal)
+        tri = bb["tri_flops"]
+        log(f"  rows {rows} {shape}: relative L2 "
+            + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+            + f"; kernel {ms:.4f} ms ({5 * tri / ms / 1e9:.1f} TFLOP/s of "
+            f"5 products, {7 * tri / ms / 1e9:.1f} of 7), sdpa backward "
+            f"{lib_ms:.4f} ms, bound {bb['bwd'][0]:.5f} ms "
+            f"({bb['bwd'][1]}), kernel/sdpa {ms / lib_ms:.2f}x"
+            + "".join(f"; {n} {t:.4f} (bound {bb[n][0]:.5f})"
+                      for n, t in passes.items()))
+        out.append(dict(rows=rows, shape=shape, rel_l2=errs,
+                        deterministic=same, ms=ms, library_ms=lib_ms,
+                        bound_ms=bb["bwd"][0], bound_by=bb["bwd"][1],
+                        passes_ms=passes,
+                        pass_bound_ms={n: bb[n][0] for n in passes},
+                        tflops_5=5 * tri / ms / 1e9,
+                        tflops_7=7 * tri / ms / 1e9))
+        del q, k, v, do, o, lse
+        free_cuda()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--fwd-only", action="store_true",
                     help="build, then flash_fwd alone at the row 1-5 "
                          "shapes (fwd_rows); no path is driven")
+    ap.add_argument("--bwd-only", action="store_true",
+                    help="build, then flash_bwd alone at the row 6-12, "
+                         "15, 16 shapes (bwd_rows); no path is driven")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -2116,13 +2192,16 @@ def main(argv=None) -> int:
     by_source = {k.source: k for k in _kernels.REGISTRY.values()}
     for source, k in sorted(by_source.items()):
         for line in k.build_log.splitlines():
-            if any(w in line for w in ("registers", "spill",
-                                       "entry function")):
+            if any(w in line for w in ("registers", "spill", "entry "
+                                       "function", "wgmma", "warning")):
                 log(f"  ptxas {source}: {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     if args.fwd_only:
         log("flash_fwd rows " + json.dumps(fwd_rows(gen)))
+        return 0
+    if args.bwd_only:
+        log("flash_bwd rows " + json.dumps(bwd_rows(gen)))
         return 0
     log("kernel phase")
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
