@@ -39,8 +39,9 @@
 //   tiles (32 rows at D=128) that see them; each consumer warpgroup computes its 64 k rows'
 //   transposed scores S^T = K Q^T and dP^T = V dO^T, so that P^T and dS^T
 //   are the register A operands of dV += P^T dO and dK += dS^T Q;
-// - dq: a block holds 128 q/dO rows resident and walks the 64-row k/v
-//   tiles; S = Q K^T, dP = dO V^T, then dQ += dS K with dS from registers.
+// - dq: a block holds 128 q/dO rows resident and walks the 128-row k/v
+//   tiles (64 rows at D=128); S = Q K^T, dP = dO V^T, then dQ += dS K with
+//   dS from registers.
 // s and dp are computed twice: seven products where the fused TPU rows
 // do five.
 //
@@ -81,7 +82,7 @@ namespace {
 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int R = 128;          // resident rows per block, 64 a warpgroup
-constexpr int STAGES = 4;       // streamed ring depth (D=128: 133 KB in all)
+constexpr int STAGES = 4;       // streamed ring depth (at most 193 KB in all)
 constexpr int NTHREADS = 384;   // producer warpgroup + 2 consumers
 constexpr int CONSUMER_WARPS = 8;   // arrivals that free a stage
 constexpr int DELTA_THREADS = 256;
@@ -95,14 +96,15 @@ typedef __nv_bfloat16 bf16;
 // with the swizzle of its ROWB-byte rows; every panel starts on a
 // 1024-byte boundary (the swizzle pattern's period), so the descriptors'
 // base offset is 0.
-template <int D>
+template <int D, bool DKDV>
 struct Cfg {
   static constexpr int PD = D < 64 ? D : 64;
   static constexpr int NP = D / PD;
   static constexpr int ROWB = PD * 2;   // 32, 64 or 128 bytes
-  // streamed rows per tile: at D=128 the dk/dv pass's dK and dV take 128
-  // fp32 registers a thread, and 64-row score tiles would spill
-  static constexpr int BS = D == 128 ? 32 : 64;
+  // streamed rows per tile: the dq pass's scores take BS fp32 registers a
+  // thread beside D / 2 of dQ, the dk/dv pass's BS beside D of dK and dV;
+  // at D=128 64-row dk/dv tiles would spill
+  static constexpr int BS = DKDV ? (D == 128 ? 32 : 64) : (D == 128 ? 64 : 128);
   static constexpr int RES_PANEL = R * ROWB;
   static constexpr int ST_PANEL = BS * ROWB;
   static constexpr int RES_BYTES = NP * RES_PANEL;   // one resident tensor
@@ -111,7 +113,8 @@ struct Cfg {
   static constexpr int OFF_B1 = 2 * RES_BYTES;
   static constexpr int OFF_B2 = OFF_B1 + STAGES * ST_BYTES;
   static constexpr int OFF_STAT = OFF_B2 + STAGES * ST_BYTES;
-  static constexpr int STAT_FLOATS = 2 * BS;   // lse * log2(e), delta
+  // lse * log2(e) and delta of a streamed tile (dk/dv pass)
+  static constexpr int STAT_FLOATS = DKDV ? 2 * BS : 0;
   static constexpr int OFF_BAR = OFF_STAT + STAGES * STAT_FLOATS * 4;
   // res_full, full[STAGES], empty[STAGES]; 1024 bytes of slack to align
   // the dynamic base
@@ -121,7 +124,7 @@ struct Cfg {
   // 8-row group stride of a panel
   static constexpr uint32_t SBO = 8 * ROWB;
   static_assert(RES_PANEL % 1024 == 0 && ST_PANEL % 1024 == 0, "alignment");
-  static_assert(BS == 32 || BS == 64, "streamed tile height");
+  static_assert(BS == 32 || BS == 64 || BS == 128, "streamed tile height");
   static_assert(BYTES <= 232448, "shared memory");
 };
 
@@ -254,6 +257,43 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d (64 x 128, fp32) (+)= A (64 x 16, smem desc) * B (128 x 16, smem
+// desc), both K-major
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d (64 x 16, fp32) += A (64 x 16, bf16 registers) * B (16 x 16, smem
 // desc, MN-major)
 __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
@@ -320,10 +360,10 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
 // X = A_w B^T for one warpgroup's 64 resident rows (at sAw, panels of R
 // rows) against the streamed tile at sB (panels of BS rows): D / 16 steps
 // of k16, both operands K-major; issued, not waited for
-template <int D>
-__device__ __forceinline__ void issue_scores(float (&x)[Cfg<D>::BS / 2],
-                                             uint32_t sAw, uint32_t sB) {
-  using C = Cfg<D>;
+template <int D, bool DKDV>
+__device__ __forceinline__ void issue_scores(
+    float (&x)[Cfg<D, DKDV>::BS / 2], uint32_t sAw, uint32_t sB) {
+  using C = Cfg<D, DKDV>;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t col = (kk * 16 % C::PD) * 2;
@@ -334,17 +374,18 @@ __device__ __forceinline__ void issue_scores(float (&x)[Cfg<D>::BS / 2],
                                   C::SBO, C::LAYOUT);
     if constexpr (C::BS == 32) wgmma_ss_n32(x, da, db, kk > 0);
     if constexpr (C::BS == 64) wgmma_ss_n64(x, da, db, kk > 0);
+    if constexpr (C::BS == 128) wgmma_ss_n128(x, da, db, kk > 0);
   }
 }
 
 // acc += F B for the streamed tile at sB: BS / 16 steps of k16, F's bf16
 // A fragments from registers, B an MN-major operand (one k16 step is 16
 // of its rows); issued, not waited for
-template <int D>
+template <int D, bool DKDV>
 __device__ __forceinline__ void issue_acc(
-    float (&acc)[Cfg<D>::NP][Cfg<D>::PD / 2],
-    const uint32_t (&f)[Cfg<D>::BS / 16][4], uint32_t sB) {
-  using C = Cfg<D>;
+    float (&acc)[Cfg<D, DKDV>::NP][Cfg<D, DKDV>::PD / 2],
+    const uint32_t (&f)[Cfg<D, DKDV>::BS / 16][4], uint32_t sB) {
+  using C = Cfg<D, DKDV>;
 #pragma unroll
   for (int kk = 0; kk < C::BS / 16; ++kk) {
 #pragma unroll
@@ -385,7 +426,7 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap ta1,
                  const float* __restrict__ delta, bf16* __restrict__ out_ds,
                  bf16* __restrict__ out_p, int T, int H, int causal,
                  float sm_scale) {
-  using C = Cfg<D>;
+  using C = Cfg<D, DKDV>;
   constexpr int PD = C::PD;
   constexpr int NP = C::NP;
   constexpr int BS = C::BS;
@@ -518,9 +559,9 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap ta1,
             s0 + BS > T || rw0 + 64 > T ||
             (causal && (DKDV ? rw0 + 63 > s0 : s0 + BS - 1 > rw0));
         wgmma_fence();
-        issue_scores<D>(x1, sA1w, sB1s);
+        issue_scores<D, DKDV>(x1, sA1w, sB1s);
         wgmma_commit();
-        issue_scores<D>(x2, sA2w, sB2s);
+        issue_scores<D, DKDV>(x2, sA2w, sB2s);
         wgmma_commit();
         wgmma_wait<1>();   // X1 is in; X2 may still run
         fence_regs(x1);
@@ -555,7 +596,7 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap ta1,
           // dV += P^T dO, running while dS is computed
           pack_frags<BS>(x1, pf);
           wgmma_fence();
-          issue_acc<D>(acc_p, pf, sB2s);
+          issue_acc<D, DKDV>(acc_p, pf, sB2s);
           wgmma_commit();
         }
         // ds = p (dp - delta)
@@ -574,7 +615,7 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap ta1,
         }
         pack_frags<BS>(x2, dsf);
         wgmma_fence();
-        issue_acc<D>(acc_ds, dsf, sB1s);   // dK += dS^T Q or dQ += dS K
+        issue_acc<D, DKDV>(acc_ds, dsf, sB1s);   // dK += dS^T Q or dQ += dS K
         wgmma_commit();
         wgmma_wait<0>();
 #pragma unroll
@@ -682,7 +723,7 @@ PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
 template <int D>
 bool encode_map(CUtensorMap* map, const void* ptr, int B, int T, int H,
                 int64_t sb, int64_t st, int64_t sh, int rows) {
-  using C = Cfg<D>;
+  using C = Cfg<D, true>;   // the panels are the same in both passes
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
@@ -727,7 +768,7 @@ cudaError_t allow_smem(int device) {
   if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_kernel<D, DKDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Cfg<D>::BYTES);
+      Cfg<D, DKDV>::BYTES);
   if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
   return err;
 }
@@ -760,11 +801,12 @@ cudaError_t launch_pass(const Args& a) {
     const int x = i < 2 ? res[i] : str[i - 2];
     if (!encode_map<D>(&maps[i], ptr[x], a.B, a.T, a.H, a.st[3 * x],
                        a.st[3 * x + 1], a.st[3 * x + 2],
-                       i < 2 ? R : Cfg<D>::BS))
+                       i < 2 ? R : Cfg<D, DKDV>::BS))
       return cudaErrorInvalidValue;
   }
   dim3 grid(a.B * a.H, (a.T + R - 1) / R);
-  flash_bwd_kernel<D, DKDV><<<grid, NTHREADS, Cfg<D>::BYTES, a.stream>>>(
+  flash_bwd_kernel<D, DKDV><<<grid, NTHREADS, Cfg<D, DKDV>::BYTES,
+                              a.stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta),
       static_cast<bf16*>(DKDV ? a.dk : a.dq),
