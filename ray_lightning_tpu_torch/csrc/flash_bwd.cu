@@ -1,8 +1,9 @@
 // flash_bwd: causal (or full) attention backward for Hopper, on wgmma and
 // TMA, deterministic.
 //
-// Replaces the nine Pallas backwards of ray_lightning_tpu/ops/flash_attention.py
-// (TPU kernel rows 6-12, 15, 16; def / pallas_call lines):
+// Replaces the nine Pallas backwards of
+// ray_lightning_tpu/ops/flash_attention.py (TPU kernel rows 6-12, 15, 16;
+// def / pallas_call lines):
 // - `_bwd_packed_kernel` :329 / :872 (row 6), packed heads, one block;
 // - `_bwd_dkdv_tri_packed_kernel` :465 / :573 (row 7) and
 //   `_bwd_dq_tri_packed_kernel` :511 / :610 (row 8), packed, triangular
@@ -36,9 +37,11 @@
 // passes of one call, each block writing its own rows once:
 // - delta: rowsum(dO * O) in fp32, 16-byte loads, D / 8 lanes a row;
 // - dk/dv: a block holds 128 k/v rows resident and walks the 64-row q/dO
-//   tiles (32 rows at D=128) that see them; each consumer warpgroup computes its 64 k rows'
-//   transposed scores S^T = K Q^T and dP^T = V dO^T, so that P^T and dS^T
-//   are the register A operands of dV += P^T dO and dK += dS^T Q;
+//   tiles (32 rows at D=128) that see them; each consumer warpgroup
+//   computes its 64 k rows' transposed scores S^T = K Q^T and dP^T =
+//   V dO^T, so that P^T and dS^T are the register A operands of
+//   dV += P^T dO and dK += dS^T Q, and issues each tile's scores behind
+//   the previous tile's dV and dK products;
 // - dq: a block holds 128 q/dO rows resident and walks the 128-row k/v
 //   tiles (64 rows at D=128); S = Q K^T, dP = dO V^T, then dQ += dS K with
 //   dS from registers.
@@ -84,7 +87,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int R = 128;          // resident rows per block, 64 a warpgroup
 constexpr int STAGES = 4;       // streamed ring depth (at most 193 KB in all)
 constexpr int NTHREADS = 384;   // producer warpgroup + 2 consumers
-constexpr int CONSUMER_WARPS = 8;   // arrivals that free a stage
+constexpr int CONSUMERS = 256;      // arrivals that free a stage
 constexpr int DELTA_THREADS = 256;
 
 typedef __nv_bfloat16 bf16;
@@ -411,6 +414,57 @@ __device__ __forceinline__ void pack_frags(const float (&x)[BS / 2],
       f[kk][i] = pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
 }
 
+// p = exp(x * scale - lse) in place, 0 outside T and the causal mask
+// (where `edge`). A thread holds entries (row_a + 8 * (e >> 1), s0 + 8 g
+// + 2 t4 + (e & 1)) of the 64 x BS fragment, i = 4 g + e: resident rows by
+// row, streamed rows by column. The dk/dv pass's lse (times log2 e)
+// indexes the columns, from the tile's stats `st`; the dq pass's its own
+// two rows, `lse_r`.
+template <int BS, bool DKDV>
+__device__ __forceinline__ void tile_p(float (&x)[BS / 2], const float* st,
+                                       const float (&lse_r)[2], bool edge,
+                                       int row_a, int s0, int t4, int T,
+                                       int causal, float scale_log2) {
+#pragma unroll
+  for (int g = 0; g < BS / 8; ++g) {
+    float2 l2 = make_float2(lse_r[0], lse_r[1]);
+    if constexpr (DKDV)
+      l2 = *reinterpret_cast<const float2*>(st + 8 * g + 2 * t4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * g + e;
+      const float l = (DKDV ? (e & 1) : (e >> 1)) ? l2.y : l2.x;
+      float p = exp2f(fmaf(x[i], scale_log2, -l));
+      if (edge) {
+        const int row = row_a + 8 * (e >> 1);
+        const int col = s0 + 8 * g + 2 * t4 + (e & 1);
+        const int key = DKDV ? row : col;
+        const int query = DKDV ? col : row;
+        if (row >= T || col >= T || (causal && key > query)) p = 0.f;
+      }
+      x[i] = p;
+    }
+  }
+}
+
+// ds = p (dp - delta) into x (dp in), delta indexed as lse in tile_p
+template <int BS, bool DKDV>
+__device__ __forceinline__ void tile_ds(const float (&p)[BS / 2],
+                                        float (&x)[BS / 2], const float* st,
+                                        const float (&dlt_r)[2], int t4) {
+#pragma unroll
+  for (int g = 0; g < BS / 8; ++g) {
+    float2 d2 = make_float2(dlt_r[0], dlt_r[1]);
+    if constexpr (DKDV)
+      d2 = *reinterpret_cast<const float2*>(st + BS + 8 * g + 2 * t4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * g + e;
+      x[i] = p[i] * (x[i] - ((DKDV ? (e & 1) : (e >> 1)) ? d2.y : d2.x));
+    }
+  }
+}
+
 // The dk/dv pass (DKDV) or the dq pass. Resident A1, A2 and streamed B1,
 // B2 are (K, V; Q, dO) in the dk/dv pass and (Q, dO; K, V) in the dq
 // pass, so X1 = A1 B1^T and X2 = A2 B2^T are S^T and dP^T or S and dP.
@@ -461,7 +515,7 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap ta1,
     for (int s = 0; s < STAGES; ++s) {
       // the dk/dv pass's producer warp arrives once more, with the stats
       mbar_init(full + 8 * s, DKDV ? 2 : 1);
-      mbar_init(empty + 8 * s, CONSUMER_WARPS);
+      mbar_init(empty + 8 * s, CONSUMERS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -542,89 +596,112 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap ta1,
       }
     }
 
-    mbar_wait(res_full, 0);
-    for (int j = j0; j < j1; ++j) {
-      const int s = (j - j0) % STAGES;
+    // the stage of tile j, its ring phase, and the two score products of
+    // tile j, issued
+    auto stage = [&](int j) { return (j - j0) % STAGES; };
+    auto wait_full = [&](int j) {
+      mbar_wait(full + 8 * stage(j), ((j - j0) / STAGES) & 1);
+    };
+    // every consumer thread arrives (no branch on the lane while a
+    // product may be in flight)
+    auto free_stage = [&](int j) { mbar_arrive(empty + 8 * stage(j)); };
+    auto issue_tile_scores = [&](int j) {
+      wgmma_fence();
+      issue_scores<D, DKDV>(x1, sA1w, sB1 + stage(j) * C::ST_BYTES);
+      wgmma_commit();
+      issue_scores<D, DKDV>(x2, sA2w, sB2 + stage(j) * C::ST_BYTES);
+      wgmma_commit();
+    };
+    // the diagonal or the ragged end cuts tile j
+    auto edge = [&](int j) {
       const int s0 = j * BS;
-      mbar_wait(full + 8 * s, ((j - j0) / STAGES) & 1);
-      // causal: a tile wholly on the masked side of this warpgroup's rows
-      const bool skip =
-          !live || (causal && (DKDV ? s0 + BS - 1 < rw0 : s0 > rw0 + 63));
-      if (!skip) {
-        const uint32_t sB1s = sB1 + s * C::ST_BYTES;
-        const uint32_t sB2s = sB2 + s * C::ST_BYTES;
+      return s0 + BS > T || rw0 + 64 > T ||
+             (causal && (DKDV ? rw0 + 63 > s0 : s0 + BS - 1 > rw0));
+    };
+    // this warpgroup's tiles [c0, c1); the rest of [j0, j1) lie wholly on
+    // the masked side of the diagonal (or the warpgroup wholly past T),
+    // and are only waited for and freed
+    int c0 = j0, c1 = j1;
+    if (!live) c1 = c0;
+    else if (causal && DKDV) c0 = max(j0, rw0 / BS);
+    else if (causal) c1 = min(j1, (rw0 + 63) / BS + 1);
+
+    mbar_wait(res_full, 0);
+    if constexpr (DKDV) {
+      for (int j = j0; j < c0; ++j) {
+        wait_full(j);
+        free_stage(j);
+      }
+      if (c0 < c1) {
+        wait_full(c0);
+        issue_tile_scores(c0);
+      }
+      // Each tile's score products are issued behind the previous tile's
+      // dV and dK products, so the tensor cores run them back to back
+      // while this warpgroup waits: its S and dP registers are free once
+      // P and dS are packed. A tile's stage is freed at the next tile.
+      for (int j = c0; j < c1; ++j) {
+        const int s = stage(j);
         const float* st = stat + s * C::STAT_FLOATS;
-        // the diagonal or the ragged end cuts the tile
-        const bool edge =
-            s0 + BS > T || rw0 + 64 > T ||
-            (causal && (DKDV ? rw0 + 63 > s0 : s0 + BS - 1 > rw0));
-        wgmma_fence();
-        issue_scores<D, DKDV>(x1, sA1w, sB1s);
-        wgmma_commit();
-        issue_scores<D, DKDV>(x2, sA2w, sB2s);
-        wgmma_commit();
-        wgmma_wait<1>();   // X1 is in; X2 may still run
+        wgmma_wait<1>();   // S^T is in, and tile j - 1's products
         fence_regs(x1);
-        // p = exp(s * scale - lse), 0 outside T and the causal mask. A
-        // thread holds entries (row_a + 8 * (e >> 1), s0 + 8 g + 2 t4 +
-        // (e & 1)) of the fragment, i = 4 g + e: resident rows by row,
-        // streamed rows by column
-#pragma unroll
-        for (int g = 0; g < BS / 8; ++g) {
-          const float2 l2 = DKDV ? *reinterpret_cast<const float2*>(
-                                       st + 8 * g + 2 * t4)
-                                 : make_float2(lse_r[0], lse_r[1]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int i = 4 * g + e;
-            const float l = DKDV ? ((e & 1) ? l2.y : l2.x)
-                                 : ((e >> 1) ? l2.y : l2.x);
-            float p = exp2f(fmaf(x1[i], scale_log2, -l));
-            if (edge) {
-              const int row = row_a + 8 * (e >> 1);
-              const int col = s0 + 8 * g + 2 * t4 + (e & 1);
-              const int key = DKDV ? row : col;
-              const int query = DKDV ? col : row;
-              if (row >= T || col >= T || (causal && key > query)) p = 0.f;
-            }
-            x1[i] = p;
-          }
-        }
+        tile_p<BS, DKDV>(x1, st, lse_r, edge(j), row_a, j * BS, t4, T,
+                         causal, scale_log2);
         wgmma_wait<0>();
         fence_regs(x2);
-        if constexpr (DKDV) {
-          // dV += P^T dO, running while dS is computed
-          pack_frags<BS>(x1, pf);
-          wgmma_fence();
-          issue_acc<D, DKDV>(acc_p, pf, sB2s);
-          wgmma_commit();
-        }
-        // ds = p (dp - delta)
-#pragma unroll
-        for (int g = 0; g < BS / 8; ++g) {
-          const float2 d2 = DKDV ? *reinterpret_cast<const float2*>(
-                                       st + BS + 8 * g + 2 * t4)
-                                 : make_float2(dlt_r[0], dlt_r[1]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int i = 4 * g + e;
-            const float d = DKDV ? ((e & 1) ? d2.y : d2.x)
-                                 : ((e >> 1) ? d2.y : d2.x);
-            x2[i] = x1[i] * (x2[i] - d);
-          }
-        }
+        // nothing in flight: free tile j - 1's stage, wait for tile j + 1
+        if (j > c0) free_stage(j - 1);
+        if (j + 1 < c1) wait_full(j + 1);
+        // dV += P^T dO, running while dS is computed
+        pack_frags<BS>(x1, pf);
+        wgmma_fence();
+        issue_acc<D, DKDV>(acc_p, pf, sB2 + s * C::ST_BYTES);
+        wgmma_commit();
+        tile_ds<BS, DKDV>(x1, x2, st, dlt_r, t4);
         pack_frags<BS>(x2, dsf);
         wgmma_fence();
-        issue_acc<D, DKDV>(acc_ds, dsf, sB1s);   // dK += dS^T Q or dQ += dS K
+        issue_acc<D, DKDV>(acc_ds, dsf, sB1 + s * C::ST_BYTES);   // dK
         wgmma_commit();
+        if (j + 1 < c1) issue_tile_scores(j + 1);
+      }
+      if (c0 < c1) {
         wgmma_wait<0>();
 #pragma unroll
         for (int p = 0; p < NP; ++p) {
           fence_regs(acc_ds[p]);
-          if constexpr (DKDV) fence_regs(acc_p[p]);
+          fence_regs(acc_p[p]);
         }
+        free_stage(c1 - 1);
       }
-      if (lane == 0) mbar_arrive(empty + 8 * s);   // stage s is free
+      for (int j = c1; j < j1; ++j) {
+        wait_full(j);
+        free_stage(j);
+      }
+    } else {
+      // the dq pass, a tile at a time (issuing the next tile's scores
+      // behind dQ += dS K was slower here)
+      for (int j = j0; j < j1; ++j) {
+        const int s = stage(j);
+        wait_full(j);
+        if (j >= c0 && j < c1) {
+          issue_tile_scores(j);
+          wgmma_wait<1>();   // S is in; dP may still run
+          fence_regs(x1);
+          tile_p<BS, DKDV>(x1, nullptr, lse_r, edge(j), row_a, j * BS, t4,
+                           T, causal, scale_log2);
+          wgmma_wait<0>();
+          fence_regs(x2);
+          tile_ds<BS, DKDV>(x1, x2, nullptr, dlt_r, t4);
+          pack_frags<BS>(x2, dsf);
+          wgmma_fence();
+          issue_acc<D, DKDV>(acc_ds, dsf, sB1 + s * C::ST_BYTES);   // dQ
+          wgmma_commit();
+          wgmma_wait<0>();
+#pragma unroll
+          for (int p = 0; p < NP; ++p) fence_regs(acc_ds[p]);
+        }
+        free_stage(j);
+      }
     }
 
     // epilogue: each resident row < T written once, bf16
