@@ -214,9 +214,10 @@ def card_line() -> str:
 
 
 #: GPU cycles of the ``torch.cuda._sleep`` that holds the stream while
-#: the host queues a timed loop (~10 ms at H100 clocks): the events then
-#: time the kernels back to back, not the host's launch rate
-HOLD_CYCLES = 20_000_000
+#: the host queues a timed loop (~50 ms at H100 clocks, longer than a slow
+#: host takes to queue 30 autograd backward calls): the events then time
+#: the kernels back to back, not the host's launch rate
+HOLD_CYCLES = 100_000_000
 
 
 def time_ms(fn, *, iters: int = 30, warmup: int = 3,
