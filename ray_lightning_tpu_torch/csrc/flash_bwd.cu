@@ -41,7 +41,9 @@
 //   computes its 64 k rows' transposed scores S^T = K Q^T and dP^T =
 //   V dO^T, so that P^T and dS^T are the register A operands of
 //   dV += P^T dO and dK += dS^T Q, and issues each tile's scores behind
-//   the previous tile's dV and dK products;
+//   the previous tile's dV and dK products (ptxas notes that it
+//   serializes some of them, C7518; the pipelined walk is still faster
+//   than one tile at a time);
 // - dq: a block holds 128 q/dO rows resident and walks the 128-row k/v
 //   tiles (64 rows at D=128); S = Q K^T, dP = dO V^T, then dQ += dS K with
 //   dS from registers.
@@ -87,7 +89,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int R = 128;          // resident rows per block, 64 a warpgroup
 constexpr int STAGES = 4;       // streamed ring depth (at most 193 KB in all)
 constexpr int NTHREADS = 384;   // producer warpgroup + 2 consumers
-constexpr int CONSUMERS = 256;      // arrivals that free a stage
+constexpr int CONSUMERS = 256;  // arrivals that free a stage
 constexpr int DELTA_THREADS = 256;
 
 typedef __nv_bfloat16 bf16;
@@ -596,8 +598,8 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap ta1,
       }
     }
 
-    // the stage of tile j, its ring phase, and the two score products of
-    // tile j, issued
+    // tile j's ring stage: waiting for its load, freeing it, issuing its
+    // two score products
     auto stage = [&](int j) { return (j - j0) % STAGES; };
     auto wait_full = [&](int j) {
       mbar_wait(full + 8 * stage(j), ((j - j0) / STAGES) & 1);

@@ -66,6 +66,7 @@ the custom VJP does in the JAX package.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 
@@ -296,30 +297,9 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
                  for g, x in ((dq, q), (dk, k), (dv, v)))
 
 
-def _bwd_launch(q, k, v, o, lse, do, causal, sm_scale):
-    """The checked arguments of a ``flash_bwd`` entry point and the
-    outputs ``(dq, dk, dv)`` they fill (``None`` for the arguments when
-    the shape is empty); the CUDA side of :func:`flash_attention_bwd`."""
-    B, T, H, D = q.shape
-    _check_kernel_operands("flash_bwd", q=q, k=k, v=v, o=o, do=do)
-    _check_grid("flash_bwd", B, T, H)
-    if lse.dtype != torch.float32 or not lse.is_contiguous():
-        raise TypeError("flash_bwd kernel takes a contiguous fp32 lse")
-    dq, dk, dv = (torch.empty(B, T, H, D, dtype=q.dtype, device=q.device)
-                  for _ in range(3))
-    if T == 0 or B == 0:
-        return None, (dq, dk, dv)
-    delta = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
-    strides = [st for x in (q, k, v, o, do) for st in x.stride()[:3]]
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, T, H, D, *strides,
-            int(bool(causal)), float(sm_scale), q.device.index or 0, stream)
-    return (args, delta), (dq, dk, dv)
-
-
-def _bwd_operands(q, k, v, o, lse, do, sm_scale):
+def _bwd_check(q, k, v, o, lse, do, sm_scale) -> float:
+    """The backward's shape checks; returns ``sm_scale`` or its
+    default."""
     _check(q, k, v)
     B, T, H, D = q.shape
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, T):
@@ -327,6 +307,29 @@ def _bwd_operands(q, k, v, o, lse, do, sm_scale):
             f"o and do must be {tuple(q.shape)} and lse {(B, H, T)}, got "
             f"{tuple(o.shape)}, {tuple(do.shape)}, {tuple(lse.shape)}")
     return 1.0 / math.sqrt(D) if sm_scale is None else sm_scale
+
+
+def _bwd_kernel_args(q, k, v, o, lse, do, causal, sm_scale):
+    """The checked arguments of a ``flash_bwd`` entry point (``None`` for
+    an empty shape), the fp32 delta scratch they point at, and the
+    outputs ``(dq, dk, dv)`` they fill."""
+    B, T, H, D = q.shape
+    _check_kernel_operands("flash_bwd", q=q, k=k, v=v, o=o, do=do)
+    _check_grid("flash_bwd", B, T, H)
+    if lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise TypeError("flash_bwd kernel takes a contiguous fp32 lse")
+    grads = tuple(torch.empty(B, T, H, D, dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    if T == 0 or B == 0:
+        return None, None, grads
+    delta = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
+    strides = [st for x in (q, k, v, o, do) for st in x.stride()[:3]]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            *(g.data_ptr() for g in grads), B, T, H, D, *strides,
+            int(bool(causal)), float(sm_scale), q.device.index or 0, stream)
+    return args, delta, grads
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
@@ -341,13 +344,14 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     q, k, v, o and do.  A CPU tensor takes
     :func:`flash_attention_bwd_plain`.
     """
-    sm_scale = _bwd_operands(q, k, v, o, lse, do, sm_scale)
+    sm_scale = _bwd_check(q, k, v, o, lse, do, sm_scale)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          sm_scale=sm_scale)
-    launch, grads = _bwd_launch(q, k, v, o, lse, do, causal, sm_scale)
-    if launch is not None:
-        BWD_KERNEL.launch(*launch[0])
+    args, _delta, grads = _bwd_kernel_args(q, k, v, o, lse, do, causal,
+                                           sm_scale)
+    if args is not None:
+        BWD_KERNEL.launch(*args)
     return grads
 
 
@@ -360,20 +364,19 @@ def flash_attention_bwd_passes(q, k, v, o, lse, do, *, causal: bool = True,
     scratch and outputs; called in that order they compute what one
     :func:`flash_attention_bwd` call does.  CUDA tensors only: the plain
     version has no passes."""
-    sm_scale = _bwd_operands(q, k, v, o, lse, do, sm_scale)
+    sm_scale = _bwd_check(q, k, v, o, lse, do, sm_scale)
     if q.device.type != "cuda":
         raise ValueError("flash_attention_bwd_passes launches the kernel's "
                          f"passes: CUDA tensors only, got {q.device}")
-    launch, grads = _bwd_launch(q, k, v, o, lse, do, causal, sm_scale)
-    if launch is None:
-        return {name: (lambda: None) for name in BWD_PASS_KERNELS}, grads
-    args, delta = launch
-    fns = {}
-    for name, kern in BWD_PASS_KERNELS.items():
-        def run(kern=kern, delta=delta):   # delta: the scratch args point at
+    args, delta, grads = _bwd_kernel_args(q, k, v, o, lse, do, causal,
+                                          sm_scale)
+
+    def run(kern, delta=delta):   # delta: the scratch the args point at
+        if args is not None:
             kern.launch(*args)
-        fns[name] = run
-    return fns, grads
+
+    return {name: functools.partial(run, kern)
+            for name, kern in BWD_PASS_KERNELS.items()}, grads
 
 
 class FlashAttentionFunction(torch.autograd.Function):
