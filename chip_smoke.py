@@ -128,10 +128,15 @@ CUDA the script prints an error and exits 1.
 row 1-5 shape (``fwd_rows``: checked against its plain version and for
 determinism, timed beside SDPA, TFLOP/s), then exits; no path is driven.
 ``--bwd-only`` does the same for flash_bwd at every row 6-12, 15, 16
-shape (``bwd_rows``), its passes timed alone as well.  Either is the A/B
-tool for a kernel's versions: unpack each tree (``git archive``) under
-``build/``, copy this script in, and run it from each in turns (a tree
-without per-pass entry points times the whole backward only).
+shape (``bwd_rows``), its passes timed alone as well; ``--decode-only``
+for flash_decode and flash_decode_paged (rows 13, 14) at the serve
+paths' decode shapes (``decode_rows``: 16 slots at mixed positions and
+at 272-352, one and four slots at 1023; pages 16 and 64, identity and
+permuted tables; GB/s, host us a call, a sweep of the split's chunk).
+Each is the A/B tool for a kernel's versions: unpack each tree (``git
+archive``) under ``build/``, copy this script in, and run it from each
+in turns (a tree without per-pass entry points times the whole backward
+only; one without a split plan skips the chunk sweep).
 """
 
 from __future__ import annotations
@@ -140,6 +145,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import inspect
 import json
 import os
 import subprocess
@@ -162,6 +168,7 @@ from ray_lightning_tpu_torch.models.gpt import (  # noqa: E402
     CONFIGS, GPT, GPTLightningModule)
 from ray_lightning_tpu_torch.ops import _kernels  # noqa: E402
 from ray_lightning_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from ray_lightning_tpu_torch.ops import flash_decode as fd  # noqa: E402
 from ray_lightning_tpu_torch.ops.flash_attention import (  # noqa: E402
     flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
     flash_attention_fwd_plain, tpu_rows)
@@ -460,16 +467,19 @@ def kernel_flash_decode(gen: torch.Generator, flush) -> dict:
     vc = torch.randn(S, L, H, D, generator=gen, device="cuda").to(
         torch.bfloat16)
     o = flash_decode_attention(q, kc, vc, positions)
+    again = flash_decode_attention(q, kc, vc, positions)
     o_ref = flash_decode_attention_plain(q, kc, vc, positions)
     torch.cuda.synchronize()
     err = (o.float() - o_ref.float()).abs().max().item()
     finite = bool(torch.isfinite(o.float()).all())
+    same = torch.equal(o, again)
     log(f"  flash_decode S={S} L={L}: max_abs_err {err:.3e} "
-        f"(tol {BF16_TOL}), finite {finite}, positions "
-        f"{positions.tolist()}")
+        f"(tol {BF16_TOL}), finite {finite}, two calls equal {same}, "
+        f"positions {positions.tolist()}")
     check_close("flash_decode", err, BF16_TOL)
-    if not finite:
-        raise AssertionError("flash_decode: non-finite output")
+    if not finite or not same:
+        raise AssertionError(f"flash_decode: finite {finite}, two calls "
+                             f"equal {same}")
     ms = time_ms(lambda: flash_decode_attention(q, kc, vc, positions),
                  flush=flush)
     plain_ms = time_ms(
@@ -541,20 +551,22 @@ def kernel_flash_decode_paged(gen, flush) -> dict:
                            ("permuted", (kq, vq, perm))):
             o = flash_decode_paged_attention(q, args[0], args[1],
                                              positions, args[2])
+            again = flash_decode_paged_attention(q, args[0], args[1],
+                                                 positions, args[2])
             o_ref = flash_decode_paged_attention_plain(
                 q, args[0], args[1], positions, args[2])
             torch.cuda.synchronize()
             err = (o.float() - o_ref.float()).abs().max().item()
-            same = torch.equal(o, flat)
+            same = torch.equal(o, flat) and torch.equal(o, again)
             log(f"  flash_decode_paged page {ps} {name} table: max_abs_err "
-                f"{err:.3e} (tol {BF16_TOL}), equal to flash_decode "
-                f"{same}")
+                f"{err:.3e} (tol {BF16_TOL}), equal to flash_decode and "
+                f"to a second call {same}")
             check_close(f"flash_decode_paged page {ps} {name}", err,
                         BF16_TOL)
             if not same or not bool(torch.isfinite(o.float()).all()):
                 raise AssertionError(
                     f"flash_decode_paged page {ps} {name}: not the slot-"
-                    f"contiguous kernel's output")
+                    f"contiguous kernel's output, or two calls differ")
             worst = max(worst, err)
             timed[(ps, name)] = (
                 lambda a=args: flash_decode_paged_attention(
@@ -2170,6 +2182,127 @@ def bwd_rows(gen) -> list:
     return out
 
 
+#: ``--decode-only``'s chunk sweep (rows a split; the plan's pick is one)
+DECODE_CHUNKS = (64, 128, 192, 256, 384, 512, 1024)
+
+
+def decode_shapes(gen) -> list:
+    """``--decode-only``'s shapes at L=1024, H=12, D=64: the smoke's 16
+    slots with ``decode_positions``; one and four slots at position
+    1023; 16 slots at positions 272-352, the contexts of the paged and
+    spec phases (a 256-token prefix, a 16-64-token tail, up to 32 new
+    tokens)."""
+    mid = torch.randint(272, 353, (SERVE_SLOTS,), generator=gen,
+                        device="cuda").to(torch.int32)
+    full = torch.full((4,), 1023, dtype=torch.int32, device="cuda")
+    return [("S=16 mixed", decode_positions(gen, SERVE_SLOTS, 1024)),
+            ("S=1 pos 1023", full[:1].clone()),
+            ("S=4 pos 1023", full),
+            ("S=16 pos 272-352", mid)]
+
+
+def decode_rows(gen) -> list:
+    """``--decode-only``: rows 13 and 14 alone at ``decode_shapes``. Each
+    shape: the slot-contiguous kernel and the paged one at page sizes 16
+    and 64, identity and permuted tables, against the plain version
+    (``BF16_TOL``), two calls equal bit for bit, every paged output
+    equal to the slot-contiguous one; each timed with CUDA events, L2
+    flushed before each launch, beside SDPA on the slot cache and the
+    bound from the live rows, with GB/s of the bytes the bound counts;
+    the host's us per call. Where the wrapper takes a ``chunk``, the
+    slot-contiguous kernel is also timed at each of ``DECODE_CHUNKS``
+    (the split plan's pick among them)."""
+    sweep = "chunk" in inspect.signature(flash_decode_attention).parameters
+    L = 1024
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    out = []
+    for label, positions in decode_shapes(gen):
+        S = positions.numel()
+        q = torch.randn(S, 1, H, D, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        kc = torch.randn(S, L, H, D, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        vc = torch.randn(S, L, H, D, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        flat = flash_decode_attention(q, kc, vc, positions)
+        ok = torch.equal(flat, flash_decode_attention(q, kc, vc, positions))
+        want = flash_decode_attention_plain(q, kc, vc, positions)
+        errs = {"flat": (flat.float() - want.float()).abs().max().item()}
+        if hasattr(fd, "flash_decode_split_plain"):
+            errs["flat_vs_split_plain"] = (flat.float() - fd.
+                                           flash_decode_split_plain(
+                                               q, kc, vc, positions).float()
+                                           ).abs().max().item()
+        fns = {"flat": lambda: flash_decode_attention(q, kc, vc, positions)}
+        for ps in (16, 64):
+            P = L // ps
+            ident = torch.arange(S * P, dtype=torch.int32,
+                                 device="cuda").view(S, P)
+            perm = torch.randperm(S * P, generator=gen, device="cuda").to(
+                torch.int32).view(S, P)
+            kp, vp = kc.view(S * P, ps, H, D), vc.view(S * P, ps, H, D)
+            kq, vq = torch.empty_like(kp), torch.empty_like(vp)
+            kq[perm.flatten().long()] = kp
+            vq[perm.flatten().long()] = vp
+            for name, a in (("identity", (kp, vp, ident)),
+                            ("permuted", (kq, vq, perm))):
+                key = f"page{ps}_{name}"
+                o = flash_decode_paged_attention(q, a[0], a[1], positions,
+                                                 a[2])
+                ok = ok and torch.equal(o, flat) and torch.equal(
+                    o, flash_decode_paged_attention(q, a[0], a[1],
+                                                    positions, a[2]))
+                errs[key] = (o.float() - want.float()).abs().max().item()
+                fns[key] = (lambda a=a: flash_decode_paged_attention(
+                    q, a[0], a[1], positions, a[2]))
+        torch.cuda.synchronize()
+        for key, err in errs.items():
+            check_close(f"decode {label} {key}", err, BF16_TOL)
+        if not ok:
+            raise AssertionError(f"decode {label}: a paged output is not the "
+                                 f"slot-contiguous one, or two calls differ")
+        ms = {key: time_ms(fn, flush=flush) for key, fn in fns.items()}
+        mask = (torch.arange(L, device="cuda")[None, :]
+                <= positions[:, None].long())[:, None, None, :]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, kc, vc))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), flush=flush)
+        live_rows = int((positions.long() + 1).sum())
+        nbytes = 2 * S * C * 2 + 2 * live_rows * C * 2 + S * 4
+        b_ms, b_by = bound(nbytes, 4 * live_rows * C)
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS // 4):
+            fns["flat"]()
+        host_us = (time.perf_counter() - t0) / (HOST_CALLS // 4) * 1e6
+        torch.cuda.synchronize()
+        row = dict(shape=f"{label} L={L} H={H} D={D}", live_rows=live_rows,
+                   max_abs_err=errs, ms=ms, library_ms=lib_ms, bound_ms=b_ms,
+                   bound_by=b_by, gbps={k: nbytes / v / 1e6
+                                        for k, v in ms.items()},
+                   host_us_per_call=host_us)
+        if hasattr(fd, "decode_split_plan"):
+            row["plan"] = fd.decode_split_plan(S, H, L)
+        if sweep:
+            row["ms_by_chunk"] = {c: time_ms(
+                lambda c=c: flash_decode_attention(q, kc, vc, positions,
+                                                   chunk=c), flush=flush)
+                for c in DECODE_CHUNKS}
+        log(f"  {label}: " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+            + f" ms; sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+            f"{live_rows} live rows, flat {row['gbps']['flat']:.0f} GB/s, "
+            f"kernel/sdpa {ms['flat'] / lib_ms:.2f}x, host "
+            f"{host_us:.2f} us a call; max_abs_err "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + (f"; plan {row['plan']}" if "plan" in row else "")
+            + ("; by chunk " + ", ".join(
+                f"{c} {t:.4f}" for c, t in row["ms_by_chunk"].items())
+               if sweep else ""))
+        out.append(row)
+        del q, kc, vc, fns
+        free_cuda()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2179,6 +2312,10 @@ def main(argv=None) -> int:
     ap.add_argument("--bwd-only", action="store_true",
                     help="build, then flash_bwd alone at the row 6-12, "
                          "15, 16 shapes (bwd_rows); no path is driven")
+    ap.add_argument("--decode-only", action="store_true",
+                    help="build, then flash_decode and flash_decode_paged "
+                         "alone at the row 13-14 shapes (decode_rows); no "
+                         "path is driven")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -2203,6 +2340,9 @@ def main(argv=None) -> int:
         return 0
     if args.bwd_only:
         log("flash_bwd rows " + json.dumps(bwd_rows(gen)))
+        return 0
+    if args.decode_only:
+        log("flash_decode rows " + json.dumps(decode_rows(gen)))
         return 0
     log("kernel phase")
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")

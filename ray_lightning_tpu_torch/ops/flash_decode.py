@@ -5,14 +5,18 @@ Counterpart of ``ray_lightning_tpu/ops/flash_decode.py``
 over the slot-contiguous cache, and ``flash_decode_attention(...,
 page_table=)`` -> ``flash_decode_paged_kernel`` over the page view.
 Decode is bandwidth-bound — one query token per slot against its cache
-rows — so the win is bytes not read: the kernels
-(``csrc/flash_decode.cu``) walk each slot's cache only up to
-``positions[s]``; the paged one finds each row through the page table.
+rows — so the win is bytes not read, and bytes kept in flight: the
+kernels (``csrc/flash_decode.cu``) walk each slot's cache only up to
+``positions[s]``, split over several blocks per (slot, head) by
+:func:`decode_split_plan` and merged in the same launch; the paged one
+finds each page through the page table.
 
 :func:`flash_decode_attention` and :func:`flash_decode_paged_attention`
 are the wrappers: a CUDA tensor launches the kernel (or raises), a CPU
-tensor takes the plain version.  :func:`resolve_decode_impl` reads
-``RLT_DECODE_IMPL`` as the JAX package does.
+tensor takes the plain version.  :func:`flash_decode_split_plain` is
+the kernel's split-and-merge arithmetic in plain PyTorch.
+:func:`resolve_decode_impl` reads ``RLT_DECODE_IMPL`` as the JAX
+package does.
 """
 
 from __future__ import annotations
@@ -28,11 +32,77 @@ from ray_lightning_tpu_torch.ops.flash_attention import HEAD_DIMS, NEG_INF
 VALID_DECODE_IMPLS = ("auto", "dense", "flash_decode", "paged")
 
 KERNEL = Kernel("flash_decode", "flash_decode.cu", "rlt_flash_decode",
-                "ppppp" + "i" * 12 + "f" + "i" + "p")
+                "ppppppp" + "i" * 14 + "f" + "i" + "p")
 #: the page-table walk: the same library, its own entry point and count
 PAGED_KERNEL = Kernel("flash_decode_paged", "flash_decode.cu",
                       "rlt_flash_decode_paged",
-                      "pppppp" + "i" * 14 + "f" + "i" + "p")
+                      "pppppppp" + "i" * 16 + "f" + "i" + "p")
+
+#: cache rows of a kernel tile (``csrc/flash_decode.cu`` BK); a split's
+#: chunk is a multiple of it
+DECODE_TILE = 64
+#: the rows of a tile each of the kernel's 4 warps takes (its own online
+#: softmax; :func:`flash_decode_split_plain` repeats the grouping)
+WARP_ROWS = 16
+#: blocks a decode launch aims for: 8 on each of the H100's 132 SMs, so
+#: that the live ones (positions end most splits early) still fill it
+DECODE_TARGET_BLOCKS = 8 * 132
+#: most tiles one split walks: longer contexts get more splits
+DECODE_MAX_CHUNK_TILES = 16
+
+
+def decode_split_plan(S: int, H: int, L: int) -> "tuple[int, int]":
+    """The decode kernels' split plan for ``S`` slots, ``H`` heads and a
+    cache of ``L`` rows: ``(chunk, n_split)``, split ``j`` of a (slot,
+    head) taking rows ``[j * chunk, (j + 1) * chunk)``.
+
+    From the shapes alone (the positions stay on the device: reading
+    them would sync every layer).  ``chunk`` is a multiple of
+    :data:`DECODE_TILE`, at most :data:`DECODE_MAX_CHUNK_TILES` tiles;
+    ``n_split`` is the least count of such chunks covering ``L``, as
+    close as the tiles allow to ``DECODE_TARGET_BLOCKS / (S * H)``:
+    64-row chunks at S=1 or 4 (L=1024, H=12), 192 at S=16."""
+    if min(S, H, L) < 1:
+        raise ValueError(f"decode_split_plan needs S, H, L >= 1, got "
+                         f"{(S, H, L)}")
+    tiles = -(-L // DECODE_TILE)
+    want = -(-DECODE_TARGET_BLOCKS // (S * H))
+    per = -(-tiles // min(tiles, want))
+    per = min(per, DECODE_MAX_CHUNK_TILES)
+    return per * DECODE_TILE, -(-tiles // per)
+
+
+def _split(S: int, H: int, L: int, chunk: "int | None"
+           ) -> "tuple[int, int]":
+    """``decode_split_plan``, or the caller's chunk (a multiple of the
+    tile) with the splits that cover ``L``."""
+    if chunk is None:
+        return decode_split_plan(S, H, L)
+    if chunk < DECODE_TILE or chunk % DECODE_TILE:
+        raise ValueError(f"chunk must be a positive multiple of "
+                         f"{DECODE_TILE}, got {chunk}")
+    return chunk, -(-L // chunk)
+
+
+#: per (device, stream): the kernels' int32 tickets (zero between
+#: launches: the merging block resets its own) and fp32 workspace
+_SCRATCH: "dict[tuple, tuple[torch.Tensor, torch.Tensor]]" = {}
+
+
+def _scratch(device: torch.device, stream: int, cells: int,
+             floats: int) -> "tuple[torch.Tensor, torch.Tensor]":
+    """The tickets (``cells`` of them) and workspace (``floats``) of a
+    launch on ``stream``: allocated once and grown, never per call (the
+    decode step is host-bound).  Keyed by stream, so launches that share
+    them run in order."""
+    key = (device.index, stream)
+    tickets, ws = _SCRATCH.get(key, (None, None))
+    if tickets is None or tickets.numel() < cells:
+        tickets = torch.zeros(cells, dtype=torch.int32, device=device)
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(floats, dtype=torch.float32, device=device)
+    _SCRATCH[key] = (tickets, ws)
+    return tickets, ws
 
 
 def resolve_decode_impl(value: "str | None" = None,
@@ -113,14 +183,83 @@ def flash_decode_attention_plain(q, k_cache, v_cache, positions):
     return (acc / l).to(q.dtype).permute(0, 2, 1, 3).contiguous()
 
 
-def flash_decode_attention(q, k_cache, v_cache, positions):
+def flash_decode_split_plain(q, k_cache, v_cache, positions,
+                             chunk: "int | None" = None):
+    """The kernels' split-and-merge arithmetic in plain PyTorch.
+
+    The function of :func:`flash_decode_attention_plain`, computed as
+    ``csrc/flash_decode.cu`` orders it: split ``j`` of :func:`_split`'s
+    plan takes rows ``[j * chunk, (j + 1) * chunk)`` in 64-row tiles,
+    each tile's rows in 4 groups of :data:`WARP_ROWS` (the kernel's
+    warps); a group keeps its own online softmax (running max ``m``,
+    ``p = exp(s - m)`` rounded to the cache dtype before the PV product,
+    ``l`` summing the unrounded ``p``, the accumulator rescaled when
+    ``m`` grows); the groups merge into the split's ``(m_j, l_j,
+    acc_j)``, and the splits with a live row into ``o = sum e^(m_j - M)
+    acc_j / sum e^(m_j - M) l_j`` with ``M = max m_j``.  Returns
+    ``[S, 1, H, D]`` in ``q``'s dtype."""
+    S, _, H, D = q.shape
+    L = k_cache.shape[1]
+    chunk, n = _split(S, H, L, chunk)
+    G = len(range(0, DECODE_TILE, WARP_ROWS))
+    nt = chunk // DECODE_TILE
+    pos = positions.long().clamp(0, L - 1)
+    pad = n * chunk - L
+
+    def tiles(x):   # [S, L, H, D] -> [S, H, n, nt, G, WARP_ROWS, D]
+        x = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
+        return x.view(S, n, nt, G, WARP_ROWS, H, D).permute(
+            0, 5, 1, 2, 3, 4, 6)
+
+    kf, vf = tiles(k_cache), tiles(v_cache)
+    rows = torch.arange(n * chunk, device=q.device).view(
+        n, nt, G, WARP_ROWS)
+    live = rows[None] <= pos.view(S, 1, 1, 1, 1)          # [S, n, nt, G, R]
+    live = live[:, None]                                  # [S, 1, n, nt, G, R]
+    qf = q.float().view(S, H, 1, 1, 1, 1, D)
+    sc = (qf * kf).sum(-1) * (1.0 / math.sqrt(D))         # [S, H, n, nt, G, R]
+    sc = sc.masked_fill(~live, NEG_INF)
+    vf = vf.masked_fill(~live[..., None], 0.0)
+    shape = (S, H, n, G)
+    m = torch.full(shape, NEG_INF, device=q.device)
+    l = torch.zeros(shape, device=q.device)
+    acc = torch.zeros(shape + (D,), device=q.device)
+    for t in range(nt):
+        s_t = sc[:, :, :, t]                              # [S, H, n, G, R]
+        m_new = torch.maximum(m, s_t.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(live[:, :, :, t], torch.exp(s_t - m_new[..., None]),
+                        torch.zeros((), device=q.device))
+        pb = p.to(v_cache.dtype).float()
+        acc = acc * alpha[..., None] + (pb[..., None] * vf[:, :, :, t]).sum(-2)
+        l = l * alpha + p.sum(-1)
+        m = m_new
+
+    def merge(m, l, acc, dim):
+        M = m.amax(dim, keepdim=True)
+        e = torch.exp(m - M)
+        return (M.squeeze(dim), (e * l).sum(dim),
+                (e[..., None] * acc).sum(dim))
+
+    m, l, acc = merge(m, l, acc, 3)                       # the warps
+    split_live = (torch.arange(n, device=q.device)[None] * chunk
+                  <= pos[:, None])[:, None]               # [S, 1, n]
+    m = m.masked_fill(~split_live, NEG_INF)
+    _, l, acc = merge(m, l, acc, 2)                       # the splits
+    return (acc / l[..., None]).to(q.dtype).view(S, 1, H, D)
+
+
+def flash_decode_attention(q, k_cache, v_cache, positions, *,
+                           chunk: "int | None" = None):
     """Length-aware decode attention over the slot cache.
 
     ``q`` [S, 1, H, D]; ``k_cache``/``v_cache`` [S, L, H, D];
     ``positions`` [S] int32 on the same device; returns [S, 1, H, D].
     A CUDA tensor launches ``csrc/flash_decode.cu`` (bf16, head_dim in
-    :data:`HEAD_DIMS`, unit stride over D, 16-byte-aligned rows); a CPU
-    tensor takes :func:`flash_decode_attention_plain`.  It has no
+    :data:`HEAD_DIMS`, unit stride over D, 16-byte-aligned rows) with
+    :func:`decode_split_plan`'s split, or ``chunk`` rows a split when
+    given (a multiple of :data:`DECODE_TILE`: for tests and tuning); a
+    CPU tensor takes :func:`flash_decode_attention_plain`.  It has no
     backward (nor has the JAX kernel): under grad mode with an input that
     requires grad it raises rather than return an output that autograd
     would silently cut off from its inputs.
@@ -150,17 +289,29 @@ def flash_decode_attention(q, k_cache, v_cache, positions):
                 f"16-byte aligned rows; {name} has strides {x.stride()}")
         if max(x.stride()[:3]) >= 2 ** 31:
             raise ValueError(f"{name} strides overflow int32")
+    _check_grid(S, H)
     o = torch.empty(S, 1, H, D, dtype=q.dtype, device=q.device)
     if S == 0:
         return o
+    chunk, n = _split(S, H, L, chunk)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    tickets, ws = _scratch(q.device, stream, S * H, S * H * n * (D + 2))
     KERNEL.launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                  positions.data_ptr(), o.data_ptr(), S, L, H, D,
+                  positions.data_ptr(), o.data_ptr(), ws.data_ptr(),
+                  tickets.data_ptr(), S, L, H, D,
                   q.stride(0), q.stride(2),
                   k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
                   v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
-                  1.0 / math.sqrt(D), q.device.index or 0, stream)
+                  chunk, n, 1.0 / math.sqrt(D), q.device.index or 0, stream)
     return o
+
+
+def _check_grid(S: int, H: int) -> None:
+    """The kernels' grid is (split, head, slot): at most 65535 heads and
+    slots (CUDA's y and z limits)."""
+    if S > 65535 or H > 65535:
+        raise ValueError(f"grid (split, {H}, {S}) past CUDA's limits: at "
+                         f"most 65535 heads and slots")
 
 
 def _check_paged(q, k_pages, v_pages, positions, table) -> None:
@@ -213,7 +364,8 @@ def flash_decode_paged_attention_plain(q, k_pages, v_pages, positions,
                                         positions)
 
 
-def flash_decode_paged_attention(q, k_pages, v_pages, positions, table):
+def flash_decode_paged_attention(q, k_pages, v_pages, positions, table, *,
+                                 chunk: "int | None" = None):
     """Length-aware decode attention through a page table.
 
     ``q`` [S, 1, H, D]; ``k_pages``/``v_pages`` [N, page_size, H, D],
@@ -225,7 +377,10 @@ def flash_decode_paged_attention(q, k_pages, v_pages, positions, table):
     [S, 1, H, D].  A CUDA tensor launches the row-14 kernel of
     ``csrc/flash_decode.cu`` (bf16, head_dim in :data:`HEAD_DIMS`, any
     page_size, unit stride over D, 16-byte-aligned rows, a contiguous
-    table); a CPU tensor takes
+    table) with the split plan of the same ``L`` as
+    :func:`flash_decode_attention` (``chunk`` as there), so it equals
+    that kernel bit for bit on the same logical cache; a CPU tensor
+    takes
     :func:`flash_decode_paged_attention_plain`.  The table's values stay
     on the device (reading them would sync every layer): a physical page
     id outside ``[0, N)`` is clamped into it, never read out of bounds.
@@ -260,23 +415,27 @@ def flash_decode_paged_attention(q, k_pages, v_pages, positions, table):
             raise ValueError(f"{name} strides overflow int32")
     if P * ps >= 2 ** 31 or N >= 2 ** 31:
         raise ValueError(f"{P} pages of {ps} rows overflow int32")
-    if S > 2 ** 31 - 1 or H > 65535:
-        raise ValueError(f"grid ({S}, {H}) past CUDA's limits")
+    _check_grid(S, H)
     o = torch.empty(S, 1, H, D, dtype=q.dtype, device=q.device)
     if S == 0:
         return o
+    chunk, n = _split(S, H, P * ps, chunk)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    tickets, ws = _scratch(q.device, stream, S * H, S * H * n * (D + 2))
     PAGED_KERNEL.launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         positions.data_ptr(), table.data_ptr(), o.data_ptr(),
+        ws.data_ptr(), tickets.data_ptr(),
         S, N, P, ps, H, D, q.stride(0), q.stride(2),
         k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
         v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),
-        1.0 / math.sqrt(D), q.device.index or 0, stream)
+        chunk, n, 1.0 / math.sqrt(D), q.device.index or 0, stream)
     return o
 
 
-__all__ = ["KERNEL", "NEG_INF", "PAGED_KERNEL", "VALID_DECODE_IMPLS",
+__all__ = ["DECODE_TILE", "KERNEL", "NEG_INF", "PAGED_KERNEL",
+           "VALID_DECODE_IMPLS", "decode_split_plan",
            "flash_decode_attention", "flash_decode_attention_plain",
            "flash_decode_paged_attention",
-           "flash_decode_paged_attention_plain", "resolve_decode_impl"]
+           "flash_decode_paged_attention_plain", "flash_decode_split_plain",
+           "resolve_decode_impl"]

@@ -36,7 +36,7 @@ from ray_lightning_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_passes, flash_attention_bwd_plain,
     flash_attention_fwd, flash_attention_fwd_plain)
 from ray_lightning_tpu_torch.ops.flash_decode import (
-    flash_decode_attention, flash_decode_attention_plain,
+    decode_split_plan, flash_decode_attention, flash_decode_attention_plain,
     flash_decode_paged_attention, flash_decode_paged_attention_plain)
 from ray_lightning_tpu_torch.serve import PageConfig, SpecConfig
 
@@ -324,6 +324,111 @@ def test_cuda_flash_decode_kernel_matches_plain(cuda_device):
     torch.cuda.synchronize()
     assert _kernels.REGISTRY["flash_decode"].launches == before + 1
     assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2
+
+
+def _split_edges(chunk: int, L: int) -> list:
+    """Positions at 0, around the first two split edges and at the end."""
+    return [p for p in (0, chunk - 1, chunk, chunk + 1, 2 * chunk - 1,
+                        2 * chunk, L - 2, L - 1) if p < L]
+
+
+def _position_sets(positions: list, S: int, device) -> list:
+    """``positions`` spread over calls of ``S`` slots: each value in some
+    slot of some call (a call's list repeated to fill its slots)."""
+    return [torch.tensor((positions[i:i + S] * S)[:S], dtype=torch.int32,
+                         device=device)
+            for i in range(0, len(positions), S)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1024, 1000])
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("S", [1, 4, 16])
+def test_cuda_flash_decode_matches_plain_at_split_edges(S, D, L,
+                                                        cuda_device):
+    """Row 13 at 1, 4 and 16 slots (the plan's 64- to 192-row chunks at
+    H=12), every head dim, an L that is a multiple of the chunk and one
+    that is not: positions at 0, on each side of the first split edges
+    and at L - 1, each slot in turn, within 2e-2 of the plain version,
+    and a second call equal bit for bit (the merge takes the splits in
+    index order, whichever block arrives last)."""
+    g = torch.Generator(device=cuda_device).manual_seed(S * D + L)
+    H = 12
+    chunk, _ = decode_split_plan(S, H, L)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device=cuda_device).to(
+            torch.bfloat16)
+
+    q, kc, vc = rand(S, 1, H, D), rand(S, L, H, D), rand(S, L, H, D)
+    for pos in _position_sets(_split_edges(chunk, L), S, cuda_device):
+        o = flash_decode_attention(q, kc, vc, pos)
+        again = flash_decode_attention(q, kc, vc, pos)
+        o_ref = flash_decode_attention_plain(q, kc, vc, pos)
+        torch.cuda.synchronize()
+        assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2, pos
+        assert torch.equal(o, again), pos
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [64, 128, 1024])
+def test_cuda_flash_decode_any_chunk_matches_plain(chunk, cuda_device):
+    """The kernel under a chunk other than the plan's: 16 splits of 64
+    rows (a merge over 16 parts), 8 of 128, one of 1024 (the ring wraps
+    past its stages)."""
+    g = torch.Generator(device=cuda_device).manual_seed(chunk)
+    S, L, H, D = 16, 1024, 12, 64
+    q, kc, vc = (torch.randn(*shape, generator=g, device=cuda_device).to(
+        torch.bfloat16) for shape in ((S, 1, H, D), (S, L, H, D),
+                                      (S, L, H, D)))
+    pos = torch.tensor(_split_edges(64, L) + _split_edges(128, L),
+                       dtype=torch.int32, device=cuda_device)
+    o = flash_decode_attention(q, kc, vc, pos, chunk=chunk)
+    o_ref = flash_decode_attention_plain(q, kc, vc, pos)
+    torch.cuda.synchronize()
+    assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2
+    assert torch.equal(o, flash_decode_attention(q, kc, vc, pos,
+                                                 chunk=chunk))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_size", [16, 64])
+@pytest.mark.parametrize("S", [1, 4, 16])
+def test_cuda_flash_decode_paged_equals_flat_under_any_table(S, page_size,
+                                                             cuda_device):
+    """Row 14 on the page view of one logical cache, under the identity
+    table and with its pages scattered by a random permutation: equal
+    to row 13 on the slot-contiguous cache bit for bit (one body, one
+    plan, one order of arithmetic), within 2e-2 of the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(S + page_size)
+    L, H, D, ps = 1024, 12, 64, page_size
+    P = L // ps
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device=cuda_device).to(
+            torch.bfloat16)
+
+    q, kc, vc = rand(S, 1, H, D), rand(S, L, H, D), rand(S, L, H, D)
+    chunk, _ = decode_split_plan(S, H, L)
+    ident = torch.arange(S * P, dtype=torch.int32,
+                         device=cuda_device).view(S, P)
+    perm = torch.randperm(S * P, generator=g, device=cuda_device).to(
+        torch.int32).view(S, P)
+    kp, vp = kc.view(S * P, ps, H, D), vc.view(S * P, ps, H, D)
+    kq, vq = torch.empty_like(kp), torch.empty_like(vp)
+    kq[perm.flatten().long()] = kp
+    vq[perm.flatten().long()] = vp
+    edges = _split_edges(chunk, L) + [ps - 1, ps, 700]
+    for pos in _position_sets(edges, S, cuda_device):
+        flat = flash_decode_attention(q, kc, vc, pos)
+        for k_pages, v_pages, table in ((kp, vp, ident), (kq, vq, perm)):
+            o = flash_decode_paged_attention(q, k_pages, v_pages, pos,
+                                             table)
+            o_ref = flash_decode_paged_attention_plain(q, k_pages, v_pages,
+                                                       pos, table)
+            torch.cuda.synchronize()
+            assert torch.equal(o, flat), pos
+            assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2
 
 
 @pytest.mark.cuda
