@@ -225,15 +225,19 @@ def card_line() -> str:
 #: host takes to queue 30 autograd backward calls): the events then time
 #: the kernels back to back, not the host's launch rate
 HOLD_CYCLES = 100_000_000
+#: the same after each flush (~0.1 ms, longer than a wrapper's host time)
+FLUSH_HOLD_CYCLES = 200_000
 
 
 def time_ms(fn, *, iters: int = 30, warmup: int = 3,
-            flush: "torch.Tensor | None" = None) -> float:
+            flush: "torch.Tensor | None" = None, clean: bool = False
+            ) -> float:
     """Mean device ms of ``fn`` over ``iters`` launches, timed with CUDA
     events behind a device-side sleep, so the host's launch cost stays
     out of the timing.  With ``flush`` each launch is timed alone after
-    a write that evicts L2, so its inputs come from device memory
-    cold."""
+    a write of it that evicts L2, so its inputs come from device memory
+    cold (and L2 holds dirty lines, written back while ``fn`` reads);
+    with ``clean`` too, after a read of it instead (L2 clean)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -250,7 +254,13 @@ def time_ms(fn, *, iters: int = 30, warmup: int = 3,
     total = 0.0
     pairs = []
     for _ in range(iters):
-        flush.zero_()
+        if clean:
+            flush.max()
+        else:
+            flush.zero_()
+        # the host queues the launch while the stream sleeps, so a slow
+        # host's wrapper time never falls between the events
+        torch.cuda._sleep(FLUSH_HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -2265,11 +2275,33 @@ def decode_rows(gen) -> list:
         mask = (torch.arange(L, device="cuda")[None, :]
                 <= positions[:, None].long())[:, None, None, :]
         qt, kt, vt = (x.transpose(1, 2) for x in (q, kc, vc))
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask), flush=flush)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        lib_ms = time_ms(sdpa, flush=flush)
         live_rows = int((positions.long() + 1).sum())
         nbytes = 2 * S * C * 2 + 2 * live_rows * C * 2 + S * 4
         b_ms, b_by = bound(nbytes, 4 * live_rows * C)
+        # yardsticks timed the same way: a one-element fill (the timing's
+        # floor) and one read of as many bytes as the live rows hold
+        tiny = torch.empty(1, device="cuda")
+        floor_ms = time_ms(tiny.zero_, flush=flush)
+        live = torch.empty(nbytes // 2, dtype=torch.bfloat16, device="cuda")
+        read_ms = time_ms(live.sum, flush=flush)
+        # and with L2 evicted by a read (clean, as the serve step leaves it
+        # after the weights' reads)
+        clean = {key: time_ms(fn, flush=flush, clean=True)
+                 for key, fn in (("flat", fns["flat"]),
+                                 ("page16_identity", fns["page16_identity"]),
+                                 ("sdpa", sdpa), ("read", live.sum),
+                                 ("floor", tiny.zero_))}
+        # and back to back, the bytes in L2: the kernel's own latency
+        warm = {key: time_ms(fn) for key, fn in (
+            ("flat", fns["flat"]), ("page16_identity",
+                                    fns["page16_identity"]),
+            ("sdpa", sdpa), ("read", live.sum), ("floor", tiny.zero_))}
+        del live
         t0 = time.perf_counter()
         for _ in range(HOST_CALLS // 4):
             fns["flat"]()
@@ -2279,6 +2311,8 @@ def decode_rows(gen) -> list:
                    max_abs_err=errs, ms=ms, library_ms=lib_ms, bound_ms=b_ms,
                    bound_by=b_by, gbps={k: nbytes / v / 1e6
                                         for k, v in ms.items()},
+                   floor_ms=floor_ms, read_ms=read_ms, clean_l2_ms=clean,
+                   warm_l2_ms=warm,
                    host_us_per_call=host_us)
         if hasattr(fd, "decode_split_plan"):
             row["plan"] = fd.decode_split_plan(S, H, L)
@@ -2289,6 +2323,10 @@ def decode_rows(gen) -> list:
                 for c in DECODE_CHUNKS}
         log(f"  {label}: " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
             + f" ms; sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+            f"floor {floor_ms:.4f} ms, read of the bytes {read_ms:.4f} ms, "
+            f"clean L2: " + ", ".join(f"{k} {v:.4f}" for k, v in clean.items())
+            + "; warm L2: " + ", ".join(f"{k} {v:.4f}" for k, v in warm.items())
+            + " ms; "
             f"{live_rows} live rows, flat {row['gbps']['flat']:.0f} GB/s, "
             f"kernel/sdpa {ms['flat'] / lib_ms:.2f}x, host "
             f"{host_us:.2f} us a call; max_abs_err "

@@ -22,7 +22,7 @@
 // bytes in flight at once.
 //
 // What the design does about that:
-// - split-KV: the grid is (split, head, slot); split j of (s, h) walks
+// - split-KV: the grid is (head, slot, split); split j of (s, h) walks
 //   rows [j * chunk, min((j + 1) * chunk, positions[s] + 1)) in 64-row
 //   tiles, and a split that starts past positions[s] exits at once. The
 //   chunk (a multiple of 64) and the split count come from the shapes
@@ -51,7 +51,8 @@
 //   rows fit in split 0 writes o directly. Otherwise each split leaves
 //   fp32 (m_j, l_j, acc_j[D]) in a workspace, and the last of its live
 //   splits to arrive (an int ticket taken after __threadfence) merges
-//   them in index order, M = max m_j, o = sum e^(m_j - M) acc_j /
+//   them in index order (all (m_j, l_j) staged in shared memory in one
+//   round trip, 8 acc loads in flight a column), M = max m_j, o = sum e^(m_j - M) acc_j /
 //   sum e^(m_j - M) l_j, and resets the ticket to 0. No float atomics:
 //   two calls agree bit for bit. The wrapper allocates the workspace and
 //   the tickets (zeroed once); the kernel allocates nothing.
@@ -79,8 +80,10 @@ constexpr int NWARPS = NTHREADS / 32;
 constexpr int WROWS = BK / NWARPS;   // rows of a tile each warp takes
 constexpr int MAX_STAGES = 8;   // ring depth, cp_async_wait's cases
 constexpr int RING_BYTES = 96 * 1024;
-// dynamic shared memory a launch may ask for (ring + table slice)
+// dynamic shared memory a launch may ask for (ring, parts' (m, l),
+// table slice)
 constexpr int SMEM_CAP = 200 * 1024;
+constexpr int MERGE_BATCH = 8;  // merge: acc loads in flight a thread
 
 typedef __nv_bfloat16 bf16;
 
@@ -165,15 +168,18 @@ flash_decode_kernel(const bf16* __restrict__ q, const Cache kc,
   using G = Lanes<D>;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
-  int* sTab = reinterpret_cast<int*>(ring + nst * G::STAGE);
+  float* sML = reinterpret_cast<float*>(ring + nst * G::STAGE);
+  int* sTab = reinterpret_cast<int*>(sML + 2 * n_split);
   __shared__ float sP[NWARPS][WROWS];
   __shared__ float sM[NWARPS], sL[NWARPS];
   __shared__ float sAcc[NWARPS][D];
   __shared__ int sLast;
 
-  const int j = blockIdx.x;
-  const int h = blockIdx.y;
-  const int s = blockIdx.z;
+  // every (slot, head)'s split 0 is dispatched first, the splits that
+  // positions leave empty (and exit at once) last
+  const int h = blockIdx.x;
+  const int s = blockIdx.y;
+  const int j = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
@@ -380,16 +386,31 @@ flash_decode_kernel(const bf16* __restrict__ q, const Cache kc,
   __syncthreads();
   if (!sLast) return;
   __threadfence();
+  // the parts' (m, l) in one round trip, then each column's acc in
+  // batches of MERGE_BATCH loads in flight, summed in index order
+  const float* ml = ws_ml + 2 * cell * n_split;
+  for (int i = tid; i < 2 * n_live; i += NTHREADS) sML[i] = __ldcg(ml + i);
+  __syncthreads();
   if (tid < D) {
-    const float* ml = ws_ml + 2 * cell * n_split;
     const float* pa = ws_acc + cell * n_split * D + tid;
-    float M = __ldcg(ml);
-    for (int i = 1; i < n_live; ++i) M = fmaxf(M, __ldcg(ml + 2 * i));
+    float M = sML[0];
+    for (int i = 1; i < n_live; ++i) M = fmaxf(M, sML[2 * i]);
     float num = 0.f, den = 0.f;
-    for (int i = 0; i < n_live; ++i) {
-      const float e = __expf(__ldcg(ml + 2 * i) - M);
-      num = fmaf(e, __ldcg(pa + static_cast<int64_t>(i) * D), num);
-      den = fmaf(e, __ldcg(ml + 2 * i + 1), den);
+    for (int i0 = 0; i0 < n_live; i0 += MERGE_BATCH) {
+      float a[MERGE_BATCH];
+#pragma unroll
+      for (int k = 0; k < MERGE_BATCH; ++k)
+        a[k] = i0 + k < n_live
+                   ? __ldcg(pa + static_cast<int64_t>(i0 + k) * D)
+                   : 0.f;
+#pragma unroll
+      for (int k = 0; k < MERGE_BATCH; ++k) {
+        if (i0 + k < n_live) {
+          const float e = __expf(sML[2 * (i0 + k)] - M);
+          num = fmaf(e, a[k], num);
+          den = fmaf(e, sML[2 * (i0 + k) + 1], den);
+        }
+      }
     }
     o[cell * D + tid] = __float2bfloat16(num / den);
   }
@@ -434,13 +455,14 @@ int ring_stages(int chunk) {
 
 template <int D, bool PAGED>
 cudaError_t launch(const Args& a) {
-  if (a.chunk < BK || a.chunk % BK || a.n_split < 1 || a.H > 65535 ||
-      a.S > 65535 ||
+  if (a.chunk < BK || a.chunk % BK || a.n_split < 1 ||
+      a.n_split > 65535 || a.S > 65535 ||
       static_cast<int64_t>(a.chunk) * (a.n_split - 1) >= a.L ||
       static_cast<int64_t>(a.chunk) * a.n_split < a.L)
     return cudaErrorInvalidValue;
   const int nst = ring_stages<D>(a.chunk);
-  int64_t smem = static_cast<int64_t>(nst) * Lanes<D>::STAGE * 2;
+  int64_t smem = static_cast<int64_t>(nst) * Lanes<D>::STAGE * 2 +
+                 8 * static_cast<int64_t>(a.n_split);
   if (PAGED) smem += 4 * ((a.chunk - 1) / a.tab.page_size + 2);
   if (smem > SMEM_CAP) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem<D, PAGED>(a.device);
@@ -448,7 +470,7 @@ cudaError_t launch(const Args& a) {
   const int64_t cells = static_cast<int64_t>(a.S) * a.H;
   float* ws_acc = static_cast<float*>(a.ws);
   float* ws_ml = ws_acc + cells * a.n_split * D;
-  dim3 grid(a.n_split, a.H, a.S);
+  dim3 grid(a.H, a.S, a.n_split);
   flash_decode_kernel<D, PAGED><<<grid, NTHREADS, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), a.kc, a.vc, a.tab,
       static_cast<const int*>(a.positions), static_cast<bf16*>(a.o), ws_acc,

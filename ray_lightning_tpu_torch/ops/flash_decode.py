@@ -21,6 +21,7 @@ package does.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 
@@ -47,10 +48,14 @@ WARP_ROWS = 16
 #: blocks a decode launch aims for: 8 on each of the H100's 132 SMs, so
 #: that the live ones (positions end most splits early) still fill it
 DECODE_TARGET_BLOCKS = 8 * 132
+#: fewest tiles a split walks where L has them: a 2-stage ring in flight
+#: (64-row chunks lost 3-5% to 128 at one and four slots on the H100)
+DECODE_MIN_CHUNK_TILES = 2
 #: most tiles one split walks: longer contexts get more splits
 DECODE_MAX_CHUNK_TILES = 16
 
 
+@functools.lru_cache(maxsize=256)
 def decode_split_plan(S: int, H: int, L: int) -> "tuple[int, int]":
     """The decode kernels' split plan for ``S`` slots, ``H`` heads and a
     cache of ``L`` rows: ``(chunk, n_split)``, split ``j`` of a (slot,
@@ -60,15 +65,17 @@ def decode_split_plan(S: int, H: int, L: int) -> "tuple[int, int]":
     them would sync every layer).  ``chunk`` is a multiple of
     :data:`DECODE_TILE`, at most :data:`DECODE_MAX_CHUNK_TILES` tiles;
     ``n_split`` is the least count of such chunks covering ``L``, as
-    close as the tiles allow to ``DECODE_TARGET_BLOCKS / (S * H)``:
-    64-row chunks at S=1 or 4 (L=1024, H=12), 192 at S=16."""
+    close as the tiles allow to ``DECODE_TARGET_BLOCKS / (S * H)`` with
+    chunks of at least :data:`DECODE_MIN_CHUNK_TILES` tiles: 128-row
+    chunks at S=1 or 4 (L=1024, H=12), 192 at S=16."""
     if min(S, H, L) < 1:
         raise ValueError(f"decode_split_plan needs S, H, L >= 1, got "
                          f"{(S, H, L)}")
     tiles = -(-L // DECODE_TILE)
     want = -(-DECODE_TARGET_BLOCKS // (S * H))
     per = -(-tiles // min(tiles, want))
-    per = min(per, DECODE_MAX_CHUNK_TILES)
+    per = min(max(per, DECODE_MIN_CHUNK_TILES, 1), DECODE_MAX_CHUNK_TILES,
+              tiles)
     return per * DECODE_TILE, -(-tiles // per)
 
 
@@ -307,11 +314,11 @@ def flash_decode_attention(q, k_cache, v_cache, positions, *,
 
 
 def _check_grid(S: int, H: int) -> None:
-    """The kernels' grid is (split, head, slot): at most 65535 heads and
-    slots (CUDA's y and z limits)."""
-    if S > 65535 or H > 65535:
-        raise ValueError(f"grid (split, {H}, {S}) past CUDA's limits: at "
-                         f"most 65535 heads and slots")
+    """The kernels' grid is (head, slot, split): at most 65535 slots
+    (CUDA's y limit; the split count is far below its z limit)."""
+    if S > 65535 or H >= 2 ** 31:
+        raise ValueError(f"grid ({H}, {S}, splits) past CUDA's limits: at "
+                         f"most 65535 slots")
 
 
 def _check_paged(q, k_pages, v_pages, positions, table) -> None:

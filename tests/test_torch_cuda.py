@@ -346,8 +346,8 @@ def _position_sets(positions: list, S: int, device) -> list:
 @pytest.mark.parametrize("S", [1, 4, 16])
 def test_cuda_flash_decode_matches_plain_at_split_edges(S, D, L,
                                                         cuda_device):
-    """Row 13 at 1, 4 and 16 slots (the plan's 64- to 192-row chunks at
-    H=12), every head dim, an L that is a multiple of the chunk and one
+    """Row 13 at 1, 4 and 16 slots (the plan's 128- and 192-row chunks
+    at H=12), every head dim, an L that is a multiple of the chunk and one
     that is not: positions at 0, on each side of the first split edges
     and at L - 1, each slot in turn, within 2e-2 of the plain version,
     and a second call equal bit for bit (the merge takes the splits in
