@@ -102,13 +102,16 @@ struct Table {
   int n_pages, n_cols, page_size;
 };
 
+// 16 bytes global -> shared, bypassing L1; L2 fetches the whole 128-byte
+// line (a D=64 row: its other 7 chunks are the neighbouring lanes')
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
   const unsigned d =
       static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes)
-               : "memory");
+  asm volatile(
+      "cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;\n" ::"r"(d),
+      "l"(src), "r"(src_bytes)
+      : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
