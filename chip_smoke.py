@@ -19,7 +19,8 @@ Phases, each fatal on failure:
    slots, flash_decode_paged at the same shape with page sizes 16 and 64
    under the identity table and a permuted one (each also equal, bit for
    bit, to flash_decode on the same logical cache; timed beside SDPA on
-   the slot-contiguous cache);
+   the slot-contiguous cache); both decode kernels equal bit for bit
+   over two calls;
 3. serve: gpt2-small at full width (12 layers, 12 heads, n_embd 768,
    vocab 50304, context 1024), bf16, seeded weights, buckets
    (128, 256, 512, 1024), 16 slots; 16 requests from two tenants over

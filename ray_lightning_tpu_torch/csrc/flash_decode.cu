@@ -50,7 +50,8 @@
 // - deterministic combine in the same launch: a (slot, head) whose live
 //   rows fit in split 0 writes o directly. Otherwise each split leaves
 //   fp32 (m_j, l_j, acc_j[D]) in a workspace, and the last of its live
-//   splits to arrive (an int ticket taken after __threadfence) merges
+//   splits to arrive (an int ticket taken by a release-acquire add after
+//   a block barrier, the pattern of CUTLASS's semaphores) merges
 //   them in index order (all (m_j, l_j) staged in shared memory in one
 //   round trip, 8 acc loads in flight a column), M = max m_j, o = sum e^(m_j - M) acc_j /
 //   sum e^(m_j - M) l_j, and resets the ticket to 0. No float atomics:
@@ -339,7 +340,6 @@ flash_decode_kernel(const bf16* __restrict__ q, const Cache kc,
     }
     __syncwarp();             // sP is rewritten by the next tile
   }
-  cp_async_wait(0);           // no copy outlives the block (all empty)
 
   // the warp's row groups, then the warps: (m, l, acc) of the split
 #pragma unroll
@@ -383,12 +383,21 @@ flash_decode_kernel(const bf16* __restrict__ q, const Cache kc,
     ws_ml[2 * slot] = m_j;
     ws_ml[2 * slot + 1] = l_j;
   }
-  __threadfence();
+  // the block's writes, then one gpu-scope release-acquire add: it
+  // publishes them (cumulative through the barrier) and, in the last
+  // block, makes every other split's visible to the reads after the
+  // next barrier
   __syncthreads();
-  if (tid == 0) sLast = atomicAdd(tickets + cell, 1) == n_live - 1;
+  if (tid == 0) {
+    int ticket;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                 : "=r"(ticket)
+                 : "l"(tickets + cell)
+                 : "memory");
+    sLast = ticket == n_live - 1;
+  }
   __syncthreads();
   if (!sLast) return;
-  __threadfence();
   // the parts' (m, l) in one round trip, then each column's acc in
   // batches of MERGE_BATCH loads in flight, summed in index order
   const float* ml = ws_ml + 2 * cell * n_split;

@@ -296,7 +296,7 @@ def flash_decode_attention(q, k_cache, v_cache, positions, *,
                 f"16-byte aligned rows; {name} has strides {x.stride()}")
         if max(x.stride()[:3]) >= 2 ** 31:
             raise ValueError(f"{name} strides overflow int32")
-    _check_grid(S, H)
+    _check_grid(S)
     o = torch.empty(S, 1, H, D, dtype=q.dtype, device=q.device)
     if S == 0:
         return o
@@ -313,12 +313,12 @@ def flash_decode_attention(q, k_cache, v_cache, positions, *,
     return o
 
 
-def _check_grid(S: int, H: int) -> None:
+def _check_grid(S: int) -> None:
     """The kernels' grid is (head, slot, split): at most 65535 slots
     (CUDA's y limit; the split count is far below its z limit)."""
-    if S > 65535 or H >= 2 ** 31:
-        raise ValueError(f"grid ({H}, {S}, splits) past CUDA's limits: at "
-                         f"most 65535 slots")
+    if S > 65535:
+        raise ValueError(f"grid (heads, {S}, splits) past CUDA's limits: "
+                         f"at most 65535 slots")
 
 
 def _check_paged(q, k_pages, v_pages, positions, table) -> None:
@@ -422,7 +422,7 @@ def flash_decode_paged_attention(q, k_pages, v_pages, positions, table, *,
             raise ValueError(f"{name} strides overflow int32")
     if P * ps >= 2 ** 31 or N >= 2 ** 31:
         raise ValueError(f"{P} pages of {ps} rows overflow int32")
-    _check_grid(S, H)
+    _check_grid(S)
     o = torch.empty(S, 1, H, D, dtype=q.dtype, device=q.device)
     if S == 0:
         return o

@@ -32,9 +32,10 @@ from ray_lightning_tpu_torch.ops.attention import (cached_attention,
 from ray_lightning_tpu_torch.ops import flash_attention as fa
 from ray_lightning_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_fwd)
+from ray_lightning_tpu_torch.ops import flash_decode as fd
 from ray_lightning_tpu_torch.ops.flash_decode import (
-    flash_decode_attention, flash_decode_attention_plain,
-    resolve_decode_impl)
+    decode_split_plan, flash_decode_attention, flash_decode_attention_plain,
+    flash_decode_split_plain, resolve_decode_impl)
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -185,6 +186,104 @@ def test_decode_plain_reads_nothing_past_the_position():
         k2[s, p + 1:] = float("nan")
         v2[s, p + 1:] = float("nan")
     got = flash_decode_attention_plain(q, k2, v2, pos)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, base, atol=0, rtol=0)
+
+
+# -- the decode kernels' split plan ------------------------------------------
+
+@pytest.mark.parametrize("S,H,L", [
+    (16, 12, 1024), (4, 12, 1024), (1, 12, 1024), (8, 12, 1000),
+    (16, 12, 16384), (1, 1, 100), (2, 2, 30), (64, 25, 2048),
+    (256, 12, 1024), (3, 7, 65)])
+def test_decode_split_plan_invariants(S, H, L):
+    """The plan comes from the shapes alone (no positions among its
+    arguments, the same answer each call); its chunk is a whole number
+    of 64-row tiles, at most 16; its splits cover L, none of them
+    empty; it gives the H100's 132 SMs several blocks each wherever the
+    cache has the tiles for it."""
+    chunk, n = decode_split_plan(S, H, L)
+    assert (chunk, n) == decode_split_plan(S, H, L)
+    assert chunk % fd.DECODE_TILE == 0
+    assert 1 <= chunk // fd.DECODE_TILE <= fd.DECODE_MAX_CHUNK_TILES
+    assert (n - 1) * chunk < L <= n * chunk
+    tiles = -(-L // fd.DECODE_TILE)
+    if tiles >= fd.DECODE_MIN_CHUNK_TILES:
+        assert chunk >= fd.DECODE_MIN_CHUNK_TILES * fd.DECODE_TILE
+    if (chunk // fd.DECODE_TILE > fd.DECODE_MIN_CHUNK_TILES
+            and chunk // fd.DECODE_TILE < fd.DECODE_MAX_CHUNK_TILES):
+        # a longer chunk only where the split count already fills the card
+        assert S * H * n >= 4 * 132
+
+
+def test_decode_split_plan_examples():
+    """The serve paths' shapes at gpt2-small's 12 heads and L=1024."""
+    assert decode_split_plan(16, 12, 1024) == (192, 6)
+    assert decode_split_plan(4, 12, 1024) == (128, 8)
+    assert decode_split_plan(1, 12, 1024) == (128, 8)
+    with pytest.raises(ValueError, match="S, H, L"):
+        decode_split_plan(0, 12, 1024)
+
+
+def test_decode_wrappers_take_a_chunk_of_whole_tiles():
+    """A caller's chunk (tests, tuning) is a positive multiple of the
+    tile, refused otherwise on every device; on a CPU tensor the wrapper
+    still takes the plain version."""
+    rng = np.random.default_rng(6)
+    q = torch.from_numpy(rng.standard_normal((2, 1, 2, 16)).astype(
+        np.float32))
+    kc = torch.from_numpy(rng.standard_normal((2, 100, 2, 16)).astype(
+        np.float32))
+    pos = torch.tensor([3, 99], dtype=torch.int32)
+    for bad in (0, 32, 96):
+        with pytest.raises(ValueError, match="multiple of 64"):
+            fd._split(2, 2, 100, bad)
+    assert fd._split(2, 2, 100, 64) == (64, 2)
+    torch.testing.assert_close(
+        flash_decode_attention(q, kc, kc, pos, chunk=64),
+        flash_decode_attention_plain(q, kc, kc, pos), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("chunk", [None, 64, 128, 192])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_plain_matches_plain_across_split_edges(dtype, chunk):
+    """The kernels' split-and-merge arithmetic (warp groups of 16 rows,
+    running max per group, merges by e^(m_j - M)) against the one-pass
+    plain version, positions on each side of the split edges and at
+    both ends, L=300 (no multiple of any chunk), every head dim's lane
+    layout at D=16 and 64: fp32 within 2e-5, bf16 within 2e-2."""
+    rng = np.random.default_rng(7)
+    _, tdt, tol = DTYPES[dtype]
+    L, H = 300, 3
+    c = chunk or decode_split_plan(9, H, L)[0]
+    pos = torch.tensor([0, 15, 16, c - 1, c, c + 1, 2 * c, L - 2, L - 1],
+                       dtype=torch.int32).clamp(max=L - 1)
+    S = len(pos)
+    for D in (16, 64):
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(tdt) for shape in ((S, 1, H, D), (S, L, H, D),
+                                               (S, L, H, D)))
+        got = flash_decode_split_plain(q, k, v, pos, chunk)
+        want = flash_decode_attention_plain(q, k, v, pos)
+        assert got.dtype == tdt and got.shape == (S, 1, H, D)
+        np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+
+
+def test_split_plain_reads_nothing_past_the_position():
+    """As the plain version: NaN rows past positions[s], in the split
+    that holds the position and in those past it, leave the output as
+    it was."""
+    rng = np.random.default_rng(8)
+    S, L, H, D = 3, 300, 2, 16
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)) for shape in ((S, 1, H, D), (S, L, H, D), (S, L, H, D)))
+    pos = torch.tensor([0, 130, L - 1], dtype=torch.int32)
+    base = flash_decode_split_plain(q, k, v, pos, 64)
+    k2, v2 = k.clone(), v.clone()
+    for s, p in enumerate(pos.tolist()):
+        k2[s, p + 1:] = float("nan")
+        v2[s, p + 1:] = float("nan")
+    got = flash_decode_split_plain(q, k2, v2, pos, 64)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, base, atol=0, rtol=0)
 

@@ -39,7 +39,8 @@ from ray_lightning_tpu_torch.models.gpt import GPTConfig
 from ray_lightning_tpu_torch.ops.attention import cached_attention
 from ray_lightning_tpu_torch.ops.flash_decode import (
     flash_decode_attention_plain, flash_decode_paged_attention,
-    flash_decode_paged_attention_plain, resolve_decode_impl)
+    flash_decode_paged_attention_plain, flash_decode_split_plain,
+    resolve_decode_impl)
 from ray_lightning_tpu_torch.serve import PageConfig, PagedKV
 from ray_lightning_tpu_torch.serve.fleet import identity_page_table
 
@@ -132,6 +133,34 @@ def test_flat_plain_matches_pallas_decode_kernel(dtype, pallas):
     np.testing.assert_allclose(mine.float().numpy(),
                                np.asarray(jnp.asarray(got, jnp.float32)),
                                atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_plain_matches_pallas_decode_kernel(dtype, pallas):
+    """The CUDA kernels' split-and-merge arithmetic
+    (``flash_decode_split_plain``: 64- and 128-row splits, each of 16-row
+    groups with their own running max, merged by e^(m_j - M)) held
+    against the Pallas ``flash_decode_kernel`` in interpret mode (128-row
+    blocks, one running max a slot) and against the one-pass plain
+    version, positions on each side of the split edges and at both
+    ends."""
+    jdt, tdt, tol = DTYPES[dtype]
+    S, L, H, D = 8, 256, 2, 32
+    _, q, k, v = _decode_inputs(S, L, H, D, 17)
+    pos = np.array([0, 63, 64, 65, 127, 128, 191, L - 1], np.int32)
+    got = jax_flash_decode(jnp.asarray(q, jdt), jnp.asarray(k, jdt),
+                           jnp.asarray(v, jdt), jnp.asarray(pos), dtype=jdt,
+                           interpret=True)
+    want_jax = np.asarray(jnp.asarray(got, jnp.float32))
+    tq, tk, tv = _to(q, tdt), _to(k, tdt), _to(v, tdt)
+    tpos = torch.from_numpy(pos)
+    plain = flash_decode_attention_plain(tq, tk, tv, tpos).float().numpy()
+    for chunk in (64, 128):
+        mine = flash_decode_split_plain(tq, tk, tv, tpos, chunk)
+        assert mine.dtype == tdt
+        mine = mine.float().numpy()
+        np.testing.assert_allclose(mine, want_jax, atol=tol, rtol=tol)
+        np.testing.assert_allclose(mine, plain, atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
