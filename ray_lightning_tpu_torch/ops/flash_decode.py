@@ -74,7 +74,7 @@ def decode_split_plan(S: int, H: int, L: int) -> "tuple[int, int]":
     tiles = -(-L // DECODE_TILE)
     want = -(-DECODE_TARGET_BLOCKS // (S * H))
     per = -(-tiles // min(tiles, want))
-    per = min(max(per, DECODE_MIN_CHUNK_TILES, 1), DECODE_MAX_CHUNK_TILES,
+    per = min(max(per, DECODE_MIN_CHUNK_TILES), DECODE_MAX_CHUNK_TILES,
               tiles)
     return per * DECODE_TILE, -(-tiles // per)
 
@@ -208,7 +208,7 @@ def flash_decode_split_plain(q, k_cache, v_cache, positions,
     S, _, H, D = q.shape
     L = k_cache.shape[1]
     chunk, n = _split(S, H, L, chunk)
-    G = len(range(0, DECODE_TILE, WARP_ROWS))
+    G = DECODE_TILE // WARP_ROWS
     nt = chunk // DECODE_TILE
     pos = positions.long().clamp(0, L - 1)
     pad = n * chunk - L
