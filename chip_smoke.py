@@ -137,7 +137,7 @@ permuted tables; GB/s, host us a call, a sweep of the split's chunk).
 Each is the A/B tool for a kernel's versions: unpack each tree (``git
 archive``) under ``build/``, copy this script in, and run it from each
 in turns (a tree without per-pass entry points times the whole backward
-only; one without a split plan skips the chunk sweep).
+only).
 """
 
 from __future__ import annotations
@@ -146,7 +146,6 @@ import argparse
 import contextlib
 import dataclasses
 import gc
-import inspect
 import json
 import os
 import subprocess
@@ -187,6 +186,10 @@ BF16_TOL = 2e-2
 #: lse is fp32 from the same bf16 operands: only summation order and
 #: the fast exp differ
 LSE_TOL = 1e-3
+#: (atol, rtol) of a decode kernel against ``flash_decode_split_plain``,
+#: the same arithmetic: about a bf16 ulp of the output (only the order
+#: of fp32 sums differs)
+SPLIT_TOL = (1e-3, 8e-3)
 #: L2 is 50 MB: writing 256 MB between launches evicts it
 FLUSH_BYTES = 256 * 2 ** 20
 
@@ -2197,6 +2200,18 @@ def bwd_rows(gen) -> list:
 DECODE_CHUNKS = (64, 128, 192, 256, 384, 512, 1024)
 
 
+@contextlib.contextmanager
+def decode_chunk(chunk: int):
+    """The decode wrappers take ``chunk`` rows a split inside: they look
+    the plan up by its name in ``ops/flash_decode.py``."""
+    plan = fd.decode_split_plan
+    fd.decode_split_plan = lambda S, H, L, sms: (chunk, -(-L // chunk))
+    try:
+        yield
+    finally:
+        fd.decode_split_plan = plan
+
+
 def decode_shapes(gen) -> list:
     """``--decode-only``'s shapes at L=1024, H=12, D=64: the smoke's 16
     slots with ``decode_positions``; one and four slots at position
@@ -2220,11 +2235,12 @@ def decode_rows(gen) -> list:
     equal to the slot-contiguous one; each timed with CUDA events, L2
     flushed before each launch, beside SDPA on the slot cache and the
     bound from the live rows, with GB/s of the bytes the bound counts;
-    the host's us per call. Where the wrapper takes a ``chunk``, the
-    slot-contiguous kernel is also timed at each of ``DECODE_CHUNKS``
-    (the split plan's pick among them)."""
-    sweep = "chunk" in inspect.signature(flash_decode_attention).parameters
+    the host's us per call; the kernel against
+    ``flash_decode_split_plain`` (the same split arithmetic) to about a
+    bf16 ulp (``SPLIT_TOL``). The slot-contiguous kernel is also timed
+    at each of ``DECODE_CHUNKS`` (the split plan's pick among them)."""
     L = 1024
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     out = []
     for label, positions in decode_shapes(gen):
@@ -2239,11 +2255,11 @@ def decode_rows(gen) -> list:
         ok = torch.equal(flat, flash_decode_attention(q, kc, vc, positions))
         want = flash_decode_attention_plain(q, kc, vc, positions)
         errs = {"flat": (flat.float() - want.float()).abs().max().item()}
-        if hasattr(fd, "flash_decode_split_plain"):
-            errs["flat_vs_split_plain"] = (flat.float() - fd.
-                                           flash_decode_split_plain(
-                                               q, kc, vc, positions).float()
-                                           ).abs().max().item()
+        plan = fd.decode_split_plan(S, H, L, sms)
+        split = fd.flash_decode_split_plain(q, kc, vc, positions,
+                                            plan[0]).float()
+        split_err = ((flat.float() - split).abs()
+                     - SPLIT_TOL[1] * split.abs()).max().item()
         fns = {"flat": lambda: flash_decode_attention(q, kc, vc, positions)}
         for ps in (16, 64):
             P = L // ps
@@ -2269,6 +2285,8 @@ def decode_rows(gen) -> list:
         torch.cuda.synchronize()
         for key, err in errs.items():
             check_close(f"decode {label} {key}", err, BF16_TOL)
+        check_close(f"decode {label} flat vs split arithmetic, past "
+                    f"rtol {SPLIT_TOL[1]}", split_err, SPLIT_TOL[0])
         if not ok:
             raise AssertionError(f"decode {label}: a paged output is not the "
                                  f"slot-contiguous one, or two calls differ")
@@ -2313,15 +2331,12 @@ def decode_rows(gen) -> list:
                    bound_by=b_by, gbps={k: nbytes / v / 1e6
                                         for k, v in ms.items()},
                    floor_ms=floor_ms, read_ms=read_ms, clean_l2_ms=clean,
-                   warm_l2_ms=warm,
-                   host_us_per_call=host_us)
-        if hasattr(fd, "decode_split_plan"):
-            row["plan"] = fd.decode_split_plan(S, H, L)
-        if sweep:
-            row["ms_by_chunk"] = {c: time_ms(
-                lambda c=c: flash_decode_attention(q, kc, vc, positions,
-                                                   chunk=c), flush=flush)
-                for c in DECODE_CHUNKS}
+                   warm_l2_ms=warm, host_us_per_call=host_us, plan=plan,
+                   split_err_past_rtol=split_err)
+        row["ms_by_chunk"] = {}
+        for c in DECODE_CHUNKS:
+            with decode_chunk(c):
+                row["ms_by_chunk"][c] = time_ms(fns["flat"], flush=flush)
         log(f"  {label}: " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
             + f" ms; sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
             f"floor {floor_ms:.4f} ms, read of the bytes {read_ms:.4f} ms, "
@@ -2332,10 +2347,9 @@ def decode_rows(gen) -> list:
             f"kernel/sdpa {ms['flat'] / lib_ms:.2f}x, host "
             f"{host_us:.2f} us a call; max_abs_err "
             + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-            + (f"; plan {row['plan']}" if "plan" in row else "")
-            + ("; by chunk " + ", ".join(
-                f"{c} {t:.4f}" for c, t in row["ms_by_chunk"].items())
-               if sweep else ""))
+            + f"; vs split arithmetic {split_err:.2e} past rtol; plan {plan}"
+            + "; by chunk " + ", ".join(
+                f"{c} {t:.4f}" for c, t in row["ms_by_chunk"].items()))
         out.append(row)
         del q, kc, vc, fns
         free_cuda()

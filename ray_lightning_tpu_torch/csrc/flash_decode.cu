@@ -26,8 +26,9 @@
 //   rows [j * chunk, min((j + 1) * chunk, positions[s] + 1)) in 64-row
 //   tiles, and a split that starts past positions[s] exits at once. The
 //   chunk (a multiple of 64) and the split count come from the shapes
-//   alone (ops/flash_decode.py `decode_split_plan`), never from the
-//   positions, which stay on the device;
+//   and the card's SM count alone (ops/flash_decode.py
+//   `decode_split_plan`), never from the positions, which stay on the
+//   device;
 // - bytes in flight: a block streams its K and V tiles through a ring of
 //   up to 6 stages in shared memory (16 KB a stage at D=64) with 16-byte
 //   cp.async.cg copies: every stage is filled at the start, so a split

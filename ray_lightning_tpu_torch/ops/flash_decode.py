@@ -45,9 +45,9 @@ DECODE_TILE = 64
 #: the rows of a tile each of the kernel's 4 warps takes (its own online
 #: softmax; :func:`flash_decode_split_plain` repeats the grouping)
 WARP_ROWS = 16
-#: blocks a decode launch aims for: 8 on each of the H100's 132 SMs, so
-#: that the live ones (positions end most splits early) still fill it
-DECODE_TARGET_BLOCKS = 8 * 132
+#: blocks a decode launch aims for on each SM, so that the live ones
+#: (positions end most splits early) still fill the card
+DECODE_BLOCKS_PER_SM = 8
 #: fewest tiles a split walks where L has them: a 2-stage ring in flight
 #: (64-row chunks lost 3-5% to 128 at one and four slots on the H100)
 DECODE_MIN_CHUNK_TILES = 2
@@ -56,39 +56,36 @@ DECODE_MAX_CHUNK_TILES = 16
 
 
 @functools.lru_cache(maxsize=256)
-def decode_split_plan(S: int, H: int, L: int) -> "tuple[int, int]":
+def decode_split_plan(S: int, H: int, L: int, sms: int
+                      ) -> "tuple[int, int]":
     """The decode kernels' split plan for ``S`` slots, ``H`` heads and a
-    cache of ``L`` rows: ``(chunk, n_split)``, split ``j`` of a (slot,
-    head) taking rows ``[j * chunk, (j + 1) * chunk)``.
+    cache of ``L`` rows on a card of ``sms`` SMs: ``(chunk, n_split)``,
+    split ``j`` of a (slot, head) taking rows ``[j * chunk, (j + 1) *
+    chunk)``.
 
     From the shapes alone (the positions stay on the device: reading
     them would sync every layer).  ``chunk`` is a multiple of
     :data:`DECODE_TILE`, at most :data:`DECODE_MAX_CHUNK_TILES` tiles;
     ``n_split`` is the least count of such chunks covering ``L``, as
-    close as the tiles allow to ``DECODE_TARGET_BLOCKS / (S * H)`` with
-    chunks of at least :data:`DECODE_MIN_CHUNK_TILES` tiles: 128-row
-    chunks at S=1 or 4 (L=1024, H=12), 192 at S=16."""
-    if min(S, H, L) < 1:
-        raise ValueError(f"decode_split_plan needs S, H, L >= 1, got "
-                         f"{(S, H, L)}")
+    close as the tiles allow to ``DECODE_BLOCKS_PER_SM * sms / (S * H)``
+    with chunks of at least :data:`DECODE_MIN_CHUNK_TILES` tiles: on the
+    H100's 132 SMs, 128-row chunks at S=1 or 4 (L=1024, H=12), 192 at
+    S=16."""
+    if min(S, H, L, sms) < 1:
+        raise ValueError(f"decode_split_plan needs S, H, L, sms >= 1, got "
+                         f"{(S, H, L, sms)}")
     tiles = -(-L // DECODE_TILE)
-    want = -(-DECODE_TARGET_BLOCKS // (S * H))
+    want = -(-DECODE_BLOCKS_PER_SM * sms // (S * H))
     per = -(-tiles // min(tiles, want))
     per = min(max(per, DECODE_MIN_CHUNK_TILES), DECODE_MAX_CHUNK_TILES,
               tiles)
     return per * DECODE_TILE, -(-tiles // per)
 
 
-def _split(S: int, H: int, L: int, chunk: "int | None"
-           ) -> "tuple[int, int]":
-    """``decode_split_plan``, or the caller's chunk (a multiple of the
-    tile) with the splits that cover ``L``."""
-    if chunk is None:
-        return decode_split_plan(S, H, L)
-    if chunk < DECODE_TILE or chunk % DECODE_TILE:
-        raise ValueError(f"chunk must be a positive multiple of "
-                         f"{DECODE_TILE}, got {chunk}")
-    return chunk, -(-L // chunk)
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """The SMs of card ``index``: the plan's ``sms``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 #: per (device, stream): the kernels' int32 tickets (zero between
@@ -190,13 +187,14 @@ def flash_decode_attention_plain(q, k_cache, v_cache, positions):
     return (acc / l).to(q.dtype).permute(0, 2, 1, 3).contiguous()
 
 
-def flash_decode_split_plain(q, k_cache, v_cache, positions,
-                             chunk: "int | None" = None):
+def flash_decode_split_plain(q, k_cache, v_cache, positions, chunk: int):
     """The kernels' split-and-merge arithmetic in plain PyTorch.
 
     The function of :func:`flash_decode_attention_plain`, computed as
-    ``csrc/flash_decode.cu`` orders it: split ``j`` of :func:`_split`'s
-    plan takes rows ``[j * chunk, (j + 1) * chunk)`` in 64-row tiles,
+    ``csrc/flash_decode.cu`` orders it with a plan of ``chunk`` rows a
+    split (a multiple of :data:`DECODE_TILE`, as
+    :func:`decode_split_plan` gives): split ``j`` takes rows
+    ``[j * chunk, (j + 1) * chunk)`` in 64-row tiles,
     each tile's rows in 4 groups of :data:`WARP_ROWS` (the kernel's
     warps); a group keeps its own online softmax (running max ``m``,
     ``p = exp(s - m)`` rounded to the cache dtype before the PV product,
@@ -207,7 +205,10 @@ def flash_decode_split_plain(q, k_cache, v_cache, positions,
     ``[S, 1, H, D]`` in ``q``'s dtype."""
     S, _, H, D = q.shape
     L = k_cache.shape[1]
-    chunk, n = _split(S, H, L, chunk)
+    if chunk < DECODE_TILE or chunk % DECODE_TILE:
+        raise ValueError(f"chunk must be a positive multiple of "
+                         f"{DECODE_TILE}, got {chunk}")
+    n = -(-L // chunk)
     G = DECODE_TILE // WARP_ROWS
     nt = chunk // DECODE_TILE
     pos = positions.long().clamp(0, L - 1)
@@ -256,17 +257,15 @@ def flash_decode_split_plain(q, k_cache, v_cache, positions,
     return (acc / l[..., None]).to(q.dtype).view(S, 1, H, D)
 
 
-def flash_decode_attention(q, k_cache, v_cache, positions, *,
-                           chunk: "int | None" = None):
+def flash_decode_attention(q, k_cache, v_cache, positions):
     """Length-aware decode attention over the slot cache.
 
     ``q`` [S, 1, H, D]; ``k_cache``/``v_cache`` [S, L, H, D];
     ``positions`` [S] int32 on the same device; returns [S, 1, H, D].
     A CUDA tensor launches ``csrc/flash_decode.cu`` (bf16, head_dim in
     :data:`HEAD_DIMS`, unit stride over D, 16-byte-aligned rows) with
-    :func:`decode_split_plan`'s split, or ``chunk`` rows a split when
-    given (a multiple of :data:`DECODE_TILE`: for tests and tuning); a
-    CPU tensor takes :func:`flash_decode_attention_plain`.  It has no
+    :func:`decode_split_plan`'s split for the card's SMs; a CPU tensor
+    takes :func:`flash_decode_attention_plain`.  It has no
     backward (nor has the JAX kernel): under grad mode with an input that
     requires grad it raises rather than return an output that autograd
     would silently cut off from its inputs.
@@ -300,7 +299,7 @@ def flash_decode_attention(q, k_cache, v_cache, positions, *,
     o = torch.empty(S, 1, H, D, dtype=q.dtype, device=q.device)
     if S == 0:
         return o
-    chunk, n = _split(S, H, L, chunk)
+    chunk, n = decode_split_plan(S, H, L, _sm_count(q.device.index or 0))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     tickets, ws = _scratch(q.device, stream, S * H, S * H * n * (D + 2))
     KERNEL.launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -371,8 +370,7 @@ def flash_decode_paged_attention_plain(q, k_pages, v_pages, positions,
                                         positions)
 
 
-def flash_decode_paged_attention(q, k_pages, v_pages, positions, table, *,
-                                 chunk: "int | None" = None):
+def flash_decode_paged_attention(q, k_pages, v_pages, positions, table):
     """Length-aware decode attention through a page table.
 
     ``q`` [S, 1, H, D]; ``k_pages``/``v_pages`` [N, page_size, H, D],
@@ -385,9 +383,8 @@ def flash_decode_paged_attention(q, k_pages, v_pages, positions, table, *,
     ``csrc/flash_decode.cu`` (bf16, head_dim in :data:`HEAD_DIMS`, any
     page_size, unit stride over D, 16-byte-aligned rows, a contiguous
     table) with the split plan of the same ``L`` as
-    :func:`flash_decode_attention` (``chunk`` as there), so it equals
-    that kernel bit for bit on the same logical cache; a CPU tensor
-    takes
+    :func:`flash_decode_attention`, so it equals that kernel bit for bit
+    on the same logical cache; a CPU tensor takes
     :func:`flash_decode_paged_attention_plain`.  The table's values stay
     on the device (reading them would sync every layer): a physical page
     id outside ``[0, N)`` is clamped into it, never read out of bounds.
@@ -426,7 +423,8 @@ def flash_decode_paged_attention(q, k_pages, v_pages, positions, table, *,
     o = torch.empty(S, 1, H, D, dtype=q.dtype, device=q.device)
     if S == 0:
         return o
-    chunk, n = _split(S, H, P * ps, chunk)
+    chunk, n = decode_split_plan(S, H, P * ps,
+                                 _sm_count(q.device.index or 0))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     tickets, ws = _scratch(q.device, stream, S * H, S * H * n * (D + 2))
     PAGED_KERNEL.launch(

@@ -35,9 +35,11 @@ from ray_lightning_tpu_torch.ops.flash_attention import (
     HEAD_DIMS, flash_attention, flash_attention_bwd,
     flash_attention_bwd_passes, flash_attention_bwd_plain,
     flash_attention_fwd, flash_attention_fwd_plain)
+from ray_lightning_tpu_torch.ops import flash_decode as fd
 from ray_lightning_tpu_torch.ops.flash_decode import (
-    decode_split_plan, flash_decode_attention, flash_decode_attention_plain,
-    flash_decode_paged_attention, flash_decode_paged_attention_plain)
+    flash_decode_attention, flash_decode_attention_plain,
+    flash_decode_paged_attention, flash_decode_paged_attention_plain,
+    flash_decode_split_plain)
 from ray_lightning_tpu_torch.serve import PageConfig, SpecConfig
 
 
@@ -326,6 +328,18 @@ def test_cuda_flash_decode_kernel_matches_plain(cuda_device):
     assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2
 
 
+def _plan(S: int, H: int, L: int) -> "tuple[int, int]":
+    """The split plan the wrappers take on this card."""
+    return fd.decode_split_plan(S, H, L, fd._sm_count(0))
+
+
+def _force_chunk(monkeypatch, chunk: int) -> None:
+    """Every decode launch takes ``chunk`` rows a split: the wrappers
+    look the plan up by its name in the module."""
+    monkeypatch.setattr(fd, "decode_split_plan",
+                        lambda S, H, L, sms: (chunk, -(-L // chunk)))
+
+
 def _split_edges(chunk: int, L: int) -> list:
     """Positions at 0, around the first two split edges and at the end."""
     return [p for p in (0, chunk - 1, chunk, chunk + 1, 2 * chunk - 1,
@@ -354,7 +368,7 @@ def test_cuda_flash_decode_matches_plain_at_split_edges(S, D, L,
     index order, whichever block arrives last)."""
     g = torch.Generator(device=cuda_device).manual_seed(S * D + L)
     H = 12
-    chunk, _ = decode_split_plan(S, H, L)
+    chunk, _ = _plan(S, H, L)
 
     def rand(*shape):
         return torch.randn(*shape, generator=g, device=cuda_device).to(
@@ -372,10 +386,12 @@ def test_cuda_flash_decode_matches_plain_at_split_edges(S, D, L,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("chunk", [64, 128, 1024])
-def test_cuda_flash_decode_any_chunk_matches_plain(chunk, cuda_device):
+def test_cuda_flash_decode_any_chunk_matches_plain(chunk, cuda_device,
+                                                   monkeypatch):
     """The kernel under a chunk other than the plan's: 16 splits of 64
     rows (a merge over 16 parts), 8 of 128, one of 1024 (the ring wraps
     past its stages)."""
+    _force_chunk(monkeypatch, chunk)
     g = torch.Generator(device=cuda_device).manual_seed(chunk)
     S, L, H, D = 16, 1024, 12, 64
     q, kc, vc = (torch.randn(*shape, generator=g, device=cuda_device).to(
@@ -383,12 +399,47 @@ def test_cuda_flash_decode_any_chunk_matches_plain(chunk, cuda_device):
                                       (S, L, H, D)))
     pos = torch.tensor(_split_edges(64, L) + _split_edges(128, L),
                        dtype=torch.int32, device=cuda_device)
-    o = flash_decode_attention(q, kc, vc, pos, chunk=chunk)
+    o = flash_decode_attention(q, kc, vc, pos)
     o_ref = flash_decode_attention_plain(q, kc, vc, pos)
     torch.cuda.synchronize()
     assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2
-    assert torch.equal(o, flash_decode_attention(q, kc, vc, pos,
-                                                 chunk=chunk))
+    assert torch.equal(o, flash_decode_attention(q, kc, vc, pos))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [64, 128, 192])
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_cuda_flash_decode_matches_split_arithmetic(D, chunk, cuda_device,
+                                                    monkeypatch):
+    """Both kernels against ``flash_decode_split_plain``, the same
+    split, warp-group and merge arithmetic in plain PyTorch, to about a
+    bf16 ulp of the output (rtol 8e-3, atol 1e-3; the two differ only
+    in the order of fp32 sums): every head dim, chunks of 1, 2 and 3
+    tiles, L=1008 (a multiple of no chunk, 63 pages of 16), positions
+    at 0, on each side of the first split edges and at L - 1; the paged
+    kernel through a permuted table."""
+    _force_chunk(monkeypatch, chunk)
+    g = torch.Generator(device=cuda_device).manual_seed(D + chunk)
+    S, L, H, ps = 4, 1008, 12, 16
+    P = L // ps
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device=cuda_device).to(
+            torch.bfloat16)
+
+    q, kc, vc = rand(S, 1, H, D), rand(S, L, H, D), rand(S, L, H, D)
+    perm = torch.randperm(S * P, generator=g, device=cuda_device).to(
+        torch.int32).view(S, P)
+    kq, vq = (torch.empty(S * P, ps, H, D, dtype=torch.bfloat16,
+                          device=cuda_device) for _ in range(2))
+    kq[perm.flatten().long()] = kc.view(S * P, ps, H, D)
+    vq[perm.flatten().long()] = vc.view(S * P, ps, H, D)
+    for pos in _position_sets(_split_edges(chunk, L), S, cuda_device):
+        want = flash_decode_split_plain(q, kc, vc, pos, chunk).float()
+        for o in (flash_decode_attention(q, kc, vc, pos),
+                  flash_decode_paged_attention(q, kq, vq, pos, perm)):
+            torch.testing.assert_close(o.float(), want, rtol=8e-3,
+                                       atol=1e-3)
 
 
 @pytest.mark.cuda
@@ -409,7 +460,7 @@ def test_cuda_flash_decode_paged_equals_flat_under_any_table(S, page_size,
             torch.bfloat16)
 
     q, kc, vc = rand(S, 1, H, D), rand(S, L, H, D), rand(S, L, H, D)
-    chunk, _ = decode_split_plan(S, H, L)
+    chunk, _ = _plan(S, H, L)
     ident = torch.arange(S * P, dtype=torch.int32,
                          device=cuda_device).view(S, P)
     perm = torch.randperm(S * P, generator=g, device=cuda_device).to(

@@ -197,38 +197,48 @@ def test_decode_plain_reads_nothing_past_the_position():
     (16, 12, 16384), (1, 1, 100), (2, 2, 30), (64, 25, 2048),
     (256, 12, 1024), (3, 7, 65)])
 def test_decode_split_plan_invariants(S, H, L):
-    """The plan comes from the shapes alone (no positions among its
-    arguments, the same answer each call); its chunk is a whole number
-    of 64-row tiles, at most 16; its splits cover L, none of them
-    empty; it gives the H100's 132 SMs several blocks each wherever the
-    cache has the tiles for it."""
-    chunk, n = decode_split_plan(S, H, L)
-    assert (chunk, n) == decode_split_plan(S, H, L)
-    assert chunk % fd.DECODE_TILE == 0
-    assert 1 <= chunk // fd.DECODE_TILE <= fd.DECODE_MAX_CHUNK_TILES
-    assert (n - 1) * chunk < L <= n * chunk
-    tiles = -(-L // fd.DECODE_TILE)
-    if tiles >= fd.DECODE_MIN_CHUNK_TILES:
-        assert chunk >= fd.DECODE_MIN_CHUNK_TILES * fd.DECODE_TILE
-    if (chunk // fd.DECODE_TILE > fd.DECODE_MIN_CHUNK_TILES
-            and chunk // fd.DECODE_TILE < fd.DECODE_MAX_CHUNK_TILES):
-        # a longer chunk only where the split count already fills the card
-        assert S * H * n >= 4 * 132
+    """The plan comes from the shapes and the card's SM count alone (no
+    positions among its arguments, the same answer each call); its
+    chunk is a whole number of 64-row tiles, at most 16; its splits
+    cover L, none of them empty; it gives every SM several blocks
+    wherever the cache has the tiles for it: on the H100's 132 SMs and
+    on a card of 114."""
+    for sms in (132, 114):
+        chunk, n = decode_split_plan(S, H, L, sms)
+        assert (chunk, n) == decode_split_plan(S, H, L, sms)
+        assert chunk % fd.DECODE_TILE == 0
+        assert 1 <= chunk // fd.DECODE_TILE <= fd.DECODE_MAX_CHUNK_TILES
+        assert (n - 1) * chunk < L <= n * chunk
+        tiles = -(-L // fd.DECODE_TILE)
+        if tiles >= fd.DECODE_MIN_CHUNK_TILES:
+            assert chunk >= fd.DECODE_MIN_CHUNK_TILES * fd.DECODE_TILE
+        if (chunk // fd.DECODE_TILE > fd.DECODE_MIN_CHUNK_TILES
+                and chunk // fd.DECODE_TILE < fd.DECODE_MAX_CHUNK_TILES):
+            # a longer chunk only where the split count already fills
+            # the card
+            assert S * H * n >= 4 * sms
 
 
 def test_decode_split_plan_examples():
-    """The serve paths' shapes at gpt2-small's 12 heads and L=1024."""
-    assert decode_split_plan(16, 12, 1024) == (192, 6)
-    assert decode_split_plan(4, 12, 1024) == (128, 8)
-    assert decode_split_plan(1, 12, 1024) == (128, 8)
-    with pytest.raises(ValueError, match="S, H, L"):
-        decode_split_plan(0, 12, 1024)
+    """The serve paths' shapes at gpt2-small's 12 heads and L=1024, on
+    the H100's 132 SMs; fewer SMs, fewer splits where the chunk can
+    grow."""
+    assert decode_split_plan(16, 12, 1024, 132) == (192, 6)
+    assert decode_split_plan(4, 12, 1024, 132) == (128, 8)
+    assert decode_split_plan(1, 12, 1024, 132) == (128, 8)
+    assert decode_split_plan(16, 12, 1024, 66) == (384, 3)
+    with pytest.raises(ValueError, match="S, H, L, sms"):
+        decode_split_plan(0, 12, 1024, 132)
+    with pytest.raises(ValueError, match="S, H, L, sms"):
+        decode_split_plan(16, 12, 1024, 0)
 
 
 def test_decode_wrappers_take_a_chunk_of_whole_tiles():
-    """A caller's chunk (tests, tuning) is a positive multiple of the
-    tile, refused otherwise on every device; on a CPU tensor the wrapper
-    still takes the plain version."""
+    """The wrappers' chunk is the plan's, a whole number of tiles, never
+    the caller's (they take no ``chunk``); the split reference takes a
+    chunk as the plan gives it, a positive multiple of the tile, and
+    refuses any other; on a CPU tensor the wrappers take the plain
+    version."""
     rng = np.random.default_rng(6)
     q = torch.from_numpy(rng.standard_normal((2, 1, 2, 16)).astype(
         np.float32))
@@ -237,11 +247,16 @@ def test_decode_wrappers_take_a_chunk_of_whole_tiles():
     pos = torch.tensor([3, 99], dtype=torch.int32)
     for bad in (0, 32, 96):
         with pytest.raises(ValueError, match="multiple of 64"):
-            fd._split(2, 2, 100, bad)
-    assert fd._split(2, 2, 100, 64) == (64, 2)
+            flash_decode_split_plain(q, kc, kc, pos, bad)
+    with pytest.raises(TypeError, match="chunk"):
+        flash_decode_attention(q, kc, kc, pos, chunk=64)
     torch.testing.assert_close(
-        flash_decode_attention(q, kc, kc, pos, chunk=64),
+        flash_decode_attention(q, kc, kc, pos),
         flash_decode_attention_plain(q, kc, kc, pos), atol=0, rtol=0)
+    np.testing.assert_allclose(
+        _np(flash_decode_split_plain(q, kc, kc, pos, 64)),
+        _np(flash_decode_attention_plain(q, kc, kc, pos)),
+        atol=2e-5, rtol=2e-5)
 
 
 @pytest.mark.parametrize("chunk", [None, 64, 128, 192])
@@ -255,7 +270,7 @@ def test_split_plain_matches_plain_across_split_edges(dtype, chunk):
     rng = np.random.default_rng(7)
     _, tdt, tol = DTYPES[dtype]
     L, H = 300, 3
-    c = chunk or decode_split_plan(9, H, L)[0]
+    c = chunk or decode_split_plan(9, H, L, 132)[0]
     pos = torch.tensor([0, 15, 16, c - 1, c, c + 1, 2 * c, L - 2, L - 1],
                        dtype=torch.int32).clamp(max=L - 1)
     S = len(pos)
@@ -263,7 +278,7 @@ def test_split_plain_matches_plain_across_split_edges(dtype, chunk):
         q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).to(tdt) for shape in ((S, 1, H, D), (S, L, H, D),
                                                (S, L, H, D)))
-        got = flash_decode_split_plain(q, k, v, pos, chunk)
+        got = flash_decode_split_plain(q, k, v, pos, c)
         want = flash_decode_attention_plain(q, k, v, pos)
         assert got.dtype == tdt and got.shape == (S, 1, H, D)
         np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
