@@ -116,7 +116,27 @@ Phases, each fatal on failure:
    2 layers, B=2, T=1024 (rows 5 + 10) and T=2048 (rows 4 + 11 + 12):
    one step's gradients against ``attention_impl="dot"`` on the same
    weights and tokens, per-tensor relative L2 within 2e-2, one launch of
-   each kernel a layer.
+   each kernel a layer;
+10. the trainer, everything earlier freed: ``GPTLightningModule(
+   "gpt2-small", batch_size=8)`` at full width (bf16 params, the fp32
+   master), 4 train and 2 validation batches an epoch, a validation
+   every 2 steps, ``gradient_clip_val=1.0``, ``precision="bf16"``, the
+   default ``ModelCheckpoint``, an ``EarlyStopping`` on ``val_loss``
+   that must not trigger and the CSV logger, all under a temporary
+   ``default_root_dir``: (a) two uninterrupted 2-epoch fits equal bit
+   for bit (params, master, mu, nu, count, counters; a failure names
+   the tensors that differ); (b) a 1-epoch fit (``best_model_path``
+   exists, ``metrics.csv`` a row per logged step), ``save_checkpoint``
+   (its bytes against the state's tensor bytes, its seconds), and a new
+   ``Trainer(max_epochs=2, ckpt_path=...)`` equal to (a) bit for bit,
+   its restore timed; (c) ``trainer.predict`` over 2 batches: flash_fwd
+   12 launches a batch, flash_bwd none, every argmax token within the
+   bf16 near-tie rule (atol = rtol = 2e-2) of plain attention's logits
+   on the same weights;
+   (d) three 4-step fits at dropout 0.1 from one init: the same trainer
+   seed equal bit for bit, another seed not.  Each fit's launches are
+   checked (12 x steps for both kernels, plus 12 a validation batch for
+   flash_fwd) and added to rows 1 and 6.
 
 The next-to-last line is the ``{"kernels": [...]}`` JSON record, one
 entry per TPU kernel row, 1 to 16 (``launches`` from the path phases
@@ -137,19 +157,24 @@ permuted tables; GB/s, host us a call, a sweep of the split's chunk).
 Each is the A/B tool for a kernel's versions: unpack each tree (``git
 archive``) under ``build/``, copy this script in, and run it from each
 in turns (a tree without per-pass entry points times the whole backward
-only).
+only).  ``--trainer-only`` checks and times flash_fwd and flash_bwd
+(rows 1 and 6, as phase 2 does), runs phase 10 alone, and prints the
+kernels line (rows 1 and 6, phase 10's launches) and the last line.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import csv
 import dataclasses
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -160,7 +185,8 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
-from ray_lightning_tpu_torch import Callback, Trainer  # noqa: E402
+from ray_lightning_tpu_torch import (  # noqa: E402
+    Callback, EarlyStopping, Trainer)
 from ray_lightning_tpu_torch.core.module import StepContext  # noqa: E402
 from ray_lightning_tpu_torch.models.bert import (  # noqa: E402
     CONFIGS as BERT_CONFIGS, BertLightningModule, BertMLMModule)
@@ -772,8 +798,9 @@ class StepClock(Callback):
 def fit(module, steps: int, seed: int):
     clock = StepClock()
     trainer = Trainer(max_steps=steps, enable_checkpointing=False,
-                      num_sanity_val_steps=0, limit_val_batches=0,
-                      seed=seed, callbacks=[clock], device="cuda")
+                      logger=False, num_sanity_val_steps=0,
+                      limit_val_batches=0, seed=seed, callbacks=[clock],
+                      device="cuda")
     trainer.fit(module)
     return trainer, clock
 
@@ -2029,6 +2056,345 @@ def folded_phase(seed: int, card: str) -> dict:
     return {"entries": entries, "runs": runs, "base": base}
 
 
+# -- phase 10: the trainer: checkpoint and resume, predict, dropout -----------
+
+#: phase 10's fits: 4 train batches and 2 validation batches an epoch, a
+#: validation every 2 steps, clipping, the bf16 batch cast, a metrics row
+#: a step, 2 predict batches
+TRAINER_ARGS = dict(limit_train_batches=4, limit_val_batches=2,
+                    val_check_interval=2, gradient_clip_val=1.0,
+                    precision="bf16", log_every_n_steps=1,
+                    limit_predict_batches=2)
+TRAINER_STEPS = 4
+
+
+class PhaseLog(Callback):
+    """Per train step its loss; the validation batches run (the sanity
+    check's included) and the global steps at which validations end."""
+
+    def __init__(self):
+        self.losses: "list[float]" = []
+        self.val_batches = 0
+        self.val_steps: "list[int]" = []
+
+    def on_train_batch_end(self, trainer, module, outputs, batch, batch_idx):
+        self.losses.append(float(outputs["loss"]))
+
+    def on_validation_batch_end(self, trainer, module, outputs, batch,
+                                batch_idx):
+        self.val_batches += 1
+
+    def on_validation_end(self, trainer, module):
+        if not trainer.sanity_checking:
+            self.val_steps.append(trainer.global_step)
+
+
+def trainer_run(root: str, seed: int, epochs: int, ckpt=None,
+                restore_s: "list | None" = None) -> dict:
+    """``GPTLightningModule("gpt2-small", batch_size=8)`` at full width
+    through ``Trainer.fit`` with ``TRAINER_ARGS``, the default
+    ``ModelCheckpoint``, an ``EarlyStopping`` on ``val_loss`` that does
+    not trigger and the CSV logger, all under ``root``; from ``ckpt``
+    when given (its restore timed into ``restore_s``).  Each kernel's
+    launches are counted from 0 at the fit's start and checked: 12 a
+    train step for both, 12 a validation batch for flash_fwd."""
+    log_cb = PhaseLog()
+    stop = EarlyStopping(monitor="val_loss", patience=100)
+    trainer = Trainer(max_epochs=epochs, seed=seed, callbacks=[log_cb, stop],
+                      default_root_dir=root, device="cuda", **TRAINER_ARGS)
+    if restore_s is not None:
+        restore = trainer._restore_checkpoint
+
+        def timed(path, module):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            restore(path, module)
+            torch.cuda.synchronize()
+            restore_s.append(time.perf_counter() - t0)
+
+        trainer._restore_checkpoint = timed
+    module = GPTLightningModule("gpt2-small", batch_size=TRAIN_B)
+    _kernels.reset_launches()
+    t0 = time.monotonic()
+    trainer.fit(module, ckpt_path=ckpt)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = _kernels.launch_counts()
+    steps, layers = len(log_cb.losses), module.config.n_layer
+    want = {"flash_fwd": layers * (steps + log_cb.val_batches),
+            "flash_bwd": layers * steps}
+    if any(launches[k] != w for k, w in want.items()) \
+            or not np.isfinite(log_cb.losses).all():
+        raise AssertionError(f"trainer run: launches {launches}, want "
+                             f"{want}; losses {log_cb.losses}")
+    if trainer.should_stop:
+        raise AssertionError("EarlyStopping stopped the fit")
+    return dict(trainer=trainer, module=module, log=log_cb, stop=stop,
+                launches={k: launches[k] for k in want}, wall_s=wall)
+
+
+def state_of(run: dict) -> dict:
+    """Clones of the params, the fp32 master and both moments by name,
+    and the counters, after a run."""
+    trainer, module = run["trainer"], run["module"]
+    opt = trainer.state.opt_state.state_dict()
+    opt = opt.get("1", opt)                     # chain(clip, tx): tx's
+    tensors = {f"param {k}": v.clone()
+               for k, v in module.model.state_dict().items()}
+    tensors.update({f"master {k}": v.clone()
+                    for k, v in opt["master"].items()})
+    for part in ("mu", "nu"):
+        tensors.update({f"{part} {k}": v.clone()
+                        for k, v in opt["inner"][part].items()})
+    return dict(tensors=tensors, count=opt["inner"]["count"],
+                step=trainer.state.step, global_step=trainer.global_step,
+                current_epoch=trainer.current_epoch,
+                early_stopping=(run["stop"].state_dict() if "stop" in run
+                                else None))
+
+
+def check_same_state(got: dict, want: dict, what: str) -> None:
+    """Bit for bit on every tensor (``torch.equal``, dtypes too) and
+    equal counters; the error names the tensors that differ."""
+    diff = [k for k, w in want["tensors"].items()
+            if got["tensors"][k].dtype != w.dtype
+            or not torch.equal(got["tensors"][k], w)]
+    counters = {k: (got[k], want[k]) for k in
+                ("count", "step", "global_step", "current_epoch",
+                 "early_stopping") if got[k] != want[k]}
+    if diff or counters or set(got["tensors"]) != set(want["tensors"]):
+        raise AssertionError(
+            f"{what}: {len(diff)} of {len(want['tensors'])} tensors differ "
+            f"(first {diff[:8]}), counters {counters}")
+    log(f"  {what}: {len(want['tensors'])} tensors equal bit for bit, "
+        f"count {got['count']}, global_step {got['global_step']}, "
+        f"current_epoch {got['current_epoch']}")
+
+
+def predict_parity(run: dict) -> dict:
+    """``trainer.predict`` over 2 batches (forward only: flash_fwd 12 a
+    batch, flash_bwd never): each argmax token passes the teacher-forced
+    near-tie rule against the same weights with plain attention
+    (``attention_impl="dot"``) on the same batch, at the package's bf16
+    tolerance, atol = rtol = 2e-2: its reference logit within 2e-2 (1 +
+    |argmax logit|) of the argmax's.  The logits are bf16 products, so
+    one ulp at |logit| in [4, 8) is 0.03125: an absolute 2e-2 alone
+    would refuse a one-ulp tie (ROADMAP.md F1: the JAX package's own dot
+    and flash routes differ by 0.036 at this width)."""
+    trainer, module = run["trainer"], run["module"]
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    preds = trainer.predict(module)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _kernels.launch_counts()
+    n, layers = len(preds), module.config.n_layer
+    if n != 2 or launches["flash_fwd"] != layers * n \
+            or launches["flash_bwd"] != 0:
+        raise AssertionError(f"predict: {n} batches, launches {launches}; "
+                             f"want 2, flash_fwd {layers * n}, flash_bwd 0")
+    ref = GPT(dataclasses.replace(module.config, attention_impl="dot"),
+              device="cuda")
+    ref.load_state_dict(module.model.state_dict())
+    exact = ties = beyond = 0
+    worst = 0.0
+    for (x, _), pred in zip(module.predict_dataloader(), preds):
+        if tuple(pred.shape) != (TRAIN_B, TRAIN_T):
+            raise AssertionError(f"predict shape {tuple(pred.shape)}")
+        with torch.inference_mode():
+            logits = ref(x.to("cuda"))
+        pred = pred.to("cuda")
+        best = logits.max(dim=-1)
+        got = logits.gather(-1, pred[..., None].long())[..., 0]
+        gap = best.values - got
+        allowed = BF16_TOL * (1 + best.values.abs())
+        if not torch.isfinite(logits).all() or not bool((gap <= allowed)
+                                                         .all()):
+            i = int((gap - allowed).argmax())
+            raise AssertionError(
+                f"predict: a token {float(gap.flatten()[i]):.4f} below the "
+                f"dot argmax {float(best.values.flatten()[i]):.4f} (allowed "
+                f"{float(allowed.flatten()[i]):.4f})")
+        hit = int((pred == best.indices).sum())
+        exact += hit
+        ties += pred.numel() - hit
+        worst = max(worst, float(gap.max()))
+        beyond += int((gap > BF16_TOL).sum())
+        del logits
+    log(f"  predict: {n} batches of [{TRAIN_B}, {TRAIN_T}] in {wall:.3f} s; "
+        f"launches {launches}; tokens vs dot attention: {exact} exact, "
+        f"{ties} near-ties (widest gap {worst:.4f}, {beyond} past an "
+        f"absolute {BF16_TOL})")
+    del ref
+    return dict(launches=launches, exact=exact, near_ties=ties,
+                widest_gap=worst, past_abs_tol=beyond, wall_s=wall)
+
+
+class FixedInit(GPTLightningModule):
+    """gpt2-small whose init ignores the trainer's seed (seed 0), so
+    two trainer seeds differ in their dropout masks alone."""
+
+    def init_params(self, generator):
+        return super().init_params(
+            torch.Generator(device=generator.device).manual_seed(0))
+
+
+def dropout_run(seed: int) -> dict:
+    """A 4-step fit at dropout 0.1 (no validation, checkpoint or log)."""
+    log_cb = PhaseLog()
+    trainer = Trainer(max_steps=TRAINER_STEPS, seed=seed, callbacks=[log_cb],
+                      limit_val_batches=0, num_sanity_val_steps=0,
+                      enable_checkpointing=False, logger=False,
+                      device="cuda")
+    module = FixedInit(dataclasses.replace(CONFIGS["gpt2-small"],
+                                           dropout=0.1), batch_size=TRAIN_B)
+    _kernels.reset_launches()
+    trainer.fit(module)
+    launches = _kernels.launch_counts()
+    layers = module.config.n_layer
+    if len(log_cb.losses) != TRAINER_STEPS \
+            or not np.isfinite(log_cb.losses).all() \
+            or launches["flash_fwd"] != layers * TRAINER_STEPS \
+            or launches["flash_bwd"] != layers * TRAINER_STEPS:
+        raise AssertionError(f"dropout fit: losses {log_cb.losses}, "
+                             f"launches {launches}")
+    return dict(trainer=trainer, module=module, log=log_cb,
+                launches=launches)
+
+
+def trainer_phase(seed: int, card: str) -> dict:
+    """Phase 10 (module docstring): (a) two uninterrupted 2-epoch fits
+    equal bit for bit; (b) a 1-epoch fit, ``save_checkpoint``, a resume
+    with ``max_epochs=2`` equal to (a) bit for bit; (c) predict parity;
+    (d) dropout fits, the same seed equal, another seed not."""
+    base = tempfile.mkdtemp(prefix="rlt_trainer_phase_")
+    launches = {"flash_fwd": 0, "flash_bwd": 0}
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    try:
+        log(f"  disk free under {base}: "
+            f"{shutil.disk_usage(base).free / 1e9:.1f} GB")
+        # (a) determinism control
+        whole = []
+        for i in range(2):
+            root = os.path.join(base, f"whole{i}")
+            run = trainer_run(root, seed, 2)
+            add(run["launches"])
+            whole.append(dict(state=state_of(run), losses=run["log"].losses,
+                              val_steps=run["log"].val_steps,
+                              files=sorted(os.listdir(os.path.join(
+                                  root, "checkpoints")))))
+            log(f"  (a) fit {i}: {len(run['log'].losses)} steps in "
+                f"{run['wall_s']:.2f} s (set-up, validations and "
+                f"checkpoints included); validations at steps "
+                f"{run['log'].val_steps}; checkpoints {whole[-1]['files']}")
+            del run
+            shutil.rmtree(root)
+            free_cuda()
+        check_same_state(whole[1]["state"], whole[0]["state"],
+                         "(a) two uninterrupted fits")
+        if whole[0]["losses"] != whole[1]["losses"]:
+            raise AssertionError("(a): the two fits' losses differ")
+
+        # (b) fit 1 epoch, save_checkpoint, resume with max_epochs=2
+        root = os.path.join(base, "half")
+        run = trainer_run(root, seed, 1)
+        add(run["launches"])
+        best = run["trainer"].checkpoint_callback.best_model_path
+        if not os.path.exists(best):
+            raise AssertionError(f"(b): best_model_path {best!r} missing")
+        with open(os.path.join(root, "logs", "metrics.csv")) as f:
+            rows = list(csv.DictReader(f))
+        want_rows = (len(run["log"].losses) + 1 + len(run["log"].val_steps))
+        step_rows = sorted(int(r["step"]) for r in rows if r.get("loss"))
+        if len(rows) != want_rows \
+                or step_rows != list(range(1, TRAINER_STEPS + 1)):
+            raise AssertionError(f"(b): metrics.csv has {len(rows)} rows, "
+                                 f"want {want_rows}; loss rows at steps "
+                                 f"{step_rows}")
+        path = os.path.join(base, "resume.ckpt")
+        state = run["trainer"].state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run["trainer"].save_checkpoint(path)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        opt = state.opt_state.state_dict()["1"]
+        tensor_bytes = sum(
+            t.numel() * t.element_size() for t in
+            [*run["module"].model.state_dict().values(),
+             *opt["master"].values(), *opt["inner"]["mu"].values(),
+             *opt["inner"]["nu"].values()])
+        n_params = sum(p.numel() for p in run["module"].model.parameters())
+        log(f"  (b) fit 1 epoch: {len(run['log'].losses)} steps; "
+            f"best_model_path {os.path.basename(best)}; metrics.csv "
+            f"{len(rows)} rows")
+        del run, state, opt
+        shutil.rmtree(root)
+        free_cuda()
+        restore_s = []
+        resumed = trainer_run(os.path.join(base, "resumed"), seed, 2,
+                              ckpt=path, restore_s=restore_s)
+        add(resumed["launches"])
+        check_same_state(state_of(resumed), whole[0]["state"],
+                         "(b) resumed vs uninterrupted")
+        if resumed["log"].losses != whole[0]["losses"][TRAINER_STEPS:]:
+            raise AssertionError(
+                f"(b): resumed losses {resumed['log'].losses} vs "
+                f"{whole[0]['losses'][TRAINER_STEPS:]}")
+        log(f"  [{card}] checkpoint {nbytes} bytes ({nbytes / 1e9:.4f} GB; "
+            f"tensors {tensor_bytes} bytes: {n_params} params in bf16, the "
+            f"fp32 master, bf16 mu, fp32 nu); save_checkpoint "
+            f"{save_s:.3f} s, restore {restore_s[0]:.3f} s (synced)")
+
+        # (c) predict on the resumed weights
+        pred = predict_parity(resumed)
+        add(pred["launches"])
+        del resumed
+        free_cuda()
+
+        # (d) dropout
+        runs = []
+        for s in (seed, seed, seed + 1):
+            run = dropout_run(s)
+            add(run["launches"])
+            runs.append(dict(state=state_of(run), losses=run["log"].losses))
+            del run
+            free_cuda()
+        check_same_state(runs[1]["state"], runs[0]["state"],
+                         "(d) dropout 0.1, the same seed")
+        if runs[0]["losses"] != runs[1]["losses"]:
+            raise AssertionError("(d): the same seed's losses differ")
+        other = [k for k, v in runs[0]["state"]["tensors"].items()
+                 if not torch.equal(v, runs[2]["state"]["tensors"][k])]
+        if not other or runs[2]["losses"][0] == runs[0]["losses"][0]:
+            raise AssertionError("(d): another seed drew the same masks")
+        log(f"  (d) dropout 0.1: losses seed {seed} {runs[0]['losses']}, "
+            f"seed {seed + 1} {runs[2]['losses']}; {len(other)} tensors "
+            f"differ across seeds")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    stats = {"card": card, "checkpoint_bytes": nbytes,
+             "checkpoint_tensor_bytes": tensor_bytes, "params": n_params,
+             "save_checkpoint_s": save_s, "restore_s": restore_s[0],
+             "losses": whole[0]["losses"],
+             "val_steps": whole[0]["val_steps"],
+             "checkpoints": whole[0]["files"],
+             "predict_exact": pred["exact"],
+             "predict_near_ties": pred["near_ties"],
+             "predict_widest_gap": pred["widest_gap"],
+             "predict_past_abs_tol": pred["past_abs_tol"],
+             "predict_s": pred["wall_s"],
+             "dropout_losses": [r["losses"] for r in runs],
+             "launches": launches}
+    log("trainer " + json.dumps(stats))
+    return {"launches": launches, "stats": stats}
+
+
 def attribute(by_row: dict, runs: list) -> None:
     """Add each path run's launches to the rows it takes: flash_fwd's to
     its forward row, flash_bwd's to each backward row."""
@@ -2369,6 +2735,10 @@ def main(argv=None) -> int:
                     help="build, then flash_decode and flash_decode_paged "
                          "alone at the row 13-14 shapes (decode_rows); no "
                          "path is driven")
+    ap.add_argument("--trainer-only", action="store_true",
+                    help="build, check and time flash_fwd and flash_bwd "
+                         "(rows 1 and 6), then run phase 10 (the trainer: "
+                         "checkpoint and resume, predict, dropout) alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -2396,6 +2766,23 @@ def main(argv=None) -> int:
         return 0
     if args.decode_only:
         log("flash_decode rows " + json.dumps(decode_rows(gen)))
+        return 0
+    if args.trainer_only:
+        log("kernel phase (rows 1 and 6)")
+        entries = [kernel_flash_fwd(gen), kernel_flash_bwd(gen)]
+        free_cuda()
+        log("trainer phase")
+        t0 = time.monotonic()
+        trainer = trainer_phase(args.seed, card_line())
+        log(f"trainer phase: {time.monotonic() - t0:.1f} s")
+        for e in entries:
+            e["launches_by_path"] = {"trainer":
+                                     trainer["launches"][e["name"]]}
+            e["launches"] = e["launches_by_path"]["trainer"]
+        log(json.dumps({"kernels": entries}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
         return 0
     log("kernel phase")
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -2454,6 +2841,16 @@ def main(argv=None) -> int:
                                  {r: e.get("launches") for r, e in
                                   by_row.items()}))
     log(f"folded and BERT phase: {time.monotonic() - t0:.1f} s")
+
+    log("trainer phase")
+    t0 = time.monotonic()
+    free_cuda()
+    trainer = trainer_phase(args.seed, card)
+    for row in (1, 6):
+        e = by_row[row]
+        e["launches_by_path"]["trainer"] = trainer["launches"][e["name"]]
+        e["launches"] = sum(e["launches_by_path"].values())
+    log(f"trainer phase: {time.monotonic() - t0:.1f} s")
     log("speed order (rows slower than their library call by that factor, "
         "then by launches x (ms - bound)): " + ", ".join(
             f"row {e['row']} {e['ms'] / e['library_ms']:.2f}x"

@@ -7,7 +7,10 @@ paths are ported.  Serving: ``GPTLightningModule`` -> ``ServeEngine``
 ``spec=`` speculative decoding) driven by the continuous-batching
 ``Scheduler`` through ``ServeWorker.serve_step``.
 Training: ``Trainer(...).fit(GPTLightningModule(...))`` on one device
-(fused CE, AdamW with an fp32 master, accumulation), and the BERT
+(fused CE, AdamW with an fp32 master, accumulation, clipping, dropout;
+checkpoints with ``ModelCheckpoint`` and resume with ``ckpt_path=``,
+``EarlyStopping``, ``val_check_interval``, ``predict``, datamodules, a
+``CSVLogger``), and the BERT
 family: ``Trainer(...).fit(BertMLMModule("bert-base", batch_size=32))``
 (masked-LM pretraining) and ``BertLightningModule`` (sequence
 classification), whose attention is bidirectional.  Their attention
@@ -22,18 +25,24 @@ This package imports ``torch`` and never ``jax`` or the JAX package.
 
 from ray_lightning_tpu_torch._device import resolve_device
 from ray_lightning_tpu_torch.convert import (flax_opt_state_to_torch,
-                                             flax_to_torch)
-from ray_lightning_tpu_torch.core.callbacks import Callback
+                                             flax_to_torch,
+                                             jax_checkpoint_to_torch)
+from ray_lightning_tpu_torch.core.callbacks import (Callback, EarlyStopping,
+                                                    ModelCheckpoint)
 from ray_lightning_tpu_torch.core.data import ArrayDataset, DataLoader
+from ray_lightning_tpu_torch.core.datamodule import LightningDataModule
 from ray_lightning_tpu_torch.core.module import LightningModule
 from ray_lightning_tpu_torch.core.trainer import Trainer
 from ray_lightning_tpu_torch.models.bert import (BertConfig,
                                                  BertLightningModule,
                                                  BertMLMModule)
+from ray_lightning_tpu_torch.models.boring import (BoringModel,
+                                                   LightningMNISTClassifier)
 from ray_lightning_tpu_torch.models.gpt import (CONFIGS, GPT, GPTConfig,
                                                 GPTLightningModule)
 from ray_lightning_tpu_torch.serve import (Scheduler, ServeEngine,
                                            ServeRequest, ServeWorker)
+from ray_lightning_tpu_torch.utils.logger import CSVLogger
 
 __version__ = "0.1.0"
 
@@ -42,13 +51,19 @@ __all__ = [
     "BertConfig",
     "BertLightningModule",
     "BertMLMModule",
+    "BoringModel",
     "CONFIGS",
+    "CSVLogger",
     "Callback",
     "DataLoader",
+    "EarlyStopping",
     "GPT",
     "GPTConfig",
     "GPTLightningModule",
+    "LightningDataModule",
+    "LightningMNISTClassifier",
     "LightningModule",
+    "ModelCheckpoint",
     "Scheduler",
     "ServeEngine",
     "ServeRequest",
@@ -56,6 +71,7 @@ __all__ = [
     "Trainer",
     "flax_opt_state_to_torch",
     "flax_to_torch",
+    "jax_checkpoint_to_torch",
     "resolve_device",
     "__version__",
 ]

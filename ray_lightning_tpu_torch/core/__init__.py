@@ -1,3 +1,4 @@
 """Core: ``LightningModule`` and ``StepContext``, the step builders
 (init, train, eval, serve prefill and decode), the single-device
-``Trainer``, data loading, callbacks and the train state."""
+``Trainer`` with checkpointing, data loading, datamodules, callbacks
+(``ModelCheckpoint``, ``EarlyStopping``) and the train state."""

@@ -42,17 +42,26 @@ def default_collate(samples: Sequence[Any]) -> Any:
     return np.stack(arrs)
 
 
-def to_device(batch: Any, device: "torch.device | str | None") -> Any:
+def to_device(batch: Any, device: "torch.device | str | None",
+              float_dtype: "torch.dtype | None" = None) -> Any:
     """A batch pytree with every array as a torch tensor on ``device``
     (numpy arrays go through ``torch.from_numpy``, without a copy on the
-    CPU)."""
+    CPU).  With ``float_dtype`` the floating leaves are cast to it on the
+    host before the copy, as the JAX ``Trainer._host_cast`` casts them to
+    bf16 under ``precision="bf16"`` (half the bytes to move); integer
+    leaves keep their dtype."""
     if isinstance(batch, (tuple, list)):
-        return type(batch)(to_device(x, device) for x in batch)
+        return type(batch)(to_device(x, device, float_dtype) for x in batch)
     if isinstance(batch, dict):
-        return {k: to_device(v, device) for k, v in batch.items()}
+        return {k: to_device(v, device, float_dtype)
+                for k, v in batch.items()}
     if isinstance(batch, np.ndarray):
         batch = torch.from_numpy(np.ascontiguousarray(batch))
-    if isinstance(batch, torch.Tensor) and device is not None:
+    if not isinstance(batch, torch.Tensor):
+        return batch
+    if float_dtype is not None and batch.is_floating_point():
+        batch = batch.to(float_dtype)
+    if device is not None:
         return batch.to(device, non_blocking=True)
     return batch
 

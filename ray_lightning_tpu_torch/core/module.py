@@ -61,6 +61,15 @@ class StepContext:
             1, np.uint64)[0])
         return torch.Generator(device=self._device or "cpu").manual_seed(seed)
 
+    def dropout_seed(self, rate: float) -> "int | None":
+        """The seed of one forward's dropout masks (ops/attention.py
+        ``dropout``): ``None``, no dropout, outside training or at rate
+        0 (flax's ``deterministic``), else the seed of a
+        :meth:`make_rng` generator."""
+        if not self.training or rate <= 0:
+            return None
+        return self.make_rng().initial_seed()
+
     def log(self, name: str, value, **_ignored) -> None:
         if isinstance(value, torch.Tensor):
             value = value.detach().float()
@@ -96,12 +105,12 @@ class LightningModule:
     Subclasses implement ``configure_model(device) -> torch.nn.Module``,
     ``configure_optimizers()`` (ops/optim.py), ``training_step(ctx,
     batch) -> loss`` and optionally ``validation_step`` / ``test_step``
-    and the dataloader hooks.  For serving they may override
-    ``configure_decode_model(device)``.  Unlike flax modules, a
-    ``torch.nn.Module`` carries its own parameters, so the hooks take the
-    device to make them on (``None``: the card) and ``init_params``
-    initializes the model in place from an explicit ``torch.Generator``
-    and returns its ``state_dict``.
+    / ``predict_step``, the dataloader hooks and the checkpoint hooks.
+    For serving they may override ``configure_decode_model(device)``.
+    Unlike flax modules, a ``torch.nn.Module`` carries its own
+    parameters, so the hooks take the device to make them on (``None``:
+    the card) and ``init_params`` initializes the model in place from an
+    explicit ``torch.Generator`` and returns its ``state_dict``.
     """
 
     #: residency dtype for float params (``None`` = leave as
@@ -197,6 +206,14 @@ class LightningModule:
     def test_step(self, ctx: StepContext, batch):
         return self.validation_step(ctx, batch)
 
+    def predict_step(self, ctx: StepContext, batch):
+        """The model's output on the batch's inputs (its first entry for
+        an (inputs, target) tuple)."""
+        if self.model is None:
+            raise NotImplementedError
+        x = batch[0] if isinstance(batch, (tuple, list)) else batch
+        return ctx.model(x)
+
     # -- data ---------------------------------------------------------------
 
     def prepare_data(self) -> None:
@@ -227,6 +244,12 @@ class LightningModule:
     def on_train_epoch_end(self) -> None: ...
     def on_validation_epoch_start(self) -> None: ...
     def on_validation_epoch_end(self) -> None: ...
+    def on_save_checkpoint(self, checkpoint: dict) -> None: ...
+
+    def on_load_checkpoint(self, checkpoint: dict) -> None:
+        """``checkpoint`` is the dict of ``Trainer.dump_checkpoint``
+        (epoch, global_step, state, hparams, callbacks, world_size,
+        strategy), after the trainer restored it."""
 
     # -- trainer-delegated conveniences ---------------------------------------
 

@@ -39,8 +39,9 @@ def policy_object(name: str) -> Optional[Callable]:
     """The block wrapper for a policy name: ``None`` for ``"off"``, a
     ``(fn, *args) -> out`` running ``fn`` under a non-reentrant
     checkpoint for ``"full"``.  The RNG state is not stashed for the
-    recompute: the port's blocks draw no random numbers (dropout is not
-    ported and raises).  Raises ``NotImplementedError`` for the other
+    recompute: a block's dropout masks come from generators it seeds
+    from an int argument (ops/attention.py ``fold_in``), so the
+    recompute draws them again bit for bit.  Raises ``NotImplementedError`` for the other
     JAX policies and ``ValueError`` for an unknown name."""
     if name == "off":
         return None

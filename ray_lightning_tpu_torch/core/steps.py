@@ -1,14 +1,15 @@
-"""Step builders: init, train and eval steps; the serve programs
+"""Step builders: init, train, eval and predict steps; the serve programs
 (prefill, decode, the paged KV copy and suffix step, the speculative
 draft and verify).
 
 Counterpart of ``ray_lightning_tpu/core/steps.py`` ``build_init_fn`` /
 ``build_train_step`` (the ``grad_sync=None`` path) / ``build_eval_step``
-/ ``build_prefill_step`` / ``build_decode_step`` / ``build_kv_copy`` /
-``build_suffix_step`` / ``build_draft_step`` / ``build_verify_step``.  A torch module holds
-its own parameters, so the builders close over the model (the JAX
-builders take the params as an argument of the jitted program) and the
-train step updates them IN PLACE where the JAX program returns new ones;
+/ ``build_predict_step`` / ``build_prefill_step`` / ``build_decode_step``
+/ ``build_kv_copy`` / ``build_suffix_step`` / ``build_draft_step`` /
+``build_verify_step``.  A torch module holds its own parameters, so the
+builders close over the model (the JAX builders take the params as an
+argument of the jitted program) and the train step updates them IN
+PLACE where the JAX program returns new ones;
 PyTorch runs eagerly, so there is nothing to trace or compile.  The
 serve caches are updated in place too, where the JAX programs return new
 caches from donated buffers.
@@ -132,6 +133,19 @@ def build_eval_step(module, stage: str) -> Callable:
             logged = {**logged, **{n: torch.as_tensor(v).float()
                                    for n, v in out.items()}}
         return logged
+
+    return step_fn
+
+
+def build_predict_step(module) -> Callable:
+    """``(state, batch) -> module.predict_step(ctx, batch)`` under
+    ``torch.no_grad()``, with no entropy (as the JAX predict step has no
+    key): a forward only."""
+
+    @torch.no_grad()
+    def step_fn(state: TrainState, batch: Any):
+        return module.predict_step(StepContext(module, training=False),
+                                   batch)
 
     return step_fn
 
@@ -294,5 +308,6 @@ def build_suffix_step(model: torch.nn.Module, impl: "str | None" = None,
 
 
 __all__ = ["build_decode_step", "build_draft_step", "build_eval_step",
-           "build_init_fn", "build_kv_copy", "build_prefill_step",
-           "build_suffix_step", "build_train_step", "build_verify_step"]
+           "build_init_fn", "build_kv_copy", "build_predict_step",
+           "build_prefill_step", "build_suffix_step", "build_train_step",
+           "build_verify_step"]

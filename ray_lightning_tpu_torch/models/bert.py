@@ -14,8 +14,12 @@ weights: the token table cast to the compute dtype and gathered
 (``nn.Embed(dtype=...)``); ``wpe`` an fp32 parameter whose first T rows
 are cast and added in the compute dtype; pre-LN layers (``ln1``,
 bidirectional attention, residual, ``ln2``, ``fc`` -> tanh GELU ->
-``out``, residual) with models/gpt.py's ``LayerNorm`` and
-:func:`gelu_tanh`; ``ln_f``.  The MLM head is a compute-dtype ``Dense``
+``out``, dropout in training, residual) with models/gpt.py's
+``LayerNorm`` and :func:`gelu_tanh`; ``ln_f``.  Dropout
+(``config.dropout``) follows the attention's output projection and the
+layer's ``out``, as flax's ``nn.Dropout`` (ops/attention.py
+``dropout``), seeded per layer and site from the forward's
+``dropout_seed``.  The MLM head is a compute-dtype ``Dense``
 cast to fp32; the classifier mean-pools in fp32, then ``pooler`` (fp32)
 with tanh, then ``classifier`` (fp32).  Params stay fp32-resident (BERT
 has no ``param_dtype``, so no fp32 master).
@@ -25,8 +29,8 @@ kernels with ``causal=0`` on the card (TPU kernel rows 1 and 6 at
 bert-base, rows 5 and 10 at ``tiny``, whose heads do not pack, and rows
 5, 15 and 16 under ``RLT_FLASH_BLOCK_Q/K`` below T: ops/flash_attention.py
 ``tpu_rows``), the plain attention on the CPU.  Remat takes "full" and
-"off" (core/remat.py); dropout and ``bert_partition_rules`` (SPMD) are
-not ported and raise.
+"off" (core/remat.py); ``bert_partition_rules`` (SPMD) is not ported
+and raises.
 """
 
 from __future__ import annotations
@@ -46,7 +50,8 @@ from ray_lightning_tpu_torch.models.common import ClassificationModule
 from ray_lightning_tpu_torch.models.gpt import (LayerNorm, gelu_tanh,
                                                 init_weights,
                                                 synthetic_lm_dataset)
-from ray_lightning_tpu_torch.ops.attention import MultiHeadAttention, linear
+from ray_lightning_tpu_torch.ops.attention import (MultiHeadAttention,
+                                                   dropout, fold_in, linear)
 from ray_lightning_tpu_torch.ops.optim import AdamW
 
 
@@ -84,23 +89,27 @@ CONFIGS = {
 
 class EncoderLayer(nn.Module):
     """Pre-LN encoder layer: ``x + attn(ln1(x))``, then ``x + out(gelu(
-    fc(ln2(x))))``."""
+    fc(ln2(x))))``; with ``dropout_seed`` (training) the attention's and
+    the ``out`` projection's dropout, sites 0 and 1."""
 
     def __init__(self, cfg: BertConfig):
         super().__init__()
         self.dtype = cfg.dtype
+        self.dropout = cfg.dropout
         self.ln1 = LayerNorm(cfg.n_embd, cfg.dtype)
         self.attn = MultiHeadAttention(cfg.n_embd, cfg.n_head, causal=False,
                                        dtype=cfg.dtype,
-                                       attention_impl=cfg.attention_impl)
+                                       attention_impl=cfg.attention_impl,
+                                       dropout=cfg.dropout)
         self.ln2 = LayerNorm(cfg.n_embd, cfg.dtype)
         self.fc = nn.Linear(cfg.n_embd, cfg.intermediate)
         self.out = nn.Linear(cfg.intermediate, cfg.n_embd)
 
-    def forward(self, x):
-        x = x + self.attn(self.ln1(x))[0]
+    def forward(self, x, dropout_seed: "int | None" = None):
+        x = x + self.attn(self.ln1(x), fold_in(dropout_seed, 0))[0]
         h = gelu_tanh(linear(self.fc, self.ln2(x), self.dtype))
-        return x + linear(self.out, h, self.dtype)
+        h = linear(self.out, h, self.dtype)
+        return x + dropout(h, self.dropout, fold_in(dropout_seed, 1))
 
 
 class BertEncoder(nn.Module):
@@ -118,13 +127,15 @@ class BertEncoder(nn.Module):
         self.h = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.n_layer))
         self.ln_f = LayerNorm(cfg.n_embd, cfg.dtype)
 
-    def forward(self, idx):
+    def forward(self, idx, dropout_seed: "int | None" = None):
         dt = self.config.dtype
         T = idx.shape[1]
         x = self.wte.weight[idx.long()].to(dt) + self.wpe[:T].to(dt)
         remat = self._remat if torch.is_grad_enabled() else None
-        for layer in self.h:
-            x = remat(layer, x) if remat is not None else layer(x)
+        for i, layer in enumerate(self.h):
+            seed = fold_in(dropout_seed, i)
+            x = (remat(layer, x, seed) if remat is not None
+                 else layer(x, seed))
         return self.ln_f(x)
 
 
@@ -134,10 +145,6 @@ class _BertModel(nn.Module):
 
     def __init__(self, cfg: BertConfig, device=None):
         super().__init__()
-        if cfg.dropout > 0:
-            raise NotImplementedError(
-                f"dropout={cfg.dropout} is not ported yet (ROADMAP.md "
-                f"queue 1, with the rest of the trainer)")
         self.config = cfg
         with torch.device(resolve_device(device)):
             self.encoder = BertEncoder(cfg)
@@ -164,8 +171,8 @@ class BertForMaskedLM(_BertModel):
     def _make_head(self, cfg):
         self.mlm_head = nn.Linear(cfg.n_embd, cfg.vocab_size)
 
-    def forward(self, idx):
-        h = self.encoder(idx)
+    def forward(self, idx, dropout_seed: "int | None" = None):
+        h = self.encoder(idx, dropout_seed)
         return linear(self.mlm_head, h, self.config.dtype).float()
 
 
@@ -177,8 +184,8 @@ class BertClassifier(_BertModel):
         self.pooler = nn.Linear(cfg.n_embd, cfg.n_embd)
         self.classifier = nn.Linear(cfg.n_embd, cfg.num_classes)
 
-    def forward(self, idx):
-        pooled = self.encoder(idx).float().mean(dim=1)
+    def forward(self, idx, dropout_seed: "int | None" = None):
+        pooled = self.encoder(idx, dropout_seed).float().mean(dim=1)
         pooled = torch.tanh(linear(self.pooler, pooled, torch.float32))
         return linear(self.classifier, pooled, torch.float32)
 
@@ -233,7 +240,8 @@ class BertMLMModule(LightningModule):
             mask = torch.rand(tokens.shape, generator=rng,
                               device=tokens.device) < self.mask_prob
         inputs = torch.where(mask, self.config.vocab_size - 1, tokens.long())
-        ce = softmax_cross_entropy(ctx.model(inputs), tokens)
+        logits = ctx.model(inputs, ctx.dropout_seed(self.config.dropout))
+        ce = softmax_cross_entropy(logits, tokens)
         weights = mask.float()
         return (ce * weights).sum() / weights.sum().clamp_min(1.0)
 
@@ -314,7 +322,7 @@ class BertLightningModule(ClassificationModule):
                      weight_decay=self.weight_decay, b1=0.9, b2=0.999)
 
     def compute_logits(self, ctx, tokens):
-        return ctx.model(tokens)
+        return ctx.model(tokens, ctx.dropout_seed(self.config.dropout))
 
     def make_dataset(self, n, seed):
         return synthetic_classification(n, self.config, seed)

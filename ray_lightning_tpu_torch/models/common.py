@@ -2,13 +2,14 @@
 
 Counterpart of ``ray_lightning_tpu/models/common.py``: cross-entropy and
 accuracy over ``(inputs, int_labels)`` batches, the logged metrics and
-the loaders.  Subclasses implement :meth:`compute_logits` and
-:meth:`make_dataset`.  ``predict_step`` is not ported: the port's
-``Trainer.predict`` raises.
+the loaders, and ``predict_step``: the argmax class over the test
+loader's inputs.  Subclasses implement :meth:`compute_logits` and
+:meth:`make_dataset`.
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 
 from ray_lightning_tpu_torch.core.data import DataLoader
@@ -59,6 +60,10 @@ class ClassificationModule(LightningModule):
         ctx.log("test_loss", loss)
         ctx.log("test_accuracy", acc)
 
+    def predict_step(self, ctx, batch):
+        inputs = batch[0] if isinstance(batch, (tuple, list)) else batch
+        return torch.argmax(self.compute_logits(ctx, inputs), dim=-1)
+
     # -- loaders ----------------------------------------------------------
 
     def _loader(self, n, seed, shuffle=False):
@@ -74,6 +79,9 @@ class ClassificationModule(LightningModule):
 
     def test_dataloader(self):
         return self._loader(self.val_size, 2)
+
+    def predict_dataloader(self):
+        return self.test_dataloader()
 
 
 __all__ = ["ClassificationModule"]

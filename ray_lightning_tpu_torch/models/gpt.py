@@ -17,7 +17,11 @@ agree on the same weights:
   every operation rounded to it (:func:`gelu_tanh`);
 - linear layers cast weight and input to the compute dtype;
 - logits are the compute-dtype product with the tied embedding, then
-  fp32; ``wpe`` rows are cast to the compute dtype before the add.
+  fp32; ``wpe`` rows are cast to the compute dtype before the add;
+- dropout (``config.dropout``, training only) after each block's
+  attention output projection and after its MLP, as flax's
+  ``nn.Dropout`` (ops/attention.py ``dropout``), with a seed per layer
+  and site folded from the forward's ``dropout_seed``.
 """
 
 from __future__ import annotations
@@ -38,7 +42,8 @@ from ray_lightning_tpu_torch.core.data import ArrayDataset, DataLoader
 from ray_lightning_tpu_torch.core.module import LightningModule
 from ray_lightning_tpu_torch.core.remat import model_policy, policy_object
 from ray_lightning_tpu_torch.ops.attention import (CacheWrite,
-                                                   MultiHeadAttention, linear)
+                                                   MultiHeadAttention,
+                                                   dropout, fold_in, linear)
 from ray_lightning_tpu_torch.ops.losses import (
     chunked_softmax_cross_entropy, fused_lm_cross_entropy)
 from ray_lightning_tpu_torch.ops.optim import AdamW, fp32_master
@@ -158,12 +163,14 @@ class MLP(nn.Module):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
         self.dtype = cfg.dtype
+        self.dropout = cfg.dropout
         self.fc = nn.Linear(cfg.n_embd, 4 * cfg.n_embd)
         self.out = nn.Linear(4 * cfg.n_embd, cfg.n_embd)
 
-    def forward(self, x):
+    def forward(self, x, dropout_seed: "int | None" = None):
         h = gelu_tanh(linear(self.fc, x, self.dtype))
-        return linear(self.out, h, self.dtype)
+        return dropout(linear(self.out, h, self.dtype), self.dropout,
+                       dropout_seed)
 
 
 class Block(nn.Module):
@@ -172,18 +179,21 @@ class Block(nn.Module):
         self.ln1 = LayerNorm(cfg.n_embd, cfg.dtype)
         self.attn = MultiHeadAttention(cfg.n_embd, cfg.n_head, causal=True,
                                        dtype=cfg.dtype,
-                                       attention_impl=cfg.attention_impl)
+                                       attention_impl=cfg.attention_impl,
+                                       dropout=cfg.dropout)
         self.ln2 = LayerNorm(cfg.n_embd, cfg.dtype)
         self.mlp = MLP(cfg)
 
-    def forward(self, x):
-        return self.forward_with_kv(x)[0]
+    def forward(self, x, dropout_seed: "int | None" = None):
+        return self.forward_with_kv(x, dropout_seed)[0]
 
-    def forward_with_kv(self, x):
-        """Returns ``(x', (k, v))``: the layer's K/V for the prefill."""
-        a, kv = self.attn(self.ln1(x))
+    def forward_with_kv(self, x, dropout_seed: "int | None" = None):
+        """Returns ``(x', (k, v))``: the layer's K/V for the prefill.
+        ``dropout_seed`` (training) seeds the attention's and the MLP's
+        dropout masks, sites 0 and 1."""
+        a, kv = self.attn(self.ln1(x), fold_in(dropout_seed, 0))
         x = x + a
-        return x + self.mlp(self.ln2(x)), kv
+        return x + self.mlp(self.ln2(x), fold_in(dropout_seed, 1)), kv
 
     def decode(self, x, k_cache, v_cache, positions, impl=None,
                page_table=None, write=None):
@@ -197,8 +207,9 @@ class GPT(nn.Module):
     ``hidden_with_kv`` -> that and every layer's K/V (the prefill),
     ``forward`` -> fp32 logits, ``decode`` -> one continuous-batching
     step over the slot cache, ``verify`` -> the speculative verify's
-    multi-token step.  Dropout is not ported (the serve path
-    runs with it off, as ``configure_decode_model`` sets it).
+    multi-token step.  Dropout runs in :meth:`hidden` when it is given a
+    seed (training); the serve paths run without it, and the decode
+    model is made with it off (``configure_decode_model``).
 
     With ``config.remat`` each block of ``hidden`` runs under the remat
     policy (core/remat.py: ``RLT_REMAT_POLICY``, else
@@ -244,13 +255,17 @@ class GPT(nn.Module):
         T = idx.shape[1]
         return self.wte.weight[idx].to(dt) + self.wpe[:T].to(dt)
 
-    def hidden(self, idx):
+    def hidden(self, idx, dropout_seed: "int | None" = None):
         """Pre-head representation ``[B, T, C]`` in the compute dtype;
-        each block under the remat policy while autograd records."""
+        each block under the remat policy while autograd records.
+        ``dropout_seed`` (``StepContext.dropout_seed``; ``None``: no
+        dropout) seeds layer i's masks with ``fold_in(seed, i)``, a
+        host-side int, so a recomputed block draws them again."""
         x = self._embed(idx)
         remat = self._remat if torch.is_grad_enabled() else None
-        for blk in self.h:
-            x = remat(blk, x) if remat is not None else blk(x)
+        for i, blk in enumerate(self.h):
+            seed = fold_in(dropout_seed, i)
+            x = remat(blk, x, seed) if remat is not None else blk(x, seed)
         return self.ln_f(x)
 
     def hidden_with_kv(self, idx):
@@ -263,9 +278,9 @@ class GPT(nn.Module):
             kvs.append(kv)
         return self.ln_f(x), kvs
 
-    def forward(self, idx):
+    def forward(self, idx, dropout_seed: "int | None" = None):
         """Whole-sequence forward: fp32 logits ``[B, T, V]``."""
-        return self.head(self.hidden(idx))
+        return self.head(self.hidden(idx, dropout_seed))
 
     def _pos_embed(self, positions):
         """``wpe`` rows at ``positions`` in the compute dtype.  A draft or
@@ -365,15 +380,8 @@ class GPTLightningModule(LightningModule):
 
     def configure_model(self, device=None):
         """The training model, with its remat policy (core/remat.py:
-        "full" and "off" are ported).  Dropout is not ported (ROADMAP.md
-        queue 1, with the rest of the trainer); no shipped config uses
-        it."""
-        cfg = self.config
-        if cfg.dropout > 0:
-            raise NotImplementedError(
-                f"dropout={cfg.dropout} is not ported yet (ROADMAP.md "
-                f"queue 1, with the rest of the trainer)")
-        return GPT(cfg, device=device)
+        "full" and "off" are ported) and ``config.dropout``."""
+        return GPT(self.config, device=device)
 
     def configure_decode_model(self, device=None):
         """Serve-plane model: the training model's parameter tree with
@@ -437,14 +445,15 @@ class GPTLightningModule(LightningModule):
         (ops/losses.py)."""
         x, y = batch
         model = ctx.model
+        seed = ctx.dropout_seed(self.config.dropout)
         if self.config.chunked_ce > 0:
-            return chunked_softmax_cross_entropy(model.hidden(x),
+            return chunked_softmax_cross_entropy(model.hidden(x, seed),
                                                  model.wte.weight, y,
                                                  self.config.chunked_ce)
         if os.environ.get("RLT_FUSED_CE", "1") != "0":
-            return fused_lm_cross_entropy(model.hidden(x), model.wte.weight,
-                                          y)
-        logits = model(x)
+            return fused_lm_cross_entropy(model.hidden(x, seed),
+                                          model.wte.weight, y)
+        logits = model(x, seed)
         return (torch.logsumexp(logits, dim=-1)
                 - logits.gather(-1, y.long()[..., None])[..., 0]).mean()
 
@@ -458,6 +467,11 @@ class GPTLightningModule(LightningModule):
 
     def test_step(self, ctx, batch):
         ctx.log("test_loss", self._loss(ctx, batch))
+
+    def predict_step(self, ctx, batch):
+        """The argmax token at every position of the full forward."""
+        x = batch[0] if isinstance(batch, (tuple, list)) else batch
+        return torch.argmax(ctx.model(x), dim=-1)
 
     def _loader(self, seed):
         ds = synthetic_lm_dataset(self.dataset_size, self.config.block_size,

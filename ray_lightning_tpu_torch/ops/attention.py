@@ -14,7 +14,10 @@ Counterpart of ``ray_lightning_tpu/ops/attention.py``:
 - :class:`CacheWrite` — where a decode or verify forward's K/V rows
   land in the cache, dropping rows past its end as jax's scatter does;
 - :class:`MultiHeadAttention` — fused-QKV attention whose submodule
-  names (``qkv``, ``proj``) match the JAX parameter paths.
+  names (``qkv``, ``proj``) match the JAX parameter paths, with dropout
+  after its output projection in training;
+- :func:`dropout` — flax's ``nn.Dropout`` on an explicit seed, and
+  :func:`fold_in`, which derives one seed per dropout site.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from __future__ import annotations
 import math
 from typing import Callable
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -191,6 +195,42 @@ class CacheWrite:
         cache.index_put_((self.slots, self.idx), rows)
 
 
+def fold_in(seed: "int | None", *path: int) -> "int | None":
+    """A seed for the dropout site at ``path`` (layer, site) under the
+    forward's ``seed``, as ``jax.random.fold_in`` derives a key; ``None``
+    stays ``None`` (no dropout).  Computed on the host from ints, so a
+    block recomputed under remat draws its masks again bit for bit."""
+    if seed is None:
+        return None
+    return int(np.random.SeedSequence((seed, *path)).generate_state(
+        1, np.uint64)[0])
+
+
+def dropout_keep_mask(shape, keep_prob: float, seed: int,
+                      device) -> torch.Tensor:
+    """Bernoulli(``keep_prob``) keep-mask of ``shape`` from a generator
+    seeded with ``seed`` on ``device`` (``jax.random.bernoulli``'s role;
+    the numbers differ from JAX's)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand(shape, generator=gen, device=device) < keep_prob
+
+
+def dropout(x, rate: float, seed: "int | None"):
+    """flax ``nn.Dropout(rate)`` in training: ``where(keep, x / keep_prob,
+    0)`` in ``x``'s dtype, the mask from ``seed``
+    (:func:`dropout_keep_mask`); the identity when ``seed`` is ``None``
+    (flax's ``deterministic=True``) or ``rate`` is 0."""
+    if seed is None or rate <= 0:
+        return x
+    if rate >= 1:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = dropout_keep_mask(x.shape, keep_prob, seed, x.device)
+    # divide, as flax does: x * (1 / keep_prob) rounds otherwise in bf16
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                          device=x.device))
+
+
 def linear(layer: nn.Linear, x, dtype: torch.dtype):
     """``layer`` with its weight, bias and input cast to the compute
     ``dtype``, as flax's ``Dense(dtype=...)`` promotes them (a no-op
@@ -206,12 +246,14 @@ class MultiHeadAttention(nn.Module):
     ``(k, v)`` ([B, T, H, D] each), which the prefill step writes into
     the slot cache (the JAX package sows them into a ``kv_cache``
     collection).  :meth:`decode` is the serve decode branch.  Weights are
-    cast to the compute ``dtype`` at use (:func:`linear`).
+    cast to the compute ``dtype`` at use (:func:`linear`).  ``dropout``
+    applies to the output projection when ``forward`` is given a seed
+    (training); the attention probabilities carry none.
     """
 
     def __init__(self, n_embd: int, n_head: int, *, causal: bool = True,
                  dtype: torch.dtype = torch.bfloat16,
-                 attention_impl: str = "auto"):
+                 attention_impl: str = "auto", dropout: float = 0.0):
         super().__init__()
         if n_embd % n_head:
             raise ValueError(f"n_embd {n_embd} not divisible by n_head "
@@ -220,6 +262,7 @@ class MultiHeadAttention(nn.Module):
         self.causal = causal
         self.dtype = dtype
         self.attention_impl = attention_impl
+        self.dropout = dropout
         self.qkv = nn.Linear(n_embd, 3 * n_embd)
         self.proj = nn.Linear(n_embd, n_embd)
 
@@ -231,12 +274,13 @@ class MultiHeadAttention(nn.Module):
         q, k, v = linear(self.qkv, x, self.dtype).split(C, dim=-1)
         return q.view(shape), k.view(shape), v.view(shape)
 
-    def forward(self, x):
+    def forward(self, x, dropout_seed: "int | None" = None):
         B, T, C = x.shape
         q, k, v = self._qkv(x)
         attend = resolve_attention(self.attention_impl)
         y = attend(q, k, v, causal=self.causal, dtype=self.dtype)
-        return linear(self.proj, y.reshape(B, T, C), self.dtype), (k, v)
+        y = linear(self.proj, y.reshape(B, T, C), self.dtype)
+        return dropout(y, self.dropout, dropout_seed), (k, v)
 
     def decode(self, x, k_cache, v_cache, positions,
                impl: "str | None" = None, page_table=None,
@@ -266,5 +310,5 @@ class MultiHeadAttention(nn.Module):
 
 
 __all__ = ["CacheWrite", "MultiHeadAttention", "auto_attention",
-           "cached_attention", "dot_product_attention", "linear",
-           "resolve_attention"]
+           "cached_attention", "dot_product_attention", "dropout",
+           "dropout_keep_mask", "fold_in", "linear", "resolve_attention"]

@@ -1,5 +1,5 @@
-"""AdamW with a linear warmup or a constant rate, and the fp32 master
-for low-precision resident params.
+"""AdamW with a linear warmup or a constant rate, the fp32 master for
+low-precision resident params, SGD, and clipping by the global norm.
 
 Counterpart of the JAX package's optimizers: ``optax.adamw(
 linear_schedule(0, lr, warmup), b1=0.9, b2=0.95, weight_decay,
@@ -28,6 +28,14 @@ are set to ``master.to(their dtype)``: the end state of the JAX delta
 trick (``optim.py:25-33``) without the trick.  Updates run in place
 under ``torch.no_grad()``; parameters and state are keyed by parameter
 name (``model.named_parameters()``).
+
+``clip_by_global_norm`` and :class:`chain` are ``optax.clip_by_global_
+norm`` chained ahead of the optimizer, as ``Trainer(gradient_clip_val=
+...)`` wraps it; ``SGD`` is ``optax.sgd(lr)``.  Every state has a
+``state_dict()`` of plain containers (ints and dicts of tensors, keyed
+as the optax state's fields) and a ``load_state_dict`` that takes the
+loaded tensors as they are, in their saved dtypes: the checkpoint
+(core/trainer.py) holds no pickled class.
 """
 
 from __future__ import annotations
@@ -65,6 +73,15 @@ class AdamWState:
     mu: "dict[str, torch.Tensor]"
     nu: "dict[str, torch.Tensor]"
 
+    def state_dict(self) -> dict:
+        return {"count": self.count, "mu": dict(self.mu),
+                "nu": dict(self.nu)}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        self.mu = _same_keys(self.mu, state["mu"], "mu")
+        self.nu = _same_keys(self.nu, state["nu"], "nu")
+
 
 @dataclasses.dataclass
 class FP32MasterState:
@@ -73,6 +90,53 @@ class FP32MasterState:
 
     inner: AdamWState
     master: "dict[str, torch.Tensor]"
+
+    def state_dict(self) -> dict:
+        return {"inner": self.inner.state_dict(), "master": dict(self.master)}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.inner.load_state_dict(state["inner"])
+        self.master = _same_keys(self.master, state["master"], "master")
+
+
+@dataclasses.dataclass
+class EmptyState:
+    """``optax.EmptyState``: the state of a stateless transform."""
+
+    def state_dict(self) -> dict:
+        return {}
+
+    def load_state_dict(self, state: dict) -> None:
+        if state:
+            raise ValueError(f"EmptyState takes no entries: {sorted(state)}")
+
+
+@dataclasses.dataclass
+class ChainState:
+    """The state of :class:`chain`: one per transform, keyed ``"0"``,
+    ``"1"``, ... as flax keys optax's tuple."""
+
+    states: tuple
+
+    def state_dict(self) -> dict:
+        return {str(i): s.state_dict() for i, s in enumerate(self.states)}
+
+    def load_state_dict(self, state: dict) -> None:
+        if sorted(state) != [str(i) for i in range(len(self.states))]:
+            raise ValueError(f"chain of {len(self.states)} transforms; "
+                             f"the state has {sorted(state)}")
+        for i, s in enumerate(self.states):
+            s.load_state_dict(state[str(i)])
+
+
+def _same_keys(live: Mapping, saved: Mapping, what: str) -> dict:
+    """``saved`` as a dict, after checking it names the live tensors."""
+    if set(live) != set(saved):
+        raise ValueError(
+            f"{what}: the saved state names other parameters (missing "
+            f"{sorted(set(live) - set(saved))[:4]}, unexpected "
+            f"{sorted(set(saved) - set(live))[:4]})")
+    return dict(saved)
 
 
 def _rounded(value: float, dtype: torch.dtype) -> float:
@@ -163,5 +227,73 @@ class fp32_master:  # noqa: N801 - named as the JAX package's transform
             p.copy_(state.master[k])                 # master.to(p.dtype)
 
 
-__all__ = ["AdamW", "AdamWState", "FP32MasterState", "fp32_master",
-           "linear_schedule"]
+class SGD:
+    """``optax.sgd(lr)`` without momentum: ``p += g * -lr`` (the update
+    rounded before the add, as ``apply_updates`` adds it)."""
+
+    def __init__(self, lr: float):
+        self.lr = lr
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> EmptyState:
+        return EmptyState()
+
+    @torch.no_grad()
+    def update(self, grads: Mapping[str, torch.Tensor], state: EmptyState,
+               params: Mapping[str, torch.Tensor]) -> None:
+        names = list(params)
+        torch._foreach_add_([params[k] for k in names], torch._foreach_mul(
+            [grads[k] for k in names], -self.lr))
+
+
+class clip_by_global_norm:  # noqa: N801 - named as the optax transform
+    """``optax.clip_by_global_norm(max_norm)``: with ``norm`` the square
+    root of the sum over tensors of ``sum(g * g)``, computed in the
+    gradients' dtype, each gradient becomes ``g`` where ``norm <
+    max_norm``, else ``(g / norm) * max_norm``.  Stateless; its
+    :meth:`update` returns the clipped gradients."""
+
+    def __init__(self, max_norm: float):
+        self.max_norm = max_norm
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> EmptyState:
+        return EmptyState()
+
+    @torch.no_grad()
+    def update(self, grads: Mapping[str, torch.Tensor], state: EmptyState,
+               params=None) -> "dict[str, torch.Tensor]":
+        # python's sum from 0, as optax's: the first tensor's square sum
+        # in its dtype, then each next one added in the promoted dtype
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+        trigger = norm < self.max_norm
+        return {k: torch.where(trigger, g,
+                               (g / norm.to(g.dtype)) * self.max_norm)
+                for k, g in grads.items()}
+
+
+class chain:  # noqa: N801 - named as optax.chain
+    """``optax.chain(*transforms)`` for the shape the ``Trainer`` builds:
+    every transform but the last maps the gradients (its ``update``
+    returns new ones, as :class:`clip_by_global_norm`'s does), the last
+    applies them to the params in place.  So the clip sees the gradients
+    in their own dtype, before ``fp32_master`` upcasts them, as in the
+    JAX package."""
+
+    def __init__(self, *transforms):
+        if not transforms:
+            raise ValueError("chain needs at least one transform")
+        self.transforms = transforms
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> ChainState:
+        return ChainState(tuple(t.init(params) for t in self.transforms))
+
+    def update(self, grads: Mapping[str, torch.Tensor], state: ChainState,
+               params: Mapping[str, torch.Tensor]) -> None:
+        *maps, last = self.transforms
+        for t, s in zip(maps, state.states):
+            grads = t.update(grads, s, params)
+        last.update(grads, state.states[-1], params)
+
+
+__all__ = ["AdamW", "AdamWState", "ChainState", "EmptyState",
+           "FP32MasterState", "SGD", "chain", "clip_by_global_norm",
+           "fp32_master", "linear_schedule"]

@@ -1,1 +1,2 @@
-"""Host-side utilities: seeding (utils/seed.py)."""
+"""Host-side utilities: seeding (utils/seed.py), state streams
+(utils/states.py) and the CSV metrics logger (utils/logger.py)."""

@@ -350,8 +350,9 @@ def test_bert_routes_and_not_ported(monkeypatch):
     dispatch, ``tpu_rows``): bert-base rows 1 + 6 (non-causal, packed),
     ``tiny`` rows 5 + 10, bert-base under ``RLT_FLASH_BLOCK_Q=K=128``
     rows 5 + 15 + 16.  Remat "full" gives the gradients of "off" bit for
-    bit; dropout, the other remat policies, SPMD rules and an unknown
-    flax path raise."""
+    bit; dropout runs in training only (the forward without a seed is
+    the dropout-free one bit for bit); the other remat policies, SPMD
+    rules and an unknown flax path raise."""
     base = tbert.CONFIGS["bert-base"]
     tiny = tbert.CONFIGS["tiny"]
     assert tpu_rows(base.max_len, base.n_head, base.head_dim, False) \
@@ -376,10 +377,17 @@ def test_bert_routes_and_not_ported(monkeypatch):
         grads.append(torch.autograd.grad(loss, list(remat.parameters())))
     assert all(torch.equal(a, b) for a, b in zip(*grads))
 
-    for cfg in (dataclasses.replace(tiny, dropout=0.1),
-                dataclasses.replace(tiny, remat=True, remat_policy="dots")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbert.BertMLMModule(cfg).configure_model("cpu")
+    model = _torch_model("mlm", "tiny", torch.float32, "flash")
+    drop = tbert.BertForMaskedLM(dataclasses.replace(model.config,
+                                                     dropout=0.1),
+                                 device="cpu")
+    drop.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        assert torch.equal(drop(x), model(x))
+        assert not torch.equal(drop(x, dropout_seed=7), model(x))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tbert.BertMLMModule(dataclasses.replace(
+            tiny, remat=True, remat_policy="dots")).configure_model("cpu")
     with pytest.raises(NotImplementedError, match="SpmdStrategy"):
         tbert.bert_partition_rules()
     with pytest.raises(KeyError, match="no mapping"):
@@ -528,7 +536,8 @@ def test_fit_matches_jax_trainer(which, tmp_path):
     jt = JaxTrainer(callbacks=[jrec], logger=False,
                     default_root_dir=str(tmp_path), **common)
     jt.fit(jmod)
-    tt = Trainer(callbacks=[trec], device="cpu", **common)
+    tt = Trainer(callbacks=[trec], device="cpu",
+                 default_root_dir=str(tmp_path), **common)
     tt.fit(tmod)
     assert len(trec.losses) == len(jrec.losses) == 5
     np.testing.assert_allclose(trec.losses, jrec.losses, atol=tol, rtol=tol)

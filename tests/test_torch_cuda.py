@@ -571,9 +571,10 @@ def test_cuda_trainer_fits_tiny_through_the_kernels(cuda_device):
             losses.append(float(outputs["loss"]))
 
     module = GPTLightningModule("tiny", warmup_steps=2, dataset_size=32)
-    trainer = Trainer(max_steps=3, enable_checkpointing=False, seed=0,
-                      num_sanity_val_steps=0, limit_val_batches=0,
-                      callbacks=[Losses()], device=cuda_device)
+    trainer = Trainer(max_steps=3, enable_checkpointing=False,
+                      logger=False, seed=0, num_sanity_val_steps=0,
+                      limit_val_batches=0, callbacks=[Losses()],
+                      device=cuda_device)
     _kernels.reset_launches()
     trainer.fit(module)
     counts = _kernels.launch_counts()
@@ -601,9 +602,10 @@ def test_cuda_bert_fits_tiny_through_the_kernels(module, cuda_device):
 
     lm = (BertMLMModule("tiny", train_size=32) if module == "mlm"
           else BertLightningModule("tiny", train_size=32, warmup_steps=1))
-    trainer = Trainer(max_steps=3, enable_checkpointing=False, seed=0,
-                      num_sanity_val_steps=0, limit_val_batches=0,
-                      callbacks=[Losses()], device=cuda_device)
+    trainer = Trainer(max_steps=3, enable_checkpointing=False,
+                      logger=False, seed=0, num_sanity_val_steps=0,
+                      limit_val_batches=0, callbacks=[Losses()],
+                      device=cuda_device)
     _kernels.reset_launches()
     trainer.fit(lm)
     counts = _kernels.launch_counts()
@@ -630,15 +632,63 @@ def test_cuda_trainer_fits_under_remat_through_the_kernels(cuda_device):
     cfg = GPTConfig(vocab_size=512, block_size=256, n_layer=2, n_head=2,
                     n_embd=128, remat=True)
     module = GPTLightningModule(cfg, warmup_steps=2, dataset_size=24)
-    trainer = Trainer(max_steps=3, enable_checkpointing=False, seed=0,
-                      num_sanity_val_steps=0, limit_val_batches=0,
-                      callbacks=[Losses()], device=cuda_device)
+    trainer = Trainer(max_steps=3, enable_checkpointing=False,
+                      logger=False, seed=0, num_sanity_val_steps=0,
+                      limit_val_batches=0, callbacks=[Losses()],
+                      device=cuda_device)
     _kernels.reset_launches()
     trainer.fit(module)
     counts = _kernels.launch_counts()
     assert module.model.remat_policy == "full"
     assert counts["flash_fwd"] == 2 * 2 * 3 and counts["flash_bwd"] == 2 * 3
     assert len(losses) == 3 and np.isfinite(losses).all()
+
+
+def _tensors(tree, prefix=""):
+    """The tensors of a nested checkpoint dict by path."""
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree}
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_tensors(v, f"{prefix}/{k}"))
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_round_trip_keeps_state(cuda_device, tmp_path):
+    """A fit of tiny on the card (bf16 params, fp32 master, bf16 mu),
+    ``save_checkpoint``, then a new ``Trainer`` resumed from the file at
+    ``max_steps`` (so it runs no step): every restored tensor, params,
+    master and both moments, equals the saved state bit for bit, on the
+    card, in its saved dtype; the counters and the step seed too."""
+    def trainer():
+        return Trainer(max_steps=3, seed=0, num_sanity_val_steps=0,
+                       limit_val_batches=0, device=cuda_device,
+                       default_root_dir=str(tmp_path))
+
+    first = trainer()
+    first.fit(GPTLightningModule("tiny", warmup_steps=2, dataset_size=32))
+    path = str(tmp_path / "state.ckpt")
+    first.save_checkpoint(path)
+    saved = first.dump_checkpoint()
+    resumed = trainer()
+    resumed.fit(GPTLightningModule("tiny", warmup_steps=2,
+                                   dataset_size=32), ckpt_path=path)
+    got = resumed.dump_checkpoint()
+    want_t, got_t = _tensors(saved["state"]), _tensors(got["state"])
+    assert set(got_t) == set(want_t) and len(want_t) > 0
+    dtypes = set()
+    for k, w in want_t.items():
+        g = got_t[k]
+        assert g.is_cuda and g.dtype == w.dtype and torch.equal(g, w), k
+        dtypes.add(g.dtype)
+    assert dtypes == {torch.bfloat16, torch.float32}
+    for k in ("epoch", "global_step"):
+        assert got[k] == saved[k]
+    assert (got["state"]["step"], got["state"]["rng"]) == (
+        saved["state"]["step"], saved["state"]["rng"])
+    assert resumed.state.generator.device.type == "cuda"
 
 
 # -- the paged decode kernel (TPU row 14) and the paths that run it -----------

@@ -404,7 +404,8 @@ def test_fit_matches_jax_trainer(tmp_path):
     jt = JaxTrainer(callbacks=[jrec], logger=False,
                     default_root_dir=str(tmp_path), **common)
     jt.fit(jmod)
-    tt = Trainer(callbacks=[trec], device="cpu", **common)
+    tt = Trainer(callbacks=[trec], device="cpu",
+                 default_root_dir=str(tmp_path), **common)
     out = tt.fit(tmod)
     assert len(trec.losses) == len(jrec.losses) == 5
     np.testing.assert_allclose(trec.losses, jrec.losses, atol=2e-2,
@@ -451,19 +452,23 @@ def test_lm_loss_routes_agree(route, monkeypatch):
 
 
 def test_trainer_refuses_what_is_not_ported():
-    """Arguments of the JAX Trainer that the port does not honour raise
-    instead of being ignored; so do the model features it lacks."""
-    with pytest.raises(NotImplementedError, match="enable_checkpointing"):
-        Trainer(device="cpu")
-    for kw in (dict(strategy="ddp"), dict(steps_per_execution=4),
-               dict(gradient_clip_val=1.0), dict(precision="bf16"),
-               dict(cache_train_dataset=True)):
+    """Arguments of the JAX Trainer that the port does not honour yet
+    raise instead of being ignored: the execution plugins and
+    strategies, the loop engine's ``steps_per_execution`` and
+    ``cache_train_dataset``, and the telemetry, compile-cache, comm,
+    elastic and planner planes; so does remat "dots" (gpt2-medium's
+    policy).  Checkpointing, clipping, the bf16 batch cast and dropout
+    are honoured (tests/test_torch_checkpoint.py,
+    tests/test_torch_trainer.py)."""
+    for kw in (dict(strategy="ddp"), dict(plugins=[object()]),
+               dict(steps_per_execution=4), dict(cache_train_dataset=True),
+               dict(telemetry=True), dict(compile_cache=True),
+               dict(comm_policy="int8"), dict(elastic=True),
+               dict(plan=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
-            Trainer(enable_checkpointing=False, device="cpu", **kw)
-    for cfg in ("gpt2-medium", dataclasses.replace(
-            GPTConfig(**TINY), dropout=0.1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            GPTLightningModule(cfg).configure_model("cpu")
+            Trainer(device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        GPTLightningModule("gpt2-medium").configure_model("cpu")
 
 
 @pytest.mark.parametrize("precision", ["32", "32-true", "64", "bf16",
@@ -471,9 +476,10 @@ def test_trainer_refuses_what_is_not_ported():
 def test_trainer_precision_spellings_match_jax(precision, tmp_path,
                                                monkeypatch):
     """Each precision spelling does in the port what it does in the JAX
-    ``Trainer``: the fp32 ones construct and fit as fp32 (the same losses
-    as the default ``"32"``), the bf16 ones construct there and are not
-    ported here, and a spelling neither package knows raises
+    ``Trainer``: every known one constructs and fits, with the model's
+    params left fp32 (the bf16 ones cast a batch's floating leaves only,
+    and TINY's batches are token ids, so every spelling gives the losses
+    of the default ``"32"``); a spelling neither package knows raises
     ``ValueError`` in both."""
     kw = dict(enable_checkpointing=False, seed=0, max_steps=2,
               limit_train_batches=2, num_sanity_val_steps=0,
@@ -483,14 +489,10 @@ def test_trainer_precision_spellings_match_jax(precision, tmp_path,
                    precision=precision, **kw)
     except ValueError:
         with pytest.raises(ValueError, match="Unknown precision"):
-            Trainer(device="cpu", precision=precision, **kw)
+            Trainer(device="cpu", precision=precision,
+                    default_root_dir=str(tmp_path), **kw)
         assert precision == "bogus"
         return
-    if precision.startswith(("bf16", "16")):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            Trainer(device="cpu", precision=precision, **kw)
-        return
-
     monkeypatch.setenv("RLT_BF16_PARAMS", "0")
     jcfg, params = _tiny_init("float32")
 
@@ -507,10 +509,14 @@ def test_trainer_precision_spellings_match_jax(precision, tmp_path,
         mod = _TorchFixed(params, config=GPTConfig(**TINY,
                                                    dtype=torch.float32),
                           warmup_steps=2, batch_size=4, dataset_size=16)
-        Trainer(callbacks=[rec], device="cpu", precision=p, **kw).fit(mod)
+        Trainer(callbacks=[rec], device="cpu", precision=p,
+                default_root_dir=str(tmp_path), **kw).fit(mod)
         assert {x.dtype for x in mod.model.parameters()} == {torch.float32}
         return rec.losses
 
     got = losses(precision)
     assert len(got) == 2 and np.isfinite(got).all()
     assert got == losses("32")
+    assert Trainer(device="cpu", precision=precision,
+                   default_root_dir=str(tmp_path), **kw).batch_float_dtype == (
+        torch.bfloat16 if precision.startswith(("bf16", "16")) else None)
