@@ -136,7 +136,27 @@ Phases, each fatal on failure:
    (d) three 4-step fits at dropout 0.1 from one init: the same trainer
    seed equal bit for bit, another seed not.  Each fit's launches are
    checked (12 x steps for both kernels, plus 12 a validation batch for
-   flash_fwd) and added to rows 1 and 6.
+   flash_fwd) and added to rows 1 and 6;
+11. plugins, everything earlier freed, each run under a temporary
+   ``default_root_dir`` with the default ``ModelCheckpoint`` and a
+   validation batch at the end: (a) ``Trainer(plugins=[RayPlugin(
+   num_workers=1)], max_steps=8).fit(GPTLightningModule("gpt2-small",
+   batch_size=8))`` (T=1024, DDP: the worker's gradients summed over its
+   one rank by NCCL) equal bit for bit to the in-process fit from the
+   same seed (every weight on the driver, ``global_step``,
+   ``callback_metrics``; ``best_model_path`` exists); (b) ``RayShardedPlugin(
+   num_workers=1)`` (ZeRO-1) fine-tuning ``BertLightningModule(
+   "bert-base", batch_size=32)`` (T=512) for 10 steps, equal bit for bit
+   to the in-process fit, its checkpoint equal to the in-process one
+   tensor for tensor, and resumed from it in process for 2 more steps;
+   (c) each fit's launches counted where it ran (a module-level
+   callback, ``PluginProbe``, sends the worker's counts through
+   ``session.put_queue``): 12 a step for both kernels, 12 a validation
+   batch more for flash_fwd; the workers' counts are added to rows 1 and
+   6; (d) the fit call to the end of the first step, the median step in
+   the worker and in process, the result round trip's bytes and
+   seconds, and the phase's seconds, beside the card's name and power
+   limit.
 
 The next-to-last line is the ``{"kernels": [...]}`` JSON record, one
 entry per TPU kernel row, 1 to 16 (``launches`` from the path phases
@@ -160,6 +180,11 @@ in turns (a tree without per-pass entry points times the whole backward
 only).  ``--trainer-only`` checks and times flash_fwd and flash_bwd
 (rows 1 and 6, as phase 2 does), runs phase 10 alone, and prints the
 kernels line (rows 1 and 6, phase 10's launches) and the last line.
+``--plugin-only`` builds the kernels, runs phase 11 before anything in
+this process touches CUDA (and fails if CUDA is initialised here after
+its plugin fits: the driver of a plugin run stays off the card), then
+checks and times rows 1 and 6 as phase 2 does and prints the kernels
+line (phase 11's worker launches) and the last line.
 """
 
 from __future__ import annotations
@@ -168,6 +193,7 @@ import argparse
 import contextlib
 import csv
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -2395,6 +2421,271 @@ def trainer_phase(seed: int, card: str) -> dict:
     return {"launches": launches, "stats": stats}
 
 
+# -- phase 11: plugins ----------------------------------------------------------
+
+#: phase 11's fits: a validation of one batch at the end, no sanity pass,
+#: a metrics row a step, the default ModelCheckpoint
+PLUGIN_ARGS = dict(limit_val_batches=1, num_sanity_val_steps=0,
+                   log_every_n_steps=1)
+PLUGIN_GPT_STEPS = 8
+PLUGIN_BERT_STEPS = 10
+#: the in-process resume of the ZeRO-1 checkpoint runs this many more steps
+PLUGIN_RESUME_STEPS = 2
+#: each plugin run's bound (``RayPlugin(timeout_s=...)``)
+PLUGIN_TIMEOUT_S = 600
+#: the reports of ``PluginProbe``, filled on the driver (the workers'
+#: queue items call ``record_probe`` there)
+PROBES: list = []
+
+
+def record_probe(report: dict) -> None:
+    PROBES.append(report)
+
+
+class PluginProbe(Callback):
+    """In the fit's process, worker or driver: each kernel's launches
+    counted from 0 at the fit's start, each step's synced wall time, the
+    validation batches and the wall clock at the end of the first step;
+    at the fit's end the report goes to ``record_probe`` on the driver
+    (through ``session.put_queue`` from a worker).  Module level, and
+    referred to as ``chip_smoke.PluginProbe``, so a worker can import it:
+    the payload is pickled by import path."""
+
+    def on_fit_start(self, trainer, module):
+        _kernels.reset_launches()
+        self.step_ms, self.val_batches, self.first_step_at = [], 0, None
+
+    def on_train_batch_start(self, trainer, module, batch, batch_idx):
+        torch.cuda.synchronize()
+        self.t0 = time.perf_counter()
+
+    def on_train_batch_end(self, trainer, module, outputs, batch, batch_idx):
+        torch.cuda.synchronize()
+        self.step_ms.append((time.perf_counter() - self.t0) * 1e3)
+        if self.first_step_at is None:
+            self.first_step_at = time.time()
+
+    def on_validation_batch_end(self, trainer, module, outputs, batch,
+                                batch_idx):
+        self.val_batches += 1
+
+    def on_fit_end(self, trainer, module):
+        report = {"launches": _kernels.launch_counts(),
+                  "step_ms": self.step_ms, "val_batches": self.val_batches,
+                  "first_step_at": self.first_step_at,
+                  "device": str(trainer.device),
+                  "world_size": trainer.world_size}
+        if trainer.plugin.remote:
+            from ray_lightning_tpu_torch import session
+            session.put_queue(functools.partial(record_probe, report))
+        else:
+            record_probe(report)
+
+
+def plugin_fit(this, plugin, module, steps: int, seed: int, root: str,
+               ckpt: "str | None" = None) -> dict:
+    """``steps`` of ``Trainer.fit`` under ``plugin`` (``None``: in this
+    process, on the card) with ``this.PluginProbe``; the trainer, the
+    module, the probe's report and the fit's wall seconds."""
+    kw = (dict(plugins=[plugin]) if plugin is not None
+          else dict(device="cuda"))
+    trainer = Trainer(max_steps=steps, seed=seed,
+                      callbacks=[this.PluginProbe()],
+                      default_root_dir=root, **PLUGIN_ARGS, **kw)
+    this.PROBES.clear()
+    t0 = time.time()
+    trainer.fit(module, ckpt_path=ckpt)
+    wall = time.time() - t0
+    if len(this.PROBES) != 1:
+        raise AssertionError(f"{len(this.PROBES)} probe reports, want 1")
+    report = this.PROBES.pop()
+    return dict(trainer=trainer, module=module, report=report, t0=t0,
+                wall_s=wall)
+
+
+def check_probe(run: dict, layers: int, steps: int, what: str) -> dict:
+    """The fit ran ``steps`` steps on the card, each kernel launched 12 a
+    step (12 a validation batch more for flash_fwd), counted where the
+    fit ran."""
+    rep = run["report"]
+    want = {"flash_fwd": layers * (steps + rep["val_batches"]),
+            "flash_bwd": layers * steps}
+    got = {k: rep["launches"][k] for k in want}
+    if got != want or len(rep["step_ms"]) != steps \
+            or not rep["device"].startswith("cuda") \
+            or rep["val_batches"] < 1:
+        raise AssertionError(f"{what}: launches {got}, want {want}; "
+                             f"{len(rep['step_ms'])} steps on "
+                             f"{rep['device']}, {rep['val_batches']} "
+                             f"validation batches")
+    return got
+
+
+def trained_state(run: dict) -> dict:
+    """The fit's weights by name, on the host: the driver's rehydrated
+    ``_trained_state`` after a plugin fit, the model after an in-process
+    one."""
+    module = run["module"]
+    if run["trainer"].plugin.remote:
+        return module._trained_state
+    return {k: v.detach().cpu() for k, v in
+            module.model.state_dict().items()}
+
+
+def check_bitwise(got: dict, want: dict, what: str) -> int:
+    diff = [k for k, w in want.items()
+            if k not in got or got[k].dtype != w.dtype
+            or not torch.equal(got[k], w)]
+    if diff or set(got) != set(want):
+        raise AssertionError(f"{what}: {len(diff)} of {len(want)} tensors "
+                             f"differ (first {diff[:8]})")
+    return len(want)
+
+
+def check_same_run(plugin: dict, local: dict, what: str) -> int:
+    """Bit for bit on every weight; the same counters and metrics."""
+    n = check_bitwise(trained_state(plugin), trained_state(local), what)
+    pt, lt = plugin["trainer"], local["trainer"]
+    if (pt.global_step, pt.current_epoch, pt.callback_metrics) != (
+            lt.global_step, lt.current_epoch, lt.callback_metrics):
+        raise AssertionError(
+            f"{what}: counters or metrics differ: "
+            f"{(pt.global_step, pt.current_epoch, pt.callback_metrics)} vs "
+            f"{(lt.global_step, lt.current_epoch, lt.callback_metrics)}")
+    return n
+
+
+def ckpt_tensors(path: str) -> dict:
+    """A checkpoint's ``state`` tensors by path, on the host."""
+    out = {}
+
+    def walk(prefix, d):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                walk(f"{prefix}{k}/", v)
+            elif isinstance(v, torch.Tensor):
+                out[f"{prefix}{k}"] = v
+            else:
+                out[f"{prefix}{k}"] = torch.tensor(v)
+
+    walk("", Trainer.load_checkpoint_dict(path, "cpu")["state"])
+    return out
+
+
+def plugin_phase(seed: int, driver_off_cuda: bool) -> dict:
+    """Phase 11 (module docstring): (a) gpt2-small under
+    ``RayPlugin(num_workers=1)`` against the in-process fit, (b) bert-base
+    fine-tuning under ``RayShardedPlugin(num_workers=1)`` against the
+    in-process fit, both checkpoints equal, the ZeRO-1 checkpoint resumed
+    in process; (c) launches counted in the worker; (d) timings; (e) with
+    ``driver_off_cuda``, the plugin fits run before anything touches CUDA
+    here, and CUDA is still uninitialised after them."""
+    import chip_smoke as this   # the module by name: workers import it
+    from ray_lightning_tpu_torch import RayPlugin, RayShardedPlugin
+    t_phase = time.monotonic()
+    base = tempfile.mkdtemp(prefix="rlt_plugin_phase_")
+    gpt = lambda: GPTLightningModule("gpt2-small", batch_size=TRAIN_B)
+    bert = lambda: BertLightningModule(
+        "bert-base", batch_size=BERT_B,
+        train_size=BERT_B * (PLUGIN_BERT_STEPS + PLUGIN_RESUME_STEPS))
+    try:
+        ddp_plugin = RayPlugin(num_workers=1, timeout_s=PLUGIN_TIMEOUT_S)
+        ddp = plugin_fit(this, ddp_plugin, gpt(), PLUGIN_GPT_STEPS, seed,
+                         os.path.join(base, "ddp"))
+        zero_plugin = RayShardedPlugin(num_workers=1,
+                                       timeout_s=PLUGIN_TIMEOUT_S)
+        zero = plugin_fit(this, zero_plugin, bert(), PLUGIN_BERT_STEPS,
+                          seed, os.path.join(base, "zero1"))
+        if driver_off_cuda and torch.cuda.is_initialized():
+            raise AssertionError("(e) the driver initialised CUDA during "
+                                 "the plugin fits")
+        log(f"  (e) driver CUDA initialised after the plugin fits: "
+            f"{torch.cuda.is_initialized()}")
+        local_gpt = plugin_fit(this, None, gpt(), PLUGIN_GPT_STEPS, seed,
+                               os.path.join(base, "local_gpt"))
+        n_gpt = check_same_run(ddp, local_gpt, "(a) gpt2-small RayPlugin "
+                               "vs in-process")
+        best = ddp["trainer"].checkpoint_callback.best_model_path
+        if not best or not os.path.exists(best):
+            raise AssertionError(f"(a) best_model_path {best!r} missing")
+        log(f"  (a) gpt2-small DDP W=1: {n_gpt} tensors, global_step, "
+            f"callback_metrics {ddp['trainer'].callback_metrics} equal to "
+            f"the in-process fit bit for bit; best_model_path "
+            f"{os.path.basename(best)}")
+        local_bert = plugin_fit(this, None, bert(), PLUGIN_BERT_STEPS, seed,
+                                os.path.join(base, "local_bert"))
+        n_bert = check_same_run(zero, local_bert, "(b) bert-base "
+                                "RayShardedPlugin vs in-process")
+        zckpt = zero["trainer"].checkpoint_callback.best_model_path
+        lckpt = local_bert["trainer"].checkpoint_callback.best_model_path
+        n_ckpt = check_bitwise(ckpt_tensors(zckpt), ckpt_tensors(lckpt),
+                               "(b) ZeRO-1 checkpoint vs in-process")
+        meta = Trainer.load_checkpoint_dict(zckpt, "cpu")
+        if (meta["world_size"], meta["strategy"]) != (1, "zero1"):
+            raise AssertionError(f"(b) checkpoint world_size/strategy "
+                                 f"{meta['world_size']}, {meta['strategy']}")
+        resumed = plugin_fit(this, None, bert(),
+                             PLUGIN_BERT_STEPS + PLUGIN_RESUME_STEPS, seed,
+                             os.path.join(base, "resumed"), ckpt=zckpt)
+        layers = 12
+        check_probe(resumed, layers, PLUGIN_RESUME_STEPS,
+                    "(b) in-process resume of the ZeRO-1 checkpoint")
+        if resumed["trainer"].global_step != \
+                PLUGIN_BERT_STEPS + PLUGIN_RESUME_STEPS:
+            raise AssertionError(f"(b) resume ended at step "
+                                 f"{resumed['trainer'].global_step}")
+        log(f"  (b) bert-base ZeRO-1 W=1: {n_bert} tensors, global_step, "
+            f"callback_metrics {zero['trainer'].callback_metrics} equal to "
+            f"the in-process fit bit for bit; its checkpoint equal to the "
+            f"in-process one ({n_ckpt} tensors: params, moments, count); "
+            f"resumed in process for {PLUGIN_RESUME_STEPS} steps to step "
+            f"{resumed['trainer'].global_step}")
+        launches = {"flash_fwd": 0, "flash_bwd": 0}
+        timings = {}
+        for name, run, local, steps in (
+                ("gpt2-small ddp", ddp, local_gpt, PLUGIN_GPT_STEPS),
+                ("bert-base zero1", zero, local_bert, PLUGIN_BERT_STEPS)):
+            got = check_probe(run, layers, steps, f"(c) {name} worker")
+            check_probe(local, layers, steps, f"(c) {name} in-process")
+            for k in launches:
+                launches[k] += got[k]
+            rt = run["trainer"].plugin.last_result
+            timings[name] = {
+                "worker_start_to_first_step_s":
+                    run["report"]["first_step_at"] - run["t0"],
+                "in_process_start_to_first_step_s":
+                    local["report"]["first_step_at"] - local["t0"],
+                "worker_step_ms_median":
+                    float(np.median(run["report"]["step_ms"][2:])),
+                "in_process_step_ms_median":
+                    float(np.median(local["report"]["step_ms"][2:])),
+                "state_stream_bytes": rt["state_stream_bytes"],
+                "round_trip_s": rt["round_trip_s"],
+                "plugin_fit_s": run["wall_s"], "in_process_fit_s":
+                    local["wall_s"], "worker_launches": got}
+            log(f"  (c) {name}: worker launches {got} (12 x {steps} steps, "
+                f"+12 x {run['report']['val_batches']} validation batch "
+                f"for flash_fwd)")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    card = card_line()
+    for name, t in timings.items():
+        log(f"  (d) [{card}] {name}: fit call to the end of the first step "
+            f"{t['worker_start_to_first_step_s']:.3f} s in the worker "
+            f"(spawn, import, rendezvous, build, init) vs "
+            f"{t['in_process_start_to_first_step_s']:.3f} s in process; "
+            f"median step {t['worker_step_ms_median']:.3f} ms in the worker "
+            f"vs {t['in_process_step_ms_median']:.3f} ms in process (steps "
+            f"3+, synced); result round trip "
+            f"{t['state_stream_bytes']} bytes in "
+            f"{t['round_trip_s']:.3f} s; fit {t['plugin_fit_s']:.3f} s vs "
+            f"{t['in_process_fit_s']:.3f} s")
+    stats = {"card": card, "timings": timings, "launches": launches,
+             "phase_s": time.monotonic() - t_phase}
+    log("plugin " + json.dumps(stats))
+    return {"launches": launches, "stats": stats}
+
+
 def attribute(by_row: dict, runs: list) -> None:
     """Add each path run's launches to the rows it takes: flash_fwd's to
     its forward row, flash_bwd's to each backward row."""
@@ -2739,6 +3030,11 @@ def main(argv=None) -> int:
                     help="build, check and time flash_fwd and flash_bwd "
                          "(rows 1 and 6), then run phase 10 (the trainer: "
                          "checkpoint and resume, predict, dropout) alone")
+    ap.add_argument("--plugin-only", action="store_true",
+                    help="build, run phase 11 (RayPlugin and "
+                         "RayShardedPlugin) with the driver off CUDA, then "
+                         "check and time flash_fwd and flash_bwd (rows 1 "
+                         "and 6)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -2746,8 +3042,9 @@ def main(argv=None) -> int:
         return 1
 
     log(card_line())
-    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"{torch.cuda.get_device_name(0)}")
+    if not args.plugin_only:     # the device's name initialises CUDA
+        log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+            f"{torch.cuda.get_device_name(0)}")
     build_s = _kernels.build()
     log(f"build: {build_s:.2f} s for {sorted(_kernels.REGISTRY)}")
     by_source = {k.source: k for k in _kernels.REGISTRY.values()}
@@ -2756,6 +3053,25 @@ def main(argv=None) -> int:
             if any(w in line for w in ("registers", "spill", "entry "
                                        "function", "wgmma", "warning")):
                 log(f"  ptxas {source}: {line.strip()}")
+
+    if args.plugin_only:
+        log("plugin phase")
+        t0 = time.monotonic()
+        plugin = plugin_phase(args.seed, driver_off_cuda=True)
+        log(f"plugin phase: {time.monotonic() - t0:.1f} s")
+        log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+            f"{torch.cuda.get_device_name(0)}")
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        log("kernel phase (rows 1 and 6)")
+        entries = [kernel_flash_fwd(gen), kernel_flash_bwd(gen)]
+        for e in entries:
+            e["launches_by_path"] = {"plugin": plugin["launches"][e["name"]]}
+            e["launches"] = e["launches_by_path"]["plugin"]
+        log(json.dumps({"kernels": entries}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     if args.fwd_only:
@@ -2851,6 +3167,16 @@ def main(argv=None) -> int:
         e["launches_by_path"]["trainer"] = trainer["launches"][e["name"]]
         e["launches"] = sum(e["launches_by_path"].values())
     log(f"trainer phase: {time.monotonic() - t0:.1f} s")
+
+    log("plugin phase")
+    t0 = time.monotonic()
+    free_cuda()
+    plugin = plugin_phase(args.seed, driver_off_cuda=False)
+    for row in (1, 6):
+        e = by_row[row]
+        e["launches_by_path"]["plugin"] = plugin["launches"][e["name"]]
+        e["launches"] = sum(e["launches_by_path"].values())
+    log(f"plugin phase: {time.monotonic() - t0:.1f} s")
     log("speed order (rows slower than their library call by that factor, "
         "then by launches x (ms - bound)): " + ", ".join(
             f"row {e['row']} {e['ms'] / e['library_ms']:.2f}x"

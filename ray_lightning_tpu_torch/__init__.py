@@ -10,7 +10,10 @@ Training: ``Trainer(...).fit(GPTLightningModule(...))`` on one device
 (fused CE, AdamW with an fp32 master, accumulation, clipping, dropout;
 checkpoints with ``ModelCheckpoint`` and resume with ``ckpt_path=``,
 ``EarlyStopping``, ``val_check_interval``, ``predict``, datamodules, a
-``CSVLogger``), and the BERT
+``CSVLogger``), data-parallel over subprocess actors with
+``Trainer(plugins=[RayPlugin(num_workers=N)])`` (DDP) or
+``RayShardedPlugin`` (ZeRO-1), NCCL on the card and gloo on the CPU, and
+the BERT
 family: ``Trainer(...).fit(BertMLMModule("bert-base", batch_size=32))``
 (masked-LM pretraining) and ``BertLightningModule`` (sequence
 classification), whose attention is bidirectional.  Their attention
@@ -40,6 +43,8 @@ from ray_lightning_tpu_torch.models.boring import (BoringModel,
                                                    LightningMNISTClassifier)
 from ray_lightning_tpu_torch.models.gpt import (CONFIGS, GPT, GPTConfig,
                                                 GPTLightningModule)
+from ray_lightning_tpu_torch.plugins import (LocalPlugin, RayPlugin,
+                                            RayShardedPlugin)
 from ray_lightning_tpu_torch.serve import (Scheduler, ServeEngine,
                                            ServeRequest, ServeWorker)
 from ray_lightning_tpu_torch.utils.logger import CSVLogger
@@ -63,7 +68,10 @@ __all__ = [
     "LightningDataModule",
     "LightningMNISTClassifier",
     "LightningModule",
+    "LocalPlugin",
     "ModelCheckpoint",
+    "RayPlugin",
+    "RayShardedPlugin",
     "Scheduler",
     "ServeEngine",
     "ServeRequest",

@@ -7,9 +7,10 @@ called by the port's ``Trainer`` at the same points, the same file names
 ``<default_root_dir>/checkpoints``), top-k eviction, ``save_last``,
 ``every_n_epochs`` and ``state_dict`` entries.  A ``ModelCheckpoint``
 saves at the end of each validation outside the sanity check, or at the
-end of a train epoch that ran no validation.  The port runs one process,
-so nothing is gated on a rank.  ``ShardedCheckpoint`` (orbax) is not
-ported.
+end of a train epoch that ran no validation.  Every rank runs the
+callbacks and saves (a collective; ``Trainer.save_checkpoint`` writes
+on global zero alone), and only global zero deletes an evicted file.
+``ShardedCheckpoint`` (orbax) is not ported.
 """
 
 from __future__ import annotations
@@ -160,7 +161,7 @@ class ModelCheckpoint(Callback):
                 if evict == path:
                     self._record_last(trainer)
                     return                  # not in the top k: not written
-                if os.path.exists(evict):
+                if trainer.is_global_zero and os.path.exists(evict):
                     os.remove(evict)
             trainer.save_checkpoint(path)
             self.best_model_score, self.best_model_path = self._saved[0]

@@ -1,11 +1,12 @@
 """Data loading: numpy datasets, batches as torch tensors.
 
 Counterpart of ``ray_lightning_tpu/core/data.py`` (``ArrayDataset``,
-``DataLoader``, ``default_collate``) on one device: the same index order
-(``shuffle`` draws ``default_rng(seed + epoch)``) and ``drop_last``, with
-each numpy batch handed out as CPU torch tensors, which the ``Trainer``
-moves to its device (:func:`to_device`).  Per-process sharding and the
-C++ prefetch runtime of the JAX package are not ported.
+``DataLoader``, ``default_collate``): the same index order (``shuffle``
+draws ``default_rng(seed + epoch)``), ``drop_last`` and per-rank
+sharding (:meth:`DataLoader.shard`), with each numpy batch handed out
+as CPU torch tensors, which the ``Trainer`` moves to its device
+(:func:`to_device`).  The C++ prefetch runtime of the JAX package is not
+ported.
 """
 
 from __future__ import annotations
@@ -109,14 +110,27 @@ class DataLoader:
 
     def __init__(self, dataset: Any, batch_size: int = 1,
                  shuffle: bool = False, drop_last: bool = False,
-                 seed: int = 0, collate_fn: "Callable | None" = None):
+                 seed: int = 0, collate_fn: "Callable | None" = None,
+                 num_shards: int = 1, shard_index: int = 0):
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
         self.collate_fn = collate_fn or default_collate
+        self.num_shards = num_shards
+        self.shard_index = shard_index
         self._epoch = 0
+
+    def shard(self, num_shards: int, shard_index: int) -> "DataLoader":
+        """A copy of this loader restricted to one rank's shard (the
+        ``DistributedSampler`` analog)."""
+        clone = DataLoader(self.dataset, batch_size=self.batch_size,
+                           shuffle=self.shuffle, drop_last=self.drop_last,
+                           seed=self.seed, collate_fn=self.collate_fn,
+                           num_shards=num_shards, shard_index=shard_index)
+        clone._epoch = self._epoch
+        return clone
 
     def set_epoch(self, epoch: int) -> None:
         """Reshuffle deterministically per epoch."""
@@ -125,11 +139,20 @@ class DataLoader:
     def _indices(self) -> np.ndarray:
         n = len(self.dataset)
         if self.shuffle:
-            return np.random.default_rng(self.seed + self._epoch).permutation(n)
-        return np.arange(n)
+            idx = np.random.default_rng(self.seed + self._epoch).permutation(n)
+        else:
+            idx = np.arange(n)
+        if self.num_shards > 1:
+            # wrap-around padding so every shard has as many samples
+            # (DistributedSampler's), then a stride
+            pad = (-len(idx)) % self.num_shards
+            if pad:
+                idx = np.concatenate([idx, idx[:pad]])
+            idx = idx[self.shard_index::self.num_shards]
+        return idx
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(self._indices())
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size

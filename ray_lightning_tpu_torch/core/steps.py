@@ -3,7 +3,7 @@
 draft and verify).
 
 Counterpart of ``ray_lightning_tpu/core/steps.py`` ``build_init_fn`` /
-``build_train_step`` (the ``grad_sync=None`` path) / ``build_eval_step``
+``build_train_step`` / ``build_eval_step``
 / ``build_predict_step`` / ``build_prefill_step`` / ``build_decode_step``
 / ``build_kv_copy`` / ``build_suffix_step`` / ``build_draft_step`` /
 ``build_verify_step``.  A torch module holds its own parameters, so the
@@ -53,8 +53,9 @@ def _split_loss(out) -> "tuple[torch.Tensor, dict]":
     return out, {}
 
 
-def build_train_step(module, tx, accumulate_grad_batches: int = 1
-                     ) -> Callable:
+def build_train_step(module, tx, accumulate_grad_batches: int = 1,
+                     grad_sync: "Callable | None" = None,
+                     rank: "int | None" = None) -> Callable:
     """``(state, batch) -> (state, metrics)``: one optimizer step.
 
     With ``accumulate_grad_batches=k`` the batch's leading dim splits
@@ -64,6 +65,12 @@ def build_train_step(module, tx, accumulate_grad_batches: int = 1
     microbatch means.  With k=1 the gradients keep the params' dtype
     (bf16 for bf16-resident params) and the optimizer upcasts them.
     ``metrics`` holds detached fp32 tensors on the device.
+
+    ``grad_sync`` (``grads -> grads``, the strategy's: DDP's average over
+    the ranks) runs between the backward and the update.  ``rank`` joins
+    the step's entropy, so the ranks of a multi-process run draw
+    different dropout masks (``None``: one process, whose entropy is
+    the seed, the step and the microbatch).
     """
     k = max(1, int(accumulate_grad_batches))
 
@@ -87,9 +94,11 @@ def build_train_step(module, tx, accumulate_grad_batches: int = 1
         # the step's entropy: the seed, the step, the microbatch (the JAX
         # step folds the step and the microbatch index into its key)
         seed, dev = state.generator.initial_seed(), state.generator.device
+        ranked = () if rank is None else (rank,)
         if k == 1:
             loss, logged, grads = grads_of(params, batch,
-                                           (seed, state.step, 0), dev)
+                                           (seed, state.step, 0, *ranked),
+                                           dev)
         else:
             acc = [torch.zeros_like(p, dtype=torch.float32)
                    for p in params.values()]
@@ -99,7 +108,7 @@ def build_train_step(module, tx, accumulate_grad_batches: int = 1
                       if isinstance(batch, (tuple, list))
                       else micro(batch, i))
                 loss_i, logged_i, grads_i = grads_of(
-                    params, mb, (seed, state.step, i), dev)
+                    params, mb, (seed, state.step, i, *ranked), dev)
                 torch._foreach_add_(acc, [g.float() for g in grads_i])
                 losses.append(loss_i)
                 logs.append(logged_i)
@@ -107,6 +116,8 @@ def build_train_step(module, tx, accumulate_grad_batches: int = 1
             loss = torch.stack(losses).mean()
             logged = {n: torch.stack([d[n] for d in logs]).mean()
                       for n in logs[0]}
+        if grad_sync is not None:
+            grads = grad_sync(list(grads))
         tx.update(dict(zip(params, grads)), state.opt_state, params)
         state.step += 1
         return state, {"loss": loss, **logged}

@@ -1,14 +1,32 @@
-"""``Trainer``: fit / validate / test / predict of a ``LightningModule``
-on one device, with checkpointing, resume and a metrics log.
+"""``Trainer``: fit / validate / test / predict of a ``LightningModule``,
+in this process or over actor workers, with checkpointing, resume and a
+metrics log.
 
-Counterpart of the single-device surface of ``ray_lightning_tpu/core/
-trainer.py`` (``Trainer.__init__``, ``fit``, ``validate``, ``test``,
-``predict``, ``_fit_loop``, ``_train_epoch``, ``_maybe_interval_val``,
-``_eval_loop``, ``_predict_loop``, ``dump_checkpoint``,
-``save_checkpoint``, ``load_checkpoint_dict``, ``_restore_checkpoint``):
-the same loop order, hooks, stop conditions, metric semantics and
-checkpoint keys, run eagerly by PyTorch on ``device`` (the card unless
-the caller passes ``device="cpu"``).
+Counterpart of ``ray_lightning_tpu/core/trainer.py`` (``Trainer.__init__``,
+``fit``, ``validate``, ``test``, ``predict``, the world info,
+``_fit_loop``, ``_train_epoch``, ``_maybe_interval_val``, ``_eval_loop``,
+``_predict_loop``, ``dump_checkpoint``, ``save_checkpoint``,
+``load_checkpoint_dict``, ``_restore_checkpoint``): the same loop order,
+hooks, stop conditions, metric semantics and checkpoint keys, run
+eagerly by PyTorch.  A stage runs through the execution plugin
+(plugins/): ``LocalPlugin`` (the default) runs it here on ``device``
+(the card unless the caller passes ``device="cpu"``) at world size 1;
+``RayPlugin`` / ``RayShardedPlugin`` run it in actor workers, each on
+its own device, joined by ``torch.distributed``, and the driver resolves
+no device.  ``strategy=`` (``"ddp"``, ``"zero1"`` and their aliases,
+parallel/strategy.py) overrides the plugin's.
+
+Across ranks, as in the JAX package, whose step computes on the global
+batch: each loader is sharded by rank (``DataLoader.shard``, when
+``use_distributed_sampler`` and the world size is over 1); the train
+metrics are the mean over the ranks and the validation metrics the
+batch-size-weighted mean over every rank's batches, so callbacks decide
+the same on every rank; ``predict`` returns every rank's rows, batch by
+batch in rank order; a step's dropout masks differ across ranks (the
+rank joins the step's entropy).  Checkpoints are collective: every rank
+builds the dict (ZeRO-1 gathers its shards into the single-device
+layout) and global zero alone writes it, the ``metrics.csv`` rows and
+the evictions.
 
 Honoured: ``max_epochs``, ``max_steps``, ``callbacks``,
 ``default_root_dir`` (default ``<cwd>/rlt_logs``),
@@ -16,7 +34,8 @@ Honoured: ``max_epochs``, ``max_steps``, ``callbacks``,
 ``limit_{train,val,test,predict}_batches``, ``num_sanity_val_steps``,
 ``check_val_every_n_epoch``, ``val_check_interval`` (a validation when
 ``global_step`` is a multiple of it, inside the epoch),
-``log_every_n_steps``, ``accumulate_grad_batches``,
+``log_every_n_steps``, ``accumulate_grad_batches``, ``plugins``,
+``strategy``, ``use_distributed_sampler``,
 ``gradient_clip_val`` (``clip_by_global_norm`` chained ahead of the
 module's optimizer), ``precision`` (the bf16 spellings cast a batch's
 floating leaves to bf16; the model's dtypes do not change), ``seed``,
@@ -26,16 +45,16 @@ floating leaves to bf16; the model's dtypes do not change), ``seed``,
 train steps' values (published mid-epoch every ``log_every_n_steps``
 steps) and the batch-size-weighted mean of the last validation;
 ``global_step`` counts optimizer steps and ``current_epoch`` the epochs
-run.  ``plugins``, ``strategy``, ``steps_per_execution``,
-``cache_train_dataset`` and the telemetry, compile-cache, comm, elastic
-and planner planes raise ``NotImplementedError`` when given a value
-other than their default.
+run.  ``steps_per_execution``, ``cache_train_dataset`` and the
+telemetry, compile-cache, comm, elastic and planner planes raise
+``NotImplementedError`` when given a value other than their default.
 
 A checkpoint is one file, ``torch.save`` of plain containers
 (utils/states.py), with the JAX checkpoint's top-level keys: ``epoch``,
 ``global_step``, ``state`` (``step``, ``params``, ``model_state``, the
 optimizer's ``state_dict``, and ``rng``: the seed the steps draw from),
-``hparams``, ``callbacks``, ``world_size``, ``strategy``.  Resuming
+``hparams``, ``callbacks``, ``world_size``, ``strategy`` (the strategy's
+name: ``"ddp"`` for a plain fit).  Resuming
 restores all of it, the tensors on the trainer's device in their saved
 dtypes, so a resumed fit continues as the uninterrupted one does, bit
 for bit.  As in the JAX package, ``epoch`` is the epoch the resumed fit
@@ -53,6 +72,9 @@ import numpy as np
 import torch
 
 from ray_lightning_tpu_torch._device import resolve_device
+from ray_lightning_tpu_torch.parallel import strategy as _parallel
+from ray_lightning_tpu_torch.parallel.strategy import resolve_strategy
+from ray_lightning_tpu_torch.plugins.base import LocalPlugin
 from ray_lightning_tpu_torch.core.callbacks import Callback, ModelCheckpoint
 from ray_lightning_tpu_torch.core.data import to_device
 from ray_lightning_tpu_torch.core.state import TrainState
@@ -69,8 +91,8 @@ from ray_lightning_tpu_torch.utils.states import (load_state_stream,
 
 #: arguments of the JAX ``Trainer`` that are not ported: name -> default
 _NOT_PORTED = {
-    "plugins": None, "strategy": None, "steps_per_execution": 1,
-    "cache_train_dataset": False, "telemetry": None,
+    "steps_per_execution": 1, "cache_train_dataset": False,
+    "telemetry": None,
     "compile_cache": None, "comm_policy": None, "elastic": None,
     "plan": None,
 }
@@ -87,8 +109,8 @@ _LOADER_OF_STAGE = {"fit": "train", "validate": "val", "test": "test",
 
 
 class Trainer:
-    """Drives fit / validate / test / predict for a LightningModule on
-    one device (module docstring)."""
+    """Drives fit / validate / test / predict for a LightningModule
+    through its execution plugin (module docstring)."""
 
     def __init__(
         self,
@@ -129,8 +151,7 @@ class Trainer:
             raise ValueError(
                 f"Unknown precision {precision!r}; use one of "
                 f"{_BF16_PRECISIONS + _FP32_PRECISIONS}")
-        given = dict(plugins=plugins or None, strategy=strategy,
-                     steps_per_execution=int(steps_per_execution),
+        given = dict(steps_per_execution=int(steps_per_execution),
                      cache_train_dataset=bool(cache_train_dataset),
                      telemetry=telemetry, compile_cache=compile_cache,
                      comm_policy=comm_policy, elastic=elastic, plan=plan)
@@ -138,8 +159,18 @@ class Trainer:
             if given[name] != default:
                 raise NotImplementedError(
                     f"Trainer({name}={given[name]!r}) is not ported yet "
-                    f"(ROADMAP.md queue 1); the port's Trainer runs one "
-                    f"device, eagerly")
+                    f"(ROADMAP.md queue 1)")
+        runners = [p for p in (plugins or []) if hasattr(p, "run")]
+        if len(runners) > 1:
+            raise ValueError("At most one execution plugin is supported.")
+        self.plugin = runners[0] if runners else LocalPlugin()
+        if strategy is not None:
+            self.plugin.strategy = resolve_strategy(strategy)
+        if self.plugin.remote and device is not None:
+            raise ValueError(
+                f"Trainer(device={device!r}) with {type(self.plugin).__name__}"
+                f": its workers take their own devices (platform='cpu' for "
+                f"CPU workers)")
         if max_epochs is None and (max_steps is None or max_steps < 0):
             max_epochs = 1000
         self.max_epochs = max_epochs
@@ -159,8 +190,12 @@ class Trainer:
         self.gradient_clip_val = gradient_clip_val
         self.seed = seed
         self.resume_from_checkpoint = resume_from_checkpoint
+        self.use_distributed_sampler = use_distributed_sampler
         self.logger = resolve_logger(logger, self.default_root_dir)
-        self.device = resolve_device(device)
+        #: ``None`` for a remote plugin: each worker sets its own
+        self.device = None if self.plugin.remote else resolve_device(device)
+        self._world = {"world_size": 1, "global_rank": 0, "local_rank": 0,
+                       "node_rank": 0}
         #: the dtype a batch's floating leaves are cast to (``None``:
         #: as the loader gives them)
         self.batch_float_dtype = (torch.bfloat16
@@ -189,20 +224,49 @@ class Trainer:
 
     def fit(self, module, datamodule=None, ckpt_path: Optional[str] = None):
         ckpt_path = ckpt_path or self.resume_from_checkpoint
-        return self._run_stage(module, datamodule, "fit", ckpt_path)
+        return self.plugin.run(self, module, datamodule, "fit", ckpt_path)
 
     def validate(self, module, datamodule=None,
                  ckpt_path: Optional[str] = None):
-        return self._run_stage(module, datamodule, "validate", ckpt_path)
+        return self.plugin.run(self, module, datamodule, "validate",
+                               ckpt_path)
 
     def test(self, module, datamodule=None, ckpt_path: Optional[str] = None):
-        return self._run_stage(module, datamodule, "test", ckpt_path)
+        return self.plugin.run(self, module, datamodule, "test", ckpt_path)
 
     def predict(self, module, datamodule=None,
                 ckpt_path: Optional[str] = None):
         """The predict loader's batches through ``module.predict_step``:
-        a list of its outputs, one a batch, as CPU tensors."""
-        return self._run_stage(module, datamodule, "predict", ckpt_path)
+        a list of its outputs, one a batch (every rank's rows, in rank
+        order), as CPU tensors."""
+        return self.plugin.run(self, module, datamodule, "predict",
+                               ckpt_path)
+
+    # -- world info (set by ``_run_stage`` from the process group) ----------
+
+    @property
+    def world_size(self) -> int:
+        return self._world["world_size"]
+
+    @property
+    def global_rank(self) -> int:
+        return self._world["global_rank"]
+
+    @property
+    def local_rank(self) -> int:
+        return self._world["local_rank"]
+
+    @property
+    def node_rank(self) -> int:
+        return self._world["node_rank"]
+
+    @property
+    def is_global_zero(self) -> bool:
+        return self.global_rank == 0
+
+    @property
+    def strategy(self):
+        return self.plugin.strategy
 
     @property
     def checkpoint_callback(self) -> Optional[ModelCheckpoint]:
@@ -223,6 +287,13 @@ class Trainer:
             reset_seed()
         seed = (int(os.environ.get(SEED_ENV_VAR, "0")) if self.seed is None
                 else self.seed)
+        # node and local ranks as the plugin assigned them to the worker
+        env = os.environ if _parallel.group_active() else {}
+        self._world = {"world_size": _parallel.world_size(),
+                       "global_rank": _parallel.global_rank(),
+                       "local_rank": int(env.get("LOCAL_RANK", 0)),
+                       "node_rank": int(env.get("NODE_RANK", 0))}
+        strategy = self.plugin.strategy
 
         if datamodule is not None:
             datamodule._call_prepare_data()
@@ -239,6 +310,7 @@ class Trainer:
             tx = tx["optimizer"]
         if self.gradient_clip_val:
             tx = chain(clip_by_global_norm(self.gradient_clip_val), tx)
+        tx = strategy.wrap_optimizer(tx)
         generator = torch.Generator(device=self.device).manual_seed(seed)
         self.state = build_init_fn(module, tx)(generator)
         trained = getattr(module, "_trained_state", None)
@@ -249,8 +321,10 @@ class Trainer:
             # JAX trainer restores ``module._trained_variables``; a
             # checkpoint takes precedence over them
             module.model.load_state_dict(trained)
-        self._train_step = build_train_step(module, tx,
-                                            self.accumulate_grad_batches)
+        self._train_step = build_train_step(
+            module, tx, self.accumulate_grad_batches,
+            grad_sync=strategy.grad_sync(),
+            rank=self.global_rank if self.world_size > 1 else None)
         self._eval_steps = {s: build_eval_step(module, s)
                             for s in ("validate", "test")}
         self._predict_step = build_predict_step(module)
@@ -275,12 +349,16 @@ class Trainer:
                 cb.teardown(self, module, stage)
 
     def _get_loader(self, name: str):
-        """The datamodule's loader, else the module's."""
+        """The datamodule's loader, else the module's; this rank's shard
+        of it when the world has more than one rank."""
         src = None
         if self.datamodule is not None:
             src = getattr(self.datamodule, f"{name}_dataloader")()
         if src is None:
             src = getattr(self.lightning_module, f"{name}_dataloader")()
+        if src is not None and self.use_distributed_sampler \
+                and self.world_size > 1 and hasattr(src, "shard"):
+            src = src.shard(self.world_size, self.global_rank)
         return src
 
     def _build_loaders(self, stage: str) -> dict:
@@ -372,6 +450,8 @@ class Trainer:
             for cb in self.callbacks:
                 cb.on_train_batch_start(self, module, batch, batch_idx)
             self.state, metrics = self._train_step(self.state, batch)
+            metrics = dict(zip(metrics, _parallel.mean_over_ranks(
+                list(metrics.values()))))
             self.global_step += 1
             for k, v in metrics.items():
                 self._epoch_metric_acc.setdefault(k, []).append(v)
@@ -392,7 +472,7 @@ class Trainer:
     def _publish_metrics(self, metrics: dict) -> None:
         for k, v in metrics.items():
             self.callback_metrics[k] = self.logged_metrics[k] = float(v)
-        if self.logger is not None and metrics:
+        if self.logger is not None and self.is_global_zero and metrics:
             self.logger.log_metrics(
                 {k: self.logged_metrics[k] for k in metrics},
                 self.global_step)
@@ -407,7 +487,7 @@ class Trainer:
             self.callback_metrics[k] = flushed[k] = float(arr.mean())
             self.logged_metrics[k] = float(arr[-1])
         self._epoch_metric_acc = {}
-        if self.logger is not None and flushed:
+        if self.logger is not None and self.is_global_zero and flushed:
             self.logger.log_metrics(
                 {f"{k}_epoch": v for k, v in flushed.items()},
                 self.global_step)
@@ -467,17 +547,19 @@ class Trainer:
 
         means: "dict[str, float]" = {}
         if acc:
-            total = sum(b for _, b in acc)
-            for k in acc[0][0]:
-                vals = torch.stack([d[k].float() for d, _ in acc]).double()
-                weights = torch.tensor([b for _, b in acc],
-                                       dtype=torch.float64)
-                means[k] = float((vals.cpu() * weights).sum()
-                                 / max(total, 1))
+            # per name the batch-size-weighted sum, then the batch count,
+            # summed over the ranks (every rank runs as many batches)
+            weights = torch.tensor([b for _, b in acc], dtype=torch.float64)
+            sums = [(torch.stack([d[k].float() for d, _ in acc]).double()
+                     .cpu() * weights).sum() for k in acc[0][0]]
+            sums = _parallel.sum_over_ranks(
+                torch.stack([*sums, weights.sum()]).to(self.device)).cpu()
+            total = max(float(sums[-1]), 1.0)
+            means = {k: float(v / total) for k, v in zip(acc[0][0], sums)}
         if not self.sanity_checking:
             self.callback_metrics.update(means)
             self.logged_metrics.update(means)
-            if self.logger is not None and means:
+            if self.logger is not None and self.is_global_zero and means:
                 self.logger.log_metrics(means, self.global_step)
 
         if stage == "validate":
@@ -501,8 +583,11 @@ class Trainer:
             if self.limit_predict_batches is not None \
                     and batch_idx >= self.limit_predict_batches:
                 break
-            out = self._predict_step(self.state, self._to_device(batch))
-            outputs.append(_to_cpu(out))
+            out = _to_cpu(self._predict_step(self.state,
+                                             self._to_device(batch)))
+            if self.world_size > 1:
+                out = _cat_ranks(_parallel.gather_objects(out))
+            outputs.append(out)
         for cb in self.callbacks:
             cb.on_predict_end(self, module)
         return outputs
@@ -529,8 +614,8 @@ class Trainer:
             "hparams": _sanitize(dict(module.hparams)),
             "callbacks": {type(cb).__name__: _sanitize(cb.state_dict())
                           for cb in self.callbacks},
-            "world_size": 1,
-            "strategy": "none",
+            "world_size": int(self.world_size),
+            "strategy": self.strategy.name,
         }
         module.on_save_checkpoint(ckpt)
         for cb in self.callbacks:
@@ -540,9 +625,13 @@ class Trainer:
     def save_checkpoint(self, filepath: str) -> None:
         """Write :meth:`dump_checkpoint` to ``filepath`` atomically: into
         a temporary file in the same directory that then replaces it.
-        Local paths only."""
+        Collective: every rank builds the dict, global zero alone
+        writes.  Local paths only."""
         _local(filepath)
-        payload = to_state_stream(self.dump_checkpoint())
+        ckpt = self.dump_checkpoint()
+        if not self.is_global_zero:
+            return
+        payload = to_state_stream(ckpt)
         dirname = os.path.dirname(filepath)
         if dirname:
             os.makedirs(dirname, exist_ok=True)
@@ -604,6 +693,19 @@ def _local(filepath: str) -> None:
             f"{filepath!r}: the port reads and writes local checkpoint "
             f"paths only (the JAX package's fsspec remote paths are not "
             f"ported)")
+
+
+def _cat_ranks(parts: list):
+    """One predict batch's outputs of every rank, joined along the batch
+    dim in rank order (tensors inside tuples, lists and dicts too)."""
+    first = parts[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat(parts)
+    if isinstance(first, (tuple, list)):
+        return type(first)(_cat_ranks(list(p)) for p in zip(*parts))
+    if isinstance(first, dict):
+        return {k: _cat_ranks([p[k] for p in parts]) for k in first}
+    return parts
 
 
 def _to_cpu(out):

@@ -7,9 +7,10 @@ columns the union of every call's names in the order they first appear
 under ``default_root_dir``, ``logger=False`` disables logging, and any
 object with ``log_metrics(dict, step)`` is used as it is.
 
-The port runs one process, so a logger object is the file's one writer:
-the JAX logger's run-id sidecar, which lets pickled copies of a logger
-in worker processes share one file, has nothing to do here.  A new
+The ``Trainer`` logs from global zero alone, so one logger object is the
+file's one writer even when pickled copies of it sit in every worker:
+the JAX logger's run-id sidecar, which lets such copies share one file,
+has nothing to do here.  A new
 logger truncates the file at its first row; the same logger appends
 across stages.  When the columns grow, the file is rewritten under the
 new header into a temporary file in the same directory that replaces

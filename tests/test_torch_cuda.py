@@ -8,6 +8,12 @@ elsewhere).  A max abs error would have to allow for the few rows whose
 gradients grow past 1 with T, and would then miss a fault confined to a
 tile of small gradients.
 
+The strategies' collectives are held on NCCL too: at one rank in a
+process group of the test process (the DDP sync and the metric mean an
+identity, ZeRO-1's update equal to the unsharded one), and, with two or
+more cards, through the plugins' workers, one a card (ZeRO-1 against
+DDP).  The workers unpickle this module's callbacks by name.
+
 Every test here is marked ``cuda`` and skips without a card (decided
 when the test runs, never while the module is imported).  The file
 imports no JAX, so it runs on a machine with only PyTorch:
@@ -19,6 +25,7 @@ suite.)
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -827,3 +834,209 @@ def test_cuda_verify_round_launches_k_plus_one_per_layer(cuda_device,
     sched = _drive(eng, SpecConfig(True, k=k))
     st = sched.stats()["spec"]
     assert st["emitted"] == st["accepted"] + st["corrected"] > 0
+
+
+# -- the strategies' collectives on NCCL at world size 1 -------------------------
+
+@pytest.fixture
+def nccl_group(cuda_device):
+    """A one-rank NCCL process group in this process (no actors), torn
+    down after the test."""
+    import torch.distributed as dist
+
+    from ray_lightning_tpu_torch.cluster.protocol import find_free_port
+    device = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.set_device(device)
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            init_method=f"tcp://127.0.0.1:{find_free_port()}")
+    try:
+        yield device
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_strategy_sync_is_identity_at_one_rank(nccl_group):
+    """DDP's gradient sync (one fp32 buffer, NCCL's sum over one rank, a
+    divide by 1, the cast back), the metric mean and the sum over ranks
+    give back their inputs bit for bit, in each dtype."""
+    from ray_lightning_tpu_torch.parallel import strategy
+
+    gen = torch.Generator(device=nccl_group).manual_seed(0)
+    grads = [torch.randn(s, generator=gen, device=nccl_group).to(dt)
+             for s, dt in (((768, 2304), torch.bfloat16),
+                           ((50304, 768), torch.bfloat16),
+                           ((768,), torch.float32), ((3, 5), torch.float32))]
+    synced = strategy.average_grads(grads)
+    for g, s in zip(grads, synced):
+        assert s.dtype == g.dtype and s.shape == g.shape
+        assert torch.equal(s, g)
+    metrics = [torch.tensor(2.718281828, device=nccl_group),
+               torch.tensor(0.1, device=nccl_group, dtype=torch.bfloat16)]
+    for m, r in zip(metrics, strategy.mean_over_ranks(metrics)):
+        assert r.dtype == m.dtype and torch.equal(r, m)
+    sums = torch.tensor([1.0 / 3, 7.25], dtype=torch.float64,
+                        device=nccl_group)
+    assert torch.equal(strategy.sum_over_ranks(sums), sums)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", [None, 1.0])
+def test_cuda_zero1_update_equals_the_unsharded_one(clip, nccl_group):
+    """ZeRO-1 at one rank over NCCL (the reduce over one rank, AdamW on
+    the flat fp32 master, the gather into bf16 params) against the
+    unsharded ``fp32_master(AdamW)``, three steps: the params, master
+    and moments bit for bit, without and with a clip."""
+    from ray_lightning_tpu_torch.ops.optim import (AdamW, chain,
+                                                   clip_by_global_norm,
+                                                   fp32_master)
+    from ray_lightning_tpu_torch.parallel.strategy import Zero1Strategy
+
+    def tx():
+        t = fp32_master(AdamW(3e-3, warmup_steps=1, weight_decay=0.01,
+                              mu_dtype=torch.bfloat16))
+        return t if clip is None else chain(clip_by_global_norm(clip), t)
+
+    gen = torch.Generator(device=nccl_group).manual_seed(1)
+    shapes = {"a": (768, 2304), "b": (2304,), "c": (1,), "d": (50, 7)}
+    init = {k: torch.randn(s, generator=gen, device=nccl_group) * 0.02
+            for k, s in shapes.items()}
+    plain = {k: v.clone() for k, v in init.items()}
+    sharded = {k: v.clone() for k, v in init.items()}
+    opt_p, opt_z = tx(), Zero1Strategy().wrap_optimizer(tx())
+    st_p, st_z = opt_p.init(plain), opt_z.init(sharded)
+    for d in (plain, sharded):
+        for k in d:
+            d[k] = d[k].to(torch.bfloat16)
+    for _ in range(3):
+        grads = {k: (torch.randn(s, generator=gen, device=nccl_group)
+                     * 0.5).to(torch.bfloat16) for k, s in shapes.items()}
+        opt_p.update(grads, st_p, plain)
+        opt_z.update(grads, st_z, sharded)
+    want, got = st_p.state_dict(), st_z.state_dict()
+
+    def flat(d, prefix=""):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{prefix}{k}/")
+            else:
+                yield f"{prefix}{k}", v
+
+    got = dict(flat(got))
+    for k, v in flat(want):
+        if torch.is_tensor(v):
+            assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
+        else:
+            assert got[k] == v, k
+    for k in shapes:
+        assert torch.equal(sharded[k], plain[k]), k
+
+
+# -- the plugins across cards (NCCL at W > 1) ---------------------------------
+
+#: per-step losses of rank 0, relayed by ``RelayLosses`` to the driver
+RELAYED_LOSSES: list = []
+
+
+def _record_losses(losses):
+    RELAYED_LOSSES.append(losses)
+
+
+class RelayLosses(Callback):
+    """In a worker: rank 0's per-step losses go to the driver's
+    ``RELAYED_LOSSES`` (module level: the worker imports it by name)."""
+
+    def on_fit_start(self, trainer, module):
+        self.losses = []
+
+    def on_train_batch_end(self, trainer, module, outputs, batch, i):
+        self.losses.append(float(outputs["loss"]))
+
+    def on_fit_end(self, trainer, module):
+        from ray_lightning_tpu_torch import session
+        if trainer.is_global_zero:
+            session.put_queue(functools.partial(_record_losses,
+                                                self.losses))
+
+
+class SaveAtEnd(Callback):
+    """``save_checkpoint`` at the fit's end, on every rank (collective)."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def on_fit_end(self, trainer, module):
+        trainer.save_checkpoint(self.path)
+
+
+@pytest.fixture
+def cards(cuda_device):
+    """The number of cards, or a skip below two."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards")
+    return n
+
+
+def _state(path) -> dict:
+    out = {}
+
+    def walk(prefix, d):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                walk(f"{prefix}{k}/", v)
+            else:
+                out[f"{prefix}{k}"] = v
+
+    walk("", Trainer.load_checkpoint_dict(path, "cpu")["state"])
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_plugins_zero1_equals_ddp_across_cards(cards, tmp_path):
+    """``RayPlugin`` and ``RayShardedPlugin`` with one worker a card, over
+    NCCL, on the tiny GPT through the kernels (bf16 params, the fp32
+    master): at W=2 the end states (params, master, moments, count) and
+    the losses equal bit for bit, without and with a clip that triggers
+    (a sum of two ranks has one order); on every card, when there are
+    more than two, the losses within 1e-5 and each state tensor within
+    1e-3 (a sum of more ranks may be ordered otherwise by the
+    all-reduce than by the reduce-scatter)."""
+    from ray_lightning_tpu_torch import RayPlugin, RayShardedPlugin
+
+    def run(cls, W, clip):
+        root = tmp_path / f"{cls.__name__}{W}{clip}"
+        end = str(root / "end.ckpt")
+        trainer = Trainer(
+            plugins=[cls(num_workers=W, timeout_s=300)], max_steps=6,
+            seed=0, limit_val_batches=1, num_sanity_val_steps=0,
+            enable_checkpointing=False, logger=False,
+            gradient_clip_val=clip, default_root_dir=str(root),
+            callbacks=[RelayLosses(), SaveAtEnd(end)])
+        RELAYED_LOSSES.clear()
+        trainer.fit(GPTLightningModule(
+            GPTConfig(vocab_size=512, block_size=64, n_layer=2, n_head=2,
+                      n_embd=64), batch_size=2, dataset_size=64))
+        [losses] = RELAYED_LOSSES
+        ckpt = Trainer.load_checkpoint_dict(end, "cpu")
+        assert (ckpt["world_size"], ckpt["strategy"]) == (
+            W, trainer.strategy.name)
+        return losses, _state(end)
+
+    for W, clip in [(2, None), (2, 0.05)] + [(cards, None)] * (cards > 2):
+        (dl, ds), (zl, zs) = run(RayPlugin, W, clip), run(RayShardedPlugin,
+                                                          W, clip)
+        assert set(ds) == set(zs) and len(dl) == 6
+        assert np.isfinite(dl).all()
+        for k, v in ds.items():
+            if not torch.is_tensor(v):
+                assert zs[k] == v, (W, clip, k)
+            elif W == 2:
+                assert torch.equal(zs[k], v), (W, clip, k)
+            else:
+                torch.testing.assert_close(zs[k].float(), v.float(),
+                                           atol=1e-3, rtol=0, msg=k)
+        if W == 2:
+            assert zl == dl
+        else:
+            np.testing.assert_allclose(zl, dl, atol=1e-5, rtol=1e-5)
