@@ -69,10 +69,6 @@ class ActorHandle:
 class ClusterBackend:
     """Actor lifecycle + object transport + worker-to-driver queue."""
 
-    #: True when ``put`` stores into a shared object store that actors
-    #: can dereference (a fan-out ships the payload once)
-    supports_object_store: bool = False
-
     def create_actor(self, actor_cls: type, *args,
                      env: Optional["dict[str, str]"] = None,
                      resources: Optional["dict[str, float]"] = None,
@@ -111,12 +107,4 @@ def get_backend() -> ClusterBackend:
         return _backend
 
 
-def set_backend(backend: Optional[ClusterBackend]) -> None:
-    """Install (or clear) the process-wide backend (tests use this)."""
-    global _backend
-    with _backend_lock:
-        _backend = backend
-
-
-__all__ = ["ActorHandle", "ClusterBackend", "Future", "get_backend",
-           "set_backend"]
+__all__ = ["ActorHandle", "ClusterBackend", "Future", "get_backend"]

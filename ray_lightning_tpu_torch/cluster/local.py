@@ -205,8 +205,6 @@ class LocalBackend(ClusterBackend):
     """Subprocess actors on this node, a unix-socket listener for their
     connections, and the ``/dev/shm`` object store."""
 
-    supports_object_store = True
-
     def __init__(self):
         self._dir = tempfile.mkdtemp(prefix="rlt_cluster_")
         self._sock_path = os.path.join(self._dir, "driver.sock")

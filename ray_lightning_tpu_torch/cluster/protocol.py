@@ -19,7 +19,6 @@ only what this program or its workers wrote.
 
 from __future__ import annotations
 
-import os
 import pickle
 import socket
 import struct
@@ -83,12 +82,9 @@ def find_free_port(host: str = "127.0.0.1") -> int:
 def node_ip() -> str:
     """The address other actors reach this node at.  The built-in
     backend's actors are subprocesses of one node, so that is the
-    loopback address; ``RLT_NODE_IP_OVERRIDE`` fakes another answer per
-    process, the single-machine stand-in for a multi-node topology (the
-    reference fakes node IPs to test rank assignment).  The JAX package
-    asks the routing table for an outward address, which the Ray
-    backend (not ported) would need."""
-    return os.environ.get("RLT_NODE_IP_OVERRIDE") or "127.0.0.1"
+    loopback address.  The JAX package asks the routing table for an
+    outward address, which the Ray backend (not ported) would need."""
+    return "127.0.0.1"
 
 
 __all__ = ["Connection", "MAX_FRAME", "find_free_port", "node_ip"]

@@ -1,7 +1,7 @@
 """Per-worker-process connection state.
 
 Counterpart of ``ray_lightning_tpu/cluster/worker_state.py`` without the
-elastic escrow and the peer sends.  It lives apart from ``worker_main``
+elastic escrow and the peer channel.  It lives apart from ``worker_main``
 because that module runs as ``__main__`` under ``python -m``: a global
 there would be invisible to code importing it by name (two module
 objects).  Everything that needs the driver connection goes through
@@ -12,11 +12,9 @@ from __future__ import annotations
 
 from typing import Optional
 
-from ray_lightning_tpu_torch.cluster.peer import Mailbox
 from ray_lightning_tpu_torch.cluster.protocol import Connection
 
 _conn: Optional[Connection] = None
-_peer_mailbox = Mailbox()
 
 
 def set_conn(conn: Optional[Connection]) -> None:
@@ -31,9 +29,4 @@ def queue_send(item) -> None:
     _conn.send({"type": "queue", "item": item})
 
 
-def peer_mailbox() -> Mailbox:
-    """This worker process's peer-payload mailbox."""
-    return _peer_mailbox
-
-
-__all__ = ["peer_mailbox", "queue_send", "set_conn"]
+__all__ = ["queue_send", "set_conn"]

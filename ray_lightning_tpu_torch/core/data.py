@@ -152,7 +152,9 @@ class DataLoader:
         return idx
 
     def __len__(self) -> int:
-        n = len(self._indices())
+        n = len(self.dataset)
+        if self.num_shards > 1:
+            n = -(-n // self.num_shards)     # the padded shard's length
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size

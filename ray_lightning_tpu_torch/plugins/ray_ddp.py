@@ -58,7 +58,10 @@ from ray_lightning_tpu_torch.utils.states import (load_state_stream,
 #: the bound of each set-up call to the workers (they import torch and
 #: the package first)
 SETUP_TIMEOUT_S = 120.0
-#: the collectives' timeout when the plugin has no ``timeout_s``
+#: the default bound of ``init_hook`` and of a stage's run on the driver
+#: (``RayPlugin(timeout_s=...)`` sets another for longer fits)
+RUN_TIMEOUT_S = 3600.0
+#: the most a collective waits (less when the run's bound is shorter)
 COLLECTIVE_TIMEOUT_S = 600.0
 
 
@@ -73,7 +76,7 @@ def _worker_run(payload: tuple, rank: int, queue) -> Optional[dict]:
         "nccl" if device.type == "cuda" else "gloo", rank=rank,
         world_size=plugin.num_workers,
         timeout=datetime.timedelta(
-            seconds=plugin.timeout_s or COLLECTIVE_TIMEOUT_S))
+            seconds=min(plugin.timeout_s, COLLECTIVE_TIMEOUT_S)))
     reset_session()
     init_session(rank, queue)
     trainer.device = device
@@ -112,9 +115,10 @@ class RayPlugin(ExecutionPlugin):
     ``"CPU"`` sets ``num_cpus_per_worker``, its ``"GPU"`` sets
     ``use_gpu`` (``> 0``) and the GPUs a worker asks for, and other keys
     are kept as custom resources.  ``worker_env`` is added to each
-    worker's environment.  ``timeout_s`` bounds a stage's run on the
-    driver and each collective (``None``: the run is unbounded, a
-    collective waits ``COLLECTIVE_TIMEOUT_S``)."""
+    worker's environment.  ``timeout_s`` bounds ``init_hook`` and a
+    stage's run on the driver (past it the fit raises ``TimeoutError``
+    and the actors are killed), and each collective up to
+    ``COLLECTIVE_TIMEOUT_S``."""
 
     remote = True
 
@@ -123,9 +127,12 @@ class RayPlugin(ExecutionPlugin):
                  strategy: Any = "ddp", init_hook: Optional[Callable] = None,
                  resources_per_worker: Optional[dict] = None,
                  worker_env: Optional[dict] = None,
-                 timeout_s: Optional[float] = None):
+                 timeout_s: float = RUN_TIMEOUT_S):
         if num_workers < 1:
             raise ValueError("num_workers must be >= 1")
+        if timeout_s is None or not timeout_s > 0:
+            raise ValueError(f"timeout_s must be a positive number of "
+                             f"seconds, got {timeout_s!r}")
         if platform not in (None, "cpu", "cuda"):
             raise ValueError(f"platform must be 'cpu' or 'cuda', got "
                              f"{platform!r}")
@@ -133,7 +140,7 @@ class RayPlugin(ExecutionPlugin):
         self.strategy = resolve_strategy(strategy)
         self.init_hook = init_hook
         self.worker_env = dict(worker_env or {})
-        self.timeout_s = timeout_s
+        self.timeout_s = float(timeout_s)
         resources = dict(resources_per_worker or {})
         self.num_cpus_per_worker = resources.pop("CPU", num_cpus_per_worker)
         self.gpus_per_worker = 1
@@ -245,16 +252,13 @@ class RayPlugin(ExecutionPlugin):
             "NODE_RANK": str(ranks[i][0]), "LOCAL_RANK": str(ranks[i][1])})
             for i, w in enumerate(workers)], backend, SETUP_TIMEOUT_S)
 
-        payload = (trainer, module, datamodule, stage, ckpt_path)
-        ref = backend.put(payload) if backend.supports_object_store else None
+        ref = backend.put((trainer, module, datamodule, stage, ckpt_path))
         try:
             results = process_results(
-                [w.call("execute", _worker_run, ref or payload, i,
-                        WorkerQueueProxy())
+                [w.call("execute", _worker_run, ref, i, WorkerQueueProxy())
                  for i, w in enumerate(workers)], backend, self.timeout_s)
         finally:
-            if ref is not None:
-                backend.free(ref)
+            backend.free(ref)
         return self._post_dispatch(trainer, module, stage, results)
 
     @staticmethod

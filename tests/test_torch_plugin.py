@@ -4,7 +4,8 @@
 ``world_size`` / ``strategy``, against the JAX package's
 ``RayXlaPlugin``, ``resolve_strategy``, loader and ``Trainer``.
 
-- the plugin's constructor (resource precedence, ``num_workers=0``),
+- the plugin's constructor (resource precedence, ``num_workers=0``, the
+  run's bound on by default),
   pickling without live handles, ``_assign_local_ranks`` on the same
   node lists, the NCCL over-subscription check;
 - every strategy name of the JAX package: the same strategy, or
@@ -87,6 +88,18 @@ def test_invalid_num_workers_raises_as_jax():
     for cls in (RayPlugin, RayXlaPlugin):
         with pytest.raises(ValueError, match="num_workers"):
             cls(num_workers=0)
+
+
+def test_run_bound_is_positive_and_on_by_default():
+    """A run always has a deadline: ``RUN_TIMEOUT_S`` unless the caller
+    gives another, and ``None`` or a non-positive bound is refused."""
+    from ray_lightning_tpu_torch.plugins.ray_ddp import RUN_TIMEOUT_S
+    assert RayPlugin().timeout_s == RayShardedPlugin().timeout_s == \
+        RUN_TIMEOUT_S > 0
+    assert RayPlugin(timeout_s=7).timeout_s == 7.0
+    for bad in (None, 0, -1):
+        with pytest.raises(ValueError, match="timeout_s"):
+            RayPlugin(timeout_s=bad)
 
 
 def test_plugin_pickle_drops_handles():
@@ -203,7 +216,8 @@ def test_loader_shard_indices_match_jax(n, shards, shuffle, drop_last,
         jl.set_epoch(epoch)
         got = [b.numpy().tolist() for b in tl]
         want = [np.asarray(b).tolist() for b in jl]
-        assert got == want and len(tl) == len(jl), (r, got, want)
+        assert got == want and len(tl) == len(jl) == len(got), (
+            r, got, want)
 
 
 # -- Trainer(strategy=...) without a plugin ---------------------------------

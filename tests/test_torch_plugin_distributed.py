@@ -18,7 +18,8 @@ and ``RayShardedPlugin`` (ZeRO-1) with CPU workers on gloo
   and 2 workers (weights changed, round-tripped to the driver),
   ``best_model_path`` and the metrics on the driver, ``init_hook`` and
   ``worker_env`` in the workers, the world info inside them, a raising
-  or dying rank failing the fit with its log tail, no child process
+  or dying rank failing the fit with its log tail, a rank stuck past
+  the run's bound failing it with ``TimeoutError``, no child process
   left, validate without a fit (the batch-size-weighted mean over every
   rank's batches), predict (every rank's rows), dropout seeds that differ across ranks and repeat
   across runs;
@@ -158,6 +159,23 @@ class Crash(Callback):
             if self.how == "exit":
                 os._exit(3)
             raise RuntimeError("boom from rank 1")
+
+
+#: how long ``stall`` and ``Stall`` hold a worker: far past any bound the
+#: tests set, the actor is killed first
+STALL_S = 300
+
+
+def stall():
+    """``init_hook`` that holds the worker past the run's bound."""
+    time.sleep(STALL_S)
+
+
+class Stall(Callback):
+    """Holds the rank at fit start, outside any collective."""
+
+    def on_fit_start(self, trainer, module):
+        time.sleep(STALL_S)
 
 
 class Losses(Callback):
@@ -385,6 +403,25 @@ def test_failing_rank_fails_the_fit_with_its_log_tail(how, tmp_path):
     assert "worker log tail" in text and "rank 1 fails now" in text
     assert ("boom from rank 1" in text) if how == "raise" else (
         "died" in text)
+    assert get_backend()._actors == {}
+
+
+@pytest.mark.parametrize("where", ["init_hook", "fit_start"])
+def test_worker_past_the_bound_fails_the_fit_with_timeout(where, tmp_path):
+    """A worker stuck outside any collective (in ``init_hook``, or at fit
+    start) fails the fit with ``TimeoutError`` once the plugin's
+    ``timeout_s`` has passed, and the actor is killed."""
+    bound = 4
+    plugin = cpu_plugin(1, timeout_s=bound,
+                        init_hook=stall if where == "init_hook" else None)
+    trainer = Trainer(plugins=[plugin], max_epochs=1, logger=False,
+                      enable_checkpointing=False,
+                      callbacks=[Stall()] if where == "fit_start" else [],
+                      default_root_dir=str(tmp_path))
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError, match=f"after {bound} s"):
+        trainer.fit(BoringModel())
+    assert bound <= time.monotonic() - t0 < RUN_TIMEOUT_S / 2
     assert get_backend()._actors == {}
 
 
