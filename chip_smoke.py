@@ -156,7 +156,39 @@ Phases, each fatal on failure:
    6; (d) the fit call to the end of the first step, the median step in
    the worker and in process, the result round trip's bytes and
    seconds, and the phase's seconds, beside the card's name and power
-   limit.
+   limit;
+12. tune, everything earlier freed, under a temporary ``local_dir``,
+   each trial's ``Trainer`` under its trial's directory: (a) BASELINE
+   config #3, ``tune.run`` of 4 ``LightningMNISTClassifier`` trials
+   (``tune_mnist``'s space: ``layer_1`` in {32, 64, 128}, ``layer_2``
+   in {64, 128, 256}, ``lr`` loguniform(1e-4, 1e-1), ``batch_size`` in
+   {32, 64, 128}; MNIST's split sizes, 60000 and 10000, from
+   ``synthetic_mnist``) under ``PopulationBasedTraining(metric="loss",
+   perturbation_interval=1, hyperparam_mutations={"lr", "batch_size"})``
+   with ``stop={"training_iteration": 6}``, each fit a
+   ``RayPlugin(num_workers=1)`` worker on the card relaying a checkpoint
+   and a report each epoch: every trial ``TERMINATED``, at least one
+   exploit, each trial's fits starting at step 0 and then at each of its
+   donor checkpoints' ``global_step``, every worker on a ``cuda``
+   device, the best ``mean_accuracy`` above 0.5 (chance 0.1); the
+   sweep's wall, each fit's start-up, the reports and relays by count;
+   (b) ``tune.run`` over ``grid_search`` of two lrs, each trial
+   gpt2-small at full width (B=8, T=1024) under
+   ``RayPlugin(num_workers=1)``, 6 steps with a validation (a report and
+   a ~1.49 GB checkpoint relay) at steps 3 and 6: each trial 2 reports,
+   its last relayed checkpoint equal bit for bit to the driver's
+   ``_trained_state``, the worker's launches 12 x (6 + 2) and 12 x 6
+   (``PluginProbe``); ``analysis.best_checkpoint`` resumed in process
+   for one step (12 + 12 launches); each relay's bytes and seconds,
+   split into the worker's dump and serialize, the queue (pickle,
+   socket, unpickle) and the driver's write, with GB/s; the sweep's wall
+   against the sum of its fits; (c) two in-process gpt2-small trials of
+   4 steps with ``get_tune_resources(num_workers=1, use_gpu=True)`` at
+   ``max_concurrent_trials=2``: each ``Trainer`` given no device trains
+   on its leased card (``leased_devices == ["cuda:0"]`` on one card),
+   the one lease serializes them (their train intervals do not
+   overlap), 2 x 12 x 4 launches of each kernel.  The tune path's
+   launches of rows 1 and 6: (b)'s workers, (b)'s resume and (c).
 
 The next-to-last line is the ``{"kernels": [...]}`` JSON record, one
 entry per TPU kernel row, 1 to 16 (``launches`` from the path phases
@@ -184,7 +216,10 @@ kernels line (rows 1 and 6, phase 10's launches) and the last line.
 this process touches CUDA (and fails if CUDA is initialised here after
 its plugin fits: the driver of a plugin run stays off the card), then
 checks and times rows 1 and 6 as phase 2 does and prints the kernels
-line (phase 11's worker launches) and the last line.
+line (phase 11's worker launches) and the last line.  ``--tune-only``
+does the same for phase 12: the driver stays off CUDA through (a) and
+(b)'s sweeps (their trials train only in workers), then rows 1 and 6
+and the kernels line (the tune path's launches).
 """
 
 from __future__ import annotations
@@ -229,6 +264,9 @@ from ray_lightning_tpu_torch.ops.flash_decode import (  # noqa: E402
     flash_decode_paged_attention, flash_decode_paged_attention_plain)
 from ray_lightning_tpu_torch.serve import (  # noqa: E402
     PageConfig, Scheduler, ServeEngine, ServeWorker, SpecConfig)
+from ray_lightning_tpu_torch import tune  # noqa: E402
+from ray_lightning_tpu_torch.tune.integration import (  # noqa: E402
+    _CheckpointPayload, _TuneCheckpointCallback)
 
 #: H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, dense bf16
 HBM_BYTES_PER_S = 3.35e12
@@ -2686,6 +2724,450 @@ def plugin_phase(seed: int, driver_off_cuda: bool) -> dict:
     return {"launches": launches, "stats": stats}
 
 
+# -- phase 12: tune -----------------------------------------------------------
+
+#: (a) BASELINE config #3: a PBT sweep over MNIST, 4 trials of
+#: ``tune_mnist``'s space at MNIST's split sizes, 6 reports each
+PBT_TRIALS = 4
+PBT_ITERATIONS = 6
+PBT_TRAIN_SIZE, PBT_VAL_SIZE = 60000, 10000
+#: train batches an epoch (``limit_train_batches``; ``None``: the whole
+#: epoch): the cut that keeps the phase in its budget, never the data
+#: or the widths
+PBT_TRAIN_BATCHES = None
+#: (b) gpt2-small trials: steps, and a validation (a report and a
+#: checkpoint relay) every ``TUNE_VAL_EVERY`` of them
+TUNE_GPT_STEPS = 6
+TUNE_VAL_EVERY = 3
+TUNE_LRS = (1e-4, 3e-4)
+#: (c) the in-process trials' steps
+LEASE_STEPS = 4
+#: each plugin run's bound inside a trial
+TUNE_TIMEOUT_S = 600
+#: what the trials' fits relayed, filled on the driver in each trial's
+#: thread: (trial id, item)
+TUNE_EVENTS: list = []
+#: the checkpoint relays' sizes and times, filled on the driver
+RELAYS: list = []
+
+
+def record_tune_event(item: dict) -> None:
+    TUNE_EVENTS.append((tune.get_trial_id(), item))
+
+
+def tune_relay(trainer, item: dict) -> None:
+    """To ``record_tune_event`` on the driver: through the worker queue
+    from a worker, by a call in process."""
+    if trainer.plugin.remote:
+        from ray_lightning_tpu_torch import session
+        session.put_queue(functools.partial(record_tune_event, item))
+    else:
+        record_tune_event(item)
+
+
+class TuneProbe(Callback):
+    """In a trial's fit, worker or driver: the device, the pid and the
+    ``global_step`` the fit starts at (after a restore), then the wall
+    clock at the end of its first step (referred to as
+    ``chip_smoke.TuneProbe``: a worker imports it by name)."""
+
+    def on_fit_start(self, trainer, module):
+        self.first = None
+        tune_relay(trainer, {"device": str(trainer.device),
+                             "pid": os.getpid(),
+                             "start_step": trainer.global_step})
+
+    def on_train_batch_end(self, trainer, module, outputs, batch, batch_idx):
+        if self.first is None:
+            self.first = time.time()
+            tune_relay(trainer, {"first_step_at": self.first})
+
+
+class LeaseSpan(Callback):
+    """In process: the wall clock when training starts and ends."""
+
+    def on_train_start(self, trainer, module):
+        self.t0 = time.time()
+
+    def on_train_end(self, trainer, module):
+        record_tune_event({"span": (self.t0, time.time()),
+                           "device": str(trainer.device)})
+
+
+class TimedPayload(_CheckpointPayload):
+    """``_CheckpointPayload`` that also records, on the driver, its
+    bytes, the worker's dump and serialize seconds, the seconds from the
+    worker's send to the driver's call (pickle, socket, unpickle, the
+    drain's wait) and the driver's write."""
+
+    def __init__(self, blob, step, filename, dump_s, serialize_s, sent_at):
+        super().__init__(blob, step, filename)
+        self.dump_s, self.serialize_s, self.sent_at = (dump_s, serialize_s,
+                                                       sent_at)
+
+    def __call__(self):
+        t_call = time.time()
+        super().__call__()
+        RELAYS.append({"trial": tune.get_trial_id(), "step": self.step,
+                       "bytes": len(self.blob), "dump_s": self.dump_s,
+                       "serialize_s": self.serialize_s,
+                       "queue_s": t_call - self.sent_at,
+                       "write_s": time.time() - t_call})
+
+
+class TimedCheckpoint(_TuneCheckpointCallback):
+    """``_TuneCheckpointCallback`` with its dump and serialize timed in
+    the worker and a ``TimedPayload`` sent."""
+
+    def _fire(self, event, trainer, module):
+        if event in self._on and not trainer.sanity_checking:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ckpt = trainer.dump_checkpoint()
+            t1 = time.perf_counter()
+            if trainer.is_global_zero:
+                blob = trainer.serialize_checkpoint(ckpt)
+                t2 = time.perf_counter()
+                self._relay(TimedPayload(blob, trainer.global_step,
+                                         self._filename, t1 - t0, t2 - t1,
+                                         time.time()))
+
+
+class TimedReportCheckpoint(tune.TuneReportCheckpointCallback):
+    """``TuneReportCheckpointCallback`` whose checkpoint relay is timed."""
+
+    def __init__(self, metrics=None, on="validation_end"):
+        super().__init__(metrics, on=on)
+        self._checkpoint = TimedCheckpoint("checkpoint", on)
+
+
+def by_trial(key: str) -> dict:
+    """``trial id -> [item[key], ...]`` over ``TUNE_EVENTS``, in order."""
+    out: dict = {}
+    for tid, item in TUNE_EVENTS:
+        if key in item:
+            out.setdefault(tid, []).append(item[key])
+    return out
+
+
+def startups(fit_calls: dict) -> list:
+    """Each fit's seconds from the trainable's fit call to the end of
+    its first step (the worker's spawn, import, rendezvous, data, init
+    and first step)."""
+    firsts = by_trial("first_step_at")
+    return [f - c for tid, calls in fit_calls.items()
+            for c, f in zip(calls, firsts.get(tid, []))]
+
+
+def pbt_sweep(base: str, seed: int) -> dict:
+    """(a) BASELINE config #3 (module docstring): 4 MNIST trials under
+    PBT, each a ``RayPlugin(num_workers=1)`` fit on the card; checks and
+    counts."""
+    from ray_lightning_tpu_torch import LightningMNISTClassifier, RayPlugin
+    restores: "list[tuple[str, int]]" = []
+    fit_calls: dict = {}
+
+    def trainable(config, checkpoint_dir=None):
+        ckpt = None
+        if checkpoint_dir:
+            ckpt = os.path.join(checkpoint_dir, "checkpoint")
+            restores.append((tune.get_trial_id(), int(
+                Trainer.load_checkpoint_dict(ckpt, "cpu")["global_step"])))
+        tid = tune.get_trial_id()
+        fit_calls.setdefault(tid, []).append(time.time())
+        log(f"  (a) {tid} fit {len(fit_calls[tid])} with {config}"
+            + (f" from step {restores[-1][1]}" if ckpt else ""))
+        trainer = Trainer(
+            plugins=[RayPlugin(num_workers=1, timeout_s=TUNE_TIMEOUT_S)],
+            max_epochs=10 * PBT_ITERATIONS, seed=seed,
+            limit_train_batches=PBT_TRAIN_BATCHES, num_sanity_val_steps=0,
+            enable_checkpointing=False, default_root_dir=tune.get_trial_dir(),
+            callbacks=[TuneProbe(), TimedReportCheckpoint(
+                {"loss": "ptl/val_loss",
+                 "mean_accuracy": "ptl/val_accuracy"})])
+        trainer.fit(LightningMNISTClassifier(
+            config, train_size=PBT_TRAIN_SIZE, val_size=PBT_VAL_SIZE),
+            ckpt_path=ckpt)
+
+    space = {"layer_1": tune.choice([32, 64, 128]),
+             "layer_2": tune.choice([64, 128, 256]),
+             "lr": tune.loguniform(1e-4, 1e-1),
+             "batch_size": tune.choice([32, 64, 128])}
+    TUNE_EVENTS.clear()         # trial ids repeat across sweeps
+    n_relays = len(RELAYS)
+    t0 = time.time()
+    analysis = tune.run(
+        trainable, config=space, num_samples=PBT_TRIALS, seed=seed,
+        scheduler=tune.PopulationBasedTraining(
+            metric="loss", mode="min", perturbation_interval=1,
+            hyperparam_mutations={"lr": tune.loguniform(1e-4, 1e-1),
+                                  "batch_size": [32, 64, 128]}),
+        stop={"training_iteration": PBT_ITERATIONS},
+        resources_per_trial=tune.get_tune_resources(num_workers=1,
+                                                    use_gpu=True),
+        local_dir=base, name="pbt_mnist")
+    wall = time.time() - t0
+    trials = analysis.trials
+    if [t.status for t in trials] != ["TERMINATED"] * PBT_TRIALS:
+        raise AssertionError(f"(a) trial statuses {trials}: "
+                             f"{[t.error for t in trials if t.error]}")
+    if not restores:
+        raise AssertionError("(a) no PBT exploit happened")
+    starts = by_trial("start_step")
+    for t in trials:
+        want = [0] + [s for tid, s in restores if tid == t.trial_id]
+        if starts.get(t.trial_id) != want:
+            raise AssertionError(
+                f"(a) {t.trial_id}: fits started at steps "
+                f"{starts.get(t.trial_id)}, its restores' donor steps "
+                f"{want[1:]}")
+    devices = sorted({d for ds in by_trial("device").values() for d in ds})
+    if not devices or not all(d.startswith("cuda") for d in devices):
+        raise AssertionError(f"(a) worker devices {devices}")
+    best = analysis.best_result
+    if not best["mean_accuracy"] > 0.5:
+        raise AssertionError(f"(a) best mean_accuracy "
+                             f"{best['mean_accuracy']} (chance 0.1)")
+    ups = startups(fit_calls)
+    relays = RELAYS[n_relays:]
+    stats = {
+        "wall_s": wall, "trials": len(trials), "exploits": len(restores),
+        "fits": sum(len(c) for c in fit_calls.values()),
+        "reports": sum(len(t.history) for t in trials),
+        "checkpoint_relays": len(relays),
+        "relay_bytes_median": float(np.median([r["bytes"] for r in relays])),
+        "worker_startup_s": {"min": min(ups), "median": float(np.median(ups)),
+                             "max": max(ups)},
+        "best_config": analysis.best_config,
+        "best_loss": best["loss"], "best_mean_accuracy":
+            best["mean_accuracy"], "devices": devices,
+        "train_batches_per_epoch": PBT_TRAIN_BATCHES}
+    log(f"  (a) PBT over MNIST: {len(trials)} trials TERMINATED in "
+        f"{wall:.1f} s, {len(restores)} exploits (each restarted fit began "
+        f"at its donor checkpoint's global_step), {stats['fits']} fits, "
+        f"{stats['reports']} reports, {len(relays)} checkpoint relays; "
+        f"workers on {devices}; best {analysis.best_config} loss "
+        f"{best['loss']:.4f} accuracy {best['mean_accuracy']:.4f}; worker "
+        f"start-up {stats['worker_startup_s']}")
+    return stats
+
+
+def gpt_sweep(base: str, seed: int) -> dict:
+    """(b) gpt2-small at full width under ``RayPlugin(num_workers=1)``
+    in a grid over lr: each trial's two reports and ~1.49 GB checkpoint
+    relays, the last relayed checkpoint against the driver's weights bit
+    for bit, the worker's launches; the timings."""
+    from ray_lightning_tpu_torch import RayPlugin
+    fits: dict = {}
+    n_relays = len(RELAYS)
+
+    def trainable(config):
+        module = GPTLightningModule("gpt2-small", batch_size=TRAIN_B,
+                                    lr=config["lr"])
+        trainer = Trainer(
+            plugins=[RayPlugin(num_workers=1, timeout_s=TUNE_TIMEOUT_S)],
+            max_steps=TUNE_GPT_STEPS, val_check_interval=TUNE_VAL_EVERY,
+            limit_val_batches=1, check_val_every_n_epoch=10**6,
+            num_sanity_val_steps=0, enable_checkpointing=False, seed=seed,
+            default_root_dir=tune.get_trial_dir(),
+            callbacks=[PluginProbe(), TimedReportCheckpoint(
+                on="validation_end")])
+        PROBES.clear()
+        t0 = time.time()
+        trainer.fit(module)
+        fits[tune.get_trial_id()] = dict(
+            trainer=trainer, module=module, t0=t0, wall_s=time.time() - t0,
+            report=PROBES.pop())
+
+    t0 = time.time()
+    analysis = tune.run(
+        trainable, config={"lr": tune.grid_search(list(TUNE_LRS))},
+        metric="val_loss", mode="min", seed=seed,
+        # a bound past the fit's own end (two reports)
+        stop={"training_iteration": TUNE_GPT_STEPS // TUNE_VAL_EVERY + 1},
+        resources_per_trial=tune.get_tune_resources(num_workers=1,
+                                                    use_gpu=True),
+        local_dir=base, name="gpt2_small")
+    wall = time.time() - t0
+    launches = {"flash_fwd": 0, "flash_bwd": 0}
+    per_trial = {}
+    for t in analysis.trials:
+        if t.status != "TERMINATED" or len(t.history) != 2:
+            raise AssertionError(f"(b) {t}: {len(t.history)} reports, "
+                                 f"want 2; {t.error}")
+        run = fits[t.trial_id]
+        got = check_probe(run, 12, TUNE_GPT_STEPS, f"(b) {t.trial_id}")
+        if run["report"]["val_batches"] != 2:
+            raise AssertionError(f"(b) {t.trial_id}: "
+                                 f"{run['report']['val_batches']} "
+                                 f"validation batches, want 2")
+        for k in launches:
+            launches[k] += got[k]
+        ckpt = Trainer.load_checkpoint_dict(
+            os.path.join(t.latest_checkpoint, "checkpoint"), "cpu")
+        if ckpt["global_step"] != TUNE_GPT_STEPS:
+            raise AssertionError(f"(b) last checkpoint at step "
+                                 f"{ckpt['global_step']}")
+        n = check_bitwise({**ckpt["state"]["params"],
+                           **ckpt["state"]["model_state"]},
+                          run["module"]._trained_state,
+                          f"(b) {t.trial_id} relayed checkpoint vs the "
+                          f"driver's weights")
+        per_trial[t.trial_id] = {
+            "lr": t.config["lr"], "val_loss": t.last_result["val_loss"],
+            "fit_s": run["wall_s"], "tensors_equal": n,
+            "worker_startup_s": run["report"]["first_step_at"] - run["t0"],
+            "worker_step_ms_median":
+                float(np.median(run["report"]["step_ms"][2:])),
+            "worker_launches": got}
+    relays = RELAYS[n_relays:]
+    if len(relays) != 2 * len(analysis.trials):
+        raise AssertionError(f"(b) {len(relays)} checkpoint relays, want "
+                             f"{2 * len(analysis.trials)}")
+    for r in relays:
+        r["total_s"] = r["dump_s"] + r["serialize_s"] + r["queue_s"] \
+            + r["write_s"]
+        r["gb_per_s"] = r["bytes"] / r["total_s"] / 1e9
+    stats = {"wall_s": wall, "sum_of_fits_s": sum(
+        f["wall_s"] for f in fits.values()), "trials": per_trial,
+        "relays": relays, "launches": launches,
+        "best_checkpoint": os.path.basename(analysis.best_checkpoint)}
+    log(f"  (b) gpt2-small grid over lr {list(TUNE_LRS)}: 2 trials x 2 "
+        f"reports; each last relayed checkpoint equals the driver's "
+        f"weights bit for bit; worker launches {launches}; sweep "
+        f"{wall:.1f} s against {stats['sum_of_fits_s']:.1f} s of fits")
+    for r in relays:
+        log(f"  (b) relay {r['trial']} step {r['step']}: {r['bytes']} bytes "
+            f"in {r['total_s']:.3f} s ({r['gb_per_s']:.3f} GB/s): dump "
+            f"{r['dump_s']:.3f} + serialize {r['serialize_s']:.3f} in the "
+            f"worker, queue {r['queue_s']:.3f}, write {r['write_s']:.3f} "
+            f"on the driver")
+    return {"analysis": analysis, "stats": stats, "launches": launches}
+
+
+def resume_best(analysis, seed: int, root: str) -> dict:
+    """(b) ``analysis.best_checkpoint`` resumed in process for one more
+    step on the card: its launches (12 + 12) and the step it ends at."""
+    path = os.path.join(analysis.best_checkpoint, "checkpoint")
+    step = int(Trainer.load_checkpoint_dict(path, "cpu")["global_step"])
+    trainer = Trainer(max_steps=step + 1, seed=seed, limit_val_batches=0,
+                      num_sanity_val_steps=0, enable_checkpointing=False,
+                      logger=False, device="cuda", default_root_dir=root)
+    _kernels.reset_launches()
+    trainer.fit(GPTLightningModule("gpt2-small", batch_size=TRAIN_B),
+                ckpt_path=path)
+    got = {k: _kernels.launch_counts()[k] for k in ("flash_fwd",
+                                                    "flash_bwd")}
+    loss = trainer.callback_metrics.get("loss")
+    if trainer.global_step != step + 1 or got != {
+            "flash_fwd": 12, "flash_bwd": 12} or not np.isfinite(loss):
+        raise AssertionError(f"(b) resume of the best checkpoint: step "
+                             f"{trainer.global_step}, launches {got}, "
+                             f"loss {loss}")
+    log(f"  (b) best checkpoint resumed in process from step {step} to "
+        f"{trainer.global_step}: loss {loss:.4f}, launches {got}")
+    return got
+
+
+def lease_sweep(base: str, seed: int) -> dict:
+    """(c) two in-process gpt2-small trials, each asking for one GPU, at
+    max_concurrent_trials=2: on one card the lease serializes them;
+    each trains on its leased card; their launches."""
+    devices: dict = {}
+
+    def trainable(config):
+        trainer = Trainer(
+            max_steps=LEASE_STEPS, seed=seed, limit_val_batches=0,
+            num_sanity_val_steps=0, enable_checkpointing=False,
+            default_root_dir=tune.get_trial_dir(),
+            callbacks=[LeaseSpan(), tune.TuneReportCallback(
+                on="train_epoch_end")])
+        if trainer.device is not None:
+            raise AssertionError(f"(c) device {trainer.device} before the "
+                                 f"fit took the lease")
+        trainer.fit(GPTLightningModule("gpt2-small", batch_size=TRAIN_B))
+        devices[tune.get_trial_id()] = str(trainer.device)
+
+    n = len(TUNE_EVENTS)
+    _kernels.reset_launches()
+    t0 = time.time()
+    analysis = tune.run(
+        trainable, config={"tag": tune.grid_search([0, 1])},
+        resources_per_trial=tune.get_tune_resources(num_workers=1,
+                                                    use_gpu=True),
+        max_concurrent_trials=2, metric="loss", seed=seed,
+        local_dir=base, name="leases")
+    wall = time.time() - t0
+    got = {k: _kernels.launch_counts()[k] for k in ("flash_fwd",
+                                                    "flash_bwd")}
+    spans = [it["span"] for _, it in TUNE_EVENTS[n:] if "span" in it]
+    want = 2 * 12 * LEASE_STEPS
+    for t in analysis.trials:
+        if t.status != "TERMINATED" or t.leased_devices != [
+                devices.get(t.trial_id)] or not devices[
+                t.trial_id].startswith("cuda"):
+            raise AssertionError(f"(c) {t}: leased {t.leased_devices}, "
+                                 f"trained on {devices.get(t.trial_id)}; "
+                                 f"{t.error}")
+    (a0, a1), (b0, b1) = spans
+    one_card = torch.cuda.device_count() == 1
+    if one_card and not (a1 <= b0 or b1 <= a0):
+        raise AssertionError(f"(c) the train intervals {spans} overlap on "
+                             f"one card")
+    if one_card and set(devices.values()) != {"cuda:0"}:
+        raise AssertionError(f"(c) devices {devices}")
+    if got != {"flash_fwd": want, "flash_bwd": want}:
+        raise AssertionError(f"(c) launches {got}, want {want} each")
+    log(f"  (c) 2 in-process trials at max_concurrent_trials=2 leased "
+        f"{[t.leased_devices for t in analysis.trials]}, trained on "
+        f"{sorted(devices.values())} one after the other (train intervals "
+        f"{[(round(a, 3), round(b, 3)) for a, b in spans]}), launches "
+        f"{got}; sweep {wall:.1f} s")
+    return {"launches": got, "stats": {"wall_s": wall, "devices": devices,
+                                       "spans": spans}}
+
+
+def tune_phase(seed: int, driver_off_cuda: bool) -> dict:
+    """Phase 12 (module docstring), run in this script's module by name,
+    ``chip_smoke``: its workers import the callbacks and relayed items
+    from there, and the driver's records must be that module's too."""
+    import chip_smoke as this
+    return this.run_tune_phase(seed, driver_off_cuda)
+
+
+def run_tune_phase(seed: int, driver_off_cuda: bool) -> dict:
+    """Phase 12: (a) PBT over MNIST, (b) gpt2-small trials in
+    ``RayPlugin`` workers with ~1.49 GB checkpoint relays and the best
+    checkpoint resumed in process, (c) in-process trials on a leased
+    card; the tune path's launches of rows 1 and 6.  With
+    ``driver_off_cuda``, (a) and (b)'s sweeps run before anything here
+    touches CUDA, and CUDA is still uninitialised after them."""
+    t_phase = time.monotonic()
+    base = tempfile.mkdtemp(prefix="rlt_tune_phase_")
+    TUNE_EVENTS.clear()
+    RELAYS.clear()
+    try:
+        pbt = pbt_sweep(base, seed)
+        gpt = gpt_sweep(base, seed)
+        if driver_off_cuda and torch.cuda.is_initialized():
+            raise AssertionError("the driver initialised CUDA during the "
+                                 "actor trials")
+        log(f"  driver CUDA initialised after the actor trials: "
+            f"{torch.cuda.is_initialized()}")
+        resumed = resume_best(gpt["analysis"], seed,
+                              os.path.join(base, "resume"))
+        leases = lease_sweep(base, seed)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    launches = {k: gpt["launches"][k] + resumed[k] + leases["launches"][k]
+                for k in ("flash_fwd", "flash_bwd")}
+    stats = {"card": card_line(), "pbt": pbt, "gpt": gpt["stats"],
+             "leases": leases["stats"], "resume_launches": resumed,
+             "launches": launches, "phase_s": time.monotonic() - t_phase}
+    log("tune " + json.dumps(stats, default=str))
+    return {"launches": launches, "stats": stats}
+
+
 def attribute(by_row: dict, runs: list) -> None:
     """Add each path run's launches to the rows it takes: flash_fwd's to
     its forward row, flash_bwd's to each backward row."""
@@ -3035,6 +3517,12 @@ def main(argv=None) -> int:
                          "RayShardedPlugin) with the driver off CUDA, then "
                          "check and time flash_fwd and flash_bwd (rows 1 "
                          "and 6)")
+    ap.add_argument("--tune-only", action="store_true",
+                    help="build, run phase 12 (Tune: PBT over MNIST, "
+                         "gpt2-small trials under RayPlugin, in-process "
+                         "leases) with the driver off CUDA until its actor "
+                         "trials end, then check and time flash_fwd and "
+                         "flash_bwd (rows 1 and 6)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -3042,7 +3530,8 @@ def main(argv=None) -> int:
         return 1
 
     log(card_line())
-    if not args.plugin_only:     # the device's name initialises CUDA
+    driver_off_cuda = args.plugin_only or args.tune_only
+    if not driver_off_cuda:      # the device's name initialises CUDA
         log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
             f"{torch.cuda.get_device_name(0)}")
     build_s = _kernels.build()
@@ -3054,19 +3543,21 @@ def main(argv=None) -> int:
                                        "function", "wgmma", "warning")):
                 log(f"  ptxas {source}: {line.strip()}")
 
-    if args.plugin_only:
-        log("plugin phase")
+    if driver_off_cuda:
+        path, run = (("plugin", plugin_phase) if args.plugin_only
+                     else ("tune", tune_phase))
+        log(f"{path} phase")
         t0 = time.monotonic()
-        plugin = plugin_phase(args.seed, driver_off_cuda=True)
-        log(f"plugin phase: {time.monotonic() - t0:.1f} s")
+        phase = run(args.seed, driver_off_cuda=True)
+        log(f"{path} phase: {time.monotonic() - t0:.1f} s")
         log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
             f"{torch.cuda.get_device_name(0)}")
         gen = torch.Generator(device="cuda").manual_seed(args.seed)
         log("kernel phase (rows 1 and 6)")
         entries = [kernel_flash_fwd(gen), kernel_flash_bwd(gen)]
         for e in entries:
-            e["launches_by_path"] = {"plugin": plugin["launches"][e["name"]]}
-            e["launches"] = e["launches_by_path"]["plugin"]
+            e["launches_by_path"] = {path: phase["launches"][e["name"]]}
+            e["launches"] = e["launches_by_path"][path]
         log(json.dumps({"kernels": entries}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3177,6 +3668,16 @@ def main(argv=None) -> int:
         e["launches_by_path"]["plugin"] = plugin["launches"][e["name"]]
         e["launches"] = sum(e["launches_by_path"].values())
     log(f"plugin phase: {time.monotonic() - t0:.1f} s")
+
+    log("tune phase")
+    t0 = time.monotonic()
+    free_cuda()
+    tuned = tune_phase(args.seed, driver_off_cuda=False)
+    for row in (1, 6):
+        e = by_row[row]
+        e["launches_by_path"]["tune"] = tuned["launches"][e["name"]]
+        e["launches"] = sum(e["launches_by_path"].values())
+    log(f"tune phase: {time.monotonic() - t0:.1f} s")
     log("speed order (rows slower than their library call by that factor, "
         "then by launches x (ms - bound)): " + ", ".join(
             f"row {e['row']} {e['ms'] / e['library_ms']:.2f}x"

@@ -12,8 +12,10 @@ checkpoints with ``ModelCheckpoint`` and resume with ``ckpt_path=``,
 ``EarlyStopping``, ``val_check_interval``, ``predict``, datamodules, a
 ``CSVLogger``), data-parallel over subprocess actors with
 ``Trainer(plugins=[RayPlugin(num_workers=N)])`` (DDP) or
-``RayShardedPlugin`` (ZeRO-1), NCCL on the card and gloo on the CPU, and
-the BERT
+``RayShardedPlugin`` (ZeRO-1), NCCL on the card and gloo on the CPU,
+hyperparameter sweeps with ``tune.run`` (grid and random search, ASHA,
+PBT) whose trials train in process on a leased card or in those
+workers, and the BERT
 family: ``Trainer(...).fit(BertMLMModule("bert-base", batch_size=32))``
 (masked-LM pretraining) and ``BertLightningModule`` (sequence
 classification), whose attention is bidirectional.  Their attention
@@ -48,6 +50,7 @@ from ray_lightning_tpu_torch.plugins import (LocalPlugin, RayPlugin,
 from ray_lightning_tpu_torch.serve import (Scheduler, ServeEngine,
                                            ServeRequest, ServeWorker)
 from ray_lightning_tpu_torch.utils.logger import CSVLogger
+from ray_lightning_tpu_torch import tune
 
 __version__ = "0.1.0"
 
@@ -81,5 +84,6 @@ __all__ = [
     "flax_to_torch",
     "jax_checkpoint_to_torch",
     "resolve_device",
+    "tune",
     "__version__",
 ]

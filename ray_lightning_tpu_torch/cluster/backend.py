@@ -18,9 +18,10 @@ from typing import Any, Optional
 
 class Future:
     """Resolvable handle for an in-flight actor call (``ObjectRef``
-    analog)."""
+    analog); ``actor_id`` names the actor it waits on."""
 
-    def __init__(self):
+    def __init__(self, actor_id: str):
+        self.actor_id = actor_id
         self._event = threading.Event()
         self._value: Any = None
         self._error: Optional[BaseException] = None
@@ -83,8 +84,10 @@ class ClusterBackend:
     def free(self, ref: Any) -> None:
         """Release a stored object when the fan-out is done."""
 
-    def queue_get_nowait(self):
-        """Pop one worker-to-driver queue item, or None."""
+    def queue_get_nowait(self, actors: set):
+        """Pop the oldest worker-to-driver queue item sent by one of
+        ``actors``, or None (concurrent runs in one driver, such as Tune
+        trials on threads, each drain only their own workers' items)."""
         raise NotImplementedError
 
     def shutdown(self) -> None:

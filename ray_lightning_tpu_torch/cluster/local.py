@@ -112,7 +112,7 @@ class LocalActorHandle(ActorHandle):
                 msg = self._conn.recv()
                 kind = msg.get("type")
                 if kind == "queue":
-                    self._backend._queue_push(msg["item"])
+                    self._backend._queue_push(self.actor_id, msg["item"])
                 elif kind == "result":
                     with self._lock:
                         fut = self._pending.pop(msg["call_id"], None)
@@ -148,7 +148,7 @@ class LocalActorHandle(ActorHandle):
     # -- API ---------------------------------------------------------------
 
     def call(self, method: str, *args, **kwargs) -> Future:
-        fut = Future()
+        fut = Future(self.actor_id)
         if self._dead:
             fut.set_error(self._death_error or RemoteActorError(
                 f"actor {self.actor_id} is dead"))
@@ -181,7 +181,8 @@ class LocalActorHandle(ActorHandle):
 
     def kill(self) -> None:
         """Stop the actor: a shutdown frame, then SIGTERM, then SIGKILL
-        after 5 s; the process is reaped."""
+        after 5 s; the process is reaped and its undrained queue items
+        dropped."""
         self._dead = True
         self._backend._actors.pop(self.actor_id, None)
         if self._conn is not None:
@@ -189,16 +190,16 @@ class LocalActorHandle(ActorHandle):
                 self._conn.send({"type": "shutdown"})
             except (ConnectionError, OSError):
                 pass
-        if self._proc is None:
-            return
-        try:
-            self._proc.terminate()
-            self._proc.wait(timeout=5)
-        except subprocess.TimeoutExpired:
-            self._proc.kill()
-            self._proc.wait()
+        if self._proc is not None:
+            try:
+                self._proc.terminate()
+                self._proc.wait(timeout=5)
+            except subprocess.TimeoutExpired:
+                self._proc.kill()
+                self._proc.wait()
         if self._conn is not None:
             self._conn.close()
+        self._backend._queue_discard(self.actor_id)
 
 
 class LocalBackend(ClusterBackend):
@@ -213,7 +214,8 @@ class LocalBackend(ClusterBackend):
         self._listener.listen(64)
         self._actors: "dict[str, LocalActorHandle]" = {}
         self._objects: "dict[str, str]" = {}   # object_id -> file path
-        self._queue: "list[Any]" = []
+        #: (sending actor, item), oldest first
+        self._queue: "list[tuple[str, Any]]" = []
         self._queue_lock = threading.Lock()
         self._closed = False
         threading.Thread(target=self._accept_loop, daemon=True,
@@ -250,13 +252,21 @@ class LocalBackend(ClusterBackend):
             return
         handle._attach(conn)
 
-    def _queue_push(self, item: Any) -> None:
+    def _queue_push(self, actor_id: str, item: Any) -> None:
         with self._queue_lock:
-            self._queue.append(item)
+            self._queue.append((actor_id, item))
 
-    def queue_get_nowait(self):
+    def _queue_discard(self, actor_id: str) -> None:
         with self._queue_lock:
-            return self._queue.pop(0) if self._queue else None
+            self._queue = [e for e in self._queue if e[0] != actor_id]
+
+    def queue_get_nowait(self, actors: set):
+        with self._queue_lock:
+            for i, (actor_id, item) in enumerate(self._queue):
+                if actor_id in actors:
+                    del self._queue[i]
+                    return item
+            return None
 
     # -- actors ----------------------------------------------------------------
 

@@ -21,8 +21,9 @@ batch: each loader is sharded by rank (``DataLoader.shard``, when
 ``use_distributed_sampler`` and the world size is over 1); the train
 metrics are the mean over the ranks and the validation metrics the
 batch-size-weighted mean over every rank's batches, so callbacks decide
-the same on every rank; ``predict`` returns every rank's rows, batch by
-batch in rank order; a step's dropout masks differ across ranks (the
+the same on every rank; ``predict`` returns every rank's rows in
+dataset order, each sample once (the loader's wrap-around padding
+dropped); a step's dropout masks differ across ranks (the
 rank joins the step's entropy).  Checkpoints are collective: every rank
 builds the dict (ZeRO-1 gathers its shards into the single-device
 layout) and global zero alone writes it, the ``metrics.csv`` rows and
@@ -39,8 +40,12 @@ Honoured: ``max_epochs``, ``max_steps``, ``callbacks``,
 ``gradient_clip_val`` (``clip_by_global_norm`` chained ahead of the
 module's optimizer), ``precision`` (the bf16 spellings cast a batch's
 floating leaves to bf16; the model's dtypes do not change), ``seed``,
-``resume_from_checkpoint`` / ``ckpt_path`` and ``logger`` (``True``: a
-``CSVLogger`` writing ``<default_root_dir>/logs/metrics.csv``).
+``resume_from_checkpoint`` / ``ckpt_path``, ``logger`` (``True``: a
+``CSVLogger`` writing ``<default_root_dir>/logs/metrics.csv``) and
+``device``.  Inside a Tune trial whose ``resources_per_trial`` asks for
+GPUs, a ``Trainer`` given no device takes its card from the trial's
+lease when the fit starts (tune/runner.py ``_DeviceLeaser``): it is
+single-device, so a lease of n > 1 cards trains on its first card.
 ``callback_metrics`` holds, per name, the mean over the epoch of the
 train steps' values (published mid-epoch every ``log_every_n_steps``
 steps) and the batch-size-weighted mean of the last validation;
@@ -71,7 +76,6 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ray_lightning_tpu_torch._device import resolve_device
 from ray_lightning_tpu_torch.parallel import strategy as _parallel
 from ray_lightning_tpu_torch.parallel.strategy import resolve_strategy
 from ray_lightning_tpu_torch.plugins.base import LocalPlugin
@@ -192,8 +196,11 @@ class Trainer:
         self.resume_from_checkpoint = resume_from_checkpoint
         self.use_distributed_sampler = use_distributed_sampler
         self.logger = resolve_logger(logger, self.default_root_dir)
-        #: ``None`` for a remote plugin: each worker sets its own
-        self.device = None if self.plugin.remote else resolve_device(device)
+        #: ``None`` for a remote plugin (each worker sets its own) and
+        #: until the stage starts where the plugin says so (a Tune
+        #: trial's lease); else the resolved device
+        self.device = None if self.plugin.remote \
+            else self.plugin.initial_device(device)
         self._world = {"world_size": 1, "global_rank": 0, "local_rank": 0,
                        "node_rank": 0}
         #: the dtype a batch's floating leaves are cast to (``None``:
@@ -237,8 +244,8 @@ class Trainer:
     def predict(self, module, datamodule=None,
                 ckpt_path: Optional[str] = None):
         """The predict loader's batches through ``module.predict_step``:
-        a list of its outputs, one a batch (every rank's rows, in rank
-        order), as CPU tensors."""
+        a list of its outputs, one a batch (every rank's rows, in dataset
+        order, without the padding of the last one), as CPU tensors."""
         return self.plugin.run(self, module, datamodule, "predict",
                                ckpt_path)
 
@@ -586,8 +593,10 @@ class Trainer:
             out = _to_cpu(self._predict_step(self.state,
                                              self._to_device(batch)))
             if self.world_size > 1:
-                out = _cat_ranks(_parallel.gather_objects(out))
+                out = _deinterleave(_cat_ranks(
+                    _parallel.gather_objects(out)), self.world_size)
             outputs.append(out)
+        outputs = _trim_predict_padding(outputs, loader)
         for cb in self.callbacks:
             cb.on_predict_end(self, module)
         return outputs
@@ -622,6 +631,13 @@ class Trainer:
             cb.on_save_checkpoint(self, module, ckpt)
         return ckpt
 
+    @staticmethod
+    def serialize_checkpoint(ckpt: dict) -> bytes:
+        """The bytes :meth:`save_checkpoint` writes for ``ckpt``
+        (``torch.save`` of its plain containers), as the Tune checkpoint
+        relay sends them to the trial driver."""
+        return to_state_stream(ckpt)
+
     def save_checkpoint(self, filepath: str) -> None:
         """Write :meth:`dump_checkpoint` to ``filepath`` atomically: into
         a temporary file in the same directory that then replaces it.
@@ -631,7 +647,7 @@ class Trainer:
         ckpt = self.dump_checkpoint()
         if not self.is_global_zero:
             return
-        payload = to_state_stream(ckpt)
+        payload = self.serialize_checkpoint(ckpt)
         dirname = os.path.dirname(filepath)
         if dirname:
             os.makedirs(dirname, exist_ok=True)
@@ -708,15 +724,66 @@ def _cat_ranks(parts: list):
     return parts
 
 
+def _map_tensors(fn, out):
+    """``out`` with ``fn`` applied to every tensor inside its tuples,
+    lists and dicts (a predict step's output)."""
+    if isinstance(out, torch.Tensor):
+        return fn(out)
+    if isinstance(out, (tuple, list)):
+        return type(out)(_map_tensors(fn, x) for x in out)
+    if isinstance(out, dict):
+        return {k: _map_tensors(fn, v) for k, v in out.items()}
+    return out
+
+
+def _tensors(out) -> list:
+    found = []
+    _map_tensors(found.append, out)
+    return found
+
+
+def _deinterleave(out, w: int):
+    """A gathered predict batch (rank 0's rows, then rank 1's, ...) back
+    in dataset order: the loader's stride gives rank r the dataset
+    indices r, r + W, ..., so dataset order is the (position, rank)
+    transpose (the JAX ``_deinterleave_global_batch``)."""
+    def fix(t):
+        if t.dim() == 0 or t.shape[0] % w:
+            return t
+        lb = t.shape[0] // w
+        return t.reshape(w, lb, *t.shape[1:]).transpose(0, 1).reshape(
+            w * lb, *t.shape[1:])
+    return _map_tensors(fix, out)
+
+
+def _trim_predict_padding(outputs: list, loader) -> list:
+    """``outputs`` without the trailing rows of the loader's wrap-around
+    padding (``DataLoader._indices`` pads so every shard is as long),
+    so every sample comes back once (the JAX ``_trim_predict_padding``).
+    Outputs without a batch dim are left as they are."""
+    if not outputs or getattr(loader, "num_shards", 1) <= 1:
+        return outputs
+    ds = getattr(loader, "dataset", None)
+    if ds is None or not hasattr(ds, "__len__"):
+        return outputs
+    counts = [next((t.shape[0] for t in _tensors(o) if t.dim() > 0), None)
+              for o in outputs]
+    if any(c is None for c in counts):
+        return outputs
+    excess = sum(counts) - len(ds)
+    if excess <= 0:
+        return outputs
+    keep = counts[-1] - excess
+    if keep <= 0:
+        return outputs[:-1]
+    outputs[-1] = _map_tensors(
+        lambda t: t[:keep] if t.dim() > 0 else t, outputs[-1])
+    return outputs
+
+
 def _to_cpu(out):
     """A predict step's output with every tensor on the host."""
-    if isinstance(out, torch.Tensor):
-        return out.cpu()
-    if isinstance(out, (tuple, list)):
-        return type(out)(_to_cpu(x) for x in out)
-    if isinstance(out, dict):
-        return {k: _to_cpu(v) for k, v in out.items()}
-    return out
+    return _map_tensors(lambda t: t.cpu(), out)
 
 
 def _sanitize(obj):

@@ -34,6 +34,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: every kernel the package defines, by name (filled by ``Kernel``)
 REGISTRY: "dict[str, Kernel]" = {}
+#: one build at a time in this process: kernels that share a source
+#: share its library and its temporary output, and threads (Tune trials)
+#: may first use two of them at once
+_BUILD_LOCK = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -70,6 +74,7 @@ class Kernel:
         self.entry = entry
         self.signature = signature
         self.launches = 0
+        self._count_lock = threading.Lock()
         #: nvcc's output of the last build (``-Xptxas=-v``: registers,
         #: shared memory and spills of each instantiation)
         self.build_log = ""
@@ -126,7 +131,8 @@ class Kernel:
             raise RuntimeError(
                 f"{self.name} launch failed with cudaError_t {err} "
                 f"(cuda_runtime_api.h names the codes)")
-        self.launches += 1
+        with self._count_lock:      # threads may launch at once
+            self.launches += 1
 
 
 def build(kernels: "Optional[Sequence[Kernel]]" = None) -> float:
@@ -134,6 +140,11 @@ def build(kernels: "Optional[Sequence[Kernel]]" = None) -> float:
     library is missing, one ``nvcc`` each, all started together.
     Returns the wall seconds spent; raises with the compiler's output on
     a failed build."""
+    with _BUILD_LOCK:
+        return _build(kernels)
+
+
+def _build(kernels: "Optional[Sequence[Kernel]]") -> float:
     import time
     t0 = time.monotonic()
     # kernels whose entry points share a source share its library: one

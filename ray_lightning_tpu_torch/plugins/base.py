@@ -2,7 +2,8 @@
 
 Counterpart of ``ray_lightning_tpu/plugins/base.py`` without the
 telemetry plane.  ``LocalPlugin`` runs the loop in this process, at
-world size 1, on the ``Trainer``'s device; the distributed plugins
+world size 1, on the ``Trainer``'s device (or its Tune trial's leased
+card); the distributed plugins
 (plugins/ray_ddp.py) ship the run into actor workers.  The plugin's
 second job is carrying the strategy (parallel/strategy.py).
 """
@@ -11,8 +12,11 @@ from __future__ import annotations
 
 from typing import Optional
 
+from ray_lightning_tpu_torch._device import resolve_device
 from ray_lightning_tpu_torch.parallel.strategy import (ShardingStrategy,
                                                        resolve_strategy)
+from ray_lightning_tpu_torch.tune.session import (get_trial_devices,
+                                                  lease_declared)
 
 
 class ExecutionPlugin:
@@ -20,6 +24,12 @@ class ExecutionPlugin:
     #: True when the stage runs in other processes, which choose their
     #: own device (the driver's ``Trainer`` then resolves none)
     remote: bool = False
+
+    def initial_device(self, device):
+        """The driver ``Trainer``'s device for ``Trainer(device=device)``
+        of an in-process plugin (``None``: chosen when the stage
+        starts)."""
+        return resolve_device(device)
 
     def run(self, trainer, module, datamodule, stage: str,
             ckpt_path: Optional[str]):
@@ -29,12 +39,26 @@ class ExecutionPlugin:
 class LocalPlugin(ExecutionPlugin):
     """In-process execution, the default when no distributed plugin is
     passed: the analog of running PL without any plugin.  Its strategy
-    defaults to DDP, which at one rank syncs nothing."""
+    defaults to DDP, which at one rank syncs nothing.
+
+    A ``Trainer`` given no device inside a Tune trial that declares a GPU
+    lease has ``device=None`` until here: the stage then runs on the
+    first card of the trial's lease (``tune.session.get_trial_devices``,
+    which may wait for a card to free, and raises when the trial asks
+    for more cards than this process sees)."""
 
     def __init__(self, strategy=None):
         self.strategy = resolve_strategy(strategy)
 
+    def initial_device(self, device):
+        if device is None and lease_declared():
+            return None
+        return resolve_device(device)
+
     def run(self, trainer, module, datamodule, stage, ckpt_path):
+        if trainer.device is None:
+            leased = get_trial_devices()
+            trainer.device = resolve_device(leased[0] if leased else None)
         return trainer._run_stage(module, datamodule, stage, ckpt_path)
 
 

@@ -31,9 +31,9 @@ def _handle_queue_item(item: Any) -> None:
         payload()
 
 
-def _drain(backend: ClusterBackend) -> bool:
+def _drain(backend: ClusterBackend, actors: set) -> bool:
     drained = False
-    while (item := backend.queue_get_nowait()) is not None:
+    while (item := backend.queue_get_nowait(actors)) is not None:
         drained = True
         _handle_queue_item(item)
     return drained
@@ -49,12 +49,17 @@ def process_results(futures: Sequence[Future], backend: ClusterBackend,
     a rank that fails takes its peers' collectives down with it and the
     first error to arrive need not be the cause; then every error raises
     together, worker by worker.  A wait past ``timeout`` seconds raises
-    ``TimeoutError`` naming the workers still running."""
+    ``TimeoutError`` naming the workers still running.  Only the queue
+    items of the futures' actors are relayed here, so runs on other
+    threads of this driver (Tune trials) keep theirs; an exception a
+    relayed callable raises (a Tune scheduler's stop or exploit) leaves
+    at once, the workers still running: their owner kills them."""
     pending = list(futures)
+    actors = {f.actor_id for f in pending}
     deadline = None if timeout is None else time.monotonic() + timeout
     failed_at = None
     while not all(f.done() for f in pending):
-        drained = _drain(backend)
+        drained = _drain(backend, actors)
         now = time.monotonic()
         if failed_at is None and any(f.error() for f in pending):
             failed_at = now
@@ -67,7 +72,7 @@ def process_results(futures: Sequence[Future], backend: ClusterBackend,
                 f"{timeout:.0f} s")
         if not drained:
             time.sleep(poll_interval)
-    _drain(backend)      # items enqueued just before the workers finished
+    _drain(backend, actors)  # items sent just before the workers finished
     errors = [(i, f.error()) for i, f in enumerate(pending) if f.error()]
     if len(errors) == 1:
         raise errors[0][1]

@@ -1,2 +1,3 @@
 """Host-side utilities: seeding (utils/seed.py), state streams
-(utils/states.py) and the CSV metrics logger (utils/logger.py)."""
+(utils/states.py), the CSV metrics logger (utils/logger.py) and the
+optional-dependency guards (utils/imports.py)."""

@@ -1040,3 +1040,104 @@ def test_cuda_plugins_zero1_equals_ddp_across_cards(cards, tmp_path):
             assert zl == dl
         else:
             np.testing.assert_allclose(zl, dl, atol=1e-5, rtol=1e-5)
+
+
+# -- Tune trials on the card ----------------------------------------------------
+
+class HoldAtTrainEnd(Callback):
+    """Waits at the end of training until every trial of the barrier is
+    there (so their fits overlap)."""
+
+    def __init__(self, barrier):
+        self.barrier = barrier
+
+    def on_train_end(self, trainer, module):
+        self.barrier.wait()
+
+
+@pytest.mark.cuda
+def test_cuda_tune_trials_train_concurrently_on_disjoint_cards(cards,
+                                                               tmp_path):
+    """Two in-process trials, each with a lease of one card and a
+    ``Trainer`` given no device, train at the same time (a barrier at
+    the end of training shows it) on two different cards, every
+    parameter on the trial's own card."""
+    import threading
+
+    from ray_lightning_tpu_torch import tune
+
+    barrier = threading.Barrier(2, timeout=120)
+    seen = {}
+
+    def fn(config):
+        trainer = Trainer(max_steps=3, seed=0, num_sanity_val_steps=0,
+                          limit_val_batches=0, enable_checkpointing=False,
+                          default_root_dir=tune.get_trial_dir(),
+                          callbacks=[HoldAtTrainEnd(barrier),
+                                     tune.TuneReportCallback(
+                                         on="train_epoch_end")])
+        module = GPTLightningModule("tiny", warmup_steps=2, dataset_size=32)
+        trainer.fit(module)
+        seen[config["tag"]] = (trainer.device, {
+            p.device for p in module.model.parameters()})
+
+    analysis = tune.run(
+        fn, config={"tag": tune.grid_search([0, 1])},
+        resources_per_trial=tune.get_tune_resources(num_workers=1,
+                                                    use_gpu=True),
+        max_concurrent_trials=2, local_dir=str(tmp_path))
+    assert all(t.status == "TERMINATED" for t in analysis.trials)
+    devices = [d for d, _ in seen.values()]
+    assert len(set(devices)) == 2 and all(d.type == "cuda" for d in devices)
+    for device, params in seen.values():
+        assert params == {device}
+    for t in analysis.trials:
+        assert t.leased_devices == [str(seen[t.config["tag"]][0])]
+
+
+@pytest.mark.cuda
+def test_cuda_relayed_checkpoint_resumes_in_process(cuda_device, tmp_path):
+    """A ``RayPlugin(num_workers=1)`` trial on the card relays its
+    checkpoint at the end of a 1-epoch fit: the file holds the weights
+    the driver got back, bit for bit, and a fit resumed from it in
+    process for a second epoch equals the uninterrupted 2-epoch fit in
+    process, bit for bit."""
+    from ray_lightning_tpu_torch import RayPlugin, tune
+
+    common = dict(seed=0, limit_train_batches=3, limit_val_batches=0,
+                  num_sanity_val_steps=0, enable_checkpointing=False,
+                  logger=False)
+
+    def module():
+        return GPTLightningModule("tiny", warmup_steps=2, dataset_size=32)
+
+    modules = []
+
+    def fn(config):
+        trainer = Trainer(plugins=[RayPlugin(num_workers=1, timeout_s=300)],
+                          max_epochs=1, default_root_dir=tune.get_trial_dir(),
+                          callbacks=[tune.TuneReportCheckpointCallback(
+                              on="train_end")], **common)
+        modules.append(module())
+        trainer.fit(modules[-1])
+
+    analysis = tune.run(fn, config={}, metric="loss",
+                        stop={"training_iteration": 2},
+                        local_dir=str(tmp_path))
+    (trial,) = analysis.trials
+    assert trial.status == "TERMINATED" and len(trial.history) == 1
+    path = f"{trial.latest_checkpoint}/checkpoint"
+    ckpt = Trainer.load_checkpoint_dict(path, "cpu")
+    assert (ckpt["epoch"], ckpt["global_step"]) == (1, 3)
+    saved = {**ckpt["state"]["params"], **ckpt["state"]["model_state"]}
+    for k, v in modules[0]._trained_state.items():
+        assert torch.equal(saved[k], v), k
+
+    resumed, whole = module(), module()
+    Trainer(max_epochs=2, device=cuda_device, **common).fit(
+        resumed, ckpt_path=path)
+    Trainer(max_epochs=2, device=cuda_device, **common).fit(whole)
+    got, want = resumed.model.state_dict(), whole.model.state_dict()
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and torch.equal(got[k], v), k

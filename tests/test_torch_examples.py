@@ -1,0 +1,52 @@
+"""PyTorch/CUDA port, the example scripts run as a user runs them: each
+in a subprocess, with ``--platform cpu --smoke-test`` (CPU workers on
+gloo, one epoch of a few batches), from a scratch working directory so
+their logs and trials stay out of the repository (tests/test_examples.py
+runs the JAX package's the same way)."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EXAMPLES = [
+    "ray_lightning_tpu_torch.examples.ray_ddp_example",
+    "ray_lightning_tpu_torch.examples.ray_ddp_tune",
+]
+
+
+def run_example(module: str, cwd, *extra: str) -> subprocess.CompletedProcess:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    return subprocess.run(
+        [sys.executable, "-m", module, "--platform", "cpu", "--smoke-test",
+         *extra], capture_output=True, text=True, timeout=300, env=env,
+        cwd=str(cwd))
+
+
+@pytest.mark.parametrize("module", EXAMPLES)
+def test_example_smoke(module, tmp_path):
+    proc = run_example(module, tmp_path)
+    assert proc.returncode == 0, (
+        f"{module} failed\nstdout:\n{proc.stdout}\nstderr:\n{proc.stderr}")
+    if module.endswith("ray_ddp_tune"):
+        assert "Best hyperparameters found were" in proc.stdout
+    else:
+        assert "Final metrics:" in proc.stdout
+
+
+def test_ddp_example_tune_smoke(tmp_path):
+    proc = run_example(EXAMPLES[0], tmp_path, "--tune", "--local-dir",
+                       str(tmp_path / "sweep"))
+    assert proc.returncode == 0, (
+        f"tune sweep failed\nstdout:\n{proc.stdout}\nstderr:\n{proc.stderr}")
+    assert "Best hyperparameters found were" in proc.stdout
+    trials = sorted(os.listdir(tmp_path / "sweep" / "tune_mnist"))
+    assert trials == ["trial_00000", "trial_00001"]
+    for t in trials:
+        assert os.path.isfile(tmp_path / "sweep" / "tune_mnist" / t /
+                              "logs" / "metrics.csv")

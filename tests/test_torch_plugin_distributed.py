@@ -21,8 +21,9 @@ and ``RayShardedPlugin`` (ZeRO-1) with CPU workers on gloo
   or dying rank failing the fit with its log tail, a rank stuck past
   the run's bound failing it with ``TimeoutError``, no child process
   left, validate without a fit (the batch-size-weighted mean over every
-  rank's batches), predict (every rank's rows), dropout seeds that differ across ranks and repeat
-  across runs;
+  rank's batches), predict (every rank's rows in dataset order, without
+  the padding of an uneven split), dropout seeds that differ across
+  ranks and repeat across runs;
 - guards: a worker imports no ``jax``, ``flax``, ``optax`` or
   ``ray_lightning_tpu``; a GPU worker on a machine without CUDA fails
   the fit with its own error; a reply the driver cannot unpickle fails
@@ -366,10 +367,10 @@ def test_evaluate_without_fit(tmp_path):
 
 
 def test_predict_returns_every_rank_rows(tmp_path):
-    """``predict`` over 2 workers: each batch holds rank 0's rows, then
-    rank 1's (the loader's stride puts samples 4i and 4i+2 on rank 0,
-    4i+1 and 4i+3 on rank 1), the same outputs as one process predicting
-    those samples."""
+    """``predict`` over 2 workers: each batch holds both ranks' rows in
+    dataset order (the loader's stride puts samples 4i and 4i+2 on rank
+    0, 4i+1 and 4i+3 on rank 1), the same outputs as one process
+    predicting those samples at batch 4."""
     kw = dict(seed=0, enable_checkpointing=False, logger=False,
               limit_predict_batches=3, default_root_dir=str(tmp_path))
     got, _ = fit(Trainer(plugins=[cpu_plugin(2)], **kw), BoringModel(),
@@ -378,8 +379,40 @@ def test_predict_returns_every_rank_rows(tmp_path):
     assert len(got) == len(want) == 3
     for g, w in zip(got, want):
         assert g.shape == w.shape == (4, 2)
-        np.testing.assert_allclose(g.numpy(), w[[0, 2, 1, 3]].numpy(),
-                                   rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=2e-5,
+                                   atol=2e-5)
+
+
+class ShortBoring(BoringModel):
+    """``BoringModel`` predicting over ``predict_length`` samples."""
+
+    def __init__(self, predict_length: int, **kw):
+        super().__init__(**kw)
+        self.predict_length = predict_length
+
+    def predict_dataloader(self):
+        from ray_lightning_tpu_torch.core.data import DataLoader
+        from ray_lightning_tpu_torch.models.boring import RandomDataset
+        return DataLoader(RandomDataset(32, self.predict_length, 3),
+                          batch_size=self.batch_size)
+
+
+@pytest.mark.parametrize("n, sizes", [(10, [4, 4, 2]), (11, [4, 4, 3])])
+def test_predict_drops_the_padding_of_an_uneven_split(n, sizes, tmp_path):
+    """2 workers at batch 2 a rank over ``n`` samples.  At 10 each shard
+    holds 5 and the last global batch is short; at 11 the loader pads
+    the split to 12 with a wrapped sample 0, so rank 1's last batch ends
+    in it.  ``predict`` returns every sample once, in dataset order, as
+    one process predicting all ``n``: the wrapped row is trimmed."""
+    kw = dict(seed=0, enable_checkpointing=False, logger=False,
+              default_root_dir=str(tmp_path))
+    got, _ = fit(Trainer(plugins=[cpu_plugin(2)], **kw),
+                 ShortBoring(n, batch_size=2), stage="predict")
+    [want] = Trainer(device="cpu", **kw).predict(
+        ShortBoring(n, batch_size=n))
+    assert [g.shape[0] for g in got] == sizes
+    np.testing.assert_allclose(torch.cat(got).numpy(), want.numpy(),
+                               rtol=2e-5, atol=2e-5)
 
 
 # -- failures and guards ------------------------------------------------------
