@@ -188,7 +188,31 @@ Phases, each fatal on failure:
    on its leased card (``leased_devices == ["cuda:0"]`` on one card),
    the one lease serializes them (their train intervals do not
    overlap), 2 x 12 x 4 launches of each kernel.  The tune path's
-   launches of rows 1 and 6: (b)'s workers, (b)'s resume and (c).
+   launches of rows 1 and 6: (b)'s workers, (b)'s resume and (c);
+13. ResNet and the sharded example, everything earlier freed, each run
+   under a temporary ``default_root_dir``: (a) BASELINE config #2,
+   ``ResNetLightningModule("resnet50", batch_size=128)`` (CIFAR stem,
+   32x32x3, bf16, synthetic CIFAR-10 of 128 x 35 images:
+   benchmarks/bench_native_baseline.py's 3 warm-up and 30 timed steps)
+   under ``RayPlugin(num_workers=1)`` and in process from the same seed,
+   cuDNN deterministic with autotuning off in both (the worker through
+   ``init_hook=cudnn_deterministic``): every weight and running
+   statistic on the driver, ``global_step`` and ``callback_metrics``
+   equal bit for bit; every running mean off zero; no launch of the 16
+   kernels (ResNet runs none); ``predict`` over 2 batches equal to the
+   argmax of ``ResNet(x, train=False)`` on the same weights; steps/s
+   per card, images/s and the median step (steps 4-33, synced) in the
+   worker and in process, the fit call to the end of the first step,
+   the result round trip's bytes and seconds, peak memory, the model
+   FLOPs of a step (``FlopCounterMode``) and the MFU they give, the
+   median step without cuDNN's deterministic algorithms (13 steps), and
+   a 5-step ``TorchProfilerCallback`` window in process (device ms a
+   step by category, the busy share of those steps' synced wall,
+   kernels a step); (b) the sharded example
+   (``examples/ray_ddp_sharded_example.train``) at gpt2-small, B=8,
+   T=1024, in one worker under ZeRO-1 for 4 steps: its epoch line
+   (relayed to the driver), peak memory, and the worker's launches
+   (``PluginProbe``), 12 a step for both kernels, added to rows 1 and 6.
 
 The next-to-last line is the ``{"kernels": [...]}`` JSON record, one
 entry per TPU kernel row, 1 to 16 (``launches`` from the path phases
@@ -219,7 +243,10 @@ checks and times rows 1 and 6 as phase 2 does and prints the kernels
 line (phase 11's worker launches) and the last line.  ``--tune-only``
 does the same for phase 12: the driver stays off CUDA through (a) and
 (b)'s sweeps (their trials train only in workers), then rows 1 and 6
-and the kernels line (the tune path's launches).
+and the kernels line (the tune path's launches).  ``--resnet-only``
+does the same for phase 13: the driver stays off CUDA through the
+resnet50 worker fit and the sharded example, then the in-process parts,
+rows 1 and 6 and the kernels line (the sharded example's launches).
 """
 
 from __future__ import annotations
@@ -2489,16 +2516,22 @@ class PluginProbe(Callback):
     referred to as ``chip_smoke.PluginProbe``, so a worker can import it:
     the payload is pickled by import path."""
 
+    def _sync(self, trainer) -> None:
+        if trainer.device.type == "cuda":
+            torch.cuda.synchronize(trainer.device)
+
     def on_fit_start(self, trainer, module):
         _kernels.reset_launches()
         self.step_ms, self.val_batches, self.first_step_at = [], 0, None
+        if trainer.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(trainer.device)
 
     def on_train_batch_start(self, trainer, module, batch, batch_idx):
-        torch.cuda.synchronize()
+        self._sync(trainer)
         self.t0 = time.perf_counter()
 
     def on_train_batch_end(self, trainer, module, outputs, batch, batch_idx):
-        torch.cuda.synchronize()
+        self._sync(trainer)
         self.step_ms.append((time.perf_counter() - self.t0) * 1e3)
         if self.first_step_at is None:
             self.first_step_at = time.time()
@@ -2512,7 +2545,10 @@ class PluginProbe(Callback):
                   "step_ms": self.step_ms, "val_batches": self.val_batches,
                   "first_step_at": self.first_step_at,
                   "device": str(trainer.device),
-                  "world_size": trainer.world_size}
+                  "world_size": trainer.world_size,
+                  "peak_bytes": (torch.cuda.max_memory_allocated(
+                      trainer.device) if trainer.device.type == "cuda"
+                      else None)}
         if trainer.plugin.remote:
             from ray_lightning_tpu_torch import session
             session.put_queue(functools.partial(record_probe, report))
@@ -2521,14 +2557,15 @@ class PluginProbe(Callback):
 
 
 def plugin_fit(this, plugin, module, steps: int, seed: int, root: str,
-               ckpt: "str | None" = None) -> dict:
+               ckpt: "str | None" = None, callbacks=()) -> dict:
     """``steps`` of ``Trainer.fit`` under ``plugin`` (``None``: in this
-    process, on the card) with ``this.PluginProbe``; the trainer, the
-    module, the probe's report and the fit's wall seconds."""
+    process, on the card) with ``this.PluginProbe`` (and ``callbacks``
+    after it); the trainer, the module, the probe's report and the fit's
+    wall seconds."""
     kw = (dict(plugins=[plugin]) if plugin is not None
           else dict(device="cuda"))
     trainer = Trainer(max_steps=steps, seed=seed,
-                      callbacks=[this.PluginProbe()],
+                      callbacks=[this.PluginProbe(), *callbacks],
                       default_root_dir=root, **PLUGIN_ARGS, **kw)
     this.PROBES.clear()
     t0 = time.time()
@@ -3168,6 +3205,285 @@ def run_tune_phase(seed: int, driver_off_cuda: bool) -> dict:
     return {"launches": launches, "stats": stats}
 
 
+# -- phase 13: ResNet-50 under RayPlugin, the sharded example ------------------
+
+#: BASELINE config #2 (benchmarks/bench_native_baseline.py:267-277):
+#: resnet50 with the CIFAR stem at B=128, 3 warm-up steps and 30 timed,
+#: ``train_size = B * (3 + 30 + 2)``
+RESNET_B = 128
+RESNET_WARMUP, RESNET_TIMED = 3, 30
+RESNET_STEPS = RESNET_WARMUP + RESNET_TIMED
+#: the in-process profile: ``torch.profiler`` over this many steps after
+#: ``RESNET_WARMUP``, in a fit of its own
+RESNET_PROFILE_STEPS = 5
+#: the in-process fit without cuDNN's deterministic algorithms (its
+#: timed steps against the deterministic fit's: the cost of bit-equality)
+RESNET_FREE_STEPS = 13
+#: the sharded example's model and steps (B=8, T=1024, one worker)
+SHARDED_MODEL = "gpt2-small"
+SHARDED_STEPS = 4
+#: ResNet's device kernels by name fragment -> the layer they belong to
+RESNET_CATEGORIES = (
+    ("multi_tensor_apply", "optimizer"),
+    ("conv", "conv"), ("xmma", "conv"), ("fprop", "conv"),
+    ("dgrad", "conv"), ("wgrad", "conv"), ("implicit", "conv"),
+    ("cudnn", "conv"), ("nhwc", "conv"), ("nchw", "conv"),
+    ("elementwise", "BN and elementwise"), ("reduce", "BN and elementwise"),
+    ("vectorized", "BN and elementwise"), ("unrolled", "BN and elementwise"))
+
+
+def cudnn_deterministic() -> None:
+    """cuDNN's deterministic algorithms and no autotuning: the same
+    algorithms in a worker and in this process (``RayPlugin``'s
+    ``init_hook`` in the worker; module level, so it can be sent)."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def resnet_category(name: str) -> str:
+    low = name.lower()
+    return next((c for frag, c in RESNET_CATEGORIES if frag in low), "other")
+
+
+def resnet_module():
+    from ray_lightning_tpu_torch import ResNetLightningModule
+    return ResNetLightningModule(
+        "resnet50", batch_size=RESNET_B,
+        train_size=RESNET_B * (RESNET_STEPS + 2), val_size=2 * RESNET_B)
+
+
+def step_stats(report: dict) -> dict:
+    """Median step ms over the timed steps, steps/s per card, images/s."""
+    ms = float(np.median(report["step_ms"][RESNET_WARMUP:]))
+    return {"step_ms_median": ms, "steps_per_s_per_card": 1e3 / ms,
+            "images_per_s": RESNET_B * 1e3 / ms}
+
+
+def resnet_profile(this, seed: int, root: str) -> dict:
+    """An in-process fit with ``TorchProfilerCallback`` over steps
+    ``[RESNET_WARMUP, RESNET_WARMUP + RESNET_PROFILE_STEPS)``: device ms
+    a step by category, the busy share of those steps' synced wall, the
+    kernels a step."""
+    from ray_lightning_tpu_torch.utils.profiling import TorchProfilerCallback
+    n = RESNET_PROFILE_STEPS
+    prof = TorchProfilerCallback(start_step=RESNET_WARMUP, num_steps=n,
+                                 log_dir=os.path.join(root, "trace"))
+    run = plugin_fit(this, None, resnet_module(), RESNET_WARMUP + n, seed,
+                     root, callbacks=[prof])
+    if prof.profile is None or not os.path.exists(prof.trace_path):
+        raise AssertionError("the profiler wrote no trace")
+    events = [e for e in prof.profile.key_averages() if _device_us(e) > 0]
+    device_ms = sum(_device_us(e) for e in events) / n / 1e3
+    if not device_ms > 0:
+        raise AssertionError("the profiler saw no device time")
+    by_cat: "dict[str, float]" = {}
+    for e in events:
+        c = resnet_category(e.key)
+        by_cat[c] = by_cat.get(c, 0.0) + _device_us(e) / n / 1e3
+    wall_ms = float(np.mean(run["report"]["step_ms"][RESNET_WARMUP:]))
+    top = sorted(events, key=_device_us, reverse=True)[:10]
+    return {"device_ms_per_step": device_ms,
+            "profiled_step_ms": wall_ms,
+            "device_busy_share": device_ms / wall_ms,
+            "kernels_per_step": sum(e.count for e in events) / n,
+            "device_ms_by_category": dict(sorted(
+                by_cat.items(), key=lambda kv: -kv[1])),
+            "top_device_ms": [[e.key[:90], _device_us(e) / n / 1e3]
+                              for e in top]}
+
+
+def step_flops(module, seed: int) -> float:
+    """Model FLOPs of one training step's forward and backward at
+    ``RESNET_B`` (``FlopCounterMode``: convs and products), on the fit's
+    weights and its first batch."""
+    from torch.utils.flop_counter import FlopCounterMode
+    x, y = next(iter(module.train_dataloader()))
+    x, y = x.cuda(), y.cuda().long()
+    model = module.model
+    with FlopCounterMode(display=False) as counter:
+        loss = F.cross_entropy(model(x, True).float(), y)
+        loss.backward()
+    model.zero_grad(set_to_none=True)
+    return float(counter.get_total_flops())
+
+
+def sharded_example_run(this, seed: int, root: str) -> dict:
+    """The sharded example's ``train`` at gpt2-small in one worker for
+    ``SHARDED_STEPS`` steps (ZeRO-1 over NCCL at W=1), with
+    ``this.PluginProbe``: its epoch line (printed here, relayed from the
+    worker), the worker's launches, peak memory and steps."""
+    from ray_lightning_tpu_torch.examples import ray_ddp_sharded_example
+    this.PROBES.clear()
+    t0 = time.time()
+    trainer = ray_ddp_sharded_example.train(
+        num_workers=1, model_size=SHARDED_MODEL, batch_size=TRAIN_B,
+        dataset_size=TRAIN_B * SHARDED_STEPS,
+        callbacks=[this.PluginProbe()], default_root_dir=root,
+        timeout_s=PLUGIN_TIMEOUT_S)
+    wall = time.time() - t0
+    if len(this.PROBES) != 1:
+        raise AssertionError(f"{len(this.PROBES)} probe reports, want 1")
+    rep = this.PROBES.pop()
+    layers = CONFIGS[SHARDED_MODEL].n_layer
+    want = {"flash_fwd": layers * SHARDED_STEPS,
+            "flash_bwd": layers * SHARDED_STEPS}
+    got = {k: rep["launches"][k] for k in want}
+    metrics = trainer.callback_metrics
+    if got != want or trainer.global_step != SHARDED_STEPS \
+            or not rep["device"].startswith("cuda") \
+            or not metrics.get("peak_memory_mb", 0) > 0 \
+            or not np.isfinite(metrics.get("loss", np.nan)):
+        raise AssertionError(f"(b) sharded example: launches {got}, want "
+                             f"{want}; step {trainer.global_step} on "
+                             f"{rep['device']}; metrics {metrics}")
+    return {"launches": got, "wall_s": wall,
+            "epoch_time_s": metrics["epoch_time_s"],
+            "peak_memory_mb": metrics["peak_memory_mb"],
+            "step_ms_median": float(np.median(rep["step_ms"][1:])),
+            "strategy": trainer.strategy.name}
+
+
+def resnet_phase(seed: int, driver_off_cuda: bool) -> dict:
+    """Phase 13 (module docstring): (a) BASELINE config #2, resnet50 on
+    synthetic CIFAR-10 at B=128 in bf16, under ``RayPlugin(num_workers=1)``
+    and in process from the same seed, bit for bit with cuDNN
+    deterministic in both; timings, start-up, round trip, peak memory, a
+    profiled window, FLOPs and MFU; the cost of determinism; (b) the
+    sharded example at gpt2-small in one worker.  With
+    ``driver_off_cuda`` the worker fits run before anything here touches
+    CUDA, and CUDA is still uninitialised after them."""
+    import chip_smoke as this   # the module by name: workers import it
+    from ray_lightning_tpu_torch import RayPlugin, ResNet
+    t_phase = time.monotonic()
+    base = tempfile.mkdtemp(prefix="rlt_resnet_phase_")
+    try:
+        worker = plugin_fit(this, RayPlugin(
+            num_workers=1, timeout_s=PLUGIN_TIMEOUT_S,
+            init_hook=this.cudnn_deterministic), resnet_module(),
+            RESNET_STEPS, seed, os.path.join(base, "ddp"))
+        sharded = sharded_example_run(this, seed, os.path.join(base,
+                                                               "sharded"))
+        log(f"  (b) sharded example, gpt2-small, ZeRO-1 in one worker: "
+            f"{SHARDED_STEPS} steps, worker launches {sharded['launches']}, "
+            f"epoch {sharded['epoch_time_s']:.3f} s, peak memory "
+            f"{sharded['peak_memory_mb']:.0f} MB, median step "
+            f"{sharded['step_ms_median']:.3f} ms")
+        if driver_off_cuda and torch.cuda.is_initialized():
+            raise AssertionError("the driver initialised CUDA during the "
+                                 "worker fits")
+        log(f"  driver CUDA initialised after the worker fits: "
+            f"{torch.cuda.is_initialized()}")
+        cudnn_deterministic()
+        local = plugin_fit(this, None, resnet_module(), RESNET_STEPS, seed,
+                           os.path.join(base, "local"))
+        n = check_same_run(worker, local, "(a) resnet50 RayPlugin vs "
+                           "in-process")
+        for run, what in ((worker, "worker"), (local, "in-process")):
+            rep = run["report"]
+            if any(rep["launches"].values()) \
+                    or len(rep["step_ms"]) != RESNET_STEPS \
+                    or not rep["device"].startswith("cuda"):
+                raise AssertionError(
+                    f"(a) {what}: launches {rep['launches']} (ResNet "
+                    f"launches none of the 16 kernels), "
+                    f"{len(rep['step_ms'])} steps on {rep['device']}")
+        state = trained_state(local)
+        means = {k: v for k, v in state.items()
+                 if k.endswith("running_mean")}
+        still = [k for k, v in means.items() if not v.abs().sum() > 0]
+        if not means or still:
+            raise AssertionError(f"(a) {len(means)} running means, "
+                                 f"{len(still)} still zero: {still[:4]}")
+        loss = local["trainer"].callback_metrics["loss"]
+        if not np.isfinite(loss):
+            raise AssertionError(f"(a) loss {loss}")
+        log(f"  (a) resnet50 B={RESNET_B} bf16 W=1: {n} tensors (params "
+            f"and running statistics), global_step, callback_metrics "
+            f"{local['trainer'].callback_metrics} equal to the in-process "
+            f"fit bit for bit (cuDNN deterministic in both); every one of "
+            f"{len(means)} running means off zero")
+
+        module = local["module"]
+        pt = Trainer(device="cuda", limit_predict_batches=2, logger=False,
+                     enable_checkpointing=False, seed=seed,
+                     default_root_dir=os.path.join(base, "predict"))
+        preds = pt.predict(module)
+        loader = module.predict_dataloader()
+        xs = [x for (x, _), _ in zip(loader, range(2))]
+        model = module.model
+        with torch.no_grad():
+            want = [model(x.cuda(), False).argmax(-1).cpu() for x in xs]
+        if len(preds) != 2 or not all(torch.equal(p.cpu(), w)
+                                      for p, w in zip(preds, want)):
+            raise AssertionError("(a) predict differs from ResNet(x, "
+                                 "train=False) on the same weights")
+        assert isinstance(model, ResNet)
+        flops = step_flops(module, seed)
+        del pt, preds
+        free_cuda()
+
+        torch.backends.cudnn.deterministic = False
+        free = plugin_fit(this, None, resnet_module(), RESNET_FREE_STEPS,
+                          seed, os.path.join(base, "free"))
+        cudnn_deterministic()
+        profile = resnet_profile(this, seed, os.path.join(base, "profile"))
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(base, ignore_errors=True)
+    card = card_line()
+    w, ll = step_stats(worker["report"]), step_stats(local["report"])
+    free_ms = float(np.median(free["report"]["step_ms"][RESNET_WARMUP:]))
+    rt = worker["trainer"].plugin.last_result
+    stats = {
+        "card": card, "worker": w, "in_process": ll,
+        "worker_start_to_first_step_s":
+            worker["report"]["first_step_at"] - worker["t0"],
+        "in_process_start_to_first_step_s":
+            local["report"]["first_step_at"] - local["t0"],
+        "state_stream_bytes": rt["state_stream_bytes"],
+        "round_trip_s": rt["round_trip_s"],
+        "worker_peak_bytes": worker["report"]["peak_bytes"],
+        "in_process_peak_bytes": local["report"]["peak_bytes"],
+        "step_flops": flops,
+        "mfu_in_process": flops / (ll["step_ms_median"] / 1e3)
+        / BF16_FLOPS_PER_S,
+        "mfu_worker": flops / (w["step_ms_median"] / 1e3)
+        / BF16_FLOPS_PER_S,
+        "nondeterministic_step_ms_median": free_ms,
+        "deterministic_cost_ms": ll["step_ms_median"] - free_ms,
+        "profile": profile, "sharded_example": sharded,
+        "phase_s": time.monotonic() - t_phase}
+    log(f"  (a) [{card}] resnet50 B={RESNET_B}: steps/s per card "
+        f"{w['steps_per_s_per_card']:.3f} in the worker, "
+        f"{ll['steps_per_s_per_card']:.3f} in process; images/s "
+        f"{w['images_per_s']:.1f} / {ll['images_per_s']:.1f}; median step "
+        f"{w['step_ms_median']:.3f} / {ll['step_ms_median']:.3f} ms "
+        f"(steps {RESNET_WARMUP + 1}-{RESNET_STEPS}, synced); fit call to "
+        f"the end of the first step "
+        f"{stats['worker_start_to_first_step_s']:.3f} s / "
+        f"{stats['in_process_start_to_first_step_s']:.3f} s; round trip "
+        f"{rt['state_stream_bytes']} bytes in {rt['round_trip_s']:.3f} s; "
+        f"peak memory {stats['worker_peak_bytes'] / 1e9:.3f} / "
+        f"{stats['in_process_peak_bytes'] / 1e9:.3f} GB")
+    log(f"  (a) [{card}] model FLOPs a step {flops:.4e} (FlopCounterMode), "
+        f"MFU {stats['mfu_in_process']:.4f} in process, "
+        f"{stats['mfu_worker']:.4f} in the worker (989 TFLOP/s bf16); "
+        f"without cuDNN determinism the median step is {free_ms:.3f} ms "
+        f"({stats['deterministic_cost_ms']:+.3f} ms for determinism)")
+    log(f"  (a) [{card}] profiled steps {RESNET_WARMUP + 1}-"
+        f"{RESNET_WARMUP + RESNET_PROFILE_STEPS} in process: device "
+        f"{profile['device_ms_per_step']:.3f} ms a step of "
+        f"{profile['profiled_step_ms']:.3f} ms (busy share "
+        f"{profile['device_busy_share']:.3f}), "
+        f"{profile['kernels_per_step']:.0f} kernels a step")
+    for name, ms in profile["device_ms_by_category"].items():
+        log(f"    device {ms:.4f} ms  [{name}]")
+    for name, ms in profile["top_device_ms"]:
+        log(f"    device {ms:.4f} ms  {name}")
+    log("resnet " + json.dumps(stats))
+    return {"launches": sharded["launches"], "stats": stats}
+
+
 def attribute(by_row: dict, runs: list) -> None:
     """Add each path run's launches to the rows it takes: flash_fwd's to
     its forward row, flash_bwd's to each backward row."""
@@ -3517,6 +3833,12 @@ def main(argv=None) -> int:
                          "RayShardedPlugin) with the driver off CUDA, then "
                          "check and time flash_fwd and flash_bwd (rows 1 "
                          "and 6)")
+    ap.add_argument("--resnet-only", action="store_true",
+                    help="build, run phase 13 (resnet50 under RayPlugin "
+                         "and in process, the sharded example) with the "
+                         "driver off CUDA until its worker fits end, then "
+                         "check and time flash_fwd and flash_bwd (rows 1 "
+                         "and 6)")
     ap.add_argument("--tune-only", action="store_true",
                     help="build, run phase 12 (Tune: PBT over MNIST, "
                          "gpt2-small trials under RayPlugin, in-process "
@@ -3530,7 +3852,7 @@ def main(argv=None) -> int:
         return 1
 
     log(card_line())
-    driver_off_cuda = args.plugin_only or args.tune_only
+    driver_off_cuda = args.plugin_only or args.tune_only or args.resnet_only
     if not driver_off_cuda:      # the device's name initialises CUDA
         log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
             f"{torch.cuda.get_device_name(0)}")
@@ -3545,7 +3867,8 @@ def main(argv=None) -> int:
 
     if driver_off_cuda:
         path, run = (("plugin", plugin_phase) if args.plugin_only
-                     else ("tune", tune_phase))
+                     else ("tune", tune_phase) if args.tune_only
+                     else ("resnet", resnet_phase))
         log(f"{path} phase")
         t0 = time.monotonic()
         phase = run(args.seed, driver_off_cuda=True)
@@ -3678,6 +4001,16 @@ def main(argv=None) -> int:
         e["launches_by_path"]["tune"] = tuned["launches"][e["name"]]
         e["launches"] = sum(e["launches_by_path"].values())
     log(f"tune phase: {time.monotonic() - t0:.1f} s")
+
+    log("resnet phase")
+    t0 = time.monotonic()
+    free_cuda()
+    resnet = resnet_phase(args.seed, driver_off_cuda=False)
+    for row in (1, 6):
+        e = by_row[row]
+        e["launches_by_path"]["resnet"] = resnet["launches"][e["name"]]
+        e["launches"] = sum(e["launches_by_path"].values())
+    log(f"resnet phase: {time.monotonic() - t0:.1f} s")
     log("speed order (rows slower than their library call by that factor, "
         "then by launches x (ms - bound)): " + ", ".join(
             f"row {e['row']} {e['ms'] / e['library_ms']:.2f}x"

@@ -15,10 +15,13 @@ checkpoints with ``ModelCheckpoint`` and resume with ``ckpt_path=``,
 ``RayShardedPlugin`` (ZeRO-1), NCCL on the card and gloo on the CPU,
 hyperparameter sweeps with ``tune.run`` (grid and random search, ASHA,
 PBT) whose trials train in process on a leased card or in those
-workers, and the BERT
+workers, the BERT
 family: ``Trainer(...).fit(BertMLMModule("bert-base", batch_size=32))``
 (masked-LM pretraining) and ``BertLightningModule`` (sequence
-classification), whose attention is bidirectional.  Their attention
+classification), whose attention is bidirectional, and the ResNet
+family: ``ResNetLightningModule("resnet50", batch_size=128)`` on
+synthetic CIFAR-10, whose BatchNorm takes its moments over the global
+batch under ``RayPlugin`` / ``RayShardedPlugin``.  Their attention
 kernels are hand-written CUDA C++ for Hopper (``csrc/flash_fwd.cu``,
 ``csrc/flash_bwd.cu``, ``csrc/flash_decode.cu``), built with nvcc at
 first use.  Entry points run on the card unless the caller passes
@@ -45,6 +48,8 @@ from ray_lightning_tpu_torch.models.boring import (BoringModel,
                                                    LightningMNISTClassifier)
 from ray_lightning_tpu_torch.models.gpt import (CONFIGS, GPT, GPTConfig,
                                                 GPTLightningModule)
+from ray_lightning_tpu_torch.models.resnet import (ResNet, ResNetConfig,
+                                                   ResNetLightningModule)
 from ray_lightning_tpu_torch.plugins import (LocalPlugin, RayPlugin,
                                             RayShardedPlugin)
 from ray_lightning_tpu_torch.serve import (Scheduler, ServeEngine,
@@ -75,6 +80,9 @@ __all__ = [
     "ModelCheckpoint",
     "RayPlugin",
     "RayShardedPlugin",
+    "ResNet",
+    "ResNetConfig",
+    "ResNetLightningModule",
     "Scheduler",
     "ServeEngine",
     "ServeRequest",

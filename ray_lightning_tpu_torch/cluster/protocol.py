@@ -19,6 +19,7 @@ only what this program or its workers wrote.
 
 from __future__ import annotations
 
+import os
 import pickle
 import socket
 import struct
@@ -83,8 +84,15 @@ def node_ip() -> str:
     """The address other actors reach this node at.  The built-in
     backend's actors are subprocesses of one node, so that is the
     loopback address.  The JAX package asks the routing table for an
-    outward address, which the Ray backend (not ported) would need."""
-    return "127.0.0.1"
+    outward address, which the Ray backend (not ported) would need.
+
+    ``RLT_NODE_IP_OVERRIDE`` fakes the answer per process, as in the JAX
+    package: the one-machine stand-in for a multi-node topology, whose
+    actors then claim distinct nodes to ``RayPlugin._assign_local_ranks``
+    (the reference fakes node IPs the same way, test_ddp.py:78-112).  A
+    fit under faked addresses cannot rendezvous: ``MASTER_ADDR`` is
+    worker 0's address."""
+    return os.environ.get("RLT_NODE_IP_OVERRIDE") or "127.0.0.1"
 
 
 __all__ = ["Connection", "MAX_FRAME", "find_free_port", "node_ip"]

@@ -1,9 +1,10 @@
 """Weight bridge: the JAX package's flax param trees -> this package's
 ``state_dict`` objects.
 
-``flax_to_torch(params)`` takes a GPT or BERT param tree (nested dicts
-of numpy arrays, e.g. ``jax.device_get`` of a JAX engine's params) and
-maps it by path:
+``flax_to_torch(params)`` takes a GPT, BERT or ResNet param tree
+(nested dicts of numpy arrays, e.g. ``jax.device_get`` of a JAX
+engine's params), or a variables dict that adds ResNet's
+``batch_stats``, and maps it by path:
 
 - GPT: ``h{i}/attn/qkv|proj``, ``h{i}/mlp/fc|out``: ``kernel [in, out]``
   transposes to ``Linear.weight [out, in]``, ``bias`` is copied (the qkv
@@ -14,18 +15,25 @@ maps it by path:
 - BERT: the same under ``encoder/`` (-> ``encoder.``), with the
   layer's ``fc|out`` directly under ``h{i}`` (no ``mlp/``), and the
   heads ``mlm_head``, ``pooler``, ``classifier`` as linear layers;
+- ResNet (models/resnet.py): ``stem``, ``s{stage}b{block}/Conv_{i}``
+  and ``.../proj`` conv ``kernel`` HWIO -> ``weight`` OIHW; ``stem_bn``,
+  ``.../BatchNorm_{i}``, ``.../proj_bn``: ``scale`` -> ``weight``,
+  ``bias``, and from ``batch_stats`` ``mean`` -> ``running_mean``,
+  ``var`` -> ``running_var``; ``head`` a linear layer;
 - the test-fixture models (models/boring.py): ``Dense_{i}`` as linear
   layers of the same names.
 
-An unknown path raises.  Dtypes are kept: a bf16 array becomes a bf16
+An unknown path raises.  ``torch_to_flax(state, template)`` is the way
+back, onto a flax tree's paths and dtypes.  Dtypes are kept: a bf16 array becomes a bf16
 tensor.  Nothing here imports JAX; the tree only has to hold numpy
 arrays.
 
 ``flax_opt_state_to_torch(opt_state)`` maps the JAX optimizer state
-(``FP32MasterState(inner=adamw state, master=tree)``, or the bare adamw
-state of fp32-resident params, with a schedule or a constant rate) onto
-the port's (ops/optim.py) by the same path map: a test can start both
-packages mid-schedule.  Gradient trees have the param tree's paths and
+(``FP32MasterState(inner=adamw state, master=tree)``, the bare adamw
+state of fp32-resident params, with a schedule or a constant rate, and
+ResNet's ``chain(add_decayed_weights, sgd(momentum))`` with its
+``TraceState``) onto the port's (ops/optim.py) by the same path map: a
+test can start both packages mid-schedule.  Gradient trees have the param tree's paths and
 convert with ``flax_to_torch``.
 
 ``jax_checkpoint_to_torch(ckpt)`` carries a whole JAX ``Trainer``
@@ -69,11 +77,22 @@ def _flatten(tree: Mapping, prefix: str = "") -> "dict[str, object]":
 
 _LINEAR = re.compile(r"^(?:(encoder)/h(\d+)/(attn/qkv|attn/proj|fc|out)"
                      r"|h(\d+)/(attn/qkv|attn/proj|mlp/fc|mlp/out)"
-                     r"|(mlm_head|pooler|classifier|Dense_\d+))"
+                     r"|(mlm_head|pooler|classifier|head|Dense_\d+))"
                      r"/(kernel|bias)$")
 _NORM = re.compile(r"^(?:(encoder)/)?(?:h(\d+)/)?(ln1|ln2|ln_f)/"
                    r"(scale|bias)$")
 _EMBED = re.compile(r"^(?:(encoder)/)?(wte/embedding|wpe)$")
+#: ResNet (models/resnet.py): the stem, each block's convs and its
+#: projection, and their BatchNorms (a block's own tree has no prefix)
+_CONV = re.compile(r"^(stem|(?:s\d+b\d+/)?(?:Conv_\d+|proj))/kernel$")
+_BN = re.compile(r"^(stem_bn|(?:s\d+b\d+/)?(?:BatchNorm_\d+|proj_bn))/"
+                 r"(scale|bias|mean|var)$")
+_BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+            "var": "running_var"}
+#: flax layout -> torch layout: a Dense kernel [in, out] -> [out, in], a
+#: conv kernel HWIO -> OIHW
+_DENSE_PERM = (1, 0)
+_CONV_PERM = (3, 2, 0, 1)
 
 
 def _name(prefix, layer, mod) -> str:
@@ -82,94 +101,154 @@ def _name(prefix, layer, mod) -> str:
     return ".".join(parts + [mod.replace("/", ".")])
 
 
-def flax_to_torch(params: Mapping) -> "dict[str, torch.Tensor]":
-    """A flax GPT or BERT param tree as the port's model's state_dict
-    (models/gpt.py ``GPT``, models/bert.py ``BertForMaskedLM`` /
-    ``BertClassifier``).  A ``{"params": tree}`` wrapper is accepted; an
-    unknown path raises."""
-    if "params" in params and isinstance(params["params"], Mapping):
-        params = params["params"]
+def _torch_key(path: str) -> "tuple[str, tuple | None]":
+    """A flax path's torch name, and the permutation that takes the flax
+    layout to the torch one (``None``: the same layout)."""
+    if m := _EMBED.match(path):
+        prefix, leaf = m.groups()
+        return _name(prefix, None,
+                     leaf.replace("/embedding", ".weight")), None
+    if m := _LINEAR.match(path):
+        enc, enc_layer, enc_mod, layer, mod, head, leaf = m.groups()
+        name = (_name(enc, enc_layer, enc_mod) if enc
+                else _name(None, layer, mod) if mod else head)
+        if leaf == "kernel":
+            return f"{name}.weight", _DENSE_PERM
+        return f"{name}.bias", None
+    if m := _NORM.match(path):
+        prefix, layer, mod, leaf = m.groups()
+        name = _name(prefix, layer, mod)
+        return f"{name}.{'weight' if leaf == 'scale' else 'bias'}", None
+    if m := _CONV.match(path):
+        return f"{m.group(1).replace('/', '.')}.weight", _CONV_PERM
+    if m := _BN.match(path):
+        mod, leaf = m.groups()
+        return f"{mod.replace('/', '.')}.{_BN_LEAF[leaf]}", None
+    raise KeyError(f"no mapping for flax param {path!r}")
+
+
+def _convert(tree: Mapping, stats: bool) -> "dict[str, torch.Tensor]":
     state = {}
-    for path, arr in _flatten(params).items():
+    for path, arr in _flatten(tree).items():
+        if stats != bool(re.search(r"/(mean|var)$", path)):
+            raise KeyError(f"no mapping for flax "
+                           f"{'batch_stats' if stats else 'param'} {path!r}")
+        name, perm = _torch_key(path)
         t = to_tensor(arr)
-        if m := _EMBED.match(path):
-            prefix, leaf = m.groups()
-            state[_name(prefix, None,
-                        leaf.replace("/embedding", ".weight"))] = t
-        elif m := _LINEAR.match(path):
-            enc, enc_layer, enc_mod, layer, mod, head, leaf = m.groups()
-            name = (_name(enc, enc_layer, enc_mod) if enc
-                    else _name(None, layer, mod) if mod else head)
-            if leaf == "kernel":
-                state[f"{name}.weight"] = t.t().contiguous()
-            else:
-                state[f"{name}.bias"] = t
-        elif m := _NORM.match(path):
-            prefix, layer, mod, leaf = m.groups()
-            name = _name(prefix, layer, mod)
-            state[f"{name}.{'weight' if leaf == 'scale' else 'bias'}"] = t
-        else:
-            raise KeyError(f"no mapping for flax param {path!r}")
+        state[name] = t.permute(perm).contiguous() if perm else t
     return state
 
 
+def flax_to_torch(params: Mapping) -> "dict[str, torch.Tensor]":
+    """A flax GPT, BERT or ResNet param tree as the port's model's
+    state_dict (models/gpt.py ``GPT``, models/bert.py ``BertForMaskedLM``
+    / ``BertClassifier``, models/resnet.py ``ResNet``).  A variables
+    dict ``{"params": tree}`` is accepted, and with it a
+    ``"batch_stats"`` collection (ResNet's BatchNorm ``mean`` and
+    ``var``, as ``running_mean`` and ``running_var``); an unknown path
+    raises."""
+    stats = {}
+    if "params" in params and isinstance(params["params"], Mapping):
+        stats = params.get("batch_stats") or {}
+        params = params["params"]
+    return {**_convert(params, stats=False), **_convert(stats, stats=True)}
+
+
+def torch_to_flax(state: Mapping, template: Mapping) -> dict:
+    """The inverse of :func:`flax_to_torch` for one tree: the tensors of
+    ``state`` (a state_dict, or a gradient or optimizer tree keyed like
+    one) laid out as the flax tree ``template`` (params, or a
+    ``batch_stats`` tree), each leaf a numpy array in the template
+    leaf's dtype."""
+    def leaf(path: str, like):
+        name, perm = _torch_key(path)
+        t = state[name].detach().cpu()
+        if perm:
+            t = t.permute(tuple(np.argsort(perm)))
+        return np.asarray(t.float().numpy(), np.float32).astype(
+            np.asarray(like).dtype)
+
+    def walk(node: Mapping, prefix: str) -> dict:
+        return {k: (walk(v, f"{prefix}{k}/") if isinstance(v, Mapping)
+                    else leaf(f"{prefix}{k}", v))
+                for k, v in node.items()}
+
+    return walk(template, "")
+
+
+def _empty(node) -> bool:
+    """An ``optax.EmptyState`` (a NamedTuple without fields)."""
+    return hasattr(node, "_fields") and not node._fields
+
+
 def flax_opt_state_to_torch(opt_state):
-    """The JAX ``optax.adamw`` state, optionally inside
-    ``FP32MasterState(inner, master)``, as the port's ``AdamWState`` /
-    ``FP32MasterState``.  Over a schedule the state is
-    ``(ScaleByAdamState(count, mu, nu), EmptyState(),
-    ScaleByScheduleState(count))``; at a constant rate (``adamw(float)``)
-    its last entry is an ``EmptyState`` and the count is the adam
-    state's alone.  Read by attribute, so numpy leaves (e.g.
-    ``jax.device_get`` of the state) are all it needs."""
-    from ray_lightning_tpu_torch.ops.optim import AdamWState, FP32MasterState
+    """An optax state, read by attribute (numpy leaves, e.g.
+    ``jax.device_get`` of the state, are all it needs), as the port's
+    (ops/optim.py):
+
+    - ``FP32MasterState(inner, master)`` -> ``FP32MasterState``;
+    - ``optax.adamw``: over a schedule ``(ScaleByAdamState(count, mu,
+      nu), EmptyState(), ScaleByScheduleState(count))``, at a constant
+      rate its last entry an ``EmptyState`` and the count the adam
+      state's alone -> ``AdamWState``;
+    - ``optax.sgd`` with momentum: ``(TraceState(trace), EmptyState())``
+      -> ``TraceState``; without: empty states -> ``EmptyState``;
+    - ``optax.chain(clip_by_global_norm | add_decayed_weights, tx)``:
+      ``(EmptyState(), tx)`` -> ``ChainState((EmptyState(), tx))``."""
+    from ray_lightning_tpu_torch.ops.optim import (AdamWState, ChainState,
+                                                   EmptyState,
+                                                   FP32MasterState,
+                                                   TraceState)
     master = getattr(opt_state, "master", None)
-    inner = opt_state.inner if master is not None else opt_state
-    adam, schedule = inner[0], inner[-1]
-    count = int(np.asarray(adam.count))
-    if "count" in getattr(schedule, "_fields", ()) \
-            and int(np.asarray(schedule.count)) != count:
-        raise ValueError("adam and schedule counts differ: not an "
-                         "optax.adamw state")
-    state = AdamWState(count=count, mu=flax_to_torch(adam.mu),
-                       nu=flax_to_torch(adam.nu))
-    if master is None:
-        return state
-    return FP32MasterState(inner=state, master=flax_to_torch(master))
+    if master is not None:
+        return FP32MasterState(inner=flax_opt_state_to_torch(
+            opt_state.inner), master=flax_to_torch(master))
+    first = opt_state[0]
+    if hasattr(first, "mu"):
+        count = int(np.asarray(first.count))
+        schedule = opt_state[-1]
+        if "count" in getattr(schedule, "_fields", ()) \
+                and int(np.asarray(schedule.count)) != count:
+            raise ValueError("adam and schedule counts differ: not an "
+                             "optax.adamw state")
+        return AdamWState(count=count, mu=flax_to_torch(first.mu),
+                          nu=flax_to_torch(first.nu))
+    if hasattr(first, "trace"):
+        return TraceState(flax_to_torch(first.trace))
+    if all(_empty(e) for e in opt_state):
+        return EmptyState()
+    if len(opt_state) == 2 and _empty(first):
+        return ChainState((EmptyState(),
+                           flax_opt_state_to_torch(opt_state[1])))
+    raise KeyError(f"no optax state has the entries {opt_state}")
 
 
-def _fields(node: Mapping):
-    """A NamedTuple state in flax's dict form as an object read by
-    attribute again (its param-tree leaves stay dicts)."""
-    return collections.namedtuple("State", list(node))(**node)
+#: the fields of the optax states :func:`flax_opt_state_to_torch` reads
+_STATE_FIELDS = {"count", "mu", "nu", "trace", "inner", "master"}
+_EMPTY = collections.namedtuple("EmptyState", [])()
+
+
+def _as_state(node: Mapping):
+    """An optax state in flax's dict form (a tuple as ``{"0": .., "1":
+    ..}``, a NamedTuple as a dict of its fields, an ``EmptyState`` as
+    ``{}``) as objects read by attribute again; the param-tree leaves of
+    a state stay dicts."""
+    if not node:
+        return _EMPTY
+    keys = list(node)
+    if keys == [str(i) for i in range(len(keys))]:
+        return tuple(_as_state(node[k]) for k in keys)
+    if set(keys) <= _STATE_FIELDS:
+        return collections.namedtuple("State", keys)(**{
+            k: _as_state(v) if k == "inner" else v
+            for k, v in node.items()})
+    raise KeyError(f"no optax state has the entries {sorted(node)}")
 
 
 def _opt_state_dict(node: Mapping) -> dict:
-    """An optax state in flax's dict form (a tuple as ``{"0": .., "1":
-    ..}``, a NamedTuple as a dict of its fields) as the ``state_dict`` of
-    the port's counterpart (ops/optim.py):
-
-    - ``FP32MasterState``: ``{"inner", "master"}``;
-    - ``adamw`` / ``adam``: ``(ScaleByAdamState, ...)``, through
-      :func:`flax_opt_state_to_torch`;
-    - ``sgd``: a tuple of empty states -> ``{}`` (``SGD``'s
-      ``EmptyState``);
-    - ``chain(clip_by_global_norm, tx)``: ``(EmptyState, tx)`` -> the
-      port's ``chain`` state, ``{"0": {}, "1": <tx>}``."""
-    if set(node) == {"inner", "master"}:
-        return {"inner": _opt_state_dict(node["inner"]),
-                "master": flax_to_torch(node["master"])}
-    entries = [node[str(i)] for i in range(len(node))]
-    if list(node) != [str(i) for i in range(len(node))] or not entries:
-        raise KeyError(f"no optax state has the entries {sorted(node)}")
-    if "mu" in entries[0]:
-        return flax_opt_state_to_torch(
-            tuple(_fields(e) for e in entries)).state_dict()
-    if not any(entries):
-        return {}
-    if len(entries) == 2 and not entries[0]:
-        return {"0": {}, "1": _opt_state_dict(entries[1])}
-    raise KeyError(f"no optax state has the entries {entries}")
+    """An optax state in flax's dict form as the ``state_dict`` of the
+    port's counterpart (:func:`flax_opt_state_to_torch`)."""
+    return flax_opt_state_to_torch(_as_state(node)).state_dict()
 
 
 def jax_checkpoint_to_torch(ckpt: Mapping) -> dict:
@@ -181,12 +260,14 @@ def jax_checkpoint_to_torch(ckpt: Mapping) -> dict:
     clip_by_global_norm, tx)`` on both sides).  ``state.rng``, the JAX
     key, becomes the port's step seed, its words read as one integer:
     the steps draw other numbers than JAX's in either case.  The model's
-    non-parameter collections must be empty (the port's models hold
-    none)."""
+    non-parameter state may hold ``batch_stats`` alone (ResNet's), which
+    becomes the running buffers of the port's ``model_state``."""
     st = ckpt["state"]
-    if _flatten(st.get("model_state") or {}):
-        raise ValueError("the JAX checkpoint holds model state the port's "
-                         "models do not have")
+    model_state = dict(st.get("model_state") or {})
+    stats = model_state.pop("batch_stats", {})
+    if _flatten(model_state):
+        raise ValueError(f"the JAX checkpoint holds model state the "
+                         f"port's models do not have: {sorted(model_state)}")
     seed = 0
     for word in np.asarray(st["rng"]).reshape(-1):
         seed = (seed << 32) | (int(word) & 0xFFFFFFFF)
@@ -194,11 +275,11 @@ def jax_checkpoint_to_torch(ckpt: Mapping) -> dict:
         **{k: v for k, v in ckpt.items() if k != "state"},
         "state": {"step": int(np.asarray(st["step"])),
                   "params": flax_to_torch(st["params"]),
-                  "model_state": {},
+                  "model_state": _convert(stats, stats=True),
                   "opt_state": _opt_state_dict(st["opt_state"]),
                   "rng": seed % (1 << 64)},
     }
 
 
 __all__ = ["flax_opt_state_to_torch", "flax_to_torch",
-           "jax_checkpoint_to_torch", "to_tensor"]
+           "jax_checkpoint_to_torch", "to_tensor", "torch_to_flax"]

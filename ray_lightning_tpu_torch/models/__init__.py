@@ -1,4 +1,4 @@
-"""Model families ported so far: GPT (models/gpt.py) and BERT
-(models/bert.py, over models/common.py's ``ClassificationModule``), and
-the test fixtures ``BoringModel`` and ``LightningMNISTClassifier``
-(models/boring.py)."""
+"""Model families ported so far: GPT (models/gpt.py), BERT
+(models/bert.py) and ResNet (models/resnet.py), the last two over
+models/common.py's ``ClassificationModule``, and the test fixtures
+``BoringModel`` and ``LightningMNISTClassifier`` (models/boring.py)."""

@@ -1,5 +1,6 @@
 """AdamW with a linear warmup or a constant rate, the fp32 master for
-low-precision resident params, SGD, and clipping by the global norm.
+low-precision resident params, SGD with optional (Nesterov) momentum,
+weight decay as a gradient map, and clipping by the global norm.
 
 Counterpart of the JAX package's optimizers: ``optax.adamw(
 linear_schedule(0, lr, warmup), b1=0.9, b2=0.95, weight_decay,
@@ -31,7 +32,10 @@ name (``model.named_parameters()``).
 
 ``clip_by_global_norm`` and :class:`chain` are ``optax.clip_by_global_
 norm`` chained ahead of the optimizer, as ``Trainer(gradient_clip_val=
-...)`` wraps it; ``SGD`` is ``optax.sgd(lr)``.  Every state has a
+...)`` wraps it; ``SGD`` is ``optax.sgd(lr, momentum, nesterov)`` and
+``add_decayed_weights`` optax's gradient map of that name (the ResNet
+optimizer, models/resnet.py, is ``chain(add_decayed_weights(1e-4),
+SGD(lr, momentum=0.9, nesterov=True))``).  Every state has a
 ``state_dict()`` of plain containers (ints and dicts of tensors, keyed
 as the optax state's fields) and a ``load_state_dict`` that takes the
 loaded tensors as they are, in their saved dtypes: the checkpoint
@@ -227,22 +231,82 @@ class fp32_master:  # noqa: N801 - named as the JAX package's transform
             p.copy_(state.master[k])                 # master.to(p.dtype)
 
 
-class SGD:
-    """``optax.sgd(lr)`` without momentum: ``p += g * -lr`` (the update
-    rounded before the add, as ``apply_updates`` adds it)."""
+@dataclasses.dataclass
+class TraceState:
+    """``optax.TraceState``: :class:`SGD`'s momentum buffer, keyed by
+    parameter name."""
 
-    def __init__(self, lr: float):
+    trace: "dict[str, torch.Tensor]"
+
+    def state_dict(self) -> dict:
+        return {"trace": dict(self.trace)}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.trace = _same_keys(self.trace, state["trace"], "trace")
+
+
+class SGD:
+    """``optax.sgd(lr, momentum, nesterov)``: ``optax.trace(momentum,
+    nesterov)`` then the scale by ``-lr``.  With a momentum ``m`` and the
+    old trace ``t``, the new trace is ``g + m t`` and the update ``u`` is
+    that trace, or ``g + m (g + m t)`` with ``nesterov``; without one
+    ``u = g`` and the state is empty.  Then ``p += u * -lr`` (the update
+    rounded before the add, as ``apply_updates`` adds it).  The trace
+    keeps the params' dtype."""
+
+    def __init__(self, lr: float, momentum: Optional[float] = None,
+                 nesterov: bool = False):
         self.lr = lr
+        self.momentum = momentum
+        self.nesterov = nesterov
+
+    def init(self, params: Mapping[str, torch.Tensor]
+             ) -> "EmptyState | TraceState":
+        if self.momentum is None:
+            return EmptyState()
+        return TraceState({k: torch.zeros_like(p)
+                           for k, p in params.items()})
+
+    @torch.no_grad()
+    def update(self, grads: Mapping[str, torch.Tensor],
+               state: "EmptyState | TraceState",
+               params: Mapping[str, torch.Tensor]) -> None:
+        names = list(params)
+        u = [grads[k] for k in names]
+        if self.momentum is not None:
+            m = self.momentum
+            trace = torch._foreach_add(
+                u, torch._foreach_mul([state.trace[k] for k in names], m))
+            if self.nesterov:
+                u = torch._foreach_add(u, torch._foreach_mul(trace, m))
+            else:
+                u = trace
+            state.trace = dict(zip(names, trace))
+        torch._foreach_add_([params[k] for k in names],
+                            torch._foreach_mul(u, -self.lr))
+
+
+class add_decayed_weights:  # noqa: N801 - named as the optax transform
+    """``optax.add_decayed_weights(weight_decay)``: each gradient becomes
+    ``g + weight_decay * p``.  Stateless; its :meth:`update` returns the
+    new gradients, so it sits ahead of the optimizer in a
+    :class:`chain`."""
+
+    def __init__(self, weight_decay: float):
+        self.weight_decay = weight_decay
 
     def init(self, params: Mapping[str, torch.Tensor]) -> EmptyState:
         return EmptyState()
 
     @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor], state: EmptyState,
-               params: Mapping[str, torch.Tensor]) -> None:
-        names = list(params)
-        torch._foreach_add_([params[k] for k in names], torch._foreach_mul(
-            [grads[k] for k in names], -self.lr))
+               params: Mapping[str, torch.Tensor]
+               ) -> "dict[str, torch.Tensor]":
+        names = list(grads)
+        return dict(zip(names, torch._foreach_add(
+            [grads[k] for k in names],
+            torch._foreach_mul([params[k] for k in names],
+                               self.weight_decay))))
 
 
 class clip_by_global_norm:  # noqa: N801 - named as the optax transform
@@ -273,8 +337,9 @@ class clip_by_global_norm:  # noqa: N801 - named as the optax transform
 class chain:  # noqa: N801 - named as optax.chain
     """``optax.chain(*transforms)`` for the shape the ``Trainer`` builds:
     every transform but the last maps the gradients (its ``update``
-    returns new ones, as :class:`clip_by_global_norm`'s does), the last
-    applies them to the params in place.  So the clip sees the gradients
+    returns new ones, as :class:`clip_by_global_norm`'s and
+    :class:`add_decayed_weights`' do), the last applies them to the
+    params in place (a nested chain as its last transform included).  So the clip sees the gradients
     in their own dtype, before ``fp32_master`` upcasts them, as in the
     JAX package."""
 
@@ -295,5 +360,6 @@ class chain:  # noqa: N801 - named as optax.chain
 
 
 __all__ = ["AdamW", "AdamWState", "ChainState", "EmptyState",
-           "FP32MasterState", "SGD", "chain", "clip_by_global_norm",
-           "fp32_master", "linear_schedule"]
+           "FP32MasterState", "SGD", "TraceState", "add_decayed_weights",
+           "chain", "clip_by_global_norm", "fp32_master",
+           "linear_schedule"]

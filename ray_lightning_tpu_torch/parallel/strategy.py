@@ -24,6 +24,12 @@ world is one rank and no collective runs.
   updated shards are all-gathered into the resident params.  AdamW is
   elementwise, so without clipping ZeRO-1 equals DDP bit for bit.
 
+Under either strategy a training BatchNorm (models/resnet.py) takes its
+moments over the global batch, as the JAX step's BatchNorm does over
+the batch it shards (:func:`batch_moments`): the per-channel sums are
+all-reduced in the forward and their gradients in the backward, so the
+running statistics stay equal on every rank.
+
 ``"fsdp"``, ``"zero3"``, ``"spmd"``, ``"auto"`` and ``"mpmd"`` raise
 ``NotImplementedError`` naming their ROADMAP.md item; other names raise
 ``ValueError``, as in the JAX package.
@@ -38,7 +44,8 @@ import torch
 import torch.distributed as dist
 
 from ray_lightning_tpu_torch.ops.optim import (SGD, AdamW, EmptyState,
-                                               chain, clip_by_global_norm,
+                                               add_decayed_weights, chain,
+                                               clip_by_global_norm,
                                                fp32_master)
 
 
@@ -77,6 +84,42 @@ def sum_over_ranks(t: torch.Tensor) -> torch.Tensor:
     t = t.clone()
     dist.all_reduce(t)
     return t
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """``all_reduce`` (sum) whose backward sums the gradient over the
+    ranks too: every rank's loss depends on every rank's share of the
+    sum."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor) -> torch.Tensor:
+        t = t.clone()
+        dist.all_reduce(t)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+        grad = grad.clone()
+        dist.all_reduce(grad)
+        return grad
+
+
+def batch_moments(x: torch.Tensor, dims: "tuple[int, ...]"
+                  ) -> "tuple[torch.Tensor, torch.Tensor]":
+    """``E[x]`` and ``E[x^2]`` over ``dims`` of the global batch, in fp32
+    whatever ``x``'s dtype (flax's ``_compute_stats``).  Over more than
+    one rank, each rank's ``[sum x, sum x^2, n]`` is summed over the
+    ranks in one differentiable all-reduce; at one rank (or without a
+    process group) they are the local means."""
+    x = x.float()
+    if world_size() == 1:
+        return x.mean(dims), (x * x).mean(dims)
+    n = x.numel() // math.prod(x.shape[d] for d in range(x.dim())
+                               if d not in dims)
+    s1 = x.sum(dims)
+    sums = _SumOverRanks.apply(torch.stack(
+        [s1, (x * x).sum(dims), torch.full_like(s1, float(n))]))
+    return sums[0] / sums[2], sums[1] / sums[2]
 
 
 def gather_objects(obj) -> list:
@@ -220,31 +263,36 @@ class Zero1State:
         return {k: out[k] for k in self.opt.names}
 
     def state_dict(self) -> dict:
-        if isinstance(self.opt.inner, AdamW):
+        inner = self.opt.inner
+        if isinstance(inner, AdamW):
             sd = {"count": self.inners[0].count,
                   "mu": self._by_name([s.mu["flat"] for s in self.inners]),
                   "nu": self._by_name([s.nu["flat"] for s in self.inners])}
+        elif inner.momentum is not None:
+            sd = {"trace": self._by_name([s.trace["flat"]
+                                          for s in self.inners])}
         else:
             sd = {}
         if self.opt.has_master:
             sd = {"inner": sd, "master": self._by_name(self.masters)}
-        if self.opt.clip is not None:
-            sd = {"0": {}, "1": sd}
-        return sd
+        return _nest(self.opt.tx, sd)
 
     def load_state_dict(self, state: dict) -> None:
-        if self.opt.clip is not None:
-            if sorted(state) != ["0", "1"] or state["0"]:
-                raise ValueError(f"chain(clip, ...): the state has "
-                                 f"{sorted(state)}")
-            state = state["1"]
+        state = _unnest(self.opt.tx, state)
         if self.opt.has_master:
             master = _named(state["master"], self.opt.names, "master")
             self.masters = [g.shard_of([master[k] for k in g.names])
                             for g in self.groups]
             state = state["inner"]
-        if not isinstance(self.opt.inner, AdamW):
+        inner = self.opt.inner
+        if isinstance(inner, SGD) and inner.momentum is None:
             EmptyState().load_state_dict(state)
+            return
+        if isinstance(inner, SGD):
+            trace = _named(state["trace"], self.opt.names, "trace")
+            for g, s in zip(self.groups, self.inners):
+                s.trace = {"flat": g.shard_of([trace[k] for k in g.names],
+                                              s.trace["flat"].dtype)}
             return
         mu = _named(state["mu"], self.opt.names, "mu")
         nu = _named(state["nu"], self.opt.names, "nu")
@@ -253,6 +301,37 @@ class Zero1State:
             s.mu = {"flat": g.shard_of([mu[k] for k in g.names],
                                        s.mu["flat"].dtype)}
             s.nu = {"flat": g.shard_of([nu[k] for k in g.names])}
+
+
+def _transforms(tx) -> list:
+    """``tx``'s transforms in the order they run, nested chains laid
+    flat."""
+    if isinstance(tx, chain):
+        return [t for sub in tx.transforms for t in _transforms(sub)]
+    return [tx]
+
+
+def _nest(tx, sd: dict) -> dict:
+    """The last transform's state dict ``sd`` inside ``tx``'s chains, as
+    the unsharded optimizer's ``state_dict`` nests it (a gradient map's
+    state is empty)."""
+    if not isinstance(tx, chain):
+        return sd
+    *maps, last = tx.transforms
+    return {**{str(i): {} for i in range(len(maps))},
+            str(len(maps)): _nest(last, sd)}
+
+
+def _unnest(tx, state: dict) -> dict:
+    """The inverse of :func:`_nest`, checking the chain's entries."""
+    if not isinstance(tx, chain):
+        return state
+    n = len(tx.transforms)
+    if sorted(state) != sorted(str(i) for i in range(n)) \
+            or any(state[str(i)] for i in range(n - 1)):
+        raise ValueError(f"a chain of {n} transforms: the state has "
+                         f"{sorted(state)}")
+    return _unnest(tx.transforms[-1], state[str(n - 1)])
 
 
 def _named(saved: Mapping, names: "list[str]", what: str) -> dict:
@@ -266,8 +345,10 @@ def _named(saved: Mapping, names: "list[str]", what: str) -> dict:
 
 class Zero1Optimizer:
     """ZeRO-1 around the optimizer the ``Trainer`` builds: ``AdamW``,
-    ``SGD`` or ``fp32_master(AdamW)``, optionally chained behind
-    ``clip_by_global_norm``.
+    ``SGD`` (with or without momentum) or ``fp32_master`` of either,
+    behind an optional ``clip_by_global_norm`` and any number of
+    ``add_decayed_weights`` (a :class:`chain`, nested or not, in that
+    order).
 
     Per step: the gradients (in their dtype ``d``) are laid into one fp32
     vector and reduce-scattered (summed, then divided by W) and the
@@ -276,24 +357,28 @@ class Zero1Optimizer:
     per-parameter sums of squares, all-reduced (the pad left out), then
     rounded to ``d`` and summed in parameter order as the clip sums them
     (a parameter whole on one rank gets the unsharded clip's sum
-    exactly);
-    the inner optimizer updates the rank's shard of the fp32 master (the
-    params themselves when they are fp32 and there is no
-    ``fp32_master``); the shards are all-gathered and copied into the
-    resident params, which casts them to their dtype."""
+    exactly); the weight decay adds ``wd`` times the rank's shard of the
+    resident params; the inner optimizer updates the rank's shard of the
+    fp32 master (the params themselves when they are fp32 and there is
+    no ``fp32_master``); the shards are all-gathered and copied into the
+    resident params, which casts them to their dtype.  Every step but
+    the clip is elementwise, so without a clip ZeRO-1 equals DDP bit
+    for bit."""
 
     def __init__(self, tx, min_shard_elements: int = 0):
+        self.tx = tx
+        *maps, last = _transforms(tx)
         self.clip = None
-        if isinstance(tx, chain):
-            *maps, tx = tx.transforms
-            if len(maps) != 1 or not isinstance(maps[0],
-                                                clip_by_global_norm):
-                raise NotImplementedError(
-                    "ZeRO-1 takes chain(clip_by_global_norm, optimizer) "
-                    "only")
-            self.clip = maps[0]
-        self.has_master = isinstance(tx, fp32_master)
-        self.inner = tx.inner if self.has_master else tx
+        if maps and isinstance(maps[0], clip_by_global_norm):
+            self.clip = maps.pop(0)
+        if not all(isinstance(m, add_decayed_weights) for m in maps):
+            raise NotImplementedError(
+                "ZeRO-1 takes chain(clip_by_global_norm, "
+                "add_decayed_weights..., optimizer) only, got "
+                f"{[type(t).__name__ for t in _transforms(tx)]}")
+        self.maps = maps
+        self.has_master = isinstance(last, fp32_master)
+        self.inner = last.inner if self.has_master else last
         if not isinstance(self.inner, (AdamW, SGD)):
             raise NotImplementedError(
                 f"ZeRO-1 shards AdamW and SGD states, not "
@@ -347,8 +432,14 @@ class Zero1Optimizer:
         if self.clip is not None:
             shards = self._clip(state.groups, shards, d)
         for i, (g, gs) in enumerate(zip(state.groups, shards)):
-            master = (state.masters[i] if self.has_master else
-                      g.shard_of([params[k] for k in g.names]))
+            resident = None
+            if self.maps or not self.has_master:
+                resident = g.shard_of([params[k] for k in g.names],
+                                      params[g.names[0]].dtype)
+            for m in self.maps:
+                gs = m.update({"flat": gs}, EmptyState(),
+                              {"flat": resident})["flat"]
+            master = state.masters[i] if self.has_master else resident
             self.inner.update({"flat": gs.float()}, state.inners[i],
                               {"flat": master})
             for k, v in g.unflatten(state._full(g, master)).items():
@@ -418,6 +509,7 @@ def resolve_strategy(strategy: "str | ShardingStrategy | None"
 
 
 __all__ = ["DataParallelStrategy", "ShardingStrategy", "Zero1Optimizer",
-           "Zero1State", "Zero1Strategy", "average_grads", "gather_objects",
+           "Zero1State", "Zero1Strategy", "average_grads", "batch_moments",
+           "gather_objects",
            "global_rank", "group_active", "mean_over_ranks", "resolve_strategy", "strategy_names",
            "sum_over_ranks", "world_size"]

@@ -1141,3 +1141,119 @@ def test_cuda_relayed_checkpoint_resumes_in_process(cuda_device, tmp_path):
     assert set(got) == set(want)
     for k, v in want.items():
         assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
+
+
+# -- ResNet on the card -----------------------------------------------------------
+
+def _resnet(cfg, device, state=None):
+    """A ResNet on ``device``: flax's init from seed 0 with every
+    BatchNorm scale 1 (flax starts each block's last at 0, which would
+    leave the residual branches out), or ``state``."""
+    from ray_lightning_tpu_torch.models.resnet import BatchNorm, ResNet
+    model = ResNet(cfg, device=device)
+    if state is not None:
+        model.load_state_dict(state)
+        return model
+    model.init_weights(torch.Generator(device=device).manual_seed(0))
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.weight.fill_(1.0)
+    return model
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bottleneck", [False, True])
+def test_cuda_resnet_channels_last_bf16_matches_cpu(bottleneck, cuda_device,
+                                                    monkeypatch):
+    """A bf16 ResNet (2 stages of width 16) on the card against the same
+    weights on the CPU: train logits, the running statistics after it
+    and eval logits within 2e-2; every conv on the card gets its input
+    and kernel channels-last (the NHWC batch viewed as NCHW)."""
+    from ray_lightning_tpu_torch.models import resnet as tres
+    cfg = tres.ResNetConfig(stage_sizes=(1, 1), width=16,
+                            bottleneck=bottleneck)
+    cpu = _resnet(cfg, "cpu")
+    card = _resnet(cfg, cuda_device, cpu.state_dict())
+    layouts = []
+    conv2d = torch.nn.functional.conv2d
+
+    def spy(x, w, *a, **k):
+        if x.is_cuda:
+            cl = torch.channels_last
+            layouts.append(x.is_contiguous(memory_format=cl)
+                           and w.is_contiguous(memory_format=cl))
+        return conv2d(x, w, *a, **k)
+
+    monkeypatch.setattr(tres.F, "conv2d", spy)
+    x = torch.randn(8, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+    want = cpu(x, True)
+    got = card(x.to(cuda_device), True)
+    assert layouts and all(layouts)
+    torch.testing.assert_close(got.cpu(), want.detach(), atol=2e-2,
+                               rtol=2e-2)
+    for k, v in cpu.state_dict().items():
+        torch.testing.assert_close(card.state_dict()[k].cpu(), v,
+                                   atol=2e-2, rtol=2e-2, msg=k)
+    with torch.no_grad():
+        torch.testing.assert_close(card(x.to(cuda_device), False).cpu(),
+                                   cpu(x, False), atol=2e-2, rtol=2e-2)
+
+
+def cudnn_fp32() -> None:
+    """fp32 convs in full fp32: cuDNN's default rounds their operands to
+    TF32 (a worker's ``init_hook``; module level, so it can be sent)."""
+    torch.backends.cudnn.allow_tf32 = False
+
+
+@pytest.mark.cuda
+def test_cuda_resnet_ddp_across_cards_equals_one_process(cards, tmp_path,
+                                                         monkeypatch):
+    """``RayPlugin(num_workers=2)`` over NCCL, one card a worker, batch 4
+    a rank, against one process at batch 8 on the first card: the tiny
+    ResNet in fp32, 2 epochs of 3 steps, the same seed; losses, every
+    param and running statistic within fp32's 2e-5 (each rank's
+    BatchNorm takes the moments of the global batch).  TF32 is off in
+    both: it rounds the conv operands to 10 mantissa bits, so a last-bit
+    difference of the two summation orders can move an operand by a TF32
+    step, past the bar (seen on four H100s with it on: the losses within
+    2e-5, ``stem.weight`` not)."""
+    from ray_lightning_tpu_torch import RayPlugin, ResNetLightningModule
+    from ray_lightning_tpu_torch.models.resnet import ResNetConfig
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+    class Losses(Callback):
+        def __init__(self):
+            self.losses = []
+
+        def on_train_batch_end(self, trainer, module, outputs, batch, i):
+            self.losses.append(float(outputs["loss"]))
+
+    def run(plugins, batch, callback, **kw):
+        module = ResNetLightningModule(
+            ResNetConfig(stage_sizes=(1, 1), width=8, bottleneck=False,
+                         dtype=torch.float32), lr=0.05, batch_size=batch,
+            train_size=24, val_size=8)
+        trainer = Trainer(plugins=plugins, max_epochs=2, seed=0,
+                          limit_val_batches=1, num_sanity_val_steps=0,
+                          enable_checkpointing=False, logger=False,
+                          default_root_dir=str(tmp_path),
+                          callbacks=[callback], **kw)
+        RELAYED_LOSSES.clear()
+        trainer.fit(module)
+        return module, list(RELAYED_LOSSES)
+
+    ddp, [ddp_losses] = run([RayPlugin(num_workers=2, timeout_s=300,
+                                       init_hook=cudnn_fp32)], 4,
+                            RelayLosses())
+    local = Losses()
+    one, _ = run(None, 8, local, device="cuda:0")
+    one_losses = local.losses
+    assert len(ddp_losses) == len(one_losses) == 6
+    np.testing.assert_allclose(ddp_losses, one_losses, atol=2e-5, rtol=2e-5)
+    want = {k: v.detach().cpu() for k, v in one.model.state_dict().items()}
+    assert set(ddp._trained_state) == set(want)
+    for k, v in want.items():
+        torch.testing.assert_close(ddp._trained_state[k], v, atol=2e-5,
+                                   rtol=2e-5, msg=k)

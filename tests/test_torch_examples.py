@@ -14,6 +14,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = [
     "ray_lightning_tpu_torch.examples.ray_ddp_example",
     "ray_lightning_tpu_torch.examples.ray_ddp_tune",
+    "ray_lightning_tpu_torch.examples.ray_ddp_sharded_example",
 ]
 
 
@@ -37,6 +38,11 @@ def test_example_smoke(module, tmp_path):
         assert "Best hyperparameters found were" in proc.stdout
     else:
         assert "Final metrics:" in proc.stdout
+    if module.endswith("ray_ddp_sharded_example"):
+        # the perf callback's epoch line, from the worker (CPU: no
+        # device memory to report) and its metrics on the driver
+        assert "Epoch 0: " in proc.stdout
+        assert "'epoch_time_s'" in proc.stdout
 
 
 def test_ddp_example_tune_smoke(tmp_path):

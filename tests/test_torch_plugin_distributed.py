@@ -14,6 +14,9 @@ and ``RayShardedPlugin`` (ZeRO-1) with CPU workers on gloo
   1-epoch fit and its resume equal the 2-epoch fit bit for bit; a W=2
   checkpoint restores bit for bit in a one-process ``Trainer``, and a
   one-process checkpoint in W=2 workers;
+- the tiny ResNet in fp32: a 2-worker DDP fit against the JAX 2-device
+  fit (losses, params and running statistics within 2e-5: BatchNorm's
+  moments over the global batch), and ZeRO-1 against DDP bit for bit;
 - the behaviours of tests/test_plugin_distributed.py: training with 1
   and 2 workers (weights changed, round-tripped to the driver),
   ``best_model_path`` and the metrics on the driver, ``init_hook`` and
@@ -51,6 +54,8 @@ from ray_lightning_tpu_torch import (BoringModel, Callback,
                                      RayPlugin, Trainer, session)
 from ray_lightning_tpu_torch.cluster import RemoteActorError, get_backend
 from ray_lightning_tpu_torch.models.gpt import GPTConfig
+from ray_lightning_tpu_torch.models.resnet import (ResNetConfig,
+                                                   ResNetLightningModule)
 from ray_lightning_tpu_torch.ops.attention import dropout_keep_mask
 from ray_lightning_tpu_torch.parallel.strategy import Zero1State
 
@@ -734,3 +739,149 @@ def test_zero1_checkpoint_moves_between_world_sizes(gpt_runs, tmp_path):
     _assert_same_state({"state": {"opt_state": relayed(items, "restored")[0][
         "opt"], "params": relayed(items, "restored")[0]["params"]}},
         {"state": {k: want["state"][k] for k in ("opt_state", "params")}})
+
+
+# -- ResNet: BatchNorm moments over the global batch ----------------------------
+
+#: the tiny basic-block ResNet in fp32: 2 stages of width 8
+RESNET = dict(stage_sizes=(1, 1), width=8, bottleneck=False)
+#: 3 steps an epoch of batch 8 (4 a rank at W=2), a validation batch
+RESNET_KW = dict(lr=0.05, train_size=24, val_size=8)
+
+
+class FixedResNet(ResNetLightningModule):
+    """The ResNet module starting from given weights and running
+    statistics (a state dict)."""
+
+    def __init__(self, state, **kw):
+        super().__init__(**kw)
+        self._state = state
+
+    def init_params(self, generator):
+        self.setup_model(generator.device)
+        self.model.load_state_dict(self._state)
+        return self.model.state_dict()
+
+
+def _resnet_fit(plugins, root, state, batch_size, **kw):
+    trainer = Trainer(plugins=plugins, max_epochs=2, limit_val_batches=1,
+                      num_sanity_val_steps=0, seed=0,
+                      enable_checkpointing=False, logger=False,
+                      default_root_dir=str(root), callbacks=[Losses()], **kw)
+    module = FixedResNet(state, config=ResNetConfig(**RESNET,
+                                                    dtype=torch.float32),
+                         batch_size=batch_size, **RESNET_KW)
+    _, items = fit(trainer, module)
+    return types.SimpleNamespace(trainer=trainer, module=module,
+                                 losses=relayed(items, "losses"))
+
+
+@pytest.fixture(scope="module")
+def resnet_runs(tmp_path_factory):
+    """The flax variables of the JAX tiny ResNet (numpy draws, no
+    statistic trivial), and 2-worker fits from them under DDP and
+    ZeRO-1, made on first use."""
+    import jax
+    import jax.numpy as jnp
+
+    from ray_lightning_tpu.models.resnet import ResNet as JaxResNet
+    from ray_lightning_tpu.models.resnet import ResNetConfig as JaxConfig
+    from ray_lightning_tpu_torch.convert import flax_to_torch
+
+    shapes = jax.eval_shape(lambda r: JaxResNet(JaxConfig(
+        **RESNET, dtype=jnp.float32)).init(
+            r, jnp.zeros((1, 32, 32, 3)), False), jax.random.PRNGKey(0))
+    rng = np.random.default_rng(0)
+
+    def leaf(path, s):
+        noise = rng.standard_normal(s.shape).astype(np.float32)
+        if path[-1].key == "kernel":
+            return noise / np.sqrt(np.prod(s.shape[:-1]))
+        if path[-1].key in ("scale", "var"):
+            return 1.0 + 0.2 * np.abs(noise)
+        return 0.1 * noise
+
+    variables = jax.tree_util.tree_map_with_path(leaf, shapes)
+    cache = {"variables": variables, "state": flax_to_torch(variables)}
+
+    def get(key):
+        if key not in cache:
+            cache[key] = _resnet_fit(
+                [cpu_plugin(2, strategy=key)],
+                tmp_path_factory.mktemp(key), cache["state"], 4)
+        return cache[key]
+
+    return get
+
+
+def test_resnet_ddp_matches_jax_two_device_fit(resnet_runs, tmp_path):
+    """``RayPlugin(num_workers=2, platform="cpu")`` at batch 4 a rank
+    against the JAX ``Trainer`` with ``LocalPlugin("ddp", devices=jax.
+    devices()[:2])`` at batch 8, the tiny ResNet in fp32 from the same
+    weights and running statistics: 2 epochs of 3 steps, the losses,
+    every param and running statistic within 2e-5.  The JAX step
+    normalises with the moments of its global batch; so do the ranks,
+    whose BatchNorm sums ``[sum x, sum x^2, n]`` over both (local
+    moments miss this bar)."""
+    import jax
+    import jax.numpy as jnp
+
+    from ray_lightning_tpu.core.callbacks import Callback as JaxCallback
+    from ray_lightning_tpu.core.trainer import Trainer as JaxTrainer
+    from ray_lightning_tpu.models.resnet import ResNetConfig as JaxConfig
+    from ray_lightning_tpu.models.resnet import (
+        ResNetLightningModule as JaxModule)
+    from ray_lightning_tpu.plugins import LocalPlugin as JaxLocalPlugin
+    from ray_lightning_tpu_torch.convert import flax_to_torch
+
+    variables = resnet_runs("variables")
+
+    class JaxFixed(JaxModule):
+        def init_params(self, rng, batch):
+            return jax.tree_util.tree_map(jnp.asarray, variables)
+
+    class JaxLosses(JaxCallback):
+        def __init__(self):
+            self.losses = []
+
+        def on_train_batch_end(self, trainer, module, outputs, batch, i):
+            self.losses.append(float(outputs["loss"]))
+
+    jrec = JaxLosses()
+    jt = JaxTrainer(plugins=[JaxLocalPlugin(
+        "ddp", devices=jax.devices()[:2])], callbacks=[jrec], logger=False,
+        max_epochs=2, limit_val_batches=1, num_sanity_val_steps=0, seed=0,
+        enable_checkpointing=False, default_root_dir=str(tmp_path))
+    jmod = JaxFixed(JaxConfig(**RESNET, dtype=jnp.float32), batch_size=8,
+                    **RESNET_KW)
+    jt.fit(jmod)
+
+    run = resnet_runs("ddp")
+    assert run.losses[0] == run.losses[1] and len(run.losses[0]) == 6
+    np.testing.assert_allclose(run.losses[0], jrec.losses, atol=2e-5,
+                               rtol=2e-5)
+    np.testing.assert_allclose(run.trainer.callback_metrics["val_loss"],
+                               jt.callback_metrics["val_loss"], atol=2e-5,
+                               rtol=2e-5)
+    assert (run.trainer.global_step, run.trainer.current_epoch) == (
+        jt.global_step, jt.current_epoch) == (6, 2)
+    trained = jax.device_get(jmod._trained_variables)
+    want = flax_to_torch({"params": trained["params"],
+                          "batch_stats": trained["model_state"][
+                              "batch_stats"]})
+    got = run.module._trained_state
+    assert set(got) == set(want)
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k].numpy(), v.numpy(), atol=2e-5,
+                                   rtol=2e-5, err_msg=k)
+
+
+def test_resnet_zero1_equals_ddp(resnet_runs):
+    """``RayShardedPlugin``'s fit at W=2 (the ``chain(add_decayed_weights,
+    SGD(momentum, nesterov))`` state sharded) equals ``RayPlugin``'s bit
+    for bit: losses, params and running statistics."""
+    ddp, zero = resnet_runs("ddp"), resnet_runs("zero1")
+    assert zero.losses == ddp.losses
+    assert set(zero.module._trained_state) == set(ddp.module._trained_state)
+    for k, v in ddp.module._trained_state.items():
+        assert torch.equal(zero.module._trained_state[k], v), k

@@ -13,7 +13,9 @@
 - an ASHA stop and a PBT exploit, each raised inside the driver's drain
   while the workers run: the exception leaves ``Trainer.fit`` as it
   was raised, every worker of the sweep is gone, and a PBT restart
-  begins at its donor checkpoint's ``global_step``;
+  begins at its donor checkpoint's ``global_step`` (the trials' first
+  reports in lockstep, so the population exists before the worse trial
+  can run out of iterations);
 - a ``max_failures`` retry after a worker fails, resumed from the
   trial's last relayed checkpoint.
 
@@ -258,13 +260,34 @@ def test_asha_stop_comes_out_of_the_fit_with_every_worker_gone(tmp_path):
     assert_workers_gone()
 
 
+class LockstepPBT(tune.PopulationBasedTraining):
+    """PBT whose trials each wait, after their first report is recorded
+    and decided, until every trial of the population has made its first
+    (bounded: past ``timeout_s`` the wait raises ``BrokenBarrierError``
+    out of the report and fails the trial).  So the population exists
+    before any trial's second report is decided, whatever the workers'
+    start-up times: without it a trial whose worker started late could
+    find the other trial's four reports all made and decided against a
+    population of one, with nothing to exploit."""
+
+    def __init__(self, population: int, timeout_s: float = 120, **kw):
+        super().__init__(**kw)
+        self._first = threading.Barrier(population, timeout=timeout_s)
+
+    def on_result(self, trial, metrics: dict):
+        decision = super().on_result(trial, metrics)
+        if int(metrics.get("training_iteration", 0)) == 1:
+            self._first.wait()
+        return decision
+
+
 def test_pbt_exploit_restarts_at_the_donor_step(tmp_path):
     """Two trials under PBT, each in a worker, relaying a checkpoint and
-    a report each epoch: the worse trial exploits, ``_ExploitTrial``
+    a report each epoch, their first reports in lockstep
+    (:class:`LockstepPBT`): the worse trial exploits, ``_ExploitTrial``
     leaves its fit, and its restarted fit begins at the donor
     checkpoint's ``global_step``; every worker is gone."""
     restores = []
-    barrier = threading.Barrier(2, timeout=60)
 
     def fit(config, checkpoint_dir):
         ckpt = None
@@ -272,13 +295,8 @@ def test_pbt_exploit_restarts_at_the_donor_step(tmp_path):
             ckpt = os.path.join(checkpoint_dir, "checkpoint")
             restores.append((tune.get_trial_id(), Trainer.load_checkpoint_dict(
                 ckpt, "cpu")["global_step"]))
-        else:
-            try:
-                barrier.wait()      # the population starts together
-            except threading.BrokenBarrierError:
-                pass
         trainer = Trainer(plugins=[cpu_plugin(1)], max_epochs=20,
-                          callbacks=[Probe(epoch_s=0.3),
+                          callbacks=[Probe(),
                                      tune.TuneReportCheckpointCallback(
                                          on="validation_end")],
                           default_root_dir=tune.get_trial_dir(), **FIT)
@@ -287,8 +305,8 @@ def test_pbt_exploit_restarts_at_the_donor_step(tmp_path):
     trainable, left = _sweep_errors(fit)
     analysis = tune.run(
         trainable, config={"lr": tune.grid_search([0.1, 0.0])},
-        scheduler=tune.PopulationBasedTraining(
-            metric="val_loss", mode="min", perturbation_interval=1,
+        scheduler=LockstepPBT(
+            2, metric="val_loss", mode="min", perturbation_interval=1,
             hyperparam_mutations={"lr": [0.1, 0.05]}),
         stop={"training_iteration": 4}, local_dir=str(tmp_path))
     assert all(t.status == "TERMINATED" for t in analysis.trials)
