@@ -212,7 +212,31 @@ Phases, each fatal on failure:
    (``examples/ray_ddp_sharded_example.train``) at gpt2-small, B=8,
    T=1024, in one worker under ZeRO-1 for 4 steps: its epoch line
    (relayed to the driver), peak memory, and the worker's launches
-   (``PluginProbe``), 12 a step for both kernels, added to rows 1 and 6.
+   (``PluginProbe``), 12 a step for both kernels, added to rows 1 and 6;
+14. the loop engine (``Trainer(steps_per_execution=k,
+   cache_train_dataset=...)``: each full chunk of k steps one CUDA graph
+   replay), everything earlier freed, each fit under a temporary
+   ``default_root_dir`` and held against the eager k=1 fit from the same
+   seed: the same ``global_step`` and per-step losses (so the same
+   batches: the cached fits' batches are the streamed ones'), every
+   param, buffer and optimizer tensor bit for bit, one capture and one
+   replay a full chunk.  (a) BASELINE config #1
+   (benchmarks/bench_mnist.py:23-50): ``LightningMNISTClassifier(config=
+   {"batch_size": 128})`` over 128 x 40 samples at k=1 (the double-
+   buffered stream, against the unbuffered one), 128 x 64 at k=32 and
+   128 x 128 at k=64 with the cache, 4 epochs each; (b) BASELINE config
+   #2 cached (benchmarks/bench_resnet50.py:31-35): resnet50 at B=128,
+   bf16, k=8 with the cache, 32 steps, in process and under
+   ``RayPlugin(num_workers=1, init_hook=cudnn_deterministic)``, beside
+   the streamed eager fit; (c) gpt2-small at B=8, T=1024, k=4, 16 steps:
+   12 x 4 launches of flash_fwd and of flash_bwd a replay, counted
+   through the graph, and 12 x (16 + the warm-up step) in the fit, added
+   to rows 1 and 6.  For each fit: steps/s per card and images/s or
+   tokens/s (synced marks at each epoch for MNIST, each dispatch
+   otherwise; the first epoch or dispatch, which captures, and the
+   profiled one left out), captures, replays, launches a replay, the
+   capture's ms and pool bytes, one dispatch under ``torch.profiler``
+   (device ms, kernels, busy share of its synced wall), peak memory.
 
 The next-to-last line is the ``{"kernels": [...]}`` JSON record, one
 entry per TPU kernel row, 1 to 16 (``launches`` from the path phases
@@ -247,6 +271,9 @@ and the kernels line (the tune path's launches).  ``--resnet-only``
 does the same for phase 13: the driver stays off CUDA through the
 resnet50 worker fit and the sharded example, then the in-process parts,
 rows 1 and 6 and the kernels line (the sharded example's launches).
+``--loop-only`` does the same for phase 14: the driver stays off CUDA
+through (b)'s worker fit, then the in-process fits, rows 1 and 6 and the
+kernels line (the phase's gpt2-small launches).
 """
 
 from __future__ import annotations
@@ -3484,6 +3511,368 @@ def resnet_phase(seed: int, driver_off_cuda: bool) -> dict:
     return {"launches": sharded["launches"], "stats": stats}
 
 
+# -- phase 14: the loop engine -------------------------------------------------
+
+#: (a) BASELINE config #1's three cells (benchmarks/bench_mnist.py:23-50):
+#: (train batches of ``LOOP_MNIST_B``, k, cache)
+LOOP_MNIST_B = 128
+LOOP_MNIST_CELLS = ((40, 1, False), (64, 32, False), (128, 64, True))
+#: epoch 1 captures, epochs 2-3 are timed, epoch 4 holds the profile
+LOOP_MNIST_EPOCHS = 4
+#: (b) BASELINE config #2 cached (benchmarks/bench_resnet50.py:31-35):
+#: k=8 over 4 chunks (one capture, one profiled, two timed)
+LOOP_RESNET_K, LOOP_RESNET_STEPS = 8, 32
+#: (c) gpt2-small at B=8, T=1024 with k=4 over 4 chunks
+LOOP_GPT_K, LOOP_GPT_STEPS = 4, 16
+#: the reports of ``LoopProbe``, filled on the driver
+LOOP_PROBES: list = []
+
+
+def record_loop_probe(report: dict) -> None:
+    LOOP_PROBES.append(report)
+
+
+class LoopProbe(Callback):
+    """In the fit's process: the kernels' launches from 0 at the fit's
+    start, synced time marks (each dispatch's end, or each epoch's start
+    and end with ``per_dispatch=False``, so a streamed step is not
+    synced), each dispatch's loss tensors, one dispatch from the step
+    ``profile_at`` under ``torch.profiler`` (device time, kernels, busy
+    share of its synced wall), peak memory and the chunk graphs' stats.
+    The report goes to ``record_loop_probe`` on the driver (from a worker
+    through ``session.put_queue``).  ``needs_batch = False``: the cached
+    path collates no host batch for it."""
+
+    needs_batch = False
+
+    def __init__(self, profile_at: int, per_dispatch: bool):
+        self.profile_at = profile_at
+        self.per_dispatch = per_dispatch
+
+    def _mark(self, trainer) -> None:
+        torch.cuda.synchronize(trainer.device)
+        self.marks.append((time.perf_counter(), trainer.global_step,
+                           self._profiled))
+        self._profiled = False
+
+    def on_fit_start(self, trainer, module):
+        _kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats(trainer.device)
+        self.marks, self.losses = [], []
+        self._prof = self.profile = None
+        self._profiled = False
+
+    def on_train_epoch_start(self, trainer, module):
+        if not self.per_dispatch:
+            self._profiled = False
+            self._mark(trainer)
+
+    def on_train_epoch_end(self, trainer, module):
+        if not self.per_dispatch:
+            self._mark(trainer)
+
+    def on_train_batch_start(self, trainer, module, batch, batch_idx):
+        if self._prof is None and self.profile is None \
+                and trainer.global_step >= self.profile_at:
+            torch.cuda.synchronize(trainer.device)
+            self._prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            self._prof.__enter__()
+            self._prof_at = (time.perf_counter(), trainer.global_step)
+
+    def on_train_batch_end(self, trainer, module, outputs, batch, batch_idx):
+        self.losses.append(outputs["loss"])
+        if self._prof is not None:
+            torch.cuda.synchronize(trainer.device)
+            wall_ms = (time.perf_counter() - self._prof_at[0]) * 1e3
+            self._prof.__exit__(None, None, None)
+            events = [e for e in self._prof.key_averages()
+                      if _device_us(e) > 0]
+            device_ms = sum(_device_us(e) for e in events) / 1e3
+            self.profile = {
+                "steps": trainer.global_step - self._prof_at[1],
+                "wall_ms": wall_ms, "device_ms": device_ms,
+                "device_busy_share": device_ms / wall_ms,
+                "kernels": sum(e.count for e in events)}
+            self._prof = None
+            self._profiled = True
+        if self.per_dispatch:
+            self._mark(trainer)
+
+    def on_fit_end(self, trainer, module):
+        losses = [float(x) for t in self.losses
+                  for x in t.detach().float().reshape(-1).cpu()]
+        report = {"launches": _kernels.launch_counts(), "marks": self.marks,
+                  "losses": losses, "profile": self.profile,
+                  "graph_stats": dict(trainer.graph_stats),
+                  "peak_bytes": torch.cuda.max_memory_allocated(
+                      trainer.device),
+                  "device": str(trainer.device),
+                  "global_step": trainer.global_step}
+        if trainer.plugin.remote:
+            from ray_lightning_tpu_torch import session
+            session.put_queue(functools.partial(record_loop_probe, report))
+        else:
+            record_loop_probe(report)
+
+
+def steady_rate(marks: list, per_dispatch: bool) -> dict:
+    """Steps/s over the timed intervals: between consecutive dispatch
+    ends (the first dispatch, which holds the capture, the warm-up and
+    set-up, ends before the first), or each epoch's start and end from
+    the second epoch on; an interval that held the profile is left
+    out."""
+    if per_dispatch:
+        spans = [(b[0] - a[0], b[1] - a[1], b[2])
+                 for a, b in zip(marks, marks[1:])]
+    else:
+        spans = [(b[0] - a[0], b[1] - a[1], b[2])
+                 for a, b in zip(marks[2::2], marks[3::2])]
+    timed = [(dt, n) for dt, n, profiled in spans if not profiled]
+    if not timed:
+        raise AssertionError(f"no timed interval among {len(spans)}")
+    secs, steps = sum(dt for dt, _ in timed), sum(n for _, n in timed)
+    return {"timed_steps": steps, "timed_s": secs,
+            "steps_per_s_per_card": steps / secs}
+
+
+def loop_fit(this, module, root: str, per_dispatch: bool, profile_at: int,
+             plugin=None, **kw) -> dict:
+    """One fit with ``this.LoopProbe``: in process on the card, or under
+    ``plugin``; the trainer, the module and the probe's report."""
+    where = (dict(plugins=[plugin]) if plugin is not None
+             else dict(device="cuda"))
+    trainer = Trainer(enable_checkpointing=False, logger=False,
+                      num_sanity_val_steps=0, limit_val_batches=0,
+                      seed=0, default_root_dir=root,
+                      callbacks=[this.LoopProbe(profile_at, per_dispatch)],
+                      **where, **kw)
+    this.LOOP_PROBES.clear()
+    trainer.fit(module)
+    if len(this.LOOP_PROBES) != 1:
+        raise AssertionError(f"{len(this.LOOP_PROBES)} loop reports, want 1")
+    report = this.LOOP_PROBES.pop()
+    report["rate"] = steady_rate(report["marks"], per_dispatch)
+    state = None
+    if plugin is None:
+        state = {k: v.detach().clone() for k, v in
+                 module.model.state_dict().items()}
+        state.update({f"opt/{k}": v.detach().clone() for k, v in
+                      ckpt_like(trainer.state.opt_state.state_dict()).items()})
+    return dict(trainer=trainer, module=module, report=report, state=state)
+
+
+def ckpt_like(tree, prefix: str = "") -> dict:
+    """A nested state dict's tensors (and ints, as tensors) by path."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(ckpt_like(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = (v if isinstance(v, torch.Tensor)
+                                   else torch.tensor(v))
+    return out
+
+
+def check_loop_fit(run: dict, ref: dict, what: str, k: int, steps: int,
+                   per_replay: "dict | None" = None) -> dict:
+    """``run`` against the eager k=1 ``ref`` on the same seed: the same
+    ``global_step`` and per-step losses (so the same batches), the end
+    state bit for bit (params, buffers and, in process, the optimizer
+    state); one capture, each full chunk one replay, the kernels'
+    launches a replay as ``per_replay`` says."""
+    rep, want = run["report"], ref["report"]
+    if not rep["global_step"] == want["global_step"] == steps:
+        raise AssertionError(f"{what}: global_step {rep['global_step']}, "
+                             f"eager {want['global_step']}, want {steps}")
+    if rep["losses"] != want["losses"]:
+        raise AssertionError(f"{what}: per-step losses differ from the "
+                             f"eager fit's (first 4: {rep['losses'][:4]} vs "
+                             f"{want['losses'][:4]})")
+    got = run["state"] if run["state"] is not None \
+        else run["module"]._trained_state
+    ref_state = {n: t.cpu() for n, t in ref["state"].items()
+                 if n in got}
+    n = check_bitwise({n: t.cpu() for n, t in got.items()}, ref_state,
+                      f"{what} against the eager k=1 fit")
+    gs = rep["graph_stats"]
+    if k > 1:
+        if gs["captures"] != 1 or gs["replays"] != steps // k:
+            raise AssertionError(f"{what}: {gs['captures']} captures and "
+                                 f"{gs['replays']} replays, want 1 and "
+                                 f"{steps // k}")
+        if per_replay is not None and gs["launches_per_replay"] != per_replay:
+            raise AssertionError(f"{what}: launches a replay "
+                                 f"{gs['launches_per_replay']}, want "
+                                 f"{per_replay}")
+    return {"tensors_equal": n}
+
+
+def loop_line(name: str, run: dict, B: int, unit: str,
+              per_sample: int = 1) -> dict:
+    """One fit's figures (the phase's log line and JSON)."""
+    rep = run["report"]
+    rate = rep["rate"]["steps_per_s_per_card"]
+    gs = rep["graph_stats"]
+    prof = rep["profile"] or {}
+    out = {"steps_per_s_per_card": rate,
+           f"{unit}_per_s": rate * B * per_sample,
+           "captures": gs.get("captures", 0),
+           "replays": gs.get("replays", 0),
+           "launches_per_replay": gs.get("launches_per_replay", {}),
+           "capture_ms": gs.get("capture_ms", []),
+           "pool_bytes": gs.get("pool_bytes", []),
+           "profiled": prof, "peak_bytes": rep["peak_bytes"],
+           "timed_steps": rep["rate"]["timed_steps"]}
+    log(f"  {name}: {rate:.2f} steps/s per card, "
+        f"{out[f'{unit}_per_s']:.1f} {unit}/s ({out['timed_steps']} timed "
+        f"steps); captures {out['captures']}, replays {out['replays']}, "
+        f"launches a replay {out['launches_per_replay']}, capture ms "
+        f"{[round(x, 1) for x in out['capture_ms']]}, pool bytes "
+        f"{out['pool_bytes']}; profiled dispatch of {prof.get('steps')} "
+        f"steps: device {prof.get('device_ms', 0):.3f} ms of "
+        f"{prof.get('wall_ms', 0):.3f} ms (busy "
+        f"{prof.get('device_busy_share', 0):.3f}), {prof.get('kernels')} "
+        f"kernels; peak {rep['peak_bytes'] / 1e9:.3f} GB")
+    return out
+
+
+def loop_mnist(this, base: str) -> dict:
+    """(a) the three cells of BASELINE config #1, each against its eager
+    k=1 fit (the k=1 cell, whose stream double-buffers, against the
+    unbuffered one)."""
+    from ray_lightning_tpu_torch import LightningMNISTClassifier
+    out = {}
+    for batches, k, cache in LOOP_MNIST_CELLS:
+        def module():
+            return LightningMNISTClassifier(
+                config={"batch_size": LOOP_MNIST_B},
+                train_size=LOOP_MNIST_B * batches)
+        steps = batches * LOOP_MNIST_EPOCHS
+        at = batches * (LOOP_MNIST_EPOCHS - 1)
+        name = f"mnist b{LOOP_MNIST_B} x {batches} k={k}" + \
+            (" cache" if cache else "")
+        with scoped_env(RLT_STREAM_PREFETCH="0" if k == 1 else "1"):
+            ref = loop_fit(this, module(), os.path.join(base, "m_ref"),
+                           False, at, max_epochs=LOOP_MNIST_EPOCHS)
+        run = loop_fit(this, module(), os.path.join(base, "m_run"), False,
+                       at, max_epochs=LOOP_MNIST_EPOCHS,
+                       steps_per_execution=k, cache_train_dataset=cache)
+        eq = check_loop_fit(run, ref, f"(a) {name}", k, steps, {})
+        out[name] = {**loop_line(f"(a) {name}", run, LOOP_MNIST_B,
+                                 "images"),
+                     "eager": loop_line(f"(a) {name}, eager k=1"
+                                        + (" unbuffered" if k == 1 else ""),
+                                        ref, LOOP_MNIST_B, "images"),
+                     **eq}
+    return out
+
+
+def loop_resnet_module():
+    from ray_lightning_tpu_torch import ResNetLightningModule
+    return ResNetLightningModule(
+        "resnet50", batch_size=RESNET_B,
+        train_size=RESNET_B * LOOP_RESNET_STEPS, val_size=2 * RESNET_B)
+
+
+def loop_gpt_module():
+    return GPTLightningModule(CONFIGS["gpt2-small"], batch_size=TRAIN_B,
+                              warmup_steps=2,
+                              dataset_size=TRAIN_B * LOOP_GPT_STEPS)
+
+
+def loop_phase(seed: int, driver_off_cuda: bool) -> dict:
+    """Phase 14 (module docstring): the loop engine on the card.  (b)'s
+    worker fit runs first, so with ``driver_off_cuda`` nothing here
+    touches CUDA before it ends."""
+    import chip_smoke as this   # the module by name: workers import it
+    from ray_lightning_tpu_torch import RayPlugin
+    t_phase = time.monotonic()
+    base = tempfile.mkdtemp(prefix="rlt_loop_phase_")
+    K, N = LOOP_RESNET_K, LOOP_RESNET_STEPS
+    launches: "dict[str, int]" = {}
+
+    def add(report):
+        for name, n in report["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+
+    try:
+        t0 = time.time()
+        worker = loop_fit(this, loop_resnet_module(),
+                          os.path.join(base, "r_worker"), True, 2 * K,
+                          plugin=RayPlugin(
+                              num_workers=1, timeout_s=PLUGIN_TIMEOUT_S,
+                              init_hook=this.cudnn_deterministic),
+                          max_steps=N, steps_per_execution=K,
+                          cache_train_dataset=True)
+        worker_wall = time.time() - t0
+        if driver_off_cuda and torch.cuda.is_initialized():
+            raise AssertionError("the driver initialised CUDA during the "
+                                 "worker fit")
+        results = {"mnist": loop_mnist(this, base)}
+        free_cuda()
+
+        cudnn_deterministic()
+        r_ref = loop_fit(this, loop_resnet_module(),
+                         os.path.join(base, "r_ref"), True, 2 * K,
+                         max_steps=N)
+        r_run = loop_fit(this, loop_resnet_module(),
+                         os.path.join(base, "r_run"), True, 2 * K,
+                         max_steps=N, steps_per_execution=K,
+                         cache_train_dataset=True)
+        name = f"resnet50 b{RESNET_B} bf16 k={K} cache"
+        eq = check_loop_fit(r_run, r_ref, f"(b) {name} in process", K, N,
+                            {})
+        eq_w = check_loop_fit(worker, r_ref, f"(b) {name} in one worker",
+                              K, N, {})
+        results["resnet"] = {
+            "in_process": {**loop_line(f"(b) {name} in process", r_run,
+                                       RESNET_B, "images"), **eq},
+            "worker": {**loop_line(f"(b) {name} in one RayPlugin worker",
+                                   worker, RESNET_B, "images"), **eq_w,
+                       "fit_wall_s": worker_wall},
+            "eager": loop_line(f"(b) resnet50 b{RESNET_B} bf16 streamed "
+                               f"eager k=1 in process", r_ref, RESNET_B,
+                               "images")}
+        torch.backends.cudnn.deterministic = False
+        del r_ref, r_run, worker
+        free_cuda()
+
+        layers = CONFIGS["gpt2-small"].n_layer
+        G, M = LOOP_GPT_K, LOOP_GPT_STEPS
+        g_ref = loop_fit(this, loop_gpt_module(), os.path.join(base, "g"),
+                         True, 2 * G, max_steps=M)
+        add(g_ref["report"])
+        g_run = loop_fit(this, loop_gpt_module(), os.path.join(base, "g"),
+                         True, 2 * G, max_steps=M, steps_per_execution=G)
+        add(g_run["report"])
+        per_replay = {"flash_fwd": layers * G, "flash_bwd": layers * G}
+        name = f"gpt2-small b{TRAIN_B} T{TRAIN_T} k={G}"
+        eq = check_loop_fit(g_run, g_ref, f"(c) {name}", G, M, per_replay)
+        warm = g_run["report"]["graph_stats"]["warmup_steps"]
+        for rep, n in ((g_ref["report"], M), (g_run["report"], M + warm)):
+            want = {"flash_fwd": layers * n, "flash_bwd": layers * n}
+            got = {k: rep["launches"][k] for k in want}
+            if got != want:
+                raise AssertionError(f"(c) launches {got}, want {want} (12 "
+                                     f"layers x steps, the warm-up step "
+                                     f"included)")
+        results["gpt"] = {
+            "graphed": {**loop_line(f"(c) {name}", g_run, TRAIN_B, "tokens",
+                                    TRAIN_T), **eq},
+            "eager": loop_line(f"(c) gpt2-small b{TRAIN_B} T{TRAIN_T} eager "
+                               f"k=1", g_ref, TRAIN_B, "tokens", TRAIN_T)}
+        del g_ref, g_run
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(base, ignore_errors=True)
+    results.update(card=card_line(), phase_s=time.monotonic() - t_phase,
+                   launches=launches)
+    log("loop " + json.dumps(results))
+    return {"launches": launches, "stats": results}
+
+
 def attribute(by_row: dict, runs: list) -> None:
     """Add each path run's launches to the rows it takes: flash_fwd's to
     its forward row, flash_bwd's to each backward row."""
@@ -3839,6 +4228,13 @@ def main(argv=None) -> int:
                          "driver off CUDA until its worker fits end, then "
                          "check and time flash_fwd and flash_bwd (rows 1 "
                          "and 6)")
+    ap.add_argument("--loop-only", action="store_true",
+                    help="build, run phase 14 (the loop engine: MNIST "
+                         "k=1/32/64+cache, resnet50 k=8+cache in process "
+                         "and in one RayPlugin worker, gpt2-small k=4) with "
+                         "the driver off CUDA until its worker fit ends, "
+                         "then check and time flash_fwd and flash_bwd (rows "
+                         "1 and 6)")
     ap.add_argument("--tune-only", action="store_true",
                     help="build, run phase 12 (Tune: PBT over MNIST, "
                          "gpt2-small trials under RayPlugin, in-process "
@@ -3852,7 +4248,8 @@ def main(argv=None) -> int:
         return 1
 
     log(card_line())
-    driver_off_cuda = args.plugin_only or args.tune_only or args.resnet_only
+    driver_off_cuda = (args.plugin_only or args.tune_only or args.resnet_only
+                       or args.loop_only)
     if not driver_off_cuda:      # the device's name initialises CUDA
         log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
             f"{torch.cuda.get_device_name(0)}")
@@ -3868,6 +4265,7 @@ def main(argv=None) -> int:
     if driver_off_cuda:
         path, run = (("plugin", plugin_phase) if args.plugin_only
                      else ("tune", tune_phase) if args.tune_only
+                     else ("loop", loop_phase) if args.loop_only
                      else ("resnet", resnet_phase))
         log(f"{path} phase")
         t0 = time.monotonic()
@@ -4011,6 +4409,16 @@ def main(argv=None) -> int:
         e["launches_by_path"]["resnet"] = resnet["launches"][e["name"]]
         e["launches"] = sum(e["launches_by_path"].values())
     log(f"resnet phase: {time.monotonic() - t0:.1f} s")
+
+    log("loop phase")
+    t0 = time.monotonic()
+    free_cuda()
+    loop = loop_phase(args.seed, driver_off_cuda=False)
+    for row in (1, 6):
+        e = by_row[row]
+        e["launches_by_path"]["loop"] = loop["launches"][e["name"]]
+        e["launches"] = sum(e["launches_by_path"].values())
+    log(f"loop phase: {time.monotonic() - t0:.1f} s")
     log("speed order (rows slower than their library call by that factor, "
         "then by launches x (ms - bound)): " + ", ".join(
             f"row {e['row']} {e['ms'] / e['library_ms']:.2f}x"

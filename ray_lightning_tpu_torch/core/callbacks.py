@@ -22,7 +22,17 @@ import numpy as np
 
 
 class Callback:
-    """Base callback; hooks mirror the PL names."""
+    """Base callback; hooks mirror the PL names.
+
+    ``needs_batch``: whether this class's batch hooks read their
+    ``batch`` argument.  A callback that declares ``False`` at or below
+    the class that defines its overriding hook gets ``batch=None``, so
+    a cached epoch (``Trainer(cache_train_dataset=True)``) never
+    collates host batches nobody reads; a subclass that overrides a
+    batch hook without restating the flag gets the real batch
+    (``Trainer._batch_hook_plan``)."""
+
+    needs_batch = True
 
     def setup(self, trainer, module, stage: str) -> None: ...
     def teardown(self, trainer, module, stage: str) -> None: ...

@@ -55,6 +55,14 @@ class StepContext:
         the same draws."""
         if self._rng is None:
             raise RuntimeError("No PRNG key available in this step context.")
+        if self._device is not None \
+                and torch.device(self._device).type == "cuda" \
+                and torch.cuda.is_current_stream_capturing():
+            raise NotImplementedError(
+                "make_rng inside a graphed chunk (steps_per_execution > 1 "
+                "on the card): the graph would replay one seed; random "
+                "draws in a CUDA graph are not ported yet (ROADMAP.md "
+                "queue 1 item 14)")
         words = (*self._rng, self._rng_calls)
         self._rng_calls += 1
         seed = int(np.random.SeedSequence(words).generate_state(

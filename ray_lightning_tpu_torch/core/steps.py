@@ -1,28 +1,36 @@
-"""Step builders: init, train, eval and predict steps; the serve programs
-(prefill, decode, the paged KV copy and suffix step, the speculative
-draft and verify).
+"""Step builders: init, train, eval and predict steps; k train steps as
+one dispatch (a CUDA graph on the card); the serve programs (prefill,
+decode, the paged KV copy and suffix step, the speculative draft and
+verify).
 
 Counterpart of ``ray_lightning_tpu/core/steps.py`` ``build_init_fn`` /
 ``build_train_step`` / ``build_eval_step``
 / ``build_predict_step`` / ``build_prefill_step`` / ``build_decode_step``
 / ``build_kv_copy`` / ``build_suffix_step`` / ``build_draft_step`` /
-``build_verify_step``.  A torch module holds its own parameters, so the
-builders close over the model (the JAX builders take the params as an
-argument of the jitted program) and the train step updates them IN
-PLACE where the JAX program returns new ones;
-PyTorch runs eagerly, so there is nothing to trace or compile.  The
-serve caches are updated in place too, where the JAX programs return new
-caches from donated buffers.
+``build_verify_step``, and of the JAX trainer's ``multi_step``,
+``cached_multi`` and ``cached_single`` programs
+(``ray_lightning_tpu/core/trainer.py:987-1020``: ``lax.scan`` over k
+steps) as :class:`ChunkRunner`.  A torch module holds its own
+parameters, so the builders close over the model (the JAX builders take
+the params as an argument of the jitted program) and the train step
+updates them IN PLACE where the JAX program returns new ones; PyTorch
+runs eagerly, so there is nothing to trace or compile except the
+graphed chunks.  The serve caches are updated in place too, where the
+JAX programs return new caches from donated buffers.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from ray_lightning_tpu_torch.core.module import StepContext
 from ray_lightning_tpu_torch.core.state import TrainState
+from ray_lightning_tpu_torch.ops._kernels import add_launches, launch_counts
 
 
 def build_init_fn(module, tx) -> Callable:
@@ -55,8 +63,10 @@ def _split_loss(out) -> "tuple[torch.Tensor, dict]":
 
 def build_train_step(module, tx, accumulate_grad_batches: int = 1,
                      grad_sync: "Callable | None" = None,
-                     rank: "int | None" = None) -> Callable:
-    """``(state, batch) -> (state, metrics)``: one optimizer step.
+                     rank: "int | None" = None,
+                     metric_sync: "Callable | None" = None) -> Callable:
+    """``(state, batch, scalars=None) -> (state, metrics)``: one
+    optimizer step.
 
     With ``accumulate_grad_batches=k`` the batch's leading dim splits
     into k microbatches whose gradients are summed in fp32 (whatever the
@@ -67,10 +77,14 @@ def build_train_step(module, tx, accumulate_grad_batches: int = 1,
     ``metrics`` holds detached fp32 tensors on the device.
 
     ``grad_sync`` (``grads -> grads``, the strategy's: DDP's average over
-    the ranks) runs between the backward and the update.  ``rank`` joins
-    the step's entropy, so the ranks of a multi-process run draw
+    the ranks) runs between the backward and the update, ``metric_sync``
+    (``values -> values``: the mean over the ranks) on the step's
+    metrics, so a graphed chunk captures both collectives.  ``rank``
+    joins the step's entropy, so the ranks of a multi-process run draw
     different dropout masks (``None``: one process, whose entropy is
-    the seed, the step and the microbatch).
+    the seed, the step and the microbatch).  ``scalars`` is the
+    optimizer's count-dependent scalars on the device (``tx.update``'s;
+    ``None``: made from the host count).
     """
     k = max(1, int(accumulate_grad_batches))
 
@@ -89,7 +103,8 @@ def build_train_step(module, tx, accumulate_grad_batches: int = 1,
         n = x.shape[0] // k
         return x[i * n:(i + 1) * n]
 
-    def step_fn(state: TrainState, batch: Any):
+    def step_fn(state: TrainState, batch: Any,
+                scalars: "torch.Tensor | None" = None):
         params = dict(module.model.named_parameters())
         # the step's entropy: the seed, the step, the microbatch (the JAX
         # step folds the step and the microbatch index into its key)
@@ -118,11 +133,255 @@ def build_train_step(module, tx, accumulate_grad_batches: int = 1,
                       for n in logs[0]}
         if grad_sync is not None:
             grads = grad_sync(list(grads))
-        tx.update(dict(zip(params, grads)), state.opt_state, params)
+        tx.update(dict(zip(params, grads)), state.opt_state, params,
+                  scalars)
         state.step += 1
-        return state, {"loss": loss, **logged}
+        metrics = {"loss": loss, **logged}
+        if metric_sync is not None:
+            metrics = dict(zip(metrics, metric_sync(list(metrics.values()))))
+        return state, metrics
 
     return step_fn
+
+
+#: eager steps a capture runs first (on a side stream, then undone):
+#: lazy set-up (cuBLAS and cuDNN handles, NCCL communicators, the
+#: kernels' shared-memory attributes) must not happen inside a capture
+GRAPH_WARMUP_STEPS = 1
+
+
+def tree_map(fn: Callable, tree: Any) -> Any:
+    """``tree`` with ``fn`` applied to every tensor inside its tuples,
+    lists and dicts (a batch, a predict step's output); other leaves
+    as they are."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, x) for x in tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def tree_leaves(tree: Any) -> "list[torch.Tensor]":
+    """The tensors of ``tree`` in :func:`tree_map`'s order."""
+    found: list = []
+    tree_map(found.append, tree)
+    return found
+
+
+def _state_tensors(obj, seen: "set[int] | None" = None) -> list:
+    """Every tensor an optimizer state holds: dataclass fields, dicts,
+    lists and the attributes of other state objects (``Zero1State``'s
+    masters and inners), each once."""
+    seen = set() if seen is None else seen
+    if id(obj) in seen or isinstance(obj, (str, bytes, int, float,
+                                           type(None), torch.Size)):
+        return []
+    seen.add(id(obj))
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, dict):
+        items = list(obj.values())
+    elif isinstance(obj, (list, tuple)):
+        items = list(obj)
+    elif dataclasses.is_dataclass(obj):
+        items = [getattr(obj, f.name) for f in dataclasses.fields(obj)]
+    elif hasattr(obj, "__dict__") and not callable(obj):
+        items = list(vars(obj).values())
+    else:
+        return []
+    return [t for x in items for t in _state_tensors(x, seen)]
+
+
+@dataclasses.dataclass
+class _ChunkGraph:
+    """One captured chunk: its static inputs (the stacked batches, or the
+    cached batch indices), the optimizer scalars' feed [k, n], the
+    stacked metrics it writes, and the kernel launches it replays."""
+
+    inputs: Any
+    batch_of: Callable
+    feed: "torch.Tensor | None" = None
+    graph: "torch.cuda.CUDAGraph | None" = None
+    metrics: "dict[str, torch.Tensor]" = dataclasses.field(
+        default_factory=dict)
+    launches: "dict[str, int]" = dataclasses.field(default_factory=dict)
+
+
+def _copy_in(dst: torch.Tensor, src: "torch.Tensor | np.ndarray") -> None:
+    """Host ``src`` into the device buffer ``dst`` on the current stream,
+    from pinned memory without a wait."""
+    if isinstance(src, np.ndarray):
+        src = torch.from_numpy(np.ascontiguousarray(src))
+    dst.copy_(src.pin_memory(), non_blocking=True)
+
+
+def _stack_metrics(outs: "list[dict]") -> "dict[str, torch.Tensor]":
+    return {n: torch.stack([o[n] for o in outs]) for n in outs[0]}
+
+
+class ChunkRunner:
+    """k optimizer steps as ONE dispatch (``Trainer(steps_per_execution=
+    k)``), over stacked host batches (:meth:`run`) or the device-resident
+    train set (:meth:`run_cached`); the metrics come back stacked to
+    ``[k]``.  The counterpart of the JAX trainer's ``lax.scan`` programs.
+
+    On the card each (source, batch signature) is captured once as a
+    ``torch.cuda.CUDAGraph`` of k steps, at its first full chunk: one
+    eager warm-up step on a side stream (then undone: params, buffers
+    and optimizer state copied back, counters moved back), then the
+    capture, whose Python does the chunk's host bookkeeping (the step
+    and optimizer counts advance by k), then the first replay.  Every
+    later chunk copies its batches (or indices) and the optimizer's k
+    rows of host scalars (``tx.host_scalars``) into the graph's static
+    buffers and replays, then advances the counts by k.  The graph
+    updates the live params and optimizer state in place; the
+    collectives of the strategy (DDP's all-reduce, ZeRO-1's
+    reduce-scatter and all-gather, BatchNorm's moments, the metric mean)
+    are captured with them.  A capture or replay that fails raises.
+    Kernel launches: each graph's captured launches are counted once,
+    taken back (the capture ran none) and added again on each replay.
+    On the CPU a chunk is k eager steps.  A step that draws from
+    ``StepContext.make_rng`` (dropout, masks) raises inside a capture.
+
+    ``stats``: ``captures``, ``replays``, ``warmup_steps``, per capture
+    its ``capture_ms`` and ``pool_bytes`` (device memory reserved by the
+    capture), ``launches_per_replay`` of the last capture.
+    """
+
+    def __init__(self, step_fn: Callable, tx, k: int, model: torch.nn.Module,
+                 device: torch.device):
+        self.step_fn = step_fn
+        self.tx = tx
+        self.k = int(k)
+        self.model = model
+        self.device = torch.device(device)
+        self._graphs: "dict[Any, _ChunkGraph]" = {}
+        self.stats: dict = {"captures": 0, "replays": 0, "warmup_steps": 0,
+                            "capture_ms": [], "pool_bytes": [],
+                            "launches_per_replay": {}}
+
+    # -- entry points --------------------------------------------------
+
+    def run(self, state: TrainState, stacked: Any):
+        """k steps over ``stacked``: host batches stacked to ``[k, B,
+        ...]`` (CPU tensors, already cast)."""
+        if self.device.type != "cuda":
+            return self._eager(state, lambda i: tree_map(
+                lambda x: x[i], stacked))
+        key = ("stream", signature(stacked))
+        entry = self._graphs.get(key)
+        if entry is None:
+            inputs = tree_map(lambda x: torch.empty(
+                x.shape, dtype=x.dtype, device=self.device), stacked)
+            entry = _ChunkGraph(inputs, lambda i: tree_map(
+                lambda x: x[i], inputs))
+        for dst, src in zip(tree_leaves(entry.inputs),
+                            tree_leaves(stacked)):
+            _copy_in(dst, src)
+        return self._dispatch(key, entry, state)
+
+    def run_cached(self, state: TrainState, dataset: Any,
+                   idxs: np.ndarray):
+        """k steps over batches ``idxs`` of the device-resident
+        ``dataset`` (``[n_batches, B, ...]`` leaves): each step gathers
+        its batch on the device by index, so only indices cross the
+        host link."""
+        if self.device.type != "cuda":
+            return self._eager(state, lambda i: tree_map(
+                lambda d: d[int(idxs[i])], dataset))
+        key = ("cached", tuple((d.data_ptr(), tuple(d.shape), d.dtype)
+                               for d in tree_leaves(dataset)))
+        entry = self._graphs.get(key)
+        if entry is None:
+            idx = torch.empty(self.k, dtype=torch.int64, device=self.device)
+            entry = _ChunkGraph(idx, lambda i: tree_map(
+                lambda d: d.index_select(0, idx[i:i + 1])[0], dataset))
+        _copy_in(entry.inputs, np.asarray(idxs, np.int64))
+        return self._dispatch(key, entry, state)
+
+    # -- the two ways ----------------------------------------------------
+
+    def _eager(self, state, batch_of):
+        outs = []
+        for i in range(self.k):
+            state, metrics = self.step_fn(state, batch_of(i))
+            outs.append(metrics)
+        return state, _stack_metrics(outs)
+
+    def _feed_rows(self, state) -> np.ndarray:
+        return np.stack([self.tx.host_scalars(state.opt_state, i)
+                         for i in range(self.k)]).astype(np.float32)
+
+    def _dispatch(self, key, entry: _ChunkGraph, state):
+        rows = self._feed_rows(state)
+        if entry.graph is None:
+            entry.feed = torch.empty(rows.shape, dtype=torch.float32,
+                                     device=self.device)
+            _copy_in(entry.feed, rows)
+            self._capture(entry, state)
+            self._graphs[key] = entry
+        else:
+            _copy_in(entry.feed, rows)
+            self.tx.advance(state.opt_state, self.k)
+            state.step += self.k
+        entry.graph.replay()
+        add_launches(entry.launches)
+        self.stats["replays"] += 1
+        return state, {n: v.clone() for n, v in entry.metrics.items()}
+
+    def _capture(self, entry: _ChunkGraph, state) -> None:
+        """Warm up, undo the warm-up, capture (module docstring).  The
+        capture's Python advances the host counts by k, which the first
+        replay then makes true."""
+        dev = self.device
+        live = list({id(t): t for t in [
+            *self.model.parameters(), *self.model.buffers(),
+            *_state_tensors(state.opt_state)]}.values())
+        saved = [t.detach().clone() for t in live]
+        compute = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(compute)
+        with torch.cuda.stream(side):
+            for i in range(GRAPH_WARMUP_STEPS):
+                self.step_fn(state, entry.batch_of(i), entry.feed[i])
+        compute.wait_stream(side)
+        with torch.no_grad():
+            for t, s in zip(live, saved):
+                t.copy_(s)
+        del saved
+        self.tx.advance(state.opt_state, -GRAPH_WARMUP_STEPS)
+        state.step -= GRAPH_WARMUP_STEPS
+        self.stats["warmup_steps"] += GRAPH_WARMUP_STEPS
+
+        before = launch_counts()
+        # the capture empties the allocator's cache first; so does this,
+        # so the reserved bytes' growth is the graph's pool
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: the NCCL watchdog's event queries on other
+        # threads stay legal during the capture
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            outs = [self.step_fn(state, entry.batch_of(i), entry.feed[i])[1]
+                    for i in range(self.k)]
+            entry.metrics = _stack_metrics(outs)
+        self.stats["capture_ms"].append((time.perf_counter() - t0) * 1e3)
+        self.stats["pool_bytes"].append(
+            torch.cuda.memory_reserved(dev) - reserved)
+        entry.launches = {n: c - before.get(n, 0)
+                          for n, c in launch_counts().items()
+                          if c != before.get(n, 0)}
+        add_launches({n: -c for n, c in entry.launches.items()})
+        entry.graph = graph
+        self.stats["captures"] += 1
+        self.stats["launches_per_replay"] = dict(entry.launches)
+
+
+def signature(tree: Any) -> tuple:
+    """Each tensor's shape and dtype, in order: a batch's signature."""
+    return tuple((tuple(x.shape), x.dtype) for x in tree_leaves(tree))
 
 
 def build_eval_step(module, stage: str) -> Callable:
@@ -318,7 +577,9 @@ def build_suffix_step(model: torch.nn.Module, impl: "str | None" = None,
     return step_fn
 
 
-__all__ = ["build_decode_step", "build_draft_step", "build_eval_step",
+__all__ = ["ChunkRunner", "GRAPH_WARMUP_STEPS", "build_decode_step",
+           "signature", "tree_leaves", "tree_map",
+           "build_draft_step", "build_eval_step",
            "build_init_fn", "build_kv_copy", "build_predict_step",
            "build_prefill_step", "build_suffix_step", "build_train_step",
            "build_verify_step"]

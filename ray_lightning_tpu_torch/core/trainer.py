@@ -4,12 +4,16 @@ metrics log.
 
 Counterpart of ``ray_lightning_tpu/core/trainer.py`` (``Trainer.__init__``,
 ``fit``, ``validate``, ``test``, ``predict``, the world info,
-``_fit_loop``, ``_train_epoch``, ``_maybe_interval_val``, ``_eval_loop``,
-``_predict_loop``, ``dump_checkpoint``, ``save_checkpoint``,
-``load_checkpoint_dict``, ``_restore_checkpoint``): the same loop order,
-hooks, stop conditions, metric semantics and checkpoint keys, run
-eagerly by PyTorch.  A stage runs through the execution plugin
-(plugins/): ``LocalPlugin`` (the default) runs it here on ``device``
+``_fit_loop``, the epoch engine (``_allowed_chunk``,
+``_publish_if_crossed``, ``_train_source``, ``_train_epoch``,
+``_batch_hook_plan``, ``_engine_one``, ``_engine_chunk``),
+``_maybe_interval_val``, ``_eval_loop``, ``_predict_loop``,
+``dump_checkpoint``, ``save_checkpoint``, ``load_checkpoint_dict``,
+``_restore_checkpoint``): the same loop order, hooks, stop conditions,
+metric semantics and checkpoint keys, run eagerly by PyTorch, except
+that on the card a full chunk of ``steps_per_execution`` steps is one
+CUDA graph replay (core/steps.py ``ChunkRunner``).  A stage runs
+through the execution plugin (plugins/): ``LocalPlugin`` (the default) runs it here on ``device``
 (the card unless the caller passes ``device="cpu"``) at world size 1;
 ``RayPlugin`` / ``RayShardedPlugin`` run it in actor workers, each on
 its own device, joined by ``torch.distributed``, and the driver resolves
@@ -35,7 +39,11 @@ Honoured: ``max_epochs``, ``max_steps``, ``callbacks``,
 ``limit_{train,val,test,predict}_batches``, ``num_sanity_val_steps``,
 ``check_val_every_n_epoch``, ``val_check_interval`` (a validation when
 ``global_step`` is a multiple of it, inside the epoch),
-``log_every_n_steps``, ``accumulate_grad_batches``, ``plugins``,
+``log_every_n_steps``, ``accumulate_grad_batches``,
+``steps_per_execution`` (k steps a dispatch: the engine below),
+``cache_train_dataset`` (the train set resident on the device,
+repacked each epoch in the loader's order: core/loop_engine.py
+``CachedSource``), ``plugins``,
 ``strategy``, ``use_distributed_sampler``,
 ``gradient_clip_val`` (``clip_by_global_norm`` chained ahead of the
 module's optimizer), ``precision`` (the bf16 spellings cast a batch's
@@ -50,9 +58,20 @@ single-device, so a lease of n > 1 cards trains on its first card.
 train steps' values (published mid-epoch every ``log_every_n_steps``
 steps) and the batch-size-weighted mean of the last validation;
 ``global_step`` counts optimizer steps and ``current_epoch`` the epochs
-run.  ``steps_per_execution``, ``cache_train_dataset`` and the
-telemetry, compile-cache, comm, elastic and planner planes raise
-``NotImplementedError`` when given a value other than their default.
+run.  The telemetry, compile-cache, comm, elastic and planner planes
+raise ``NotImplementedError`` when given a value other than their
+default.
+
+The epoch engine (one loop over a batch source, core/loop_engine.py):
+a chunk never crosses ``max_steps`` or a ``val_check_interval``
+boundary (``_allowed_chunk``); a full chunk of k same-shape batches is
+one dispatch, anything shorter runs step by step; ``limit_train_batches``
+counts loader positions.  Batch-granular callbacks coarsen to once per
+chunk: ``on_train_batch_start`` for every batch before it, one
+``on_train_batch_end`` with the chunk's metrics stacked to ``[k]`` and
+its last batch; a callback gets the host batch (``Callback.needs_batch``
+says whether it is collated at all).  The epoch's metrics flatten the
+chunks into one per-step series.
 
 A checkpoint is one file, ``torch.save`` of plain containers
 (utils/states.py), with the JAX checkpoint's top-level keys: ``epoch``,
@@ -81,11 +100,15 @@ from ray_lightning_tpu_torch.parallel.strategy import resolve_strategy
 from ray_lightning_tpu_torch.plugins.base import LocalPlugin
 from ray_lightning_tpu_torch.core.callbacks import Callback, ModelCheckpoint
 from ray_lightning_tpu_torch.core.data import to_device
+from ray_lightning_tpu_torch.core.loop_engine import (CachedSource,
+                                                      StreamSource)
 from ray_lightning_tpu_torch.core.state import TrainState
-from ray_lightning_tpu_torch.core.steps import (build_eval_step,
+from ray_lightning_tpu_torch.core.steps import (ChunkRunner,
+                                                build_eval_step,
                                                 build_init_fn,
                                                 build_predict_step,
-                                                build_train_step)
+                                                build_train_step,
+                                                tree_leaves, tree_map)
 from ray_lightning_tpu_torch.ops.optim import chain, clip_by_global_norm
 from ray_lightning_tpu_torch.utils.logger import resolve_logger
 from ray_lightning_tpu_torch.utils.seed import (SEED_ENV_VAR, reset_seed,
@@ -95,7 +118,6 @@ from ray_lightning_tpu_torch.utils.states import (load_state_stream,
 
 #: arguments of the JAX ``Trainer`` that are not ported: name -> default
 _NOT_PORTED = {
-    "steps_per_execution": 1, "cache_train_dataset": False,
     "telemetry": None,
     "compile_cache": None, "comm_policy": None, "elastic": None,
     "plan": None,
@@ -155,9 +177,7 @@ class Trainer:
             raise ValueError(
                 f"Unknown precision {precision!r}; use one of "
                 f"{_BF16_PRECISIONS + _FP32_PRECISIONS}")
-        given = dict(steps_per_execution=int(steps_per_execution),
-                     cache_train_dataset=bool(cache_train_dataset),
-                     telemetry=telemetry, compile_cache=compile_cache,
+        given = dict(telemetry=telemetry, compile_cache=compile_cache,
                      comm_policy=comm_policy, elastic=elastic, plan=plan)
         for name, default in _NOT_PORTED.items():
             if given[name] != default:
@@ -191,6 +211,8 @@ class Trainer:
         self.log_every_n_steps = max(1, log_every_n_steps)
         self.num_sanity_val_steps = num_sanity_val_steps
         self.accumulate_grad_batches = max(1, accumulate_grad_batches)
+        self.steps_per_execution = max(1, int(steps_per_execution))
+        self.cache_train_dataset = bool(cache_train_dataset)
         self.gradient_clip_val = gradient_clip_val
         self.seed = seed
         self.resume_from_checkpoint = resume_from_checkpoint
@@ -223,6 +245,12 @@ class Trainer:
         self.logged_metrics: "dict[str, float]" = {}
         self.state: Optional[TrainState] = None
         self._train_step = None
+        #: k steps a dispatch (``steps_per_execution`` > 1 or the cache)
+        self._multi_train_step = None
+        self._cache_source = None
+        self._cache_disabled = False
+        #: the last fit's chunk graphs: ``ChunkRunner.stats``
+        self.graph_stats: dict = {}
         self._eval_steps: dict = {}
         self._predict_step = None
         self._epoch_metric_acc: "dict[str, list]" = {}
@@ -331,7 +359,15 @@ class Trainer:
         self._train_step = build_train_step(
             module, tx, self.accumulate_grad_batches,
             grad_sync=strategy.grad_sync(),
-            rank=self.global_rank if self.world_size > 1 else None)
+            rank=self.global_rank if self.world_size > 1 else None,
+            metric_sync=_parallel.mean_over_ranks)
+        if stage == "fit" and (self.steps_per_execution > 1
+                               or self.cache_train_dataset):
+            self._multi_train_step = ChunkRunner(
+                self._train_step, tx, self.steps_per_execution,
+                module.model, self.device)
+            self.graph_stats = self._multi_train_step.stats
+        self._cache_disabled = False
         self._eval_steps = {s: build_eval_step(module, s)
                             for s in ("validate", "test")}
         self._predict_step = build_predict_step(module)
@@ -352,6 +388,9 @@ class Trainer:
                 cb.on_exception(self, module, e)
             raise
         finally:
+            # the chunk graphs' memory pools and the cached train set
+            # live for one stage
+            self._multi_train_step = self._cache_source = None
             for cb in self.callbacks:
                 cb.teardown(self, module, stage)
 
@@ -377,6 +416,11 @@ class Trainer:
 
     def _to_device(self, batch):
         return to_device(batch, self.device, self.batch_float_dtype)
+
+    def _host_cast(self, batch):
+        """A host batch as CPU tensors, the floating leaves cast as
+        :meth:`_to_device` casts them (the JAX ``_host_cast``)."""
+        return to_device(batch, None, self.batch_float_dtype)
 
     # -- fit loop -------------------------------------------------------------
 
@@ -443,31 +487,143 @@ class Trainer:
                                  module.model.state_dict().items()}
         return {"callback_metrics": dict(self.callback_metrics)}
 
+    def _allowed_chunk(self) -> int:
+        """How many steps the next chunk may run without crossing a host
+        decision: ``max_steps`` or a ``val_check_interval`` boundary."""
+        allowed = self.steps_per_execution
+        if self.max_steps is not None and self.max_steps >= 0:
+            allowed = min(allowed, self.max_steps - self.global_step)
+        if self.val_check_interval:
+            allowed = min(allowed, self.val_check_interval
+                          - self.global_step % self.val_check_interval)
+        return allowed
+
+    def _publish_if_crossed(self, before: int, last_metrics: dict) -> None:
+        """Publish when a chunk crossed a ``log_every_n_steps`` boundary
+        (``last_metrics``: its last step's values)."""
+        if before // self.log_every_n_steps \
+                != self.global_step // self.log_every_n_steps:
+            self._publish_metrics(last_metrics)
+
+    def _train_source(self, train_loader):
+        """This epoch's batch source (core/loop_engine.py): the device-
+        resident set when enabled and buildable (built once a fit,
+        repacked each epoch in the loader's order), else the loader."""
+        if self.cache_train_dataset and not self._cache_disabled:
+            if self._cache_source is None \
+                    and CachedSource.usable(train_loader):
+                src = CachedSource(self, train_loader)
+                if src.build():
+                    self._cache_source = src
+            if self._cache_source is None:
+                # unusable with this loader: do not try again each epoch
+                self._cache_disabled = True
+            else:
+                return self._cache_source.new_epoch()
+        return StreamSource(self, train_loader)
+
     def _train_epoch(self, module, train_loader, val_loader) -> None:
-        """One pass over the loader: ``limit_train_batches`` counts loader
-        positions; stops at ``max_steps`` or ``should_stop``; validates
-        after each step that lands on ``val_check_interval``."""
-        for batch_idx, batch in enumerate(train_loader):
-            if self.should_stop or self._max_steps_reached():
+        """THE training loop, one for every dispatch shape: the source
+        decides how batches reach the device; this loop owns the stop
+        conditions, the chunk boundaries, the callback cadence (per batch
+        singly, per chunk when k steps ride one dispatch) and the
+        validation check after every dispatch (module docstring)."""
+        source = self._train_source(train_loader)
+        k = self.steps_per_execution
+        while not (self.should_stop or self._max_steps_reached()):
+            allowed = self._allowed_chunk()
+            if allowed <= 0:
                 break
-            if self.limit_train_batches is not None \
-                    and batch_idx >= self.limit_train_batches:
-                break
-            batch = self._to_device(batch)
+            pending = source.take(allowed)
+            if not pending:
+                if source.exhausted:
+                    break
+                continue
+            if len(pending) == k and k > 1 and source.chunkable(pending):
+                self._engine_chunk(module, source, pending)
+                self._maybe_interval_val(module, val_loader)
+            else:
+                for item in pending:
+                    self._engine_one(module, source, item)
+                    self._maybe_interval_val(module, val_loader)
+                    if self.should_stop or self._max_steps_reached():
+                        break
+
+    def _batch_hook_plan(self) -> "tuple[bool, bool]":
+        """``(invoke, materialize)``: does any callback override a batch
+        hook, and does any of those read its batch (``needs_batch``,
+        counted only where declared at or below the class that defines
+        the overriding hook; an instance-assigned hook counts as an
+        override that reads)?  Recomputed per dispatch, so callbacks
+        added mid-epoch count."""
+        def overrides(cb, name):
+            fn = getattr(cb, name, None)
+            return getattr(fn, "__func__", fn) is not getattr(Callback, name)
+
+        def hook_needs_batch(cb, name):
+            inst = getattr(cb, "__dict__", {})
+            if "needs_batch" in inst:
+                return inst["needs_batch"]
+            if name in inst:
+                return True
+            mro = type(cb).__mro__
+            hook_at = next((i for i, c in enumerate(mro)
+                            if name in vars(c)), len(mro))
+            for c in mro[:hook_at + 1]:
+                if "needs_batch" in vars(c):
+                    return vars(c)["needs_batch"]
+            return True
+
+        invoke = materialize = False
+        for cb in self.callbacks:
+            for name in ("on_train_batch_start", "on_train_batch_end"):
+                if overrides(cb, name):
+                    invoke = True
+                    materialize = materialize or hook_needs_batch(cb, name)
+        return invoke, materialize
+
+    def _engine_one(self, module, source, item) -> None:
+        invoke, want_batch = self._batch_hook_plan()
+        batch = item.batch() if invoke and want_batch else None
+        if invoke:
             for cb in self.callbacks:
-                cb.on_train_batch_start(self, module, batch, batch_idx)
-            self.state, metrics = self._train_step(self.state, batch)
-            metrics = dict(zip(metrics, _parallel.mean_over_ranks(
-                list(metrics.values()))))
-            self.global_step += 1
-            for k, v in metrics.items():
-                self._epoch_metric_acc.setdefault(k, []).append(v)
-            if self.global_step % self.log_every_n_steps == 0:
-                self._publish_metrics(metrics)
+                cb.on_train_batch_start(self, module, batch, item.batch_idx)
+        metrics = source.run_one(self, item)
+        self.global_step += 1
+        self._accumulate_metrics(metrics)
+        if self.global_step % self.log_every_n_steps == 0:
+            self._publish_metrics(metrics)
+        if invoke:
             for cb in self.callbacks:
                 cb.on_train_batch_end(self, module, metrics, batch,
-                                      batch_idx)
-            self._maybe_interval_val(module, val_loader)
+                                      item.batch_idx)
+
+    def _engine_chunk(self, module, source, items) -> None:
+        """k steps in ONE dispatch; the batch hooks fire once per chunk
+        (module docstring)."""
+        invoke, want_batch = self._batch_hook_plan()
+        if invoke:
+            for it in items:
+                for cb in self.callbacks:
+                    cb.on_train_batch_start(
+                        self, module, it.batch() if want_batch else None,
+                        it.batch_idx)
+        before = self.global_step
+        metrics = source.run_chunk(self, items)
+        self.global_step += len(items)
+        self._accumulate_metrics(metrics)
+        self._publish_if_crossed(before, {k: v[-1]
+                                          for k, v in metrics.items()})
+        if invoke:
+            for cb in self.callbacks:
+                cb.on_train_batch_end(
+                    self, module, metrics,
+                    items[-1].batch() if want_batch else None,
+                    items[-1].batch_idx)
+
+    def _accumulate_metrics(self, metrics: dict) -> None:
+        for k, v in metrics.items():
+            self._epoch_metric_acc.setdefault(k, []).append(v)
 
     def _maybe_interval_val(self, module, val_loader) -> None:
         if self.val_check_interval \
@@ -487,10 +643,11 @@ class Trainer:
     def _flush_epoch_metrics(self) -> None:
         """Per name: the epoch's mean into ``callback_metrics``, its last
         value into ``logged_metrics``; the means to the logger as
-        ``<name>_epoch``."""
+        ``<name>_epoch``.  A chunk's ``[k]`` values count as k steps."""
         flushed = {}
         for k, vals in self._epoch_metric_acc.items():
-            arr = torch.stack([v.float() for v in vals]).double().cpu()
+            arr = torch.cat([v.float().reshape(-1)
+                             for v in vals]).double().cpu()
             self.callback_metrics[k] = flushed[k] = float(arr.mean())
             self.logged_metrics[k] = float(arr[-1])
         self._epoch_metric_acc = {}
@@ -724,24 +881,6 @@ def _cat_ranks(parts: list):
     return parts
 
 
-def _map_tensors(fn, out):
-    """``out`` with ``fn`` applied to every tensor inside its tuples,
-    lists and dicts (a predict step's output)."""
-    if isinstance(out, torch.Tensor):
-        return fn(out)
-    if isinstance(out, (tuple, list)):
-        return type(out)(_map_tensors(fn, x) for x in out)
-    if isinstance(out, dict):
-        return {k: _map_tensors(fn, v) for k, v in out.items()}
-    return out
-
-
-def _tensors(out) -> list:
-    found = []
-    _map_tensors(found.append, out)
-    return found
-
-
 def _deinterleave(out, w: int):
     """A gathered predict batch (rank 0's rows, then rank 1's, ...) back
     in dataset order: the loader's stride gives rank r the dataset
@@ -753,7 +892,7 @@ def _deinterleave(out, w: int):
         lb = t.shape[0] // w
         return t.reshape(w, lb, *t.shape[1:]).transpose(0, 1).reshape(
             w * lb, *t.shape[1:])
-    return _map_tensors(fix, out)
+    return tree_map(fix, out)
 
 
 def _trim_predict_padding(outputs: list, loader) -> list:
@@ -766,7 +905,7 @@ def _trim_predict_padding(outputs: list, loader) -> list:
     ds = getattr(loader, "dataset", None)
     if ds is None or not hasattr(ds, "__len__"):
         return outputs
-    counts = [next((t.shape[0] for t in _tensors(o) if t.dim() > 0), None)
+    counts = [next((t.shape[0] for t in tree_leaves(o) if t.dim() > 0), None)
               for o in outputs]
     if any(c is None for c in counts):
         return outputs
@@ -776,14 +915,14 @@ def _trim_predict_padding(outputs: list, loader) -> list:
     keep = counts[-1] - excess
     if keep <= 0:
         return outputs[:-1]
-    outputs[-1] = _map_tensors(
+    outputs[-1] = tree_map(
         lambda t: t[:keep] if t.dim() > 0 else t, outputs[-1])
     return outputs
 
 
 def _to_cpu(out):
     """A predict step's output with every tensor on the host."""
-    return _map_tensors(lambda t: t.cpu(), out)
+    return tree_map(lambda t: t.cpu(), out)
 
 
 def _sanitize(obj):

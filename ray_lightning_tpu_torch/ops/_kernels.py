@@ -186,6 +186,18 @@ def _build(kernels: "Optional[Sequence[Kernel]]") -> float:
     return time.monotonic() - t0
 
 
+def add_launches(counts: "dict[str, int]") -> None:
+    """Add ``counts`` (kernel name -> launches) to the kernels' counters:
+    a CUDA graph's replay runs the launches its capture recorded, and no
+    wrapper's Python runs then (core/steps.py ``ChunkRunner``).  A
+    negative count takes back launches a capture recorded but did not
+    run."""
+    for name, n in counts.items():
+        k = REGISTRY[name]
+        with k._count_lock:
+            k.launches += n
+
+
 def reset_launches() -> None:
     for k in REGISTRY.values():
         k.launches = 0
@@ -195,5 +207,5 @@ def launch_counts() -> "dict[str, int]":
     return {name: k.launches for name, k in REGISTRY.items()}
 
 
-__all__ = ["Kernel", "REGISTRY", "build", "find_nvcc", "launch_counts",
-           "reset_launches"]
+__all__ = ["Kernel", "REGISTRY", "add_launches", "build", "find_nvcc",
+           "launch_counts", "reset_launches"]

@@ -27,8 +27,20 @@ With the fp32 master (:class:`fp32_master`) ``p`` is the master, which
 sits in the optimizer state, and after each step the resident params
 are set to ``master.to(their dtype)``: the end state of the JAX delta
 trick (``optim.py:25-33``) without the trick.  Updates run in place
-under ``torch.no_grad()``; parameters and state are keyed by parameter
-name (``model.named_parameters()``).
+under ``torch.no_grad()``, on the params and on the state's own
+tensors (a state never rebinds a tensor), so a CUDA graph that captured
+a step (core/steps.py) updates the live state when it replays;
+parameters and state are keyed by parameter name
+(``model.named_parameters()``).
+
+The count-dependent scalars (``-lr`` and the bias corrections) are
+computed on the host in float32 from the host ``count``
+(:meth:`AdamW.host_scalars`) and read by the update from a small device
+tensor (``scalars``): the eager step builds it, a graphed chunk writes
+the k steps' rows into its static copy before each replay, so both run
+the same kernels on the same values.  ``update`` advances the host
+count by one; :meth:`AdamW.advance` moves it by n (a replay runs n
+steps without Python).
 
 ``clip_by_global_norm`` and :class:`chain` are ``optax.clip_by_global_
 norm`` chained ahead of the optimizer, as ``Trainer(gradient_clip_val=
@@ -147,6 +159,20 @@ def _rounded(value: float, dtype: torch.dtype) -> float:
     return torch.tensor(value, dtype=dtype).item()
 
 
+def device_scalars(values: np.ndarray, device: torch.device
+                   ) -> torch.Tensor:
+    """``values`` (float32, from the host) as a tensor on ``device``: on
+    the card sent from pinned memory without a wait (the pinned block is
+    not reused until the copy ends)."""
+    t = torch.from_numpy(np.ascontiguousarray(values, np.float32))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+_NO_SCALARS = np.zeros(0, np.float32)
+
+
 class AdamW:
     """``optax.adamw`` (module docstring).  With ``warmup_steps`` the rate
     is ``linear_schedule(0, lr, warmup_steps)``, as optax takes a
@@ -174,38 +200,53 @@ class AdamW:
                 for k, p in params.items()},
             nu={k: torch.zeros_like(p) for k, p in params.items()})
 
+    def host_scalars(self, state: AdamWState, ahead: int = 0
+                     ) -> np.ndarray:
+        """``[-lr, 1 - b1^t, 1 - b2^t]`` in float32 for the step ``ahead``
+        steps past ``state.count`` (``lr`` at that count, ``t`` one past
+        it), in optax's float32 arithmetic."""
+        count = state.count + ahead
+        t = np.float32(count + 1)
+        return np.array(
+            [float(-self.schedule(count)),
+             np.float32(1) - np.float32(self.b1) ** t,
+             np.float32(1) - np.float32(self.b2) ** t], np.float32)
+
+    def advance(self, state: AdamWState, n: int) -> None:
+        state.count += n
+
     @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor], state: AdamWState,
-               params: Mapping[str, torch.Tensor]) -> None:
+               params: Mapping[str, torch.Tensor],
+               scalars: "torch.Tensor | None" = None) -> None:
         """One step in place on ``params`` (fp32) and ``state`` from fp32
-        ``grads``."""
+        ``grads``; ``scalars`` is :meth:`host_scalars` on the params'
+        device (``None``: made here from the host count)."""
         names = list(params)
         p = [params[k] for k in names]
         g = [grads[k] for k in names]
         mu = [state.mu[k] for k in names]
         nu = [state.nu[k] for k in names]
-        lr = self.schedule(state.count)
-        count = state.count + 1
+        if scalars is None:
+            scalars = device_scalars(self.host_scalars(state), p[0].device)
+        neg_lr, bc1, bc2 = scalars.unbind()
         b1, b2 = self.b1, self.b2
 
         new_mu = torch._foreach_mul(g, 1 - b1)
         torch._foreach_add_(new_mu, [
             m * _rounded(b1, m.dtype) for m in mu])      # in mu's dtype
-        new_nu = torch._foreach_mul(torch._foreach_mul(g, g), 1 - b2)
-        torch._foreach_add_(new_nu, torch._foreach_mul(nu, b2))
-        bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
-        bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
-        denom = torch._foreach_sqrt(torch._foreach_div(new_nu, bc2))
+        # nu in place: b2 nu + (1 - b2) g^2, the same sum as optax's
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_add_(nu, torch._foreach_mul(
+            torch._foreach_mul(g, g), 1 - b2))
+        denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
         torch._foreach_add_(denom, self.eps)
         u = torch._foreach_div(torch._foreach_div(new_mu, bc1), denom)
         torch._foreach_add_(u, torch._foreach_mul(p, self.weight_decay))
-        torch._foreach_mul_(u, float(-lr))
+        torch._foreach_mul_(u, neg_lr)
         torch._foreach_add_(p, u)
-
-        for k, m, n in zip(names, new_mu, new_nu):
-            state.mu[k] = m.to(state.mu[k].dtype)
-            state.nu[k] = n
-        state.count = count
+        torch._foreach_copy_(mu, new_mu)        # cast to mu's dtype
+        self.advance(state, 1)
 
 
 class fp32_master:  # noqa: N801 - named as the JAX package's transform
@@ -221,12 +262,20 @@ class fp32_master:  # noqa: N801 - named as the JAX package's transform
         master = {k: p.detach().float().clone() for k, p in params.items()}
         return FP32MasterState(inner=self.inner.init(master), master=master)
 
+    def host_scalars(self, state: FP32MasterState, ahead: int = 0
+                     ) -> np.ndarray:
+        return self.inner.host_scalars(state.inner, ahead)
+
+    def advance(self, state: FP32MasterState, n: int) -> None:
+        self.inner.advance(state.inner, n)
+
     @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor],
                state: FP32MasterState,
-               params: Mapping[str, torch.Tensor]) -> None:
+               params: Mapping[str, torch.Tensor],
+               scalars: "torch.Tensor | None" = None) -> None:
         g32 = {k: g.float() for k, g in grads.items()}
-        self.inner.update(g32, state.inner, state.master)
+        self.inner.update(g32, state.inner, state.master, scalars)
         for k, p in params.items():
             p.copy_(state.master[k])                 # master.to(p.dtype)
 
@@ -267,21 +316,30 @@ class SGD:
         return TraceState({k: torch.zeros_like(p)
                            for k, p in params.items()})
 
+    def host_scalars(self, state, ahead: int = 0) -> np.ndarray:
+        """None: the rate is constant."""
+        return _NO_SCALARS
+
+    def advance(self, state, n: int) -> None:
+        pass
+
     @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor],
                state: "EmptyState | TraceState",
-               params: Mapping[str, torch.Tensor]) -> None:
+               params: Mapping[str, torch.Tensor],
+               scalars: "torch.Tensor | None" = None) -> None:
         names = list(params)
         u = [grads[k] for k in names]
         if self.momentum is not None:
             m = self.momentum
-            trace = torch._foreach_add(
-                u, torch._foreach_mul([state.trace[k] for k in names], m))
+            # the trace in place: m t + g, the same sum as g + m t
+            trace = [state.trace[k] for k in names]
+            torch._foreach_mul_(trace, m)
+            torch._foreach_add_(trace, u)
             if self.nesterov:
                 u = torch._foreach_add(u, torch._foreach_mul(trace, m))
             else:
                 u = trace
-            state.trace = dict(zip(names, trace))
         torch._foreach_add_([params[k] for k in names],
                             torch._foreach_mul(u, -self.lr))
 
@@ -351,15 +409,24 @@ class chain:  # noqa: N801 - named as optax.chain
     def init(self, params: Mapping[str, torch.Tensor]) -> ChainState:
         return ChainState(tuple(t.init(params) for t in self.transforms))
 
+    def host_scalars(self, state: ChainState, ahead: int = 0
+                     ) -> np.ndarray:
+        """The last transform's (the maps have none)."""
+        return self.transforms[-1].host_scalars(state.states[-1], ahead)
+
+    def advance(self, state: ChainState, n: int) -> None:
+        self.transforms[-1].advance(state.states[-1], n)
+
     def update(self, grads: Mapping[str, torch.Tensor], state: ChainState,
-               params: Mapping[str, torch.Tensor]) -> None:
+               params: Mapping[str, torch.Tensor],
+               scalars: "torch.Tensor | None" = None) -> None:
         *maps, last = self.transforms
         for t, s in zip(maps, state.states):
             grads = t.update(grads, s, params)
-        last.update(grads, state.states[-1], params)
+        last.update(grads, state.states[-1], params, scalars)
 
 
 __all__ = ["AdamW", "AdamWState", "ChainState", "EmptyState",
            "FP32MasterState", "SGD", "TraceState", "add_decayed_weights",
-           "chain", "clip_by_global_norm", "fp32_master",
+           "chain", "clip_by_global_norm", "device_scalars", "fp32_master",
            "linear_schedule"]

@@ -30,6 +30,15 @@ the batch it shards (:func:`batch_moments`): the per-channel sums are
 all-reduced in the forward and their gradients in the backward, so the
 running statistics stay equal on every rank.
 
+With ``Trainer(steps_per_execution=k)`` on the card every collective
+of the step (the gradient sync, ZeRO-1's reduce-scatter and all-gather,
+the moments, :func:`mean_over_ranks` of the metrics) is captured into
+the chunk's CUDA graph and replays with it (core/steps.py
+``ChunkRunner``).  Each rank's stacked ``[k, B, ...]`` chunk and its
+rows of the device-resident train set live on its own card; the set's
+per-epoch repack in the loader's order is one all-to-all
+(:func:`exchange_rows`).
+
 ``"fsdp"``, ``"zero3"``, ``"spmd"``, ``"auto"`` and ``"mpmd"`` raise
 ``NotImplementedError`` naming their ROADMAP.md item; other names raise
 ``ValueError``, as in the JAX package.
@@ -40,6 +49,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Mapping, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -130,6 +140,36 @@ def gather_objects(obj) -> list:
     out = [None] * dist.get_world_size()
     dist.all_gather_object(out, obj)
     return out
+
+
+def exchange_rows(flat: torch.Tensor, want: "list[np.ndarray]",
+                  out: torch.Tensor) -> None:
+    """``out[j]`` = row ``want[rank][j]`` of a set of rows spread over the
+    ranks, rank r holding rows ``[r n, (r+1) n)`` as ``flat`` (``n =
+    flat.shape[0]``): the per-epoch repack of the device-resident train
+    set (core/loop_engine.py ``CachedSource``).  ``want`` is every
+    rank's list (the same on every rank).  At one rank a local
+    ``index_select``; across ranks one ``all_to_all_single`` brings
+    each rank the rows it needs from each other (NCCL on the card, gloo
+    on the CPU), so no rank holds more than its own rows and its own
+    batches."""
+    dev = flat.device
+    if world_size() == 1:
+        idx = torch.from_numpy(np.asarray(want[0], np.int64)).to(dev)
+        torch.index_select(flat, 0, idx, out=out)
+        return
+    W, r, n = world_size(), global_rank(), flat.shape[0]
+    owner = [np.asarray(w, np.int64) // n for w in want]
+    send = np.concatenate([np.asarray(want[d], np.int64)[owner[d] == r]
+                           - r * n for d in range(W)])
+    send_sizes = [int((owner[d] == r).sum()) for d in range(W)]
+    recv_pos = [np.flatnonzero(owner[r] == s) for s in range(W)]
+    sendbuf = flat.index_select(0, torch.from_numpy(send).to(dev))
+    recvbuf = out.new_empty(out.shape)
+    dist.all_to_all_single(recvbuf, sendbuf, [len(p) for p in recv_pos],
+                           send_sizes)
+    out.index_copy_(0, torch.from_numpy(np.concatenate(recv_pos)).to(dev),
+                    recvbuf)
 
 
 def average_grads(grads: "list[torch.Tensor]") -> "list[torch.Tensor]":
@@ -404,9 +444,18 @@ class Zero1Optimizer:
             inners.append(self.inner.init({"flat": shard}))
         return Zero1State(self, groups, masters, inners)
 
+    def host_scalars(self, state: Zero1State, ahead: int = 0):
+        """The inner optimizer's (every group's state counts alike)."""
+        return self.inner.host_scalars(state.inners[0], ahead)
+
+    def advance(self, state: Zero1State, n: int) -> None:
+        for s in state.inners:
+            self.inner.advance(s, n)
+
     @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor], state: Zero1State,
-               params: Mapping[str, torch.Tensor]) -> None:
+               params: Mapping[str, torch.Tensor],
+               scalars: "torch.Tensor | None" = None) -> None:
         dtypes = {g.dtype for g in grads.values()}
         if len(dtypes) != 1:
             raise ValueError(f"ZeRO-1 takes gradients of one dtype, got "
@@ -441,7 +490,7 @@ class Zero1Optimizer:
                               {"flat": resident})["flat"]
             master = state.masters[i] if self.has_master else resident
             self.inner.update({"flat": gs.float()}, state.inners[i],
-                              {"flat": master})
+                              {"flat": master}, scalars)
             for k, v in g.unflatten(state._full(g, master)).items():
                 params[k].copy_(v)
 
@@ -510,6 +559,6 @@ def resolve_strategy(strategy: "str | ShardingStrategy | None"
 
 __all__ = ["DataParallelStrategy", "ShardingStrategy", "Zero1Optimizer",
            "Zero1State", "Zero1Strategy", "average_grads", "batch_moments",
-           "gather_objects",
+           "exchange_rows", "gather_objects",
            "global_rank", "group_active", "mean_over_ranks", "resolve_strategy", "strategy_names",
            "sum_over_ranks", "world_size"]

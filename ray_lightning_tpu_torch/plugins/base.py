@@ -4,8 +4,11 @@ Counterpart of ``ray_lightning_tpu/plugins/base.py`` without the
 telemetry plane.  ``LocalPlugin`` runs the loop in this process, at
 world size 1, on the ``Trainer``'s device (or its Tune trial's leased
 card); the distributed plugins
-(plugins/ray_ddp.py) ship the run into actor workers.  The plugin's
-second job is carrying the strategy (parallel/strategy.py).
+(plugins/ray_ddp.py) ship the run into actor workers, with the run's
+data-check validator on the driver when ``RLT_DATA_CHECK=1``
+(:func:`data_check_validator`, the JAX ``plugins/xla.py:469-505``).
+The plugin's second job is carrying the strategy
+(parallel/strategy.py).
 """
 
 from __future__ import annotations
@@ -13,10 +16,22 @@ from __future__ import annotations
 from typing import Optional
 
 from ray_lightning_tpu_torch._device import resolve_device
+from ray_lightning_tpu_torch.core import datacheck
 from ray_lightning_tpu_torch.parallel.strategy import (ShardingStrategy,
                                                        resolve_strategy)
 from ray_lightning_tpu_torch.tune.session import (get_trial_devices,
                                                   lease_declared)
+
+
+def data_check_validator(worker_env: dict
+                         ) -> "Optional[datacheck.DataCheckValidator]":
+    """A run's driver-side validator (core/datacheck.py) when
+    ``RLT_DATA_CHECK=1`` is set on the driver or in the workers'
+    environment, else ``None``: the workers relay each batch's
+    fingerprint and the driver's poll loop raises on a divergence."""
+    if datacheck.enabled() or datacheck.enabled(worker_env):
+        return datacheck.DataCheckValidator()
+    return None
 
 
 class ExecutionPlugin:
@@ -62,4 +77,4 @@ class LocalPlugin(ExecutionPlugin):
         return trainer._run_stage(module, datamodule, stage, ckpt_path)
 
 
-__all__ = ["ExecutionPlugin", "LocalPlugin"]
+__all__ = ["ExecutionPlugin", "LocalPlugin", "data_check_validator"]

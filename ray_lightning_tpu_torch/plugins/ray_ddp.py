@@ -17,8 +17,10 @@ compile-cache, elastic, planner and MPMD branches.  Driver side, a run:
   3. ships one pickled payload (trainer, module, datamodule) through
      the object store;
   4. waits for the results while relaying queue items
-     (``util.process_results``), and rehydrates the module from rank
-     0's state stream, with the metrics, counters and best checkpoint;
+     (``util.process_results``; with ``RLT_DATA_CHECK=1`` the workers'
+     batch fingerprints go to the run's validator, which raises on a
+     divergent loader), and rehydrates the module from rank 0's state
+     stream, with the metrics, counters and best checkpoint;
   5. kills every actor, whatever happened.
 
 Worker side (:func:`_worker_run`), each actor takes its device (its
@@ -48,7 +50,8 @@ from ray_lightning_tpu_torch.cluster.backend import get_backend
 from ray_lightning_tpu_torch.cluster.executor import RLTExecutor
 from ray_lightning_tpu_torch.cluster.queue import WorkerQueueProxy
 from ray_lightning_tpu_torch.parallel.strategy import resolve_strategy
-from ray_lightning_tpu_torch.plugins.base import ExecutionPlugin
+from ray_lightning_tpu_torch.plugins.base import (ExecutionPlugin,
+                                                   data_check_validator)
 from ray_lightning_tpu_torch.session import init_session, reset_session
 from ray_lightning_tpu_torch.util import process_results
 from ray_lightning_tpu_torch.utils.seed import SEED_ENV_VAR
@@ -256,7 +259,8 @@ class RayPlugin(ExecutionPlugin):
         try:
             results = process_results(
                 [w.call("execute", _worker_run, ref, i, WorkerQueueProxy())
-                 for i, w in enumerate(workers)], backend, self.timeout_s)
+                 for i, w in enumerate(workers)], backend, self.timeout_s,
+                validator=data_check_validator(self.worker_env))
         finally:
             backend.free(ref)
         return self._post_dispatch(trainer, module, stage, results)

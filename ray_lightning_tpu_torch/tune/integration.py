@@ -123,6 +123,8 @@ class _TuneCallbackBase(Callback):
     def on_train_end(self, trainer, module):
         self._fire("train_end", trainer, module)
 
+    needs_batch = False   # _fire never receives the batch
+
     def on_train_batch_end(self, trainer, module, outputs, batch, batch_idx):
         self._fire("batch_end", trainer, module)
 

@@ -1,10 +1,11 @@
 """Driver-side plumbing (the reference's ``ray_lightning/util.py``).
 
-Counterpart of ``ray_lightning_tpu/util.py`` without the telemetry and
-data-check planes: :func:`process_results` waits on the workers' futures
-while draining the worker-to-driver queue and calling the relayed
-callables in the driver process ("relay the side effect, not the
-call").
+Counterpart of ``ray_lightning_tpu/util.py`` without the telemetry
+plane: :func:`process_results` waits on the workers' futures while
+draining the worker-to-driver queue and calling the relayed callables in
+the driver process ("relay the side effect, not the call").  A run's
+data-check validator (core/datacheck.py, ``RLT_DATA_CHECK=1``) takes
+the fingerprint items and raises in the poll loop on a divergence.
 """
 
 from __future__ import annotations
@@ -22,26 +23,32 @@ from ray_lightning_tpu_torch.utils.states import (load_state_stream,
 FAILURE_GRACE_S = 5.0
 
 
-def _handle_queue_item(item: Any) -> None:
+def _handle_queue_item(item: Any, validator=None) -> None:
     """Run one queue item on the driver: items are ``(rank, payload)``;
-    a callable payload is called here, anything else is dropped."""
+    a data-check item goes to ``validator``, a callable payload is
+    called here, anything else is dropped."""
     payload = item[1] if isinstance(item, tuple) and len(item) == 2 \
         else item
+    if validator is not None and validator.maybe_ingest(payload):
+        return
     if callable(payload):
         payload()
 
 
-def _drain(backend: ClusterBackend, actors: set) -> bool:
+def _drain(backend: ClusterBackend, actors: set, validator=None) -> bool:
     drained = False
     while (item := backend.queue_get_nowait(actors)) is not None:
         drained = True
-        _handle_queue_item(item)
+        _handle_queue_item(item, validator)
+    if validator is not None:
+        validator.verify()
     return drained
 
 
 def process_results(futures: Sequence[Future], backend: ClusterBackend,
                     timeout: Optional[float] = None,
-                    poll_interval: float = 0.02) -> list:
+                    poll_interval: float = 0.02,
+                    validator=None) -> list:
     """The futures' results, relaying queue items as they arrive.
 
     A worker's error fails the whole run (``ray.get`` semantics): the
@@ -53,13 +60,15 @@ def process_results(futures: Sequence[Future], backend: ClusterBackend,
     items of the futures' actors are relayed here, so runs on other
     threads of this driver (Tune trials) keep theirs; an exception a
     relayed callable raises (a Tune scheduler's stop or exploit) leaves
-    at once, the workers still running: their owner kills them."""
+    at once, the workers still running: their owner kills them.  So
+    does ``validator``'s (core/datacheck.py ``DataCheckValidator``)
+    divergence, checked after each drain."""
     pending = list(futures)
     actors = {f.actor_id for f in pending}
     deadline = None if timeout is None else time.monotonic() + timeout
     failed_at = None
     while not all(f.done() for f in pending):
-        drained = _drain(backend, actors)
+        drained = _drain(backend, actors, validator)
         now = time.monotonic()
         if failed_at is None and any(f.error() for f in pending):
             failed_at = now
@@ -72,7 +81,8 @@ def process_results(futures: Sequence[Future], backend: ClusterBackend,
                 f"{timeout:.0f} s")
         if not drained:
             time.sleep(poll_interval)
-    _drain(backend, actors)  # items sent just before the workers finished
+    # items sent just before the workers finished
+    _drain(backend, actors, validator)
     errors = [(i, f.error()) for i, f in enumerate(pending) if f.error()]
     if len(errors) == 1:
         raise errors[0][1]

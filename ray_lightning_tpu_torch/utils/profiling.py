@@ -162,6 +162,8 @@ class TorchProfilerCallback(Callback):
     the steps.  A profiler that fails to start or stop logs a warning
     and training goes on."""
 
+    needs_batch = False   # windows on global_step; never reads the batch
+
     def __init__(self, start_step: int = 5, num_steps: int = 5,
                  log_dir: Optional[str] = None):
         self.start_step = int(start_step)

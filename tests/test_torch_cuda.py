@@ -12,7 +12,10 @@ The strategies' collectives are held on NCCL too: at one rank in a
 process group of the test process (the DDP sync and the metric mean an
 identity, ZeRO-1's update equal to the unsharded one), and, with two or
 more cards, through the plugins' workers, one a card (ZeRO-1 against
-DDP).  The workers unpickle this module's callbacks by name.
+DDP).  The workers unpickle this module's callbacks by name.  The loop
+engine's graphed chunks (``steps_per_execution`` on the card) equal the
+eager fits bit for bit, in process, under a one-rank NCCL group and,
+with two or more cards, cached across workers against one process.
 
 Every test here is marked ``cuda`` and skips without a card (decided
 when the test runs, never while the module is imported).  The file
@@ -950,7 +953,9 @@ class RelayLosses(Callback):
         self.losses = []
 
     def on_train_batch_end(self, trainer, module, outputs, batch, i):
-        self.losses.append(float(outputs["loss"]))
+        # a chunk of k steps ends once, with its k losses
+        self.losses.extend(outputs["loss"].detach().float().reshape(-1)
+                           .tolist())
 
     def on_fit_end(self, trainer, module):
         from ray_lightning_tpu_torch import session
@@ -1257,3 +1262,141 @@ def test_cuda_resnet_ddp_across_cards_equals_one_process(cards, tmp_path,
     for k, v in want.items():
         torch.testing.assert_close(ddp._trained_state[k], v, atol=2e-5,
                                    rtol=2e-5, msg=k)
+
+
+
+@pytest.mark.cuda
+def test_cuda_resnet_cached_chunks_across_cards_equal_one_process(
+        cards, tmp_path, monkeypatch):
+    """The same W=2 fit with ``steps_per_execution=3`` and the cache:
+    each rank holds half the train set, the repack is one NCCL
+    all-to-all, and each epoch's chunk of 3 steps is one graph replay
+    whose captured collectives (the gradient all-reduce, BatchNorm's
+    moments both ways, the metric mean) run across the two cards; the
+    losses and every param and running statistic within 2e-5 of one
+    process's streamed eager fit (TF32 off in both)."""
+    from ray_lightning_tpu_torch import RayPlugin, ResNetLightningModule
+    from ray_lightning_tpu_torch.models.resnet import ResNetConfig
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+    def module(batch):
+        return ResNetLightningModule(
+            ResNetConfig(stage_sizes=(1, 1), width=8, bottleneck=False,
+                         dtype=torch.float32), lr=0.05, batch_size=batch,
+            train_size=24, val_size=8)
+
+    kw = dict(max_epochs=2, seed=0, limit_val_batches=1,
+              num_sanity_val_steps=0, enable_checkpointing=False,
+              logger=False, default_root_dir=str(tmp_path))
+    RELAYED_LOSSES.clear()
+    ddp = module(4)
+    Trainer(plugins=[RayPlugin(num_workers=2, timeout_s=300,
+                               init_hook=cudnn_fp32)],
+            callbacks=[RelayLosses()], steps_per_execution=3,
+            cache_train_dataset=True, **kw).fit(ddp)
+    [ddp_losses] = RELAYED_LOSSES
+    class Losses(Callback):
+        losses: list = []
+
+        def on_train_batch_end(self, trainer, module, outputs, batch, i):
+            self.losses.append(float(outputs["loss"]))
+
+    local = Losses()
+    one = module(8)
+    Trainer(device="cuda:0", callbacks=[local], **kw).fit(one)
+    assert len(ddp_losses) == len(local.losses) == 6
+    np.testing.assert_allclose(ddp_losses, local.losses, atol=2e-5,
+                               rtol=2e-5)
+    for k, v in one.model.state_dict().items():
+        torch.testing.assert_close(ddp._trained_state[k], v.detach().cpu(),
+                                   atol=2e-5, rtol=2e-5, msg=k)
+
+
+# -- the epoch engine's graphed chunks (steps_per_execution on the card) -------
+
+def _engine_fit(device, steps, module, **kw):
+    """A fit of ``steps`` steps on ``device``: the trainer, its end state
+    (params, buffers and optimizer state by path) and the launches."""
+    trainer = Trainer(max_steps=steps, enable_checkpointing=False,
+                      logger=False, seed=0, num_sanity_val_steps=0,
+                      limit_val_batches=0, device=device, **kw)
+    _kernels.reset_launches()
+    trainer.fit(module)
+    torch.cuda.synchronize()
+    state = {k: v.detach().clone() for k, v in
+             module.model.state_dict().items()}
+    state.update({f"opt{k}": v.detach().clone() for k, v in _tensors(
+        trainer.state.opt_state.state_dict()).items()})
+    return trainer, state, _kernels.launch_counts()
+
+
+def _tiny_gpt(**cfg):
+    return GPTLightningModule(
+        GPTConfig(vocab_size=512, block_size=64, n_layer=2, n_head=2,
+                  n_embd=128, remat=False, **cfg), batch_size=4,
+        warmup_steps=2,
+        dataset_size=4 * 10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knobs", [dict(steps_per_execution=4),
+                                   dict(steps_per_execution=4,
+                                        cache_train_dataset=True),
+                                   dict(steps_per_execution=3,
+                                        cache_train_dataset=True,
+                                        gradient_clip_val=0.5)],
+                         ids=["streamed", "cached", "cached_clip"])
+def test_cuda_graphed_chunks_equal_the_eager_fit(knobs, cuda_device):
+    """10 steps of the tiny GPT (bf16 params, the fp32 master, AdamW
+    under warmup) with each knob: every full chunk is one replay of one
+    captured graph, the rest run eagerly, and the end state equals the
+    eager k=1 fit's bit for bit; the kernels count 2 layers x k launches
+    a replay, and 2 x (10 + the warm-up step) in all."""
+    k = knobs["steps_per_execution"]
+    clip = {"gradient_clip_val": knobs.get("gradient_clip_val")}
+    _, want, _ = _engine_fit(cuda_device, 10, _tiny_gpt(), **clip)
+    trainer, got, launches = _engine_fit(cuda_device, 10, _tiny_gpt(),
+                                         **knobs)
+    assert trainer.global_step == 10
+    stats = trainer.graph_stats
+    assert stats["captures"] == 1 and stats["replays"] == 10 // k
+    assert stats["launches_per_replay"] == {"flash_fwd": 2 * k,
+                                            "flash_bwd": 2 * k}
+    assert launches["flash_fwd"] == launches["flash_bwd"] == 2 * (10 + 1)
+    assert set(got) == set(want)
+    diff = [n for n in want if not torch.equal(got[n], want[n])]
+    assert not diff, diff[:8]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["ddp", "zero1"])
+def test_cuda_graphed_chunks_capture_the_collectives(strategy, nccl_group):
+    """Under a one-rank NCCL group the step's collectives (DDP's
+    all-reduce, ZeRO-1's reduce-scatter and all-gather, the metric mean)
+    are captured in the graph: 8 steps at k=4 equal the eager fit bit for
+    bit."""
+    _, want, _ = _engine_fit(nccl_group, 8, _tiny_gpt(), strategy=strategy)
+    trainer, got, _ = _engine_fit(nccl_group, 8, _tiny_gpt(),
+                                  strategy=strategy, steps_per_execution=4)
+    assert trainer.graph_stats["replays"] == 2
+    assert all(torch.equal(got[n], want[n]) for n in want)
+
+
+@pytest.mark.cuda
+def test_cuda_dropout_in_a_graphed_chunk_raises(cuda_device):
+    """A step that draws from ``make_rng`` cannot be captured (the graph
+    would replay one seed): the fit raises, it never runs eagerly."""
+    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
+        _engine_fit(cuda_device, 4, _tiny_gpt(dropout=0.1),
+                    steps_per_execution=2)
+
+
+@pytest.mark.cuda
+def test_cuda_stream_prefetch_equals_no_prefetch(cuda_device, monkeypatch):
+    """The double-buffered stream (pinned copies on a copy stream) trains
+    exactly as the unbuffered one."""
+    _, want, _ = _engine_fit(cuda_device, 6, _tiny_gpt())
+    monkeypatch.setenv("RLT_STREAM_PREFETCH", "0")
+    _, got, _ = _engine_fit(cuda_device, 6, _tiny_gpt())
+    assert all(torch.equal(got[n], want[n]) for n in want)

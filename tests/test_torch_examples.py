@@ -56,3 +56,20 @@ def test_ddp_example_tune_smoke(tmp_path):
     for t in trials:
         assert os.path.isfile(tmp_path / "sweep" / "tune_mnist" / t /
                               "logs" / "metrics.csv")
+
+
+@pytest.mark.parametrize("workers", ["0", "2"])
+def test_perf_tuning_example_smoke(workers, tmp_path):
+    """The tuning walk in process and over two gloo workers: a line per
+    configuration, each fit the same 4 steps (one epoch of 4 batches)."""
+    proc = run_example(
+        "ray_lightning_tpu_torch.examples.ray_perf_tuning_example",
+        tmp_path, "--num-workers", workers)
+    assert proc.returncode == 0, (
+        f"failed\nstdout:\n{proc.stdout}\nstderr:\n{proc.stderr}")
+    lines = [ln for ln in proc.stdout.splitlines() if "steps/s" in ln]
+    assert [ln.split("  ")[0] for ln in lines] == [
+        "streamed (baseline)", "steps_per_execution=8",
+        "+ cache_train_dataset", "+ precision=bf16"]
+    steps = {4 if workers == "0" else 2}
+    assert all(f"({s} steps in" in ln for ln in lines for s in steps)

@@ -454,14 +454,14 @@ def test_lm_loss_routes_agree(route, monkeypatch):
 def test_trainer_refuses_what_is_not_ported():
     """Arguments of the JAX Trainer that the port does not honour yet
     raise instead of being ignored: the strategies beyond DDP and ZeRO-1,
-    the loop engine's ``steps_per_execution`` and
-    ``cache_train_dataset``, and the telemetry, compile-cache, comm,
-    elastic and planner planes; so does remat "dots" (gpt2-medium's
-    policy).  Checkpointing, clipping, the bf16 batch cast, dropout and
-    the plugins are honoured (tests/test_torch_checkpoint.py,
-    tests/test_torch_trainer.py, tests/test_torch_plugin*.py)."""
+    and the telemetry, compile-cache, comm, elastic and planner planes;
+    so does remat "dots" (gpt2-medium's policy).  Checkpointing,
+    clipping, the bf16 batch cast, dropout, the plugins and the loop
+    engine's ``steps_per_execution`` and ``cache_train_dataset`` are
+    honoured (tests/test_torch_checkpoint.py,
+    tests/test_torch_trainer.py, tests/test_torch_plugin*.py,
+    tests/test_torch_loop_engine.py)."""
     for kw in (dict(strategy="fsdp"), dict(strategy="spmd"),
-               dict(steps_per_execution=4), dict(cache_train_dataset=True),
                dict(telemetry=True), dict(compile_cache=True),
                dict(comm_policy="int8"), dict(elastic=True),
                dict(plan=True)):
