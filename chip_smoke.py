@@ -25,7 +25,9 @@ Phases, each fatal on failure:
    vocab 50304, context 1024), bf16, seeded weights, buckets
    (128, 256, 512, 1024), 16 slots; 16 requests from two tenants over
    all four buckets, 32 new tokens each, through ``Scheduler`` ->
-   ``ServeWorker.serve_step`` -> ``ServeEngine``.  Every request must
+   ``ServeWorker.serve_step`` -> ``ServeEngine``, whose programs are
+   CUDA graphs captured at setup (one prefill per bucket and the
+   decode; none captured again while serving).  Every request must
    complete; the greedy tokens of four of them (one per bucket) must
    pass the teacher-forced parity rule against the whole-sequence
    forward with the plain attention (a bf16 near-tie within 2e-2 is
@@ -45,7 +47,9 @@ Phases, each fatal on failure:
    989 TFLOP/s);
 5. profile: where a decode step, a bucket-1024 prefill and a train step
    spend their time (host wall, device kernel time by name, device busy
-   share);
+   share): the serve programs' eager steps (``engine.run_eager``, the
+   graphs' sources) for the categories, and their graphs' replays
+   beside them;
 6. paged serve, with the earlier engine and trainer freed: gpt2-small at
    full width, 16 slots, the same buckets, ``ServeEngine(paged=
    PageConfig(page_size=16))`` under ``RLT_DECODE_IMPL=paged``; 24
@@ -58,7 +62,8 @@ Phases, each fatal on failure:
    computed than requested; flash_decode_paged launches 12 times per
    decode step and per suffix step, flash_fwd 12 per cold prefill,
    flash_decode never; TTFT p50, decode-step, suffix-step and kv-copy
-   ms, tokens/s, one paged decode step profiled;
+   ms, tokens/s, one paged decode step profiled; the programs replay
+   graphs (the suffix step one a slot) and none is captured again;
 7. speculative serve: the same engine with ``SpecConfig(k=4)`` and the
    default draft (the first 6 of 12 layers, its parameters the target's
    tensors) over 16 such requests: every request completes with greedy
@@ -236,7 +241,20 @@ Phases, each fatal on failure:
    otherwise; the first epoch or dispatch, which captures, and the
    profiled one left out), captures, replays, launches a replay, the
    capture's ms and pool bytes, one dispatch under ``torch.profiler``
-   (device ms, kernels, busy share of its synced wall), peak memory.
+   (device ms, kernels, busy share of its synced wall), peak memory;
+15. the serving front door, run after phase 7:
+   ``Server(GPTLightningModule("gpt2-small"), num_workers=1,
+   buckets=(128, 256, 512, 1024), max_batch_slots=16,
+   max_new_tokens=32, seed=seed)`` on the card (one persistent serve
+   actor, its engine's programs captured at its setup), phase 3's 16
+   requests from two tenants through ``submit``: every request
+   completes, the tokens equal phase 3's in-process tokens request by
+   request, the worker's ``serve_stats`` show flash_fwd 12 x its
+   prefills and flash_decode 12 x its decode steps (added to rows 1 and
+   13) and no capture after setup; TTFT p50, the pump's step ms, the
+   engine's decode and prefill ms in the worker, tokens/s, ``start()``'s
+   seconds by part (spawn, setup, of which the captures), the captures'
+   ms and pool bytes.
 
 The next-to-last line is the ``{"kernels": [...]}`` JSON record, one
 entry per TPU kernel row, 1 to 16 (``launches`` from the path phases
@@ -273,7 +291,10 @@ resnet50 worker fit and the sharded example, then the in-process parts,
 rows 1 and 6 and the kernels line (the sharded example's launches).
 ``--loop-only`` does the same for phase 14: the driver stays off CUDA
 through (b)'s worker fit, then the in-process fits, rows 1 and 6 and the
-kernels line (the phase's gpt2-small launches).
+kernels line (the phase's gpt2-small launches).  ``--server-only`` runs
+phase 15 with the driver off CUDA, then phase 3 for the tokens to hold
+it against, then checks and times rows 1 and 13 and prints the kernels
+line (phase 15's worker launches) and the last line.
 """
 
 from __future__ import annotations
@@ -317,7 +338,7 @@ from ray_lightning_tpu_torch.ops.flash_decode import (  # noqa: E402
     flash_decode_attention, flash_decode_attention_plain,
     flash_decode_paged_attention, flash_decode_paged_attention_plain)
 from ray_lightning_tpu_torch.serve import (  # noqa: E402
-    PageConfig, Scheduler, ServeEngine, ServeWorker, SpecConfig)
+    PageConfig, Scheduler, ServeEngine, Server, ServeWorker, SpecConfig)
 from ray_lightning_tpu_torch import tune  # noqa: E402
 from ray_lightning_tpu_torch.tune.integration import (  # noqa: E402
     _CheckpointPayload, _TuneCheckpointCallback)
@@ -805,7 +826,8 @@ def serve_phase(seed: int) -> dict:
                          max_seq_len=cfg.block_size, seed=seed,
                          device="cuda").setup()
     log(f"  engine setup {time.monotonic() - t0:.2f} s: kv "
-        f"{engine.kv_spec.shape}, decode attention {engine.decode_kernel}")
+        f"{engine.kv_spec.shape}, decode attention {engine.decode_kernel}, "
+        + graph_line(engine.stats()))
     if engine.decode_kernel != "flash_decode":
         raise AssertionError(f"decode runs {engine.decode_kernel}, not the "
                              f"flash_decode kernel")
@@ -853,6 +875,8 @@ def serve_phase(seed: int) -> dict:
     log(f"  {len(reqs)} requests done in {steps} steps, {wall:.3f} s; "
         f"{prefills} prefills, {decodes} decode steps; launches "
         f"{launches} (= {n_layer} x steps)")
+    graphs = check_graphs(engine, [f"prefill_{b}" for b in SERVE_BUCKETS]
+                          + ["decode"])
 
     # reference: the same weights, whole-sequence forward, plain attention
     ref = GPT(dataclasses.replace(engine.model.config,
@@ -885,12 +909,35 @@ def serve_phase(seed: int) -> dict:
         "prefills": prefills,
         "decode_steps": decodes,
         "parity_checked": checked,
+        "graphs": graphs,
     }
     log(f"  serve: TTFT p50 {stats['ttft_p50_ms']:.2f} ms, decode step "
         f"{decode_ms:.3f} ms, prefill {prefill_ms:.3f} ms, "
         f"{stats['tokens_per_s']:.1f} tokens/s")
     log("serve " + json.dumps(stats))
-    return {"launches": launches, "engine": engine}
+    return {"launches": launches, "engine": engine,
+            "tokens": [r.result(0).tolist() for r in reqs]}
+
+
+def graph_line(stats: dict) -> str:
+    """An engine's graphs: captures per program, capture ms, pool."""
+    return (f"{sum(stats['captures'].values())} graphs "
+            f"{stats['captures']} captured in {stats['capture_ms']:.1f} "
+            f"ms, pool {stats['pool_bytes'] / 2 ** 20:.1f} MB")
+
+
+def check_graphs(engine, programs: list) -> dict:
+    """Each of ``programs`` captured once at setup (the suffix one graph
+    a slot) and nothing captured since: the engine's ``captures``,
+    ``recaptures``, capture ms and pool bytes, logged."""
+    st = engine.stats()
+    want = {p: engine.slots if p == "suffix" else 1 for p in programs}
+    if st["captures"] != want or any(st["recaptures"].values()):
+        raise AssertionError(f"graphs: captures {st['captures']} (want "
+                             f"{want}), recaptures {st['recaptures']}")
+    log(f"  graphs: recaptures {st['recaptures']}; " + graph_line(st))
+    return {k: st[k] for k in ("captures", "recaptures", "capture_ms",
+                               "pool_bytes")}
 
 
 # -- phase 4: train -----------------------------------------------------------
@@ -1167,17 +1214,27 @@ def profile_phase(engine, train_step, steps: int = 5) -> dict:
     """Where the time goes: ``steps`` decode steps with all 16 slots live
     at position 512, one prefill at bucket 1024 and one gpt2-small train
     step at B=8, T=1024 (``train_step()``, 3 times), each through
-    :func:`profile_fn`."""
+    :func:`profile_fn`.  The serve programs twice: their eager steps
+    (``engine.run_eager``: a kernel per op, so the categories) and their
+    graphs' replays (what serving runs: the host's share gone)."""
     S = engine.slots
     toks = np.ones(S, np.int32)
     pos = np.full(S, 512, np.int32)
     prompt = np.ones((1, 1024), np.int32)
     out = {
-        "decode": profile_fn("decode", lambda: engine.decode(toks, pos),
-                             steps),
-        "prefill_1024": profile_fn(
-            "prefill_1024", lambda: engine.prefill(0, prompt, 1000, 1024),
+        "decode": profile_fn(
+            "decode (eager step)",
+            lambda: engine.run_eager("decode", toks, pos), steps),
+        "decode_replay": profile_fn(
+            "decode (graph replay)", lambda: engine.decode(toks, pos),
             steps),
+        "prefill_1024": profile_fn(
+            "prefill_1024 (eager step)",
+            lambda: engine.run_eager("prefill_1024", prompt, [0], [1000]),
+            steps),
+        "prefill_1024_replay": profile_fn(
+            "prefill_1024 (graph replay)",
+            lambda: engine.prefill(0, prompt, 1000, 1024), steps),
         "train_step": profile_fn("train_step", train_step, 3),
     }
     if not out["decode"]["device_ms"] > 0:
@@ -1310,6 +1367,7 @@ def paged_serve_phase(seed: int, card: str) -> dict:
     if engine.decode_kernel != "paged":
         raise AssertionError(f"decode runs {engine.decode_kernel}, not the "
                              f"paged kernel")
+    log("  paged engine: " + graph_line(engine.stats()))
     sched = Scheduler(buckets=engine.buckets, slots=engine.slots,
                       max_seq_len=engine.max_seq_len,
                       default_max_new_tokens=NEW_TOKENS, paged=pages)
@@ -1336,9 +1394,11 @@ def paged_serve_phase(seed: int, card: str) -> dict:
             or 2 * st["reused_prefills"] < len(reqs):
         raise AssertionError(f"prefix reuse too rare: {st}")
     exact, ties = check_requests(reqs, engine)
+    graphs = check_graphs(engine, [f"prefill_{b}" for b in SERVE_BUCKETS]
+                          + ["decode", "kv_copy", "suffix"])
     stats = {
         "card": card, "requests": len(reqs), "steps": steps,
-        "wall_s": wall, "calls": calls,
+        "wall_s": wall, "calls": calls, "graphs": graphs,
         "tokens_per_s": len(reqs) * NEW_TOKENS / wall,
         "ttft_p50_ms": ttft_ms(reqs),
         "decode_step_ms": per_call_ms(secs, calls, "decode"),
@@ -1431,9 +1491,14 @@ def spec_serve_phase(seed: int, card: str) -> dict:
     if sp["emitted"] != sp["accepted"] + sp["corrected"]:
         raise AssertionError(f"spec fold identity broken: {sp}")
     exact, ties = check_requests(reqs, engine)
+    graphs = check_graphs(
+        engine, [f"{p}_{b}" for p in ("prefill", "draft_prefill")
+                 for b in SERVE_BUCKETS]
+        + ["decode", "kv_copy", "suffix", "draft", "verify"])
     rounds = calls["verify"]
     stats = {
         "card": card, "requests": len(reqs), "steps": steps, "wall_s": wall,
+        "graphs": graphs,
         "k": k, "draft_layers": nd, "calls": calls, "spec": sp,
         "tokens_per_s": len(reqs) * NEW_TOKENS / wall,
         "ttft_p50_ms": ttft_ms(reqs),
@@ -1479,6 +1544,96 @@ def spec_serve_phase(seed: int, card: str) -> dict:
     del engine, sched, reqs
     free_cuda()
     return {"launches": launches, "stats": stats}
+
+
+# -- phase 15: the serving front door ----------------------------------------
+
+
+def server_phase(seed: int, card: str) -> dict:
+    """gpt2-small at full width behind ``Server(num_workers=1)``: one
+    serve actor on the card, its engine's programs captured at setup;
+    phase 3's 16 requests from two tenants through ``submit``.  Every
+    request completes with 32 tokens; in the worker flash_fwd launched
+    12 x its prefills and flash_decode 12 x its decode steps (counted
+    from the end of its setup) and nothing was captured after setup.
+    Returns the tokens (held against phase 3's by the caller), the
+    launches and the figures: TTFT p50, the pump's step ms, the engine's
+    decode ms in the worker, tokens/s, ``start()``'s seconds by part,
+    the captures' ms and pool bytes."""
+    module = GPTLightningModule("gpt2-small")
+    cfg = module.config
+    t0 = time.monotonic()
+    server = Server(module, num_workers=1, buckets=SERVE_BUCKETS,
+                    max_batch_slots=SERVE_SLOTS, max_new_tokens=NEW_TOKENS,
+                    seed=seed).start()
+    try:
+        start_s = time.monotonic() - t0
+        setup = server.stats()["workers"][0]
+        rng = np.random.default_rng(seed)
+        t0 = time.monotonic()
+        reqs = [server.submit(rng.integers(0, cfg.vocab_size, n),
+                              tenant=("alice", "bob")[i % 2])
+                for i, n in enumerate(PROMPT_LENS)]
+        tokens = [r.result(600).tolist() for r in reqs]
+        wall = time.monotonic() - t0
+        server.drain()
+        st = server.stats()
+    finally:
+        server.shutdown()
+    w = st["workers"][0]
+    n = cfg.n_layer
+    launches = {k: w["kernel_launches"][k] - setup["kernel_launches"][k]
+                for k in ServeEngine.KERNELS}
+    calls = {k: w["calls"][k] - setup["calls"][k] for k in w["calls"]}
+    want = {"flash_fwd": n * calls["prefill"],
+            "flash_decode": n * calls["decode"], "flash_decode_paged": 0}
+    if launches != want or not calls["prefill"] or not calls["decode"]:
+        raise AssertionError(f"server phase: worker launches {launches}, "
+                             f"{n} layers x steps want {want}")
+    if any(w["recaptures"].values()) or not w["captures"]:
+        raise AssertionError(f"server phase: captures {w['captures']}, "
+                             f"recaptures {w['recaptures']}")
+    if not all(len(t) == NEW_TOKENS and 0 <= min(t)
+               and max(t) < cfg.vocab_size for t in tokens):
+        raise AssertionError("server phase: bad tokens")
+    pump = st["pump"]
+    stats = {
+        "card": card, "requests": len(reqs), "wall_s": wall,
+        "start_s": start_s, "start": st["start"],
+        "setup_s": st["setup"][0]["setup_s"],
+        "ttft_p50_ms": ttft_ms(reqs),
+        "pump_step_ms": pump["step_s"] / pump["steps"] * 1e3,
+        "pump_steps": pump["steps"],
+        "decode_step_ms": w["seconds"]["decode"] / w["calls"]["decode"] * 1e3,
+        "prefill_ms": w["seconds"]["prefill"] / w["calls"]["prefill"] * 1e3,
+        "tokens_per_s": len(reqs) * NEW_TOKENS / wall,
+        "calls": calls, "captures": w["captures"],
+        "capture_ms": w["capture_ms"], "pool_bytes": w["pool_bytes"],
+    }
+    log(f"  server: {len(reqs)} requests in {pump['steps']} pump steps, "
+        f"{wall:.3f} s; worker calls {calls}; launches {launches} (= {n} x "
+        f"steps); recaptures {w['recaptures']}")
+    log(f"  [{card}] server: start {start_s:.2f} s (spawn "
+        f"{st['start']['spawn_s']:.2f}, setup {st['start']['setup_s']:.2f} "
+        f"of which captures {st['start']['capture_s']:.2f}); TTFT p50 "
+        f"{stats['ttft_p50_ms']:.2f} ms, pump step "
+        f"{stats['pump_step_ms']:.3f} ms, engine decode "
+        f"{stats['decode_step_ms']:.3f} ms, prefill "
+        f"{stats['prefill_ms']:.3f} ms, {stats['tokens_per_s']:.1f} "
+        f"tokens/s; captures {w['capture_ms']:.1f} ms, pool "
+        f"{w['pool_bytes'] / 2 ** 20:.1f} MB")
+    log("server " + json.dumps(stats))
+    return {"launches": launches, "tokens": tokens, "stats": stats}
+
+
+def check_same_tokens(got: list, want: list) -> None:
+    """Phase 15's tokens against phase 3's, request by request."""
+    bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    if bad or len(got) != len(want):
+        raise AssertionError(f"server phase: requests {bad} differ from "
+                             f"the in-process serve phase's tokens")
+    log(f"  server tokens equal the in-process serve phase's "
+        f"({len(got)} requests)")
 
 
 # -- phase 8: long context ---------------------------------------------------
@@ -4235,6 +4390,11 @@ def main(argv=None) -> int:
                          "the driver off CUDA until its worker fit ends, "
                          "then check and time flash_fwd and flash_bwd (rows "
                          "1 and 6)")
+    ap.add_argument("--server-only", action="store_true",
+                    help="build, run phase 15 (Server over one serve "
+                         "actor) with the driver off CUDA, then phase 3 "
+                         "in process for its tokens, then check and time "
+                         "flash_fwd and flash_decode (rows 1 and 13)")
     ap.add_argument("--tune-only", action="store_true",
                     help="build, run phase 12 (Tune: PBT over MNIST, "
                          "gpt2-small trials under RayPlugin, in-process "
@@ -4249,7 +4409,7 @@ def main(argv=None) -> int:
 
     log(card_line())
     driver_off_cuda = (args.plugin_only or args.tune_only or args.resnet_only
-                       or args.loop_only)
+                       or args.loop_only or args.server_only)
     if not driver_off_cuda:      # the device's name initialises CUDA
         log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
             f"{torch.cuda.get_device_name(0)}")
@@ -4261,6 +4421,35 @@ def main(argv=None) -> int:
             if any(w in line for w in ("registers", "spill", "entry "
                                        "function", "wgmma", "warning")):
                 log(f"  ptxas {source}: {line.strip()}")
+
+    if args.server_only:
+        log("server phase")
+        t0 = time.monotonic()
+        server = server_phase(args.seed, card_line())
+        log(f"server phase: {time.monotonic() - t0:.1f} s")
+        if torch.cuda.is_initialized():
+            raise AssertionError("the driver initialised CUDA in the "
+                                 "server phase")
+        log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+            f"{torch.cuda.get_device_name(0)}")
+        log("serve phase (phase 3, for its tokens)")
+        served = serve_phase(args.seed)
+        check_same_tokens(server["tokens"], served["tokens"])
+        del served
+        free_cuda()
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        log("kernel phase (rows 1 and 13)")
+        flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+        entries = [kernel_flash_fwd(gen), kernel_flash_decode(gen, flush)]
+        del flush
+        for e in entries:
+            e["launches_by_path"] = {"server": server["launches"][e["name"]]}
+            e["launches"] = e["launches_by_path"]["server"]
+        log(json.dumps({"kernels": entries}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     if driver_off_cuda:
         path, run = (("plugin", plugin_phase) if args.plugin_only
@@ -4333,6 +4522,7 @@ def main(argv=None) -> int:
 
     log("profile phase")
     profile_phase(served["engine"], trained["train_step"])
+    served_tokens = served["tokens"]
     del served, trained
     free_cuda()
 
@@ -4347,6 +4537,16 @@ def main(argv=None) -> int:
             spec_serve=spec["launches"][e["name"]])
         e["launches"] = sum(e["launches_by_path"].values())
     log(f"paged and spec serve phases: {time.monotonic() - t0:.1f} s")
+
+    log("server phase")
+    t0 = time.monotonic()
+    server = server_phase(args.seed, card)
+    check_same_tokens(server["tokens"], served_tokens)
+    for e in entries:
+        e["launches_by_path"]["server"] = server["launches"].get(
+            e["name"], 0)
+        e["launches"] = sum(e["launches_by_path"].values())
+    log(f"server phase: {time.monotonic() - t0:.1f} s")
 
     log("long-context phase")
     t0 = time.monotonic()

@@ -1,11 +1,14 @@
 """ray_lightning_tpu_torch — the PyTorch/CUDA port of ray_lightning_tpu.
 
 A second package beside the JAX one, which stays as the reference.  Two
-paths are ported.  Serving: ``GPTLightningModule`` -> ``ServeEngine``
-(per-bucket prefill + one decode step over a slot KV cache; with
-``paged=`` prefix reuse over the page-table decode kernel, with
-``spec=`` speculative decoding) driven by the continuous-batching
-``Scheduler`` through ``ServeWorker.serve_step``.
+paths are ported.  Serving: ``Server(GPTLightningModule(...)).start()``
+then ``submit`` / ``generate`` / ``drain`` / ``shutdown``: the
+continuous-batching ``Scheduler`` on the driver, persistent
+``ServeWorker`` actors, one a card, each holding a ``ServeEngine``
+(per-bucket prefill + one decode step over a slot KV cache, each
+program one CUDA graph on the card; with ``paged=`` prefix reuse over
+the page-table decode kernel, with ``spec=`` speculative decoding);
+``ServeWorker(engine).serve_step`` drives an engine in process.
 Training: ``Trainer(...).fit(GPTLightningModule(...))`` on one device
 (fused CE, AdamW with an fp32 master, accumulation, clipping, dropout;
 checkpoints with ``ModelCheckpoint`` and resume with ``ckpt_path=``,
@@ -53,7 +56,7 @@ from ray_lightning_tpu_torch.models.resnet import (ResNet, ResNetConfig,
 from ray_lightning_tpu_torch.plugins import (LocalPlugin, RayPlugin,
                                             RayShardedPlugin)
 from ray_lightning_tpu_torch.serve import (Scheduler, ServeEngine,
-                                           ServeRequest, ServeWorker)
+                                           ServeRequest, ServeWorker, Server)
 from ray_lightning_tpu_torch.utils.logger import CSVLogger
 from ray_lightning_tpu_torch import tune
 
@@ -87,6 +90,7 @@ __all__ = [
     "ServeEngine",
     "ServeRequest",
     "ServeWorker",
+    "Server",
     "Trainer",
     "flax_opt_state_to_torch",
     "flax_to_torch",

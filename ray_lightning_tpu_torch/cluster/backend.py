@@ -37,6 +37,11 @@ class Future:
     def done(self) -> bool:
         return self._event.is_set()
 
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        """Block until the call is done or ``timeout`` seconds pass;
+        whether it is done."""
+        return self._event.wait(timeout)
+
     def error(self) -> Optional[BaseException]:
         """The call's error once it is done (``None``: none yet)."""
         return self._error

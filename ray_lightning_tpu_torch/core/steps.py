@@ -14,9 +14,14 @@ steps) as :class:`ChunkRunner`.  A torch module holds its own
 parameters, so the builders close over the model (the JAX builders take
 the params as an argument of the jitted program) and the train step
 updates them IN PLACE where the JAX program returns new ones; PyTorch
-runs eagerly, so there is nothing to trace or compile except the
-graphed chunks.  The serve caches are updated in place too, where the
-JAX programs return new caches from donated buffers.
+runs eagerly, so there is nothing to trace or compile: the
+counterpart of a compiled program is a CUDA graph
+(:func:`capture_graph`), captured once for the chunks and for each
+serve program (serve/engine.py).  The serve caches are updated in place
+too, where the JAX programs return new caches from donated buffers, and
+the serve steps take their request values (slot, length, page-copy
+source and destination) as device tensors, so a graph captured over
+them freezes none.
 """
 
 from __future__ import annotations
@@ -193,26 +198,83 @@ def _state_tensors(obj, seen: "set[int] | None" = None) -> list:
 
 
 @dataclasses.dataclass
+class CapturedGraph:
+    """One CUDA graph, the (static) outputs its capture returned, the
+    kernel launches one replay runs, and what the capture cost."""
+
+    graph: "torch.cuda.CUDAGraph"
+    out: Any
+    launches: "dict[str, int]"
+    capture_ms: float
+    #: device memory reserved by the capture (its share of the pool)
+    pool_bytes: int
+
+    def replay(self) -> Any:
+        """Run the graph on the current stream and count its launches
+        (no wrapper's Python runs in a replay); returns the outputs,
+        which the next replay of a graph of the same pool may
+        overwrite."""
+        self.graph.replay()
+        add_launches(self.launches)
+        return self.out
+
+
+def capture_graph(fn: Callable, device: torch.device, pool=None,
+                  stream: "torch.cuda.Stream | None" = None
+                  ) -> CapturedGraph:
+    """``fn()`` captured as one CUDA graph on ``stream`` (default:
+    torch's capture stream), its memory from ``pool`` (default: a pool
+    of its own; graphs that share one must never replay at once).
+
+    The caller has run ``fn`` eagerly first, on the same stream where
+    a wrapper keeps per-stream state (ops/flash_decode.py ``_scratch``):
+    lazy set-up (cuBLAS handles and workspaces, the kernels' shared
+    memory attributes, NCCL communicators) must not happen inside a
+    capture.  ``thread_local``: the NCCL watchdog's event queries on
+    other threads stay legal during the capture.  The capture runs the
+    Python but no kernel, so the launches its wrappers counted are
+    taken back; :meth:`CapturedGraph.replay` adds them again."""
+    before = launch_counts()
+    # the capture empties the allocator's cache first; so does this,
+    # so the reserved bytes' growth is the graph's pool
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool, stream=stream,
+                          capture_error_mode="thread_local"):
+        out = fn()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    launches = {n: c - before.get(n, 0) for n, c in launch_counts().items()
+                if c != before.get(n, 0)}
+    add_launches({n: -c for n, c in launches.items()})
+    return CapturedGraph(graph, out, launches, capture_ms,
+                         torch.cuda.memory_reserved(device) - reserved)
+
+
+@dataclasses.dataclass
 class _ChunkGraph:
     """One captured chunk: its static inputs (the stacked batches, or the
-    cached batch indices), the optimizer scalars' feed [k, n], the
-    stacked metrics it writes, and the kernel launches it replays."""
+    cached batch indices), the optimizer scalars' feed [k, n] and the
+    graph, whose outputs are the stacked metrics."""
 
     inputs: Any
     batch_of: Callable
     feed: "torch.Tensor | None" = None
-    graph: "torch.cuda.CUDAGraph | None" = None
-    metrics: "dict[str, torch.Tensor]" = dataclasses.field(
-        default_factory=dict)
-    launches: "dict[str, int]" = dataclasses.field(default_factory=dict)
+    captured: "CapturedGraph | None" = None
 
 
-def _copy_in(dst: torch.Tensor, src: "torch.Tensor | np.ndarray") -> None:
-    """Host ``src`` into the device buffer ``dst`` on the current stream,
-    from pinned memory without a wait."""
-    if isinstance(src, np.ndarray):
-        src = torch.from_numpy(np.ascontiguousarray(src))
-    dst.copy_(src.pin_memory(), non_blocking=True)
+def copy_in(dst: torch.Tensor, src: Any) -> None:
+    """``src`` (a tensor, or anything ``np.asarray`` takes) into the
+    buffer ``dst`` on the current stream, cast to its dtype and shape: a
+    host source into the card from pinned memory without a wait."""
+    if not isinstance(src, torch.Tensor):
+        src = torch.from_numpy(np.ascontiguousarray(np.asarray(src)))
+    src = src.to(dst.dtype)
+    if dst.device.type == "cuda" and src.device.type == "cpu":
+        src = src.pin_memory()
+    dst.copy_(src.reshape(dst.shape), non_blocking=True)
 
 
 def _stack_metrics(outs: "list[dict]") -> "dict[str, torch.Tensor]":
@@ -277,7 +339,7 @@ class ChunkRunner:
                 lambda x: x[i], inputs))
         for dst, src in zip(tree_leaves(entry.inputs),
                             tree_leaves(stacked)):
-            _copy_in(dst, src)
+            copy_in(dst, src)
         return self._dispatch(key, entry, state)
 
     def run_cached(self, state: TrainState, dataset: Any,
@@ -296,7 +358,7 @@ class ChunkRunner:
             idx = torch.empty(self.k, dtype=torch.int64, device=self.device)
             entry = _ChunkGraph(idx, lambda i: tree_map(
                 lambda d: d.index_select(0, idx[i:i + 1])[0], dataset))
-        _copy_in(entry.inputs, np.asarray(idxs, np.int64))
+        copy_in(entry.inputs, np.asarray(idxs, np.int64))
         return self._dispatch(key, entry, state)
 
     # -- the two ways ----------------------------------------------------
@@ -314,20 +376,19 @@ class ChunkRunner:
 
     def _dispatch(self, key, entry: _ChunkGraph, state):
         rows = self._feed_rows(state)
-        if entry.graph is None:
+        if entry.captured is None:
             entry.feed = torch.empty(rows.shape, dtype=torch.float32,
                                      device=self.device)
-            _copy_in(entry.feed, rows)
+            copy_in(entry.feed, rows)
             self._capture(entry, state)
             self._graphs[key] = entry
         else:
-            _copy_in(entry.feed, rows)
+            copy_in(entry.feed, rows)
             self.tx.advance(state.opt_state, self.k)
             state.step += self.k
-        entry.graph.replay()
-        add_launches(entry.launches)
+        metrics = entry.captured.replay()
         self.stats["replays"] += 1
-        return state, {n: v.clone() for n, v in entry.metrics.items()}
+        return state, {n: v.clone() for n, v in metrics.items()}
 
     def _capture(self, entry: _ChunkGraph, state) -> None:
         """Warm up, undo the warm-up, capture (module docstring).  The
@@ -353,30 +414,16 @@ class ChunkRunner:
         state.step -= GRAPH_WARMUP_STEPS
         self.stats["warmup_steps"] += GRAPH_WARMUP_STEPS
 
-        before = launch_counts()
-        # the capture empties the allocator's cache first; so does this,
-        # so the reserved bytes' growth is the graph's pool
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        # thread_local: the NCCL watchdog's event queries on other
-        # threads stay legal during the capture
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            outs = [self.step_fn(state, entry.batch_of(i), entry.feed[i])[1]
-                    for i in range(self.k)]
-            entry.metrics = _stack_metrics(outs)
-        self.stats["capture_ms"].append((time.perf_counter() - t0) * 1e3)
-        self.stats["pool_bytes"].append(
-            torch.cuda.memory_reserved(dev) - reserved)
-        entry.launches = {n: c - before.get(n, 0)
-                          for n, c in launch_counts().items()
-                          if c != before.get(n, 0)}
-        add_launches({n: -c for n, c in entry.launches.items()})
-        entry.graph = graph
+        def chunk():
+            return _stack_metrics([
+                self.step_fn(state, entry.batch_of(i), entry.feed[i])[1]
+                for i in range(self.k)])
+
+        entry.captured = captured = capture_graph(chunk, dev)
+        self.stats["capture_ms"].append(captured.capture_ms)
+        self.stats["pool_bytes"].append(captured.pool_bytes)
         self.stats["captures"] += 1
-        self.stats["launches_per_replay"] = dict(entry.launches)
+        self.stats["launches_per_replay"] = dict(captured.launches)
 
 
 def signature(tree: Any) -> tuple:
@@ -426,23 +473,26 @@ def build_prefill_step(model: torch.nn.Module,
 
     ``(k_caches, v_caches, tokens, slot, length) -> first_token``:
     ``tokens`` [1, bucket_len] (right-padded) long on the model's
-    device; ``slot``/``length`` python ints.  Runs the whole-sequence
-    forward, takes the greedy token at ``length - 1`` and writes every
-    layer's K/V block into rows ``[0, bucket_len)`` of ``slot``.  Rows
-    ``>= length`` hold pad garbage that the causal mask keeps out of the
-    first token and ``cached_attention``'s position bound out of every
-    later one.  Returns a 0-d long tensor (not yet synced).
+    device; ``slot``/``length`` [1] long on the same device (a CUDA
+    graph's static inputs: the step indexes with them on the device, so
+    a capture freezes neither; the caller checks them on the host).
+    Runs the whole-sequence forward, takes the greedy token at
+    ``length - 1`` and writes every layer's K/V block into rows
+    ``[0, bucket_len)`` of ``slot``.  Rows ``>= length`` hold pad garbage
+    that the causal mask keeps out of the first token and
+    ``cached_attention``'s position bound out of every later one.
+    Returns a 0-d long tensor (not yet synced).
     """
-    def step_fn(k_caches, v_caches, tokens, slot: int, length: int):
+    def step_fn(k_caches, v_caches, tokens, slot, length):
         if tokens.shape != (1, bucket_len):
             raise ValueError(f"prefill_{bucket_len} takes tokens "
                              f"[1, {bucket_len}], got {tuple(tokens.shape)}")
         x, kvs = model.hidden_with_kv(tokens)
         # only row length-1 feeds the first token: no [T, V] logits
-        logits = model.head(x[0, length - 1])
+        logits = model.head(x[0].index_select(0, length - 1)[0])
         for i, (k, v) in enumerate(kvs):
-            k_caches[i, slot, :bucket_len] = k[0]
-            v_caches[i, slot, :bucket_len] = v[0]
+            k_caches[i, :, :bucket_len].index_copy_(0, slot, k)
+            v_caches[i, :, :bucket_len].index_copy_(0, slot, v)
         return torch.argmax(logits, dim=-1)
 
     return step_fn
@@ -537,16 +587,19 @@ def build_verify_step(model: torch.nn.Module, impl: "str | None" = None,
 def build_kv_copy() -> Callable:
     """Paged-KV copy (serve/fleet/pages.py prefix reuse).
 
-    ``(k_caches, v_caches, src, dst, length)`` copies cache rows
-    ``[0, length)`` of slot ``src`` into slot ``dst`` in every layer, in
-    place: the device half of a prefix-cache hit, the matched pages
-    moved instead of recomputed.  Sound because a cache row is a pure
-    per-(token, position) value: identical prefixes have identical rows
-    wherever they were computed.
+    ``(k_caches, v_caches, src, dst)`` copies every cache row of slot
+    ``src`` into slot ``dst`` in every layer, in place (``src``/``dst``
+    [1] long on the caches' device): the device half of a prefix-cache
+    hit, the matched rows moved instead of recomputed.  Sound because a
+    cache row is a pure per-(token, position) value: identical prefixes
+    have identical rows wherever they were computed.  Whole rows, not
+    the matched ones, so no length is frozen into a graph: the rows past
+    the match are rewritten by the suffix steps and the decode before
+    any query's position bound (``cached_attention``) reaches them.
     """
-    def copy_fn(k_caches, v_caches, src: int, dst: int, length: int):
+    def copy_fn(k_caches, v_caches, src, dst):
         for c in (k_caches, v_caches):
-            c[:, dst, :length].copy_(c[:, src, :length])
+            c.index_copy_(1, dst, c.index_select(1, src))
 
     return copy_fn
 
@@ -564,8 +617,11 @@ def build_suffix_step(model: torch.nn.Module, impl: "str | None" = None,
     writes nothing outside ``slot``, so it needs no dispatch-order
     contract.  ``page_table`` is the ONE-slot table
     (``identity_page_table(1, L, page_size)``): the slice's pages are
-    slice-relative, the same for every slot.  Returns a 0-d long tensor
-    (not yet synced).
+    slice-relative, the same for every slot.  ``token``/``pos`` hold one
+    int32 each on the device; ``slot`` is a Python int, so the serve
+    engine captures one graph per slot (a gather of the slot's cache
+    would move 2 x n_layer x L x C elements a token).  Returns a 0-d
+    long tensor (not yet synced).
     """
     def step_fn(k_caches, v_caches, token, pos, slot: int):
         logits = model.decode(token.reshape(1), pos.reshape(1),
@@ -577,8 +633,9 @@ def build_suffix_step(model: torch.nn.Module, impl: "str | None" = None,
     return step_fn
 
 
-__all__ = ["ChunkRunner", "GRAPH_WARMUP_STEPS", "build_decode_step",
-           "signature", "tree_leaves", "tree_map",
+__all__ = ["CapturedGraph", "ChunkRunner", "GRAPH_WARMUP_STEPS",
+           "build_decode_step", "capture_graph", "copy_in", "signature",
+           "tree_leaves", "tree_map",
            "build_draft_step", "build_eval_step",
            "build_init_fn", "build_kv_copy", "build_predict_step",
            "build_prefill_step", "build_suffix_step", "build_train_step",

@@ -91,6 +91,9 @@ def _sm_count(index: int) -> int:
 #: per (device, stream): the kernels' int32 tickets (zero between
 #: launches: the merging block resets its own) and fp32 workspace
 _SCRATCH: "dict[tuple, tuple[torch.Tensor, torch.Tensor]]" = {}
+#: every scratch tensor a larger launch replaced: a CUDA graph captured
+#: over the old one keeps writing to its address, so it is never freed
+_OUTGROWN: "list[torch.Tensor]" = []
 
 
 def _scratch(device: torch.device, stream: int, cells: int,
@@ -98,12 +101,20 @@ def _scratch(device: torch.device, stream: int, cells: int,
     """The tickets (``cells`` of them) and workspace (``floats``) of a
     launch on ``stream``: allocated once and grown, never per call (the
     decode step is host-bound).  Keyed by stream, so launches that share
-    them run in order."""
+    them run in order.  A grown buffer's predecessor stays allocated
+    (``_OUTGROWN``): graphs captured before the growth replay into it.
+    A capture must not be the first launch of its size on its stream,
+    or the buffer would come from the graph's private pool (the serve
+    engine warms every program on its capture stream first)."""
     key = (device.index, stream)
     tickets, ws = _SCRATCH.get(key, (None, None))
     if tickets is None or tickets.numel() < cells:
+        if tickets is not None:
+            _OUTGROWN.append(tickets)
         tickets = torch.zeros(cells, dtype=torch.int32, device=device)
     if ws is None or ws.numel() < floats:
+        if ws is not None:
+            _OUTGROWN.append(ws)
         ws = torch.empty(floats, dtype=torch.float32, device=device)
     _SCRATCH[key] = (tickets, ws)
     return tickets, ws

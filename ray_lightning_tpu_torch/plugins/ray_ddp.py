@@ -46,6 +46,7 @@ from typing import Any, Callable, Optional
 import torch
 import torch.distributed as dist
 
+from ray_lightning_tpu_torch._device import worker_device
 from ray_lightning_tpu_torch.cluster.backend import get_backend
 from ray_lightning_tpu_torch.cluster.executor import RLTExecutor
 from ray_lightning_tpu_torch.cluster.queue import WorkerQueueProxy
@@ -193,21 +194,9 @@ class RayPlugin(ExecutionPlugin):
     def _worker_device(self, local_rank: int) -> torch.device:
         """In a worker: its local GPU, made current, or the CPU.  A GPU
         worker without CUDA raises: it never trains on the CPU."""
-        if not self.use_gpu:
-            torch.set_num_threads(max(1, int(self.num_cpus_per_worker)))
-            return torch.device("cpu")
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "RayPlugin(use_gpu=True): CUDA is not available in this "
-                "worker; pass platform='cpu' (or use_gpu=False) for CPU "
-                "workers")
-        if local_rank >= torch.cuda.device_count():
-            raise RuntimeError(
-                f"local rank {local_rank} but this worker sees "
-                f"{torch.cuda.device_count()} GPUs")
-        device = torch.device("cuda", local_rank)
-        torch.cuda.set_device(device)
-        return device
+        return worker_device(
+            self.use_gpu, local_rank, self.num_cpus_per_worker,
+            "RayPlugin(use_gpu=True)", "platform='cpu' (or use_gpu=False)")
 
     # -- driver-side run ------------------------------------------------------
 

@@ -6,13 +6,18 @@
   continuous batch formation
 - ``engine.py``    — per-bucket prefill + one decode step on one device;
   with ``paged=`` the prefix-reuse copy and suffix step, with ``spec=``
-  the speculative draft plane
-- ``worker.py``    — ``ServeWorker.serve_step``: one plan on the engine
+  the speculative draft plane; each program one CUDA graph on the card
+  (the counterpart of the JAX engine's AOT warm-up)
+- ``worker.py``    — ``ServeWorker``: the persistent serve actor
+  (``setup_serve``, ``serve_step``, ``serve_stats``, ``teardown_serve``)
+  over its block of slots, or one plan on an engine in process
+- ``server.py``    — ``Server``: the serving front door (scheduler pump
+  on the driver, serve actors through ``cluster/``)
 - ``spec.py``      — ``SpecConfig``, the speculative-decode knobs
 - ``fleet/pages.py`` — ``PageConfig`` and the paged-KV accounting behind
   prefix reuse
 
-``Server``, the actor fleet and its router are not ported yet.
+The fleet (``FleetServer``, its router and replicas) is not ported yet.
 """
 
 from ray_lightning_tpu_torch.serve.buckets import (  # noqa: F401
@@ -34,6 +39,10 @@ from ray_lightning_tpu_torch.serve.scheduler import (  # noqa: F401
     Scheduler,
     ServeRequest,
 )
+from ray_lightning_tpu_torch.serve.server import (  # noqa: F401
+    ServeSpec,
+    Server,
+)
 from ray_lightning_tpu_torch.serve.spec import SpecConfig  # noqa: F401
 from ray_lightning_tpu_torch.serve.worker import ServeWorker  # noqa: F401
 
@@ -45,7 +54,9 @@ __all__ = [
     "Scheduler",
     "ServeEngine",
     "ServeRequest",
+    "ServeSpec",
     "ServeWorker",
+    "Server",
     "SlotAllocator",
     "SpecConfig",
     "bucket_for",

@@ -1,5 +1,5 @@
 """Serve engine: per-bucket prefill and one decode step over a
-device-resident slot KV cache.
+device-resident slot KV cache, each program one CUDA graph on the card.
 
 Counterpart of ``ray_lightning_tpu/serve/engine.py`` ``ServeEngine``
 (setup, ``prefill``, ``decode``, ``stats``).  At setup it:
@@ -16,8 +16,27 @@ Counterpart of ``ray_lightning_tpu/serve/engine.py`` ``ServeEngine``
    one-slot suffix step of prefix reuse, with ``spec=`` the draft plane
    (a draft model whose parameters ARE the target's tensors by name,
    its own KV cache, one draft prefill per bucket, the k-step draft and
-   the batched verify) — and warms each once on the scratch caches,
-   which it then zeroes again.
+   the batched verify) — gives each program its static input buffers,
+   and runs each once on the scratch caches;
+4. on the card, captures each program as one CUDA graph
+   (core/steps.py ``capture_graph``), the counterpart of the JAX
+   engine's AOT warm-up: ``prefill_{b}`` per bucket, ``decode``, with
+   ``paged=`` ``kv_copy`` and ``suffix`` (one graph per slot), with
+   ``spec=`` ``draft_prefill_{b}`` per bucket, ``draft`` and
+   ``verify``.  The warm-up of step 3 ran on the capture stream, so
+   every lazy set-up and every per-stream scratch buffer
+   (ops/flash_decode.py ``_scratch``) exists before the captures.  All
+   graphs share one memory pool: they never replay at once, and each
+   call copies its outputs out before the next replay.  The caches keep
+   their addresses and are zeroed after the captures.
+
+Every call validates on the host, copies its inputs into the program's
+static buffers and replays (on the CPU: runs the eager step on them).
+``run_eager`` runs the eager step a graph was captured from, on the
+same caches, for the tests and the smoke script to hold each replay
+against.  ``stats()["captures"]`` counts the graphs per program and
+``recaptures`` those captured since setup (the JAX ``traces`` /
+``retraces``): the engine captures only in ``setup``.
 
 The decode attention is ``RLT_DECODE_IMPL`` (ops/flash_decode.py):
 ``paged`` walks the identity page table of the slot cache
@@ -26,28 +45,29 @@ and its page size tiles ``max_seq_len``, and degrades to the
 slot-contiguous ``flash_decode`` kernel otherwise, as the JAX engine
 does; ``decode_kernel`` says which runs.
 
-PyTorch runs eagerly, so there is no trace or compile cache: the JAX
-engine's strategy/mesh, compile cache, KV shipping and int8-resident
-drafts are not ported yet, and asking for them raises.  One CUDA graph
-per bucket is the planned counterpart of "compiled once".
+The JAX engine's strategy/mesh, compile cache, KV shipping and
+int8-resident drafts are not ported yet, and asking for them raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
-from typing import Any, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ray_lightning_tpu_torch._device import resolve_device
-from ray_lightning_tpu_torch.core.steps import (build_decode_step,
+from ray_lightning_tpu_torch.core.steps import (CapturedGraph,
+                                                build_decode_step,
                                                 build_draft_step,
                                                 build_kv_copy,
                                                 build_prefill_step,
                                                 build_suffix_step,
-                                                build_verify_step)
+                                                build_verify_step,
+                                                capture_graph, copy_in)
 from ray_lightning_tpu_torch.ops import _kernels
 from ray_lightning_tpu_torch.ops.flash_decode import resolve_decode_impl
 from ray_lightning_tpu_torch.serve.fleet.pages import identity_page_table
@@ -122,6 +142,18 @@ class ServeEngine:
         self._verify = None
         self._dk: Optional[torch.Tensor] = None
         self._dv: Optional[torch.Tensor] = None
+        #: program key (name, variant: a suffix graph's slot) -> the step
+        #: on its caches, and its static input buffers
+        self._programs: "dict[tuple, tuple[Callable, tuple]]" = {}
+        #: the programs' CUDA graphs (empty on the CPU)
+        self._graphs: "dict[tuple, CapturedGraph]" = {}
+        #: graphs captured per program name, and at the end of setup
+        self.captures: "dict[str, int]" = {}
+        self._captures_at_setup: "dict[str, int]" = {}
+        #: the captures' host ms and the bytes their shared pool reserved
+        self.capture_ms = 0.0
+        self.pool_bytes = 0
+        self._stream: "Optional[torch.cuda.Stream]" = None
 
     # -- setup -------------------------------------------------------------
 
@@ -191,13 +223,20 @@ class ServeEngine:
             self._kv_copy = build_kv_copy()
         if self.spec is not None:
             self._setup_draft(model, impl)
+        self._define_programs()
         self._warm()
+        if dev.type == "cuda":
+            self._capture_all()
+        self._zero_caches()
+        self._captures_at_setup = dict(self.captures)
         _log.info(
             "serve engine ready in %.2fs: device=%s buckets=%s slots=%d "
-            "kv=%s (%.1f MB) decode=%s", time.monotonic() - t0, dev,
-            self.buckets, self.slots, self.kv_spec.shape,
+            "kv=%s (%.1f MB) decode=%s graphs=%d (%.0f ms, pool %.1f MB)",
+            time.monotonic() - t0, dev, self.buckets, self.slots,
+            self.kv_spec.shape,
             self.kv_spec.nbytes(self._k.element_size()) / 2**20,
-            self.decode_kernel)
+            self.decode_kernel, len(self._graphs), self.capture_ms,
+            self.pool_bytes / 2**20)
         return self
 
     def _setup_draft(self, model, impl: str) -> None:
@@ -245,36 +284,119 @@ class ServeEngine:
                                        self.page_table)
         self._verify = build_verify_step(model, impl, self.page_table)
 
-    def _warm(self) -> None:
-        """Run every step once on the scratch caches (first-call costs:
-        kernel library load, cuBLAS handles), then zero the caches."""
-        dev = self.device
+    def _define_programs(self) -> None:
+        """Each program's step on its caches, and its static inputs
+        (zeros, slot 0, length 1: valid values for the warm-up)."""
+        dev, S = self.device, self.slots
+
+        def longs(*shape, fill=0):
+            return torch.full(shape, fill, dtype=torch.long, device=dev)
+
+        def ints(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+        def add(name, step, caches, inputs, variant=None):
+            self._programs[(name, variant)] = (
+                lambda *x: step(*caches, *x), inputs)
+
+        kv = (self._k, self._v)
+        slot, length = longs(1), longs(1, fill=1)
         for b, step in self._prefills.items():
-            step(self._k, self._v,
-                 torch.zeros((1, b), dtype=torch.long, device=dev), 0, 1)
-        zeros = torch.zeros(self.slots, dtype=torch.int32, device=dev)
-        self._decode(self._k, self._v, zeros, zeros)
+            add(f"prefill_{b}", step, kv, (longs(1, b), slot, length))
+        add("decode", self._decode, kv, (ints(S), ints(S)))
         if self.paged is not None:
-            self._kv_copy(self._k, self._v, 0, self.slots - 1, 1)
-            z1 = torch.zeros(1, dtype=torch.int32, device=dev)
-            self._suffix(self._k, self._v, z1, z1, 0)
+            add("kv_copy", self._kv_copy, kv, (longs(1), longs(1, fill=S - 1)))
+            token, pos = ints(1), ints(1)
+            for s in range(S):
+                add("suffix", lambda k, v, t, p, s=s: self._suffix(
+                    k, v, t, p, s), kv, (token, pos), variant=s)
         if self.spec is not None:
+            dkv = (self._dk, self._dv)
             for b, step in self._draft_prefills.items():
-                step(self._dk, self._dv,
-                     torch.zeros((1, b), dtype=torch.long, device=dev), 0,
-                     1)
-            self._draft(self._dk, self._dv, zeros, zeros)
-            z2 = torch.zeros((self.slots, self.spec.k + 1),
-                             dtype=torch.int32, device=dev)
-            self._verify(self._k, self._v, z2, z2)
-            self._dk.zero_()
-            self._dv.zero_()
-        self._k.zero_()
-        self._v.zero_()
+                add(f"draft_prefill_{b}", step, dkv,
+                    (longs(1, b), slot, length))
+            add("draft", self._draft, dkv, (ints(S), ints(S)))
+            k1 = self.spec.k + 1
+            add("verify", self._verify, kv, (ints(S, k1), ints(S, k1)))
+
+    def _warm(self) -> None:
+        """Run every program once on the scratch caches (first-call
+        costs: kernel library load, cuBLAS handles and workspaces, the
+        decode kernels' scratch), on the card on the stream the captures
+        will use."""
+        dev = self.device
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            self._stream = torch.cuda.Stream(dev)
+            self._stream.wait_stream(torch.cuda.current_stream(dev))
+        with (torch.cuda.stream(self._stream) if self._stream is not None
+              else contextlib.nullcontext()):
+            for fn, inputs in self._programs.values():
+                fn(*inputs)
+        if self._stream is not None:
+            torch.cuda.current_stream(dev).wait_stream(self._stream)
+
+    def _zero_caches(self) -> None:
+        for c in (self._k, self._v, self._dk, self._dv):
+            if c is not None:
+                c.zero_()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _capture_all(self) -> None:
+        """One CUDA graph per program (module docstring), in one pool,
+        on the warm-up's stream."""
+        pool = torch.cuda.graph_pool_handle()
+        for key, (fn, inputs) in self._programs.items():
+            g = capture_graph(lambda: fn(*inputs), self.device, pool=pool,
+                              stream=self._stream)
+            self._graphs[key] = g
+            self.captures[key[0]] = self.captures.get(key[0], 0) + 1
+            self.capture_ms += g.capture_ms
+            self.pool_bytes += g.pool_bytes
+
+    def _run(self, name: str, *values, variant=None):
+        """Program ``name``: ``values`` (host arrays or tensors) into its
+        static inputs, then its graph's replay (on the CPU its eager
+        step).  The outputs of a replay are the graph's own buffers:
+        read them before the next call."""
+        key = (name, variant)
+        fn, inputs = self._programs[key]
+        for buf, v in zip(inputs, values):
+            copy_in(buf, v)
+        graph = self._graphs.get(key)
+        return graph.replay() if graph is not None else fn(*inputs)
+
+    @torch.inference_mode()
+    def run_eager(self, name: str, *values, variant=None):
+        """The eager step that program ``name``'s graph was captured
+        from, on the same caches, with ``values`` as its inputs (fresh
+        tensors on the device): what a replay is held against.  Returns
+        its output tensor (not yet synced)."""
+        fn, inputs = self._programs[(name, variant)]
+        args = []
+        for buf, v in zip(inputs, values):
+            t = torch.empty_like(buf)
+            copy_in(t, v)
+            args.append(t)
+        return fn(*args)
 
     # -- serving -----------------------------------------------------------
+
+    def _prompt(self, slot: int, tokens, length: int,
+                bucket: int) -> np.ndarray:
+        """A prefill's inputs, checked on the host (the device indexes
+        with them): ``[1, bucket]`` token ids in the vocabulary."""
+        ids = np.asarray(tokens, np.int64).reshape(1, -1)
+        if bucket not in self._prefills or ids.shape != (1, bucket) \
+                or not 0 <= slot < self.slots or not 1 <= length <= bucket:
+            raise ValueError(f"bad prefill slot={slot} length={length} "
+                             f"bucket={bucket} tokens {ids.shape}")
+        vocab = self.model.config.vocab_size
+        if ids.min() < 0 or ids.max() >= vocab:
+            # prompts come from users: an id past the embedding would be a
+            # device-side fault on the card (the JAX gather clamps it)
+            raise ValueError(f"prompt token ids must lie in [0, {vocab})")
+        return ids
 
     @torch.inference_mode()
     def prefill(self, slot: int, tokens: np.ndarray, length: int,
@@ -282,18 +404,8 @@ class ServeEngine:
         """Insert a request at ``slot``: write its K/V block, return its
         first generated token."""
         t0 = time.monotonic()
-        if not 0 <= slot < self.slots or not 1 <= length <= bucket:
-            raise ValueError(f"bad prefill slot={slot} length={length} "
-                             f"bucket={bucket}")
-        ids = np.asarray(tokens, np.int64).reshape(1, -1)
-        vocab = self.model.config.vocab_size
-        if ids.min() < 0 or ids.max() >= vocab:
-            # prompts come from users: an id past the embedding would be a
-            # device-side fault on the card (the JAX gather clamps it)
-            raise ValueError(f"prompt token ids must lie in [0, {vocab})")
-        toks = torch.from_numpy(ids).to(self.device)
-        out = int(self._prefills[bucket](self._k, self._v, toks,
-                                         int(slot), int(length)))
+        ids = self._prompt(slot, tokens, length, bucket)
+        out = int(self._run(f"prefill_{bucket}", ids, [slot], [length]))
         self._account("prefill", time.monotonic() - t0)
         return out
 
@@ -307,16 +419,13 @@ class ServeEngine:
                              f"[0, {self.max_seq_len}), got {pos}")
         return pos
 
-    def _on_device(self, array) -> torch.Tensor:
-        return torch.from_numpy(np.asarray(array, np.int32)).to(self.device)
-
     @torch.inference_mode()
     def decode(self, tokens: np.ndarray,
                positions: np.ndarray) -> np.ndarray:
         """One continuous-batching step: every slot advances a token."""
         t0 = time.monotonic()
-        out = self._decode(self._k, self._v, self._on_device(tokens),
-                           self._on_device(self._positions(positions)))
+        out = self._run("decode", np.asarray(tokens, np.int32),
+                        self._positions(positions))
         result = out.cpu().numpy().astype(np.int32)
         self._account("decode", time.monotonic() - t0)
         return result
@@ -325,7 +434,8 @@ class ServeEngine:
     def prefill_reused(self, slot: int, src_slot: int, tokens: np.ndarray,
                        length: int, matched: int) -> int:
         """Prefix-cache-hit insertion (serve/fleet/pages.py): copy the
-        ``matched`` donor rows on the device, then teacher-force ONLY the
+        donor's rows on the device (the ``matched`` ones and the rest,
+        core/steps.py ``build_kv_copy``), then teacher-force ONLY the
         unmatched suffix through the one-slot suffix step.  The last
         suffix step's argmax is the request's first generated token —
         the greedy contract of :meth:`prefill` at ``length - matched``
@@ -343,8 +453,7 @@ class ServeEngine:
         if toks[:length].min() < 0 or toks[:length].max() >= vocab:
             raise ValueError(f"prompt token ids must lie in [0, {vocab})")
         t0 = time.monotonic()
-        self._kv_copy(self._k, self._v, int(src_slot), int(slot),
-                      int(matched))
+        self._run("kv_copy", [src_slot], [slot])
         self._account("kv_copy", time.monotonic() - t0)
         # a full-prompt match still replays the final prompt token (a
         # same-value rewrite) to read its logits for the first token
@@ -355,8 +464,7 @@ class ServeEngine:
             dev)
         pos = torch.arange(first, length, dtype=torch.int32, device=dev)
         for i in range(length - first):
-            out = self._suffix(self._k, self._v, suffix[i], pos[i],
-                               int(slot))
+            out = self._run("suffix", suffix[i], pos[i], variant=int(slot))
         token = int(out)
         self._account("suffix", time.monotonic() - t0, n=length - first)
         return token
@@ -370,10 +478,8 @@ class ServeEngine:
         and reused admissions alike: the draft cache has no copy plane).
         Its argmax is discarded: only the target decides tokens."""
         t0 = time.monotonic()
-        ids = np.asarray(tokens, np.int64).reshape(1, -1)
-        self._draft_prefills[bucket](self._dk, self._dv,
-                                     torch.from_numpy(ids).to(self.device),
-                                     int(slot), int(length))
+        ids = self._prompt(slot, tokens, length, bucket)
+        self._run(f"draft_prefill_{bucket}", ids, [slot], [length])
         self._account("draft_prefill", time.monotonic() - t0)
 
     @torch.inference_mode()
@@ -381,8 +487,8 @@ class ServeEngine:
         """One k-step draft round over every slot: ``[S, k]`` drafted
         tokens (core/steps.py ``build_draft_step``)."""
         t0 = time.monotonic()
-        out = self._draft(self._dk, self._dv, self._on_device(tokens),
-                          self._on_device(self._positions(positions)))
+        out = self._run("draft", np.asarray(tokens, np.int32),
+                        self._positions(positions))
         drafts = out.cpu().numpy().astype(np.int32)
         self._account("draft", time.monotonic() - t0)
         return drafts
@@ -400,8 +506,7 @@ class ServeEngine:
                                 np.asarray(drafts, np.int32)], axis=1)
         pos2 = (pos[:, None]
                 + np.arange(self.spec.k + 1, dtype=np.int32)[None, :])
-        out = self._verify(self._k, self._v, self._on_device(toks2),
-                           self._on_device(pos2))
+        out = self._run("verify", toks2, pos2)
         ver = out.cpu().numpy().astype(np.int32)
         self._account("verify", time.monotonic() - t0)
         return ver
@@ -423,15 +528,36 @@ class ServeEngine:
                 "draft", "verify")
 
     def stats(self) -> dict:
-        """Which decode attention serves the hot path, the steps served,
-        the launch counts in this process of the serve path's kernels,
-        and the draft plane's shape."""
+        """The engine's evidence:
+
+        - ``decode_kernel``: the decode attention of the hot path
+          (``dense`` | ``flash_decode`` | ``paged``);
+        - ``calls`` / ``seconds``: calls served per program (suffix: per
+          token) and their host wall seconds (:data:`PROGRAMS`);
+        - ``kernel_launches``: this process's launch counts of the serve
+          path's kernels (:data:`KERNELS`), a replay counting its
+          graph's launches;
+        - ``captures``: CUDA graphs per program name (``prefill_{b}``,
+          ``decode``, ``kv_copy``, ``suffix`` one a slot,
+          ``draft_prefill_{b}``, ``draft``, ``verify``; empty on the
+          CPU), and ``recaptures``: those captured since setup, 0
+          while serving (the JAX engine's ``traces`` / ``retraces``);
+        - ``capture_ms``: the captures' host ms; ``pool_bytes``: the
+          device memory their shared pool reserved;
+        - ``spec`` (with ``spec=``): ``k``, the draft's layers, and
+          whether its parameters are the target's own tensors.
+        """
         counts = _kernels.launch_counts()
         out = {
             "decode_kernel": self.decode_kernel,
             "calls": dict(self.calls),
             "seconds": dict(self.seconds),
             "kernel_launches": {k: counts[k] for k in self.KERNELS},
+            "captures": dict(self.captures),
+            "recaptures": {n: c - self._captures_at_setup.get(n, 0)
+                           for n, c in self.captures.items()},
+            "capture_ms": self.capture_ms,
+            "pool_bytes": self.pool_bytes,
         }
         if self.spec is not None:
             target = {p.data_ptr() for p in self.model.parameters()}

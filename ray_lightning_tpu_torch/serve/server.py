@@ -1,0 +1,434 @@
+"""The public serving endpoint: ``Server`` — trained weights in,
+multi-tenant generation out.
+
+Counterpart of ``ray_lightning_tpu/serve/server.py``: a driver-side
+:class:`~ray_lightning_tpu_torch.serve.scheduler.Scheduler` forms
+continuous batches over bucketed sequence lengths, and a fleet of
+persistent :class:`~ray_lightning_tpu_torch.serve.worker.ServeWorker`
+actors (subprocesses of the cluster backend, ``cluster/``) executes
+them, each on its own card (``platform="cpu"``: on the CPU), against
+its engine's CUDA graphs::
+
+    server = Server(GPTLightningModule("gpt2-small"), num_workers=1,
+                    buckets=(128, 256, 512, 1024),
+                    max_batch_slots=16).start()
+    req = server.submit(prompt_tokens, tenant="alice")
+    tokens = req.result(timeout=60)          # np.int32 generated ids
+    tokens = server.generate(prompt_tokens)  # submit + wait
+    server.shutdown()                        # graceful drain first
+
+Weights come from ``checkpoint=`` (a port ``Trainer`` checkpoint), the
+module's ``_trained_state`` from a previous ``fit``, or the seeded init.
+With W workers the S slots split in contiguous blocks of S / W, one a
+rank (serve/worker.py).  A pump thread plans, broadcasts each plan to
+every worker, merges their results and applies them; a step that
+raises, or a worker that dies, fails every live and queued request and
+stops the pump.  The telemetry, goodput, profile and flight planes, the
+compile cache, KV shipping, strategies other than data-parallel and
+prefix reuse across more than one worker are not ported yet: asking for
+them raises, naming the ROADMAP.md item.  Prompts and completions are
+token-id arrays: tokenization lives with the caller.
+"""
+
+from __future__ import annotations
+
+import copy
+import logging
+import os
+import threading
+import time
+import uuid
+from dataclasses import dataclass
+from typing import Any, Optional, Sequence
+
+import numpy as np
+
+from ray_lightning_tpu_torch.cluster.backend import get_backend
+from ray_lightning_tpu_torch.cluster.queue import WorkerQueueProxy
+from ray_lightning_tpu_torch.parallel.strategy import (DataParallelStrategy,
+                                                       resolve_strategy)
+from ray_lightning_tpu_torch.plugins.ray_ddp import RayPlugin
+from ray_lightning_tpu_torch.serve.buckets import resolve_buckets
+from ray_lightning_tpu_torch.serve.fleet.pages import PageConfig
+from ray_lightning_tpu_torch.serve.scheduler import Scheduler, ServeRequest
+from ray_lightning_tpu_torch.serve.spec import SpecConfig
+from ray_lightning_tpu_torch.serve.worker import ServeWorker
+from ray_lightning_tpu_torch.util import _drain, process_results
+
+_log = logging.getLogger(__name__)
+
+#: the most ``start()`` waits for the fleet's set-up (spawn, CUDA
+#: initialisation, engine build and captures), as the JAX server
+START_TIMEOUT_S = 600.0
+#: the most one serve step, or a rendezvous or stats call, may take
+STEP_TIMEOUT_S = 300.0
+CALL_TIMEOUT_S = 120.0
+
+
+@dataclass
+class ServeSpec:
+    """Picklable engine configuration shipped to every serve worker;
+    ``slots`` is the fleet's, which each rank splits."""
+
+    module: Any
+    buckets: tuple
+    slots: int
+    max_seq_len: int
+    seed: int
+    paged: Any = None
+    spec: Any = None
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"Server({what}) is not ported yet (ROADMAP.md queue 1 item "
+        f"{item})")
+
+
+class Server:
+    """Multi-tenant generation endpoint over a trained module."""
+
+    def __init__(
+        self,
+        module,
+        checkpoint: Optional[str] = None,
+        *,
+        strategy: Any = None,
+        buckets: Optional[Sequence[int]] = None,
+        max_batch_slots: int = 8,
+        num_workers: int = 1,
+        platform: Optional[str] = None,
+        use_tpu: bool = False,
+        devices_per_worker: Optional[int] = None,
+        max_seq_len: Optional[int] = None,
+        max_new_tokens: int = 32,
+        eos_token: Optional[int] = None,
+        tenant_quotas: "dict[str, int] | int | None" = None,
+        max_prefills_per_step: int = 1,
+        seed: int = 0,
+        default_root_dir: Optional[str] = None,
+        telemetry: Any = None,
+        compile_cache: Any = None,
+        paged: Any = None,
+        spec: Any = None,
+        kvship: bool = False,
+        worker_env: Optional[dict] = None,
+    ):
+        if num_workers < 1:
+            raise ValueError("num_workers must be >= 1")
+        if use_tpu:
+            raise ValueError("use_tpu: the port serves on CUDA cards "
+                             "(platform='cuda', the default) or the CPU")
+        if platform not in (None, "cuda", "gpu", "cpu"):
+            raise ValueError(f"platform must be 'cuda' or 'cpu', got "
+                             f"{platform!r}")
+        #: "cuda": one card a worker; "cpu": CPU workers
+        #: (``devices_per_worker`` torch threads each)
+        self.platform = "cpu" if platform == "cpu" else "cuda"
+        if self.platform == "cuda" and (devices_per_worker or 1) != 1:
+            raise _not_ported("devices_per_worker > 1 on the card", 9)
+        if telemetry not in (None, False):
+            raise _not_ported("telemetry=...", 13)
+        if compile_cache is not None:
+            raise _not_ported("compile_cache=...", 12)
+        if kvship:
+            raise _not_ported("kvship=True", 8)
+        self.strategy = resolve_strategy(strategy)
+        if type(self.strategy) is not DataParallelStrategy:
+            raise _not_ported(f"strategy={strategy!r}", 9)
+        self.module = module
+        if max_seq_len is None:
+            max_seq_len = getattr(getattr(module, "config", None),
+                                  "block_size", None)
+            if max_seq_len is None:
+                raise ValueError(
+                    "pass max_seq_len= (module.config has no block_size)")
+        self.max_seq_len = int(max_seq_len)
+        self.buckets = resolve_buckets(buckets, self.max_seq_len)
+        self.max_batch_slots = int(max_batch_slots)
+        self.num_workers = int(num_workers)
+        if self.max_batch_slots % self.num_workers:
+            raise ValueError(
+                f"max_batch_slots={self.max_batch_slots} must divide by "
+                f"num_workers={self.num_workers}: each rank serves a "
+                f"block of S / W slots")
+        self.paged = PageConfig.resolve(paged)
+        self.spec = SpecConfig.resolve(spec)
+        if self.paged.enabled and self.num_workers > 1:
+            # a prefix donor may sit on another rank's block
+            raise _not_ported("paged=... with num_workers > 1", 3)
+        self.devices_per_worker = devices_per_worker
+        self.seed = int(seed)
+        # default_root_dir holds the telemetry plane's files, not ported
+        del default_root_dir
+        self.worker_env = dict(worker_env or {})
+        self.scheduler = Scheduler(
+            self.buckets, self.max_batch_slots, self.max_seq_len,
+            quotas=tenant_quotas,
+            max_prefills_per_step=max_prefills_per_step,
+            default_max_new_tokens=max_new_tokens, eos_token=eos_token,
+            paged=self.paged, spec=self.spec)
+        self._weights = self._resolve_weights(module, checkpoint)
+        self._backend = None
+        self._workers: list = []
+        self._pump: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self._work = threading.Event()
+        self._draining = False
+        self._started = False
+        self._error: Optional[BaseException] = None
+        self._setup_info: list = []
+        #: ``start()``'s wall seconds by part: spawn (actors up and
+        #: rendezvoused), setup (every worker's engine built, captures
+        #: included), capture (the slowest worker's captures), total
+        self.start_timing: dict = {}
+        #: the pump's dispatches and their wall seconds (the broadcast,
+        #: the workers' steps and the merge)
+        self.pump_stats = {"steps": 0, "step_s": 0.0}
+
+    @staticmethod
+    def _resolve_weights(module, checkpoint: Optional[str]):
+        """Weights for the fleet, on the host: a port ``Trainer``
+        checkpoint's params, a module's ``_trained_state`` from a
+        previous ``fit``, or ``None`` (the seeded init)."""
+        if checkpoint is not None:
+            from ray_lightning_tpu_torch.core.trainer import Trainer
+            state = Trainer.load_checkpoint_dict(checkpoint, "cpu")["state"]
+            return {**state["params"], **state.get("model_state", {})}
+        trained = getattr(module, "_trained_state", None)
+        if trained is not None:
+            return {k: v.detach().cpu() for k, v in trained.items()}
+        return None
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def start(self) -> "Server":
+        """Spawn the fleet, rendezvous, build every engine (captured on
+        the card), start the pump.  Blocking; returns self."""
+        if self._started:
+            return self
+        if self._stop.is_set():
+            raise RuntimeError("this Server was shut down; make a new one")
+        t0 = time.monotonic()
+        backend = self._backend = get_backend()
+        env = self._worker_env_base()
+        tag = uuid.uuid4().hex[:8]
+        self._workers = [
+            backend.create_actor(
+                ServeWorker, env=env, resources=self._worker_resources(),
+                name=f"rlt-serve-{os.getpid()}-{tag}-{i}")
+            for i in range(self.num_workers)]
+        try:
+            self._rendezvous()
+            t1 = time.monotonic()
+            # the module travels without its live model, trainer or
+            # trained state: the weights ride beside it, on the host
+            shipped = copy.copy(self.module)
+            shipped.model = shipped.trainer = None
+            shipped._trained_state = None
+            spec = ServeSpec(
+                module=shipped, buckets=self.buckets,
+                slots=self.max_batch_slots, max_seq_len=self.max_seq_len,
+                seed=self.seed, paged=self.paged, spec=self.spec)
+            ref = backend.put((spec, self._weights))
+            try:
+                self._setup_info = process_results(
+                    [w.call("setup_serve", ref, i, WorkerQueueProxy())
+                     for i, w in enumerate(self._workers)], backend,
+                    START_TIMEOUT_S)
+            finally:
+                backend.free(ref)
+        except BaseException:
+            self._kill_workers()
+            raise
+        t2 = time.monotonic()
+        self.start_timing = {
+            "spawn_s": t1 - t0, "setup_s": t2 - t1,
+            "capture_s": max(i["stats"]["capture_ms"]
+                             for i in self._setup_info) / 1e3,
+            "total_s": t2 - t0}
+        info = self._setup_info[0]
+        _log.info("serve fleet ready in %.2f s (spawn %.2f, setup %.2f, "
+                  "captures %.2f): %d worker(s) on %s, buckets=%s, "
+                  "slots=%d a worker", t2 - t0, t1 - t0, t2 - t1,
+                  self.start_timing["capture_s"], self.num_workers,
+                  [i["device"] for i in self._setup_info], info["buckets"],
+                  info["slots"])
+        self._started = True
+        self._pump = threading.Thread(target=self._pump_loop, daemon=True,
+                                      name="rlt-serve-pump")
+        self._pump.start()
+        return self
+
+    def _worker_env_base(self) -> dict:
+        """The workers' environment (plugins/ray_ddp.py's plumbing):
+        their count and platform; CPU workers see no card."""
+        env = {"RLT_NUM_PROCESSES": str(self.num_workers),
+               "RLT_PLATFORM": self.platform}
+        if self.platform == "cpu":
+            env["CUDA_VISIBLE_DEVICES"] = ""
+            env["RLT_CPU_THREADS"] = str(self.devices_per_worker or 1)
+        env.update(self.worker_env)
+        return env
+
+    def _worker_resources(self) -> dict:
+        res: dict = {"CPU": 1.0}
+        if self.platform == "cuda":
+            res["GPU"] = 1.0
+        return res
+
+    def _rendezvous(self) -> None:
+        """Each worker's node and local rank from the node addresses, as
+        a fit assigns them (``RayPlugin._assign_local_ranks``); a node
+        hosting more card workers than cards raises."""
+        info = process_results([w.call("get_node_and_device_info")
+                                for w in self._workers], self._backend,
+                               CALL_TIMEOUT_S)
+        ranks = RayPlugin._assign_local_ranks(info)
+        if self.platform == "cuda":
+            RayPlugin._check_gpu_fit(info, ranks)
+        process_results([w.call("set_env_var", "LOCAL_RANK",
+                                str(ranks[i][1]))
+                         for i, w in enumerate(self._workers)],
+                        self._backend, CALL_TIMEOUT_S)
+
+    # -- request surface ---------------------------------------------------
+
+    def submit(self, prompt, tenant: str = "default",
+               max_new_tokens: Optional[int] = None,
+               ship_kv: bool = False) -> ServeRequest:
+        """Enqueue a prompt (token ids); returns a handle whose
+        ``result()`` blocks for the generated tokens."""
+        if not self._started:
+            raise RuntimeError("Server.start() first")
+        if self._draining:
+            raise RuntimeError("server is draining; no new requests")
+        if self._error is not None:
+            raise RuntimeError("serve fleet failed") from self._error
+        req = self.scheduler.submit(prompt, tenant=tenant,
+                                    max_new_tokens=max_new_tokens,
+                                    ship_kv=ship_kv)
+        self._work.set()
+        return req
+
+    def generate(self, prompt, tenant: str = "default",
+                 max_new_tokens: Optional[int] = None,
+                 timeout: Optional[float] = 300.0) -> np.ndarray:
+        """Blocking submit-and-wait."""
+        return self.submit(prompt, tenant=tenant,
+                           max_new_tokens=max_new_tokens).result(timeout)
+
+    # -- KV-page shipping (fleet disaggregation): not ported ---------------
+
+    def can_ship_kv(self) -> bool:
+        return False
+
+    def can_adopt_kv(self) -> bool:
+        return False
+
+    def export_kv(self, prompt_tokens, req_id: "int | None" = None):
+        raise _not_ported("export_kv", 8)
+
+    def import_kv(self, prompt_tokens, k_rows, v_rows) -> bool:
+        raise _not_ported("import_kv", 8)
+
+    # -- the pump ----------------------------------------------------------
+
+    def _pump_loop(self) -> None:
+        sched = self.scheduler
+        while not self._stop.is_set():
+            _drain(self._backend, {w.actor_id for w in self._workers})
+            plan = sched.plan()
+            if plan is None:
+                if self._draining and sched.idle():
+                    return
+                self._work.wait(0.02)
+                self._work.clear()
+                continue
+            t0 = time.monotonic()
+            try:
+                results = process_results(
+                    [w.call("serve_step", plan) for w in self._workers],
+                    self._backend, STEP_TIMEOUT_S)
+                if not results or any(r is None for r in results):
+                    raise RuntimeError(
+                        "a serve worker returned no step result")
+                merged: dict = {"prefill": {}, "decode": {}}
+                for r in results:      # each rank's block of slots
+                    merged["prefill"].update(r["prefill"])
+                    merged["decode"].update(r["decode"])
+                sched.apply(plan, merged)
+            except BaseException as e:   # noqa: BLE001 - fleet failure
+                _log.error("serve step failed; failing %d live request(s)",
+                           sched.active_count + sched.queued_count,
+                           exc_info=True)
+                self._error = e
+                sched.fail_all(e)
+                return
+            self.pump_stats["steps"] += 1
+            self.pump_stats["step_s"] += time.monotonic() - t0
+
+    # -- drain / shutdown --------------------------------------------------
+
+    def drain(self, timeout: Optional[float] = 300.0) -> None:
+        """Graceful drain: stop admitting, finish every in-flight and
+        queued request, stop the pump.  Idempotent."""
+        self._draining = True
+        self._work.set()
+        if self._pump is not None and self._pump.is_alive():
+            self._pump.join(timeout)
+            if self._pump.is_alive():
+                raise TimeoutError(f"drain incomplete after {timeout}s")
+
+    def stats(self) -> dict:
+        """The scheduler's stats, each worker's setup facts, ``start()``'s
+        seconds by part, the pump's steps and seconds, the failure that
+        stopped the pump (if one did) and, while the fleet is up, each
+        worker's ``serve_stats`` (the engine's stats: launches, captures
+        and recaptures, capture ms, pool bytes)."""
+        out = {"scheduler": self.scheduler.stats(),
+               "setup": self._setup_info, "start": dict(self.start_timing),
+               "pump": dict(self.pump_stats)}
+        if self._error is not None:
+            out["failure"] = {"cause": repr(self._error)}
+        if self._started and self._workers and self._error is None:
+            out["workers"] = process_results(
+                [w.call("serve_stats") for w in self._workers],
+                self._backend, CALL_TIMEOUT_S)
+        return out
+
+    def shutdown(self, graceful: bool = True) -> None:
+        """Drain (when ``graceful``), stop the pump and the fleet.  The
+        process-wide cluster backend stays up (a trainer may share
+        it)."""
+        if graceful and self._started and self._error is None:
+            try:
+                self.drain()
+            except TimeoutError:
+                _log.warning("graceful drain timed out; killing the fleet")
+        self._stop.set()
+        self._work.set()
+        if self._pump is not None and self._pump.is_alive():
+            self._pump.join(10)
+        if self._started and self._error is None:
+            try:
+                process_results([w.call("teardown_serve")
+                                 for w in self._workers], self._backend, 30)
+            except Exception:   # noqa: BLE001 - the actors die next
+                _log.warning("serve teardown failed", exc_info=True)
+        self._kill_workers()
+        self._started = False
+
+    def _kill_workers(self) -> None:
+        for w in self._workers:
+            w.kill()
+        self._workers = []
+
+    def __enter__(self) -> "Server":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.shutdown(graceful=exc[0] is None)
+
+
+__all__ = ["Server", "ServeSpec"]

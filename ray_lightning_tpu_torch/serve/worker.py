@@ -1,32 +1,105 @@
-"""The serve step: one scheduler plan executed on the engine.
+"""The persistent serve actor, and the serve step: one scheduler plan
+executed on the engine.
 
-Counterpart of ``ray_lightning_tpu/serve/worker.py``
-``ServeWorker.serve_step``.  The actor plumbing (``setup_serve``, the
-cluster backends, telemetry sinks, profiler windows) is not ported yet:
-here the worker wraps an engine in the driver's own process, the way
-the JAX package's tests drive the loop.
+Counterpart of ``ray_lightning_tpu/serve/worker.py`` ``ServeWorker``.
+Training actors live for ONE blocking ``execute`` call; a serve worker
+stays resident: ``setup_serve`` takes the worker's device and builds
+the engine once (its programs captured as CUDA graphs on the card),
+then the driver (serve/server.py ``Server``) streams ``serve_step``
+calls for the fleet's whole life.  It extends the generic
+:class:`~ray_lightning_tpu_torch.cluster.executor.RLTExecutor`, so the
+driver-side rendezvous plumbing (node address, env vars) is the one the
+fit path uses.
+
+Lockstep contract: every worker of a fleet receives the IDENTICAL plan.
+With W workers the fleet's S slots split in contiguous blocks of S / W
+(the JAX ``kv_cache_spec`` shards the slots over the data axes the same
+way): each rank decodes, drafts and verifies its own block, runs the
+prefills of its own slots, and returns its block's results, which the
+driver merges.  The JAX ranks return nothing but rank 0's replicated
+outputs; here no collective is needed.
+
+``ServeWorker(engine)`` is the in-process form (the tests and the smoke
+script drive the loop without actors): it owns all the engine's slots.
+The telemetry sinks and the profile windows are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any
+import os
+import time
+from typing import Any, Optional
 
+from ray_lightning_tpu_torch._device import worker_device
+from ray_lightning_tpu_torch.cluster.executor import RLTExecutor
 from ray_lightning_tpu_torch.telemetry import span
 
 
-class ServeWorker:
+class ServeWorker(RLTExecutor):
     """Holds one :class:`~ray_lightning_tpu_torch.serve.engine.
-    ServeEngine` and runs plans on it."""
+    ServeEngine` and runs plans on it: in process around a given engine,
+    or as an actor that builds its own in :meth:`setup_serve`."""
 
-    def __init__(self, engine):
+    def __init__(self, engine=None, env: Optional[dict] = None):
+        super().__init__(env)
         self._engine = engine
+        self._rank = 0
+        #: the fleet's slots ``[lo, hi)`` this worker serves (``None``:
+        #: every slot of its engine, the in-process form)
+        self._block: "Optional[tuple[int, int]]" = None
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def setup_serve(self, payload: tuple, rank: int, queue=None) -> dict:
+        """Take this worker's device, build and capture its engine over
+        its block of slots, and return the setup facts the driver logs:
+        rank, device, buckets, slots and their block, the KV shape, the
+        seconds it took and the engine's stats.
+
+        ``payload`` is ``(ServeSpec, weights)``.  The device is the
+        worker's local card ``LOCAL_RANK``, made current, or the CPU
+        under ``RLT_PLATFORM=cpu`` (``torch.set_num_threads`` of
+        ``RLT_CPU_THREADS``); a GPU worker without CUDA raises.
+        ``queue`` (the worker-to-driver proxy) feeds the telemetry
+        sinks, which are not ported yet."""
+        from ray_lightning_tpu_torch.serve.engine import ServeEngine
+
+        t0 = time.monotonic()
+        spec, weights = payload
+        self._rank = int(rank)
+        n = int(os.environ.get("RLT_NUM_PROCESSES", "1"))
+        per = spec.slots // n
+        self._block = (self._rank * per, (self._rank + 1) * per)
+        device = worker_device(
+            os.environ.get("RLT_PLATFORM", "cuda") != "cpu",
+            int(os.environ.get("LOCAL_RANK", "0")),
+            int(os.environ.get("RLT_CPU_THREADS", "1")),
+            "Server", "platform='cpu'")
+        self._engine = ServeEngine(
+            spec.module, spec.buckets, per, spec.max_seq_len,
+            seed=spec.seed, weights=weights, device=device,
+            paged=spec.paged, spec=spec.spec).setup()
+        eng = self._engine
+        return {
+            "rank": self._rank,
+            "device": str(device),
+            "buckets": list(eng.buckets),
+            "slots": eng.slots,
+            "slot_block": list(self._block),
+            "kv_shape": list(eng.kv_spec.shape),
+            "setup_s": time.monotonic() - t0,
+            "stats": eng.stats(),
+        }
+
+    # -- the serving hot path ----------------------------------------------
 
     def serve_step(self, plan: dict) -> dict:
         """Execute one scheduler plan: one decode over every live slot
         (or, under speculative decoding, one draft round and one verify),
         then the admitting prefills — fresh, or a prefix-cache hit's copy
         and suffix — each followed by its draft prefill under speculative
-        decoding (scheduler.py plan format).
+        decoding (scheduler.py plan format).  On this worker's block of
+        slots only; slot ids in the result are the fleet's.
 
         The order is load-bearing.  The decode step has static shapes,
         so it writes K/V for EVERY slot — slots outside ``decode_slots``
@@ -40,59 +113,88 @@ class ServeWorker:
         Free slots that are NOT admitted this step keep the dummy entry
         harmlessly: their next prefill rewrites the whole prefix
         (kvcache.py invariant)."""
-        engine = self._engine
         if plan.get("profile") is not None:
             raise NotImplementedError(
                 "profile windows are not ported yet")
+        if any(p.get("export_kv") is not None for p in plan["prefills"]):
+            raise NotImplementedError(
+                "KV export (disaggregated serving) is not ported yet")
+        engine = self._engine
+        if engine is None:
+            raise RuntimeError("serve_step before setup_serve")
+        lo, hi = self._block or (0, None)
+
+        def mine(slot: int) -> bool:
+            return lo <= slot and (hi is None or slot < hi)
+
         result: dict[str, Any] = {"prefill": {}, "decode": {}}
         decode = plan.get("decode")
+        if decode is not None:
+            tokens = decode["tokens"][lo:hi]
+            positions = decode["positions"][lo:hi]
+            live = [s for s in decode["slots"] if mine(s)]
         if decode is not None and decode.get("spec"):
             # speculative round: k draft steps then ONE batched target
             # verify; the SCHEDULER decides acceptance from the raw
             # outputs (scheduler._apply_spec), the worker stays stateless
             with span("draft", traces=decode.get("traces"),
-                      slots=len(decode["slots"])):
-                drafts = engine.draft(decode["tokens"],
-                                      decode["positions"])
+                      slots=len(live)):
+                drafts = engine.draft(tokens, positions)
             with span("verify", traces=decode.get("traces"),
-                      slots=len(decode["slots"])):
-                ver = engine.verify(decode["tokens"],
-                                    decode["positions"], drafts)
-            for s in decode["slots"]:
+                      slots=len(live)):
+                ver = engine.verify(tokens, positions, drafts)
+            for s in live:
                 result["decode"][s] = {
-                    "draft": [int(x) for x in drafts[s]],
-                    "verify": [int(x) for x in ver[s]]}
+                    "draft": [int(x) for x in drafts[s - lo]],
+                    "verify": [int(x) for x in ver[s - lo]]}
         elif decode is not None:
             # ONE span for the shared decode step
             with span("decode", traces=decode.get("traces"),
-                      slots=len(decode["slots"])):
-                toks = engine.decode(decode["tokens"],
-                                     decode["positions"])
-            for s in decode["slots"]:
-                result["decode"][s] = int(toks[s])
+                      slots=len(live)):
+                toks = engine.decode(tokens, positions)
+            for s in live:
+                result["decode"][s] = int(toks[s - lo])
         for p in plan["prefills"]:
-            if p.get("export_kv") is not None:
-                raise NotImplementedError(
-                    "KV export (disaggregated serving) is not ported yet")
+            if not mine(p["slot"]):
+                continue
+            slot = p["slot"] - lo
             reuse = p.get("reuse")
             with span("prefill", trace=p.get("trace"),
                       bucket=p["bucket"], slot=p["slot"],
                       reused=(reuse or {}).get("matched", 0)):
                 if reuse is not None:
                     # prefix-cache hit (serve/fleet/pages.py): copy the
-                    # matched donor pages, compute only the suffix
+                    # matched donor pages, compute only the suffix (one
+                    # worker only: Server refuses paged= across ranks)
                     result["prefill"][p["slot"]] = engine.prefill_reused(
-                        p["slot"], reuse["src"], p["tokens"],
+                        slot, reuse["src"] - lo, p["tokens"],
                         p["length"], reuse["matched"])
                 else:
                     result["prefill"][p["slot"]] = engine.prefill(
-                        p["slot"], p["tokens"], p["length"], p["bucket"])
+                        slot, p["tokens"], p["length"], p["bucket"])
             if p.get("draft"):
                 # prime the draft cache for the admitted prompt (fresh
                 # AND reused admissions: the draft cache has no copy
                 # plane, it always recomputes the full prefix)
-                engine.draft_prefill(p["slot"], p["tokens"], p["length"],
+                engine.draft_prefill(slot, p["tokens"], p["length"],
                                      p["bucket"])
         return result
+
+    # -- evidence / teardown -----------------------------------------------
+
+    def serve_stats(self) -> dict:
+        """The engine's stats (serve/engine.py ``stats``), this rank's
+        block and its process id."""
+        if self._engine is None:
+            return {}
+        return {**self._engine.stats(), "rank": self._rank,
+                "slot_block": list(self._block or (0, self._engine.slots)),
+                "pid": os.getpid()}
+
+    def teardown_serve(self) -> None:
+        """Drop the engine (its caches and graphs) before the actor is
+        stopped."""
+        self._engine = None
+
 
 __all__ = ["ServeWorker"]

@@ -80,7 +80,8 @@ def process_results(futures: Sequence[Future], backend: ClusterBackend,
                 f"workers {waiting} of {len(pending)} still running after "
                 f"{timeout:.0f} s")
         if not drained:
-            time.sleep(poll_interval)
+            # wakes as soon as the first call still running returns
+            next(f for f in pending if not f.done()).wait(poll_interval)
     # items sent just before the workers finished
     _drain(backend, actors, validator)
     errors = [(i, f.error()) for i, f in enumerate(pending) if f.error()]

@@ -15,7 +15,10 @@ more cards, through the plugins' workers, one a card (ZeRO-1 against
 DDP).  The workers unpickle this module's callbacks by name.  The loop
 engine's graphed chunks (``steps_per_execution`` on the card) equal the
 eager fits bit for bit, in process, under a one-rank NCCL group and,
-with two or more cards, cached across workers against one process.
+with two or more cards, cached across workers against one process.  The
+serve engine captures each program once at setup, each replay equals
+the eager step it was captured from bit for bit, and, with two or more
+cards, ``Server(num_workers=2)`` puts a worker on each.
 
 Every test here is marked ``cuda`` and skips without a card (decided
 when the test runs, never while the module is imported).  The file
@@ -37,7 +40,8 @@ import torch
 from ray_lightning_tpu_torch import (GPT, BertLightningModule,
                                      BertMLMModule, Callback,
                                      GPTLightningModule, Scheduler,
-                                     ServeEngine, ServeWorker, Trainer)
+                                     ServeEngine, ServeWorker, Server,
+                                     Trainer)
 from ray_lightning_tpu_torch.models.gpt import GPTConfig
 from ray_lightning_tpu_torch.ops import _kernels
 from ray_lightning_tpu_torch.ops.attention import dot_product_attention
@@ -1400,3 +1404,195 @@ def test_cuda_stream_prefetch_equals_no_prefetch(cuda_device, monkeypatch):
     monkeypatch.setenv("RLT_STREAM_PREFETCH", "0")
     _, got, _ = _engine_fit(cuda_device, 6, _tiny_gpt())
     assert all(torch.equal(got[n], want[n]) for n in want)
+
+
+# -- the serve engine's CUDA graphs and the Server over card workers ----------
+
+def _spec_engine():
+    """The paged 12-layer engine with speculation (k=3): every program
+    the engine has, each captured at setup."""
+    return _paged_engine(SpecConfig(True, k=3))
+
+
+def _serve_mixed(eng, spec):
+    """Every bucket, several slots and lengths, prefix reuse and spec
+    rounds: the shared-prefix traffic of ``_drive``, then prompts of
+    5-60 tokens."""
+    _drive(eng, spec)
+    sched = Scheduler(buckets=(32, 64), slots=4, max_seq_len=128,
+                      default_max_new_tokens=6, paged=PageConfig(True, 16),
+                      spec=spec)
+    reqs = [sched.submit(np.arange(1, n)) for n in (5, 21, 40, 61, 9)]
+    worker = ServeWorker(eng)
+    while not sched.idle():
+        sched.apply(plan := sched.plan(), worker.serve_step(plan))
+    assert all(len(r.result(0)) == 6 for r in reqs)
+
+
+@pytest.mark.cuda
+def test_cuda_engine_captures_each_program_once(cuda_device, monkeypatch):
+    """Setup captures one graph per program (one suffix graph a slot);
+    serving every bucket, several slots and lengths, prefix reuse and
+    spec rounds replays them and captures nothing more."""
+    monkeypatch.setenv("RLT_DECODE_IMPL", "paged")
+    spec = SpecConfig(True, k=3)
+    eng = _spec_engine()
+    want = {"prefill_32": 1, "prefill_64": 1, "decode": 1, "kv_copy": 1,
+            "suffix": 4, "draft_prefill_32": 1, "draft_prefill_64": 1,
+            "draft": 1, "verify": 1}
+    assert eng.stats()["captures"] == want
+    _serve_mixed(eng, spec)
+    # a spec scheduler plans draft + verify rounds only
+    eng.decode(np.ones(4, np.int32), np.array([3, 30, 60, 127], np.int32))
+    stats = eng.stats()
+    assert stats["captures"] == want
+    assert stats["recaptures"] == {n: 0 for n in want}
+    assert all(stats["calls"][p] > 0 for p in eng.PROGRAMS), stats["calls"]
+    assert stats["capture_ms"] > 0 and stats["pool_bytes"] > 0
+
+
+def _caches(eng) -> list:
+    return [c for c in (eng._k, eng._v, eng._dk, eng._dv) if c is not None]
+
+
+def _snapshot(eng):
+    return [c.clone() for c in _caches(eng)]
+
+
+@torch.inference_mode()
+def _restore(eng, snap):
+    for c, s in zip(_caches(eng), snap):
+        c.copy_(s)
+
+
+@pytest.mark.cuda
+def test_cuda_replayed_programs_equal_their_eager_steps(cuda_device,
+                                                        monkeypatch):
+    """Each program's replay against the eager step it was captured
+    from, on the same caches (those of real traffic) and inputs: the
+    same outputs and the same caches after, bit for bit."""
+    monkeypatch.setenv("RLT_DECODE_IMPL", "paged")
+    eng = _spec_engine()
+    _serve_mixed(eng, SpecConfig(True, k=3))
+    S, k1 = eng.slots, eng.spec.k + 1
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, 256, S).astype(np.int32)
+    pos = np.array([7, 40, 90, 127], np.int32)
+    cases = [("decode", (toks, pos), None),
+             ("kv_copy", ([0], [2]), None),
+             ("suffix", ([11], [45]), 2),
+             ("draft", (toks, pos), None),
+             # consecutive positions, as the engine sends them: slot 3's
+             # run past the cache end (their rows are dropped)
+             ("verify", (rng.integers(0, 256, (S, k1)),
+                         pos[:, None] + np.arange(k1)), None)]
+    for b in eng.buckets:
+        ids = np.zeros((1, b), np.int64)
+        ids[0, :b - 3] = rng.integers(0, 256, b - 3)
+        cases += [(f"prefill_{b}", (ids, [1], [b - 3]), None),
+                  (f"draft_prefill_{b}", (ids, [3], [b - 3]), None)]
+    with torch.inference_mode():
+        for name, values, variant in cases:
+            snap = _snapshot(eng)
+            out = eng._run(name, *values, variant=variant)
+            got = None if out is None else out.clone()
+            after = _snapshot(eng)
+            _restore(eng, snap)
+            want = eng.run_eager(name, *values, variant=variant)
+            assert (want is None) == (got is None), name
+            assert want is None or torch.equal(got, want), name
+            assert all(torch.equal(a, b)
+                       for a, b in zip(after, _snapshot(eng))), name
+
+
+@pytest.mark.cuda
+def test_cuda_decode_replay_survives_a_larger_launch_on_its_stream(
+        cuda_device):
+    """The decode kernels keep tickets and a workspace per stream; a
+    larger launch on the capture stream grows them after the capture,
+    and the old ones stay allocated, so the decode graph's replay still
+    gives the eager step's tokens even when the freed blocks would be
+    handed out again (filled with garbage here)."""
+    # L=512: four 128-row splits, three live at position 300, so the
+    # replay's merge goes through the tickets
+    cfg = GPTConfig(vocab_size=256, block_size=512, n_layer=2, n_head=2,
+                    n_embd=64, remat=False)
+    eng = ServeEngine(GPTLightningModule(cfg), buckets=(512,), slots=4,
+                      max_seq_len=512, seed=0).setup()
+    prompt = np.zeros((1, 512), np.int64)
+    prompt[0, :300] = np.arange(300) % 255 + 1
+    for slot in range(4):
+        eng.prefill(slot, prompt, 300, 512)
+    toks = np.arange(1, 5, dtype=np.int32)
+    pos = np.full(4, 300, np.int32)
+    snap = _snapshot(eng)
+    with torch.inference_mode():
+        want = eng.run_eager("decode", toks, pos).clone()
+    _restore(eng, snap)
+    key = (cuda_device.index or 0, eng._stream.cuda_stream)
+    tickets = fd._SCRATCH[key][0]
+    old_n, old_ptr = tickets.numel(), tickets.data_ptr()
+    del tickets
+    g = torch.Generator(device="cuda").manual_seed(0)
+    S2, L, H, D = 64, 512, 2, 32
+    q = torch.randn(S2, 1, H, D, generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    kv = torch.randn(S2, L, H, D, generator=g, device="cuda",
+                     dtype=torch.bfloat16)
+    with torch.cuda.stream(eng._stream):
+        flash_decode_attention(q, kv, kv, torch.full(
+            (S2,), L - 1, dtype=torch.int32, device="cuda"))
+    torch.cuda.current_stream().wait_stream(eng._stream)
+    assert fd._SCRATCH[key][0].numel() > old_n
+    # a freed block goes back to its stream's pool: take blocks of the
+    # old tickets' size there until the old address would come back,
+    # poisoned so that a replay into it could not merge its splits
+    with torch.cuda.stream(eng._stream):
+        junk = []
+        for _ in range(8192):
+            junk.append(torch.full((old_n,), 2 ** 30, dtype=torch.int32,
+                                   device="cuda"))
+            if junk[-1].data_ptr() == old_ptr:
+                break
+    torch.cuda.current_stream().wait_stream(eng._stream)
+    got = eng.decode(toks, pos)
+    assert np.array_equal(got, want.cpu().numpy()), (got, want)
+    assert all(t.data_ptr() != old_ptr for t in junk)
+
+
+@pytest.mark.cuda
+def test_cuda_server_workers_take_one_card_each(cards):
+    """``Server(num_workers=2)`` puts one worker on each card, each over
+    half the slots, with every program captured once: each request's
+    tokens equal one worker's, or differ first at a bf16 near-tie
+    (2e-2) of the whole-sequence forward."""
+    cfg = GPTConfig(vocab_size=256, block_size=64, n_layer=2, n_head=2,
+                    n_embd=64, remat=False)
+    prompts = [np.arange(1, n) for n in (4, 17, 30, 9, 40, 12)]
+    outs, infos = [], []
+    for w in (1, 2):
+        with Server(GPTLightningModule(cfg), num_workers=w,
+                    buckets=(16, 32, 64), max_batch_slots=4,
+                    max_new_tokens=8) as server:
+            reqs = [server.submit(p) for p in prompts]
+            outs.append([r.result(120).tolist() for r in reqs])
+            infos.append(server.stats())
+    devices = [i["device"] for i in infos[1]["setup"]]
+    assert devices == ["cuda:0", "cuda:1"], devices
+    for st in infos:
+        for wk in st["workers"]:
+            assert wk["recaptures"] and not any(wk["recaptures"].values())
+    ref = GPT(dataclasses.replace(cfg, attention_impl="dot"))
+    eng = ServeEngine(GPTLightningModule(cfg), buckets=(16,), slots=1,
+                      max_seq_len=64, seed=0).setup()
+    ref.load_state_dict(eng.model.state_dict())
+    ref.to(dtype=torch.bfloat16)
+    for p, one, two in zip(prompts, *outs):
+        n = next((i for i, (a, b) in enumerate(zip(one, two)) if a != b),
+                 None)
+        if n is None:
+            continue
+        seq = torch.tensor([list(p) + one[:n]], device="cuda")
+        with torch.inference_mode():
+            logits = ref(seq)[0, -1].float()
+        assert abs(logits[one[n]] - logits[two[n]]) <= 2e-2, (p, one, two)

@@ -222,8 +222,8 @@ def test_prefill_and_decode_steps_match_jax(dtype, monkeypatch):
             padded[0, :len(p)] = p
             jk, jv, jfirst = jpre(params, jk, jv, padded, np.int32(slot),
                                   np.int32(len(p)))
-            first = pre(tk, tv, torch.from_numpy(padded).long(), slot,
-                        len(p))
+            first = pre(tk, tv, torch.from_numpy(padded).long(),
+                        torch.tensor([slot]), torch.tensor([len(p)]))
             assert int(first) == int(jfirst), slot
             firsts[slot] = int(first)
         np.testing.assert_allclose(tk.float().numpy(), _np(jk), atol=tol,
