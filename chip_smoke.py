@@ -254,7 +254,35 @@ Phases, each fatal on failure:
    13) and no capture after setup; TTFT p50, the pump's step ms, the
    engine's decode and prefill ms in the worker, tokens/s, ``start()``'s
    seconds by part (spawn, setup, of which the captures), the captures'
-   ms and pool bytes.
+   ms and pool bytes;
+16. the fleet, run first, the driver off CUDA until its near-tie checks:
+   gpt2-small at full width, ``RLT_DECODE_IMPL=paged``, page 16, every
+   replica ``num_workers=1`` with 16 slots and 32 new tokens; the
+   traffic is ``benchmarks/bench_fleet.py`` ``record_trace``'s shape
+   (read, not imported): 64 requests, alice and bob behind 256-token
+   system prompts, carol cold, suffixes of 3-8 tokens, Beta(1.2, 2.0)
+   arrivals over 0.8 s.  (a) one ``Server`` (unpaged) at 1x and 2x, the
+   reference; (b) ``FleetServer(replicas=2, tenant_quotas={"carol":
+   2})`` at 1x and 2x: every request completes, carol never holds more
+   than 2 in flight, prefix hits; (c) a prefill and a decode replica
+   with ``raw`` and ``fp8`` on the wire at 2x: no failover, ``ships +
+   skipped`` = 64, ``raw`` rows installed bit for bit (a probe through
+   ``export_kv`` on both sides), fp8 compression >= 3.0, then one
+   chaos-dropped ship failing over after ``RLT_PEER_RETRIES`` = 2;
+   (d) federation over the ``groups=`` shape (each group's first
+   request alone, then the rest at 2x, own tenants, no slack): hits and
+   ships > 0; (e) one replica, bounds [1, 2], at 4x: a grow in the
+   burst, a shrink in the idle tail, nothing lost; (f) on (b)'s fleet,
+   the whole trace at once and replica 0's worker killed while it holds
+   admitted and queued requests: its queued ones complete elsewhere,
+   its admitted ones fail with ``FleetReplicaLost`` caused by the
+   death, the fleet grows back to two.  Tokens equal (a)'s, or diverge
+   from them at a near-tie: teacher-forced over the shared prefix, the
+   two tokens within 2e-2 in the plain-attention forward (fp32 logits),
+   on the card, or else equal bit for bit one of the engine's own
+   serving paths for the request, replayed in process (fp8's are
+   counted, not held); every replica's launches (rows 1, 13, 14) from
+   its worker stats, no capture after setup.
 
 The next-to-last line is the ``{"kernels": [...]}`` JSON record, one
 entry per TPU kernel row, 1 to 16 (``launches`` from the path phases
@@ -294,7 +322,10 @@ through (b)'s worker fit, then the in-process fits, rows 1 and 6 and the
 kernels line (the phase's gpt2-small launches).  ``--server-only`` runs
 phase 15 with the driver off CUDA, then phase 3 for the tokens to hold
 it against, then checks and times rows 1 and 13 and prints the kernels
-line (phase 15's worker launches) and the last line.
+line (phase 15's worker launches) and the last line.  ``--fleet-only``
+runs phase 16 alone (its legs with the driver off CUDA, then the
+near-tie checks), then checks and times rows 1, 13 and 14 and prints
+their kernels line (the fleet's worker launches) and the last line.
 """
 
 from __future__ import annotations
@@ -308,9 +339,11 @@ import gc
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -339,6 +372,8 @@ from ray_lightning_tpu_torch.ops.flash_decode import (  # noqa: E402
     flash_decode_paged_attention, flash_decode_paged_attention_plain)
 from ray_lightning_tpu_torch.serve import (  # noqa: E402
     PageConfig, Scheduler, ServeEngine, Server, ServeWorker, SpecConfig)
+from ray_lightning_tpu_torch.serve.fleet import (  # noqa: E402
+    FleetReplicaLost, FleetServer)
 from ray_lightning_tpu_torch import tune  # noqa: E402
 from ray_lightning_tpu_torch.tune.integration import (  # noqa: E402
     _CheckpointPayload, _TuneCheckpointCallback)
@@ -1634,6 +1669,665 @@ def check_same_tokens(got: list, want: list) -> None:
                              f"the in-process serve phase's tokens")
     log(f"  server tokens equal the in-process serve phase's "
         f"({len(got)} requests)")
+
+
+# -- phase 16: the fleet -------------------------------------------------------
+
+#: benchmarks/bench_fleet.py ``record_trace``'s shape (read, not imported)
+#: at gpt2-small width: 64 requests, alice and bob behind their shared
+#: 256-token system prompts, carol cold with a 256-token prompt of her
+#: own, suffixes of 3-8 tokens, arrivals front-loaded (Beta(1.2, 2.0)
+#: over 0.8 s); the ``groups=`` shape for the federation leg
+FLEET_REQUESTS = 64
+FLEET_DURATION_S = 0.8
+FLEET_GROUPS = 8
+#: the chaos leg's bounded retries (``RLT_PEER_RETRIES``)
+FLEET_RETRIES = 2
+#: the most one replay or one fleet event may take
+FLEET_WAIT_S = 300.0
+
+
+def fleet_trace(seed: int, vocab: int, groups: "int | None" = None) -> list:
+    """``(at_s, tenant, prompt)`` records of the phase's traffic, sorted
+    by arrival (module constants)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    if groups is not None:
+        shared = {f"g{i}": rng.integers(0, vocab, SYSTEM_PREFIX)
+                  for i in range(groups)}
+        for i in range(FLEET_REQUESTS):
+            tenant = f"g{i % groups}"
+            suffix = rng.integers(0, vocab, int(rng.integers(3, 9)))
+            at = (i + float(rng.uniform(0, 0.5))) * FLEET_DURATION_S \
+                / FLEET_REQUESTS
+            out.append((at, tenant, np.concatenate([shared[tenant],
+                                                    suffix])))
+    else:
+        shared = {t: rng.integers(0, vocab, SYSTEM_PREFIX)
+                  for t in ("alice", "bob")}
+        tenants = ("alice", "bob", "carol")
+        for i in range(FLEET_REQUESTS):
+            tenant = tenants[i % 3]
+            suffix = rng.integers(0, vocab, int(rng.integers(3, 9)))
+            head = shared.get(tenant)
+            if head is None:
+                head = rng.integers(0, vocab, SYSTEM_PREFIX)
+            out.append((float(rng.beta(1.2, 2.0)) * FLEET_DURATION_S,
+                        tenant, np.concatenate([head, suffix])))
+    return sorted(out, key=lambda r: r[0])
+
+
+def replay(endpoint, trace: list, multiplier: float,
+           scramble: bool = False) -> dict:
+    """Submit ``trace`` to a ``Server`` or ``FleetServer`` at its arrival
+    times compressed ``multiplier``-fold, wait for every request; the
+    leg's tokens/s, TTFT p50/p99 (ms) and the handles.  ``scramble``
+    gives every request a tenant of its own."""
+    t0 = time.monotonic()
+    handles = []
+    for i, (at, tenant, prompt) in enumerate(trace):
+        delay = t0 + at / multiplier - time.monotonic()
+        if delay > 0:
+            time.sleep(delay)
+        handles.append(endpoint.submit(
+            prompt, tenant=f"{tenant}~{i}" if scramble else tenant,
+            max_new_tokens=NEW_TOKENS))
+    errors = []
+    for h in handles:
+        try:
+            h.result(FLEET_WAIT_S)
+        except TimeoutError:
+            raise
+        except Exception as e:      # noqa: BLE001 - each leg checks them
+            errors.append(e)
+    wall = time.monotonic() - t0
+    ttft = np.asarray([h.ttft_s for h in handles if h.ttft_s is not None])
+    done = [h for h in handles if h.error is None]
+    return {"handles": handles, "errors": errors, "wall_s": wall,
+            "tokens_per_s": sum(len(h.result(0)) for h in done) / wall,
+            "ttft_p50_ms": float(np.percentile(ttft, 50)) * 1e3,
+            "ttft_p99_ms": float(np.percentile(ttft, 99)) * 1e3}
+
+
+def leg_line(name: str, leg: dict) -> str:
+    return (f"{name}: {leg['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+            f"{leg['ttft_p50_ms']:.2f} ms, p99 {leg['ttft_p99_ms']:.2f} ms, "
+            f"wall {leg['wall_s']:.3f} s")
+
+
+class ReplicaStats:
+    """Each replica's worker stats right after its start and just before
+    its shutdown (a wrapper around the fleet's own replica factory), for
+    the launches and captures of the phase."""
+
+    def __init__(self):
+        self.records: list = []
+
+    def wrap(self, server) -> object:
+        rec = {"setup": None, "final": None}
+        self.records.append(rec)
+        start, shutdown = server.start, server.shutdown
+
+        def counted_start():
+            out = start()
+            rec["setup"] = server.stats()["workers"]
+            return out
+
+        def counted_shutdown(graceful: bool = True):
+            if server._started and server._error is None:
+                rec["final"] = server.stats()["workers"]
+            shutdown(graceful=graceful)
+
+        server.start, server.shutdown = counted_start, counted_shutdown
+        return server
+
+    def fleet(self, **kw) -> FleetServer:
+        holder = {}
+        fleet = FleetServer(
+            GPTLightningModule("gpt2-small"),
+            replica_factory=lambda rid: self.wrap(
+                holder["fleet"]._default_factory(rid)), **kw)
+        holder["fleet"] = fleet
+        return fleet
+
+    def launches(self) -> dict:
+        """Launches while serving, summed over the replicas whose worker
+        lived to its shutdown; raises on a capture after setup."""
+        out = {k: 0 for k in ServeEngine.KERNELS}
+        for rec in self.records:
+            if rec["setup"] is None or rec["final"] is None:
+                continue
+            for w0, w in zip(rec["setup"], rec["final"]):
+                if any(w["recaptures"].values()) or not w["captures"]:
+                    raise AssertionError(
+                        f"fleet phase: captures {w['captures']}, "
+                        f"recaptures {w['recaptures']}")
+                for k in out:
+                    out[k] += (w["kernel_launches"][k]
+                               - w0["kernel_launches"][k])
+        return out
+
+    def memory(self) -> list:
+        """Each replica worker's device memory (allocated, reserved) and
+        its graphs' pool as set up."""
+        return [{k: w[k] for k in ("memory_allocated", "memory_reserved",
+                                   "pool_bytes", "capture_ms")}
+                for rec in self.records if rec["setup"]
+                for w in rec["setup"]]
+
+
+def same_or_tie(got: list, want: list, trace: list, what: str,
+                ties: list) -> int:
+    """Requests whose tokens equal the reference leg's; the rest go to
+    ``ties`` for the near-tie check at the phase's end.  Returns the
+    count of equal ones."""
+    equal = 0
+    for (_, _, prompt), a, b in zip(trace, got, want):
+        if a == b:
+            equal += 1
+        else:
+            ties.append((what, prompt, a, b))
+    return equal
+
+
+class EnginePaths:
+    """The serving paths the fleet can give one request, replayed in
+    process on one paged engine with the replicas' seeded weights (phase
+    6's engine): a cold prefill and decode, a prefix reuse of its own
+    whole pages, and the disaggregated pair (one token from a cold
+    prefill, then the prompt and that token served as a reuse of the
+    prompt's pages, or cold)."""
+
+    def __init__(self, seed: int):
+        self.pages = PageConfig(enabled=True, page_size=PAGE_SIZE)
+        with decode_impl("paged"):
+            self.engine = ServeEngine(
+                GPTLightningModule("gpt2-small"), buckets=SERVE_BUCKETS,
+                slots=SERVE_SLOTS, max_seq_len=1024, seed=seed,
+                device="cuda", paged=self.pages).setup()
+
+    def serve(self, prompts: list, n: int) -> list:
+        """``prompts`` one after another on a fresh scheduler (so each
+        may reuse the last one's pages); the last one's tokens."""
+        sched = Scheduler(buckets=SERVE_BUCKETS, slots=SERVE_SLOTS,
+                          max_seq_len=1024, paged=self.pages,
+                          default_max_new_tokens=NEW_TOKENS)
+        worker = ServeWorker(self.engine)
+        for i, p in enumerate(prompts):
+            req = sched.submit(p, max_new_tokens=n if i == len(prompts) - 1
+                               else 1)
+            while not sched.idle():
+                sched.apply(plan := sched.plan(), worker.serve_step(plan))
+        return req.result(0).tolist()
+
+    def candidates(self, prompt, n: int, disagg: bool) -> dict:
+        out = {"cold": self.serve([prompt], n),
+               "reuse": self.serve([prompt, prompt], n)}
+        if disagg:
+            t1 = out["cold"][0]
+            prompt2 = np.concatenate([prompt, [t1]])
+            out["disagg"] = [t1] + self.serve([prompt, prompt2], n - 1)
+            out["disagg_cold"] = [t1] + self.serve([prompt2], n - 1)
+        return out
+
+
+def check_ties(ties: list, seed: int, strict: bool = True) -> dict:
+    """Each request whose tokens differ from the reference leg's (a), on
+    the card with the engines' seeded weights and the plain-attention
+    bf16 forward of ``check_parity``: the two streams are equal up to
+    their first divergence, and there, teacher-forced over their shared
+    prefix, the two tokens' reference logits lie within 2e-2 (a
+    near-tie; after it each stream is its own greedy continuation).
+    The logits are the fp32 product of the forward's final hidden state
+    with the embedding: rounded to bf16 (the model's own output) they
+    step by 0.0156 near 2.25, and two candidates a hair over one step
+    apart would read as 0.0312.  A request past that bar passes only if
+    its tokens are, bit for bit, those of one of the engine's own
+    serving paths for it (``EnginePaths``: a reuse replays the suffix a
+    token at a time where (a) prefilled it, and bf16 then orders two
+    tokens ~0.03 apart differently); it is counted, with its gap.  Also
+    counted, not held: the tokens of each stream past 2e-2 below the
+    argmax of those logits, teacher-forced over the stream itself
+    (``check_parity``'s rule; the reference leg's own cold path leaves
+    such tokens too).  ``strict=False`` (the fp8 leg) counts the
+    failures instead."""
+    out = {"checked": len(ties), "failed": 0, "max_gap": 0.0,
+           "engine_path": {}, "engine_path_gaps": [],
+           "tokens_past_tol": 0, "tokens_past_tol_ref": 0}
+    if not ties:
+        return out
+    module = GPTLightningModule("gpt2-small")
+    model = module.configure_decode_model(device="cuda")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+    ref = GPT(dataclasses.replace(model.config, attention_impl="dot"),
+              device="cuda")
+    ref.load_state_dict(model.state_dict())
+    ref.to(dtype=torch.bfloat16).eval()
+    del model
+
+    def logits(prompt, gen):
+        seq = torch.tensor([[int(t) for t in prompt] + list(gen[:-1])],
+                           device="cuda")
+        with torch.inference_mode():
+            x, _ = ref.hidden_with_kv(seq)
+            x = x[0, len(prompt) - 1:].float()
+            return x @ ref.wte.weight.float().t()
+
+    def past_tol(prompt, gen) -> int:
+        lg = logits(prompt, gen)
+        return sum(int(lg[i].max() - lg[i, t] > BF16_TOL)
+                   for i, t in enumerate(gen))
+
+    far = []
+    for what, prompt, got, want in ties:
+        n = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        lg = logits(prompt, got[:n + 1])
+        gap = abs(float(lg[n, got[n]] - lg[n, want[n]]))
+        out["max_gap"] = max(out["max_gap"], gap)
+        out["tokens_past_tol"] += past_tol(prompt, got)
+        out["tokens_past_tol_ref"] += past_tol(prompt, want)
+        if not torch.isfinite(lg).all() or gap > BF16_TOL:
+            far.append((what, prompt, got, n, gap))
+    del ref
+    free_cuda()
+    failed = []
+    if far and strict:
+        paths = EnginePaths(seed)
+        for what, prompt, got, n, gap in far:
+            cands = paths.candidates(prompt, len(got),
+                                     what.startswith("(c)"))
+            hit = next((k for k, v in cands.items() if v == got), None)
+            if hit is None:
+                failed.append(f"fleet {what} (prompt {len(prompt)}): "
+                              f"diverges from (a) at step {n}, reference "
+                              f"logits {gap:.4f} apart, and from every "
+                              f"engine path ({sorted(cands)})")
+            else:
+                out["engine_path"][hit] = out["engine_path"].get(hit, 0) + 1
+                out["engine_path_gaps"].append(gap)
+        del paths
+        free_cuda()
+    elif far:
+        failed = far
+    out["failed"] = len(failed)
+    if strict and failed:
+        raise AssertionError(f"{len(failed)} of {len(ties)} requests "
+                             f"differ from (a) past a near-tie and from "
+                             f"the engine's paths: " + "; ".join(failed))
+    return out
+
+
+def fleet_phase(seed: int, card: str) -> dict:
+    """Phase 16 (module docstring): legs (a)-(f) of the fleet with the
+    driver off CUDA, then the near-tie checks on the card."""
+    t_phase = time.monotonic()
+    vocab = GPTLightningModule("gpt2-small").config.vocab_size
+    trace = fleet_trace(seed, vocab)
+    groups = fleet_trace(seed + 1, vocab, groups=FLEET_GROUPS)
+    kw = dict(num_workers=1, buckets=SERVE_BUCKETS,
+              max_batch_slots=SERVE_SLOTS, max_new_tokens=NEW_TOKENS,
+              seed=seed)
+    counts = ReplicaStats()
+    ties, ties_fp8 = [], []
+    out: dict = {"card": card, "leg_s": {}}
+    marks = [time.monotonic()]
+
+    def mark(leg: str) -> None:
+        marks.append(time.monotonic())
+        out["leg_s"][leg] = marks[-1] - marks[-2]
+
+    def outputs(leg):
+        return [h.result(0).tolist() for h in leg["handles"]]
+
+    with scoped_env(RLT_DECODE_IMPL="paged",
+                    RLT_PEER_RETRIES=str(FLEET_RETRIES),
+                    RLT_PEER_BACKOFF_S="0.01", RLT_KVSHIP_TIMEOUT_S="0.05"):
+        # (a) the reference: one Server, a plain (unpaged) engine
+        t0 = time.monotonic()
+        ref_server = counts.wrap(Server(GPTLightningModule("gpt2-small"),
+                                        **kw)).start()
+        out["ref_start_s"] = time.monotonic() - t0
+        try:
+            ref1 = replay(ref_server, trace, 1.0)
+            ref2 = replay(ref_server, trace, 2.0)
+            ref_groups = replay(ref_server, groups, 2.0)
+        finally:
+            ref_server.shutdown()
+        want, want_groups = outputs(ref1), outputs(ref_groups)
+        if outputs(ref2) != want:
+            raise AssertionError("fleet (a): the 2x replay's tokens differ "
+                                 "from the 1x replay's")
+        log("  fleet (a) " + leg_line("1x", ref1) + "; "
+            + leg_line("2x", ref2))
+        out["a"] = {m: {k: v for k, v in leg.items()
+                        if k not in ("handles", "errors")}
+                    for m, leg in (("1x", ref1), ("2x", ref2))}
+        mark("a")
+
+        # (b) two pooled replicas, carol at a fleet-wide quota of 2;
+        # (f) on the same fleet: a worker killed mid-replay
+        t0 = time.monotonic()
+        fleet = counts.fleet(replicas=2, autoscale=False,
+                             tenant_quotas={"carol": 2}, **kw).start()
+        out["b_start_s"] = time.monotonic() - t0
+        try:
+            peak = [0]
+            stop = threading.Event()
+
+            def watch_quota():
+                while not stop.is_set():
+                    with fleet._lock:
+                        peak[0] = max(peak[0], fleet._tenant_inflight.get(
+                            "carol", 0))
+                    time.sleep(0.0005)
+
+            watcher = threading.Thread(target=watch_quota, daemon=True)
+            watcher.start()
+            legs = {m: replay(fleet, trace, m) for m in (1.0, 2.0)}
+            stop.set()
+            watcher.join()
+            if peak[0] > 2 or peak[0] < 1:
+                raise AssertionError(f"fleet (b): carol peaked at {peak[0]} "
+                                     f"in flight (quota 2)")
+            pages = fleet.pages_stats()
+            if not pages["prefix_hits"] > 0:
+                raise AssertionError(f"fleet (b): no prefix hit: {pages}")
+            out["b"] = {"pages": pages, "carol_peak": peak[0]}
+            for m, leg in legs.items():
+                if leg["errors"]:
+                    raise AssertionError(f"fleet (b) {m}x: {leg['errors']}")
+                equal = same_or_tie(outputs(leg), want, trace, f"(b) {m}x",
+                                    ties)
+                shares = {}
+                for h in leg["handles"]:
+                    shares[h.replica] = shares.get(h.replica, 0) + 1
+                out["b"][f"{m:g}x"] = {
+                    "tokens_per_s": leg["tokens_per_s"],
+                    "ttft_p50_ms": leg["ttft_p50_ms"],
+                    "ttft_p99_ms": leg["ttft_p99_ms"],
+                    "equal": equal, "shares": shares}
+                log(f"  fleet (b) " + leg_line(f"{m:g}x", leg)
+                    + f"; {equal} of {len(trace)} equal to (a); replica "
+                    f"shares {shares}")
+            log(f"  fleet (b) reuse {pages['prefix_reuse_ratio']}, prefix "
+                f"hits {pages['prefix_hits']}, carol peak {peak[0]}")
+            mark("b")
+            out["f"] = failover_leg(fleet, trace, want, ties)
+        finally:
+            fleet.shutdown(graceful=False)
+        mark("f")
+
+        # (c) disaggregated: a prefill and a decode replica, raw and fp8
+        out["c"] = {}
+        for codec in ("raw", "fp8"):
+            out["c"][codec] = disagg_leg(counts, kw, trace, want, codec,
+                                         ties if codec == "raw"
+                                         else ties_fp8, vocab)
+            mark(f"c_{codec}")
+
+        # (d) federation over the groups trace: each group's first
+        # request served alone (they land on replica 0 and retain there
+        # as advertised donors), then the rest at 2x, stickiness
+        # defeated (own tenants, no slack): a prefix held by the busier
+        # replica is fetched, not routed to.  Raw on the wire, so a
+        # fetched prefix is bit for bit the one prefilled, and the
+        # tokens answer to (a)'s bar (fp8's are (c)'s to count)
+        t0 = time.monotonic()
+        fleet = counts.fleet(replicas=2, autoscale=False,
+                             fleet={"prefix_fed": True, "sticky_slack": 0,
+                                    "kvship_codec": "raw"}, **kw).start()
+        try:
+            first, rest, seen = [], [], set()
+            for i, rec in enumerate(groups):
+                (rest if rec[1] in seen else first).append(i)
+                seen.add(rec[1])
+            got = {}
+            for i in first:
+                got[i] = fleet.generate(groups[i][2], tenant=f"g~{i}",
+                                        max_new_tokens=NEW_TOKENS,
+                                        timeout=FLEET_WAIT_S).tolist()
+            at0 = groups[rest[0]][0]
+            leg = replay(fleet, [(groups[i][0] - at0,) + groups[i][1:]
+                                 for i in rest], 2.0, scramble=True)
+            got.update({i: h.result(0).tolist()
+                        for i, h in zip(rest, leg["handles"])})
+            fed = fleet.status()["fleet"]["federation"]
+            pages = fleet.pages_stats()
+        finally:
+            fleet.shutdown()
+        if leg["errors"] or not (fed["hits"] > 0 and fed["ships"] > 0) \
+                or fed["failovers"]:
+            raise AssertionError(f"fleet (d): {fed} {leg['errors']}")
+        equal = same_or_tie([got[i] for i in range(len(groups))],
+                            want_groups, groups, "(d)", ties)
+        out["d"] = {"federation": fed, "pages": pages, "equal": equal,
+                    "warm": len(first), "tokens_per_s": leg["tokens_per_s"],
+                    "ttft_p50_ms": leg["ttft_p50_ms"],
+                    "ttft_p99_ms": leg["ttft_p99_ms"],
+                    "leg_s": time.monotonic() - t0}
+        log(f"  fleet (d) {len(first)} warm, then " + leg_line("2x", leg)
+            + f"; federation hits {fed['hits']}, ships {fed['ships']}, "
+            f"fetches {fed['fetches']}, skipped {fed['skipped']}, wire "
+            f"{fed['bytes_wire']} B; reuse {pages['prefix_reuse_ratio']}, "
+            f"remote imports {pages.get('remote_imports')}, federated "
+            f"reuse {pages.get('federated_reuse_ratio')}; {equal} of "
+            f"{len(groups)} equal to (a)")
+
+        mark("d")
+        # (e) autoscale 1 -> 2 -> 1 under the trace at 4x
+        out["e"] = autoscale_leg(counts, kw, trace, want, ties)
+        mark("e")
+
+    out["launches"] = counts.launches()
+    out["replica_memory"] = counts.memory()
+    out["phase_s"] = time.monotonic() - t_phase
+    return {"out": out, "ties": ties, "ties_fp8": ties_fp8,
+            "launches": out["launches"]}
+
+
+def failover_leg(fleet, trace: list, want: list, ties: list) -> dict:
+    """(f): the whole trace at once (so each replica holds a queue), and
+    replica 0's worker killed once it holds admitted and queued
+    requests: its queued ones complete on the survivor, its in-flight
+    ones fail with ``FleetReplicaLost`` caused by the death, and the
+    fleet grows back to two replicas."""
+    victim = fleet._replicas[min(fleet._replicas)]
+    pid = victim.server.stats()["workers"][0]["pid"]
+    sched = victim.server.scheduler
+    handles = [fleet.submit(p, tenant=t, max_new_tokens=NEW_TOKENS)
+               for _, t, p in trace]
+    t0 = time.monotonic()
+    while not (sched.queued_count and sched.active_count):
+        if time.monotonic() - t0 > FLEET_WAIT_S:
+            raise AssertionError("fleet (f): the victim never held a queue")
+        time.sleep(0.0005)
+    held = (sched.active_count, sched.queued_count)
+    os.kill(pid, signal.SIGKILL)
+    lost, done = [], []
+    for r, h, w in zip(trace, handles, want):
+        try:
+            done.append((r, h.result(FLEET_WAIT_S).tolist(), w))
+        except TimeoutError:
+            raise
+        except Exception:       # noqa: BLE001 - checked below
+            lost.append(h)
+    for h in lost:
+        cause = repr(h.error.__cause__)
+        if not isinstance(h.error, FleetReplicaLost) or "died" not in cause:
+            raise AssertionError(f"fleet (f): request {h.id} failed with "
+                                 f"{h.error!r} (cause {cause})")
+    event = fleet.failovers[0] if fleet.failovers else {}
+    if not lost or not event.get("requeued") \
+            or event["failed"] != len(lost):
+        raise AssertionError(f"fleet (f): lost {len(lost)}, event {event}")
+    equal = same_or_tie([d[1] for d in done], [d[2] for d in done],
+                        [d[0] for d in done], "(f)", ties)
+    t0 = time.monotonic()
+    while sum(r.state == "serving" for r in fleet._replicas.values()) < 2:
+        if time.monotonic() - t0 > FLEET_WAIT_S:
+            raise AssertionError("fleet (f): no replacement replica")
+        time.sleep(0.05)
+    regrow_s = time.monotonic() - t0
+    log(f"  fleet (f): killed replica {victim.id}'s worker holding "
+        f"{held[0]} admitted and {held[1]} queued; requeued "
+        f"{event['requeued']}, lost {len(lost)} (FleetReplicaLost, caused "
+        f"by the death), {len(done)} completed ({equal} equal to (a)); "
+        f"back to 2 replicas {regrow_s:.2f} s after the last request")
+    return {"held": held, "requeued": event["requeued"], "lost": len(lost),
+            "completed": len(done), "equal": equal, "regrow_s": regrow_s}
+
+
+def disagg_leg(counts: ReplicaStats, kw: dict, trace: list, want: list,
+               codec: str, ties: list, vocab: int) -> dict:
+    """(c) for one codec: the trace at 2x over a prefill and a decode
+    replica; with ``raw`` one more ship held bit for bit through
+    ``export_kv`` on both sides, then the chaos leg."""
+    fleet = counts.fleet(replicas=2, autoscale=False,
+                         fleet={"roles": ("prefill", "decode"),
+                                "kvship_codec": codec}, **kw).start()
+    try:
+        leg = replay(fleet, trace, 2.0)
+        kv = dict(fleet.status()["fleet"]["kvship"])
+        log_ = list(fleet.ship_log)
+        if leg["errors"] or kv["failovers"] or not kv["ships"] \
+                or kv["ships"] + kv["skipped"] != len(trace):
+            raise AssertionError(f"fleet (c) {codec}: {kv} {leg['errors']}")
+        equal = same_or_tie([h.result(0).tolist() for h in leg["handles"]],
+                            want, trace, f"(c) {codec}", ties)
+        res = {"kvship": kv, "equal": equal,
+               "tokens_per_s": leg["tokens_per_s"],
+               "ttft_p50_ms": leg["ttft_p50_ms"],
+               "ttft_p99_ms": leg["ttft_p99_ms"]}
+        by_bucket: dict = {}
+        for rec in log_:
+            if rec["status"] == "ok":
+                by_bucket.setdefault(rec["bucket"], []).append(rec["ms"])
+        res["ship_ms"] = {b: {"n": len(v), "p50": float(np.median(v)),
+                              "max": float(max(v))}
+                          for b, v in sorted(by_bucket.items())}
+        if codec == "fp8" and not kv["compression_ratio"] >= 3.0:
+            raise AssertionError(f"fleet (c) fp8: {kv}")
+        log(f"  fleet (c) {codec} " + leg_line("2x", leg) + f"; ships "
+            f"{kv['ships']}, skipped {kv['skipped']}, wire "
+            f"{kv['bytes_wire']} B, raw {kv['bytes_raw']} B, ratio "
+            f"{kv['compression_ratio']}, ship ms by bucket "
+            f"{res['ship_ms']}; {equal} of {len(trace)} equal to (a)")
+        if codec == "raw":
+            res.update(raw_bits(fleet, vocab))
+            fleet.arm_kvship_drop(1)
+            at, tenant, prompt = trace[0]
+            got = fleet.generate(prompt, tenant=tenant,
+                                 max_new_tokens=NEW_TOKENS,
+                                 timeout=FLEET_WAIT_S).tolist()
+            kv2 = fleet.status()["fleet"]["kvship"]
+            if kv2["failovers"] != 1 or kv2["retries"] != FLEET_RETRIES:
+                raise AssertionError(f"fleet (c) chaos: {kv2}")
+            same_or_tie([got], [want[0]], [trace[0]], "(c) chaos", ties)
+            res["chaos"] = {"failovers": kv2["failovers"],
+                            "retries": kv2["retries"],
+                            "equal": got == want[0]}
+            log(f"  fleet (c) chaos: failovers {kv2['failovers']}, retries "
+                f"{kv2['retries']}, tokens equal to (a): {got == want[0]}")
+    finally:
+        fleet.shutdown()
+    return res
+
+
+def raw_bits(fleet, vocab: int) -> dict:
+    """One more ship, then the donor rows on both sides through
+    ``export_kv``: under ``raw`` the decode replica's rows equal the
+    prefill replica's bit for bit over the shipped whole pages."""
+    rng = np.random.default_rng(12345)
+    prompt = rng.integers(0, vocab, SYSTEM_PREFIX + 5)
+    n0 = fleet.kvship["ships"]
+    fleet.generate(prompt, tenant="probe", max_new_tokens=NEW_TOKENS,
+                   timeout=FLEET_WAIT_S)
+    if fleet.kvship["ships"] != n0 + 1:
+        raise AssertionError(f"fleet (c) raw: the probe did not ship: "
+                             f"{fleet.kvship}")
+    src, dst = (next(r for r in fleet._replicas.values() if r.role == role)
+                for role in ("prefill", "decode"))
+    a = src.server.export_kv(prompt)
+    b = dst.server.export_kv(prompt)
+    if a is None or b is None or a[2] != b[2]:
+        raise AssertionError("fleet (c) raw: a side lost the probe's donor")
+    n = a[2]
+    for x, y in zip(a[:2], b[:2]):
+        if not torch.equal(x[:, :, :n], y[:, :, :n]):
+            raise AssertionError("fleet (c) raw: installed rows differ from "
+                                 "the exported ones")
+    log(f"  fleet (c) raw: the decode replica's {n} rows equal the prefill "
+        f"replica's bit for bit ({a[0].dtype})")
+    return {"bitwise_rows": n}
+
+
+def autoscale_leg(counts: ReplicaStats, kw: dict, trace: list, want: list,
+                  ties: list) -> dict:
+    """(e): one replica, bounds [1, 2], the trace at 4x: a grow during
+    the burst, a shrink in the idle tail, no request lost."""
+    fleet = counts.fleet(replicas=1, fleet={
+        "min_replicas": 1, "max_replicas": 2, "grow_queue_depth": 4.0,
+        "patience_ticks": 1, "cooldown_s": 0.5, "tick_interval_s": 0.05},
+        **kw).start()
+    try:
+        leg = replay(fleet, trace, 4.0)
+        t0 = time.monotonic()
+        while fleet.autoscaler.stats()["shrinks"] < 1 \
+                or len(fleet._replicas) != 1:
+            if time.monotonic() - t0 > FLEET_WAIT_S:
+                raise AssertionError(f"fleet (e): no shrink: "
+                                     f"{fleet.autoscaler.stats()}")
+            time.sleep(0.05)
+        st = fleet.autoscaler.stats()
+        late = fleet.generate(trace[0][2], tenant=trace[0][1],
+                              max_new_tokens=NEW_TOKENS,
+                              timeout=FLEET_WAIT_S).tolist()
+    finally:
+        fleet.shutdown()
+    if leg["errors"] or st["grows"] < 1 or fleet.failed:
+        raise AssertionError(f"fleet (e): {st} {leg['errors']}")
+    equal = same_or_tie([h.result(0).tolist() for h in leg["handles"]]
+                        + [late], want + [want[0]], trace + [trace[0]],
+                        "(e)", ties)
+    events = [{k: e[k] for k in ("action", "reason", "seconds", "ok")}
+              for e in st["events"]]
+    log(f"  fleet (e) " + leg_line("4x", leg) + f"; events {events}; "
+        f"{equal} equal")
+    return {"events": events, "equal": equal,
+            "tokens_per_s": leg["tokens_per_s"],
+            "ttft_p50_ms": leg["ttft_p50_ms"],
+            "ttft_p99_ms": leg["ttft_p99_ms"]}
+
+
+def run_fleet_phase(seed: int, card: str) -> dict:
+    """Phase 16 and its checks: the legs with the driver off CUDA (when
+    it was off before), then the near-tie checks on the card."""
+    cuda_before = torch.cuda.is_initialized()
+    phase = fleet_phase(seed, card)
+    if not cuda_before and torch.cuda.is_initialized():
+        raise AssertionError("the driver initialised CUDA in the fleet phase")
+    out = phase["out"]
+    out["driver_off_cuda"] = not cuda_before
+    out["ties"] = check_ties(phase["ties"], seed)
+    out["ties_fp8"] = check_ties(phase["ties_fp8"], seed, strict=False)
+    fp8 = out["c"]["fp8"]
+    fp8["equal_share"] = fp8["equal"] / FLEET_REQUESTS
+    t = out["ties"]
+    log(f"  fleet near-ties: {t['checked']} requests differ from (a): "
+        f"{t['checked'] - len(t['engine_path_gaps'])} at a near-tie "
+        f"(<= {BF16_TOL}), {len(t['engine_path_gaps'])} past it (gaps "
+        f"{[round(g, 4) for g in t['engine_path_gaps']]}) each bit for bit "
+        f"an engine path {t['engine_path']}; largest gap "
+        f"{t['max_gap']:.4f}; tokens past {BF16_TOL} below the reference "
+        f"argmax: "
+        f"{t['tokens_past_tol']} in theirs, {t['tokens_past_tol_ref']} in "
+        f"(a)'s; fp8: {fp8['equal']} of {FLEET_REQUESTS} equal to (a), "
+        f"{out['ties_fp8']['failed']} of {out['ties_fp8']['checked']} "
+        f"others diverging past a near-tie (recorded, not fatal)")
+    log(f"  [{card}] fleet: launches {phase['launches']}, replica memory "
+        f"{out['replica_memory']}, phase {out['phase_s']:.1f} s")
+    log("fleet " + json.dumps(out, default=str))
+    return phase
 
 
 # -- phase 8: long context ---------------------------------------------------
@@ -4395,6 +5089,13 @@ def main(argv=None) -> int:
                          "actor) with the driver off CUDA, then phase 3 "
                          "in process for its tokens, then check and time "
                          "flash_fwd and flash_decode (rows 1 and 13)")
+    ap.add_argument("--fleet-only", action="store_true",
+                    help="build, run phase 16 (FleetServer: pooled, "
+                         "disaggregated raw and fp8, federation, "
+                         "autoscale, failover) with the driver off CUDA, "
+                         "then its near-tie checks, then check and time "
+                         "flash_fwd, flash_decode and flash_decode_paged "
+                         "(rows 1, 13 and 14)")
     ap.add_argument("--tune-only", action="store_true",
                     help="build, run phase 12 (Tune: PBT over MNIST, "
                          "gpt2-small trials under RayPlugin, in-process "
@@ -4409,8 +5110,12 @@ def main(argv=None) -> int:
 
     log(card_line())
     driver_off_cuda = (args.plugin_only or args.tune_only or args.resnet_only
-                       or args.loop_only or args.server_only)
-    if not driver_off_cuda:      # the device's name initialises CUDA
+                       or args.loop_only or args.server_only
+                       or args.fleet_only)
+    # the whole run starts with phase 16, the driver off CUDA
+    full = not (driver_off_cuda or args.fwd_only or args.bwd_only
+                or args.decode_only or args.trainer_only)
+    if not (driver_off_cuda or full):  # the device's name initialises CUDA
         log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
             f"{torch.cuda.get_device_name(0)}")
     build_s = _kernels.build()
@@ -4421,6 +5126,30 @@ def main(argv=None) -> int:
             if any(w in line for w in ("registers", "spill", "entry "
                                        "function", "wgmma", "warning")):
                 log(f"  ptxas {source}: {line.strip()}")
+
+    fleet = None
+    if args.fleet_only or full:
+        log("fleet phase")
+        t0 = time.monotonic()
+        fleet = run_fleet_phase(args.seed, card_line())
+        log(f"fleet phase: {time.monotonic() - t0:.1f} s")
+        log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+            f"{torch.cuda.get_device_name(0)}")
+    if args.fleet_only:
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        log("kernel phase (rows 1, 13 and 14)")
+        flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+        entries = [kernel_flash_fwd(gen), kernel_flash_decode(gen, flush),
+                   kernel_flash_decode_paged(gen, flush)]
+        del flush
+        for e in entries:
+            e["launches_by_path"] = {"fleet": fleet["launches"][e["name"]]}
+            e["launches"] = e["launches_by_path"]["fleet"]
+        log(json.dumps({"kernels": entries}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     if args.server_only:
         log("server phase")
@@ -4545,6 +5274,7 @@ def main(argv=None) -> int:
     for e in entries:
         e["launches_by_path"]["server"] = server["launches"].get(
             e["name"], 0)
+        e["launches_by_path"]["fleet"] = fleet["launches"].get(e["name"], 0)
         e["launches"] = sum(e["launches_by_path"].values())
     log(f"server phase: {time.monotonic() - t0:.1f} s")
 

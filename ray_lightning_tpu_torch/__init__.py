@@ -8,7 +8,11 @@ continuous-batching ``Scheduler`` on the driver, persistent
 (per-bucket prefill + one decode step over a slot KV cache, each
 program one CUDA graph on the card; with ``paged=`` prefix reuse over
 the page-table decode kernel, with ``spec=`` speculative decoding);
-``ServeWorker(engine).serve_step`` drives an engine in process.
+``ServeWorker(engine).serve_step`` drives an engine in process;
+``FleetServer(module, replicas=N)`` puts N ``Server`` replicas behind
+one front door (routing, fleet-wide quotas, failover, autoscaling,
+disaggregated prefill/decode pools with codec-compressed KV shipping,
+prefix federation).
 Training: ``Trainer(...).fit(GPTLightningModule(...))`` on one device
 (fused CE, AdamW with an fp32 master, accumulation, clipping, dropout;
 checkpoints with ``ModelCheckpoint`` and resume with ``ckpt_path=``,
@@ -57,6 +61,7 @@ from ray_lightning_tpu_torch.plugins import (LocalPlugin, RayPlugin,
                                             RayShardedPlugin)
 from ray_lightning_tpu_torch.serve import (Scheduler, ServeEngine,
                                            ServeRequest, ServeWorker, Server)
+from ray_lightning_tpu_torch.serve.fleet import FleetServer
 from ray_lightning_tpu_torch.utils.logger import CSVLogger
 from ray_lightning_tpu_torch import tune
 
@@ -73,6 +78,7 @@ __all__ = [
     "Callback",
     "DataLoader",
     "EarlyStopping",
+    "FleetServer",
     "GPT",
     "GPTConfig",
     "GPTLightningModule",

@@ -4,7 +4,9 @@ each actor runs (``RLTExecutor``) and the worker-side queue handle.
 
 Counterpart of ``ray_lightning_tpu/cluster/`` without the Ray backend
 (``ray`` is not installed; ROADMAP.md queue 1 item 5) and without the
-worker-to-worker peer channel.
+worker-to-worker frame routing of the peer channel (its tag-addressed
+``Mailbox``, ``peer.py``, is ported: the fleet router's KV-ship
+channel).
 Only control, pickled payloads and results ride this plane: gradients
 ride ``torch.distributed`` (NCCL on the card, gloo on the CPU)."""
 

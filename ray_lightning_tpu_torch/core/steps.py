@@ -6,7 +6,7 @@ verify).
 Counterpart of ``ray_lightning_tpu/core/steps.py`` ``build_init_fn`` /
 ``build_train_step`` / ``build_eval_step``
 / ``build_predict_step`` / ``build_prefill_step`` / ``build_decode_step``
-/ ``build_kv_copy`` / ``build_suffix_step`` / ``build_draft_step`` /
+/ ``build_kv_copy`` / the engine's ``kv_import`` / ``build_suffix_step`` / ``build_draft_step`` /
 ``build_verify_step``, and of the JAX trainer's ``multi_step``,
 ``cached_multi`` and ``cached_single`` programs
 (``ray_lightning_tpu/core/trainer.py:987-1020``: ``lax.scan`` over k
@@ -604,6 +604,24 @@ def build_kv_copy() -> Callable:
     return copy_fn
 
 
+def build_kv_import(bucket_len: int) -> Callable:
+    """KV-page import for ONE bucket (fleet disaggregation and prefix
+    federation: the device half of a shipped donor).
+
+    ``(k_caches, v_caches, k_rows, v_rows, slot)`` writes the shipped
+    rows ``[n_layer, 1, bucket_len, H, D]`` into rows ``[0, bucket_len)``
+    of ``slot`` ([1] long on the caches' device) in every layer, in
+    place: the JAX program's ``dynamic_update_slice``.  Sound for the
+    reason :func:`build_kv_copy` is: a cache row is a pure per-(token,
+    position) value, identical on whichever replica computed it.
+    """
+    def import_fn(k_caches, v_caches, k_rows, v_rows, slot):
+        k_caches[:, :, :bucket_len].index_copy_(1, slot, k_rows)
+        v_caches[:, :, :bucket_len].index_copy_(1, slot, v_rows)
+
+    return import_fn
+
+
 def build_suffix_step(model: torch.nn.Module, impl: "str | None" = None,
                       page_table: "torch.Tensor | None" = None
                       ) -> Callable:
@@ -637,6 +655,7 @@ __all__ = ["CapturedGraph", "ChunkRunner", "GRAPH_WARMUP_STEPS",
            "build_decode_step", "capture_graph", "copy_in", "signature",
            "tree_leaves", "tree_map",
            "build_draft_step", "build_eval_step",
-           "build_init_fn", "build_kv_copy", "build_predict_step",
+           "build_init_fn", "build_kv_copy", "build_kv_import",
+           "build_predict_step",
            "build_prefill_step", "build_suffix_step", "build_train_step",
            "build_verify_step"]

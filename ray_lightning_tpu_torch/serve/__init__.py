@@ -14,10 +14,10 @@
 - ``server.py``    — ``Server``: the serving front door (scheduler pump
   on the driver, serve actors through ``cluster/``)
 - ``spec.py``      — ``SpecConfig``, the speculative-decode knobs
-- ``fleet/pages.py`` — ``PageConfig`` and the paged-KV accounting behind
-  prefix reuse
-
-The fleet (``FleetServer``, its router and replicas) is not ported yet.
+- ``fleet/``        — ``FleetServer``: N ``Server`` replicas behind one
+  front door (router, replicas, autoscaler, prefix federation), and
+  ``pages.py``'s ``PageConfig`` and paged-KV accounting behind prefix
+  reuse
 """
 
 from ray_lightning_tpu_torch.serve.buckets import (  # noqa: F401

@@ -15,15 +15,20 @@ Counterpart of ``ray_lightning_tpu/serve/engine.py`` ``ServeEngine``
    (core/steps.py) — with ``paged=`` also the page copy and the
    one-slot suffix step of prefix reuse, with ``spec=`` the draft plane
    (a draft model whose parameters ARE the target's tensors by name,
-   its own KV cache, one draft prefill per bucket, the k-step draft and
-   the batched verify) — gives each program its static input buffers,
-   and runs each once on the scratch caches;
+   or, with ``draft_quant="int8"``, int8 (payload, scale) pairs
+   dequantized inside each draft program; its own KV cache, one draft
+   prefill per bucket, the k-step draft and the batched verify), with
+   ``kvship=True`` one KV import per bucket (fleet disaggregation and
+   prefix federation: ``export_kv`` reads a slot's rows, ``import_kv``
+   installs shipped rows) — gives each program its static input
+   buffers, and runs each once on the scratch caches;
 4. on the card, captures each program as one CUDA graph
    (core/steps.py ``capture_graph``), the counterpart of the JAX
    engine's AOT warm-up: ``prefill_{b}`` per bucket, ``decode``, with
    ``paged=`` ``kv_copy`` and ``suffix`` (one graph per slot), with
    ``spec=`` ``draft_prefill_{b}`` per bucket, ``draft`` and
-   ``verify``.  The warm-up of step 3 ran on the capture stream, so
+   ``verify``, with ``kvship=`` ``kv_import_{b}`` per bucket.  The
+   warm-up of step 3 ran on the capture stream, so
    every lazy set-up and every per-stream scratch buffer
    (ops/flash_decode.py ``_scratch``) exists before the captures.  All
    graphs share one memory pool: they never replay at once, and each
@@ -45,8 +50,8 @@ and its page size tiles ``max_seq_len``, and degrades to the
 slot-contiguous ``flash_decode`` kernel otherwise, as the JAX engine
 does; ``decode_kernel`` says which runs.
 
-The JAX engine's strategy/mesh, compile cache, KV shipping and
-int8-resident drafts are not ported yet, and asking for them raises.
+The JAX engine's strategy/mesh and compile cache are not ported yet,
+and asking for them raises.
 """
 
 from __future__ import annotations
@@ -60,10 +65,13 @@ import numpy as np
 import torch
 
 from ray_lightning_tpu_torch._device import resolve_device
+from ray_lightning_tpu_torch.comm.quant import (dequantize_blob,
+                                                quantize_blob)
 from ray_lightning_tpu_torch.core.steps import (CapturedGraph,
                                                 build_decode_step,
                                                 build_draft_step,
                                                 build_kv_copy,
+                                                build_kv_import,
                                                 build_prefill_step,
                                                 build_suffix_step,
                                                 build_verify_step,
@@ -92,9 +100,6 @@ class ServeEngine:
             if value is not None:
                 raise NotImplementedError(
                     f"ServeEngine({name}=...) is not ported yet")
-        if kvship:
-            raise NotImplementedError(
-                "ServeEngine(kvship=True) is not ported yet")
         #: PageConfig (serve/fleet/pages.py): when enabled the engine also
         #: builds the page copy and the one-slot suffix step that make
         #: prefix-cache hits executable
@@ -103,10 +108,9 @@ class ServeEngine:
         #: SpecConfig (serve/spec.py): when enabled the engine builds the
         #: draft plane
         self.spec = spec if spec is not None and spec.enabled else None
-        if self.spec is not None and self.spec.draft_quant is not None:
-            raise NotImplementedError(
-                f"draft_quant={self.spec.draft_quant!r} needs the comm "
-                f"plane's codecs (comm/quant.py), not ported yet")
+        #: KV-page shipping (fleet disaggregation, prefix federation):
+        #: one ``kv_import_{b}`` program per bucket
+        self.kvship = bool(kvship)
         self.device = resolve_device(device)
         self.module = module
         self.buckets = tuple(buckets)
@@ -122,8 +126,8 @@ class ServeEngine:
         #: calls served per program (the smoke script holds the kernels'
         #: launch counts against these) and their host wall seconds; the
         #: token-returning ones end in the device sync that reads them
-        self.calls = {name: 0 for name in self.PROGRAMS}
-        self.seconds = {name: 0.0 for name in self.PROGRAMS}
+        self.calls = {name: 0 for name in self.PROGRAMS + self.SHIPPING}
+        self.seconds = {name: 0.0 for name in self.PROGRAMS + self.SHIPPING}
         self._prefills: dict = {}
         self._decode = None
         self._kv_copy = None
@@ -142,6 +146,12 @@ class ServeEngine:
         self._verify = None
         self._dk: Optional[torch.Tensor] = None
         self._dv: Optional[torch.Tensor] = None
+        #: int8 draft residency (``draft_quant="int8"``): name -> the
+        #: (payload, scale) pair of each draft tensor, and the bytes a
+        #: standalone draft copy in the target's dtype would take
+        self._draft_q: "Optional[dict]" = None
+        self.draft_resident_bytes = 0
+        self.draft_fp_bytes = 0
         #: program key (name, variant: a suffix graph's slot) -> the step
         #: on its caches, and its static input buffers
         self._programs: "dict[tuple, tuple[Callable, tuple]]" = {}
@@ -269,6 +279,28 @@ class ServeEngine:
         draft.requires_grad_(False)
         draft.eval()
         self.draft_model = draft
+        self.draft_fp_bytes = sum(t.numel() * 2 for t in shared.values())
+        wrap = None
+        if self.spec.draft_quant == "int8":
+            # int8 residency: each draft tensor as a blockwise (payload,
+            # scale) pair, dequantized INSIDE the draft programs (so on
+            # the card inside their graphs, into the pool's
+            # temporaries); the draft's own parameters stay the
+            # target's tensors but no draft program reads them
+            self._draft_q = {n: quantize_blob(t, "int8")
+                             for n, t in shared.items()}
+            self.draft_resident_bytes = sum(
+                p.nbytes + q.nbytes for p, q in self._draft_q.values())
+            meta = {n: (tuple(t.shape), t.dtype) for n, t in shared.items()}
+
+            def wrap(step):
+                def run(*args):
+                    weights = {n: dequantize_blob(p, q, "int8", meta[n][0],
+                                                  dtype=meta[n][1])
+                               for n, (p, q) in self._draft_q.items()}
+                    with _swapped_params(draft, weights):
+                        return step(*args)
+                return run
         self.draft_layers = draft.config.n_layer
         probe = torch.zeros((1, self.buckets[0]), dtype=torch.long,
                             device=self.device)
@@ -278,10 +310,11 @@ class ServeEngine:
         self._dk = torch.zeros(self.draft_kv_spec.shape,
                                dtype=kvs[0][0].dtype, device=self.device)
         self._dv = torch.zeros_like(self._dk)
+        wrap = wrap or (lambda step: step)
         for b in self.buckets:
-            self._draft_prefills[b] = build_prefill_step(draft, b)
-        self._draft = build_draft_step(draft, self.spec.k, impl,
-                                       self.page_table)
+            self._draft_prefills[b] = wrap(build_prefill_step(draft, b))
+        self._draft = wrap(build_draft_step(draft, self.spec.k, impl,
+                                            self.page_table))
         self._verify = build_verify_step(model, impl, self.page_table)
 
     def _define_programs(self) -> None:
@@ -318,6 +351,14 @@ class ServeEngine:
             add("draft", self._draft, dkv, (ints(S), ints(S)))
             k1 = self.spec.k + 1
             add("verify", self._verify, kv, (ints(S, k1), ints(S, k1)))
+        if self.kvship:
+            nl, _, _, nh, hd = self.kv_spec.shape
+            for b in self.buckets:
+                rows = (nl, 1, b, nh, hd)
+                add(f"kv_import_{b}", build_kv_import(b), kv,
+                    (torch.zeros(rows, dtype=self._k.dtype, device=dev),
+                     torch.zeros(rows, dtype=self._k.dtype, device=dev),
+                     slot))
 
     def _warm(self) -> None:
         """Run every program once on the scratch caches (first-call
@@ -469,6 +510,49 @@ class ServeEngine:
         self._account("suffix", time.monotonic() - t0, n=length - first)
         return token
 
+    # -- KV-page shipping (fleet disaggregation, prefix federation) --------
+
+    @torch.no_grad()
+    def export_kv(self, slot: int, bucket: int
+                  ) -> "tuple[torch.Tensor, torch.Tensor]":
+        """Device-to-host copy of ``slot``'s cache rows ``[0, bucket)``
+        in every layer: ``([n_layer, 1, bucket, H, D], same)`` CPU
+        tensors in the cache dtype, the payload a prefill replica ships
+        to a decode replica.  Rows past the prompt are pad garbage; the
+        importer registers (and the reuse path copies) only the prompt's
+        whole pages, so they never reach a decode."""
+        if bucket not in self.buckets or not 0 <= slot < self.slots:
+            raise ValueError(f"bad export slot={slot} bucket={bucket}")
+        t0 = time.monotonic()
+        rows = tuple(c[:, slot:slot + 1, :bucket].to("cpu", copy=True)
+                     for c in (self._k, self._v))
+        self._account("kv_export", time.monotonic() - t0)
+        return rows
+
+    @torch.inference_mode()
+    def import_kv(self, slot: int, k_rows, v_rows) -> None:
+        """Install shipped donor rows at ``slot`` through the bucket's
+        ``kv_import_{b}`` program: the rows are cast to the cache dtype
+        on the host, copied into the program's static buffers and the
+        program replays (nothing is captured again)."""
+        if not self.kvship:
+            raise RuntimeError("engine built without kvship=; no import "
+                               "programs")
+        bucket = int(k_rows.shape[2])
+        nl, _, _, nh, hd = self.kv_spec.shape
+        if bucket not in self.buckets or not 0 <= slot < self.slots \
+                or tuple(k_rows.shape) != (nl, 1, bucket, nh, hd) \
+                or tuple(v_rows.shape) != tuple(k_rows.shape):
+            raise ValueError(f"bad import slot={slot} rows "
+                             f"{tuple(k_rows.shape)}")
+        t0 = time.monotonic()
+        dt = self._k.dtype
+        self._run(f"kv_import_{bucket}", torch.as_tensor(k_rows).to(dt),
+                  torch.as_tensor(v_rows).to(dt), [slot])
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self._account("kv_import", time.monotonic() - t0)
+
     # -- speculative decoding ------------------------------------------------
 
     @torch.inference_mode()
@@ -526,6 +610,9 @@ class ServeEngine:
     #: the engine's programs, counted in ``calls`` / ``seconds``
     PROGRAMS = ("prefill", "decode", "kv_copy", "suffix", "draft_prefill",
                 "draft", "verify")
+    #: KV shipping's calls, counted beside them: a slot's rows read out
+    #: (no program) and ``kv_import_{b}``
+    SHIPPING = ("kv_export", "kv_import")
 
     def stats(self) -> dict:
         """The engine's evidence:
@@ -533,7 +620,8 @@ class ServeEngine:
         - ``decode_kernel``: the decode attention of the hot path
           (``dense`` | ``flash_decode`` | ``paged``);
         - ``calls`` / ``seconds``: calls served per program (suffix: per
-          token) and their host wall seconds (:data:`PROGRAMS`);
+          token) and their host wall seconds (:data:`PROGRAMS`, and
+          :data:`SHIPPING`'s export and import);
         - ``kernel_launches``: this process's launch counts of the serve
           path's kernels (:data:`KERNELS`), a replay counting its
           graph's launches;
@@ -544,8 +632,16 @@ class ServeEngine:
           while serving (the JAX engine's ``traces`` / ``retraces``);
         - ``capture_ms``: the captures' host ms; ``pool_bytes``: the
           device memory their shared pool reserved;
-        - ``spec`` (with ``spec=``): ``k``, the draft's layers, and
-          whether its parameters are the target's own tensors.
+        - ``programs``: the JAX engine's program count for the same
+          options (its ``kv_init``, the decode, a prefill per bucket,
+          with ``paged=`` the copy and the suffix, with ``spec=`` the
+          draft cache's init, draft and verify and a draft prefill per
+          bucket, with ``kvship=`` an import per bucket);
+        - ``spec`` (with ``spec=``): ``k``, the draft's layers, whether
+          its parameters are the target's own tensors, ``draft_quant``,
+          the bytes of a standalone draft copy (``draft_fp_bytes``), the
+          bytes its residency adds (``draft_resident_bytes``: 0 when
+          shared, the int8 pairs otherwise) and their difference.
         """
         counts = _kernels.launch_counts()
         out = {
@@ -558,6 +654,11 @@ class ServeEngine:
                            for n, c in self.captures.items()},
             "capture_ms": self.capture_ms,
             "pool_bytes": self.pool_bytes,
+            "programs": 2 + len(self._prefills)
+            + (2 if self.paged is not None else 0)
+            + (3 + len(self._draft_prefills) if self.spec is not None
+               else 0)
+            + (len(self.buckets) if self.kvship else 0),
         }
         if self.spec is not None:
             target = {p.data_ptr() for p in self.model.parameters()}
@@ -568,8 +669,31 @@ class ServeEngine:
                 "draft_shares_weights": all(
                     p.data_ptr() in target
                     for p in self.draft_model.parameters()),
+                "draft_quant": self.spec.draft_quant,
+                "draft_fp_bytes": self.draft_fp_bytes,
+                "draft_resident_bytes": self.draft_resident_bytes,
+                "draft_hbm_delta_bytes": self.draft_resident_bytes
+                - self.draft_fp_bytes,
             }
         return out
+
+
+@contextlib.contextmanager
+def _swapped_params(module: torch.nn.Module, tensors: dict):
+    """``module``'s parameters named in ``tensors`` replaced by those
+    tensors for the block (the int8 draft's dequantized weights), then
+    restored."""
+    saved = []
+    for name, t in tensors.items():
+        owner, _, leaf = name.rpartition(".")
+        mod = module.get_submodule(owner)
+        saved.append((mod, leaf, mod._parameters[leaf]))
+        mod._parameters[leaf] = t
+    try:
+        yield
+    finally:
+        for mod, leaf, p in saved:
+            mod._parameters[leaf] = p
 
 
 __all__ = ["ServeEngine"]

@@ -1,9 +1,8 @@
 """Paged KV accounting + prefix-hash reuse (the host half of the
 fleet's "prefill once per replica" story): a copy of
-``ray_lightning_tpu/serve/fleet/pages.py``, numpy only.  Fleet
-federation (``bind_federation``, ``mark_remote``) is not ported yet and
-raises; every other path is the JAX package's line for line, so the
-parity tests hold the two to equal ``stats()`` after every operation.
+``ray_lightning_tpu/serve/fleet/pages.py``, numpy only, line for line
+(the fleet federation's hooks included), so the parity tests hold the
+two to equal ``stats()`` after every operation.
 
 The device cache stays the slot-contiguous ``[n_layer, S, L, H, D]``
 pair (serve/kvcache.py) — preallocated like every static-shape array in
@@ -307,9 +306,17 @@ class PagedKV:
         self.tokens_requested = 0
         self.tokens_computed = 0
         self.reused_prefills = 0
-        #: imported-donor accounting belongs to fleet federation and KV
-        #: shipping, which are not ported: always 0 here, kept in
-        #: ``stats()`` so it compares key for key with the JAX package
+        #: fleet federation (serve/fleet/federation.py): the router
+        #: binds (replica id, directory) so donor retention advertises
+        #: fleet-wide and donor eviction invalidates.  Only RETAINED
+        #: donors advertise — they are pinnable for the export leg, so
+        #: their rows can't be overwritten mid-fetch; live slots could.
+        self._fed = None
+        self._fed_rid: Optional[int] = None
+        #: slots whose donor rows were IMPORTED over the KV-ship plane
+        #: (adopt_commit) rather than prefilled here — the remote-donor
+        #: accounting behind the fleet's federated_reuse_ratio
+        self._remote: set = set()
         self.remote_imports = 0
         self.federated_tokens_reused = 0
 
@@ -328,10 +335,15 @@ class PagedKV:
         """Account an admission: the slot leaves donor state (if the
         allocator handed back a retained slot), registers as a fresh
         donor for its own prompt, and charges its prompt pages.
-        ``src`` names the donor a reuse hit copied from (the JAX
-        package counts imported donors' savings as federated reuse;
-        no donor is imported here)."""
+        ``src`` names the donor a reuse hit copied from — when that
+        donor's rows were IMPORTED (a federated fetch or a disagg
+        ship), the avoided compute counts as federated reuse."""
+        if src is not None and src in self._remote:
+            self.federated_tokens_reused += max(
+                0, len(np.atleast_1d(tokens)) - int(computed))
+        self._fed_drop(slot)
         self._donors.pop(slot, None)
+        self._remote.discard(slot)
         # the final cache row is the paging dummy-write target; never
         # donate it (module docstring)
         self.index.register(slot, tokens, limit=self.max_seq_len - 1)
@@ -359,6 +371,11 @@ class PagedKV:
             return False
         self.pool.shrink_to(slot, len(reg))
         self._donors[slot] = next(self._lru)
+        if self._fed is not None:
+            # retention IS the fleet advertisement: from here until
+            # eviction these rows are pinnable, so a federated fetch
+            # can never race an overwrite
+            self._fed.register(self._fed_rid, slot, reg)
         return True
 
     def pin(self, slot: int) -> None:
@@ -392,8 +409,10 @@ class PagedKV:
             return None
         slot = min(candidates, key=self._donors.get)
         self._donors.pop(slot)
+        self._remote.discard(slot)
         self.index.drop(slot)
         self.pool.release(slot)
+        self._fed_drop(slot)
         return slot
 
     def drop_all(self) -> None:
@@ -402,24 +421,33 @@ class PagedKV:
             self.index.drop(slot)
         self._donors.clear()
         self._pinned.clear()
+        self._remote.clear()
         self.pool._held.clear()
+        if self._fed is not None:
+            self._fed.invalidate_replica(self._fed_rid)
 
     @property
     def donor_count(self) -> int:
         return len(self._donors)
 
-    # -- fleet federation hooks (not ported) -------------------------------
+    # -- fleet federation hooks --------------------------------------------
 
     def bind_federation(self, rid: int, directory) -> None:
-        """Router hook of fleet federation (the JAX package's
-        ``serve/fleet/federation.py``), not ported yet."""
-        raise NotImplementedError(
-            "fleet prefix federation is not ported yet")
+        """Router hook: advertise this replica's donor retentions to
+        the fleet directory (and invalidate on eviction) from here on.
+        """
+        self._fed_rid = int(rid)
+        self._fed = directory
+
+    def _fed_drop(self, slot: int) -> None:
+        if self._fed is not None:
+            self._fed.invalidate(self._fed_rid, slot)
 
     def mark_remote(self, slot: int) -> None:
-        """Scheduler hook of KV-ship adoption, not ported yet."""
-        raise NotImplementedError(
-            "KV shipping (imported donors) is not ported yet")
+        """Scheduler hook (adopt_commit): this donor's rows arrived
+        over the wire, not from a local prefill."""
+        self._remote.add(slot)
+        self.remote_imports += 1
 
     # -- evidence ----------------------------------------------------------
 
@@ -439,7 +467,7 @@ class PagedKV:
             "prefix_reuse_ratio": round(
                 1.0 - self.tokens_computed / self.tokens_requested, 4)
             if self.tokens_requested else 0.0,
-            "remote_donors": 0,
+            "remote_donors": len(self._remote & set(self._donors)),
             "remote_imports": self.remote_imports,
             "federated_tokens_reused": self.federated_tokens_reused,
         }

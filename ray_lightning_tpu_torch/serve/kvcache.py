@@ -86,6 +86,15 @@ class SlotAllocator:
         self._used.add(slot)
         return slot
 
+    def acquire_in(self, lo: int, hi: int) -> "int | None":
+        """The first free slot in ``[lo, hi)`` (a serve rank's block),
+        or ``None``."""
+        for i, slot in enumerate(self._free):
+            if lo <= slot < hi:
+                self._used.add(self._free.pop(i))
+                return slot
+        return None
+
     def release(self, slot: int) -> None:
         if slot not in self._used:
             raise ValueError(f"slot {slot} is not in use")

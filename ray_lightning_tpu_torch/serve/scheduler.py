@@ -1,7 +1,12 @@
 """Driver-side request queue + continuous-batching scheduler (a copy of
-``ray_lightning_tpu/serve/scheduler.py`` with its paged-KV prefix reuse
-and speculative-decode branches; KV shipping and the fleet router's
-hooks are not ported yet, and asking for them raises).
+``ray_lightning_tpu/serve/scheduler.py``: paged-KV prefix reuse,
+speculative decoding, the KV-ship hooks of disaggregated serving and
+the fleet router's withdraw and adoption hooks).  One addition: with
+``ranks=W`` (a ``Server`` of W serve actors, each over its block of
+S / W slots) a prefix-cache hit admits into a free slot of its donor's
+block, because the page copy cannot cross ranks; a hit whose donor's
+block has no free slot is admitted cold.
+
 
 Admission control and batch formation for the serve plane.  The
 scheduler owns every piece of host-side generation state — per-tenant
@@ -182,8 +187,14 @@ class Scheduler:
                  default_max_new_tokens: int = 32,
                  eos_token: Optional[int] = None,
                  paged: Any = None,
-                 spec: Any = None):
+                 spec: Any = None,
+                 ranks: int = 1):
         self.buckets = tuple(buckets)
+        if ranks < 1 or slots % ranks:
+            raise ValueError(f"slots={slots} must divide by ranks={ranks}")
+        #: slots per serve rank: a reuse's donor and its admission share
+        #: one block of this many slots
+        self._block = slots // ranks
         self.max_seq_len = int(max_seq_len)
         self.allocator = SlotAllocator(slots)
         #: paged-KV prefix reuse (serve/fleet/pages.py): page free-list
@@ -212,6 +223,10 @@ class Scheduler:
             dict(quotas) if isinstance(quotas, dict) else {})
         self._tenants: dict[str, _Tenant] = {}
         self._by_slot: dict[int, ServeRequest] = {}
+        #: ship-bound prefills' exported KV rows, keyed by request id
+        #: (plan ``export_kv`` → apply stash → Server.export_kv pop);
+        #: FIFO-capped so abandoned ships can't hold rows forever
+        self._kv_outbox: dict[int, tuple] = {}
         self._ids = itertools.count()
         self._arrival = itertools.count()
         self._order: dict[int, int] = {}     # req id -> arrival seq
@@ -240,9 +255,6 @@ class Scheduler:
     def submit(self, tokens, tenant: str = "default",
                max_new_tokens: Optional[int] = None,
                ship_kv: bool = False) -> ServeRequest:
-        if ship_kv:
-            raise NotImplementedError(
-                "KV shipping (disaggregated serving) is not ported yet")
         tokens = np.asarray(tokens, dtype=np.int32).reshape(-1)
         if len(tokens) == 0:
             raise ValueError("empty prompt")
@@ -255,6 +267,10 @@ class Scheduler:
         req = ServeRequest(next(self._ids), tenant, tokens,
                            max(1, min(int(want), cap)), self.eos_token)
         req.bucket = bucket
+        # disagg leg-1: the prefill step piggybacks a KV-row export
+        # (plan's ``export_kv`` entry) into the kv outbox, so the
+        # router's ship never races donor eviction for the rows
+        req._ship_kv = bool(ship_kv)
         if self.spec is not None:
             from collections import deque
             req._spec_window = deque(maxlen=self.spec.window)
@@ -327,7 +343,15 @@ class Scheduler:
                         break
                     self.allocator.release(evicted)
                 tenant.queue.pop(0)
-                slot = self.allocator.acquire()
+                slot = None
+                if hit is not None and self._block < self.allocator.slots:
+                    # the page copy stays inside one rank's block
+                    lo = hit[0] // self._block * self._block
+                    slot = self.allocator.acquire_in(lo, lo + self._block)
+                    if slot is None:
+                        hit = None
+                if slot is None:
+                    slot = self.allocator.acquire()
                 req.slot = slot
                 req.state = "active"
                 req.t_admit = time.monotonic()
@@ -356,6 +380,20 @@ class Scheduler:
                         entry["reuse"] = {"src": int(src),
                                           "matched": int(matched)}
                         computed = max(1, len(req.tokens) - matched)
+                    if getattr(req, "_ship_kv", False):
+                        # ship-bound prefill: the worker returns the
+                        # slot's whole-page KV rows WITH the step
+                        # result (no later export RPC, no donor-
+                        # eviction race) — apply() stashes them in the
+                        # kv outbox for the router's ship leg
+                        pages = (len(req.tokens)
+                                 // self.pages.page_size) \
+                            * self.pages.page_size
+                        if pages >= self.pages.page_size:
+                            entry["export_kv"] = {
+                                "bucket": int(bucket_for(
+                                    pages, self.buckets)),
+                                "matched": int(pages)}
                     self.pages.on_admit(slot, req.tokens, computed,
                                         src=reuse_src)
                     self._count("rlt_serve_prefill_tokens_total",
@@ -427,6 +465,16 @@ class Scheduler:
         for p in plan["prefills"]:
             slot = p["slot"]
             req = self._by_slot[slot]
+            exp = p.get("export_kv")
+            if exp is not None:
+                rows = (result.get("kv_export") or {}).get(slot)
+                if rows is not None:
+                    with self._lock:
+                        self._kv_outbox[req.id] = (
+                            rows[0], rows[1], exp["matched"])
+                        while len(self._kv_outbox) > 64:
+                            self._kv_outbox.pop(
+                                next(iter(self._kv_outbox)))
             tok = int(result["prefill"][slot])
             req.t_first = now
             req.generated.append(tok)
@@ -613,6 +661,82 @@ class Scheduler:
             self._count("rlt_serve_requests_total", 1, tenant=r.tenant,
                         status="failed")
             self._request_span(r, "failed")
+
+    def withdraw_queued(self) -> "list[ServeRequest]":
+        """Pull every not-yet-admitted request out of the tenant queues
+        WITHOUT finishing or failing it — the fleet router's shrink-
+        drain and failover paths re-dispatch the withdrawn requests to
+        a surviving replica (serve/fleet/router.py).  In-flight
+        (admitted) requests are untouched: they hold KV state only this
+        replica has."""
+        with self._lock:
+            out: list[ServeRequest] = []
+            for t in self._tenants.values():
+                out.extend(t.queue)
+                t.queue.clear()
+            for r in out:
+                self._order.pop(r.id, None)
+                r.state = "withdrawn"
+        self._gauge("rlt_serve_queue_depth_total", 0)
+        return out
+
+    # -- KV-ship adoption (fleet disaggregation) ---------------------------
+    #
+    # A decode replica installs IMPORTED donor K/V rows (a prefill
+    # replica computed them, the router shipped the pages) as a prefix
+    # donor, so the very next admission of the matching prompt reuses
+    # the shipped rows through the normal ``kv_copy`` + suffix path —
+    # shipping plugs into prefix reuse rather than growing a second
+    # install mechanism.  Three steps because registration must come
+    # AFTER the engine's import lands on every worker: a prompt that
+    # matched a registered-but-not-yet-installed donor would kv_copy
+    # uninitialized rows (adopt → engine.import_kv → commit).
+
+    def pop_kv_export(self, req_id: int) -> "tuple | None":
+        """Claim a ship-bound prefill's piggybacked KV rows
+        (``(k_rows, v_rows, matched_tokens)``), once."""
+        with self._lock:
+            return self._kv_outbox.pop(req_id, None)
+
+    def adopt_imported(self, tokens) -> Optional[int]:
+        """Acquire (only) a slot to host shipped rows.  ``None`` when
+        paging is off or no slot can be freed — the router then falls
+        back to a pooled-mode prefill on the decode replica."""
+        if self.pages is None:
+            return None
+        tokens = np.asarray(tokens, dtype=np.int32).reshape(-1)
+        if len(tokens) < self.pages.page_size:
+            return None              # nothing page-aligned to donate
+        with self._lock:
+            if self.allocator.free_count == 0:
+                evicted = self.pages.evict_lru_donor()
+                if evicted is None:
+                    return None      # every slot live: no room to adopt
+                self.allocator.release(evicted)
+            return self.allocator.acquire()
+
+    def adopt_commit(self, slot: int, tokens) -> None:
+        """Register + retain the installed donor (rows are live on
+        every worker).  Registers directly, NOT via on_admit: these
+        rows were shipped, not prefilled — the prefix_reuse savings
+        counters must not claim them as locally-avoided compute."""
+        with self._lock:
+            reg = self.pages.index.register(
+                slot, tokens, limit=self.max_seq_len - 1)
+            if reg == 0 or not self.pages.retain(slot):
+                self.allocator.release(slot)     # unreachable guard
+                return
+            # remote-donor accounting: reuse hits copying from this
+            # slot count as FEDERATED savings (the prefill happened on
+            # another replica), not local prefix_reuse wins
+            self.pages.mark_remote(slot)
+
+    def adopt_abort(self, slot: int) -> None:
+        """Give the slot back (the ship failed mid-install)."""
+        with self._lock:
+            self.pages.index.drop(slot)
+            self.pages.pool.release(slot)
+            self.allocator.release(slot)
 
     # -- stats -------------------------------------------------------------
 

@@ -20,14 +20,19 @@ its engine's CUDA graphs::
 Weights come from ``checkpoint=`` (a port ``Trainer`` checkpoint), the
 module's ``_trained_state`` from a previous ``fit``, or the seeded init.
 With W workers the S slots split in contiguous blocks of S / W, one a
-rank (serve/worker.py).  A pump thread plans, broadcasts each plan to
-every worker, merges their results and applies them; a step that
-raises, or a worker that dies, fails every live and queued request and
-stops the pump.  The telemetry, goodput, profile and flight planes, the
-compile cache, KV shipping, strategies other than data-parallel and
-prefix reuse across more than one worker are not ported yet: asking for
-them raises, naming the ROADMAP.md item.  Prompts and completions are
-token-id arrays: tokenization lives with the caller.
+rank (serve/worker.py); under ``paged=`` a prefix reuse takes its donor
+from the admitting rank's block (serve/scheduler.py ``ranks``).  A pump
+thread plans, broadcasts each plan to every worker, merges their
+results and applies them; a step that raises, or a worker that dies,
+fails every live and queued request, records ``failure_report`` (the
+cause; ``flight_paths`` stays empty until the flight recorder is
+ported) and stops the pump.  With ``kvship=True`` (and ``paged=``) the
+server is one end of the fleet's KV-ship plane (serve/fleet/router.py):
+``export_kv`` hands out a donor's rows, ``import_kv`` adopts shipped
+ones.  The telemetry, goodput, profile and flight planes, the compile
+cache and strategies other than data-parallel are not ported yet:
+asking for them raises, naming the ROADMAP.md item.  Prompts and
+completions are token-id arrays: tokenization lives with the caller.
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ from ray_lightning_tpu_torch.cluster.queue import WorkerQueueProxy
 from ray_lightning_tpu_torch.parallel.strategy import (DataParallelStrategy,
                                                        resolve_strategy)
 from ray_lightning_tpu_torch.plugins.ray_ddp import RayPlugin
-from ray_lightning_tpu_torch.serve.buckets import resolve_buckets
+from ray_lightning_tpu_torch.serve.buckets import (bucket_for,
+                                                  resolve_buckets)
 from ray_lightning_tpu_torch.serve.fleet.pages import PageConfig
 from ray_lightning_tpu_torch.serve.scheduler import Scheduler, ServeRequest
 from ray_lightning_tpu_torch.serve.spec import SpecConfig
@@ -77,6 +83,9 @@ class ServeSpec:
     seed: int
     paged: Any = None
     spec: Any = None
+    #: the KV import programs (``None``: the ``RLT_SERVE_KVSHIP``
+    #: worker env decides)
+    kvship: Any = None
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -131,8 +140,6 @@ class Server:
             raise _not_ported("telemetry=...", 13)
         if compile_cache is not None:
             raise _not_ported("compile_cache=...", 12)
-        if kvship:
-            raise _not_ported("kvship=True", 8)
         self.strategy = resolve_strategy(strategy)
         if type(self.strategy) is not DataParallelStrategy:
             raise _not_ported(f"strategy={strategy!r}", 9)
@@ -154,9 +161,8 @@ class Server:
                 f"block of S / W slots")
         self.paged = PageConfig.resolve(paged)
         self.spec = SpecConfig.resolve(spec)
-        if self.paged.enabled and self.num_workers > 1:
-            # a prefix donor may sit on another rank's block
-            raise _not_ported("paged=... with num_workers > 1", 3)
+        #: the per-bucket KV import programs (fleet KV shipping)
+        self.kvship = bool(kvship)
         self.devices_per_worker = devices_per_worker
         self.seed = int(seed)
         # default_root_dir holds the telemetry plane's files, not ported
@@ -167,16 +173,26 @@ class Server:
             quotas=tenant_quotas,
             max_prefills_per_step=max_prefills_per_step,
             default_max_new_tokens=max_new_tokens, eos_token=eos_token,
-            paged=self.paged, spec=self.spec)
+            paged=self.paged, spec=self.spec, ranks=self.num_workers)
         self._weights = self._resolve_weights(module, checkpoint)
         self._backend = None
         self._workers: list = []
         self._pump: Optional[threading.Thread] = None
         self._stop = threading.Event()
         self._work = threading.Event()
+        #: held from a plan to its broadcast, and from a KV adoption's
+        #: slot choice to its import's broadcast: a worker runs its calls
+        #: in arrival order, so an adoption that evicts a donor can never
+        #: overwrite it ahead of a planned step that copies from it
+        self._dispatch = threading.Lock()
         self._draining = False
         self._started = False
         self._error: Optional[BaseException] = None
+        #: postmortem of a mid-serve failure, set by the pump: the cause
+        #: and the flight-recorder dumps (``{}`` until the flight
+        #: recorder is ported, ROADMAP.md item 13); the fleet router's
+        #: failover report links it
+        self.failure_report: Optional[dict] = None
         self._setup_info: list = []
         #: ``start()``'s wall seconds by part: spawn (actors up and
         #: rendezvoused), setup (every worker's engine built, captures
@@ -229,7 +245,8 @@ class Server:
             spec = ServeSpec(
                 module=shipped, buckets=self.buckets,
                 slots=self.max_batch_slots, max_seq_len=self.max_seq_len,
-                seed=self.seed, paged=self.paged, spec=self.spec)
+                seed=self.seed, paged=self.paged, spec=self.spec,
+                kvship=self.kvship)
             ref = backend.put((spec, self._weights))
             try:
                 self._setup_info = process_results(
@@ -268,6 +285,8 @@ class Server:
         if self.platform == "cpu":
             env["CUDA_VISIBLE_DEVICES"] = ""
             env["RLT_CPU_THREADS"] = str(self.devices_per_worker or 1)
+        if self.kvship:
+            env["RLT_SERVE_KVSHIP"] = "1"
         env.update(self.worker_env)
         return env
 
@@ -318,19 +337,92 @@ class Server:
         return self.submit(prompt, tenant=tenant,
                            max_new_tokens=max_new_tokens).result(timeout)
 
-    # -- KV-page shipping (fleet disaggregation): not ported ---------------
+    # -- KV-page shipping (fleet disaggregation) ---------------------------
 
     def can_ship_kv(self) -> bool:
-        return False
-
-    def can_adopt_kv(self) -> bool:
-        return False
+        """Both ends of the KV-ship channel need paging (the prefix
+        index addresses donor pages) and the kv_import programs."""
+        return self._started and self.kvship and self.paged.enabled
 
     def export_kv(self, prompt_tokens, req_id: "int | None" = None):
-        raise _not_ported("export_kv", 8)
+        """Donor rows for the fleet's KV-ship leg, both the push path
+        (disaggregation ships a just-prefilled request's pages to its
+        decode replica) and the pull path (prefix federation fetches a
+        retained donor another replica advertised): the longest
+        registered prefix of ``prompt_tokens`` on this replica as
+        ``(k_rows, v_rows, matched_tokens)`` (CPU tensors in the cache
+        dtype, engine ``export_kv``), or ``None`` (no donor: the
+        federation caller treats that as a stale directory entry).
+        Rows go at bucket granularity (the import programs are one a
+        bucket) and the importer registers only the matched whole
+        pages, so the bucket's tail never decodes.
+
+        ``req_id`` (a ``submit(ship_kv=True)`` request) claims the rows
+        its prefill step piggybacked into the kv outbox, with no worker
+        round trip; the donor match below is the fallback."""
+        sched = self.scheduler
+        if sched.pages is None or not self._started:
+            return None
+        if req_id is not None:
+            boxed = sched.pop_kv_export(int(req_id))
+            if boxed is not None:
+                return boxed
+        prompt_tokens = np.asarray(prompt_tokens,
+                                   dtype=np.int32).reshape(-1)
+        # match and pin under ONE lock hold: an admission evicting (and
+        # re-admitting) the donor between the match and the worker row
+        # fetch would ship a DIFFERENT prompt's rows under this
+        # prompt's registration
+        with sched._lock:
+            hit = sched.pages.match(prompt_tokens)
+            if hit is None:
+                return None
+            src, matched = hit
+            sched.pages.pin(src)
+        try:
+            bucket = bucket_for(matched, self.buckets)
+            results = process_results(
+                [w.call("serve_export_kv", int(src), int(bucket))
+                 for w in self._workers], self._backend, CALL_TIMEOUT_S)
+            rows = next(r for r in results if r is not None)
+            return rows[0], rows[1], int(matched)
+        finally:
+            with sched._lock:
+                sched.pages.unpin(src)
+
+    def can_adopt_kv(self) -> bool:
+        """Cheap capacity probe for the router's ship policy: is there a
+        slot this replica could host shipped rows in right now (free, or
+        reclaimable from an LRU donor)?  Racy by design: a ship admitted
+        on a stale yes still fails safe in ``import_kv``."""
+        sched = self.scheduler
+        if sched.pages is None or not self._started:
+            return False
+        with sched._lock:
+            return (sched.allocator.free_count > 0
+                    or sched.pages.donor_count > 0)
 
     def import_kv(self, prompt_tokens, k_rows, v_rows) -> bool:
-        raise _not_ported("import_kv", 8)
+        """Adopt shipped donor rows: acquire a donor slot, install the
+        rows on the worker that owns it, then register the prefix (the
+        order is the soundness story: scheduler ``adopt_commit``).
+        False: no adoptable slot (the router falls back to a pooled
+        prefill)."""
+        prompt_tokens = np.asarray(prompt_tokens,
+                                   dtype=np.int32).reshape(-1)
+        with self._dispatch:
+            slot = self.scheduler.adopt_imported(prompt_tokens)
+            if slot is None:
+                return False
+            futures = [w.call("serve_import_kv", int(slot), k_rows, v_rows)
+                       for w in self._workers]
+        try:
+            process_results(futures, self._backend, CALL_TIMEOUT_S)
+        except BaseException:
+            self.scheduler.adopt_abort(slot)
+            raise
+        self.scheduler.adopt_commit(slot, prompt_tokens)
+        return True
 
     # -- the pump ----------------------------------------------------------
 
@@ -338,30 +430,35 @@ class Server:
         sched = self.scheduler
         while not self._stop.is_set():
             _drain(self._backend, {w.actor_id for w in self._workers})
-            plan = sched.plan()
+            with self._dispatch:
+                plan = sched.plan()
+                if plan is not None:
+                    t0 = time.monotonic()
+                    futures = [w.call("serve_step", plan)
+                               for w in self._workers]
             if plan is None:
                 if self._draining and sched.idle():
                     return
                 self._work.wait(0.02)
                 self._work.clear()
                 continue
-            t0 = time.monotonic()
             try:
-                results = process_results(
-                    [w.call("serve_step", plan) for w in self._workers],
-                    self._backend, STEP_TIMEOUT_S)
+                results = process_results(futures, self._backend,
+                                          STEP_TIMEOUT_S)
                 if not results or any(r is None for r in results):
                     raise RuntimeError(
                         "a serve worker returned no step result")
-                merged: dict = {"prefill": {}, "decode": {}}
+                merged: dict = {"prefill": {}, "decode": {},
+                                "kv_export": {}}
                 for r in results:      # each rank's block of slots
-                    merged["prefill"].update(r["prefill"])
-                    merged["decode"].update(r["decode"])
+                    for key in merged:
+                        merged[key].update(r.get(key, {}))
                 sched.apply(plan, merged)
             except BaseException as e:   # noqa: BLE001 - fleet failure
                 _log.error("serve step failed; failing %d live request(s)",
                            sched.active_count + sched.queued_count,
                            exc_info=True)
+                self.failure_report = {"cause": repr(e), "flight_paths": {}}
                 self._error = e
                 sched.fail_all(e)
                 return
@@ -389,8 +486,8 @@ class Server:
         out = {"scheduler": self.scheduler.stats(),
                "setup": self._setup_info, "start": dict(self.start_timing),
                "pump": dict(self.pump_stats)}
-        if self._error is not None:
-            out["failure"] = {"cause": repr(self._error)}
+        if self.failure_report is not None:
+            out["failure"] = dict(self.failure_report)
         if self._started and self._workers and self._error is None:
             out["workers"] = process_results(
                 [w.call("serve_stats") for w in self._workers],

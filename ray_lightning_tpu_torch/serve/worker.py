@@ -21,7 +21,12 @@ outputs; here no collective is needed.
 
 ``ServeWorker(engine)`` is the in-process form (the tests and the smoke
 script drive the loop without actors): it owns all the engine's slots.
-The telemetry sinks and the profile windows are not ported yet.
+KV shipping (the fleet's disaggregation and prefix federation): a
+ship-bound prefill's rows ride back with its step result (the plan's
+``export_kv``), ``serve_export_kv`` and ``serve_import_kv`` move a
+donor's rows out of and into this rank's block, the rank that owns the
+slot answering.  The telemetry sinks and the profile windows are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -61,8 +66,12 @@ class ServeWorker(RLTExecutor):
         under ``RLT_PLATFORM=cpu`` (``torch.set_num_threads`` of
         ``RLT_CPU_THREADS``); a GPU worker without CUDA raises.
         ``queue`` (the worker-to-driver proxy) feeds the telemetry
-        sinks, which are not ported yet."""
+        sinks, which are not ported yet.  ``spec`` and ``kvship`` ride
+        the ``ServeSpec`` when the driver set them; otherwise the
+        ``RLT_SPEC_*`` / ``RLT_SERVE_KVSHIP`` worker env decides (the
+        fleet's replica round trip)."""
         from ray_lightning_tpu_torch.serve.engine import ServeEngine
+        from ray_lightning_tpu_torch.serve.spec import SpecConfig
 
         t0 = time.monotonic()
         spec, weights = payload
@@ -75,10 +84,15 @@ class ServeWorker(RLTExecutor):
             int(os.environ.get("LOCAL_RANK", "0")),
             int(os.environ.get("RLT_CPU_THREADS", "1")),
             "Server", "platform='cpu'")
+        sp = spec.spec if spec.spec is not None else SpecConfig.resolve(None)
+        kvship = spec.kvship
+        if kvship is None:
+            kvship = os.environ.get(
+                "RLT_SERVE_KVSHIP", "").strip() in ("1", "true", "True")
         self._engine = ServeEngine(
             spec.module, spec.buckets, per, spec.max_seq_len,
             seed=spec.seed, weights=weights, device=device,
-            paged=spec.paged, spec=spec.spec).setup()
+            paged=spec.paged, spec=sp, kvship=bool(kvship)).setup()
         eng = self._engine
         return {
             "rank": self._rank,
@@ -116,9 +130,6 @@ class ServeWorker(RLTExecutor):
         if plan.get("profile") is not None:
             raise NotImplementedError(
                 "profile windows are not ported yet")
-        if any(p.get("export_kv") is not None for p in plan["prefills"]):
-            raise NotImplementedError(
-                "KV export (disaggregated serving) is not ported yet")
         engine = self._engine
         if engine is None:
             raise RuntimeError("serve_step before setup_serve")
@@ -164,8 +175,8 @@ class ServeWorker(RLTExecutor):
                       reused=(reuse or {}).get("matched", 0)):
                 if reuse is not None:
                     # prefix-cache hit (serve/fleet/pages.py): copy the
-                    # matched donor pages, compute only the suffix (one
-                    # worker only: Server refuses paged= across ranks)
+                    # matched donor pages, compute only the suffix (the
+                    # scheduler keeps the donor in the admission's block)
                     result["prefill"][p["slot"]] = engine.prefill_reused(
                         slot, reuse["src"] - lo, p["tokens"],
                         p["length"], reuse["matched"])
@@ -178,18 +189,60 @@ class ServeWorker(RLTExecutor):
                 # plane, it always recomputes the full prefix)
                 engine.draft_prefill(slot, p["tokens"], p["length"],
                                      p["bucket"])
+            exp = p.get("export_kv")
+            if exp is not None:
+                # ship-bound prefill (disaggregation leg 1): the donor
+                # rows ride back WITH the step result, so the router's
+                # KV ship never pays a second worker round trip nor
+                # races this slot's later eviction
+                with span("kv_export", slot=p["slot"],
+                          bucket=exp["bucket"]):
+                    rows = engine.export_kv(slot, exp["bucket"])
+                result.setdefault("kv_export", {})[p["slot"]] = rows
         return result
+
+    # -- KV-page shipping (fleet disaggregation) ---------------------------
+
+    def _local(self, slot: int) -> "Optional[int]":
+        """``slot`` (the fleet's) in this rank's block, or ``None``."""
+        lo, hi = self._block or (0, self._engine.slots)
+        return slot - lo if lo <= slot < hi else None
+
+    def serve_export_kv(self, slot: int, bucket: int):
+        """Device-to-host donor rows for the router's KV-ship leg from
+        the rank that owns ``slot`` (``None`` from the others)."""
+        local = self._local(slot)
+        if local is None:
+            return None
+        with span("kv_export", slot=slot, bucket=bucket):
+            return self._engine.export_kv(local, bucket)
+
+    def serve_import_kv(self, slot: int, k_rows, v_rows) -> None:
+        """Install shipped donor rows (engine ``kv_import_{b}``) on the
+        rank that owns ``slot``."""
+        local = self._local(slot)
+        if local is None:
+            return
+        with span("kv_import", slot=slot, bucket=int(k_rows.shape[2])):
+            self._engine.import_kv(local, k_rows, v_rows)
 
     # -- evidence / teardown -----------------------------------------------
 
     def serve_stats(self) -> dict:
         """The engine's stats (serve/engine.py ``stats``), this rank's
-        block and its process id."""
+        block, its process id and, on the card, the device memory its
+        process holds (``memory_allocated`` / ``memory_reserved``)."""
         if self._engine is None:
             return {}
-        return {**self._engine.stats(), "rank": self._rank,
-                "slot_block": list(self._block or (0, self._engine.slots)),
-                "pid": os.getpid()}
+        out = {**self._engine.stats(), "rank": self._rank,
+               "slot_block": list(self._block or (0, self._engine.slots)),
+               "pid": os.getpid()}
+        dev = self._engine.device
+        if dev.type == "cuda":
+            import torch
+            out["memory_allocated"] = torch.cuda.memory_allocated(dev)
+            out["memory_reserved"] = torch.cuda.memory_reserved(dev)
+        return out
 
     def teardown_serve(self) -> None:
         """Drop the engine (its caches and graphs) before the actor is

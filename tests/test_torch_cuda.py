@@ -1596,3 +1596,176 @@ def test_cuda_server_workers_take_one_card_each(cards):
         with torch.inference_mode():
             logits = ref(seq)[0, -1].float()
         assert abs(logits[one[n]] - logits[two[n]]) <= 2e-2, (p, one, two)
+
+
+# -- KV shipping, the int8 draft and the fleet on the card ---------------------
+
+def _ship_engine(spec=None):
+    """``_paged_engine`` with the KV import programs (and ``spec``)."""
+    cfg = GPTConfig(vocab_size=256, block_size=128, n_layer=12, n_head=2,
+                    n_embd=64, remat=False)
+    return ServeEngine(GPTLightningModule(cfg), buckets=(32, 64), slots=4,
+                       max_seq_len=128, seed=0, paged=PageConfig(True, 16),
+                       spec=spec, kvship=True).setup()
+
+
+@pytest.mark.cuda
+def test_cuda_kv_import_replays_equal_their_eager_steps(cuda_device,
+                                                        monkeypatch):
+    """``kvship=True`` captures one ``kv_import_{b}`` graph a bucket at
+    setup; each replay, on caches of real traffic, leaves the caches its
+    eager step leaves, bit for bit, and ``import_kv`` (host cast to the
+    cache dtype, then the replay) captures nothing more."""
+    monkeypatch.setenv("RLT_DECODE_IMPL", "paged")
+    eng = _ship_engine()
+    caps = eng.stats()["captures"]
+    assert caps["kv_import_32"] == 1 and caps["kv_import_64"] == 1, caps
+    assert eng.stats()["programs"] == 2 + 2 + 2 + 2
+    _drive(eng)
+    nl, _, _, nh, hd = eng.kv_spec.shape
+    g = torch.Generator().manual_seed(0)
+    for b, slot in ((32, 1), (64, 3)):
+        rows = [torch.randn(nl, 1, b, nh, hd, generator=g).to(torch.bfloat16)
+                for _ in range(2)]
+        snap = _snapshot(eng)
+        with torch.inference_mode():
+            eng._run(f"kv_import_{b}", *rows, [slot])
+        after = _snapshot(eng)
+        _restore(eng, snap)
+        with torch.inference_mode():
+            eng.run_eager(f"kv_import_{b}", *rows, [slot])
+        assert all(torch.equal(a, c) for a, c in zip(after, _snapshot(eng)))
+        # fp32 rows through import_kv: cast on the host, then the replay
+        eng.import_kv(slot, rows[0].float(), rows[1].float())
+        assert torch.equal(eng._k[:, slot, :b].cpu(), rows[0][:, 0])
+        assert torch.equal(eng._v[:, slot, :b].cpu(), rows[1][:, 0])
+    stats = eng.stats()
+    assert not any(stats["recaptures"].values()), stats["recaptures"]
+    assert stats["calls"]["kv_import"] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_export_import_across_engines_gives_cold_tokens(cuda_device,
+                                                             monkeypatch):
+    """A prompt prefilled on engine A, its whole pages exported and
+    imported into engine B's cache bit for bit; B serves prompt + first
+    token through a reuse of the imported rows, and every token is the
+    cold whole-sequence forward's argmax or within a bf16 near-tie
+    (2e-2) of it, as A's own tokens are."""
+    monkeypatch.setenv("RLT_DECODE_IMPL", "paged")
+    a, b = _ship_engine(), _ship_engine()
+    pages = PageConfig(True, 16)
+    prompt = np.arange(3, 43) % 250 + 1            # 40 tokens, 2 pages
+    sched_a = Scheduler(buckets=(32, 64), slots=4, max_seq_len=128,
+                        default_max_new_tokens=1, paged=pages)
+    leg1 = sched_a.submit(prompt, ship_kv=True)
+    worker_a = ServeWorker(a)
+    while not sched_a.idle():
+        sched_a.apply(plan := sched_a.plan(), worker_a.serve_step(plan))
+    k_rows, v_rows, matched = sched_a.pop_kv_export(leg1.id)
+    assert matched == 32 and k_rows.dtype == torch.bfloat16
+    assert torch.equal(k_rows[:, 0], a._k[:, leg1.slot, :32].cpu())
+    sched_b = Scheduler(buckets=(32, 64), slots=4, max_seq_len=128,
+                        default_max_new_tokens=8, paged=pages)
+    slot = sched_b.adopt_imported(prompt)
+    ServeWorker(b).serve_import_kv(slot, k_rows, v_rows)
+    sched_b.adopt_commit(slot, prompt)
+    assert torch.equal(b._k[:, slot, :32].cpu(), k_rows[:, 0])
+    assert torch.equal(b._v[:, slot, :32].cpu(), v_rows[:, 0])
+    t1 = int(leg1.result(0)[0])
+    leg2 = sched_b.submit(np.concatenate([prompt, [t1]]))
+    worker_b = ServeWorker(b)
+    reused = 0
+    while not sched_b.idle():
+        plan = sched_b.plan()
+        reused += sum("reuse" in p for p in plan["prefills"])
+        sched_b.apply(plan, worker_b.serve_step(plan))
+    assert reused == 1
+    assert sched_b.pages.stats()["remote_imports"] == 1
+    tokens = [t1] + leg2.result(0).tolist()
+    ref = GPT(dataclasses.replace(a.model.config, attention_impl="dot"))
+    ref.load_state_dict(a.model.state_dict())
+    ref.to(dtype=torch.bfloat16).eval()
+    seq = torch.tensor([list(prompt) + tokens[:-1]], device="cuda")
+    with torch.inference_mode():
+        logits = ref(seq)[0, len(prompt) - 1:].float()
+    for i, tok in enumerate(tokens):
+        best = int(logits[i].argmax())
+        assert tok == best or logits[i, tok] >= logits[i, best] - 2e-2, \
+            (i, tok, best)
+
+
+@pytest.mark.cuda
+def test_cuda_int8_draft_graphs_equal_their_eager_steps(cuda_device,
+                                                        monkeypatch):
+    """``draft_quant="int8"``: the draft's weights stay resident as int8
+    pairs and each draft program dequantizes them inside its graph; the
+    draft and draft-prefill replays equal their eager steps bit for bit,
+    and the drafts equal a bf16 draft holding the dequantized weights."""
+    monkeypatch.setenv("RLT_DECODE_IMPL", "paged")
+    eng = _ship_engine(SpecConfig(True, k=3, draft_quant="int8"))
+    sp = eng.stats()["spec"]
+    assert sp["draft_quant"] == "int8"
+    assert 0 < sp["draft_resident_bytes"] < sp["draft_fp_bytes"]
+    _serve_mixed(eng, SpecConfig(True, k=3, draft_quant="int8"))
+    S = eng.slots
+    toks = np.arange(5, 5 + S).astype(np.int32)
+    pos = np.array([7, 40, 90, 120], np.int32)
+    ids = np.zeros((1, 32), np.int64)
+    ids[0, :29] = np.arange(1, 30)
+    for name, values in (("draft", (toks, pos)),
+                         ("draft_prefill_32", (ids, [2], [29]))):
+        snap = _snapshot(eng)
+        with torch.inference_mode():
+            out = eng._run(name, *values)
+            got = None if out is None else out.clone()
+        after = _snapshot(eng)
+        _restore(eng, snap)
+        with torch.inference_mode():
+            want = eng.run_eager(name, *values)
+        assert (got is None) == (want is None), name
+        assert got is None or torch.equal(got, want), name
+        assert all(torch.equal(x, y) for x, y in zip(after, _snapshot(eng)))
+    stats = eng.stats()
+    assert not any(stats["recaptures"].values()), stats["recaptures"]
+
+
+_FLEET_SCRIPT = r"""
+import numpy as np, torch
+from ray_lightning_tpu_torch import FleetServer, GPTLightningModule
+from ray_lightning_tpu_torch.models.gpt import GPTConfig
+cfg = GPTConfig(vocab_size=256, block_size=64, n_layer=2, n_head=2,
+                n_embd=64, remat=False)
+fleet = FleetServer(GPTLightningModule(cfg), replicas=2, autoscale=False,
+                    fleet={"roles": ("prefill", "decode")},
+                    buckets=(16, 32, 64), max_batch_slots=4,
+                    max_new_tokens=6).start()
+try:
+    shared = np.arange(1, 33)
+    outs = [fleet.generate(np.concatenate([shared, [40 + i]]), timeout=120)
+            for i in range(3)]
+    kv = fleet.status()["fleet"]["kvship"]
+finally:
+    fleet.shutdown()
+assert all(len(o) == 6 for o in outs), outs
+assert kv["ships"] == 3 and kv["failovers"] == 0, kv
+assert not torch.cuda.is_initialized(), "the driver initialised CUDA"
+print("FLEET_OK", kv["compression_ratio"])
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_fleet_leaves_the_driver_off_cuda(cuda_device, tmp_path):
+    """A two-replica disaggregated fleet on the card (both replicas' workers
+    on card 0) ships every request's pages, fp8 on the wire, and its
+    driver never initialises CUDA (a fresh process: this one has)."""
+    import subprocess
+    import sys
+    root = str(__import__("pathlib").Path(__file__).resolve().parents[1])
+    out = subprocess.run([sys.executable, "-c", _FLEET_SCRIPT],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=str(tmp_path),
+                         env={**__import__("os").environ,
+                              "PYTHONPATH": root})
+    assert out.returncode == 0 and "FLEET_OK" in out.stdout, \
+        out.stdout[-2000:] + out.stderr[-4000:]

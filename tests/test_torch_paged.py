@@ -239,12 +239,21 @@ def _kv_state(p):
 
 def test_paged_kv_accounting_matches_jax():
     """The same random admit/advance/retain/evict/pin/drop sequence into
-    the JAX ``PagedKV`` and the port's copy: equal ``stats()``, page
-    counts, donors and ``match()`` results after every operation."""
+    the JAX ``PagedKV`` and the port's copy, each bound to its package's
+    fleet ``PrefixDirectory`` (``bind_federation``): equal ``stats()``,
+    page counts, donors, ``match()`` results and directory lookups after
+    every operation; then imported donors (``mark_remote``) count
+    alike."""
+    from ray_lightning_tpu.serve.fleet.federation import (
+        PrefixDirectory as JaxDirectory)
+    from ray_lightning_tpu_torch.serve.fleet import PrefixDirectory
     rng = np.random.default_rng(0)
     S, L, ps = 5, 48, 4
     jax_kv = JaxPagedKV(JaxPageConfig(True, ps), S, L)
     mine = PagedKV(PageConfig(True, ps), S, L)
+    jax_dir, my_dir = JaxDirectory(ps), PrefixDirectory(ps)
+    jax_kv.bind_federation(3, jax_dir)
+    mine.bind_federation(3, my_dir)
     prefixes = [rng.integers(0, 50, 20) for _ in range(3)]
     live: dict = {}
     donors: set = set()
@@ -296,6 +305,7 @@ def test_paged_kv_accounting_matches_jax():
         elif op == "match":
             toks = prompt()
             assert jax_kv.match(toks) == mine.match(toks)
+            assert jax_dir.lookup(toks) == my_dir.lookup(toks)
         elif op == "pin" and donors:
             slot = int(rng.choice(sorted(donors)))
             fn = "pin" if rng.random() < .6 else "unpin"
@@ -308,12 +318,27 @@ def test_paged_kv_accounting_matches_jax():
             donors.clear()
         assert _kv_state(jax_kv) == _kv_state(mine), (step, op)
         mine.pool.check()
+        assert jax_dir.stats() == my_dir.stats(), (step, op)
     st = mine.stats()
     assert st["prefix_hits"] > 10 and st["reused_prefills"] > 5, st
-    with pytest.raises(NotImplementedError, match="not ported"):
-        mine.bind_federation(0, None)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        mine.mark_remote(0)
+    assert my_dir.stats()["hits"] > 2 and my_dir.stats()["invalidations"] > 2
+    # an imported donor: registered, retained, marked remote; a reuse
+    # from it counts as federated
+    jax_kv = JaxPagedKV(JaxPageConfig(True, ps), S, L)
+    mine = PagedKV(PageConfig(True, ps), S, L)
+    jax_dir, my_dir = JaxDirectory(ps), PrefixDirectory(ps)
+    jax_kv.bind_federation(3, jax_dir)
+    mine.bind_federation(3, my_dir)
+    toks = np.concatenate([prefixes[0], [7]])
+    for kv in (jax_kv, mine):
+        kv.on_admit(0, toks, len(toks))
+        assert kv.retain(0)
+        kv.mark_remote(0)
+        kv.on_admit(1, toks, 1, src=0)
+    assert _kv_state(jax_kv) == _kv_state(mine)
+    assert jax_dir.stats() == my_dir.stats()
+    assert mine.stats()["remote_imports"] == 1
+    assert mine.stats()["federated_tokens_reused"] == len(toks) - 1
 
 
 def _plan_view(plan):

@@ -181,20 +181,24 @@ def test_engine_without_device_needs_cuda(monkeypatch):
 
 
 def test_engine_rejects_what_is_not_ported():
-    """Paged KV and speculative decoding are ported (tests/test_torch_
-    paged.py, tests/test_torch_spec.py); the mesh, the compile cache, KV
-    shipping and int8-resident drafts still raise."""
+    """Paged KV, speculative decoding, KV shipping and int8-resident
+    drafts are ported (tests/test_torch_paged.py, tests/test_torch_spec.
+    py, tests/test_torch_kvship.py); the mesh and the compile cache
+    still raise.  A ship-bound submit is accepted, and a plan's export
+    needs a set-up worker like any other step."""
     mod = GPTLightningModule(GPTConfig(**TINY))
-    for kw in ({"strategy": object()}, {"kvship": True},
-               {"compile_cache": "dir"},
-               {"spec": SpecConfig(True, draft_quant="int8")}):
+    for kw in ({"strategy": object()}, {"compile_cache": "dir"}):
         with pytest.raises(NotImplementedError, match="not ported"):
             ServeEngine(mod, buckets=BUCKETS, slots=SLOTS,
                         max_seq_len=32, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Scheduler(buckets=BUCKETS, slots=SLOTS,
-                  max_seq_len=32).submit([1, 2], ship_kv=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    eng = ServeEngine(mod, buckets=BUCKETS, slots=SLOTS, max_seq_len=32,
+                      device="cpu", kvship=True,
+                      spec=SpecConfig(True, draft_quant="int8")).setup()
+    assert eng.kvship and eng.stats()["spec"]["draft_quant"] == "int8"
+    req = Scheduler(buckets=BUCKETS, slots=SLOTS,
+                    max_seq_len=32).submit([1, 2], ship_kv=True)
+    assert req._ship_kv and req.state == "queued"
+    with pytest.raises(RuntimeError, match="before setup_serve"):
         ServeWorker(None).serve_step({"prefills": [{"export_kv": {}}],
                                       "decode": None})
 

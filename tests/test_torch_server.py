@@ -259,10 +259,8 @@ def test_server_workers_run_on_the_card_unless_asked(monkeypatch):
 @pytest.mark.parametrize("kw, item", [
     ({"telemetry": {"metrics_port": 0}}, 13),
     ({"compile_cache": "cache"}, 12),
-    ({"kvship": True}, 8),
     ({"strategy": "zero1"}, 9),
-    ({"paged": PageConfig(True, 8), "num_workers": 2}, 3),
-], ids=["telemetry", "compile_cache", "kvship", "zero1", "paged-ranks"])
+], ids=["telemetry", "compile_cache", "zero1"])
 def test_server_refuses_what_is_not_ported(kw, item):
     """Each option the port lacks raises before any actor starts,
     naming its ROADMAP.md item."""
@@ -271,14 +269,34 @@ def test_server_refuses_what_is_not_ported(kw, item):
         _server(_module(), **kw)
 
 
+@pytest.mark.parametrize("kw", [
+    {"kvship": True, "paged": PageConfig(True, 8)},
+    {"paged": PageConfig(True, 8), "num_workers": 2},
+], ids=["kvship", "paged-ranks"])
+def test_server_takes_what_was_ported_since(kw):
+    """KV shipping (the fleet's disaggregation) and prefix reuse across
+    ranks are ported: the options construct, the worker env and spec
+    carry ``kvship``, the scheduler keeps a reuse inside a rank's block
+    (tests/test_torch_kvship.py serves both)."""
+    server = _server(_module(), **kw)
+    assert server.kvship == kw.get("kvship", False)
+    assert ("RLT_SERVE_KVSHIP" in server._worker_env_base()) \
+        == server.kvship
+    workers = kw.get("num_workers", 1)
+    assert server.scheduler._block == SLOTS // workers
+    assert server.scheduler.pages is not None
+
+
 def test_server_slot_split_and_kv_shipping():
-    """Slots that do not divide by the workers raise; KV shipping is
-    refused (not ported) and never offered."""
+    """Slots that do not divide by the workers raise; before ``start``
+    a server ships nothing: it offers no KV, exports no donor and adopts
+    no rows (without paging never)."""
     with pytest.raises(ValueError, match="divide"):
         _server(_module(), num_workers=3)
     server = _server(_module())
     assert not server.can_ship_kv() and not server.can_adopt_kv()
-    for call in (lambda: server.export_kv(PROMPTS[0]),
-                 lambda: server.import_kv(PROMPTS[0], None, None)):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            call()
+    assert server.export_kv(PROMPTS[0]) is None
+    assert server.import_kv(PROMPTS[0], None, None) is False
+    paged = _server(_module(), kvship=True, paged=PageConfig(True, 8))
+    assert not paged.can_ship_kv() and not paged.can_adopt_kv()
+    assert paged.export_kv(np.arange(1, 20)) is None

@@ -307,9 +307,13 @@ def test_draft_model_and_engine_refusals(fp32_weights, monkeypatch):
                           if not n.startswith("h.1.")}
     assert all(p.data_ptr() in shared for p in draft.values())
     assert eng.draft_kv_spec.shape == (1, 4, 32, 2, 16)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ServeEngine(mod, (8,), 2, 32, device="cpu",
-                    spec=SpecConfig(True, draft_quant="int8"))
+    # the int8-resident draft (tests/test_torch_kvship.py holds it
+    # against the JAX one): its own (payload, scale) pairs, half the bytes
+    q8 = ServeEngine(mod, (8,), 2, 32, device="cpu",
+                     spec=SpecConfig(True, draft_quant="int8")).setup()
+    sp = q8.stats()["spec"]
+    assert sp["draft_quant"] == "int8" and set(q8._draft_q) == set(draft)
+    assert 0 < sp["draft_resident_bytes"] < sp["draft_fp_bytes"]
 
     class NoDraft(LightningModule):
         def configure_decode_model(self, device=None):
