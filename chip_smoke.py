@@ -282,13 +282,37 @@ Phases, each fatal on failure:
    on the card, or else equal bit for bit one of the engine's own
    serving paths for the request, replayed in process (fp8's are
    counted, not held); every replica's launches (rows 1, 13, 14) from
-   its worker stats, no capture after setup.
+   its worker stats, no capture after setup;
+17. the one-card training ladder, last: (a) gpt2-medium (24 x 1024, 16
+   heads) at B=8, T=1024, bf16: one step's gradients under remat "off",
+   "dots", "dots_no_batch" and "full" bit for bit with "off"'s, the
+   step's peak memory ordered off >= dots >= dots_no_batch >= full,
+   then a 6-step fit under each (rows 1 and 6; step ms, MFU by PERF.md
+   section 2's formula, peak memory) and two more steps under
+   torch.profiler (device ms by category, busy share), and "dots" at
+   ``steps_per_execution=4`` (the selective checkpoint captured in a CUDA
+   graph) against its eager fit bit for bit; (b) gpt2-moe-8e (12 x 768, 8
+   experts, top-2, capacity 1.25, every second block routed) the same
+   under "off", "dots", "dots_moe_act", "dots_moe" and "full" (peak
+   memory off >= dots_moe >= dots_moe_act >= dots >= full), with
+   ``moe_aux`` and MFU over the active parameters; (c) gpt2-small at
+   dropout 0.1 (B=8, T=1024) and the bert-base masked LM (B=32, T=512)
+   at ``steps_per_execution=4`` against their eager k=1 fits bit for bit,
+   one capture and two replays, each replay launching the draw kernel
+   ``philox_uniform`` as k eager steps do; (d) MNIST B=128 eager (BASELINE
+   config #1) through the native prefetcher and through the Python path
+   in turns: the same batches, the fits bit for bit, step ms of each;
+   (e) ``csrc/philox.cu`` against its plain version bit for bit (on the
+   card and on the CPU) at the main path's shapes, timed beside
+   ``torch.rand`` and its bound.
 
 The next-to-last line is the ``{"kernels": [...]}`` JSON record, one
 entry per TPU kernel row, 1 to 16 (``launches`` from the path phases
 that route to it by ``tpu_rows``, each counted from 0 just before its
 phase; rows 1 and 6 also carry their non-causal times under
-``noncausal``); the last is ``{"ok": true, "device": {...}}``.  Without
+``noncausal``), then the port-only draw kernel ``philox_uniform``
+(``row`` null, ``replaces`` naming the JAX draws it stands in for); the
+last is ``{"ok": true, "device": {...}}``.  Without
 CUDA the script prints an error and exits 1.
 
 ``--fwd-only`` builds the kernels and runs flash_fwd alone at every TPU
@@ -326,6 +350,9 @@ line (phase 15's worker launches) and the last line.  ``--fleet-only``
 runs phase 16 alone (its legs with the driver off CUDA, then the
 near-tie checks), then checks and times rows 1, 13 and 14 and prints
 their kernels line (the fleet's worker launches) and the last line.
+``--ladder-only`` checks and times rows 1 and 6 and ``philox_uniform``,
+runs phase 17 alone, and prints their kernels line (the ladder's
+launches) and the last line.
 """
 
 from __future__ import annotations
@@ -5049,6 +5076,387 @@ def decode_rows(gen) -> list:
     return out
 
 
+# -- phase 17: the one-card training ladder ----------------------------------
+
+#: (a) gpt2-medium and (b) gpt2-moe-8e at full width, B=8, T=1024, bf16
+LADDER_B = 8
+LADDER_STEPS = 6
+LADDER_POLICIES = ("off", "dots", "dots_no_batch", "full")
+MOE_LADDER_POLICIES = ("off", "dots", "dots_moe_act", "dots_moe", "full")
+#: (c) graphed draws: 8 steps at k=4 (two replays) against k=1
+DRAW_K, DRAW_STEPS = 4, 8
+#: (d) BASELINE config #1 (benchmarks/bench_mnist.py:23-50): MNIST B=128,
+#: eager, 128 batches an epoch, 3 epochs, the last two timed
+NATIVE_MNIST_B, NATIVE_MNIST_BATCHES, NATIVE_MNIST_EPOCHS = 128, 128, 3
+PHILOX_SRC = "ray_lightning_tpu_torch/csrc/philox.cu"
+#: the dropout site of gpt2-small at B=8, T=1024: the draw's main shape
+PHILOX_SHAPE = (TRAIN_B, TRAIN_T, C)
+
+
+def add_counts(total: dict, counts: dict) -> dict:
+    """``total`` with each kernel's ``counts`` added to it."""
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def ladder_module(name: str, policy: str, steps: int = LADDER_STEPS):
+    cfg = dataclasses.replace(CONFIGS[name], remat=True, remat_policy=policy)
+    return GPTLightningModule(cfg, batch_size=LADDER_B, warmup_steps=2,
+                              dataset_size=LADDER_B * steps)
+
+
+def policy_grads(module, seed: int, batch) -> "tuple[dict, int]":
+    """One step's gradients of ``module`` from its seeded init cast to
+    bf16, as ``module_grads``, and the peak device bytes of the forward
+    and backward above what the model held before them."""
+    module.init_params(torch.Generator(device="cuda").manual_seed(seed))
+    module.model.to(dtype=module.param_dtype)
+    params = dict(module.model.named_parameters())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss = module.training_step(StepContext(module, training=True), batch)
+    grads = dict(zip(params, torch.autograd.grad(loss,
+                                                 list(params.values()))))
+    torch.cuda.synchronize()
+    return grads, torch.cuda.max_memory_allocated() - base
+
+
+def active_params(model, cfg) -> float:
+    """Parameters a token's FLOPs touch: the routed layers' expert
+    weights at top_k / n_experts (the JAX package's count,
+    benchmarks/bench_native_baseline.py:161-170)."""
+    total = moe = 0
+    for name, p in model.named_parameters():
+        total += p.numel()
+        if ".moe." in name:
+            moe += p.numel()
+    if moe and cfg.n_experts:
+        return total - moe + moe * cfg.moe_top_k / cfg.n_experts
+    return float(total)
+
+
+def ladder_policies(name: str, policies: tuple, seed: int, card: str,
+                    order: tuple) -> dict:
+    """(a) / (b): one step's gradients under each policy bit for bit with
+    "off"'s and their peak memory ordered as ``order`` says; then a
+    ``LADDER_STEPS`` fit under each policy (finite losses, rows 1 and 6
+    once a layer a step, twice for flash_fwd under remat): step ms, MFU
+    and peak memory."""
+    cfg = CONFIGS[name]
+    rows = tpu_rows(cfg.block_size, cfg.n_head, cfg.head_dim, True)
+    if rows != (1, (6,)):
+        raise AssertionError(f"{name}: rows {rows}, want (1, (6,))")
+    batch = first_batch(ladder_module(name, "off"))
+    ref, peaks = None, {}
+    for policy in policies:
+        grads, peaks[policy] = policy_grads(ladder_module(name, policy),
+                                            seed, batch)
+        if ref is None:
+            ref = grads
+            continue
+        check_bitwise(grads, ref, f"{name} {policy}: one step's gradients "
+                      f"against 'off'")
+        del grads
+        free_cuda()
+    del ref, batch
+    free_cuda()
+    log(f"  [{card}] {name} B={LADDER_B} T={cfg.block_size}: gradients "
+        f"bit for bit under {list(policies)}; peak bytes of a step "
+        + ", ".join(f"{p} {b / 1e9:.3f} GB" for p, b in peaks.items()))
+    ordered = [peaks[p] for p in order]
+    if ordered != sorted(ordered, reverse=True):
+        raise AssertionError(f"{name}: peak memory not ordered "
+                             f"{' >= '.join(order)}: {peaks}")
+    fits, total = {}, {}
+    for policy in policies:
+        module = ladder_module(name, policy)
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launches()
+        trainer, clock = fit(module, LADDER_STEPS, seed)
+        launches = _kernels.launch_counts()
+        add_counts(total, launches)
+        check_fit(clock, trainer, launches, cfg.n_layer, LADDER_STEPS,
+                  f"{name} {policy}", remat=policy != "off")
+        stats = fit_stats(module, clock, LADDER_B, cfg.block_size, card,
+                          first=2)
+        if cfg.n_experts:
+            # the JAX package's MoE MFU: active parameters, attention as
+            # 4 L B T^2 C, times 3 (bench_native_baseline.py:167-170)
+            n = active_params(module.model, cfg)
+            flops = 3 * (2 * n * LADDER_B * cfg.block_size + 4 * cfg.n_layer
+                         * LADDER_B * cfg.block_size ** 2 * cfg.n_embd)
+            stats.update(active_params=n, model_flops_per_step=flops,
+                         mfu=flops / (stats["step_ms_median"] / 1e3)
+                         / BF16_FLOPS_PER_S,
+                         moe_aux=float(trainer.callback_metrics["moe_aux"]))
+        stats.update(launches=launches, policy=policy,
+                     step_peak_bytes=peaks[policy])
+        batch = first_batch(module)
+
+        def train_step():
+            trainer.state, _ = trainer._train_step(trainer.state, batch)
+
+        # where the step's time goes: device time against the host wall
+        stats["profile"] = profile_fn(f"{name} {policy} train step",
+                                      train_step, 2)
+        log(f"  [{card}] {name} {policy}: step "
+            f"{stats['step_ms_median']:.3f} ms (median of steps 3-"
+            f"{LADDER_STEPS}), {stats['tokens_per_s']:.0f} tokens/s, MFU "
+            f"{stats['mfu']:.4f} ({stats['model_flops_per_step'] / 1e12:.3f}"
+            f" TFLOP a step), peak memory {stats['peak_memory_gb']:.2f} GB"
+            + (f", moe_aux {stats['moe_aux']:.4f}" if cfg.n_experts else "")
+            + "; losses " + " ".join(f"{x:.4f}" for x in clock.losses))
+        fits[policy] = stats
+        del trainer, module, clock, batch, train_step
+        free_cuda()
+    return {"fits": fits, "step_peak_bytes": peaks, "rows": rows,
+            "launches": total}
+
+
+def graphed_dots(this, seed: int, base: str) -> dict:
+    """(a) continued: gpt2-medium under "dots" at k=4 (a selective
+    checkpoint inside a CUDA graph) against its eager k=1 fit bit for
+    bit, 8 steps: a replay runs no Python, so this is the step without
+    the checkpoint's host cost."""
+    cfg = CONFIGS["gpt2-medium"]
+    free_cuda()
+    ref = loop_fit(this, ladder_module("gpt2-medium", "dots", DRAW_STEPS),
+                   os.path.join(base, "m_ref"), True, 10 ** 9,
+                   max_steps=DRAW_STEPS)
+    free_cuda()
+    run = loop_fit(this, ladder_module("gpt2-medium", "dots", DRAW_STEPS),
+                   os.path.join(base, "m_run"), True, 10 ** 9,
+                   max_steps=DRAW_STEPS, steps_per_execution=DRAW_K)
+    eq = check_loop_fit(run, ref, "(a) gpt2-medium dots graphed", DRAW_K,
+                        DRAW_STEPS, {"flash_fwd": 2 * cfg.n_layer * DRAW_K,
+                                     "flash_bwd": cfg.n_layer * DRAW_K})
+    out = {**loop_line(f"(a) gpt2-medium dots k={DRAW_K}", run, LADDER_B,
+                       "sequences"),
+           "eager": loop_line("(a) gpt2-medium dots k=1", ref, LADDER_B,
+                              "sequences"),
+           "launches": add_counts(dict(ref["report"]["launches"]),
+                                  run["report"]["launches"]), **eq}
+    log(f"  (a) gpt2-medium dots: k={DRAW_K} equals k=1 bit for bit "
+        f"({eq['tensors_equal']} tensors, {DRAW_STEPS} losses)")
+    del ref, run
+    free_cuda()
+    return out
+
+
+def graphed_draws(this, seed: int, base: str) -> dict:
+    """(c) gpt2-small at dropout 0.1 and bert-base masked LM at k=4
+    against their eager k=1 fits bit for bit (losses, parameters,
+    optimizer state), one capture and one replay a chunk, the draw kernel
+    launched in each replay as in k eager steps."""
+    cfg = dataclasses.replace(CONFIGS["gpt2-small"], dropout=0.1)
+    legs = {
+        "gpt2-small dropout 0.1": (
+            lambda: GPTLightningModule(cfg, batch_size=TRAIN_B,
+                                       warmup_steps=2,
+                                       dataset_size=TRAIN_B * DRAW_STEPS),
+            cfg.n_layer, 2 * cfg.n_layer),
+        "bert-base mlm": (
+            lambda: BertMLMModule("bert-base", batch_size=BERT_B,
+                                  train_size=BERT_B * DRAW_STEPS),
+            BERT_CONFIGS["bert-base"].n_layer, 1)}
+    out = {"launches": {}}
+    for name, (make, layers, draws) in legs.items():
+        free_cuda()
+        ref = loop_fit(this, make(), os.path.join(base, "d_ref"), True,
+                       10 ** 9, max_steps=DRAW_STEPS)
+        free_cuda()
+        run = loop_fit(this, make(), os.path.join(base, "d_run"), True,
+                       10 ** 9, max_steps=DRAW_STEPS,
+                       steps_per_execution=DRAW_K)
+        per_replay = {"flash_fwd": layers * DRAW_K,
+                      "flash_bwd": layers * DRAW_K,
+                      "philox_uniform": draws * DRAW_K}
+        eq = check_loop_fit(run, ref, f"(c) {name}", DRAW_K, DRAW_STEPS,
+                            per_replay)
+        if ref["report"]["launches"]["philox_uniform"] \
+                != draws * DRAW_STEPS:
+            raise AssertionError(f"(c) {name}: the eager fit drew "
+                                 f"{ref['report']['launches']} times")
+        for rep in (ref["report"], run["report"]):
+            add_counts(out["launches"], rep["launches"])
+        out[name] = {**loop_line(f"(c) {name} k={DRAW_K}", run, 1, "steps"),
+                     "eager": loop_line(f"(c) {name} k=1", ref, 1, "steps"),
+                     **eq}
+        log(f"  (c) {name}: k={DRAW_K} equals k=1 bit for bit "
+            f"({eq['tensors_equal']} tensors, {DRAW_STEPS} losses)")
+        del ref, run
+    return out
+
+
+class EpochClock(Callback):
+    """Synced wall of each training epoch (its batches' loading
+    included), and the losses."""
+
+    def on_fit_start(self, trainer, module):
+        self.epochs, self.losses = [], []
+
+    def on_train_epoch_start(self, trainer, module):
+        torch.cuda.synchronize()
+        self._t0, self._s0 = time.perf_counter(), trainer.global_step
+
+    def on_train_epoch_end(self, trainer, module):
+        torch.cuda.synchronize()
+        self.epochs.append(((time.perf_counter() - self._t0) * 1e3,
+                            trainer.global_step - self._s0))
+
+    def on_train_batch_end(self, trainer, module, outputs, batch, idx):
+        self.losses.append(outputs["loss"])
+
+
+def native_mnist(seed: int) -> dict:
+    """(d) BASELINE config #1 eager through the native prefetcher and
+    through the Python path in one call: the loaders' batches equal,
+    the fits' losses and weights bit for bit, and step ms each (an
+    epoch's synced wall over its steps, epochs 2-3)."""
+    from ray_lightning_tpu_torch import LightningMNISTClassifier, native
+
+    def module():
+        return LightningMNISTClassifier(
+            config={"batch_size": NATIVE_MNIST_B},
+            train_size=NATIVE_MNIST_B * NATIVE_MNIST_BATCHES)
+
+    loaders = {}
+    for path, env in (("native", "1"), ("python", "0")):
+        with scoped_env(RLT_NATIVE=env):
+            before = native.stats["batches"]
+            loaders[path] = [tuple(t.clone() for t in b)
+                             for b in module().train_dataloader()]
+            served = native.stats["batches"] - before
+        if (served > 0) != (path == "native"):
+            raise AssertionError(f"(d) the {path} loader: the native "
+                                 f"runtime served {served} batches "
+                                 f"(build failures "
+                                 f"{native.stats['build_failures']})")
+    same = len(loaders["native"]) == len(loaders["python"]) and all(
+        torch.equal(a, b) for x, y in zip(loaders["native"],
+                                          loaders["python"])
+        for a, b in zip(x, y))
+    if not same:
+        raise AssertionError("(d) native and Python batches differ")
+    out = {}
+    for path, env in (("native", "1"), ("python", "0"), ("native2", "1"),
+                      ("python2", "0")):
+        with scoped_env(RLT_NATIVE=env):
+            clock = EpochClock()
+            m = module()
+            before = native.stats["batches"]
+            trainer = Trainer(max_epochs=NATIVE_MNIST_EPOCHS,
+                              enable_checkpointing=False, logger=False,
+                              num_sanity_val_steps=0, limit_val_batches=0,
+                              seed=seed, callbacks=[clock], device="cuda")
+            trainer.fit(m)
+            served = native.stats["batches"] - before
+        want = NATIVE_MNIST_BATCHES * NATIVE_MNIST_EPOCHS
+        if (served == want) != path.startswith("native") or (
+                path.startswith("python") and served):
+            raise AssertionError(f"(d) {path} fit: the runtime served "
+                                 f"{served} of {want} batches")
+        ms = [w / n for w, n in clock.epochs[1:]]
+        out[path] = {"step_ms": ms, "step_ms_mean": float(np.mean(ms)),
+                     "losses": [float(x) for x in clock.losses],
+                     "state": {k: v.detach().clone() for k, v in
+                               m.model.state_dict().items()},
+                     "served": served}
+    if out["native"]["losses"] != out["python"]["losses"]:
+        raise AssertionError("(d) native and Python fits' losses differ")
+    check_bitwise(out["native"]["state"], out["python"]["state"],
+                  "(d) native against Python fit")
+    for v in out.values():
+        del v["state"]
+    log(f"  (d) MNIST B={NATIVE_MNIST_B} eager, {NATIVE_MNIST_BATCHES} "
+        f"batches x {NATIVE_MNIST_EPOCHS} epochs: batches equal, fits bit "
+        f"for bit; step ms (epochs 2-{NATIVE_MNIST_EPOCHS}, loading "
+        f"included) native {out['native']['step_ms_mean']:.4f} / "
+        f"{out['native2']['step_ms_mean']:.4f}, python "
+        f"{out['python']['step_ms_mean']:.4f} / "
+        f"{out['python2']['step_ms_mean']:.4f} (native, python, native, "
+        f"python)")
+    return out
+
+
+def kernel_philox(gen: torch.Generator) -> dict:
+    """(e) ``csrc/philox.cu`` against its plain version bit for bit at
+    the main path's shapes (gpt2-small's dropout site, bert-base's MLM
+    mask, odd sizes), on the card and on the CPU; timed at gpt2-small's
+    dropout site beside ``torch.rand`` of the shape (the yardstick) and
+    the bound: 4 bytes written an element (and 16 read) over HBM."""
+    from ray_lightning_tpu_torch.ops import random as trandom
+    key = torch.randint(0, 2 ** 32, (2,), generator=gen, device="cuda",
+                        dtype=torch.int64)
+    stream = 0x1234_5678_9ABC
+    for shape in (PHILOX_SHAPE, (BERT_B, 512), (3,), (1023, 5)):
+        got = trandom.philox_uniform(key, stream, shape)
+        want = trandom.philox_uniform_plain(key, stream, shape)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want) or not torch.equal(
+                got.cpu(), trandom.philox_uniform_plain(key.cpu(), stream,
+                                                        shape)):
+            raise AssertionError(f"philox_uniform {shape}: not the plain "
+                                 f"version's bits")
+    err = (got - want).abs().max().item()
+    n = int(np.prod(PHILOX_SHAPE))
+    ms = time_ms(lambda: trandom.philox_uniform(key, stream, PHILOX_SHAPE))
+    plain_ms = time_ms(lambda: trandom.philox_uniform_plain(
+        key, stream, PHILOX_SHAPE), iters=5)
+    lib_ms = time_ms(lambda: torch.rand(PHILOX_SHAPE, device="cuda"))
+    b_ms = (4 * n + 16) / HBM_BYTES_PER_S * 1e3
+    log(f"  philox_uniform {PHILOX_SHAPE}: bit for bit with its plain "
+        f"version; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.rand "
+        f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms (bytes), "
+        f"{4 * n / (ms / 1e3) / 1e9:.1f} GB/s")
+    return {
+        "name": "philox_uniform", "row": None, "route": "cuda",
+        "source": PHILOX_SRC,
+        "replaces": "none (port-only: jax.random draws, "
+                    "ray_lightning_tpu/core/module.py:77)",
+        "shape": "B=8 T=1024 C=768 float32 (gpt2-small dropout site)",
+        "max_abs_err": err, "max_err": err, "tol": 0.0,
+        "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+        "bound_by": "bytes", "library_ms": lib_ms}
+
+
+def ladder_phase(seed: int, card: str) -> dict:
+    """Phase 17 (module docstring): the one-card training ladder.  Its
+    launches are the sum of its fits' (each counted from 0 at the fit's
+    start), not the gradient comparisons'."""
+    import chip_smoke as this   # loop_fit's probe reports by name
+    t_phase = time.monotonic()
+    log("  (a) gpt2-medium")
+    medium = ladder_policies("gpt2-medium", LADDER_POLICIES, seed, card,
+                             LADDER_POLICIES)
+    with tempfile.TemporaryDirectory() as base:
+        medium["graphed_dots"] = graphed_dots(this, seed, base)
+    log("  (b) gpt2-moe-8e")
+    moe = ladder_policies("gpt2-moe-8e", MOE_LADDER_POLICIES, seed, card,
+                          ("off", "dots_moe", "dots_moe_act", "dots",
+                           "full"))
+    with tempfile.TemporaryDirectory() as base:
+        log("  (c) graphed draws")
+        drawn = graphed_draws(this, seed, base)
+    log("  (d) native prefetch")
+    mnist = native_mnist(seed)
+    total = {}
+    for counts in (medium["launches"], medium["graphed_dots"]["launches"],
+                   moe["launches"], drawn["launches"]):
+        add_counts(total, counts)
+    for name in ("flash_fwd", "flash_bwd", "philox_uniform"):
+        if not total.get(name):
+            raise AssertionError(f"the ladder launched {name} no time")
+    out = {"launches": total, "gpt2_medium": medium, "gpt2_moe_8e": moe,
+           "graphed_draws": drawn, "native_mnist": mnist,
+           "seconds": time.monotonic() - t_phase}
+    log("ladder " + json.dumps(out, default=str))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5096,6 +5504,12 @@ def main(argv=None) -> int:
                          "then its near-tie checks, then check and time "
                          "flash_fwd, flash_decode and flash_decode_paged "
                          "(rows 1, 13 and 14)")
+    ap.add_argument("--ladder-only", action="store_true",
+                    help="build, check and time flash_fwd, flash_bwd and "
+                         "philox_uniform, then run phase 17 (the one-card "
+                         "training ladder: gpt2-medium and gpt2-moe-8e "
+                         "under the remat policies, graphed draws, the "
+                         "native prefetcher) alone")
     ap.add_argument("--tune-only", action="store_true",
                     help="build, run phase 12 (Tune: PBT over MNIST, "
                          "gpt2-small trials under RayPlugin, in-process "
@@ -5114,7 +5528,8 @@ def main(argv=None) -> int:
                        or args.fleet_only)
     # the whole run starts with phase 16, the driver off CUDA
     full = not (driver_off_cuda or args.fwd_only or args.bwd_only
-                or args.decode_only or args.trainer_only)
+                or args.decode_only or args.trainer_only
+                or args.ladder_only)
     if not (driver_off_cuda or full):  # the device's name initialises CUDA
         log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
             f"{torch.cuda.get_device_name(0)}")
@@ -5212,6 +5627,22 @@ def main(argv=None) -> int:
         return 0
     if args.decode_only:
         log("flash_decode rows " + json.dumps(decode_rows(gen)))
+        return 0
+    if args.ladder_only:
+        log("kernel phase (rows 1 and 6, philox_uniform)")
+        entries = [kernel_flash_fwd(gen), kernel_flash_bwd(gen),
+                   kernel_philox(gen)]
+        free_cuda()
+        log("ladder phase")
+        ladder = ladder_phase(args.seed, card_line())
+        log(f"ladder phase: {ladder['seconds']:.1f} s")
+        for e in entries:
+            e["launches_by_path"] = {"ladder": ladder["launches"][e["name"]]}
+            e["launches"] = e["launches_by_path"]["ladder"]
+        log(json.dumps({"kernels": entries}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
         return 0
     if args.trainer_only:
         log("kernel phase (rows 1 and 6)")
@@ -5349,11 +5780,29 @@ def main(argv=None) -> int:
         e["launches_by_path"]["loop"] = loop["launches"][e["name"]]
         e["launches"] = sum(e["launches_by_path"].values())
     log(f"loop phase: {time.monotonic() - t0:.1f} s")
+
+    log("ladder phase")
+    free_cuda()
+    philox = kernel_philox(gen)
+    ladder = ladder_phase(args.seed, card)
+    for row in (1, 6):
+        e = by_row[row]
+        e["launches_by_path"]["ladder"] = ladder["launches"][e["name"]]
+        e["launches"] = sum(e["launches_by_path"].values())
+    philox["launches_by_path"] = {
+        path: phase["launches"].get("philox_uniform", 0)
+        for path, phase in (("trainer", trainer), ("plugin", plugin),
+                            ("tune", tuned), ("resnet", resnet),
+                            ("loop", loop), ("ladder", ladder))}
+    philox["launches"] = sum(philox["launches_by_path"].values())
+    entries.append(philox)
+    log(f"ladder phase: {ladder['seconds']:.1f} s")
     log("speed order (rows slower than their library call by that factor, "
         "then by launches x (ms - bound)): " + ", ".join(
-            f"row {e['row']} {e['ms'] / e['library_ms']:.2f}x"
-            if e["library_ms"] and e["ms"] > e["library_ms"] else
-            f"row {e['row']} {e['launches'] * (e['ms'] - e['bound_ms']):.1f}"
+            f"{e['name'] if e['row'] is None else 'row %d' % e['row']} "
+            + (f"{e['ms'] / e['library_ms']:.2f}x"
+               if e["library_ms"] and e["ms"] > e["library_ms"] else
+               f"{e['launches'] * (e['ms'] - e['bound_ms']):.1f}")
             for e in speed_order(entries)))
 
     log(json.dumps({"kernels": entries}))

@@ -6,7 +6,9 @@
 engine's params), or a variables dict that adds ResNet's
 ``batch_stats``, and maps it by path:
 
-- GPT: ``h{i}/attn/qkv|proj``, ``h{i}/mlp/fc|out``: ``kernel [in, out]``
+- GPT: ``h{i}/moe/router|w1|w2`` (a routed block, ops/moe.py) in the
+  flax layout, as they are; ``h{i}/attn/qkv|proj``, ``h{i}/mlp/fc|out``:
+  ``kernel [in, out]``
   transposes to ``Linear.weight [out, in]``, ``bias`` is copied (the qkv
   column order stays ``jnp.split(qkv, 3, -1)``'s q|k|v);
   ``h{i}/ln1|ln2``, ``ln_f``: ``scale`` -> ``weight``, ``bias``;
@@ -82,6 +84,7 @@ _LINEAR = re.compile(r"^(?:(encoder)/h(\d+)/(attn/qkv|attn/proj|fc|out)"
 _NORM = re.compile(r"^(?:(encoder)/)?(?:h(\d+)/)?(ln1|ln2|ln_f)/"
                    r"(scale|bias)$")
 _EMBED = re.compile(r"^(?:(encoder)/)?(wte/embedding|wpe)$")
+_MOE = re.compile(r"^h(\d+)/moe/(router|w1|w2)$")
 #: ResNet (models/resnet.py): the stem, each block's convs and its
 #: projection, and their BatchNorms (a block's own tree has no prefix)
 _CONV = re.compile(r"^(stem|(?:s\d+b\d+/)?(?:Conv_\d+|proj))/kernel$")
@@ -108,6 +111,8 @@ def _torch_key(path: str) -> "tuple[str, tuple | None]":
         prefix, leaf = m.groups()
         return _name(prefix, None,
                      leaf.replace("/embedding", ".weight")), None
+    if m := _MOE.match(path):
+        return f"h.{m.group(1)}.moe.{m.group(2)}", None
     if m := _LINEAR.match(path):
         enc, enc_layer, enc_mod, layer, mod, head, leaf = m.groups()
         name = (_name(enc, enc_layer, enc_mod) if enc

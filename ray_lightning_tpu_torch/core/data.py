@@ -5,8 +5,11 @@ Counterpart of ``ray_lightning_tpu/core/data.py`` (``ArrayDataset``,
 draws ``default_rng(seed + epoch)``), ``drop_last`` and per-rank
 sharding (:meth:`DataLoader.shard`), with each numpy batch handed out
 as CPU torch tensors, which the ``Trainer`` moves to its device
-(:func:`to_device`).  The C++ prefetch runtime of the JAX package is not
-ported.
+(:func:`to_device`).  An ``ArrayDataset`` of contiguous arrays is
+assembled by the C++ prefetch runtime (ray_lightning_tpu_torch/native:
+a background thread and a threaded row-gather) unless ``prefetch=False``
+or ``RLT_NATIVE=0``, with the Python path's order and ownership; without
+a toolchain the Python path serves, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -111,7 +114,8 @@ class DataLoader:
     def __init__(self, dataset: Any, batch_size: int = 1,
                  shuffle: bool = False, drop_last: bool = False,
                  seed: int = 0, collate_fn: "Callable | None" = None,
-                 num_shards: int = 1, shard_index: int = 0):
+                 num_shards: int = 1, shard_index: int = 0,
+                 prefetch: bool = True):
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
@@ -120,6 +124,7 @@ class DataLoader:
         self.collate_fn = collate_fn or default_collate
         self.num_shards = num_shards
         self.shard_index = shard_index
+        self.prefetch = prefetch
         self._epoch = 0
 
     def shard(self, num_shards: int, shard_index: int) -> "DataLoader":
@@ -128,7 +133,8 @@ class DataLoader:
         clone = DataLoader(self.dataset, batch_size=self.batch_size,
                            shuffle=self.shuffle, drop_last=self.drop_last,
                            seed=self.seed, collate_fn=self.collate_fn,
-                           num_shards=num_shards, shard_index=shard_index)
+                           num_shards=num_shards, shard_index=shard_index,
+                           prefetch=self.prefetch)
         clone._epoch = self._epoch
         return clone
 
@@ -164,6 +170,11 @@ class DataLoader:
         fast = isinstance(self.dataset, ArrayDataset)
         end = ((len(idx) // self.batch_size) * self.batch_size
                if self.drop_last else len(idx))
+        if fast and self.prefetch and end > 0:
+            native_iter = self._native_iter(idx[:end])
+            if native_iter is not None:
+                yield from native_iter
+                return
         for start in range(0, end, self.batch_size):
             batch_idx = idx[start:start + self.batch_size]
             if fast:
@@ -172,6 +183,31 @@ class DataLoader:
                 batch = self.collate_fn([self.dataset[int(i)]
                                          for i in batch_idx])
             yield to_device(batch, None)
+
+    def _native_iter(self, idx: np.ndarray) -> "Iterator[Any] | None":
+        """The epoch through the C++ prefetch runtime
+        (ray_lightning_tpu_torch/native): the same order (the index order
+        is computed here and handed over) and caller-owned batches (each
+        batch's buffers pass to the consumer; the CPU tensors share their
+        memory).  ``None`` (the Python path) without the library, or for
+        leaves that are not contiguous numpy arrays: the runtime would
+        copy the whole dataset every epoch."""
+        from ray_lightning_tpu_torch import native
+        ds = self.dataset
+        if not all(isinstance(a, np.ndarray) and a.dtype != object
+                   and a.flags.c_contiguous for a in ds._leaves):
+            return None
+        if not native.native_available():
+            return None
+
+        def gen():
+            pf = native.NativePrefetcher(ds._leaves, self.batch_size)
+            try:
+                for bufs in pf.iter_epoch(idx):
+                    yield to_device(ds._rebuild(bufs), None)
+            finally:
+                pf.close()
+        return gen()
 
 
 __all__ = ["ArrayDataset", "DataLoader", "default_collate", "to_device"]

@@ -17,66 +17,98 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
+from ray_lightning_tpu_torch.ops.random import Key, key_words
+
 
 class StepContext:
     """What a ``training_step`` / ``validation_step`` receives:
     ``ctx.model`` (the module's ``torch.nn.Module``), ``ctx.training``,
-    ``ctx.make_rng()`` and ``ctx.log`` / ``ctx.log_dict`` /
-    ``ctx.logged``.
+    ``ctx.make_key()`` / ``ctx.make_rng()`` and ``ctx.log`` /
+    ``ctx.log_dict`` / ``ctx.logged``.
 
     ``rng`` is the step's entropy, a tuple of non-negative ints (the
     train step passes the ``Trainer`` seed, the global step and the
     microbatch index; ``None``: the step draws nothing, as the JAX eval
-    step has no key)."""
+    step has no key).  ``key`` is the step's key words on the device
+    (ops/random.py: int64 [2]), given where the host cannot make them: a
+    graphed chunk feeds each step's through a static input; ``None``:
+    :meth:`make_key` makes them from ``rng`` on first use."""
 
     __slots__ = ("module", "training", "_logged", "_rng", "_rng_calls",
-                 "_device")
+                 "_device", "_key")
 
     def __init__(self, module: "LightningModule", training: bool,
                  rng: "tuple[int, ...] | None" = None,
-                 device: "torch.device | str | None" = None):
+                 device: "torch.device | str | None" = None,
+                 key: "torch.Tensor | None" = None):
         self.module = module
         self.training = training
         self._logged: "dict[str, torch.Tensor]" = {}
         self._rng = rng
         self._rng_calls = 0
         self._device = device
+        self._key = key
 
     @property
     def model(self) -> Optional[torch.nn.Module]:
         return self.module.model
 
+    def _capturing(self) -> bool:
+        return (self._device is not None
+                and torch.device(self._device).type == "cuda"
+                and torch.cuda.is_current_stream_capturing())
+
+    def make_key(self) -> Key:
+        """A fresh keyed draw (ops/random.py ``Key``: ``key.uniform(shape)``,
+        ``key.fold_in(...)``) from the step's key and this call's index
+        within the step: the counterpart of the JAX ``make_rng``, which
+        splits the step's key.  Graph-safe: its draws read the key words
+        from device memory, so a graphed chunk draws each step's own
+        numbers, and a remat recompute the same ones.  The numbers differ
+        from ``jax.random``'s; tests that compare the two packages hand
+        both the same draws."""
+        if self._key is None:
+            if self._rng is None:
+                raise RuntimeError(
+                    "No PRNG key available in this step context.")
+            if self._capturing():
+                raise RuntimeError(
+                    "make_key inside a CUDA graph capture needs the step's "
+                    "key from the chunk's static input (core/steps.py "
+                    "ChunkRunner passes it)")
+            self._key = torch.from_numpy(key_words(*self._rng)).to(
+                self._device or "cpu")
+        key = Key(self._key, (self._rng_calls,))
+        self._rng_calls += 1
+        return key
+
     def make_rng(self) -> torch.Generator:
         """A fresh ``torch.Generator`` on the step's device, seeded from
-        the step's entropy and this call's index within the step: the
-        counterpart of the JAX ``make_rng``, which splits the step's key.
-        It never touches the global RNG state.  The numbers differ from
-        ``jax.random``'s; tests that compare the two packages hand both
-        the same draws."""
+        the step's entropy and this call's index within the step.  It
+        never touches the global RNG state.  Eager steps only: a CUDA
+        graph would replay one seed, so inside a graphed chunk this
+        raises; draw through :meth:`make_key` there."""
         if self._rng is None:
             raise RuntimeError("No PRNG key available in this step context.")
-        if self._device is not None \
-                and torch.device(self._device).type == "cuda" \
-                and torch.cuda.is_current_stream_capturing():
+        if self._capturing():
             raise NotImplementedError(
                 "make_rng inside a graphed chunk (steps_per_execution > 1 "
-                "on the card): the graph would replay one seed; random "
-                "draws in a CUDA graph are not ported yet (ROADMAP.md "
-                "queue 1 item 14)")
+                "on the card): a torch.Generator's seed would be frozen in "
+                "the graph; draw through ctx.make_key() (ops/random.py "
+                "Key.uniform), which reads each step's key on the device")
         words = (*self._rng, self._rng_calls)
         self._rng_calls += 1
         seed = int(np.random.SeedSequence(words).generate_state(
             1, np.uint64)[0])
         return torch.Generator(device=self._device or "cpu").manual_seed(seed)
 
-    def dropout_seed(self, rate: float) -> "int | None":
-        """The seed of one forward's dropout masks (ops/attention.py
+    def dropout_seed(self, rate: float) -> "Key | None":
+        """The key of one forward's dropout masks (ops/attention.py
         ``dropout``): ``None``, no dropout, outside training or at rate
-        0 (flax's ``deterministic``), else the seed of a
-        :meth:`make_rng` generator."""
+        0 (flax's ``deterministic``), else a :meth:`make_key` key."""
         if not self.training or rate <= 0:
             return None
-        return self.make_rng().initial_seed()
+        return self.make_key()
 
     def log(self, name: str, value, **_ignored) -> None:
         if isinstance(value, torch.Tensor):

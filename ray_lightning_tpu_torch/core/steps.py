@@ -35,6 +35,7 @@ import torch
 
 from ray_lightning_tpu_torch.core.module import StepContext
 from ray_lightning_tpu_torch.core.state import TrainState
+from ray_lightning_tpu_torch.ops import random
 from ray_lightning_tpu_torch.ops._kernels import add_launches, launch_counts
 
 
@@ -70,8 +71,8 @@ def build_train_step(module, tx, accumulate_grad_batches: int = 1,
                      grad_sync: "Callable | None" = None,
                      rank: "int | None" = None,
                      metric_sync: "Callable | None" = None) -> Callable:
-    """``(state, batch, scalars=None) -> (state, metrics)``: one
-    optimizer step.
+    """``(state, batch, scalars=None, keys=None) -> (state, metrics)``:
+    one optimizer step.
 
     With ``accumulate_grad_batches=k`` the batch's leading dim splits
     into k microbatches whose gradients are summed in fp32 (whatever the
@@ -93,8 +94,9 @@ def build_train_step(module, tx, accumulate_grad_batches: int = 1,
     """
     k = max(1, int(accumulate_grad_batches))
 
-    def grads_of(params, batch, rng, device):
-        ctx = StepContext(module, training=True, rng=rng, device=device)
+    def grads_of(params, batch, rng, device, key):
+        ctx = StepContext(module, training=True, rng=rng, device=device,
+                          key=key)
         loss, extra = _split_loss(module.training_step(ctx, batch))
         grads = torch.autograd.grad(loss, list(params.values()))
         return loss.detach().float(), {**ctx.logged, **extra}, grads
@@ -108,17 +110,28 @@ def build_train_step(module, tx, accumulate_grad_batches: int = 1,
         n = x.shape[0] // k
         return x[i * n:(i + 1) * n]
 
+    ranked = () if rank is None else (rank,)
+
+    def key_words(state: TrainState, steps: int = 1) -> np.ndarray:
+        """The key words [steps, k, 2] of ``state``'s step and the
+        ``steps - 1`` after it, one row a microbatch, as each step's
+        contexts make them from the host entropy."""
+        return random.key_words(state.generator.initial_seed(),
+                                state.step + np.arange(steps)[:, None],
+                                np.arange(k)[None, :], *ranked)
+
     def step_fn(state: TrainState, batch: Any,
-                scalars: "torch.Tensor | None" = None):
+                scalars: "torch.Tensor | None" = None,
+                keys: "torch.Tensor | None" = None):
         params = dict(module.model.named_parameters())
         # the step's entropy: the seed, the step, the microbatch (the JAX
         # step folds the step and the microbatch index into its key)
         seed, dev = state.generator.initial_seed(), state.generator.device
-        ranked = () if rank is None else (rank,)
         if k == 1:
             loss, logged, grads = grads_of(params, batch,
                                            (seed, state.step, 0, *ranked),
-                                           dev)
+                                           dev,
+                                           None if keys is None else keys[0])
         else:
             acc = [torch.zeros_like(p, dtype=torch.float32)
                    for p in params.values()]
@@ -128,7 +141,8 @@ def build_train_step(module, tx, accumulate_grad_batches: int = 1,
                       if isinstance(batch, (tuple, list))
                       else micro(batch, i))
                 loss_i, logged_i, grads_i = grads_of(
-                    params, mb, (seed, state.step, i, *ranked), dev)
+                    params, mb, (seed, state.step, i, *ranked), dev,
+                    None if keys is None else keys[i])
                 torch._foreach_add_(acc, [g.float() for g in grads_i])
                 losses.append(loss_i)
                 logs.append(logged_i)
@@ -146,6 +160,7 @@ def build_train_step(module, tx, accumulate_grad_batches: int = 1,
             metrics = dict(zip(metrics, metric_sync(list(metrics.values()))))
         return state, metrics
 
+    step_fn.key_words = key_words
     return step_fn
 
 
@@ -256,12 +271,14 @@ def capture_graph(fn: Callable, device: torch.device, pool=None,
 @dataclasses.dataclass
 class _ChunkGraph:
     """One captured chunk: its static inputs (the stacked batches, or the
-    cached batch indices), the optimizer scalars' feed [k, n] and the
-    graph, whose outputs are the stacked metrics."""
+    cached batch indices), the optimizer scalars' feed [k, n], the steps'
+    key words [k, microbatches, 2] and the graph, whose outputs are the
+    stacked metrics."""
 
     inputs: Any
     batch_of: Callable
     feed: "torch.Tensor | None" = None
+    keys: "torch.Tensor | None" = None
     captured: "CapturedGraph | None" = None
 
 
@@ -302,8 +319,12 @@ class ChunkRunner:
     are captured with them.  A capture or replay that fails raises.
     Kernel launches: each graph's captured launches are counted once,
     taken back (the capture ran none) and added again on each replay.
-    On the CPU a chunk is k eager steps.  A step that draws from
-    ``StepContext.make_rng`` (dropout, masks) raises inside a capture.
+    The steps' key words (``step_fn.key_words``) ride a static input
+    too, so a step's keyed draws (``StepContext.make_key``: dropout, the
+    masked LM's mask; ops/random.py) are the eager step's bit for bit.
+    On the CPU a chunk is k eager steps.  A step that draws from a
+    ``torch.Generator`` (``StepContext.make_rng``) raises inside a
+    capture.
 
     ``stats``: ``captures``, ``replays``, ``warmup_steps``, per capture
     its ``capture_ms`` and ``pool_bytes`` (device memory reserved by the
@@ -376,14 +397,19 @@ class ChunkRunner:
 
     def _dispatch(self, key, entry: _ChunkGraph, state):
         rows = self._feed_rows(state)
+        keys = self.step_fn.key_words(state, self.k)
         if entry.captured is None:
             entry.feed = torch.empty(rows.shape, dtype=torch.float32,
                                      device=self.device)
+            entry.keys = torch.empty(keys.shape, dtype=torch.int64,
+                                     device=self.device)
             copy_in(entry.feed, rows)
+            copy_in(entry.keys, keys)
             self._capture(entry, state)
             self._graphs[key] = entry
         else:
             copy_in(entry.feed, rows)
+            copy_in(entry.keys, keys)
             self.tx.advance(state.opt_state, self.k)
             state.step += self.k
         metrics = entry.captured.replay()
@@ -404,7 +430,8 @@ class ChunkRunner:
         side.wait_stream(compute)
         with torch.cuda.stream(side):
             for i in range(GRAPH_WARMUP_STEPS):
-                self.step_fn(state, entry.batch_of(i), entry.feed[i])
+                self.step_fn(state, entry.batch_of(i), entry.feed[i],
+                             entry.keys[i])
         compute.wait_stream(side)
         with torch.no_grad():
             for t, s in zip(live, saved):
@@ -416,7 +443,8 @@ class ChunkRunner:
 
         def chunk():
             return _stack_metrics([
-                self.step_fn(state, entry.batch_of(i), entry.feed[i])[1]
+                self.step_fn(state, entry.batch_of(i), entry.feed[i],
+                             entry.keys[i])[1]
                 for i in range(self.k)])
 
         entry.captured = captured = capture_graph(chunk, dev)

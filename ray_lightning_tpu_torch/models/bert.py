@@ -28,9 +28,9 @@ Attention is non-causal through :class:`MultiHeadAttention`: the flash
 kernels with ``causal=0`` on the card (TPU kernel rows 1 and 6 at
 bert-base, rows 5 and 10 at ``tiny``, whose heads do not pack, and rows
 5, 15 and 16 under ``RLT_FLASH_BLOCK_Q/K`` below T: ops/flash_attention.py
-``tpu_rows``), the plain attention on the CPU.  Remat takes "full" and
-"off" (core/remat.py); ``bert_partition_rules`` (SPMD) is not ported
-and raises.
+``tpu_rows``), the plain attention on the CPU.  Remat takes every
+policy of core/remat.py's ladder; ``bert_partition_rules`` (SPMD) is not
+ported and raises.
 """
 
 from __future__ import annotations
@@ -53,6 +53,7 @@ from ray_lightning_tpu_torch.models.gpt import (LayerNorm, gelu_tanh,
 from ray_lightning_tpu_torch.ops.attention import (MultiHeadAttention,
                                                    dropout, fold_in, linear)
 from ray_lightning_tpu_torch.ops.optim import AdamW
+from ray_lightning_tpu_torch.ops.random import Key, as_key
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,8 +203,9 @@ def softmax_cross_entropy(logits, labels):
 
 class BertMLMModule(LightningModule):
     """Masked-LM pretraining.  A Bernoulli(``mask_prob``) mask drawn from
-    the step's generator (``ctx.make_rng()``; the JAX step draws it from
-    its PRNG stream) selects positions, their inputs become the reserved
+    the step's key (``ctx.make_key()``, a keyed draw that a graphed chunk
+    replays with each step's own key; the JAX step draws it from its
+    PRNG stream) selects positions, their inputs become the reserved
     last vocab id, and the loss is the mean fp32 cross-entropy over the
     masked positions only."""
 
@@ -232,13 +234,14 @@ class BertMLMModule(LightningModule):
         return AdamW(self.lr, weight_decay=self.weight_decay, b1=0.9,
                      b2=0.999)
 
-    def _mlm_loss(self, ctx, tokens, rng: "torch.Generator | None" = None,
+    def _mlm_loss(self, ctx, tokens, key: "Key | int | None" = None,
                   mask: "torch.Tensor | None" = None):
         """The masked-LM loss of ``tokens`` [B, T]: ``mask`` (bool [B, T])
-        when given, else Bernoulli(``mask_prob``) drawn from ``rng``."""
+        when given, else Bernoulli(``mask_prob``) drawn from ``key`` (an
+        ops/random.py ``Key``, or an int seed)."""
         if mask is None:
-            mask = torch.rand(tokens.shape, generator=rng,
-                              device=tokens.device) < self.mask_prob
+            mask = as_key(key, tokens.device).uniform(
+                tokens.shape) < self.mask_prob
         inputs = torch.where(mask, self.config.vocab_size - 1, tokens.long())
         logits = ctx.model(inputs, ctx.dropout_seed(self.config.dropout))
         ce = softmax_cross_entropy(logits, tokens)
@@ -247,7 +250,7 @@ class BertMLMModule(LightningModule):
 
     def training_step(self, ctx, batch):
         tokens = batch[0] if isinstance(batch, (tuple, list)) else batch
-        loss = self._mlm_loss(ctx, tokens, ctx.make_rng())
+        loss = self._mlm_loss(ctx, tokens, ctx.make_key())
         ctx.log("loss", loss)
         return loss
 
@@ -255,8 +258,7 @@ class BertMLMModule(LightningModule):
         tokens = batch[0] if isinstance(batch, (tuple, list)) else batch
         # a fixed eval mask (the JAX package's PRNGKey(0)): a metric that
         # is the same across runs
-        rng = torch.Generator(device=tokens.device).manual_seed(0)
-        ctx.log("val_loss", self._mlm_loss(ctx, tokens, rng))
+        ctx.log("val_loss", self._mlm_loss(ctx, tokens, 0))
 
     def _loader(self, n, seed, shuffle=False):
         # the last vocab id is the mask token: the data never holds it

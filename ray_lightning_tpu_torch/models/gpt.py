@@ -20,8 +20,12 @@ agree on the same weights:
   fp32; ``wpe`` rows are cast to the compute dtype before the add;
 - dropout (``config.dropout``, training only) after each block's
   attention output projection and after its MLP, as flax's
-  ``nn.Dropout`` (ops/attention.py ``dropout``), with a seed per layer
-  and site folded from the forward's ``dropout_seed``.
+  ``nn.Dropout`` (ops/attention.py ``dropout``), its keyed masks
+  (ops/random.py) folded per layer and site from the forward's
+  ``dropout_seed``;
+- with ``n_experts > 0`` every ``moe_every``-th block's MLP is a routed
+  ``MoEMLP`` (ops/moe.py, parameters ``h.{i}.moe.router|w1|w2``), whose
+  load-balance losses the forward sums into ``GPT.moe_aux``.
 """
 
 from __future__ import annotations
@@ -40,20 +44,21 @@ from torch import nn
 from ray_lightning_tpu_torch._device import resolve_device
 from ray_lightning_tpu_torch.core.data import ArrayDataset, DataLoader
 from ray_lightning_tpu_torch.core.module import LightningModule
-from ray_lightning_tpu_torch.core.remat import model_policy, policy_object
+from ray_lightning_tpu_torch.core.remat import (MOE_POLICIES, model_policy,
+                                                policy_object)
 from ray_lightning_tpu_torch.ops.attention import (CacheWrite,
                                                    MultiHeadAttention,
                                                    dropout, fold_in, linear)
 from ray_lightning_tpu_torch.ops.losses import (
     chunked_softmax_cross_entropy, fused_lm_cross_entropy)
+from ray_lightning_tpu_torch.ops.moe import MoEMLP, total_aux_loss
 from ray_lightning_tpu_torch.ops.optim import AdamW, fp32_master
 
 
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
-    """The JAX package's config, same fields and defaults.  The
-    training-only fields (remat, chunked CE, MoE) are kept so configs
-    compare one to one; the serve path rejects MoE."""
+    """The JAX package's config, same fields and defaults.  The serve
+    path rejects MoE."""
 
     vocab_size: int = 50304
     block_size: int = 256
@@ -137,9 +142,10 @@ def init_weights(model: nn.Module, embeddings, generator: torch.Generator
     """Seeded init of ``model`` in place, drawn from ``generator`` (which
     must live on the parameters' device): ``embeddings`` N(0, 0.02),
     linear kernels flax's lecun_normal (truncated normal, variance
-    1/fan_in), biases 0, LayerNorm scale 1.  The numbers differ from
-    ``jax.random``'s; tests that compare the two packages convert the
-    JAX weights instead."""
+    1/fan_in), biases 0, LayerNorm scale 1, routed MLPs their own
+    (``MoEMLP.init_weights``).  The numbers differ from ``jax.random``'s;
+    tests that compare the two packages convert the JAX weights
+    instead."""
     for p in embeddings:
         p.copy_(torch.randn(p.shape, generator=generator,
                             device=p.device) * 0.02)
@@ -157,6 +163,8 @@ def init_weights(model: nn.Module, embeddings, generator: torch.Generator
         elif isinstance(mod, LayerNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
+        elif isinstance(mod, MoEMLP):
+            mod.init_weights(generator)
 
 
 class MLP(nn.Module):
@@ -174,7 +182,13 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: GPTConfig):
+    """A pre-LN block: attention, then the MLP, or with ``use_moe`` the
+    routed ``moe`` (ops/moe.py; no dropout inside, as in the JAX
+    package).  ``tag_names``: the MoE layer tags its intermediates for a
+    MoE remat save list."""
+
+    def __init__(self, cfg: GPTConfig, use_moe: bool = False,
+                 tag_names: bool = False):
         super().__init__()
         self.ln1 = LayerNorm(cfg.n_embd, cfg.dtype)
         self.attn = MultiHeadAttention(cfg.n_embd, cfg.n_head, causal=True,
@@ -182,18 +196,35 @@ class Block(nn.Module):
                                        attention_impl=cfg.attention_impl,
                                        dropout=cfg.dropout)
         self.ln2 = LayerNorm(cfg.n_embd, cfg.dtype)
-        self.mlp = MLP(cfg)
+        if use_moe:
+            self.moe = MoEMLP(cfg.n_embd, cfg.n_experts, 4 * cfg.n_embd,
+                              cfg.moe_top_k, cfg.moe_capacity_factor,
+                              cfg.dtype, tag_names)
+        else:
+            self.mlp = MLP(cfg)
 
-    def forward(self, x, dropout_seed: "int | None" = None):
+    def forward(self, x, dropout_seed=None):
         return self.forward_with_kv(x, dropout_seed)[0]
 
-    def forward_with_kv(self, x, dropout_seed: "int | None" = None):
-        """Returns ``(x', (k, v))``: the layer's K/V for the prefill.
-        ``dropout_seed`` (training) seeds the attention's and the MLP's
-        dropout masks, sites 0 and 1."""
+    def train_forward(self, x, dropout_seed=None):
+        """``(x', aux)``: the block's output and its routed layer's
+        load-balance loss (``None`` for a dense block)."""
+        return self._forward(x, dropout_seed)[::2]
+
+    def forward_with_kv(self, x, dropout_seed=None):
+        """Returns ``(x', (k, v))``: the layer's K/V for the prefill."""
+        return self._forward(x, dropout_seed)[:2]
+
+    def _forward(self, x, dropout_seed):
+        """``(x', (k, v), aux)``.  ``dropout_seed`` (training: an
+        ops/random.py ``Key``, or an int) seeds the attention's and the
+        MLP's dropout masks, sites 0 and 1."""
         a, kv = self.attn(self.ln1(x), fold_in(dropout_seed, 0))
         x = x + a
-        return x + self.mlp(self.ln2(x), fold_in(dropout_seed, 1)), kv
+        if hasattr(self, "moe"):
+            h, aux = self.moe(self.ln2(x))
+            return x + h, kv, aux
+        return x + self.mlp(self.ln2(x), fold_in(dropout_seed, 1)), kv, None
 
     def decode(self, x, k_cache, v_cache, positions, impl=None,
                page_table=None, write=None):
@@ -214,10 +245,13 @@ class GPT(nn.Module):
     With ``config.remat`` each block of ``hidden`` runs under the remat
     policy (core/remat.py: ``RLT_REMAT_POLICY``, else
     ``config.remat_policy``) whenever autograd records, as ``nn.remat``
-    wraps each block in the JAX package; an unported policy raises
-    here.  The checkpointed function returns the block's output alone:
-    its K/V are views of the fused qkv projection, and returning them
-    would keep every layer's qkv alive through the backward pass.
+    wraps each block in the JAX package.  The checkpointed function
+    returns the block's output and its load-balance loss alone: its K/V
+    are views of the fused qkv projection, and returning them would keep
+    every layer's qkv alive through the backward pass.  With
+    ``config.n_experts > 0`` block i is routed when ``i % moe_every ==
+    moe_every - 1``; ``moe_aux`` holds the last forward's summed
+    load-balance loss (ops/moe.py ``total_aux_loss``).
 
     The parameters are made on ``device``: the card unless the caller
     asks for the CPU (``device="cpu"``); without CUDA the default
@@ -226,18 +260,19 @@ class GPT(nn.Module):
     def __init__(self, config: GPTConfig,
                  device: "str | torch.device | None" = None):
         super().__init__()
-        if config.n_experts > 0:
-            raise NotImplementedError(
-                "MoE blocks (ops/moe.py) are not ported yet")
         self.config = config
         self.remat_policy = model_policy(config.remat, config.remat_policy)
         self._remat = policy_object(self.remat_policy)
+        self.moe_aux: "torch.Tensor | None" = None
+        tag = self.remat_policy in MOE_POLICIES
         with torch.device(resolve_device(device)):
             self.wte = nn.Embedding(config.vocab_size, config.n_embd)
             self.wpe = nn.Parameter(torch.zeros(config.block_size,
                                                 config.n_embd))
-            self.h = nn.ModuleList(Block(config)
-                                   for _ in range(config.n_layer))
+            self.h = nn.ModuleList(
+                Block(config, config.n_experts > 0
+                      and i % config.moe_every == config.moe_every - 1, tag)
+                for i in range(config.n_layer))
             self.ln_f = LayerNorm(config.n_embd, config.dtype)
 
     def init_weights(self, generator: torch.Generator) -> None:
@@ -260,12 +295,19 @@ class GPT(nn.Module):
         each block under the remat policy while autograd records.
         ``dropout_seed`` (``StepContext.dropout_seed``; ``None``: no
         dropout) seeds layer i's masks with ``fold_in(seed, i)``, a
-        host-side int, so a recomputed block draws them again."""
+        keyed draw's site, so a recomputed block draws them again.  Sets
+        ``moe_aux``."""
         x = self._embed(idx)
         remat = self._remat if torch.is_grad_enabled() else None
+        aux = []
         for i, blk in enumerate(self.h):
             seed = fold_in(dropout_seed, i)
-            x = remat(blk, x, seed) if remat is not None else blk(x, seed)
+            x, a = (remat(blk.train_forward, x, seed) if remat is not None
+                    else blk.train_forward(x, seed))
+            if a is not None:
+                aux.append(a)
+        # summed left to right, as the JAX total_aux_loss adds its leaves
+        self.moe_aux = functools.reduce(torch.add, aux) if aux else None
         return self.ln_f(x)
 
     def hidden_with_kv(self, idx):
@@ -379,8 +421,8 @@ class GPTLightningModule(LightningModule):
         self.batch_size = batch_size
 
     def configure_model(self, device=None):
-        """The training model, with its remat policy (core/remat.py:
-        "full" and "off" are ported) and ``config.dropout``."""
+        """The training model, with its remat policy (core/remat.py) and
+        ``config.dropout``."""
         return GPT(self.config, device=device)
 
     def configure_decode_model(self, device=None):
@@ -458,7 +500,14 @@ class GPTLightningModule(LightningModule):
                 - logits.gather(-1, y.long()[..., None])[..., 0]).mean()
 
     def training_step(self, ctx, batch):
+        """The LM loss; with routed layers plus ``moe_aux_weight`` times
+        their summed load-balance loss, logged as ``moe_aux``."""
         loss = self._loss(ctx, batch)
+        if self.config.n_experts > 0:
+            aux = total_aux_loss(ctx.model)
+            if aux is not None:
+                ctx.log("moe_aux", aux)
+                loss = loss + self.config.moe_aux_weight * aux
         ctx.log("loss", loss)
         return loss
 

@@ -63,8 +63,9 @@ class Kernel:
 
     ``signature`` lists the C entry point's argument kinds, ``"p"`` for a
     pointer or the stream (``c_void_p``), ``"i"`` for an int
-    (``c_int``) and ``"f"`` for a float (``c_float``); the entry point
-    returns ``cudaGetLastError()`` as an int.
+    (``c_int``), ``"u"`` for an unsigned 32-bit word (``c_uint``) and
+    ``"f"`` for a float (``c_float``); the entry point returns
+    ``cudaGetLastError()`` as an int.
     """
 
     def __init__(self, name: str, source: str, entry: str,
@@ -107,7 +108,7 @@ class Kernel:
         lib = ctypes.CDLL(str(self.library_path()))
         fn = getattr(lib, self.entry)
         kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int,
-                 "f": ctypes.c_float}
+                 "u": ctypes.c_uint, "f": ctypes.c_float}
         fn.argtypes = [kinds[c] for c in self.signature]
         fn.restype = ctypes.c_int
         self._lib = lib     # keep the library alive with the binding

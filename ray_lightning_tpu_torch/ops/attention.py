@@ -16,8 +16,9 @@ Counterpart of ``ray_lightning_tpu/ops/attention.py``:
 - :class:`MultiHeadAttention` — fused-QKV attention whose submodule
   names (``qkv``, ``proj``) match the JAX parameter paths, with dropout
   after its output projection in training;
-- :func:`dropout` — flax's ``nn.Dropout`` on an explicit seed, and
-  :func:`fold_in`, which derives one seed per dropout site.
+- :func:`dropout` — flax's ``nn.Dropout`` on a keyed draw
+  (ops/random.py), and :func:`fold_in`, which derives one key per
+  dropout site.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from ray_lightning_tpu_torch.ops.flash_attention import (NEG_INF,
 from ray_lightning_tpu_torch.ops.flash_decode import (
     flash_decode_attention, flash_decode_paged_attention,
     resolve_decode_impl)
+from ray_lightning_tpu_torch.ops.random import Key, as_key
 
 
 def dot_product_attention(q, k, v, *, causal: bool = True,
@@ -195,27 +197,32 @@ class CacheWrite:
         cache.index_put_((self.slots, self.idx), rows)
 
 
-def fold_in(seed: "int | None", *path: int) -> "int | None":
-    """A seed for the dropout site at ``path`` (layer, site) under the
-    forward's ``seed``, as ``jax.random.fold_in`` derives a key; ``None``
-    stays ``None`` (no dropout).  Computed on the host from ints, so a
+def fold_in(seed: "Key | int | None", *path: int) -> "Key | int | None":
+    """The key of the dropout site at ``path`` (layer, site) under the
+    forward's ``seed``, as ``jax.random.fold_in`` derives a key: a
+    :class:`~ray_lightning_tpu_torch.ops.random.Key` extends its site
+    path (host ints: a graph freezes nothing that changes); an int seed
+    folds to an int; ``None`` stays ``None`` (no dropout).  Either way a
     block recomputed under remat draws its masks again bit for bit."""
     if seed is None:
         return None
+    if isinstance(seed, Key):
+        return seed.fold_in(*path)
     return int(np.random.SeedSequence((seed, *path)).generate_state(
         1, np.uint64)[0])
 
 
-def dropout_keep_mask(shape, keep_prob: float, seed: int,
+def dropout_keep_mask(shape, keep_prob: float, seed: "Key | int",
                       device) -> torch.Tensor:
-    """Bernoulli(``keep_prob``) keep-mask of ``shape`` from a generator
-    seeded with ``seed`` on ``device`` (``jax.random.bernoulli``'s role;
-    the numbers differ from JAX's)."""
-    gen = torch.Generator(device=device).manual_seed(seed)
-    return torch.rand(shape, generator=gen, device=device) < keep_prob
+    """Bernoulli(``keep_prob``) keep-mask of ``shape`` on ``device``: the
+    keyed uniform draw of ``seed`` (ops/random.py; an int seeds a key)
+    below ``keep_prob`` (``jax.random.bernoulli``'s role; the numbers
+    differ from JAX's).  On the card the draw is ``csrc/philox.cu``,
+    which a CUDA graph replays with each step's key."""
+    return as_key(seed, device).uniform(shape) < keep_prob
 
 
-def dropout(x, rate: float, seed: "int | None"):
+def dropout(x, rate: float, seed: "Key | int | None"):
     """flax ``nn.Dropout(rate)`` in training: ``where(keep, x / keep_prob,
     0)`` in ``x``'s dtype, the mask from ``seed``
     (:func:`dropout_keep_mask`); the identity when ``seed`` is ``None``

@@ -60,8 +60,9 @@ that :func:`tpu_rows` names.  The backward is three passes of one call
 wrappers: a CUDA tensor launches the kernel (or raises on what the
 kernel does not take), a CPU tensor takes the ``_plain`` version, which
 computes the same function with the same rounding points in plain
-PyTorch.  :class:`FlashAttentionFunction` ties the two into autograd, as
-the custom VJP does in the JAX package.
+PyTorch.  Both go through torch custom ops, ``rlt::flash_fwd`` and its
+gradient ``rlt::flash_bwd`` (:data:`FWD_OP`, :data:`BWD_OP`), as the
+custom VJP ties them in the JAX package.
 """
 
 from __future__ import annotations
@@ -232,22 +233,26 @@ def flash_attention_fwd_plain(q, k, v, *, causal: bool = True,
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True,
                         sm_scale: "float | None" = None):
-    """Attention forward over ``[B, T, H, D]``: ``(o, lse)``.
+    """Attention forward over ``[B, T, H, D]``: ``(o, lse)``, through the
+    custom op ``rlt::flash_fwd`` (:data:`FWD_OP`).
 
     A CUDA tensor launches ``csrc/flash_fwd.cu``: bf16 only, head_dim in
     :data:`HEAD_DIMS`, unit stride over D and 16-byte-aligned rows (the
     split views of a fused qkv projection qualify, with no copy: the
     kernel reads them through TMA tensor maps built from these strides
     at each launch).  A CPU tensor takes
-    :func:`flash_attention_fwd_plain`.
+    :func:`flash_attention_fwd_plain`.  Differentiable: the op's
+    gradient is ``rlt::flash_bwd``.
     """
     _check(q, k, v)
-    B, T, H, D = q.shape
     if sm_scale is None:
-        sm_scale = 1.0 / math.sqrt(D)
-    if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, causal=causal,
-                                         sm_scale=sm_scale)
+        sm_scale = 1.0 / math.sqrt(q.shape[3])
+    return FWD_OP(q, k, v, bool(causal), float(sm_scale))
+
+
+def _flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
+    """The CUDA implementation of ``rlt::flash_fwd``: one launch."""
+    B, T, H, D = q.shape
     _check_kernel_operands("flash_fwd", q=q, k=k, v=v)
     _check_grid("flash_fwd", B, T, H)
     o = torch.empty(B, T, H, D, dtype=q.dtype, device=q.device)
@@ -336,7 +341,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         sm_scale: "float | None" = None):
     """Attention backward over ``[B, T, H, D]``: ``(dq, dk, dv)`` from the
     forward's ``o`` and fp32 ``lse`` [B, H, T] and the output gradient
-    ``do``.
+    ``do``, through the custom op ``rlt::flash_bwd`` (:data:`BWD_OP`).
 
     A CUDA tensor launches ``csrc/flash_bwd.cu`` (one launch: its delta,
     dk/dv and dq passes), on the same terms as the forward: bf16, head_dim
@@ -345,9 +350,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     :func:`flash_attention_bwd_plain`.
     """
     sm_scale = _bwd_check(q, k, v, o, lse, do, sm_scale)
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
-                                         sm_scale=sm_scale)
+    return BWD_OP(q, k, v, o, lse, do, bool(causal), float(sm_scale))
+
+
+def _flash_bwd_cuda(q, k, v, o, lse, do, causal: bool, sm_scale: float):
+    """The CUDA implementation of ``rlt::flash_bwd``: one launch."""
     args, _delta, grads = _bwd_kernel_args(q, k, v, o, lse, do, causal,
                                            sm_scale)
     if args is not None:
@@ -379,31 +386,75 @@ def flash_attention_bwd_passes(q, k, v, o, lse, do, *, causal: bool = True,
             for name, kern in BWD_PASS_KERNELS.items()}, grads
 
 
-class FlashAttentionFunction(torch.autograd.Function):
-    """``o = attention(q, k, v)`` with the flash kernels on both sides:
-    the forward saves ``q, k, v, o, lse`` (the JAX ``_flash_fwd``
-    residuals), the backward is :func:`flash_attention_bwd`.  q, k, v
-    may be the split views of one fused projection: autograd sums their
-    gradients into its gradient.  Under a remat checkpoint the forward
-    runs again in the backward pass; the kernels use no atomics, so the
-    recompute gives the same ``o`` and ``lse`` bit for bit."""
+# -- the kernels as torch custom ops ------------------------------------------
+#
+# Registered with the dispatcher, so a selective-checkpoint policy
+# (core/remat.py), fake tensors and CUDA graph captures all see them as
+# ops: ``rlt::flash_fwd`` (CUDA: the kernel; CPU: the plain version; meta
+# and fake tensors: shapes only) with ``rlt::flash_bwd`` as its
+# gradient, as the custom VJP ties the Pallas kernels in the JAX package.
+# q, k, v may be the split views of one fused projection: autograd sums
+# their gradients into its gradient.  Under a remat checkpoint the
+# forward runs again in the backward pass; the kernels use no atomics,
+# so the recompute gives the same ``o`` and ``lse`` bit for bit.
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal: bool, sm_scale: "float | None"):
-        o, lse = flash_attention_fwd(q, k, v, causal=causal,
+
+@torch.library.custom_op("rlt::flash_fwd", mutates_args=(),
+                         device_types="cuda")
+def FWD_OP(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+           sm_scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    return _flash_fwd_cuda(q, k, v, causal, sm_scale)
+
+
+@FWD_OP.register_kernel("cpu")
+def _(q, k, v, causal, sm_scale):
+    return flash_attention_fwd_plain(q, k, v, causal=causal,
                                      sm_scale=sm_scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal = causal
-        ctx.sm_scale = sm_scale
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
-                                         causal=ctx.causal,
-                                         sm_scale=ctx.sm_scale)
-        return dq, dk, dv, None, None
+
+@FWD_OP.register_fake
+def _(q, k, v, causal, sm_scale):
+    B, T, H, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((B, H, T), dtype=torch.float32))
+
+
+@torch.library.custom_op("rlt::flash_bwd", mutates_args=(),
+                         device_types="cuda")
+def BWD_OP(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+           causal: bool, sm_scale: float
+           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _flash_bwd_cuda(q, k, v, o, lse, do, causal, sm_scale)
+
+
+@BWD_OP.register_kernel("cpu")
+def _(q, k, v, o, lse, do, causal, sm_scale):
+    return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                     sm_scale=sm_scale)
+
+
+@BWD_OP.register_fake
+def _(q, k, v, o, lse, do, causal, sm_scale):
+    return (q.new_empty(q.shape), k.new_empty(k.shape),
+            v.new_empty(v.shape))
+
+
+def _fwd_setup(ctx, inputs, output):
+    q, k, v, causal, sm_scale = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.causal, ctx.sm_scale = causal, sm_scale
+
+
+def _fwd_backward(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = BWD_OP(q, k, v, o, lse, do.contiguous(), ctx.causal,
+                        ctx.sm_scale)
+    return dq, dk, dv, None, None
+
+
+FWD_OP.register_autograd(_fwd_backward, setup_context=_fwd_setup)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -412,15 +463,15 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """Flash attention over ``[B, T, H, D]`` (BTHD in, BTHD out): the
     drop-in for :func:`~ray_lightning_tpu_torch.ops.attention.
     dot_product_attention`, as in the JAX package, differentiable through
-    :class:`FlashAttentionFunction`.  The JAX signature's ``block_q``/
+    ``rlt::flash_fwd``'s gradient.  The JAX signature's ``block_q``/
     ``block_k`` are not taken: the port's kernels tile the same rows for
     every shape, and the blocks only pick the reference's route
     (:func:`tpu_rows`)."""
-    o = FlashAttentionFunction.apply(q, k, v, causal, sm_scale)
+    o, _ = flash_attention_fwd(q, k, v, causal=causal, sm_scale=sm_scale)
     return o.to(dtype)
 
 
-__all__ = ["BWD_KERNEL", "BWD_PASS_KERNELS", "FlashAttentionFunction",
+__all__ = ["BWD_KERNEL", "BWD_OP", "BWD_PASS_KERNELS", "FWD_OP",
            "HEAD_DIMS", "KERNEL", "NEG_INF", "flash_attention",
            "flash_attention_bwd", "flash_attention_bwd_passes",
            "flash_attention_bwd_plain", "flash_attention_fwd",

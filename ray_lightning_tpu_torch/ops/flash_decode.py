@@ -13,8 +13,10 @@ finds each page through the page table.
 
 :func:`flash_decode_attention` and :func:`flash_decode_paged_attention`
 are the wrappers: a CUDA tensor launches the kernel (or raises), a CPU
-tensor takes the plain version.  :func:`flash_decode_split_plain` is
-the kernel's split-and-merge arithmetic in plain PyTorch.
+tensor takes the plain version, both through torch custom ops
+(``rlt::flash_decode``, ``rlt::flash_decode_paged``).
+:func:`flash_decode_split_plain` is the kernel's split-and-merge
+arithmetic in plain PyTorch.
 :func:`resolve_decode_impl` reads ``RLT_DECODE_IMPL`` as the JAX
 package does.
 """
@@ -288,31 +290,51 @@ def flash_decode_attention(q, k_cache, v_cache, positions):
             "flash_decode_attention has no backward: call it under "
             "torch.no_grad() / torch.inference_mode(), or with inputs "
             "that do not require grad")
-    if q.device.type == "cpu":
-        return flash_decode_attention_plain(q, k_cache, v_cache, positions)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_decode_attention: unsupported device "
                          f"{q.device}")
     S, _, H, D = q.shape
-    L = k_cache.shape[1]
-    for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+    if q.device.type == "cpu":
+        # the plain version reads no plan and no scratch
+        nothing = q.new_empty(0, dtype=torch.int32)
+        return DECODE_OP(q, k_cache, v_cache, positions, nothing,
+                         nothing.float(), 0, 0)
+    chunk, n = decode_split_plan(S, H, k_cache.shape[1],
+                                 _sm_count(q.device.index or 0))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tickets, ws = _scratch(q.device, stream, S * H, S * H * n * (D + 2))
+    return DECODE_OP(q, k_cache, v_cache, positions, tickets, ws, chunk, n)
+
+
+def _check_operands(kernel: str, **tensors) -> None:
+    """What the decode kernels take, or raise: bf16, unit stride over D,
+    16-byte-aligned rows and int32 strides."""
+    for name, x in tensors.items():
         if x.dtype != torch.bfloat16:
-            raise TypeError(f"flash_decode kernel takes bf16, {name} is "
+            raise TypeError(f"{kernel} kernel takes bf16, {name} is "
                             f"{x.dtype}")
         if x.stride(3) != 1 or x.data_ptr() % 16 \
                 or any(st % 8 for st in x.stride()[:3]):
             raise ValueError(
-                f"flash_decode kernel needs unit stride over D and "
-                f"16-byte aligned rows; {name} has strides {x.stride()}")
+                f"{kernel} kernel needs unit stride over D and 16-byte "
+                f"aligned rows; {name} has strides {x.stride()}")
         if max(x.stride()[:3]) >= 2 ** 31:
             raise ValueError(f"{name} strides overflow int32")
+
+
+def _decode_cuda(q, k_cache, v_cache, positions, tickets, ws, chunk: int,
+                 n: int):
+    """The CUDA implementation of ``rlt::flash_decode``: one launch with
+    the wrapper's plan, on its scratch (written: the merge's workspace,
+    and the tickets, back to 0 when the launch ends)."""
+    _check_operands("flash_decode", q=q, k_cache=k_cache, v_cache=v_cache)
+    S, _, H, D = q.shape
+    L = k_cache.shape[1]
     _check_grid(S)
     o = torch.empty(S, 1, H, D, dtype=q.dtype, device=q.device)
     if S == 0:
         return o
-    chunk, n = decode_split_plan(S, H, L, _sm_count(q.device.index or 0))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    tickets, ws = _scratch(q.device, stream, S * H, S * H * n * (D + 2))
     KERNEL.launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                   positions.data_ptr(), o.data_ptr(), ws.data_ptr(),
                   tickets.data_ptr(), S, L, H, D,
@@ -408,36 +430,40 @@ def flash_decode_paged_attention(q, k_pages, v_pages, positions, table):
             "flash_decode_paged_attention has no backward: call it under "
             "torch.no_grad() / torch.inference_mode(), or with inputs "
             "that do not require grad")
-    if q.device.type == "cpu":
-        return flash_decode_paged_attention_plain(q, k_pages, v_pages,
-                                                  positions, table)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_decode_paged_attention: unsupported "
                          f"device {q.device}")
     S, _, H, D = q.shape
+    if q.device.type == "cpu":
+        nothing = q.new_empty(0, dtype=torch.int32)
+        return PAGED_OP(q, k_pages, v_pages, positions, table, nothing,
+                        nothing.float(), 0, 0)
     N, ps = k_pages.shape[:2]
     P = table.shape[1]
-    for name, x in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"flash_decode_paged kernel takes bf16, "
-                            f"{name} is {x.dtype}")
-        if x.stride(3) != 1 or x.data_ptr() % 16 \
-                or any(st % 8 for st in x.stride()[:3]):
-            raise ValueError(
-                f"flash_decode_paged kernel needs unit stride over D and "
-                f"16-byte aligned rows; {name} has strides {x.stride()}")
-        if max(x.stride()[:3]) >= 2 ** 31:
-            raise ValueError(f"{name} strides overflow int32")
     if P * ps >= 2 ** 31 or N >= 2 ** 31:
         raise ValueError(f"{P} pages of {ps} rows overflow int32")
-    _check_grid(S)
-    o = torch.empty(S, 1, H, D, dtype=q.dtype, device=q.device)
-    if S == 0:
-        return o
     chunk, n = decode_split_plan(S, H, P * ps,
                                  _sm_count(q.device.index or 0))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     tickets, ws = _scratch(q.device, stream, S * H, S * H * n * (D + 2))
+    return PAGED_OP(q, k_pages, v_pages, positions, table, tickets, ws,
+                    chunk, n)
+
+
+def _paged_cuda(q, k_pages, v_pages, positions, table, tickets, ws,
+                chunk: int, n: int):
+    """The CUDA implementation of ``rlt::flash_decode_paged``: one launch
+    with the wrapper's plan, on its scratch (as :func:`_decode_cuda`)."""
+    _check_operands("flash_decode_paged", q=q, k_pages=k_pages,
+                    v_pages=v_pages)
+    S, _, H, D = q.shape
+    N, ps = k_pages.shape[:2]
+    P = table.shape[1]
+    _check_grid(S)
+    o = torch.empty(S, 1, H, D, dtype=q.dtype, device=q.device)
+    if S == 0:
+        return o
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     PAGED_KERNEL.launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         positions.data_ptr(), table.data_ptr(), o.data_ptr(),
@@ -449,7 +475,58 @@ def flash_decode_paged_attention(q, k_pages, v_pages, positions, table):
     return o
 
 
-__all__ = ["DECODE_TILE", "KERNEL", "NEG_INF", "PAGED_KERNEL",
+# -- the kernels as torch custom ops ------------------------------------------
+#
+# ``rlt::flash_decode`` and ``rlt::flash_decode_paged``: CUDA the kernel,
+# CPU the plain version, meta and fake tensors shapes only.  The split
+# plan (``chunk``, ``n_split``) and the scratch are arguments, the
+# scratch declared mutated: the kernels write the workspace and take and
+# reset the tickets.  No gradient: as the JAX kernels, they serve
+# decode only (the wrappers raise under autograd).
+
+
+@torch.library.custom_op("rlt::flash_decode",
+                         mutates_args=("tickets", "ws"), device_types="cuda")
+def DECODE_OP(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+              positions: torch.Tensor, tickets: torch.Tensor,
+              ws: torch.Tensor, chunk: int, n_split: int) -> torch.Tensor:
+    return _decode_cuda(q, k_cache, v_cache, positions, tickets, ws, chunk,
+                        n_split)
+
+
+@DECODE_OP.register_kernel("cpu")
+def _(q, k_cache, v_cache, positions, tickets, ws, chunk, n_split):
+    return flash_decode_attention_plain(q, k_cache, v_cache, positions)
+
+
+@DECODE_OP.register_fake
+def _(q, k_cache, v_cache, positions, tickets, ws, chunk, n_split):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("rlt::flash_decode_paged",
+                         mutates_args=("tickets", "ws"), device_types="cuda")
+def PAGED_OP(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+             positions: torch.Tensor, table: torch.Tensor,
+             tickets: torch.Tensor, ws: torch.Tensor, chunk: int,
+             n_split: int) -> torch.Tensor:
+    return _paged_cuda(q, k_pages, v_pages, positions, table, tickets, ws,
+                       chunk, n_split)
+
+
+@PAGED_OP.register_kernel("cpu")
+def _(q, k_pages, v_pages, positions, table, tickets, ws, chunk, n_split):
+    return flash_decode_paged_attention_plain(q, k_pages, v_pages,
+                                              positions, table)
+
+
+@PAGED_OP.register_fake
+def _(q, k_pages, v_pages, positions, table, tickets, ws, chunk, n_split):
+    return q.new_empty(q.shape)
+
+
+__all__ = ["DECODE_OP", "DECODE_TILE", "KERNEL", "NEG_INF", "PAGED_KERNEL",
+           "PAGED_OP",
            "VALID_DECODE_IMPLS", "decode_split_plan",
            "flash_decode_attention", "flash_decode_attention_plain",
            "flash_decode_paged_attention",

@@ -79,9 +79,11 @@ def process_results(futures: Sequence[Future], backend: ClusterBackend,
             raise TimeoutError(
                 f"workers {waiting} of {len(pending)} still running after "
                 f"{timeout:.0f} s")
-        if not drained:
-            # wakes as soon as the first call still running returns
-            next(f for f in pending if not f.done()).wait(poll_interval)
+        running = next((f for f in pending if not f.done()), None)
+        if not drained and running is not None:
+            # wakes as soon as the first call still running returns (the
+            # last may have returned since the loop's test)
+            running.wait(poll_interval)
     # items sent just before the workers finished
     _drain(backend, actors, validator)
     errors = [(i, f.error()) for i, f in enumerate(pending) if f.error()]

@@ -9,7 +9,7 @@ numpy-seeded weights (converted with ``flax_to_torch``) and inputs.
   attention (the JAX Pallas kernels under the interpreter: rows 5 + 10
   at ``tiny``, rows 1 + 6 non-causal at the narrow config, asserted by
   the kernel bodies ``pallas_call`` receives; the port's
-  ``FlashAttentionFunction`` over its plain versions); in bf16 the plain
+  ``flash_attention`` over its plain versions); in bf16 the plain
   attention;
 - (b) the classifier: logits, loss, accuracy, every gradient;
 - (c) the optimizers: one ``BertMLMModule`` AdamW step (a constant rate,
@@ -351,8 +351,9 @@ def test_bert_routes_and_not_ported(monkeypatch):
     ``tiny`` rows 5 + 10, bert-base under ``RLT_FLASH_BLOCK_Q=K=128``
     rows 5 + 15 + 16.  Remat "full" gives the gradients of "off" bit for
     bit; dropout runs in training only (the forward without a seed is
-    the dropout-free one bit for bit); the other remat policies, SPMD
-    rules and an unknown flax path raise."""
+    the dropout-free one bit for bit); remat "dots" builds
+    (tests/test_torch_remat.py holds its gradients); SPMD rules and an
+    unknown flax path raise."""
     base = tbert.CONFIGS["bert-base"]
     tiny = tbert.CONFIGS["tiny"]
     assert tpu_rows(base.max_len, base.n_head, base.head_dim, False) \
@@ -385,9 +386,9 @@ def test_bert_routes_and_not_ported(monkeypatch):
     with torch.no_grad():
         assert torch.equal(drop(x), model(x))
         assert not torch.equal(drop(x, dropout_seed=7), model(x))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbert.BertMLMModule(dataclasses.replace(
-            tiny, remat=True, remat_policy="dots")).configure_model("cpu")
+    dots = tbert.BertMLMModule(dataclasses.replace(
+        tiny, remat=True, remat_policy="dots")).configure_model("cpu")
+    assert dots.remat_policy == "dots"
     with pytest.raises(NotImplementedError, match="SpmdStrategy"):
         tbert.bert_partition_rules()
     with pytest.raises(KeyError, match="no mapping"):

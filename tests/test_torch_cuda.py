@@ -42,6 +42,7 @@ from ray_lightning_tpu_torch import (GPT, BertLightningModule,
                                      GPTLightningModule, Scheduler,
                                      ServeEngine, ServeWorker, Server,
                                      Trainer)
+from ray_lightning_tpu_torch.models.bert import CONFIGS as BERT_CONFIGS
 from ray_lightning_tpu_torch.models.gpt import GPTConfig
 from ray_lightning_tpu_torch.ops import _kernels
 from ray_lightning_tpu_torch.ops.attention import dot_product_attention
@@ -49,7 +50,9 @@ from ray_lightning_tpu_torch.ops.flash_attention import (
     HEAD_DIMS, flash_attention, flash_attention_bwd,
     flash_attention_bwd_passes, flash_attention_bwd_plain,
     flash_attention_fwd, flash_attention_fwd_plain)
+from ray_lightning_tpu_torch.ops import flash_attention as fa
 from ray_lightning_tpu_torch.ops import flash_decode as fd
+from ray_lightning_tpu_torch.ops import random as trandom
 from ray_lightning_tpu_torch.ops.flash_decode import (
     flash_decode_attention, flash_decode_attention_plain,
     flash_decode_paged_attention, flash_decode_paged_attention_plain,
@@ -1387,13 +1390,117 @@ def test_cuda_graphed_chunks_capture_the_collectives(strategy, nccl_group):
     assert all(torch.equal(got[n], want[n]) for n in want)
 
 
+def _tiny_bert_mlm():
+    cfg = dataclasses.replace(BERT_CONFIGS["tiny"], dropout=0.1)
+    return BertMLMModule(cfg, batch_size=4, train_size=40, val_size=8)
+
+
 @pytest.mark.cuda
-def test_cuda_dropout_in_a_graphed_chunk_raises(cuda_device):
-    """A step that draws from ``make_rng`` cannot be captured (the graph
-    would replay one seed): the fit raises, it never runs eagerly."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 14"):
-        _engine_fit(cuda_device, 4, _tiny_gpt(dropout=0.1),
+@pytest.mark.parametrize("make", [lambda: _tiny_gpt(dropout=0.1),
+                                  _tiny_bert_mlm],
+                         ids=["gpt_dropout", "bert_mlm"])
+def test_cuda_random_draws_in_a_graphed_chunk_equal_eager(make,
+                                                          cuda_device):
+    """Keyed draws (dropout 0.1, the masked LM's mask) in a graphed chunk:
+    each step's key words ride the chunk's static input, so 8 steps at
+    k=4 (two replays of one graph) equal the eager k=1 fit bit for bit,
+    and the draw kernel launches as often in a replay as in k eager
+    steps."""
+    _, want, eager = _engine_fit(cuda_device, 8, make())
+    trainer, got, graphed = _engine_fit(cuda_device, 8, make(),
+                                        steps_per_execution=4)
+    stats = trainer.graph_stats
+    assert stats["captures"] == 1 and stats["replays"] == 2
+    per_replay = stats["launches_per_replay"]["philox_uniform"]
+    assert per_replay > 0 and eager["philox_uniform"] == 2 * per_replay
+    diff = [n for n in want if not torch.equal(got[n], want[n])]
+    assert not diff, diff[:8]
+
+
+class _RawGenerator(GPTLightningModule):
+    """Draws from a torch.Generator (``make_rng``) in its step."""
+
+    def training_step(self, ctx, batch):
+        noise = torch.rand(1, generator=ctx.make_rng(), device="cuda")
+        return super().training_step(ctx, batch) + 0 * noise.sum()
+
+
+@pytest.mark.cuda
+def test_cuda_make_rng_in_a_graphed_chunk_raises(cuda_device):
+    """A raw ``torch.Generator`` draw cannot be captured (the graph would
+    replay one seed): the fit raises naming the graph-safe draw."""
+    cfg = dataclasses.replace(_tiny_gpt().config)
+    with pytest.raises(NotImplementedError, match="make_key"):
+        _engine_fit(cuda_device, 4, _RawGenerator(cfg, batch_size=4,
+                                                  dataset_size=40),
                     steps_per_execution=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 1023, 2 ** 20 + 3])
+def test_cuda_philox_kernel_matches_plain(n, cuda_device):
+    """``csrc/philox.cu`` against its plain version on the card and on
+    the CPU, bit for bit, one launch a call; another stream id or key
+    draws other numbers."""
+    key = torch.tensor([0x243F6A88, 0x85A308D3], device=cuda_device)
+    stream = (0x03707344 << 32) | 0x13198A2E
+    before = _kernels.REGISTRY["philox_uniform"].launches
+    got = trandom.philox_uniform(key, stream, (n,))
+    assert _kernels.REGISTRY["philox_uniform"].launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, trandom.philox_uniform_plain(key, stream, (n,)))
+    assert torch.equal(got.cpu(), trandom.philox_uniform_plain(
+        key.cpu(), stream, (n,)))
+    if n > 4:
+        assert not torch.equal(got, trandom.philox_uniform(
+            key, stream + 1, (n,)))
+
+
+@pytest.mark.cuda
+def test_cuda_custom_ops_under_capture(cuda_device):
+    """The kernels as custom ops: opcheck's schema, fake-tensor and
+    autograd checks on card tensors; a CUDA graph captured over
+    ``rlt::flash_fwd`` + ``rlt::flash_bwd`` (through autograd),
+    ``rlt::flash_decode`` and ``rlt::philox_uniform`` replays equal to the
+    eager calls, with a fresh key read from device memory at each
+    replay."""
+    checks = ("test_schema", "test_faketensor", "test_autograd_registration")
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(2, 128, 4, 64, generator=g, device=cuda_device)
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    torch.library.opcheck(fa.FWD_OP, (q, k, v, True, 0.125),
+                          test_utils=checks)
+    S, L = 4, 256
+    qd = torch.randn(S, 1, 4, 64, generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    kc, vc = (torch.randn(S, L, 4, 64, generator=g, device=cuda_device)
+              .to(torch.bfloat16) for _ in range(2))
+    pos = torch.tensor([0, 63, 64, 255], dtype=torch.int32,
+                       device=cuda_device)
+    key = torch.tensor([1, 2], device=cuda_device)
+
+    def step():
+        o = flash_attention(q, k, v, causal=True)
+        grads = torch.autograd.grad(o.float().square().sum(), [q, k, v])
+        with torch.no_grad():
+            dec = flash_decode_attention(qd, kc, vc, pos)
+        return (o.detach(), *grads, dec, trandom.philox_uniform(
+            key, 7, (1000,)))
+
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        step()                            # warm-up on the capture stream
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):   # the decode's scratch
+        out = step()
+    for words in ([1, 2], [3, 4]):
+        key.copy_(torch.tensor(words, device=cuda_device))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = step()
+        assert all(torch.equal(a, b) for a, b in zip(out, want)), words
 
 
 @pytest.mark.cuda
@@ -1733,6 +1840,7 @@ def test_cuda_int8_draft_graphs_equal_their_eager_steps(cuda_device,
 _FLEET_SCRIPT = r"""
 import numpy as np, torch
 from ray_lightning_tpu_torch import FleetServer, GPTLightningModule
+from ray_lightning_tpu_torch.models.bert import CONFIGS as BERT_CONFIGS
 from ray_lightning_tpu_torch.models.gpt import GPTConfig
 cfg = GPTConfig(vocab_size=256, block_size=64, n_layer=2, n_head=2,
                 n_embd=64, remat=False)

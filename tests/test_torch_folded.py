@@ -8,7 +8,7 @@ port on the same numpy-seeded inputs.
   under the interpreter, through ``jax.vjp``, the route asserted by the
   kernel bodies ``pl.pallas_call`` receives; against it the port's plain
   forward (what ``flash_attention_fwd`` takes on a CPU tensor), its
-  plain backward from its own o and lse, and ``FlashAttentionFunction``
+  plain backward from its own o and lse, and ``flash_attention``
   under autograd;
 - (b) ``tpu_rows``, the port's copy of the JAX gates, against the JAX
   dispatch itself over a grid of shapes, block sizes and the
@@ -116,7 +116,7 @@ CASES = [
 def test_folded_kernels_match_jax(H, D, T, blocks, causal, env, dtype, rows,
                                   monkeypatch):
     """o, dq, dk, dv of the port's plain forward and backward (from its
-    own o and lse) and of ``FlashAttentionFunction`` under autograd,
+    own o and lse) and of ``flash_attention`` under autograd,
     against ``jax.vjp`` of the JAX ``flash_attention`` whose dispatch
     takes the case's rows (asserted by the kernel bodies it runs and by
     ``tpu_rows``).  The port's lse [B, H, T] equals the reference's

@@ -9,7 +9,7 @@ weights.
   and 3 + 7 + 8, asserted with the JAX package's own gates and by the
   kernel bodies its ``pallas_call`` receives; against them the port's
   plain forward and backward (what its kernel wrappers take on a CPU
-  tensor) and ``FlashAttentionFunction`` under autograd;
+  tensor) and ``flash_attention`` under autograd;
 - (b) remat: "full" gives the gradients of "off" bit for bit and runs
   the attention forward twice a layer; unported policies raise;
 - (c) the slice as a whole: one train step (loss and every gradient) of
@@ -99,7 +99,7 @@ CASES = [
 def test_multiblock_kernels_match_jax(route, T, block, dtype, sm_scale,
                                       monkeypatch):
     """o, dq, dk, dv of the port's plain forward and backward (from its
-    own o and lse) and of ``FlashAttentionFunction`` under autograd,
+    own o and lse) and of ``flash_attention`` under autograd,
     against ``jax.vjp`` of the JAX ``flash_attention`` whose dispatch
     takes the route's rows: the default gates give rows 3 + 9,
     ``RLT_FLASH_ROWRES=0`` rows 2 + 7 + 8, the backward's row-resident
@@ -203,18 +203,19 @@ def test_remat_full_matches_off_bit_for_bit(monkeypatch):
 
 
 @pytest.mark.parametrize("config_policy,env,outcome", [
-    ("dots", None, NotImplementedError),
-    ("dots_no_batch", None, NotImplementedError),
-    ("full", "dots_moe", NotImplementedError),
+    ("dots", None, "dots"),
+    ("dots_no_batch", None, "dots_no_batch"),
+    ("full", "dots_moe", "dots_moe"),
     ("no_such", None, ValueError),
     ("dots", "off", "off"),
     ("off", "full", "full"),
 ])
 def test_remat_policies(config_policy, env, outcome, monkeypatch):
     """``RLT_REMAT_POLICY`` overrides the config's policy, as in the JAX
-    package; "dots", "dots_no_batch" and the MoE save lists raise naming
-    ROADMAP.md, an unknown name raises naming the options, and the
-    serve model is built with remat off whatever the policy."""
+    package; "dots", "dots_no_batch" and the MoE save lists build (a
+    selective checkpoint, core/remat.py), an unknown name raises naming
+    the options, and the serve model is built with remat off whatever
+    the policy."""
     if env:
         monkeypatch.setenv("RLT_REMAT_POLICY", env)
     module = GPTLightningModule(GPTConfig(**{**NARROW, "remat": True},
@@ -222,8 +223,7 @@ def test_remat_policies(config_policy, env, outcome, monkeypatch):
     if isinstance(outcome, str):
         assert module.configure_model("cpu").remat_policy == outcome
     else:
-        with pytest.raises(outcome, match="ROADMAP" if
-                           outcome is NotImplementedError else "options"):
+        with pytest.raises(outcome, match="options"):
             module.configure_model("cpu")
     assert module.configure_decode_model("cpu").remat_policy == "off"
     assert policy_object("off") is None
@@ -235,7 +235,7 @@ def test_train_step_under_remat_matches_jax(monkeypatch):
     """One train step of the narrow model in fp32: remat "full", the
     chunked CE over 4 chunks, flash attention.  The JAX step runs its
     Pallas kernels under the interpreter with 32-row blocks, so T=128
-    takes rows 3 + 9; the port's step runs ``FlashAttentionFunction``
+    takes rows 3 + 9; the port's step runs ``flash_attention``
     under ``torch.utils.checkpoint``.  The loss and every gradient agree
     within 5e-5."""
     monkeypatch.setenv("RLT_FLASH_BLOCK_Q", "32")

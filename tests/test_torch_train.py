@@ -2,7 +2,7 @@
 the JAX package on the same numpy-seeded inputs and converted weights.
 
 - (a) attention backward: the port's plain backward (the kernel's
-  function on a CPU tensor) and ``FlashAttentionFunction`` under
+  function on a CPU tensor) and ``flash_attention`` under
   autograd against ``jax.vjp`` of the Pallas ``flash_attention`` under
   the interpreter, which takes ``_bwd_packed_kernel`` at T=128 (one
   block) and T=512 (the 256-row staircase);
@@ -94,7 +94,7 @@ def _pair(rng, shape, dtype, scale=1.0):
 @pytest.mark.parametrize("T", [128, 512])
 def test_flash_backward_matches_jax_pallas_kernel(T, dtype):
     """dq, dk, dv of the port's plain backward (from its own forward's o
-    and lse) and of ``FlashAttentionFunction`` under autograd, against
+    and lse) and of ``flash_attention`` under autograd, against
     the JAX custom VJP through ``_bwd_packed_kernel`` (interpret mode)."""
     rng = np.random.default_rng(T + 1)
     B, H, D = 1, 2, 64
@@ -454,8 +454,9 @@ def test_lm_loss_routes_agree(route, monkeypatch):
 def test_trainer_refuses_what_is_not_ported():
     """Arguments of the JAX Trainer that the port does not honour yet
     raise instead of being ignored: the strategies beyond DDP and ZeRO-1,
-    and the telemetry, compile-cache, comm, elastic and planner planes;
-    so does remat "dots" (gpt2-medium's policy).  Checkpointing,
+    and the telemetry, compile-cache, comm, elastic and planner planes.
+    (gpt2-medium's remat "dots" is ported: tests/test_torch_remat.py.)
+    Checkpointing,
     clipping, the bf16 batch cast, dropout, the plugins and the loop
     engine's ``steps_per_execution`` and ``cache_train_dataset`` are
     honoured (tests/test_torch_checkpoint.py,
@@ -467,8 +468,6 @@ def test_trainer_refuses_what_is_not_ported():
                dict(plan=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             Trainer(device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GPTLightningModule("gpt2-medium").configure_model("cpu")
 
 
 @pytest.mark.parametrize("precision", ["32", "32-true", "64", "bf16",
