@@ -283,8 +283,8 @@ Phases, each fatal on failure:
    serving paths for the request, replayed in process (fp8's are
    counted, not held); every replica's launches (rows 1, 13, 14) from
    its worker stats, no capture after setup;
-17. the one-card training ladder, last: (a) gpt2-medium (24 x 1024, 16
-   heads) at B=8, T=1024, bf16: one step's gradients under remat "off",
+17. the one-card training ladder, before phase 18: (a) gpt2-medium (24
+   x 1024, 16 heads) at B=8, T=1024, bf16: one step's gradients under remat "off",
    "dots", "dots_no_batch" and "full" bit for bit with "off"'s, the
    step's peak memory ordered off >= dots >= dots_no_batch >= full,
    then a 6-step fit under each (rows 1 and 6; step ms, MFU by PERF.md
@@ -305,6 +305,24 @@ Phases, each fatal on failure:
    (e) ``csrc/philox.cu`` against its plain version bit for bit (on the
    card and on the CPU) at the main path's shapes, timed beside
    ``torch.rand`` and its bound.
+18. Sharded (last): gpt2-1p3b at full width and depth (T=2048, bf16,
+    remat "full"). (a) ``RaySpmdPlugin(num_workers=1, strategy="fsdp")``
+    at B=8 for one epoch of 3 steps, its weights bit for bit with the
+    in-process ``strategy="ddp"`` fit; step ms, peak memory, the rank's
+    resident parameter and optimizer bytes (against the specs' count,
+    and the specs' at W=2, 4, 8); then ``save_sharded_checkpoint``
+    (bytes, blocking and whole seconds). (c) that checkpoint restored in
+    one process (seconds): the weights bit for bit, one more step bit for
+    bit with the uninterrupted DDP fit. (b) ``SpmdStrategy(
+    gpt_partition_rules(), tensor=2)`` over two ranks from that
+    checkpoint, at B=2: NCCL with two cards, else both ranks on card 0
+    over gloo (``RLT_ONE_CARD_GLOO=1``; the leg logs which): the restore
+    bit for bit with the checkpoint's parameters, the first step's loss
+    and whole gradients against the unsharded step on rank 0 within 2e-2
+    (per-tensor relative L2), three losses against the unsharded fit
+    from the checkpoint within 2e-2.  Its launches ((a), (c), both ranks
+    of (b); not the references' or the checks') go to rows 3 and 9 under
+    ``sharded``, with their B=2 H=16 shape timed.
 
 The next-to-last line is the ``{"kernels": [...]}`` JSON record, one
 entry per TPU kernel row, 1 to 16 (``launches`` from the path phases
@@ -352,7 +370,9 @@ near-tie checks), then checks and times rows 1, 13 and 14 and prints
 their kernels line (the fleet's worker launches) and the last line.
 ``--ladder-only`` checks and times rows 1 and 6 and ``philox_uniform``,
 runs phase 17 alone, and prints their kernels line (the ladder's
-launches) and the last line.
+launches) and the last line.  ``--sharded-only`` runs phase 18 alone,
+then checks and times rows 3 and 9 at its shapes and prints their
+kernels line (its launches) and the last line.
 """
 
 from __future__ import annotations
@@ -3460,11 +3480,12 @@ class PluginProbe(Callback):
 
 
 def plugin_fit(this, plugin, module, steps: int, seed: int, root: str,
-               ckpt: "str | None" = None, callbacks=()) -> dict:
+               ckpt: "str | None" = None, callbacks=(), ranks: int = 1
+               ) -> dict:
     """``steps`` of ``Trainer.fit`` under ``plugin`` (``None``: in this
     process, on the card) with ``this.PluginProbe`` (and ``callbacks``
-    after it); the trainer, the module, the probe's report and the fit's
-    wall seconds."""
+    after it); the trainer, the module, the probe's report (the first of
+    the ``ranks`` reports: ``reports``) and the fit's wall seconds."""
     kw = (dict(plugins=[plugin]) if plugin is not None
           else dict(device="cuda"))
     trainer = Trainer(max_steps=steps, seed=seed,
@@ -3474,11 +3495,13 @@ def plugin_fit(this, plugin, module, steps: int, seed: int, root: str,
     t0 = time.time()
     trainer.fit(module, ckpt_path=ckpt)
     wall = time.time() - t0
-    if len(this.PROBES) != 1:
-        raise AssertionError(f"{len(this.PROBES)} probe reports, want 1")
-    report = this.PROBES.pop()
-    return dict(trainer=trainer, module=module, report=report, t0=t0,
-                wall_s=wall)
+    if len(this.PROBES) != ranks:
+        raise AssertionError(f"{len(this.PROBES)} probe reports, want "
+                             f"{ranks}")
+    reports = list(this.PROBES)
+    this.PROBES.clear()
+    return dict(trainer=trainer, module=module, report=reports[0],
+                reports=reports, t0=t0, wall_s=wall)
 
 
 def check_probe(run: dict, layers: int, steps: int, what: str) -> dict:
@@ -3667,9 +3690,11 @@ def plugin_phase(seed: int, driver_off_cuda: bool) -> dict:
 # -- phase 12: tune -----------------------------------------------------------
 
 #: (a) BASELINE config #3: a PBT sweep over MNIST, 4 trials of
-#: ``tune_mnist``'s space at MNIST's split sizes, 6 reports each
+#: ``tune_mnist``'s space at MNIST's split sizes, 3 reports each (6
+#: until phase 18 needed the time: each restarted fit costs a worker's
+#: start-up)
 PBT_TRIALS = 4
-PBT_ITERATIONS = 6
+PBT_ITERATIONS = 3
 PBT_TRAIN_SIZE, PBT_VAL_SIZE = 60000, 10000
 #: train batches an epoch (``limit_train_batches``; ``None``: the whole
 #: epoch): the cut that keeps the phase in its budget, never the data
@@ -5457,6 +5482,414 @@ def ladder_phase(seed: int, card: str) -> dict:
     return out
 
 
+# -- phase 18: sharded training beyond ZeRO-1 ----------------------------
+
+SHARD_MODEL = "gpt2-1p3b"
+#: (a): FSDP at B=8 in one worker, against the in-process DDP fit
+SHARD_B = 8
+SHARD_STEPS = 3
+#: (b): tensor=2 over two ranks at B=2 (the gloo leg's host traffic is
+#: B x T x C bf16 a row-parallel sum), TP_STEPS more steps
+TP_B = 2
+TP_STEPS = 3
+SHARD_TIMEOUT_S = 900
+#: F1's bf16 bar: the first step's loss and gradients, and a few steps'
+#: losses, against the unsharded step
+SHARD_TOL = 2e-2
+#: the per-rank bytes a parameter element costs under GPT's AdamW: bf16
+#: param, fp32 master, bf16 mu, fp32 nu
+STATE_BYTES = {"param": 2, "optimizer": 4 + 2 + 4}
+#: the reports of ``ShardProbe``, filled on the driver
+SHARD_REPORTS: list = []
+
+
+def record_shard(report: dict) -> None:
+    SHARD_REPORTS.append(report)
+
+
+def _relay_shard(trainer, report: dict) -> None:
+    if trainer.plugin.remote:
+        from ray_lightning_tpu_torch import session
+        session.put_queue(functools.partial(record_shard, report))
+    else:
+        record_shard(report)
+
+
+def _resident_bytes(trainer, module) -> dict:
+    from ray_lightning_tpu_torch.core.steps import _state_tensors
+    return {"param": sum(p.numel() * p.element_size()
+                         for p in module.model.parameters()),
+            "optimizer": sum(t.numel() * t.element_size() for t in
+                             _state_tensors(trainer.state.opt_state))}
+
+
+class ShardProbe(Callback):
+    """(a) in its worker: each rank's resident parameter and optimizer
+    bytes, then a sharded save of the fit's end state (its blocking and
+    whole seconds), relayed to ``record_shard``.  Module level, as
+    ``chip_smoke.ShardProbe``: the payload is pickled by import path."""
+
+    def __init__(self, ckdir: str):
+        self.ckdir = ckdir
+
+    def on_fit_end(self, trainer, module):
+        report = {"rank": trainer.global_rank,
+                  "resident": _resident_bytes(trainer, module)}
+        if trainer.device.type == "cuda":
+            torch.cuda.synchronize(trainer.device)
+        t0 = time.perf_counter()
+        trainer.save_sharded_checkpoint(self.ckdir)
+        trainer.wait_for_checkpoints()
+        report.update(save_s=time.perf_counter() - t0,
+                      save_stage_s=trainer.checkpoint_stats["save_stage_s"])
+        _relay_shard(trainer, report)
+
+
+def _grads(module, batch, seed: int, step: int):
+    """The loss and gradients of the module's train step on ``batch``
+    (the step's entropy as the trainer makes it)."""
+    ctx = StepContext(module, training=True, rng=(seed, step, 0),
+                      device=batch[0].device)
+    params = dict(module.model.named_parameters())
+    loss = module.training_step(ctx, batch)
+    return loss.detach().float(), dict(zip(params, torch.autograd.grad(
+        loss, list(params.values()))))
+
+
+class TensorParallelProbe(Callback):
+    """(b) in each worker: at the first step's start, the restored blocks
+    gathered whole are checked against the checkpoint's parameters (rank
+    0 reads them in one process) bit for bit; the first step's loss and
+    its gradients gathered whole against the unsharded step's on rank 0
+    (its model built from those whole parameters) in per-tensor relative
+    L2.  The launches of these checks are taken back from the path's
+    count.  Every step's loss, and rank 0's results, are relayed."""
+
+    def __init__(self, ckdir: str, seed: int):
+        self.ckdir, self.seed = ckdir, seed
+
+    def on_fit_start(self, trainer, module):
+        self.losses, self.checked = [], None
+        self.restore_s = trainer.checkpoint_stats.get("restore_s")
+
+    def on_train_batch_start(self, trainer, module, batch, batch_idx):
+        if self.checked is not None:
+            return
+        before = _kernels.launch_counts()
+        layout = trainer._layout
+        dev = trainer.device
+        batch = tuple(x.to(dev) for x in batch)
+        loss, grads = _grads(module, batch, self.seed, trainer.state.step)
+        sync = layout.grad_sync()
+        names = list(grads)
+        if sync is not None:
+            grads = dict(zip(names, sync([grads[n] for n in names])))
+        full_p = {n: layout.full_tensor(n, p.detach()) for n, p in
+                  module.model.named_parameters()}
+        full_g = {n: layout.full_tensor(n, g) for n, g in grads.items()}
+        self.checked = {"rank": trainer.global_rank,
+                        "heads_per_rank": module.model.h[0].attn.n_head
+                        // layout.mesh.shape["tensor"],
+                        "restore_s": self.restore_s,
+                        "backend": layout.mesh.backend}
+        if trainer.global_rank == 0:
+            self.checked.update(self._check(trainer, module, layout, batch,
+                                            loss, full_p, full_g))
+        del full_p, full_g, grads
+        after = _kernels.launch_counts()
+        _kernels.add_launches({k: before.get(k, 0) - v
+                               for k, v in after.items()})
+        torch.cuda.empty_cache()
+
+    def _check(self, trainer, module, layout, batch, loss, full_p, full_g):
+        import torch.distributed.checkpoint as dcp
+        from ray_lightning_tpu_torch.utils.checkpoint import \
+            ShardedCheckpointer
+        root = ShardedCheckpointer(self.ckdir)
+        step = root.latest_step()
+        want = {f"params/{n}": torch.empty(layout.params[n].storage,
+                                           dtype=p.dtype)
+                for n, p in full_p.items()}
+        dcp.load(want, storage_reader=dcp.FileSystemReader(
+            f"{self.ckdir}/{step}"), no_dist=True)
+        restored_equal = all(torch.equal(
+            p.cpu().reshape(layout.params[n].storage), want[f"params/{n}"])
+            for n, p in full_p.items())
+        del want
+        ref = GPTLightningModule(module.config,
+                                 batch_size=module.batch_size)
+        ref.setup_model(trainer.device)
+        ref.model.to(dtype=ref.param_dtype)
+        ref.model.load_state_dict(full_p)
+        ref_loss, ref_g = _grads(ref, batch, self.seed, trainer.state.step)
+        errs = grads_rel_l2(full_g, ref_g)
+        del ref, ref_g
+        worst = max(errs, key=errs.get)
+        return {"restored_equal": restored_equal,
+                "loss": float(loss), "unsharded_loss": float(ref_loss),
+                "grad_rel_l2_max": errs[worst], "grad_worst": worst,
+                "grad_tensors": len(errs)}
+
+    def on_train_batch_end(self, trainer, module, outputs, batch, i):
+        self.losses.append(float(outputs["loss"]))
+
+    def on_fit_end(self, trainer, module):
+        _relay_shard(trainer, {**self.checked, "losses": self.losses})
+
+
+class StateAt(Callback):
+    """In process: the whole parameters on the host after global step
+    ``at`` (``None``: right after the restore, before any step)."""
+
+    def __init__(self, at: "int | None"):
+        self.at, self.state = at, None
+
+    def _take(self, trainer, module):
+        self.state = {k: v.to("cpu", copy=True) for k, v in
+                      trainer._full_state(module.model).items()}
+
+    def on_train_start(self, trainer, module):
+        if self.at is None:
+            self._take(trainer, module)
+
+    def on_train_batch_end(self, trainer, module, outputs, batch, i):
+        if trainer.global_step == self.at:
+            self._take(trainer, module)
+
+
+def _same_state(got: dict, want: dict, what: str) -> None:
+    bad = [k for k in want if not torch.equal(got[k].cpu(), want[k].cpu())]
+    if set(got) != set(want) or bad:
+        raise AssertionError(f"{what}: {len(bad)} tensors differ "
+                             f"({bad[:3]}), keys equal {set(got) == set(want)}")
+
+
+def check_launches(what: str, got: dict, want: dict) -> None:
+    """The path's kernels launched as many times as its shape says."""
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, want {want}")
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def _spec_bytes(world: int) -> dict:
+    """Each rank's resident bytes at gpt2-1p3b under ``"fsdp"`` on W
+    ranks, from the specs (parallel/layout.py on an abstract mesh)."""
+    from ray_lightning_tpu_torch.parallel.layout import ShardLayout
+    from ray_lightning_tpu_torch.parallel.mesh import Mesh
+    from ray_lightning_tpu_torch.parallel.strategy import FullyShardedStrategy
+    model = GPTLightningModule(SHARD_MODEL).configure_model("meta")
+    layout = ShardLayout({k: tuple(p.shape) for k, p in
+                          model.named_parameters()}, FullyShardedStrategy(),
+                         Mesh.abstract(("data",), {"data": world}))
+    return {k: layout.local_bytes(b) for k, b in STATE_BYTES.items()}
+
+
+def _local_fit(module, steps: int, seed: int, root: str, strategy: str,
+               ckpt=None, callbacks=()):
+    clock = StepClock()
+    trainer = Trainer(max_steps=steps, seed=seed, strategy=strategy,
+                      callbacks=[clock, *callbacks], device="cuda",
+                      default_root_dir=root, enable_checkpointing=False,
+                      logger=False, num_sanity_val_steps=0,
+                      limit_val_batches=0)
+    trainer.fit(module, ckpt_path=ckpt)
+    return trainer, clock
+
+
+def sharded_phase(seed: int, card: str) -> dict:
+    """Phase 18 (module docstring): gpt2-1p3b at full width and depth
+    under (a) ``RaySpmdPlugin(num_workers=1, strategy="fsdp")`` against
+    the in-process DDP fit bit for bit, (b) tensor=2 over two ranks
+    (NCCL on two cards, else both on card 0 over gloo) from (a)'s
+    sharded checkpoint, against the unsharded step, (c) that checkpoint
+    restored in one process and one more step against the uninterrupted
+    fit bit for bit.  Its launches are (a)'s, (b)'s two ranks' and
+    (c)'s, not the references' or the checks'."""
+    import chip_smoke as this
+    from ray_lightning_tpu_torch import RaySpmdPlugin
+    from ray_lightning_tpu_torch.models.gpt import gpt_partition_rules
+    from ray_lightning_tpu_torch.parallel.strategy import SpmdStrategy
+    t_phase = time.monotonic()
+    cfg = CONFIGS[SHARD_MODEL]
+    L, H32 = cfg.n_layer, cfg.n_head
+    rows32 = tpu_rows(cfg.block_size, H32, cfg.head_dim, True)
+    rows16 = tpu_rows(cfg.block_size, H32 // 2, cfg.head_dim, True)
+    log(f"  tpu_rows H={H32}: {rows32}, H={H32 // 2}: {rows16}")
+    total: dict = {}
+    out: dict = {"card": card}
+    with tempfile.TemporaryDirectory() as base:
+        ckdir = os.path.join(base, "sharded")
+
+        def module_a():
+            # an epoch of SHARD_STEPS: the save at (a)'s end is at an
+            # epoch's end, where a resume and the uninterrupted fit agree
+            return GPTLightningModule(SHARD_MODEL, batch_size=SHARD_B,
+                                      warmup_steps=2,
+                                      dataset_size=SHARD_B * SHARD_STEPS)
+
+        log("  (a) RaySpmdPlugin(num_workers=1, strategy='fsdp')")
+        this.SHARD_REPORTS.clear()
+        run_a = plugin_fit(this, RaySpmdPlugin(
+            num_workers=1, strategy="fsdp", timeout_s=SHARD_TIMEOUT_S),
+            module_a(),
+            SHARD_STEPS, seed, base, callbacks=[this.ShardProbe(ckdir)])
+        [probe_a] = this.SHARD_REPORTS
+        rep = run_a["report"]
+        want = {"flash_fwd": L * (2 * SHARD_STEPS + rep["val_batches"]),
+                "flash_bwd": L * SHARD_STEPS}
+        got = {k: rep["launches"].get(k, 0) for k in want}
+        check_launches("(a)", got, want)
+        add_counts(total, rep["launches"])
+        state_a = run_a["module"]._trained_state
+        ck_bytes = _dir_bytes(ckdir)
+        step_ms = float(np.median(rep["step_ms"][1:]))
+        out["a"] = {"step_ms": rep["step_ms"], "step_ms_median": step_ms,
+                    "peak_gb": (rep["peak_bytes"] or 0) / 1e9,
+                    "resident_bytes_w1": probe_a["resident"],
+                    "resident_bytes_from_specs": {
+                        w: _spec_bytes(w) for w in (1, 2, 4, 8)},
+                    "checkpoint_bytes": ck_bytes,
+                    "save_s": probe_a["save_s"],
+                    "save_stage_s": probe_a["save_stage_s"],
+                    "launches": got}
+        log(f"  [{card}] (a) fsdp W=1: step {step_ms:.3f} ms (median of "
+            f"steps 2-{SHARD_STEPS}), peak {out['a']['peak_gb']:.2f} GB, "
+            f"resident {probe_a['resident']}; sharded save "
+            f"{ck_bytes / 1e9:.3f} GB in {probe_a['save_s']:.2f} s "
+            f"(blocking {probe_a['save_stage_s']:.2f} s)")
+        if probe_a["resident"] != _spec_bytes(1):
+            raise AssertionError(f"(a): resident {probe_a['resident']} != "
+                                 f"the specs' {_spec_bytes(1)}")
+
+        log("  (a') in-process strategy='ddp', then one more step")
+        free_cuda()
+        at = StateAt(SHARD_STEPS)
+        tr, clock = _local_fit(module_a(), SHARD_STEPS + 1, seed, base,
+                               "ddp", callbacks=[at])
+        _same_state(state_a, at.state, "(a) fsdp worker vs in-process ddp")
+        uninterrupted = {k: v.cpu() for k, v in
+                         tr.lightning_module._trained_state.items()}
+        out["a"]["ddp_step_ms"] = clock.ms
+        del tr, at
+        free_cuda()
+
+        log("  (c) the sharded checkpoint restored in one process")
+        _kernels.reset_launches()
+        first = StateAt(None)
+        tr, clock = _local_fit(module_a(), SHARD_STEPS + 1, seed, base,
+                               "fsdp", ckpt=ckdir, callbacks=[first])
+        add_counts(total, _kernels.launch_counts())
+        _same_state(first.state, state_a, "(c) W=1 restore")
+        _same_state({k: v.cpu() for k, v in
+                     tr.lightning_module._trained_state.items()},
+                    uninterrupted, "(c) resumed step vs uninterrupted")
+        out["c"] = {"checkpoint_bytes": ck_bytes,
+                    "save_s": probe_a["save_s"],
+                    "restore_s_w1": tr.checkpoint_stats["restore_s"],
+                    "step_ms": clock.ms}
+        log(f"  [{card}] (c) restore W=1 {out['c']['restore_s_w1']:.2f} s "
+            f"(warm page cache), params bit for bit, one more step bit "
+            f"for bit with the uninterrupted fit")
+        del tr, first, uninterrupted, state_a
+        free_cuda()
+
+        two_cards = torch.cuda.device_count() >= 2
+        leg = "nccl" if two_cards else "gloo on card 0"
+        log(f"  (b) SpmdStrategy(gpt_partition_rules(), tensor=2) over two "
+            f"ranks: {leg}")
+        strategy = SpmdStrategy(gpt_partition_rules(),
+                                ("data", "fsdp", "tensor"), {"tensor": 2})
+        this.SHARD_REPORTS.clear()
+        with scoped_env(**({} if two_cards else
+                           {"RLT_ONE_CARD_GLOO": "1"})):
+            run_b = plugin_fit(this, RaySpmdPlugin(
+                num_workers=2, strategy=strategy,
+                timeout_s=SHARD_TIMEOUT_S),
+                GPTLightningModule(SHARD_MODEL, batch_size=TP_B,
+                                   warmup_steps=2),
+                SHARD_STEPS + TP_STEPS, seed, base, ckpt=ckdir,
+                callbacks=[this.TensorParallelProbe(ckdir, seed)], ranks=2)
+        reps = {r["rank"]: r for r in this.SHARD_REPORTS}
+        rep = run_b["report"]
+        b0 = reps[0]
+        want = {"flash_fwd": 2 * L * (2 * TP_STEPS + rep["val_batches"]),
+                "flash_bwd": 2 * L * TP_STEPS}
+        tp_counts = {k: sum(r["launches"].get(k, 0)
+                            for r in run_b["reports"]) for k in want}
+        check_launches("(b), both ranks", tp_counts, want)
+        if b0["heads_per_rank"] != H32 // 2:
+            raise AssertionError(f"(b): {b0['heads_per_rank']} heads a "
+                                 f"rank, want {H32 // 2}")
+        add_counts(total, tp_counts)
+        if not b0["restored_equal"]:
+            raise AssertionError("(b): the tensor=2 restore differs from "
+                                 "the checkpoint's parameters")
+        loss_err = abs(b0["loss"] - b0["unsharded_loss"]) / abs(
+            b0["unsharded_loss"])
+        log(f"  [{card}] (b) {leg}: restore {b0['restore_s']:.2f} s, params "
+            f"bit for bit; first step loss {b0['loss']:.5f} vs unsharded "
+            f"{b0['unsharded_loss']:.5f} (rel {loss_err:.2e}), gradients "
+            f"max rel L2 {b0['grad_rel_l2_max']:.3e} ({b0['grad_worst']}) "
+            f"over {b0['grad_tensors']} tensors (tol {SHARD_TOL}); step ms "
+            f"{rep['step_ms']}")
+        if loss_err > SHARD_TOL or b0["grad_rel_l2_max"] > SHARD_TOL:
+            raise AssertionError(f"(b): the first step is off the "
+                                 f"unsharded one: {b0}")
+
+        log("  (b') the unsharded fit from the checkpoint, B=2, in process")
+        free_cuda()
+        tr, clock = _local_fit(GPTLightningModule(
+            SHARD_MODEL, batch_size=TP_B, warmup_steps=2),
+            SHARD_STEPS + TP_STEPS, seed, base, "ddp", ckpt=ckdir)
+        del tr
+        free_cuda()
+        rel = [abs(a - b) / abs(b) for a, b in zip(b0["losses"],
+                                                   clock.losses)]
+        log(f"  (b) losses {b0['losses']} vs unsharded {clock.losses}: "
+            f"max rel {max(rel):.2e} (tol {SHARD_TOL})")
+        if len(rel) != TP_STEPS or max(rel) > SHARD_TOL:
+            raise AssertionError(f"(b): losses off the unsharded fit: "
+                                 f"{b0['losses']} vs {clock.losses}")
+        out["b"] = {"leg": leg, "step_ms": rep["step_ms"],
+                    "step_ms_median": float(np.median(rep["step_ms"][1:])),
+                    "peak_gb_rank0": (rep["peak_bytes"] or 0) / 1e9,
+                    "restore_s": {r: v["restore_s"] for r, v in
+                                  reps.items()},
+                    "first_step": {k: b0[k] for k in (
+                        "loss", "unsharded_loss", "grad_rel_l2_max",
+                        "grad_worst")},
+                    "losses": b0["losses"], "unsharded_losses": clock.losses,
+                    "launches": tp_counts}
+    out.update(launches=total, rows={"H=32": rows32, "H=16": rows16},
+               seconds=time.monotonic() - t_phase)
+    log("sharded " + json.dumps(out, default=str))
+    return out
+
+
+def sharded_kernel_entries(gen, shapes=((SHARD_B, 1), (TP_B, 2))
+                           ) -> "dict[int, dict]":
+    """Rows 3 and 9 at the sharded path's shapes ``(B, tensor)``:
+    gpt2-1p3b's B=8 at H=32 ((a), (c)) and B=2 at H=16 a rank ((b))."""
+    src = "ray_lightning_tpu/ops/flash_attention.py"
+    cfg = CONFIGS[SHARD_MODEL]
+    res = {f"B={b} H={cfg.n_head // t}": long_kernel_shape(
+        gen, b, cfg.block_size, cfg.n_head // t) for b, t in shapes}
+    entries = {}
+    for row, name, line, key in ((3, "flash_fwd", ":673", "fwd"),
+                                 (9, "flash_bwd", ":753", "bwd")):
+        first = next(iter(res.values()))[key]
+        e = record(name, row, src + line, first["shape"],
+                   first["max_abs_err"], first, tol=first["tol"])
+        e.update({k: v for k, v in first.items() if k not in e})
+        e["by_shape"] = {s: r[key] for s, r in res.items()}
+        entries[row] = e
+    return entries
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5510,6 +5943,12 @@ def main(argv=None) -> int:
                          "training ladder: gpt2-medium and gpt2-moe-8e "
                          "under the remat policies, graphed draws, the "
                          "native prefetcher) alone")
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="build, run phase 18 (gpt2-1p3b: FSDP under "
+                         "RaySpmdPlugin against DDP, tensor=2 over two "
+                         "ranks, the sharded checkpoint), then check and "
+                         "time flash_fwd and flash_bwd at its shapes "
+                         "(rows 3 and 9)")
     ap.add_argument("--tune-only", action="store_true",
                     help="build, run phase 12 (Tune: PBT over MNIST, "
                          "gpt2-small trials under RayPlugin, in-process "
@@ -5529,7 +5968,7 @@ def main(argv=None) -> int:
     # the whole run starts with phase 16, the driver off CUDA
     full = not (driver_off_cuda or args.fwd_only or args.bwd_only
                 or args.decode_only or args.trainer_only
-                or args.ladder_only)
+                or args.ladder_only or args.sharded_only)
     if not (driver_off_cuda or full):  # the device's name initialises CUDA
         log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
             f"{torch.cuda.get_device_name(0)}")
@@ -5627,6 +6066,21 @@ def main(argv=None) -> int:
         return 0
     if args.decode_only:
         log("flash_decode rows " + json.dumps(decode_rows(gen)))
+        return 0
+    if args.sharded_only:
+        log("sharded phase")
+        sharded = sharded_phase(args.seed, card_line())
+        log(f"sharded phase: {sharded['seconds']:.1f} s")
+        free_cuda()
+        log("kernel phase (rows 3 and 9 at the sharded shapes)")
+        entries = sharded_kernel_entries(gen)
+        for e in entries.values():
+            e["launches_by_path"] = {"sharded": sharded["launches"][e["name"]]}
+            e["launches"] = e["launches_by_path"]["sharded"]
+        log(json.dumps({"kernels": [entries[3], entries[9]]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
         return 0
     if args.ladder_only:
         log("kernel phase (rows 1 and 6, philox_uniform)")
@@ -5797,6 +6251,18 @@ def main(argv=None) -> int:
     philox["launches"] = sum(philox["launches_by_path"].values())
     entries.append(philox)
     log(f"ladder phase: {ladder['seconds']:.1f} s")
+
+    log("sharded phase")
+    free_cuda()
+    sharded = sharded_phase(args.seed, card)
+    free_cuda()
+    h16 = sharded_kernel_entries(gen, shapes=((TP_B, 2),))
+    for row in (3, 9):
+        e = by_row[row]
+        e["by_shape"].update(h16[row]["by_shape"])
+        e["launches_by_path"]["sharded"] = sharded["launches"][e["name"]]
+        e["launches"] = sum(e["launches_by_path"].values())
+    log(f"sharded phase: {sharded['seconds']:.1f} s")
     log("speed order (rows slower than their library call by that factor, "
         "then by launches x (ms - bound)): " + ", ".join(
             f"{e['name'] if e['row'] is None else 'row %d' % e['row']} "

@@ -20,7 +20,11 @@ checkpoints with ``ModelCheckpoint`` and resume with ``ckpt_path=``,
 ``CSVLogger``), data-parallel over subprocess actors with
 ``Trainer(plugins=[RayPlugin(num_workers=N)])`` (DDP) or
 ``RayShardedPlugin`` (ZeRO-1), NCCL on the card and gloo on the CPU,
-hyperparameter sweeps with ``tune.run`` (grid and random search, ASHA,
+sharded training (``Trainer(strategy="fsdp")``, ``SpmdStrategy`` with
+``gpt_partition_rules`` / ``bert_partition_rules`` for tensor
+parallelism, ``RaySpmdPlugin``) with sharded checkpoints
+(``save_sharded_checkpoint``, ``ShardedCheckpoint``), hyperparameter
+sweeps with ``tune.run`` (grid and random search, ASHA,
 PBT) whose trials train in process on a leased card or in those
 workers, the BERT
 family: ``Trainer(...).fit(BertMLMModule("bert-base", batch_size=32))``
@@ -43,7 +47,8 @@ from ray_lightning_tpu_torch.convert import (flax_opt_state_to_torch,
                                              flax_to_torch,
                                              jax_checkpoint_to_torch)
 from ray_lightning_tpu_torch.core.callbacks import (Callback, EarlyStopping,
-                                                    ModelCheckpoint)
+                                                    ModelCheckpoint,
+                                                    ShardedCheckpoint)
 from ray_lightning_tpu_torch.core.data import ArrayDataset, DataLoader
 from ray_lightning_tpu_torch.core.datamodule import LightningDataModule
 from ray_lightning_tpu_torch.core.module import LightningModule
@@ -58,7 +63,7 @@ from ray_lightning_tpu_torch.models.gpt import (CONFIGS, GPT, GPTConfig,
 from ray_lightning_tpu_torch.models.resnet import (ResNet, ResNetConfig,
                                                    ResNetLightningModule)
 from ray_lightning_tpu_torch.plugins import (LocalPlugin, RayPlugin,
-                                            RayShardedPlugin)
+                                            RayShardedPlugin, RaySpmdPlugin)
 from ray_lightning_tpu_torch.serve import (Scheduler, ServeEngine,
                                            ServeRequest, ServeWorker, Server)
 from ray_lightning_tpu_torch.serve.fleet import FleetServer
@@ -89,6 +94,7 @@ __all__ = [
     "ModelCheckpoint",
     "RayPlugin",
     "RayShardedPlugin",
+    "RaySpmdPlugin",
     "ResNet",
     "ResNetConfig",
     "ResNetLightningModule",
@@ -97,6 +103,7 @@ __all__ = [
     "ServeRequest",
     "ServeWorker",
     "Server",
+    "ShardedCheckpoint",
     "Trainer",
     "flax_opt_state_to_torch",
     "flax_to_torch",

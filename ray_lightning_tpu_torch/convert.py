@@ -38,6 +38,12 @@ ResNet's ``chain(add_decayed_weights, sgd(momentum))`` with its
 test can start both packages mid-schedule.  Gradient trees have the param tree's paths and
 convert with ``flax_to_torch``.
 
+``flax_to_shards(params, layout)`` gives one rank's blocks of a flax tree
+under a sharded strategy's layout (parallel/layout.py ``ShardLayout``:
+FSDP, SPMD), and ``shards_to_flax(state, layout, template)`` the way
+back, gathering every rank's blocks (collective): both packages start
+from the same weights whatever the mesh.
+
 ``jax_checkpoint_to_torch(ckpt)`` carries a whole JAX ``Trainer``
 checkpoint across: it takes the dict flax's ``msgpack_restore`` makes of
 the file (numpy leaves; the caller decodes it, since the port reads no
@@ -132,6 +138,39 @@ def _torch_key(path: str) -> "tuple[str, tuple | None]":
     raise KeyError(f"no mapping for flax param {path!r}")
 
 
+#: the flax leaf names a torch leaf may come from, tried in order
+_FLAX_LEAVES = {"weight": ("kernel", "scale", "embedding"), "bias": ("bias",),
+                "running_mean": ("mean",), "running_var": ("var",)}
+
+
+def flax_path(name: str) -> "tuple[str, tuple | None]":
+    """The inverse of the path map: a torch parameter name's flax path
+    and the permutation that takes the flax layout to the torch one
+    (``None``: the same layout), so one rule set of the JAX package
+    (``gpt_partition_rules``: ``r"attn/qkv/kernel"``) answers for the
+    port's ``h.0.attn.qkv.weight``.  A name outside the map (a model
+    the JAX package lacks) keeps its parts, joined by ``/``."""
+    parts = name.split(".")
+    out, i = [], 0
+    while i < len(parts):
+        if parts[i] == "h" and i + 1 < len(parts) and parts[i + 1].isdigit():
+            out.append(f"h{parts[i + 1]}")
+            i += 2
+        else:
+            out.append(parts[i])
+            i += 1
+    *mods, leaf = out
+    for cand in [f"{'/'.join(mods)}/{f}" for f in _FLAX_LEAVES.get(leaf, ())] \
+            + ["/".join(out)]:
+        try:
+            got, perm = _torch_key(cand.lstrip("/"))
+        except KeyError:
+            continue
+        if got == name:
+            return cand.lstrip("/"), perm
+    return "/".join(out), None
+
+
 def _convert(tree: Mapping, stats: bool) -> "dict[str, torch.Tensor]":
     state = {}
     for path, arr in _flatten(tree).items():
@@ -179,6 +218,21 @@ def torch_to_flax(state: Mapping, template: Mapping) -> dict:
                 for k, v in node.items()}
 
     return walk(template, "")
+
+
+def flax_to_shards(params: Mapping, layout) -> "dict[str, torch.Tensor]":
+    """:func:`flax_to_torch` of ``params``, each parameter cut to this
+    rank's block under ``layout`` (a ``parallel.layout.ShardLayout``)."""
+    return {k: (layout.local_of(k, v) if k in layout.params else v)
+            for k, v in flax_to_torch(params).items()}
+
+
+def shards_to_flax(state: Mapping, layout, template: Mapping) -> dict:
+    """The inverse of :func:`flax_to_shards`: every rank's blocks of
+    ``state`` gathered whole (collective: each rank calls it) and laid
+    out as the flax tree ``template``."""
+    from ray_lightning_tpu_torch.parallel.gather import fetch_tree
+    return torch_to_flax(fetch_tree(dict(state), layout), template)
 
 
 def _empty(node) -> bool:
@@ -286,5 +340,6 @@ def jax_checkpoint_to_torch(ckpt: Mapping) -> dict:
     }
 
 
-__all__ = ["flax_opt_state_to_torch", "flax_to_torch",
-           "jax_checkpoint_to_torch", "to_tensor", "torch_to_flax"]
+__all__ = ["flax_opt_state_to_torch", "flax_path", "flax_to_shards",
+           "flax_to_torch", "jax_checkpoint_to_torch", "shards_to_flax",
+           "to_tensor", "torch_to_flax"]

@@ -1,7 +1,9 @@
-"""Callbacks: the base class, ``ModelCheckpoint`` and ``EarlyStopping``.
+"""Callbacks: the base class, ``ModelCheckpoint``, ``ShardedCheckpoint``
+and ``EarlyStopping``.
 
 Counterpart of ``ray_lightning_tpu/core/callbacks.py`` (``Callback``,
-``_Monitor``, ``ModelCheckpoint``, ``EarlyStopping``): the same hooks,
+``_Monitor``, ``ModelCheckpoint``, ``ShardedCheckpoint``,
+``EarlyStopping``): the same hooks,
 called by the port's ``Trainer`` at the same points, the same file names
 (``epoch={epoch}-step={step}.ckpt`` under
 ``<default_root_dir>/checkpoints``), top-k eviction, ``save_last``,
@@ -10,7 +12,9 @@ saves at the end of each validation outside the sanity check, or at the
 end of a train epoch that ran no validation.  Every rank runs the
 callbacks and saves (a collective; ``Trainer.save_checkpoint`` writes
 on global zero alone), and only global zero deletes an evicted file.
-``ShardedCheckpoint`` (orbax) is not ported.
+``ShardedCheckpoint`` saves every rank's blocks with no gather, on a
+step or epoch cadence (``Trainer.save_sharded_checkpoint``,
+utils/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -193,6 +197,47 @@ class ModelCheckpoint(Callback):
         self._saved = [tuple(t) for t in state.get("saved", [])]
 
 
+class ShardedCheckpoint(Callback):
+    """Periodic sharded checkpoints, the complement of
+    :class:`ModelCheckpoint` at scale: every rank writes only its own
+    blocks, asynchronously, and nothing is gathered to one process
+    (``Trainer.save_sharded_checkpoint``).  Resume by pointing
+    ``ckpt_path=`` / ``resume_from_checkpoint=`` at ``dirpath`` (its
+    latest step) or at one step's directory.  ``dirpath`` defaults to
+    ``<default_root_dir>/sharded_checkpoints``; the trainer waits for
+    and closes its checkpointers when the stage ends."""
+
+    needs_batch = False    # step cadence only; never reads the batch
+
+    def __init__(self, dirpath: Optional[str] = None,
+                 every_n_train_steps: int = 0, every_n_epochs: int = 1,
+                 max_to_keep: Optional[int] = None):
+        self.dirpath = dirpath
+        self.every_n_train_steps = every_n_train_steps
+        self.every_n_epochs = every_n_epochs
+        self.max_to_keep = max_to_keep
+
+    def setup(self, trainer, module, stage: str) -> None:
+        if self.dirpath is None:
+            self.dirpath = os.path.join(trainer.default_root_dir,
+                                        "sharded_checkpoints")
+
+    def _save(self, trainer) -> None:
+        trainer.save_sharded_checkpoint(self.dirpath,
+                                        max_to_keep=self.max_to_keep)
+
+    def on_train_batch_end(self, trainer, module, outputs, batch,
+                           batch_idx) -> None:
+        n = self.every_n_train_steps
+        if n and trainer.global_step and trainer.global_step % n == 0:
+            self._save(trainer)
+
+    def on_train_epoch_end(self, trainer, module) -> None:
+        n = self.every_n_epochs
+        if n and (trainer.current_epoch + 1) % n == 0:
+            self._save(trainer)
+
+
 class EarlyStopping(Callback):
     """Stop training when a monitored metric stops improving by more than
     ``min_delta`` for ``patience`` checks in a row: checked at the end
@@ -248,4 +293,4 @@ class EarlyStopping(Callback):
         self.stopped_epoch = state.get("stopped_epoch", 0)
 
 
-__all__ = ["Callback", "EarlyStopping", "ModelCheckpoint"]
+__all__ = ["Callback", "EarlyStopping", "ModelCheckpoint", "ShardedCheckpoint"]

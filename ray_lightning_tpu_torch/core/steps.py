@@ -39,15 +39,20 @@ from ray_lightning_tpu_torch.ops import random
 from ray_lightning_tpu_torch.ops._kernels import add_launches, launch_counts
 
 
-def build_init_fn(module, tx) -> Callable:
+def build_init_fn(module, tx, shard: "Callable | None" = None
+                  ) -> Callable:
     """``generator -> TrainState``: initialize the module's model in
-    place (``module.init_params``, on the generator's device), let the
-    optimizer snapshot its state (an ``fp32_master`` its fp32 master)
-    from the full-precision init, and only then cast the float params to
-    ``module.param_dtype``, as the JAX init does."""
+    place (``module.init_params``, on the generator's device), cut it to
+    this rank's blocks (``shard(model)``, a sharded strategy's layout:
+    parallel/layout.py), let the optimizer snapshot its state (an
+    ``fp32_master`` its fp32 master) from the full-precision init, and
+    only then cast the float params to ``module.param_dtype``, as the
+    JAX init does."""
 
     def init_fn(generator: torch.Generator) -> TrainState:
         module.init_params(generator)
+        if shard is not None:
+            shard(module.model)
         opt_state = tx.init(dict(module.model.named_parameters()))
         pd = getattr(module, "param_dtype", None)
         if pd is not None:

@@ -17,8 +17,16 @@ through the execution plugin (plugins/): ``LocalPlugin`` (the default) runs it h
 (the card unless the caller passes ``device="cpu"``) at world size 1;
 ``RayPlugin`` / ``RayShardedPlugin`` run it in actor workers, each on
 its own device, joined by ``torch.distributed``, and the driver resolves
-no device.  ``strategy=`` (``"ddp"``, ``"zero1"`` and their aliases,
-parallel/strategy.py) overrides the plugin's.
+no device.  ``strategy=`` (``"ddp"``, ``"zero1"``, ``"fsdp"``, ``"spmd"``,
+their aliases or a ``SpmdStrategy``, parallel/strategy.py) overrides the
+plugin's.  Each stage lays the ranks out on the strategy's mesh
+(parallel/mesh.py); under FSDP and SPMD the model is cut to each rank's
+blocks right after its init (parallel/layout.py), the loaders are split
+over the mesh's batch axes (``data``, ``fsdp``: the ranks of one tensor
+group read the same batches), ``_trained_state`` and the checkpoints
+hold whole tensors (gathered), and ``save_sharded_checkpoint`` /
+``ShardedCheckpoint`` write each rank's blocks with no gather
+(utils/checkpoint.py), which ``ckpt_path=`` restores into any mesh.
 
 Across ranks, as in the JAX package, whose step computes on the global
 batch: each loader is sharded by rank (``DataLoader.shard``, when
@@ -27,11 +35,12 @@ metrics are the mean over the ranks and the validation metrics the
 batch-size-weighted mean over every rank's batches, so callbacks decide
 the same on every rank; ``predict`` returns every rank's rows in
 dataset order, each sample once (the loader's wrap-around padding
-dropped); a step's dropout masks differ across ranks (the
-rank joins the step's entropy).  Checkpoints are collective: every rank
-builds the dict (ZeRO-1 gathers its shards into the single-device
-layout) and global zero alone writes it, the ``metrics.csv`` rows and
-the evictions.
+dropped); a step's dropout masks differ across batch shards (the shard
+joins the step's entropy) and agree within a tensor group.
+Checkpoints are collective: every rank builds the dict (ZeRO-1 and the
+sharded layouts gather their shards into the single-device layout) and
+global zero alone writes it, the ``metrics.csv`` rows and the
+evictions.
 
 Honoured: ``max_epochs``, ``max_steps``, ``callbacks``,
 ``default_root_dir`` (default ``<cwd>/rlt_logs``),
@@ -73,7 +82,8 @@ its last batch; a callback gets the host batch (``Callback.needs_batch``
 says whether it is collated at all).  The epoch's metrics flatten the
 chunks into one per-step series.
 
-A checkpoint is one file, ``torch.save`` of plain containers
+A checkpoint is one file (a local path or an fsspec URL; fsspec is
+imported for URLs only), ``torch.save`` of plain containers
 (utils/states.py), with the JAX checkpoint's top-level keys: ``epoch``,
 ``global_step``, ``state`` (``step``, ``params``, ``model_state``, the
 optimizer's ``state_dict``, and ``rng``: the seed the steps draw from),
@@ -90,12 +100,18 @@ from __future__ import annotations
 
 import os
 import tempfile
+import time
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from ray_lightning_tpu_torch.parallel import strategy as _parallel
+from ray_lightning_tpu_torch.parallel.gather import fetch_tree
+from ray_lightning_tpu_torch.parallel.layout import (ShardLayout,
+                                                     ShardedOptState,
+                                                     map_param_dicts)
+from ray_lightning_tpu_torch.parallel.mesh import set_current_mesh
 from ray_lightning_tpu_torch.parallel.strategy import resolve_strategy
 from ray_lightning_tpu_torch.plugins.base import LocalPlugin
 from ray_lightning_tpu_torch.core.callbacks import Callback, ModelCheckpoint
@@ -244,6 +260,15 @@ class Trainer:
         self.callback_metrics: "dict[str, float]" = {}
         self.logged_metrics: "dict[str, float]" = {}
         self.state: Optional[TrainState] = None
+        #: the stage's mesh (parallel/mesh.py) and, under FSDP / SPMD, the
+        #: model's sharded layout (parallel/layout.py)
+        self._mesh = None
+        self._layout: "ShardLayout | None" = None
+        #: live sharded checkpointers by directory (utils/checkpoint.py)
+        self._sharded_checkpointers: dict = {}
+        #: the last sharded save's blocking seconds (``save_stage_s``: the
+        #: host copy; the write runs behind) and restore's (``restore_s``)
+        self.checkpoint_stats: dict = {}
         self._train_step = None
         #: k steps a dispatch (``steps_per_execution`` > 1 or the cache)
         self._multi_train_step = None
@@ -329,6 +354,14 @@ class Trainer:
                        "local_rank": int(env.get("LOCAL_RANK", 0)),
                        "node_rank": int(env.get("NODE_RANK", 0))}
         strategy = self.plugin.strategy
+        self._mesh = strategy.build_mesh()
+        set_current_mesh(self._mesh)
+        if module.model is not None and any(
+                getattr(getattr(p, "_rlt_shard", None), "sharded", False)
+                for p in module.model.parameters()):
+            # cut to an earlier stage's layout: made again, whole, and
+            # given its trained weights below
+            module.model = None
 
         if datamodule is not None:
             datamodule._call_prepare_data()
@@ -347,7 +380,15 @@ class Trainer:
             tx = chain(clip_by_global_norm(self.gradient_clip_val), tx)
         tx = strategy.wrap_optimizer(tx)
         generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.state = build_init_fn(module, tx)(generator)
+        self._layout = None
+
+        def shard(model):
+            self._layout = strategy.layout(model, self._mesh)
+            if self._layout is not None:
+                self._layout.apply(model)
+                tx.bind(self._layout)
+
+        self.state = build_init_fn(module, tx, shard)(generator)
         trained = getattr(module, "_trained_state", None)
         if ckpt_path:
             self._restore_checkpoint(ckpt_path, module)
@@ -355,14 +396,20 @@ class Trainer:
             # reuse the weights of a previous fit with this module, as the
             # JAX trainer restores ``module._trained_variables``; a
             # checkpoint takes precedence over them
-            module.model.load_state_dict(trained)
+            self._load_full_state(module.model, trained)
+        mesh = self._mesh
         self._train_step = build_train_step(
             module, tx, self.accumulate_grad_batches,
-            grad_sync=strategy.grad_sync(),
-            rank=self.global_rank if self.world_size > 1 else None,
+            grad_sync=strategy.grad_sync(self._layout),
+            rank=mesh.batch_index if mesh.batch_size > 1 else None,
             metric_sync=_parallel.mean_over_ranks)
         if stage == "fit" and (self.steps_per_execution > 1
                                or self.cache_train_dataset):
+            if self.device.type == "cuda" and mesh.backend == "gloo":
+                raise NotImplementedError(
+                    "steps_per_execution / cache_train_dataset on the card "
+                    "over gloo: gloo's collectives cannot be captured in a "
+                    "CUDA graph (NCCL's are); ROADMAP.md queue 1 item 9")
             self._multi_train_step = ChunkRunner(
                 self._train_step, tx, self.steps_per_execution,
                 module.model, self.device)
@@ -389,10 +436,13 @@ class Trainer:
             raise
         finally:
             # the chunk graphs' memory pools and the cached train set
-            # live for one stage
+            # live for one stage; an in-flight sharded save becomes
+            # durable even while an exception unwinds
             self._multi_train_step = self._cache_source = None
+            self._close_sharded_checkpointers()
             for cb in self.callbacks:
                 cb.teardown(self, module, stage)
+            set_current_mesh(None)
 
     def _get_loader(self, name: str):
         """The datamodule's loader, else the module's; this rank's shard
@@ -402,9 +452,11 @@ class Trainer:
             src = getattr(self.datamodule, f"{name}_dataloader")()
         if src is None:
             src = getattr(self.lightning_module, f"{name}_dataloader")()
+        mesh = self._mesh
         if src is not None and self.use_distributed_sampler \
-                and self.world_size > 1 and hasattr(src, "shard"):
-            src = src.shard(self.world_size, self.global_rank)
+                and mesh.batch_size > 1 and hasattr(src, "shard"):
+            # the batch shards: a tensor group's ranks read the same
+            src = src.shard(mesh.batch_size, mesh.batch_index)
         return src
 
     def _build_loaders(self, stage: str) -> dict:
@@ -483,8 +535,8 @@ class Trainer:
             for cb in self.callbacks:
                 cb.on_fit_end(self, module)
         self._flush_epoch_metrics()
-        module._trained_state = {k: v.detach().clone() for k, v in
-                                 module.model.state_dict().items()}
+        module._trained_state = {k: v.clone() for k, v in
+                                 self._full_state(module.model).items()}
         return {"callback_metrics": dict(self.callback_metrics)}
 
     def _allowed_chunk(self) -> int:
@@ -510,6 +562,11 @@ class Trainer:
         resident set when enabled and buildable (built once a fit,
         repacked each epoch in the loader's order), else the loader."""
         if self.cache_train_dataset and not self._cache_disabled:
+            if self._mesh.batch_size != self.world_size:
+                raise NotImplementedError(
+                    "cache_train_dataset with a tensor axis over 1 (the "
+                    "cached set is repacked over every rank as a batch "
+                    "shard): ROADMAP.md queue 1 item 9")
             if self._cache_source is None \
                     and CachedSource.usable(train_loader):
                 src = CachedSource(self, train_loader)
@@ -750,8 +807,11 @@ class Trainer:
             out = _to_cpu(self._predict_step(self.state,
                                              self._to_device(batch)))
             if self.world_size > 1:
-                out = _deinterleave(_cat_ranks(
-                    _parallel.gather_objects(out)), self.world_size)
+                parts = _parallel.gather_objects(out)
+                # one rank a batch shard: a tensor group's hold the same
+                parts = [parts[r] for r in self._mesh.batch_leaders()]
+                out = _deinterleave(_cat_ranks(parts),
+                                    self._mesh.batch_size)
             outputs.append(out)
         outputs = _trim_predict_padding(outputs, loader)
         for cb in self.callbacks:
@@ -760,18 +820,33 @@ class Trainer:
 
     # -- checkpointing -------------------------------------------------------
 
+    def _full_state(self, model) -> "dict[str, torch.Tensor]":
+        """``model.state_dict()`` with every tensor whole (gathered from
+        the ranks' blocks under a sharded layout: collective)."""
+        return fetch_tree(model.state_dict(), self._layout, host=False)
+
+    def _load_full_state(self, model, state) -> None:
+        """``model.load_state_dict`` of whole tensors (each rank takes its
+        blocks under a sharded layout)."""
+        if self._layout is None:
+            model.load_state_dict(state)
+        else:
+            self._layout.load_full_state_dict(model, state)
+
     def dump_checkpoint(self) -> dict:
         """The checkpoint dict (module docstring): plain containers whose
-        tensors are the live state's, detached."""
+        tensors are the live state's, detached (whole: gathered under a
+        sharded layout, a collective)."""
         module = self.lightning_module
         model = module.model
+        full = self._full_state(model)
+        params = dict(model.named_parameters())
         ckpt = {
             "epoch": int(self.current_epoch),
             "global_step": int(self.global_step),
             "state": {
                 "step": int(self.state.step),
-                "params": {k: p.detach() for k, p in
-                           model.named_parameters()},
+                "params": {k: full[k] for k in params},
                 "model_state": {k: b.detach() for k, b in
                                 model.named_buffers()},
                 "opt_state": self.state.opt_state.state_dict(),
@@ -799,12 +874,16 @@ class Trainer:
         """Write :meth:`dump_checkpoint` to ``filepath`` atomically: into
         a temporary file in the same directory that then replaces it.
         Collective: every rank builds the dict, global zero alone
-        writes.  Local paths only."""
-        _local(filepath)
+        writes.  An fsspec URL (``"memory://..."``, ``"s3://..."``) is
+        written through fsspec, in one piece."""
         ckpt = self.dump_checkpoint()
         if not self.is_global_zero:
             return
         payload = self.serialize_checkpoint(ckpt)
+        if _remote(filepath):
+            with _fsspec().open(filepath, "wb") as f:
+                f.write(payload)
+            return
         dirname = os.path.dirname(filepath)
         if dirname:
             os.makedirs(dirname, exist_ok=True)
@@ -822,15 +901,22 @@ class Trainer:
                              map_location: "str | torch.device | None" = None
                              ) -> dict:
         """A checkpoint file's dict, its tensors on ``map_location`` (as
-        saved when ``None``)."""
-        _local(filepath)
-        with open(filepath, "rb") as f:
+        saved when ``None``); a local path or an fsspec URL."""
+        opener = _fsspec().open if _remote(filepath) else open
+        with opener(filepath, "rb") as f:
             return load_state_stream(f.read(), map_location)
 
     def _restore_checkpoint(self, filepath: str, module) -> None:
         """The state, counters and callback states of a checkpoint, its
         tensors on this trainer's device in their saved dtypes; then the
-        module's and the callbacks' ``on_load_checkpoint``."""
+        module's and the callbacks' ``on_load_checkpoint``.  A sharded
+        checkpoint directory (utils/checkpoint.py) restores through
+        :meth:`_restore_sharded`."""
+        from ray_lightning_tpu_torch.utils.checkpoint import \
+            ShardedCheckpointer
+        if ShardedCheckpointer.is_sharded_checkpoint(filepath):
+            self._restore_sharded(filepath, module)
+            return
         ckpt = self.load_checkpoint_dict(filepath, self.device)
         st = ckpt["state"]
         model = module.model
@@ -843,11 +929,19 @@ class Trainer:
                 f"checkpoint {filepath}: {wrong[:4]} saved as "
                 f"{saved[wrong[0]].dtype}, the model holds "
                 f"{live[wrong[0]].dtype}; restore would cast them")
-        model.load_state_dict(saved)
+        self._load_full_state(model, saved)
         self.state.opt_state.load_state_dict(st["opt_state"])
-        self.state.step = int(st["step"])
+        self._restore_counters(int(st["step"]), int(st["rng"]), ckpt,
+                               module)
+
+    def _restore_counters(self, step: int, rng: int, ckpt: dict,
+                          module) -> None:
+        """The step count, seed, epoch, global step and callback states
+        of a restored checkpoint (``ckpt``: its dict, or a sharded one's
+        meta), then the ``on_load_checkpoint`` hooks."""
+        self.state.step = step
         self.state.generator = torch.Generator(
-            device=self.device).manual_seed(int(st["rng"]))
+            device=self.device).manual_seed(rng)
         self.current_epoch = int(ckpt.get("epoch", 0))
         self.global_step = int(ckpt.get("global_step", 0))
         cb_states = ckpt.get("callbacks", {})
@@ -859,13 +953,150 @@ class Trainer:
         for cb in self.callbacks:
             cb.on_load_checkpoint(self, module, ckpt)
 
+    # -- sharded checkpoints (utils/checkpoint.py) ---------------------------
 
-def _local(filepath: str) -> None:
-    if "://" in filepath:
-        raise NotImplementedError(
-            f"{filepath!r}: the port reads and writes local checkpoint "
-            f"paths only (the JAX package's fsspec remote paths are not "
-            f"ported)")
+    def _checkpoint_layout(self) -> ShardLayout:
+        """The layout a sharded checkpoint is written in: the strategy's,
+        or every parameter whole on every rank (DDP, ZeRO-1)."""
+        if self._layout is not None:
+            return self._layout
+        return ShardLayout.of_model(self.lightning_module.model,
+                                    self.plugin.strategy, self._mesh)
+
+    def sharded_state_dict(self, stage=None) -> dict:
+        """The state as a sharded checkpoint holds it: ``params``,
+        ``model_state`` and ``opt_state``, each per-parameter tensor this
+        rank's block ``stage``d (default: a host copy) as a DTensor of
+        its storage shape (parallel/layout.py ``ShardLayout.dtensor``).
+        Collective under ZeRO-1, whose flat shards leave as the
+        single-device layout."""
+        stage = stage or (lambda t: t.detach().to("cpu", copy=True))
+        layout = self._checkpoint_layout()
+        model = self.lightning_module.model
+        opt = self.state.opt_state
+        if isinstance(opt, ShardedOptState):
+            opt_sd = opt.sharded_state_dict(stage)
+        else:
+            opt_sd = map_param_dicts(opt.state_dict(), layout.names,
+                                     lambda k, v: layout.dtensor(k, stage(v)))
+        return {"params": {k: layout.dtensor(k, stage(p))
+                           for k, p in model.named_parameters()},
+                "model_state": {k: stage(b)
+                                for k, b in model.named_buffers()},
+                "opt_state": opt_sd}
+
+    def _sharded_checkpointer(self, directory: str,
+                              max_to_keep: Optional[int] = None):
+        """The live checkpointer of ``directory`` (made on first use and
+        kept for the stage; made again when ``max_to_keep`` changes)."""
+        from ray_lightning_tpu_torch.utils.checkpoint import \
+            ShardedCheckpointer
+        ckpt = self._sharded_checkpointers.get(directory)
+        if ckpt is not None and ckpt.max_to_keep != max_to_keep:
+            ckpt.close()
+            ckpt = None
+        if ckpt is None:
+            ckpt = ShardedCheckpointer(directory, max_to_keep=max_to_keep,
+                                       mesh=self._mesh)
+            self._sharded_checkpointers[directory] = ckpt
+        return ckpt
+
+    def save_sharded_checkpoint(self, directory: str,
+                                step: Optional[int] = None,
+                                max_to_keep: Optional[int] = None) -> None:
+        """Every rank writes its own blocks of the state under
+        ``directory/<step>`` (default: the global step), asynchronously,
+        with no gather, unlike :meth:`save_checkpoint`
+        (utils/checkpoint.py).  Collective: every rank calls it."""
+        ckpt = self._sharded_checkpointer(directory, max_to_keep)
+        step = int(self.global_step if step is None else step)
+        if ckpt.has(step):
+            return                  # two cadences on one step: no copy
+        module = self.lightning_module
+        meta = {
+            "epoch": int(self.current_epoch),
+            "global_step": int(self.global_step),
+            "world_size": int(self.world_size),
+            "strategy": self.strategy.name,
+            "hparams": _sanitize(dict(module.hparams)) if module else {},
+            "callbacks": {type(cb).__name__: _sanitize(cb.state_dict())
+                          for cb in self.callbacks},
+            "step": int(self.state.step),
+            "rng": int(self.state.generator.initial_seed()),
+        }
+        t0 = time.perf_counter()
+        ckpt.save(step, self.sharded_state_dict(), meta)
+        self.checkpoint_stats["save_stage_s"] = time.perf_counter() - t0
+
+    def wait_for_checkpoints(self) -> None:
+        """Block until the in-flight sharded saves are durable."""
+        for ckpt in self._sharded_checkpointers.values():
+            ckpt.wait()
+
+    def _close_sharded_checkpointers(self) -> None:
+        """Wait for and release every sharded checkpointer of the stage
+        (their writer threads outlive it otherwise); a later save opens
+        one again."""
+        try:
+            for ckpt in self._sharded_checkpointers.values():
+                ckpt.close()
+        finally:
+            self._sharded_checkpointers = {}
+
+    def _restore_sharded(self, directory: str, module) -> None:
+        """Restore a sharded checkpoint (its root: the latest step; or
+        one step's directory) into this stage's layout, which may be
+        another mesh's or strategy's than the one that saved: each rank
+        reads the chunks that overlap its blocks.  The hooks receive the
+        checkpoint's meta (``dump_checkpoint``'s keys without
+        ``state``)."""
+        from ray_lightning_tpu_torch.utils.checkpoint import \
+            ShardedCheckpointer
+        t0 = time.perf_counter()
+        root, step = ShardedCheckpointer.split_step_dir(directory)
+        ckpt = ShardedCheckpointer(root, mesh=self._mesh)
+        try:
+            saved = ckpt.saved_state_metadata(step) or {}
+            state, meta = ckpt.restore(self.sharded_state_dict(
+                stage=lambda t: torch.empty(t.shape, dtype=t.dtype)), step)
+        finally:
+            ckpt.close()
+        layout = self._checkpoint_layout()
+        model = module.model
+        live = dict(model.named_parameters())
+        wrong = [k for k, p in live.items() if f"params/{k}" in saved
+                 and saved[f"params/{k}"][1] != p.dtype]
+        if wrong:
+            raise ValueError(
+                f"checkpoint {directory}: {wrong[:4]} saved as "
+                f"{saved['params/' + wrong[0]][1]}, the model holds "
+                f"{live[wrong[0]].dtype}; restore would cast them")
+        with torch.no_grad():
+            for k, p in live.items():
+                p.copy_(layout.from_storage(k, state["params"][k]))
+            for k, b in model.named_buffers():
+                b.copy_(state["model_state"][k])
+        opt = self.state.opt_state
+        if isinstance(opt, ShardedOptState):
+            opt.load_sharded_state_dict(state["opt_state"], self.device)
+        else:
+            opt.load_state_dict(map_param_dicts(
+                state["opt_state"], layout.names,
+                lambda k, v: layout.from_storage(k, v).to(self.device)))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.checkpoint_stats["restore_s"] = time.perf_counter() - t0
+        self._restore_counters(int(meta["step"]), int(meta["rng"]), meta,
+                               module)
+
+
+def _remote(filepath: str) -> bool:
+    return "://" in filepath
+
+
+def _fsspec():
+    import fsspec
+    return fsspec
 
 
 def _cat_ranks(parts: list):

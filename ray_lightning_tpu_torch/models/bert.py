@@ -29,8 +29,12 @@ kernels with ``causal=0`` on the card (TPU kernel rows 1 and 6 at
 bert-base, rows 5 and 10 at ``tiny``, whose heads do not pack, and rows
 5, 15 and 16 under ``RLT_FLASH_BLOCK_Q/K`` below T: ops/flash_attention.py
 ``tpu_rows``), the plain attention on the CPU.  Remat takes every
-policy of core/remat.py's ladder; ``bert_partition_rules`` (SPMD) is not
-ported and raises.
+policy of core/remat.py's ladder.  Under :func:`bert_partition_rules`
+on a ``tensor`` axis over 1 the forward is models/gpt.py's Megatron
+layout (``wte`` vocab-split, ``qkv`` / ``fc`` column-, ``proj`` /
+``out`` row-parallel) plus ``mlm_head`` column-split over the vocab,
+whose loss takes its max, sum and target over the group; sharded
+parameters are gathered at their use sites (parallel/layout.py).
 """
 
 from __future__ import annotations
@@ -51,9 +55,16 @@ from ray_lightning_tpu_torch.models.gpt import (LayerNorm, gelu_tanh,
                                                 init_weights,
                                                 synthetic_lm_dataset)
 from ray_lightning_tpu_torch.ops.attention import (MultiHeadAttention,
-                                                   dropout, fold_in, linear)
+                                                   column_linear, dropout,
+                                                   fold_in, linear,
+                                                   row_linear)
 from ray_lightning_tpu_torch.ops.optim import AdamW
 from ray_lightning_tpu_torch.ops.random import Key, as_key
+from ray_lightning_tpu_torch.parallel.layout import gathered
+from ray_lightning_tpu_torch.parallel.strategy import P
+from ray_lightning_tpu_torch.parallel.tensor import (reduce_from,
+                                                     target_logit,
+                                                     vocab_embed, vocab_max)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,11 +116,14 @@ class EncoderLayer(nn.Module):
         self.ln2 = LayerNorm(cfg.n_embd, cfg.dtype)
         self.fc = nn.Linear(cfg.n_embd, cfg.intermediate)
         self.out = nn.Linear(cfg.intermediate, cfg.n_embd)
+        #: the tensor-parallel group (``fc`` column-, ``out`` row-parallel)
+        self.tp = None
 
     def forward(self, x, dropout_seed: "int | None" = None):
         x = x + self.attn(self.ln1(x), fold_in(dropout_seed, 0))[0]
-        h = gelu_tanh(linear(self.fc, self.ln2(x), self.dtype))
-        h = linear(self.out, h, self.dtype)
+        h = gelu_tanh(column_linear(self.fc, self.ln2(x), self.dtype,
+                                    self.tp))
+        h = row_linear(self.out, h, self.dtype, self.tp)
         return x + dropout(h, self.dropout, fold_in(dropout_seed, 1))
 
 
@@ -127,11 +141,14 @@ class BertEncoder(nn.Module):
         self.wpe = nn.Parameter(torch.zeros(cfg.max_len, cfg.n_embd))
         self.h = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.n_layer))
         self.ln_f = LayerNorm(cfg.n_embd, cfg.dtype)
+        #: the tensor-parallel group (``wte`` vocab-split)
+        self.tp = None
 
     def forward(self, idx, dropout_seed: "int | None" = None):
         dt = self.config.dtype
         T = idx.shape[1]
-        x = self.wte.weight[idx.long()].to(dt) + self.wpe[:T].to(dt)
+        x = vocab_embed(gathered(self.wte.weight), idx, dt, self.tp) \
+            + gathered(self.wpe)[:T].to(dt)
         remat = self._remat if torch.is_grad_enabled() else None
         for i, layer in enumerate(self.h):
             seed = fold_in(dropout_seed, i)
@@ -144,9 +161,14 @@ class _BertModel(nn.Module):
     """An encoder and a head, made on ``device`` (the card unless the
     caller asks for the CPU)."""
 
+    #: its use sites gather sharded parameters (parallel/layout.py)
+    shardable = True
+
     def __init__(self, cfg: BertConfig, device=None):
         super().__init__()
         self.config = cfg
+        #: the tensor-parallel group (the MLM head column-split)
+        self.tp = None
         with torch.device(resolve_device(device)):
             self.encoder = BertEncoder(cfg)
             self._make_head(cfg)
@@ -164,17 +186,39 @@ class _BertModel(nn.Module):
         init_weights(self, (self.encoder.wte.weight, self.encoder.wpe),
                      generator)
 
+    def tensor_parallel_dims(self) -> "dict[str, int]":
+        """The parameters the tensor-parallel forward computes on in
+        pieces, with their split dims in the flax layout (the dims
+        :func:`bert_partition_rules` names)."""
+        out = {"encoder.wte.weight": 0}
+        for i in range(self.config.n_layer):
+            out.update({f"encoder.h.{i}.attn.qkv.weight": 1,
+                        f"encoder.h.{i}.attn.proj.weight": 0,
+                        f"encoder.h.{i}.fc.weight": 1,
+                        f"encoder.h.{i}.out.weight": 0})
+        return out
+
 
 class BertForMaskedLM(_BertModel):
     """Masked-LM head over the encoder: ``[B, T] -> [B, T, V]`` fp32
-    logits (the product in the compute dtype)."""
+    logits (the product in the compute dtype); under tensor parallelism
+    :meth:`local_logits` are this rank's vocab slice, which the loss
+    takes as they are (:func:`softmax_cross_entropy`)."""
 
     def _make_head(self, cfg):
         self.mlm_head = nn.Linear(cfg.n_embd, cfg.vocab_size)
 
-    def forward(self, idx, dropout_seed: "int | None" = None):
+    def tensor_parallel_dims(self) -> "dict[str, int]":
+        return {**super().tensor_parallel_dims(), "mlm_head.weight": 1}
+
+    def local_logits(self, idx, dropout_seed: "int | None" = None):
         h = self.encoder(idx, dropout_seed)
-        return linear(self.mlm_head, h, self.config.dtype).float()
+        return column_linear(self.mlm_head, h, self.config.dtype,
+                             self.tp).float()
+
+    def forward(self, idx, dropout_seed: "int | None" = None):
+        from ray_lightning_tpu_torch.parallel.tensor import gather_from
+        return gather_from(self.local_logits(idx, dropout_seed), self.tp)
 
 
 class BertClassifier(_BertModel):
@@ -191,14 +235,22 @@ class BertClassifier(_BertModel):
         return linear(self.classifier, pooled, torch.float32)
 
 
-def softmax_cross_entropy(logits, labels):
+def softmax_cross_entropy(logits, labels, tp=None):
     """Per-position fp32 cross-entropy of ``logits`` [..., V] against int
     ``labels`` [...] (optax's ``softmax_cross_entropy_with_integer_
-    labels``: a max-shifted log-softmax)."""
-    shape = labels.shape
-    return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
-                           labels.long().reshape(-1),
-                           reduction="none").reshape(shape)
+    labels``: a max-shifted log-softmax).  Under ``tp`` the logits are
+    this rank's vocab slice: the max, the sum of exponentials and the
+    label's logit are taken over the group."""
+    if tp is None:
+        shape = labels.shape
+        return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                               labels.long().reshape(-1),
+                               reduction="none").reshape(shape)
+    logits = logits.float()
+    m = vocab_max(logits, tp)
+    lse = torch.log(reduce_from(torch.exp(logits - m[..., None]).sum(-1),
+                                tp)) + m
+    return lse - target_logit(logits, labels, tp)
 
 
 class BertMLMModule(LightningModule):
@@ -243,8 +295,10 @@ class BertMLMModule(LightningModule):
             mask = as_key(key, tokens.device).uniform(
                 tokens.shape) < self.mask_prob
         inputs = torch.where(mask, self.config.vocab_size - 1, tokens.long())
-        logits = ctx.model(inputs, ctx.dropout_seed(self.config.dropout))
-        ce = softmax_cross_entropy(logits, tokens)
+        model = ctx.model
+        logits = model.local_logits(inputs,
+                                    ctx.dropout_seed(self.config.dropout))
+        ce = softmax_cross_entropy(logits, tokens, model.tp)
         weights = mask.float()
         return (ce * weights).sum() / weights.sum().clamp_min(1.0)
 
@@ -275,10 +329,18 @@ class BertMLMModule(LightningModule):
 
 
 def bert_partition_rules(tensor_axis: str = "tensor") -> list:
-    """SpmdStrategy's tensor-parallel rules: not ported (no SPMD yet)."""
-    raise NotImplementedError(
-        "bert_partition_rules needs SpmdStrategy, which is not ported yet "
-        "(ROADMAP.md queue 1, parallelism beyond DP)")
+    """``SpmdStrategy`` rules, the JAX function's: Megatron column / row
+    splits (models/gpt.py's pattern) and the vocab-split MLM projection;
+    no catch-all, so the rest falls to the replicate-or-fsdp fallback."""
+    t = tensor_axis
+    return [
+        ("wte/embedding", P(t, None)),
+        ("qkv/kernel", P(None, t)),
+        ("proj/kernel", P(t, None)),
+        ("fc/kernel", P(None, t)),
+        ("out/kernel", P(t, None)),
+        ("mlm_head/kernel", P(None, t)),
+    ]
 
 
 def synthetic_classification(n: int, cfg: BertConfig,

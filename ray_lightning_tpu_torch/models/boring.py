@@ -42,6 +42,10 @@ class DenseStack(nn.Module):
     """flax ``Dense`` layers ``Dense_0 .. Dense_{n-1}`` over the
     flattened input, ReLU between them."""
 
+    #: its layers gather sharded weights at use (ops/attention.py
+    #: ``linear``; parallel/layout.py)
+    shardable = True
+
     def __init__(self, sizes: "tuple[int, ...]", device=None):
         super().__init__()
         self.n = len(sizes) - 1

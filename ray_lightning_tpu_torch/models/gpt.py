@@ -26,6 +26,14 @@ agree on the same weights:
 - with ``n_experts > 0`` every ``moe_every``-th block's MLP is a routed
   ``MoEMLP`` (ops/moe.py, parameters ``h.{i}.moe.router|w1|w2``), whose
   load-balance losses the forward sums into ``GPT.moe_aux``.
+
+Under a sharded strategy (parallel/layout.py) every use site takes its
+parameter through ``gathered`` (the pieces on batch axes all-gathered),
+and under :func:`gpt_partition_rules` on a ``tensor`` axis over 1 the
+training forward is Megatron's (parallel/tensor.py): the vocab-parallel
+``wte`` lookup and tied loss, column-parallel ``qkv`` / ``fc`` (and the
+routed ``w1``), row-parallel ``proj`` / ``out`` (and ``w2``); the serve
+paths raise there.
 """
 
 from __future__ import annotations
@@ -48,11 +56,17 @@ from ray_lightning_tpu_torch.core.remat import (MOE_POLICIES, model_policy,
                                                 policy_object)
 from ray_lightning_tpu_torch.ops.attention import (CacheWrite,
                                                    MultiHeadAttention,
-                                                   dropout, fold_in, linear)
+                                                   column_linear, dropout,
+                                                   fold_in, row_linear)
 from ray_lightning_tpu_torch.ops.losses import (
     chunked_softmax_cross_entropy, fused_lm_cross_entropy)
-from ray_lightning_tpu_torch.ops.moe import MoEMLP, total_aux_loss
+from ray_lightning_tpu_torch.ops.moe import (MoEMLP, moe_partition_rules,
+                                             total_aux_loss)
 from ray_lightning_tpu_torch.ops.optim import AdamW, fp32_master
+from ray_lightning_tpu_torch.parallel.layout import gathered
+from ray_lightning_tpu_torch.parallel.strategy import P
+from ray_lightning_tpu_torch.parallel.tensor import (copy_to, gather_from,
+                                                     vocab_embed)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,8 +128,8 @@ class LayerNorm(nn.Module):
     def forward(self, x):
         # one fused kernel in fp32: the statistics agree with flax's to
         # fp32 rounding (it computes E[x^2] - E[x]^2, torch Welford)
-        return F.layer_norm(x.float(), self.weight.shape,
-                            self.weight.float(), self.bias.float(),
+        w, b = gathered(self.weight), gathered(self.bias)
+        return F.layer_norm(x.float(), w.shape, w.float(), b.float(),
                             self.eps).to(self.dtype)
 
 
@@ -174,11 +188,13 @@ class MLP(nn.Module):
         self.dropout = cfg.dropout
         self.fc = nn.Linear(cfg.n_embd, 4 * cfg.n_embd)
         self.out = nn.Linear(4 * cfg.n_embd, cfg.n_embd)
+        #: the tensor-parallel group (``fc`` column-, ``out`` row-parallel)
+        self.tp = None
 
     def forward(self, x, dropout_seed: "int | None" = None):
-        h = gelu_tanh(linear(self.fc, x, self.dtype))
-        return dropout(linear(self.out, h, self.dtype), self.dropout,
-                       dropout_seed)
+        h = gelu_tanh(column_linear(self.fc, x, self.dtype, self.tp))
+        return dropout(row_linear(self.out, h, self.dtype, self.tp),
+                       self.dropout, dropout_seed)
 
 
 class Block(nn.Module):
@@ -255,7 +271,11 @@ class GPT(nn.Module):
 
     The parameters are made on ``device``: the card unless the caller
     asks for the CPU (``device="cpu"``); without CUDA the default
-    raises."""
+    raises.  ``tp`` is the tensor-parallel group a sharded layout sets
+    (module docstring); ``tensor_parallel_dims`` names what it splits."""
+
+    #: its use sites gather sharded parameters (parallel/layout.py)
+    shardable = True
 
     def __init__(self, config: GPTConfig,
                  device: "str | torch.device | None" = None):
@@ -264,6 +284,7 @@ class GPT(nn.Module):
         self.remat_policy = model_policy(config.remat, config.remat_policy)
         self._remat = policy_object(self.remat_policy)
         self.moe_aux: "torch.Tensor | None" = None
+        self.tp = None
         tag = self.remat_policy in MOE_POLICIES
         with torch.device(resolve_device(device)):
             self.wte = nn.Embedding(config.vocab_size, config.n_embd)
@@ -280,15 +301,41 @@ class GPT(nn.Module):
         ``wpe`` N(0, 0.02)."""
         init_weights(self, (self.wte.weight, self.wpe), generator)
 
-    def head(self, x):
-        """fp32 logits from the tied embedding (compute-dtype product)."""
-        dt = self.config.dtype
-        return (x.to(dt) @ self.wte.weight.to(dt).t()).float()
+    def tensor_parallel_dims(self) -> "dict[str, int]":
+        """The parameters the tensor-parallel forward computes on in
+        pieces, each with its split dim in the flax layout (the dims
+        :func:`gpt_partition_rules` names)."""
+        out = {"wte.weight": 0}
+        for i, blk in enumerate(self.h):
+            out.update({f"h.{i}.attn.qkv.weight": 1,
+                        f"h.{i}.attn.proj.weight": 0})
+            if hasattr(blk, "moe"):
+                out.update({f"h.{i}.moe.w1": 2, f"h.{i}.moe.w2": 1})
+            else:
+                out.update({f"h.{i}.mlp.fc.weight": 1,
+                            f"h.{i}.mlp.out.weight": 0})
+        return out
 
-    def _embed(self, idx):
+    def table(self) -> torch.Tensor:
+        """The tied embedding as its use sites take it (gathered when
+        sharded on a batch axis; this rank's vocab rows under tensor
+        parallelism)."""
+        return gathered(self.wte.weight)
+
+    def head(self, x, table: "torch.Tensor | None" = None):
+        """fp32 logits from the tied embedding (compute-dtype product),
+        over the whole vocab (gathered over the tensor group)."""
+        dt = self.config.dtype
+        table = self.table() if table is None else table
+        x = copy_to(x, self.tp)
+        return gather_from((x.to(dt) @ table.to(dt).t()).float(), self.tp)
+
+    def _embed(self, idx, table: "torch.Tensor | None" = None):
         dt = self.config.dtype
         T = idx.shape[1]
-        return self.wte.weight[idx].to(dt) + self.wpe[:T].to(dt)
+        table = self.table() if table is None else table
+        return vocab_embed(table, idx, dt, self.tp) \
+            + gathered(self.wpe)[:T].to(dt)
 
     def hidden(self, idx, dropout_seed: "int | None" = None):
         """Pre-head representation ``[B, T, C]`` in the compute dtype;
@@ -297,7 +344,15 @@ class GPT(nn.Module):
         dropout) seeds layer i's masks with ``fold_in(seed, i)``, a
         keyed draw's site, so a recomputed block draws them again.  Sets
         ``moe_aux``."""
-        x = self._embed(idx)
+        return self.hidden_and_table(idx, dropout_seed)[0]
+
+    def hidden_and_table(self, idx, dropout_seed: "int | None" = None):
+        """``(hidden, table)``: :meth:`hidden` and the tied table it
+        embedded with, for the loss to reuse (one gather a step: the
+        embedding's and the head's gradients meet before its
+        reduce-scatter, as they meet before DDP's all-reduce)."""
+        table = self.table()
+        x = self._embed(idx, table)
         remat = self._remat if torch.is_grad_enabled() else None
         aux = []
         for i, blk in enumerate(self.h):
@@ -308,11 +363,15 @@ class GPT(nn.Module):
                 aux.append(a)
         # summed left to right, as the JAX total_aux_loss adds its leaves
         self.moe_aux = functools.reduce(torch.add, aux) if aux else None
-        return self.ln_f(x)
+        return self.ln_f(x), table
 
     def hidden_with_kv(self, idx):
         """The prefill's forward: :meth:`hidden` without remat, and every
         layer's ``(k, v)`` [B, T, H, D]."""
+        if self.tp is not None:
+            raise NotImplementedError(
+                "the prefill under tensor parallelism is not ported yet "
+                "(ROADMAP.md queue 1 item 9: Server's strategies)")
         x = self._embed(idx)
         kvs = []
         for blk in self.h:
@@ -322,7 +381,7 @@ class GPT(nn.Module):
 
     def forward(self, idx, dropout_seed: "int | None" = None):
         """Whole-sequence forward: fp32 logits ``[B, T, V]``."""
-        return self.head(self.hidden(idx, dropout_seed))
+        return self.head(*self.hidden_and_table(idx, dropout_seed))
 
     def _pos_embed(self, positions):
         """``wpe`` rows at ``positions`` in the compute dtype.  A draft or
@@ -331,7 +390,7 @@ class GPT(nn.Module):
         the scheduler's ``max_new`` cap before anything is emitted, and
         its K/V row is past the cache and dropped."""
         idx = positions.long().clamp_max(self.config.block_size - 1)
-        return self.wpe[idx].to(self.config.dtype)
+        return gathered(self.wpe)[idx].to(self.config.dtype)
 
     def decode(self, tokens, positions, k_caches, v_caches,
                impl: "str | None" = None, page_table=None,
@@ -351,7 +410,7 @@ class GPT(nn.Module):
         not depend on which slots are live: insertion and eviction are
         slot-index changes in the host-side scheduler."""
         dt = self.config.dtype
-        x = self.wte.weight[tokens.long()].to(dt)[:, None, :]
+        x = gathered(self.wte.weight)[tokens.long()].to(dt)[:, None, :]
         x = x + self._pos_embed(positions)[:, None, :]
         write = CacheWrite(positions, k_caches.shape[2], drop_past_end)
         for i, blk in enumerate(self.h):
@@ -373,13 +432,30 @@ class GPT(nn.Module):
         token plain decode would emit after accepting drafts 1..j.
         Returns fp32 logits ``[S, T, V]``."""
         dt = self.config.dtype
-        x = self.wte.weight[tokens.long()].to(dt)
+        x = gathered(self.wte.weight)[tokens.long()].to(dt)
         x = x + self._pos_embed(positions)
         write = CacheWrite(positions, k_caches.shape[2], drop_past_end=True)
         for i, blk in enumerate(self.h):
             x = blk.decode(x, k_caches[i], v_caches[i], positions, impl,
                            page_table, write)
         return self.head(self.ln_f(x))
+
+
+def gpt_partition_rules(tensor_axis: str = "tensor") -> list:
+    """``SpmdStrategy`` rules for a (data, [fsdp,] tensor) mesh, the JAX
+    function's: Megatron-style ``qkv`` / ``fc`` column-split, ``proj`` /
+    ``out`` row-split, the embeddings vocab-split, the routed layers'
+    (ops/moe.py ``moe_partition_rules``) first.  The port's forward
+    issues the matching collectives itself (module docstring)."""
+    return moe_partition_rules(tensor_axis=tensor_axis) + [
+        (r"wte/embedding", P(tensor_axis, None)),
+        (r"attn/qkv/kernel", P(None, tensor_axis)),
+        (r"attn/proj/kernel", P(tensor_axis, None)),
+        (r"mlp/fc/kernel", P(None, tensor_axis)),
+        (r"mlp/out/kernel", P(tensor_axis, None)),
+        # no wpe rule: position embeddings fall through to the fsdp
+        # fallback, as in the JAX package
+    ]
 
 
 def synthetic_lm_dataset(n: int, block_size: int, vocab_size: int,
@@ -489,12 +565,13 @@ class GPTLightningModule(LightningModule):
         model = ctx.model
         seed = ctx.dropout_seed(self.config.dropout)
         if self.config.chunked_ce > 0:
-            return chunked_softmax_cross_entropy(model.hidden(x, seed),
-                                                 model.wte.weight, y,
-                                                 self.config.chunked_ce)
+            h, table = model.hidden_and_table(x, seed)
+            return chunked_softmax_cross_entropy(h, table, y,
+                                                 self.config.chunked_ce,
+                                                 tp=model.tp)
         if os.environ.get("RLT_FUSED_CE", "1") != "0":
-            return fused_lm_cross_entropy(model.hidden(x, seed),
-                                          model.wte.weight, y)
+            h, table = model.hidden_and_table(x, seed)
+            return fused_lm_cross_entropy(h, table, y, tp=model.tp)
         logits = model(x, seed)
         return (torch.logsumexp(logits, dim=-1)
                 - logits.gather(-1, y.long()[..., None])[..., 0]).mean()
@@ -541,5 +618,5 @@ class GPTLightningModule(LightningModule):
 
 
 __all__ = ["CONFIGS", "GPT", "GPTConfig", "GPTLightningModule", "Block",
-           "LayerNorm", "MLP", "gelu_tanh", "init_weights",
-           "synthetic_lm_dataset"]
+           "LayerNorm", "MLP", "gelu_tanh", "gpt_partition_rules",
+           "init_weights", "synthetic_lm_dataset"]

@@ -37,6 +37,9 @@ from ray_lightning_tpu_torch.ops.flash_decode import (
     flash_decode_attention, flash_decode_paged_attention,
     resolve_decode_impl)
 from ray_lightning_tpu_torch.ops.random import Key, as_key
+from ray_lightning_tpu_torch.parallel.layout import gathered
+from ray_lightning_tpu_torch.parallel.tensor import (column_parallel,
+                                                     row_parallel, slice_of)
 
 
 def dot_product_attention(q, k, v, *, causal: bool = True,
@@ -241,9 +244,38 @@ def dropout(x, rate: float, seed: "Key | int | None"):
 def linear(layer: nn.Linear, x, dtype: torch.dtype):
     """``layer`` with its weight, bias and input cast to the compute
     ``dtype``, as flax's ``Dense(dtype=...)`` promotes them (a no-op
-    cast when the params already live in ``dtype``)."""
-    return F.linear(x.to(dtype), layer.weight.to(dtype),
-                    layer.bias.to(dtype))
+    cast when the params already live in ``dtype``); sharded weights
+    are gathered at this use (parallel/layout.py ``gathered``)."""
+    return F.linear(x.to(dtype), gathered(layer.weight).to(dtype),
+                    gathered(layer.bias).to(dtype))
+
+
+def column_linear(layer: nn.Linear, x, dtype: torch.dtype, tp,
+                  view: "tuple | None" = None):
+    """A column-parallel :func:`linear`: under tensor parallelism
+    ``layer.weight`` holds this rank's output rows and the product is
+    this rank's columns of the output, the input's gradient summed over
+    the group (parallel/tensor.py ``column_parallel``); the whole bias
+    gives this rank's piece (``slice_of`` the bias seen as ``view``,
+    split along its last dim: a fused qkv bias as [3, C])."""
+    if tp is None:
+        return linear(layer, x, dtype)
+    b = gathered(layer.bias)
+    view = view or tuple(b.shape)
+    return column_parallel(x.to(dtype), gathered(layer.weight).to(dtype),
+                           slice_of(b, tp, view, len(view) - 1).to(dtype),
+                           tp)
+
+
+def row_linear(layer: nn.Linear, x, dtype: torch.dtype, tp):
+    """A row-parallel :func:`linear`: under tensor parallelism the input
+    is this rank's columns and ``layer.weight`` its input columns; the
+    partial products are summed over the group in fp32, the bias added
+    once (parallel/tensor.py ``row_parallel``)."""
+    if tp is None:
+        return linear(layer, x, dtype)
+    return row_parallel(x.to(dtype), gathered(layer.weight).to(dtype),
+                        gathered(layer.bias), tp)
 
 
 class MultiHeadAttention(nn.Module):
@@ -255,7 +287,12 @@ class MultiHeadAttention(nn.Module):
     collection).  :meth:`decode` is the serve decode branch.  Weights are
     cast to the compute ``dtype`` at use (:func:`linear`).  ``dropout``
     applies to the output projection when ``forward`` is given a seed
-    (training); the attention probabilities carry none.
+    (training); the attention probabilities carry none.  With ``tp`` (a
+    ``parallel.tensor.TensorGroup``, set by the sharded layout) the
+    training forward runs this rank's ``n_head / tp.size`` heads:
+    ``qkv`` column-parallel (its rows hold those heads of q, k and v),
+    ``proj`` row-parallel, its output summed over the group before the
+    bias; the decode branch does not take tensor parallelism.
     """
 
     def __init__(self, n_embd: int, n_head: int, *, causal: bool = True,
@@ -272,13 +309,18 @@ class MultiHeadAttention(nn.Module):
         self.dropout = dropout
         self.qkv = nn.Linear(n_embd, 3 * n_embd)
         self.proj = nn.Linear(n_embd, n_embd)
+        self.tp = None
 
     def _qkv(self, x):
         B, T, C = x.shape
-        shape = (B, T, self.n_head, C // self.n_head)
+        tp = self.tp
+        n = 1 if tp is None else tp.size
+        c, heads = C // n, self.n_head // n
+        shape = (B, T, heads, C // self.n_head)
         # split views of the fused projection, as jnp.split(qkv, 3, -1):
         # the flash kernel reads them by strides, with no copy
-        q, k, v = linear(self.qkv, x, self.dtype).split(C, dim=-1)
+        q, k, v = column_linear(self.qkv, x, self.dtype, tp,
+                                (3, C)).split(c, dim=-1)
         return q.view(shape), k.view(shape), v.view(shape)
 
     def forward(self, x, dropout_seed: "int | None" = None):
@@ -286,7 +328,7 @@ class MultiHeadAttention(nn.Module):
         q, k, v = self._qkv(x)
         attend = resolve_attention(self.attention_impl)
         y = attend(q, k, v, causal=self.causal, dtype=self.dtype)
-        y = linear(self.proj, y.reshape(B, T, C), self.dtype)
+        y = row_linear(self.proj, y.reshape(B, T, -1), self.dtype, self.tp)
         return dropout(y, self.dropout, dropout_seed), (k, v)
 
     def decode(self, x, k_cache, v_cache, positions,
@@ -305,6 +347,10 @@ class MultiHeadAttention(nn.Module):
         paging) that no live query reads before it is overwritten
         (serve/worker.py ``serve_step``)."""
         S, T, C = x.shape
+        if self.tp is not None:
+            raise NotImplementedError(
+                "decode under tensor parallelism is not ported yet "
+                "(ROADMAP.md queue 1 item 9: Server's strategies)")
         q, k, v = self._qkv(x)
         if write is None:
             write = CacheWrite(positions, k_cache.shape[1])
@@ -317,5 +363,6 @@ class MultiHeadAttention(nn.Module):
 
 
 __all__ = ["CacheWrite", "MultiHeadAttention", "auto_attention",
-           "cached_attention", "dot_product_attention", "dropout",
-           "dropout_keep_mask", "fold_in", "linear", "resolve_attention"]
+           "cached_attention", "column_linear", "dot_product_attention",
+           "dropout", "dropout_keep_mask", "fold_in", "linear",
+           "resolve_attention", "row_linear"]

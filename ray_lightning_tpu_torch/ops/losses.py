@@ -11,6 +11,12 @@ with the same rounding points (neither is a Pallas kernel there):
   time, each chunk recomputed in the backward pass
   (``torch.utils.checkpoint``, the JAX ``jax.checkpoint`` under
   ``lax.scan``), so the full [B*T, V] logits never exist at once.
+
+Both take ``tp`` (a ``parallel.tensor.TensorGroup``) when the tied table
+is vocab-parallel (``gpt_partition_rules``' ``wte`` rule): ``table`` is
+then this rank's rows and the logits its vocab slice; the row max, the
+sum of the exponentials and the target logit are taken over the group
+(three all-reduces a chunk), so the [B, T, V] logits are never gathered.
 """
 
 from __future__ import annotations
@@ -21,25 +27,31 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ray_lightning_tpu_torch.parallel.tensor import (column_parallel,
+                                                     copy_to, reduce_from,
+                                                     target_logit, vocab_max)
+
 _log = logging.getLogger(__name__)
 
 
-def fused_lm_cross_entropy(hidden, table, targets):
+def fused_lm_cross_entropy(hidden, table, targets, tp=None):
     """Mean token cross-entropy of ``hidden @ table.T`` against targets.
 
     hidden: [B, T, D] compute dtype; table: [V, D] tied embedding (any
-    float dtype, cast to the compute dtype); targets: [B, T] int labels.
-    Returns the fp32 scalar mean.
+    float dtype, cast to the compute dtype; under ``tp`` this rank's
+    rows); targets: [B, T] int labels.  Returns the fp32 scalar mean.
     """
-    logits = F.linear(hidden, table.to(hidden.dtype))        # [B, T, V]
-    with torch.no_grad():
-        m = logits.amax(dim=-1)
+    # the head is column-parallel: the hidden states' gradient is summed
+    # over the group (in fp32)
+    logits = column_parallel(hidden, table.to(hidden.dtype), None,
+                             tp)                             # [B, T, V]
+    m = vocab_max(logits, tp)
     # upcast before the shift: both casts are exact (m is one of the
     # logits), so the exp argument carries full fp32 precision
     shifted = logits.float() - m.float()[..., None]
-    lse = torch.log(torch.exp(shifted).sum(dim=-1)) + m.float()
-    logit_y = logits.gather(-1, targets.long()[..., None])[..., 0]
-    return (lse - logit_y.float()).mean()
+    lse = torch.log(reduce_from(torch.exp(shifted).sum(dim=-1), tp)) \
+        + m.float()
+    return (lse - target_logit(logits, targets, tp)).mean()
 
 
 def _chunk_ce_sum(h, table, y):
@@ -48,8 +60,19 @@ def _chunk_ce_sum(h, table, y):
             - logits.gather(-1, y[:, None])[:, 0]).sum()
 
 
+def _chunk_ce_sum_tp(h, table, y, tp):
+    """:func:`_chunk_ce_sum` over a vocab-parallel table, the rows'
+    gradient summed over the group in fp32 (``copy_to`` after the
+    upcast)."""
+    logits = F.linear(copy_to(h.float(), tp), table.float())  # [rows, V/t]
+    m = vocab_max(logits, tp)
+    lse = torch.log(reduce_from(torch.exp(logits - m[:, None]).sum(-1),
+                                tp)) + m
+    return (lse - target_logit(logits, y, tp)).sum()
+
+
 def chunked_softmax_cross_entropy(hidden, table, targets,
-                                  n_chunks: int = 8):
+                                  n_chunks: int = 8, tp=None):
     """Mean token cross-entropy of ``hidden @ table.T`` over ``n_chunks``
     row chunks (fewer when the rows do not divide, with a warning, as
     in the JAX package).  Each chunk's logits are the fp32 product of
@@ -71,8 +94,11 @@ def chunked_softmax_cross_entropy(hidden, table, targets,
     table = table.to(hidden.dtype)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(n_chunks):
-        total = total + checkpoint(_chunk_ce_sum, h[i], table, y[i],
-                                   use_reentrant=False)
+        total = total + (
+            checkpoint(_chunk_ce_sum, h[i], table, y[i], use_reentrant=False)
+            if tp is None else
+            checkpoint(_chunk_ce_sum_tp, h[i], table, y[i], tp,
+                       use_reentrant=False))
     return total / rows_total
 
 

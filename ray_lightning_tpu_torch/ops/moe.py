@@ -24,9 +24,12 @@ weights:
 
 The intermediates ``moe_dispatch``, ``moe_hact`` and ``moe_combine``
 carry their names (core/remat.py ``checkpoint_name``) when the model's
-remat policy is one of the MoE save lists.  Expert *parallelism*
-(``moe_partition_rules``: the experts on an ``expert`` mesh axis) needs
-``SpmdStrategy`` and raises.
+remat policy is one of the MoE save lists.  Under a sharded layout the
+weights are gathered at use (parallel/layout.py), and on a ``tensor``
+axis (``moe_partition_rules``) each expert's FFN is Megatron-split:
+``w1`` column-, ``w2`` row-parallel, the router whole.  Expert
+*parallelism* (the experts on an ``expert`` axis over 1) is not ported:
+``SpmdStrategy`` raises on that axis.
 """
 
 from __future__ import annotations
@@ -38,6 +41,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ray_lightning_tpu_torch.core.remat import checkpoint_name
+from ray_lightning_tpu_torch.parallel.layout import gathered
+from ray_lightning_tpu_torch.parallel.strategy import P
+from ray_lightning_tpu_torch.parallel.tensor import copy_to, reduce_from
 
 
 class MoEMLP(nn.Module):
@@ -62,6 +68,8 @@ class MoEMLP(nn.Module):
         self.router = nn.Parameter(torch.empty(n_embd, n_experts))
         self.w1 = nn.Parameter(torch.empty(n_experts, n_embd, d_ff))
         self.w2 = nn.Parameter(torch.empty(n_experts, d_ff, n_embd))
+        #: the tensor-parallel group (``w1`` column-, ``w2`` row-split)
+        self.tp = None
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -90,8 +98,8 @@ class MoEMLP(nn.Module):
         G, S, _ = x.shape
         E, k = self.n_experts, self.top_k
         cap = self.capacity(S)
-        probs = torch.softmax(
-            torch.einsum("gsm,me->gse", x.float(), self.router.float()), -1)
+        probs = torch.softmax(torch.einsum(
+            "gsm,me->gse", x.float(), gathered(self.router).float()), -1)
         gate_vals, gate_idx = torch.topk(probs, k, dim=-1)
         if k > 1:
             gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
@@ -117,10 +125,11 @@ class MoEMLP(nn.Module):
         dt = self.dtype
         dispatch, combine, aux = self.route(x)
         dispatch = self._name(dispatch, "moe_dispatch")
-        xe = torch.einsum("gsec,gsm->egcm", dispatch, x)
-        h = torch.einsum("egcm,emh->egch", xe, self.w1.to(dt))
+        xe = torch.einsum("gsec,gsm->egcm", dispatch, copy_to(x, self.tp))
+        h = torch.einsum("egcm,emh->egch", xe, gathered(self.w1).to(dt))
         h = self._name(gelu_tanh(h), "moe_hact")
-        out = torch.einsum("egch,ehm->egcm", h, self.w2.to(dt))
+        out = reduce_from(torch.einsum("egch,ehm->egcm", h,
+                                       gathered(self.w2).to(dt)), self.tp)
         return torch.einsum("gsec,egcm->gsm",
                             self._name(combine.to(dt), "moe_combine"),
                             out), aux
@@ -136,13 +145,17 @@ def total_aux_loss(model) -> "torch.Tensor | None":
 
 def moe_partition_rules(expert_axis: str = "expert",
                         tensor_axis: str = "tensor"):
-    """The JAX package's SPMD rules for expert parallelism (the experts
-    sharded on an ``expert`` mesh axis).  Not ported: they need
-    ``SpmdStrategy`` (ROADMAP.md queue 1 item 9); the routed layer
-    itself runs on one card."""
-    raise NotImplementedError(
-        "moe_partition_rules (expert parallelism) needs SpmdStrategy, "
-        "which is not ported yet (ROADMAP.md queue 1 item 9)")
+    """``SpmdStrategy`` rules for the routed layers (prepended to the
+    model's own), the JAX function's: the expert dim on ``expert``,
+    each expert's FFN Megatron-split on ``tensor``, the router whole.
+    An ``expert`` axis over 1 is not ported (``SpmdStrategy`` raises,
+    ROADMAP.md queue 1 item 9); the ``tensor`` split runs (module
+    docstring)."""
+    return [
+        (r"moe/w1$", P(expert_axis, None, tensor_axis)),
+        (r"moe/w2$", P(expert_axis, tensor_axis, None)),
+        (r"moe/router$", P()),
+    ]
 
 
 __all__ = ["MoEMLP", "moe_partition_rules", "total_aux_loss"]

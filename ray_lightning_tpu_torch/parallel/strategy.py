@@ -39,15 +39,34 @@ rows of the device-resident train set live on its own card; the set's
 per-epoch repack in the loader's order is one all-to-all
 (:func:`exchange_rows`).
 
-``"fsdp"``, ``"zero3"``, ``"spmd"``, ``"auto"`` and ``"mpmd"`` raise
-``NotImplementedError`` naming their ROADMAP.md item; other names raise
-``ValueError``, as in the JAX package.
+Beyond data parallelism (parallel/layout.py, parallel/tensor.py):
+
+- :class:`FullyShardedStrategy` (``"fsdp"``, ``"zero3"``): each rank
+  holds 1/W of every parameter the JAX ``param_spec`` shards on
+  ``data`` and of its optimizer state; a use site all-gathers it and
+  the backward reduce-scatters its gradient.  Without a clip it equals
+  DDP bit for bit.
+- :class:`SpmdStrategy` (``"spmd"``): a mesh of ``data``, ``fsdp`` and
+  ``tensor`` axes (``expert`` and ``sequence`` are ROADMAP.md item 9's
+  and raise above 1) and regex rules over the flax parameter paths
+  (``gpt_partition_rules``, ``bert_partition_rules``): ``fsdp`` pieces
+  are gathered at use as under FSDP, ``tensor`` pieces are computed on
+  by the model (Megatron's column- and row-parallel products, the
+  vocab-parallel embedding and loss), the batch is split over ``data``
+  and ``fsdp``.
+
+Each strategy answers the JAX package's ``param_spec`` / ``opt_spec`` /
+``batch_spec`` as tuples equal to JAX's (:class:`PartitionSpec`), for
+the flax path of a port parameter (``convert.flax_path``).  ``"auto"``
+and ``"mpmd"`` raise ``NotImplementedError`` naming their ROADMAP.md
+item; other names raise ``ValueError``, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Mapping, Optional
+import re
+from typing import Callable, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -188,13 +207,95 @@ def average_grads(grads: "list[torch.Tensor]") -> "list[torch.Tensor]":
     return out
 
 
+class PartitionSpec(tuple):
+    """The port's copy of ``jax.sharding.PartitionSpec``: a tuple of one
+    entry a dim, an axis name, a tuple of axis names (the first
+    outermost) or ``None`` (whole); fewer entries than dims leave the
+    rest whole."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __reduce__(self):
+        return PartitionSpec, tuple(self)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+def _best_shardable_axis(shape: Sequence[int], size: int,
+                         taken: "set[int] | None" = None) -> "int | None":
+    """Largest dim divisible by ``size`` (None if none): the JAX
+    function."""
+    best, best_dim = None, -1
+    for i, d in enumerate(shape):
+        if taken and i in taken:
+            continue
+        if size > 0 and d % size == 0 and d >= size and d > best_dim:
+            best, best_dim = i, d
+    return best
+
+
+def _axis_spec(shape: Sequence[int], axis: str, size: int) -> P:
+    """PartitionSpec sharding the best divisible dim of ``shape`` on
+    ``axis``, replicated if nothing divides (the JAX function)."""
+    i = _best_shardable_axis(shape, size)
+    if i is None:
+        return P()
+    spec = [None] * len(shape)
+    spec[i] = axis
+    return P(*spec)
+
+
 class ShardingStrategy:
-    """Base: how a train step syncs its gradients (:meth:`grad_sync`)
-    and where the optimizer state lives (:meth:`wrap_optimizer`)."""
+    """Base: the mesh's axes, each parameter's spec, how a train step
+    syncs its gradients (:meth:`grad_sync`) and where the optimizer state
+    lives (:meth:`wrap_optimizer`)."""
 
     name: str = "base"
+    #: outermost -> innermost mesh axis names
+    axis_names: "tuple[str, ...]" = ("data",)
+    #: axes the batch's leading dim is split over
+    data_axis_names: "tuple[str, ...]" = ("data",)
 
-    def grad_sync(self) -> Optional[Callable]:
+    def axis_sizes(self, n_devices: int) -> dict:
+        return {"data": n_devices}
+
+    def build_mesh(self):
+        """The mesh of the default process group (parallel/mesh.py):
+        every rank takes part; one rank without a group."""
+        from ray_lightning_tpu_torch.parallel.mesh import build_device_mesh
+        return build_device_mesh(self.axis_names,
+                                 self.axis_sizes(world_size()))
+
+    # -- per-parameter specs (the JAX package's override points) -----------
+
+    def param_spec(self, mesh, path: str, shape: Sequence[int]) -> P:
+        """The spec of the parameter at flax ``path`` of flax-layout
+        ``shape`` (``mesh`` needs ``axis_names`` and ``shape`` only)."""
+        return P()
+
+    def opt_spec(self, mesh, path: str, shape: Sequence[int]) -> P:
+        return P()
+
+    def batch_spec(self, mesh, ndim: int) -> P:
+        if ndim == 0:
+            return P()
+        return P(self.data_axis_names
+                 if len(self.data_axis_names) > 1 else self.data_axis_names[0])
+
+    # -- the step ------------------------------------------------------------
+
+    def layout(self, model, mesh):
+        """The model's :class:`~ray_lightning_tpu_torch.parallel.layout.
+        ShardLayout` on ``mesh``, or ``None``: every parameter whole on
+        every rank."""
+        return None
+
+    def grad_sync(self, layout=None) -> Optional[Callable]:
         """``grads -> grads`` run between the backward and the update, or
         ``None``."""
         return None
@@ -204,6 +305,9 @@ class ShardingStrategy:
         the clip when ``gradient_clip_val`` is set)."""
         return tx
 
+    def __repr__(self):
+        return f"{type(self).__name__}()"
+
 
 class DataParallelStrategy(ShardingStrategy):
     """DDP: params and optimizer state on every rank, gradients averaged
@@ -211,7 +315,7 @@ class DataParallelStrategy(ShardingStrategy):
 
     name = "ddp"
 
-    def grad_sync(self) -> Optional[Callable]:
+    def grad_sync(self, layout=None) -> Optional[Callable]:
         return average_grads if group_active() else None
 
 
@@ -226,8 +330,150 @@ class Zero1Strategy(ShardingStrategy):
     def __init__(self, min_shard_elements: int = 0):
         self.min_shard_elements = int(min_shard_elements)
 
+    def opt_spec(self, mesh, path: str, shape: Sequence[int]) -> P:
+        if math.prod(shape) < max(2, self.min_shard_elements):
+            return P()
+        return _axis_spec(shape, "data", mesh.shape["data"])
+
     def wrap_optimizer(self, tx):
         return Zero1Optimizer(tx, self.min_shard_elements)
+
+
+class _ParamSharded(ShardingStrategy):
+    """The strategies whose parameters live in pieces
+    (parallel/layout.py): the layout, its gradient sync, the optimizer
+    on the pieces."""
+
+    def layout(self, model, mesh):
+        from ray_lightning_tpu_torch.parallel.layout import ShardLayout
+        return ShardLayout.of_model(model, self, mesh)
+
+    def grad_sync(self, layout=None) -> Optional[Callable]:
+        return None if layout is None else layout.grad_sync()
+
+    def wrap_optimizer(self, tx):
+        from ray_lightning_tpu_torch.parallel.layout import ShardedOptimizer
+        return ShardedOptimizer(tx)
+
+
+class FullyShardedStrategy(_ParamSharded, Zero1Strategy):
+    """ZeRO-3 / FSDP (``"fsdp"``, ``"zero3"``): params and optimizer state
+    both sharded on ``data``, gathered at their use sites in the forward
+    and (under remat) again in the backward, the gradient
+    reduce-scattered (module docstring; parallel/layout.py).  Params
+    with fewer than ``max(2, min_shard_elements)`` elements, or no dim
+    that W divides, stay whole on every rank (the JAX spec)."""
+
+    name = "fsdp"
+
+    def param_spec(self, mesh, path: str, shape: Sequence[int]) -> P:
+        if math.prod(shape) < max(2, self.min_shard_elements):
+            return P()
+        return _axis_spec(shape, "data", mesh.shape["data"])
+
+    def __repr__(self):
+        return f"FullyShardedStrategy({self.min_shard_elements})"
+
+
+class SpmdStrategy(_ParamSharded):
+    """General SPMD over a multi-axis mesh with regex partition rules
+    (the JAX class).  ``rules`` is an ordered list of ``(regex,
+    PartitionSpec)`` searched in the ``/``-joined flax parameter path;
+    the first match wins, a rule naming only axes the mesh lacks is
+    skipped; no match: whole, or split on ``fsdp`` when that axis is
+    over 1.  An ``expert`` or ``sequence`` axis over 1 raises
+    (ROADMAP.md queue 1 item 9: expert parallelism, ring attention)."""
+
+    name = "spmd"
+
+    def __init__(self, rules: Sequence = (),
+                 axis_names: Sequence[str] = ("data", "fsdp", "expert",
+                                              "sequence", "tensor"),
+                 axis_sizes: "dict | None" = None,
+                 shard_sequence_dim: bool = True,
+                 min_shard_elements: int = 0):
+        self.rules = [(re.compile(r), P(*spec)) for r, spec in rules]
+        self.axis_names = tuple(axis_names)
+        self._axis_sizes = dict(axis_sizes or {})
+        for axis, what in (("expert", "expert parallelism"),
+                           ("sequence", "the sequence axis (ring "
+                                        "attention)")):
+            size = self._axis_sizes.get(axis)
+            if size not in (None, 1):
+                raise NotImplementedError(
+                    f"SpmdStrategy: {what} ({axis}={size}) is not ported "
+                    f"yet (ROADMAP.md queue 1 item 9)")
+        self.shard_sequence_dim = shard_sequence_dim and (
+            "sequence" in self.axis_names)
+        self.min_shard_elements = min_shard_elements
+        self.data_axis_names = tuple(
+            a for a in ("data", "fsdp") if a in self.axis_names)
+
+    def axis_sizes(self, n_devices: int) -> dict:
+        sizes = dict(self._axis_sizes)
+        for a in self.axis_names:
+            sizes.setdefault(a, 1 if a != "data" else None)
+        if sizes.get("data") is None:
+            sizes["data"] = -1
+        return sizes
+
+    def _rule_spec(self, mesh, path: str) -> "P | None":
+        for rx, spec in self.rules:
+            if rx.search(path):
+                pruned = self._prune_spec(mesh, spec)
+                if any(e is not None for e in spec) and \
+                        not any(e is not None for e in pruned):
+                    # the rule names only axes this mesh lacks: treat it
+                    # as unmatched, so later rules and the fsdp fallback
+                    # still see the parameter
+                    continue
+                return pruned
+        return None
+
+    @staticmethod
+    def _prune_spec(mesh, spec: P) -> P:
+        """Drop the axes the mesh does not have, so one rule set works on
+        any sub-mesh."""
+        def keep(entry):
+            if entry is None:
+                return None
+            if isinstance(entry, (tuple, list)):
+                kept = tuple(a for a in entry if a in mesh.axis_names)
+                return kept if kept else None
+            return entry if entry in mesh.axis_names else None
+        return P(*(keep(e) for e in spec))
+
+    def _fsdp_fallback(self, mesh, shape: Sequence[int]) -> P:
+        if "fsdp" in mesh.axis_names and mesh.shape["fsdp"] > 1 \
+                and math.prod(shape) >= max(2, self.min_shard_elements):
+            return _axis_spec(shape, "fsdp", mesh.shape["fsdp"])
+        return P()
+
+    def param_spec(self, mesh, path: str, shape: Sequence[int]) -> P:
+        spec = self._rule_spec(mesh, path)
+        if spec is not None:
+            return spec
+        return self._fsdp_fallback(mesh, shape)
+
+    def opt_spec(self, mesh, path: str, shape: Sequence[int]) -> P:
+        spec = self._rule_spec(mesh, path)
+        if spec is not None and len(spec) == len(shape):
+            return spec
+        return self._fsdp_fallback(mesh, shape)
+
+    def batch_spec(self, mesh, ndim: int) -> P:
+        if ndim == 0:
+            return P()
+        data = (self.data_axis_names if len(self.data_axis_names) > 1
+                else self.data_axis_names[0])
+        if (self.shard_sequence_dim and ndim >= 2
+                and mesh.shape.get("sequence", 1) > 1):
+            return P(data, "sequence")
+        return P(data)
+
+    def __repr__(self):
+        return (f"SpmdStrategy({len(self.rules)} rules, "
+                f"{self.axis_names}, {self._axis_sizes})")
 
 
 class _Flat:
@@ -521,11 +767,14 @@ _STRATEGIES = {
     "dp": DataParallelStrategy,
     "zero1": Zero1Strategy,
     "sharded": Zero1Strategy,       # the reference's name (RayShardedPlugin)
+    "fsdp": FullyShardedStrategy,
+    "zero3": FullyShardedStrategy,
+    "spmd": SpmdStrategy,
 }
 
 #: strategy names of the JAX package not ported yet -> their ROADMAP.md
 #: queue 1 item
-_NOT_PORTED = {"fsdp": 9, "zero3": 9, "spmd": 9, "auto": 12, "mpmd": 11}
+_NOT_PORTED = {"auto": 12, "mpmd": 11}
 
 
 def strategy_names() -> "list[str]":
@@ -557,7 +806,9 @@ def resolve_strategy(strategy: "str | ShardingStrategy | None"
     raise TypeError(f"Bad strategy: {strategy!r}")
 
 
-__all__ = ["DataParallelStrategy", "ShardingStrategy", "Zero1Optimizer",
+__all__ = ["DataParallelStrategy", "FullyShardedStrategy", "P",
+           "PartitionSpec", "ShardingStrategy", "SpmdStrategy",
+           "Zero1Optimizer",
            "Zero1State", "Zero1Strategy", "average_grads", "batch_moments",
            "exchange_rows", "gather_objects",
            "global_rank", "group_active", "mean_over_ranks", "resolve_strategy", "strategy_names",

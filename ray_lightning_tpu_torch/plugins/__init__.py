@@ -1,10 +1,11 @@
 """Execution plugins: who runs the training loop, and where
-(``LocalPlugin`` in-process; ``RayPlugin`` / ``RayShardedPlugin`` over
-subprocess actors)."""
+(``LocalPlugin`` in-process; ``RayPlugin`` / ``RayShardedPlugin`` /
+``RaySpmdPlugin`` over subprocess actors)."""
 
 from ray_lightning_tpu_torch.plugins.base import ExecutionPlugin, LocalPlugin
 from ray_lightning_tpu_torch.plugins.ray_ddp import (RayPlugin,
-                                                     RayShardedPlugin)
+                                                     RayShardedPlugin,
+                                                     RaySpmdPlugin)
 
 __all__ = ["ExecutionPlugin", "LocalPlugin", "RayPlugin",
-           "RayShardedPlugin"]
+           "RayShardedPlugin", "RaySpmdPlugin"]

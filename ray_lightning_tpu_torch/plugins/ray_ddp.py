@@ -1,11 +1,15 @@
-"""Distributed execution plugins: DDP and ZeRO-1 training over
-subprocess actors, one rank a worker.
+"""Distributed execution plugins: DDP, ZeRO-1, FSDP and SPMD training
+over subprocess actors, one rank a worker.
 
 ``RayPlugin`` and ``RayShardedPlugin`` take the original reference's
 names (``ray_lightning/ray_ddp.py``, ``ray_ddp_sharded.py``); their JAX
 counterparts are ``RayXlaPlugin`` and ``RayXlaShardedPlugin``
 (``ray_lightning_tpu/plugins/xla.py``), without its telemetry,
-compile-cache, elastic, planner and MPMD branches.  Driver side, a run:
+compile-cache, elastic, planner and MPMD branches.  ``RaySpmdPlugin``
+(JAX ``RayXlaSpmdPlugin``, ``plugins/xla.py:696-703``) defaults to
+``strategy="spmd"``; one rank is one card, so the JAX
+``devices_per_worker=2`` is twice the workers here.  Driver side, a
+run:
 
   1. creates ``num_workers`` executor actors (cluster/local.py) and runs
      ``init_hook`` on each;
@@ -29,6 +33,12 @@ group (NCCL on the card, gloo on the CPU) and re-enters
 ``trainer._run_stage``: the strategy (parallel/strategy.py) then syncs
 the gradients and shards the optimizer state.  The driver never touches
 CUDA for a plugin run.
+
+``RLT_ONE_CARD_GLOO=1`` (tests and the smoke only, read on the driver
+and passed to the workers) puts every GPU worker on card 0 over gloo:
+two ranks of one communicator cannot share a card under NCCL, so a
+one-card machine runs a multi-rank fit time-sliced this way, its
+collectives through host memory.  Nothing else changes backend.
 
 Payload callables (``init_hook``, ``session.put_queue`` items,
 callbacks) are pickled with stdlib ``pickle``, by import path: they are
@@ -67,6 +77,13 @@ SETUP_TIMEOUT_S = 120.0
 RUN_TIMEOUT_S = 3600.0
 #: the most a collective waits (less when the run's bound is shorter)
 COLLECTIVE_TIMEOUT_S = 600.0
+#: every GPU worker on card 0 over gloo (module docstring)
+ONE_CARD_ENV = "RLT_ONE_CARD_GLOO"
+
+
+def one_card(env=None) -> bool:
+    """Whether ``RLT_ONE_CARD_GLOO`` asks for every GPU rank on card 0."""
+    return (os.environ if env is None else env).get(ONE_CARD_ENV) == "1"
 
 
 def _worker_run(payload: tuple, rank: int, queue) -> Optional[dict]:
@@ -75,9 +92,12 @@ def _worker_run(payload: tuple, rank: int, queue) -> Optional[dict]:
     trainer, module, datamodule, stage, ckpt_path = payload
     plugin = trainer.plugin
     plugin._is_remote = True
-    device = plugin._worker_device(int(os.environ["LOCAL_RANK"]))
+    shared = one_card()
+    device = plugin._worker_device(
+        0 if shared else int(os.environ["LOCAL_RANK"]))
     dist.init_process_group(
-        "nccl" if device.type == "cuda" else "gloo", rank=rank,
+        "nccl" if device.type == "cuda" and not shared else "gloo",
+        rank=rank,
         world_size=plugin.num_workers,
         timeout=datetime.timedelta(
             seconds=min(plugin.timeout_s, COLLECTIVE_TIMEOUT_S)))
@@ -188,6 +208,8 @@ class RayPlugin(ExecutionPlugin):
             env[SEED_ENV_VAR] = os.environ[SEED_ENV_VAR]
         if not self.use_gpu:
             env["CUDA_VISIBLE_DEVICES"] = ""     # CPU workers stay off it
+        if one_card():
+            env[ONE_CARD_ENV] = "1"
         env.update(self.worker_env)
         return env
 
@@ -237,7 +259,7 @@ class RayPlugin(ExecutionPlugin):
              workers[0].call("get_free_port")], backend, SETUP_TIMEOUT_S)
         node_info = on_all("get_node_and_device_info")
         ranks = self._assign_local_ranks(node_info)
-        if self.use_gpu:
+        if self.use_gpu and not one_card(self._worker_env_base()):
             self._check_gpu_fit(node_info, ranks)
         process_results([w.call("set_env_vars", {
             "MASTER_ADDR": addr, "MASTER_PORT": str(port),
@@ -320,4 +342,20 @@ class RayShardedPlugin(RayPlugin):
         super().__init__(*args, **kwargs)
 
 
-__all__ = ["RayPlugin", "RayShardedPlugin"]
+class RaySpmdPlugin(RayPlugin):
+    """SPMD over actors (JAX ``RayXlaSpmdPlugin``): the same
+    orchestration with ``strategy="spmd"`` by default; pass a
+    ``SpmdStrategy(rules=gpt_partition_rules(), axis_sizes=...)``, or
+    ``"fsdp"``.  The mesh spans every worker's rank (parallel/mesh.py),
+    so a ``tensor`` axis crosses process boundaries: NCCL on the card's
+    NVLink, gloo on the CPU (or on one card, ``RLT_ONE_CARD_GLOO=1``).
+    The driver gets the trained weights whole (gathered in the
+    workers)."""
+
+    def __init__(self, *args, **kwargs):
+        kwargs.setdefault("strategy", "spmd")
+        super().__init__(*args, **kwargs)
+
+
+__all__ = ["ONE_CARD_ENV", "RayPlugin", "RaySpmdPlugin", "RayShardedPlugin",
+           "one_card"]

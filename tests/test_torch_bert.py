@@ -352,8 +352,9 @@ def test_bert_routes_and_not_ported(monkeypatch):
     rows 5 + 15 + 16.  Remat "full" gives the gradients of "off" bit for
     bit; dropout runs in training only (the forward without a seed is
     the dropout-free one bit for bit); remat "dots" builds
-    (tests/test_torch_remat.py holds its gradients); SPMD rules and an
-    unknown flax path raise."""
+    (tests/test_torch_remat.py holds its gradients); the SPMD rules are
+    the JAX function's, patterns and specs; an unknown flax path
+    raises."""
     base = tbert.CONFIGS["bert-base"]
     tiny = tbert.CONFIGS["tiny"]
     assert tpu_rows(base.max_len, base.n_head, base.head_dim, False) \
@@ -389,8 +390,8 @@ def test_bert_routes_and_not_ported(monkeypatch):
     dots = tbert.BertMLMModule(dataclasses.replace(
         tiny, remat=True, remat_policy="dots")).configure_model("cpu")
     assert dots.remat_policy == "dots"
-    with pytest.raises(NotImplementedError, match="SpmdStrategy"):
-        tbert.bert_partition_rules()
+    assert [(r, tuple(spec)) for r, spec in tbert.bert_partition_rules()] \
+        == [(r, tuple(spec)) for r, spec in jbert.bert_partition_rules()]
     with pytest.raises(KeyError, match="no mapping"):
         flax_to_torch({"encoder": {"h0": {"mlp": {"fc": {
             "kernel": np.zeros((2, 2), np.float32)}}}}})

@@ -15,6 +15,7 @@ EXAMPLES = [
     "ray_lightning_tpu_torch.examples.ray_ddp_example",
     "ray_lightning_tpu_torch.examples.ray_ddp_tune",
     "ray_lightning_tpu_torch.examples.ray_ddp_sharded_example",
+    "ray_lightning_tpu_torch.examples.ray_spmd_example",
 ]
 
 

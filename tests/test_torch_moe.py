@@ -340,8 +340,9 @@ def test_moe_tiny_fit_loss_falls_and_checkpoint_roundtrips(tmp_path):
 def test_moe_configs_build_and_what_stays_refused():
     """gpt2-moe-8e builds (meta device: no storage) with its routed
     blocks every second layer and "dots"; serving and speculation reject
-    MoE, as in the JAX package; expert parallelism raises naming the
-    queue item."""
+    MoE, as in the JAX package; ``moe_partition_rules`` are the JAX
+    function's (patterns and specs), and expert parallelism (an
+    ``expert`` axis over 1) raises naming the queue item."""
     cfg = CONFIGS["gpt2-moe-8e"]
     module = GPTLightningModule("gpt2-moe-8e")
     model = module.configure_model("meta")
@@ -353,8 +354,12 @@ def test_moe_configs_build_and_what_stays_refused():
         module.configure_decode_model("cpu")
     with pytest.raises(ValueError, match="MoE"):
         module.configure_draft(device="cpu")
+    from ray_lightning_tpu.ops.moe import moe_partition_rules as jax_rules
+    from ray_lightning_tpu_torch.parallel.strategy import SpmdStrategy
+    assert [(r, tuple(spec)) for r, spec in moe_partition_rules()] == \
+        [(r, tuple(spec)) for r, spec in jax_rules()]
     with pytest.raises(NotImplementedError, match="item 9"):
-        moe_partition_rules()
+        SpmdStrategy(moe_partition_rules(), axis_sizes={"expert": 2})
     with pytest.raises(ValueError, match="top_k"):
         MoEMLP(8, 2, 16, top_k=3)
     tagged = GPTLightningModule(dataclasses.replace(

@@ -453,8 +453,10 @@ def test_lm_loss_routes_agree(route, monkeypatch):
 
 def test_trainer_refuses_what_is_not_ported():
     """Arguments of the JAX Trainer that the port does not honour yet
-    raise instead of being ignored: the strategies beyond DDP and ZeRO-1,
+    raise instead of being ignored: the planner's and MPMD's strategies
     and the telemetry, compile-cache, comm, elastic and planner planes.
+    (The strategies beyond DDP and ZeRO-1,
+    ``"fsdp"`` and ``"spmd"``, are ported: tests/test_torch_sharded.py.)
     (gpt2-medium's remat "dots" is ported: tests/test_torch_remat.py.)
     Checkpointing,
     clipping, the bf16 batch cast, dropout, the plugins and the loop
@@ -462,7 +464,7 @@ def test_trainer_refuses_what_is_not_ported():
     honoured (tests/test_torch_checkpoint.py,
     tests/test_torch_trainer.py, tests/test_torch_plugin*.py,
     tests/test_torch_loop_engine.py)."""
-    for kw in (dict(strategy="fsdp"), dict(strategy="spmd"),
+    for kw in (dict(strategy="auto"), dict(strategy="mpmd"),
                dict(telemetry=True), dict(compile_cache=True),
                dict(comm_policy="int8"), dict(elastic=True),
                dict(plan=True)):
