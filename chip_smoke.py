@@ -305,7 +305,9 @@ Phases, each fatal on failure:
    (e) ``csrc/philox.cu`` against its plain version bit for bit (on the
    card and on the CPU) at the main path's shapes, timed beside
    ``torch.rand`` and its bound.
-18. Sharded (last): gpt2-1p3b at full width and depth (T=2048, bf16,
+18. Sharded: gpt2-1p3b at full width, its depth cut to 8 of its 24
+    layers so the whole run fits its time limit with phase 19
+    (``SHARD_LAYERS``; T=2048, bf16,
     remat "full"). (a) ``RaySpmdPlugin(num_workers=1, strategy="fsdp")``
     at B=8 for one epoch of 3 steps, its weights bit for bit with the
     in-process ``strategy="ddp"`` fit; step ms, peak memory, the rank's
@@ -323,6 +325,27 @@ Phases, each fatal on failure:
     from the checkpoint within 2e-2.  Its launches ((a), (c), both ranks
     of (b); not the references' or the checks') go to rows 3 and 9 under
     ``sharded``, with their B=2 H=16 shape timed.
+19. The parallel axes (last; everything earlier freed first): the three
+    examples at their defaults, each over four ranks (NCCL with four
+    cards, else all on card 0 over gloo, ``RLT_ONE_CARD_GLOO=1``, a
+    host-bound correctness leg; the log says which), bf16, seeded
+    weights, synthetic tokens, 3 steps a leg.  (a) The long-context
+    example: gpt2-small, T=8192, ``attention_impl="ring"``,
+    ``SpmdStrategy(("data", "sequence"), sequence=4)``, B=1, each rank
+    its 2048 positions.  (b) The pipeline example: ``PipelinedGPT(
+    "gpt2-small", n_microbatches=4)``, ``PipelineStrategy(stages=4)``,
+    B=8, T=1024; each rank launches flash_fwd and flash_bwd (3 layers) x
+    4 microbatches a step, asserted.  (c) The MoE example: gpt2-moe-8e,
+    (expert=2, tensor=2), B=8, T=1024; each rank 12 + 12 ("dots"
+    recomputes the forward) flash_fwd and 12 flash_bwd a step at 6
+    heads, asserted.  In each, rank 0 holds the first step's loss and
+    whole gradients (and (c)'s ``moe_aux``) against the one-process step
+    from the same weights (the ring's with ``attention_impl="flash"``)
+    within 2e-2, and the three losses against a one-process fit within
+    2e-2; step ms and each rank's peak memory are reported, with (a)'s
+    ring and (b)'s pipeline bytes a step counted from the shapes.  (b)'s
+    and (c)'s launches go to rows 1 and 6 under ``pipeline`` and
+    ``moe_ep``, with their B=2 H=12 and B=8 H=6 shapes timed.
 
 The next-to-last line is the ``{"kernels": [...]}`` JSON record, one
 entry per TPU kernel row, 1 to 16 (``launches`` from the path phases
@@ -372,7 +395,9 @@ their kernels line (the fleet's worker launches) and the last line.
 runs phase 17 alone, and prints their kernels line (the ladder's
 launches) and the last line.  ``--sharded-only`` runs phase 18 alone,
 then checks and times rows 3 and 9 at its shapes and prints their
-kernels line (its launches) and the last line.
+kernels line (its launches) and the last line.  ``--parallel-only``
+runs phase 19 alone, then checks and times rows 1 and 6 at its shapes
+and prints their kernels line (its launches) and the last line.
 """
 
 from __future__ import annotations
@@ -3465,6 +3490,7 @@ class PluginProbe(Callback):
 
     def on_fit_end(self, trainer, module):
         report = {"launches": _kernels.launch_counts(),
+                  "rank": trainer.global_rank,
                   "step_ms": self.step_ms, "val_batches": self.val_batches,
                   "first_step_at": self.first_step_at,
                   "device": str(trainer.device),
@@ -5485,6 +5511,13 @@ def ladder_phase(seed: int, card: str) -> dict:
 # -- phase 18: sharded training beyond ZeRO-1 ----------------------------
 
 SHARD_MODEL = "gpt2-1p3b"
+#: its depth in phase 18, cut from 24 so the whole run fits its time
+#: limit with phase 19 (full width: C=2048, 32 heads, T=2048)
+SHARD_LAYERS = 8
+
+
+def shard_config():
+    return dataclasses.replace(CONFIGS[SHARD_MODEL], n_layer=SHARD_LAYERS)
 #: (a): FSDP at B=8 in one worker, against the in-process DDP fit
 SHARD_B = 8
 SHARD_STEPS = 3
@@ -5681,7 +5714,7 @@ def _spec_bytes(world: int) -> dict:
     from ray_lightning_tpu_torch.parallel.layout import ShardLayout
     from ray_lightning_tpu_torch.parallel.mesh import Mesh
     from ray_lightning_tpu_torch.parallel.strategy import FullyShardedStrategy
-    model = GPTLightningModule(SHARD_MODEL).configure_model("meta")
+    model = GPTLightningModule(shard_config()).configure_model("meta")
     layout = ShardLayout({k: tuple(p.shape) for k, p in
                           model.named_parameters()}, FullyShardedStrategy(),
                          Mesh.abstract(("data",), {"data": world}))
@@ -5701,7 +5734,7 @@ def _local_fit(module, steps: int, seed: int, root: str, strategy: str,
 
 
 def sharded_phase(seed: int, card: str) -> dict:
-    """Phase 18 (module docstring): gpt2-1p3b at full width and depth
+    """Phase 18 (module docstring): gpt2-1p3b at full width, 8 layers
     under (a) ``RaySpmdPlugin(num_workers=1, strategy="fsdp")`` against
     the in-process DDP fit bit for bit, (b) tensor=2 over two ranks
     (NCCL on two cards, else both on card 0 over gloo) from (a)'s
@@ -5714,7 +5747,7 @@ def sharded_phase(seed: int, card: str) -> dict:
     from ray_lightning_tpu_torch.models.gpt import gpt_partition_rules
     from ray_lightning_tpu_torch.parallel.strategy import SpmdStrategy
     t_phase = time.monotonic()
-    cfg = CONFIGS[SHARD_MODEL]
+    cfg = shard_config()
     L, H32 = cfg.n_layer, cfg.n_head
     rows32 = tpu_rows(cfg.block_size, H32, cfg.head_dim, True)
     rows16 = tpu_rows(cfg.block_size, H32 // 2, cfg.head_dim, True)
@@ -5727,7 +5760,7 @@ def sharded_phase(seed: int, card: str) -> dict:
         def module_a():
             # an epoch of SHARD_STEPS: the save at (a)'s end is at an
             # epoch's end, where a resume and the uninterrupted fit agree
-            return GPTLightningModule(SHARD_MODEL, batch_size=SHARD_B,
+            return GPTLightningModule(cfg, batch_size=SHARD_B,
                                       warmup_steps=2,
                                       dataset_size=SHARD_B * SHARD_STEPS)
 
@@ -5809,7 +5842,7 @@ def sharded_phase(seed: int, card: str) -> dict:
             run_b = plugin_fit(this, RaySpmdPlugin(
                 num_workers=2, strategy=strategy,
                 timeout_s=SHARD_TIMEOUT_S),
-                GPTLightningModule(SHARD_MODEL, batch_size=TP_B,
+                GPTLightningModule(cfg, batch_size=TP_B,
                                    warmup_steps=2),
                 SHARD_STEPS + TP_STEPS, seed, base, ckpt=ckdir,
                 callbacks=[this.TensorParallelProbe(ckdir, seed)], ranks=2)
@@ -5843,7 +5876,7 @@ def sharded_phase(seed: int, card: str) -> dict:
         log("  (b') the unsharded fit from the checkpoint, B=2, in process")
         free_cuda()
         tr, clock = _local_fit(GPTLightningModule(
-            SHARD_MODEL, batch_size=TP_B, warmup_steps=2),
+            cfg, batch_size=TP_B, warmup_steps=2),
             SHARD_STEPS + TP_STEPS, seed, base, "ddp", ckpt=ckdir)
         del tr
         free_cuda()
@@ -5881,6 +5914,321 @@ def sharded_kernel_entries(gen, shapes=((SHARD_B, 1), (TP_B, 2))
     entries = {}
     for row, name, line, key in ((3, "flash_fwd", ":673", "fwd"),
                                  (9, "flash_bwd", ":753", "bwd")):
+        first = next(iter(res.values()))[key]
+        e = record(name, row, src + line, first["shape"],
+                   first["max_abs_err"], first, tol=first["tol"])
+        e.update({k: v for k, v in first.items() if k not in e})
+        e["by_shape"] = {s: r[key] for s, r in res.items()}
+        entries[row] = e
+    return entries
+
+
+# -- phase 19: the sequence, stage and expert axes -------------------------
+
+PAR_RANKS = 4
+PAR_STEPS = 3
+#: F1's bf16 bar, as phase 18's
+PAR_TOL = 2e-2
+#: (a)'s context: the long-context example's default
+RING_T = 8192
+#: (b)'s schedule: the pipeline example's defaults
+PIPE_STAGES, PIPE_MICRO, PIPE_B = 4, 4, 8
+#: the reports of ``ParallelProbe``, relayed to this process
+PAR_REPORTS: list = []
+
+
+def record_parallel(report: dict) -> None:
+    PAR_REPORTS.append(report)
+
+
+def _reference_module(module):
+    """The one-process module of a leg: the same config (the ring's with
+    ``attention_impl="flash"``), no mesh."""
+    from ray_lightning_tpu_torch.models.pipeline_gpt import PipelinedGPT
+    if isinstance(module, PipelinedGPT):
+        return PipelinedGPT(module.config,
+                            n_microbatches=module.n_microbatches,
+                            batch_size=module.batch_size)
+    cfg = module.config
+    if cfg.attention_impl == "ring":
+        cfg = dataclasses.replace(cfg, attention_impl="flash")
+    return GPTLightningModule(cfg, batch_size=module.batch_size)
+
+
+def _routed(model) -> list:
+    """The model's routed layers (ops/moe.py ``MoEMLP``), in order."""
+    from ray_lightning_tpu_torch.ops.moe import MoEMLP
+    return [m for m in model.modules() if isinstance(m, MoEMLP)]
+
+
+def _free_routing(errs: dict, flips: list) -> dict:
+    """The gradients against a reference that routed on its own: the
+    worst tensors, and each routed layer's share of tokens whose top-k
+    choices differ from this rank's."""
+    worst = sorted(errs, key=errs.get, reverse=True)[:4]
+    return {"grad_rel_l2_worst": {k: errs[k] for k in worst},
+            "tokens_routed_otherwise": flips}
+
+
+class ParallelProbe(Callback):
+    """(19) in each worker of a leg: at the first step's start, this
+    rank's loss and gradients of that step, synced as the step syncs
+    them and gathered whole; on rank 0 the one-process step on the
+    whole batch (a sequence leg's slices joined) from those whole
+    weights, with no mesh published, compared in per-tensor relative
+    L2 (and ``moe_aux``).  A routed model's reference runs twice: on its
+    own top-k choices (reported, with the share of tokens routed
+    otherwise: near-tied gates flip under bf16 rounding, and each flip
+    moves a token's whole gradient between experts) and on this rank's
+    choices (held to the bar).  The checks' launches are taken back from the
+    path's count.  Every step's loss, and rank 0's results, are relayed
+    to ``record_parallel``.  Module level, as ``chip_smoke.
+    ParallelProbe``: the payload is pickled by import path."""
+
+    def __init__(self, seed: int):
+        self.seed = seed
+
+    def on_fit_start(self, trainer, module):
+        self.losses, self.checked = [], None
+
+    def on_train_batch_start(self, trainer, module, batch, batch_idx):
+        if self.checked is not None:
+            return
+        from ray_lightning_tpu_torch.ops.moe import total_aux_loss
+        from ray_lightning_tpu_torch.parallel.mesh import (
+            all_gather_along, axis_group, set_current_mesh)
+        before = _kernels.launch_counts()
+        layout, dev = trainer._layout, trainer.device
+        batch = tuple(x.to(dev) for x in batch)
+        loss, grads = _grads(module, batch, self.seed, trainer.state.step)
+        aux = total_aux_loss(module.model)
+        names = list(grads)
+        sync = layout.grad_sync()
+        if sync is not None:
+            grads = dict(zip(names, sync([grads[n] for n in names])))
+        full_p = {n: layout.full_tensor(n, p.detach()) for n, p in
+                  module.model.named_parameters()}
+        full_g = {n: layout.full_tensor(n, g) for n, g in grads.items()}
+        sp = axis_group("sequence", layout.mesh)
+        if sp is not None:
+            batch = tuple(all_gather_along(x, 1, sp.group) for x in batch)
+        self.checked = {"rank": trainer.global_rank,
+                        "backend": layout.mesh.backend,
+                        "mesh": dict(layout.mesh.shape)}
+        if trainer.global_rank == 0:
+            ref = _reference_module(module)
+            routes = [m.last_idx for m in _routed(module.model)]
+            set_current_mesh(None)
+            try:
+                ref.setup_model(dev)
+                if ref.param_dtype is not None:
+                    ref.model.to(dtype=ref.param_dtype)
+                ref.model.load_state_dict(full_p)
+                ref_loss, ref_g = _grads(ref, batch, self.seed,
+                                         trainer.state.step)
+                if routes:
+                    # the free reference's top-k choices against this
+                    # rank's, then the reference again on this rank's
+                    # choices: the gradients held to the bar are those
+                    # of one routing
+                    free = _free_routing(grads_rel_l2(full_g, ref_g), [
+                        (m.last_idx != r).any(-1).float().mean().item()
+                        for m, r in zip(_routed(ref.model), routes)])
+                    self.checked["free_routing"] = free
+                    for m, r in zip(_routed(ref.model), routes):
+                        m.pinned_idx = r
+                    ref_loss, ref_g = _grads(ref, batch, self.seed,
+                                             trainer.state.step)
+                ref_aux = total_aux_loss(ref.model)
+            finally:
+                set_current_mesh(layout.mesh)
+            errs = grads_rel_l2(full_g, ref_g)
+            worst = max(errs, key=errs.get)
+            self.checked.update(
+                loss=float(loss), unsharded_loss=float(ref_loss),
+                grad_rel_l2_max=errs[worst], grad_worst=worst,
+                grad_tensors=len(errs),
+                moe_aux=None if aux is None else float(aux),
+                unsharded_moe_aux=None if ref_aux is None
+                else float(ref_aux))
+            del ref, ref_g
+        del full_p, full_g, grads
+        after = _kernels.launch_counts()
+        _kernels.add_launches({k: before.get(k, 0) - v
+                               for k, v in after.items()})
+        torch.cuda.empty_cache()
+
+    def on_train_batch_end(self, trainer, module, outputs, batch, i):
+        self.losses.append(float(outputs["loss"]))
+
+    def on_fit_end(self, trainer, module):
+        report = {**self.checked, "losses": self.losses}
+        if trainer.plugin.remote:
+            from ray_lightning_tpu_torch import session
+            session.put_queue(functools.partial(record_parallel, report))
+        else:
+            record_parallel(report)
+
+
+def parallel_leg(this, name: str, train, local_module, seed: int,
+                 base: str, leg: str, **train_kw) -> dict:
+    """One leg of phase 19: ``train`` (an example's entry point) over
+    ``PAR_RANKS`` workers for ``PAR_STEPS`` steps with the probes, then
+    ``local_module`` fit in this process for as many steps; the first
+    step's loss and gradients and the three losses held within
+    ``PAR_TOL``.  Returns the per-rank reports and the checks."""
+    this.PROBES.clear()
+    this.PAR_REPORTS.clear()
+    t0 = time.monotonic()
+    train(max_steps=PAR_STEPS, default_root_dir=base,
+          callbacks=[this.PluginProbe(), this.ParallelProbe(seed)],
+          **train_kw)
+    wall = time.monotonic() - t0
+    probes = sorted(this.PROBES, key=lambda r: r["rank"])
+    reps = {r["rank"]: r for r in this.PAR_REPORTS}
+    this.PROBES.clear()
+    this.PAR_REPORTS.clear()
+    if len(probes) != PAR_RANKS or sorted(reps) != list(range(PAR_RANKS)):
+        raise AssertionError(f"({name}): {len(probes)} probe and "
+                             f"{sorted(reps)} rank reports")
+    r0 = reps[0]
+    free_cuda()
+    clock = StepClock()
+    Trainer(max_steps=PAR_STEPS, seed=seed, callbacks=[clock],
+            device="cuda", default_root_dir=base, precision="bf16",
+            enable_checkpointing=False, logger=False,
+            num_sanity_val_steps=0, limit_val_batches=0).fit(local_module)
+    free_cuda()
+    loss_err = abs(r0["loss"] - r0["unsharded_loss"]) / abs(
+        r0["unsharded_loss"])
+    rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], clock.losses)]
+    out = {"leg": leg, "backend": r0["backend"], "mesh": r0["mesh"],
+           "wall_s": wall,
+           "step_ms": [p["step_ms"] for p in probes],
+           "step_ms_median": float(np.median(
+               [m for p in probes for m in p["step_ms"][1:]])),
+           "peak_gb": [(p["peak_bytes"] or 0) / 1e9 for p in probes],
+           "launches": [{k: p["launches"].get(k, 0) for k in
+                         ("flash_fwd", "flash_bwd")} for p in probes],
+           "first_step": {k: r0[k] for k in (
+               "loss", "unsharded_loss", "grad_rel_l2_max", "grad_worst",
+               "grad_tensors", "moe_aux", "unsharded_moe_aux")},
+           "free_routing": r0.get("free_routing"),
+           "losses": r0["losses"], "one_process_losses": clock.losses,
+           "one_process_step_ms": clock.ms}
+    log(f"  ({name}) {leg}: step {out['step_ms_median']:.1f} ms (median "
+        f"of steps 2-{PAR_STEPS} over the ranks), peak "
+        f"{', '.join(f'{g:.2f}' for g in out['peak_gb'])} GB a rank; "
+        f"first step loss {r0['loss']:.5f} vs one process "
+        f"{r0['unsharded_loss']:.5f} (rel {loss_err:.2e}), gradients max "
+        f"rel L2 {r0['grad_rel_l2_max']:.3e} ({r0['grad_worst']}) over "
+        f"{r0['grad_tensors']} tensors; losses {r0['losses']} vs "
+        f"{clock.losses} (tol {PAR_TOL}); launches a rank "
+        f"{out['launches']}")
+    bad = (loss_err > PAR_TOL or not r0["grad_rel_l2_max"] <= PAR_TOL
+           or len(rel) != PAR_STEPS or not max(rel) <= PAR_TOL)
+    if r0["moe_aux"] is not None:
+        aux_err = abs(r0["moe_aux"] - r0["unsharded_moe_aux"]) / abs(
+            r0["unsharded_moe_aux"])
+        out["moe_aux_rel"] = aux_err
+        log(f"  ({name}) moe_aux {r0['moe_aux']:.5f} vs one process "
+            f"{r0['unsharded_moe_aux']:.5f} (rel {aux_err:.2e}); the "
+            f"reference on its own routing: {r0['free_routing']}")
+        bad = bad or not aux_err <= PAR_TOL
+    if bad:
+        raise AssertionError(f"({name}): off the one-process run: {out}")
+    return out
+
+
+def parallel_phase(seed: int, card: str) -> dict:
+    """Phase 19 (module docstring): the long-context, pipeline and MoE
+    examples at their defaults over four ranks (NCCL with four cards,
+    else all on card 0 over gloo), each against the one-process run.
+    Its launches are (b)'s and (c)'s ranks' (rows 1 and 6 under
+    ``pipeline`` and ``moe_ep``), not the references' or the checks'."""
+    import chip_smoke as this
+    from ray_lightning_tpu_torch.examples import (ray_longcontext_example,
+                                                  ray_moe_example,
+                                                  ray_pipeline_example)
+    from ray_lightning_tpu_torch.models.pipeline_gpt import PipelinedGPT
+    t_phase = time.monotonic()
+    nccl = torch.cuda.device_count() >= PAR_RANKS
+    leg = ("nccl, one rank a card" if nccl else
+           "gloo, all four ranks on card 0: every exchange through the "
+           "host (a correctness leg, host-bound)")
+    small = CONFIGS["gpt2-small"]
+    out: dict = {"card": card, "leg": leg}
+    with tempfile.TemporaryDirectory() as base, scoped_env(
+            **({} if nccl else {"RLT_ONE_CARD_GLOO": "1"})):
+        free_cuda()
+        T = RING_T
+        log(f"  (a) ring attention: gpt2-small, T={T}, sequence="
+            f"{PAR_RANKS}, B=1 ({leg})")
+        out["a"] = parallel_leg(
+            this, "a", ray_longcontext_example.train,
+            GPTLightningModule(dataclasses.replace(
+                small, block_size=T, attention_impl="flash"),
+                dataset_size=8, batch_size=1), seed, base, leg, seq_len=T)
+        Tl, R = T // PAR_RANKS, PAR_RANKS
+        kv = 1 * Tl * small.n_embd * 4          # one of k / v, fp32
+        out["a"]["ring_bytes_a_step_a_rank"] = small.n_layer * kv * (
+            2 * (R - 1) + 4 * (R - 1) + 2)
+
+        L, S, M, B = small.n_layer, PIPE_STAGES, PIPE_MICRO, PIPE_B
+        log(f"  (b) pipeline: PipelinedGPT(gpt2-small, n_microbatches={M}),"
+            f" stages={S}, B={B}, T={small.block_size} ({leg})")
+        out["b"] = parallel_leg(
+            this, "b", ray_pipeline_example.train,
+            PipelinedGPT("gpt2-small", n_microbatches=M, dataset_size=64,
+                         batch_size=B), seed, base, leg)
+        # each rank computes M microbatches through its L / S layers, in
+        # the forward and in the backward, each step
+        per_step = (L // S) * M
+        want = {"flash_fwd": per_step * PAR_STEPS,
+                "flash_bwd": per_step * PAR_STEPS}
+        for r, got in enumerate(out["b"]["launches"]):
+            check_launches(f"(b) rank {r}", got, want)
+        act = (B // M) * small.block_size * small.n_embd * 2
+        out["b"]["launches_formula"] = (
+            "flash_fwd = flash_bwd = (n_layer / stages) x microbatches x "
+            f"steps = {L // S} x {M} x {PAR_STEPS} a rank")
+        out["b"]["bytes_a_step_a_rank"] = {
+            "p2p": 2 * (M + S - 1) * act,
+            "all_reduce": 2 * B * small.block_size * small.n_embd * 2}
+
+        moe = CONFIGS["gpt2-moe-8e"]
+        log(f"  (c) experts: gpt2-moe-8e, expert=2, tensor=2, B=8, "
+            f"T={moe.block_size} ({leg})")
+        out["c"] = parallel_leg(
+            this, "c", ray_moe_example.train,
+            GPTLightningModule(moe, dataset_size=64, batch_size=8), seed,
+            base, leg)
+        # every layer's attention on H/2 heads; "dots" recomputes it in
+        # the backward
+        fwd = moe.n_layer * (2 if moe.remat and moe.remat_policy != "off"
+                             else 1)
+        want = {"flash_fwd": fwd * PAR_STEPS,
+                "flash_bwd": moe.n_layer * PAR_STEPS}
+        for r, got in enumerate(out["c"]["launches"]):
+            check_launches(f"(c) rank {r}", got, want)
+    out["launches"] = {
+        path: {k: sum(r[k] for r in out[x]["launches"])
+               for k in ("flash_fwd", "flash_bwd")}
+        for path, x in (("pipeline", "b"), ("moe_ep", "c"))}
+    out["seconds"] = time.monotonic() - t_phase
+    log("parallel " + json.dumps(out, default=str))
+    return out
+
+
+def parallel_kernel_entries(gen) -> "dict[int, dict]":
+    """Rows 1 and 6 at phase 19's shapes: a microbatch of (b), B=2
+    T=1024 H=12, and a tensor=2 rank of (c), B=8 T=1024 H=6."""
+    src = "ray_lightning_tpu/ops/flash_attention.py"
+    res = {f"B={b} H={h}": long_kernel_shape(gen, b, 1024, h)
+           for b, h in ((PIPE_B // PIPE_MICRO, 12), (8, 6))}
+    entries = {}
+    for row, name, line, key in ((1, "flash_fwd", ":298", "fwd"),
+                                 (6, "flash_bwd", ":329", "bwd")):
         first = next(iter(res.values()))[key]
         e = record(name, row, src + line, first["shape"],
                    first["max_abs_err"], first, tol=first["tol"])
@@ -5949,6 +6297,11 @@ def main(argv=None) -> int:
                          "ranks, the sharded checkpoint), then check and "
                          "time flash_fwd and flash_bwd at its shapes "
                          "(rows 3 and 9)")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="build, run phase 19 (ring attention, the GPipe "
+                         "pipeline and expert parallelism over four ranks), "
+                         "then check and time flash_fwd and flash_bwd at "
+                         "its shapes (rows 1 and 6)")
     ap.add_argument("--tune-only", action="store_true",
                     help="build, run phase 12 (Tune: PBT over MNIST, "
                          "gpt2-small trials under RayPlugin, in-process "
@@ -5968,7 +6321,8 @@ def main(argv=None) -> int:
     # the whole run starts with phase 16, the driver off CUDA
     full = not (driver_off_cuda or args.fwd_only or args.bwd_only
                 or args.decode_only or args.trainer_only
-                or args.ladder_only or args.sharded_only)
+                or args.ladder_only or args.sharded_only
+                or args.parallel_only)
     if not (driver_off_cuda or full):  # the device's name initialises CUDA
         log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
             f"{torch.cuda.get_device_name(0)}")
@@ -6078,6 +6432,22 @@ def main(argv=None) -> int:
             e["launches_by_path"] = {"sharded": sharded["launches"][e["name"]]}
             e["launches"] = e["launches_by_path"]["sharded"]
         log(json.dumps({"kernels": [entries[3], entries[9]]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if args.parallel_only:
+        log("parallel phase")
+        par = parallel_phase(args.seed, card_line())
+        log(f"parallel phase: {par['seconds']:.1f} s")
+        free_cuda()
+        log("kernel phase (rows 1 and 6 at the parallel shapes)")
+        entries = parallel_kernel_entries(gen)
+        for e in entries.values():
+            e["launches_by_path"] = {path: par["launches"][path][e["name"]]
+                                     for path in ("pipeline", "moe_ep")}
+            e["launches"] = sum(e["launches_by_path"].values())
+        log(json.dumps({"kernels": [entries[1], entries[6]]}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -6263,6 +6633,19 @@ def main(argv=None) -> int:
         e["launches_by_path"]["sharded"] = sharded["launches"][e["name"]]
         e["launches"] = sum(e["launches_by_path"].values())
     log(f"sharded phase: {sharded['seconds']:.1f} s")
+
+    log("parallel phase")
+    free_cuda()
+    par = parallel_phase(args.seed, card)
+    free_cuda()
+    shapes = parallel_kernel_entries(gen)
+    for row in (1, 6):
+        e = by_row[row]
+        e.setdefault("by_shape", {}).update(shapes[row]["by_shape"])
+        for path in ("pipeline", "moe_ep"):
+            e["launches_by_path"][path] = par["launches"][path][e["name"]]
+        e["launches"] = sum(e["launches_by_path"].values())
+    log(f"parallel phase: {par['seconds']:.1f} s")
     log("speed order (rows slower than their library call by that factor, "
         "then by launches x (ms - bound)): " + ", ".join(
             f"{e['name'] if e['row'] is None else 'row %d' % e['row']} "

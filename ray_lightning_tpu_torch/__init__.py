@@ -60,6 +60,7 @@ from ray_lightning_tpu_torch.models.boring import (BoringModel,
                                                    LightningMNISTClassifier)
 from ray_lightning_tpu_torch.models.gpt import (CONFIGS, GPT, GPTConfig,
                                                 GPTLightningModule)
+from ray_lightning_tpu_torch.models.pipeline_gpt import PipelinedGPT
 from ray_lightning_tpu_torch.models.resnet import (ResNet, ResNetConfig,
                                                    ResNetLightningModule)
 from ray_lightning_tpu_torch.plugins import (LocalPlugin, RayPlugin,
@@ -92,6 +93,7 @@ __all__ = [
     "LightningModule",
     "LocalPlugin",
     "ModelCheckpoint",
+    "PipelinedGPT",
     "RayPlugin",
     "RayShardedPlugin",
     "RaySpmdPlugin",

@@ -23,7 +23,12 @@ engine's params), or a variables dict that adds ResNet's
   ``bias``, and from ``batch_stats`` ``mean`` -> ``running_mean``,
   ``var`` -> ``running_var``; ``head`` a linear layer;
 - the test-fixture models (models/boring.py): ``Dense_{i}`` as linear
-  layers of the same names.
+  layers of the same names;
+- the pipelined GPT (models/pipeline_gpt.py): the raw ``wte`` and
+  ``wpe``, ``ln_f``, and the layer-stacked ``blocks/...`` (a leading
+  ``n_layer`` dim) as the stacked ``blocks.`` tensors, each layer's
+  kernel transposed; :func:`unstack_blocks` / :func:`stack_blocks` move
+  them to and from per-layer ``h.{i}.`` names, the GPT's.
 
 An unknown path raises.  ``torch_to_flax(state, template)`` is the way
 back, onto a flax tree's paths and dtypes.  Dtypes are kept: a bf16 array becomes a bf16
@@ -89,7 +94,11 @@ _LINEAR = re.compile(r"^(?:(encoder)/h(\d+)/(attn/qkv|attn/proj|fc|out)"
                      r"/(kernel|bias)$")
 _NORM = re.compile(r"^(?:(encoder)/)?(?:h(\d+)/)?(ln1|ln2|ln_f)/"
                    r"(scale|bias)$")
-_EMBED = re.compile(r"^(?:(encoder)/)?(wte/embedding|wpe)$")
+_EMBED = re.compile(r"^(?:(encoder)/)?(wte/embedding|wpe|wte)$")
+#: the pipelined GPT's layer-stacked blocks (leading dim: the layers)
+_STACKED = re.compile(r"^blocks/(?:(attn/qkv|attn/proj|mlp/fc|mlp/out)"
+                      r"/(kernel|bias)|(ln1|ln2)/(scale|bias))$")
+_STACKED_PERM = (0, 2, 1)
 _MOE = re.compile(r"^h(\d+)/moe/(router|w1|w2)$")
 #: ResNet (models/resnet.py): the stem, each block's convs and its
 #: projection, and their BatchNorms (a block's own tree has no prefix)
@@ -117,6 +126,13 @@ def _torch_key(path: str) -> "tuple[str, tuple | None]":
         prefix, leaf = m.groups()
         return _name(prefix, None,
                      leaf.replace("/embedding", ".weight")), None
+    if m := _STACKED.match(path):
+        lin, lin_leaf, norm, norm_leaf = m.groups()
+        mod, leaf = (lin, lin_leaf) if lin else (norm, norm_leaf)
+        name = "blocks." + mod.replace("/", ".")
+        if leaf == "kernel":
+            return f"{name}.weight", _STACKED_PERM
+        return f"{name}.{'weight' if leaf == 'scale' else 'bias'}", None
     if m := _MOE.match(path):
         return f"h.{m.group(1)}.moe.{m.group(2)}", None
     if m := _LINEAR.match(path):
@@ -235,6 +251,37 @@ def shards_to_flax(state: Mapping, layout, template: Mapping) -> dict:
     return torch_to_flax(fetch_tree(dict(state), layout), template)
 
 
+def unstack_blocks(state: Mapping) -> "dict[str, torch.Tensor]":
+    """A pipelined GPT's state (its stacked ``blocks.`` tensors) with
+    per-layer names: ``blocks.X`` [L, ...] becomes ``h.{i}.X`` for each
+    layer ``i``, the GPT's names (models/gpt.py); the rest as it is."""
+    out = {}
+    for k, v in state.items():
+        if k.startswith("blocks."):
+            for i, layer in enumerate(v.unbind(0)):
+                out[f"h.{i}.{k[len('blocks.'):]}"] = layer
+        else:
+            out[k] = v
+    return out
+
+
+def stack_blocks(state: Mapping) -> "dict[str, torch.Tensor]":
+    """The inverse of :func:`unstack_blocks`: per-layer ``h.{i}.X``
+    tensors stacked in layer order as ``blocks.X``."""
+    layers: "dict[str, dict[int, torch.Tensor]]" = {}
+    out = {}
+    for k, v in state.items():
+        if m := re.match(r"^h\.(\d+)\.(.+)$", k):
+            layers.setdefault(m.group(2), {})[int(m.group(1))] = v
+        else:
+            out[k] = v
+    for rest, by in layers.items():
+        if sorted(by) != list(range(len(by))):
+            raise KeyError(f"h.{{i}}.{rest}: layers {sorted(by)}")
+        out[f"blocks.{rest}"] = torch.stack([by[i] for i in range(len(by))])
+    return out
+
+
 def _empty(node) -> bool:
     """An ``optax.EmptyState`` (a NamedTuple without fields)."""
     return hasattr(node, "_fields") and not node._fields
@@ -342,4 +389,4 @@ def jax_checkpoint_to_torch(ckpt: Mapping) -> dict:
 
 __all__ = ["flax_opt_state_to_torch", "flax_path", "flax_to_shards",
            "flax_to_torch", "jax_checkpoint_to_torch", "shards_to_flax",
-           "to_tensor", "torch_to_flax"]
+           "stack_blocks", "to_tensor", "torch_to_flax", "unstack_blocks"]

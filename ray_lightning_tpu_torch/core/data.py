@@ -115,7 +115,8 @@ class DataLoader:
                  shuffle: bool = False, drop_last: bool = False,
                  seed: int = 0, collate_fn: "Callable | None" = None,
                  num_shards: int = 1, shard_index: int = 0,
-                 prefetch: bool = True):
+                 prefetch: bool = True, seq_shards: int = 1,
+                 seq_index: int = 0):
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
@@ -125,18 +126,47 @@ class DataLoader:
         self.num_shards = num_shards
         self.shard_index = shard_index
         self.prefetch = prefetch
+        self.seq_shards = seq_shards
+        self.seq_index = seq_index
         self._epoch = 0
 
     def shard(self, num_shards: int, shard_index: int) -> "DataLoader":
         """A copy of this loader restricted to one rank's shard (the
         ``DistributedSampler`` analog)."""
-        clone = DataLoader(self.dataset, batch_size=self.batch_size,
-                           shuffle=self.shuffle, drop_last=self.drop_last,
-                           seed=self.seed, collate_fn=self.collate_fn,
-                           num_shards=num_shards, shard_index=shard_index,
-                           prefetch=self.prefetch)
+        return self._clone(num_shards=num_shards, shard_index=shard_index)
+
+    def slice_sequence(self, seq_shards: int, seq_index: int
+                       ) -> "DataLoader":
+        """A copy of this loader whose batches hold one sequence rank's
+        slice of dim 1 of every leaf with two or more dims (a
+        ``sequence`` mesh axis' batch spec, ``P(data, "sequence")``)."""
+        return self._clone(seq_shards=seq_shards, seq_index=seq_index)
+
+    def _clone(self, **kw) -> "DataLoader":
+        args = dict(batch_size=self.batch_size, shuffle=self.shuffle,
+                    drop_last=self.drop_last, seed=self.seed,
+                    collate_fn=self.collate_fn, num_shards=self.num_shards,
+                    shard_index=self.shard_index, prefetch=self.prefetch,
+                    seq_shards=self.seq_shards, seq_index=self.seq_index)
+        clone = DataLoader(self.dataset, **{**args, **kw})
         clone._epoch = self._epoch
         return clone
+
+    def _seq_slice(self, batch):
+        if self.seq_shards == 1:
+            return batch
+        if isinstance(batch, (tuple, list)):
+            return type(batch)(self._seq_slice(b) for b in batch)
+        if isinstance(batch, dict):
+            return {k: self._seq_slice(v) for k, v in batch.items()}
+        if not isinstance(batch, torch.Tensor) or batch.dim() < 2:
+            return batch
+        t, n = batch.shape[1], self.seq_shards
+        if t % n:
+            raise ValueError(f"a sequence of {t} does not split over "
+                             f"{n} sequence ranks")
+        return batch.narrow(1, self.seq_index * (t // n),
+                            t // n).contiguous()
 
     def set_epoch(self, epoch: int) -> None:
         """Reshuffle deterministically per epoch."""
@@ -173,7 +203,8 @@ class DataLoader:
         if fast and self.prefetch and end > 0:
             native_iter = self._native_iter(idx[:end])
             if native_iter is not None:
-                yield from native_iter
+                for batch in native_iter:
+                    yield self._seq_slice(batch)
                 return
         for start in range(0, end, self.batch_size):
             batch_idx = idx[start:start + self.batch_size]
@@ -182,7 +213,7 @@ class DataLoader:
             else:
                 batch = self.collate_fn([self.dataset[int(i)]
                                          for i in batch_idx])
-            yield to_device(batch, None)
+            yield self._seq_slice(to_device(batch, None))
 
     def _native_iter(self, idx: np.ndarray) -> "Iterator[Any] | None":
         """The epoch through the C++ prefetch runtime

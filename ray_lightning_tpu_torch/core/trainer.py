@@ -457,6 +457,22 @@ class Trainer:
                 and mesh.batch_size > 1 and hasattr(src, "shard"):
             # the batch shards: a tensor group's ranks read the same
             src = src.shard(mesh.batch_size, mesh.batch_index)
+        seq = mesh.shape.get("sequence", 1)
+        if src is not None and seq > 1:
+            # the batch spec P(data, "sequence"): each rank its slice of
+            # the inputs' and the targets' dim 1
+            if not getattr(self.plugin.strategy, "shard_sequence_dim",
+                           False):
+                raise ValueError(
+                    "a sequence axis over 1 needs shard_sequence_dim=True: "
+                    "ring attention takes each rank's slice of the "
+                    "sequence")
+            if not hasattr(src, "slice_sequence"):
+                raise TypeError(
+                    f"a sequence axis over 1 slices the batches' dim 1 in "
+                    f"the loader; {type(src).__name__} has no "
+                    f"slice_sequence (use core.data.DataLoader)")
+            src = src.slice_sequence(seq, mesh.coords["sequence"])
         return src
 
     def _build_loaders(self, stage: str) -> dict:
@@ -564,9 +580,10 @@ class Trainer:
         if self.cache_train_dataset and not self._cache_disabled:
             if self._mesh.batch_size != self.world_size:
                 raise NotImplementedError(
-                    "cache_train_dataset with a tensor axis over 1 (the "
-                    "cached set is repacked over every rank as a batch "
-                    "shard): ROADMAP.md queue 1 item 9")
+                    "cache_train_dataset with a tensor, expert, sequence "
+                    "or stage axis over 1 (the cached set is repacked "
+                    "over every rank as a batch shard): ROADMAP.md queue "
+                    "1 item 9")
             if self._cache_source is None \
                     and CachedSource.usable(train_loader):
                 src = CachedSource(self, train_loader)

@@ -64,9 +64,10 @@ from ray_lightning_tpu_torch.ops.moe import (MoEMLP, moe_partition_rules,
                                              total_aux_loss)
 from ray_lightning_tpu_torch.ops.optim import AdamW, fp32_master
 from ray_lightning_tpu_torch.parallel.layout import gathered
+from ray_lightning_tpu_torch.parallel.mesh import all_gather_along
 from ray_lightning_tpu_torch.parallel.strategy import P
 from ray_lightning_tpu_torch.parallel.tensor import (copy_to, gather_from,
-                                                     vocab_embed)
+                                                     mean_from, vocab_embed)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,11 +191,13 @@ class MLP(nn.Module):
         self.out = nn.Linear(4 * cfg.n_embd, cfg.n_embd)
         #: the tensor-parallel group (``fc`` column-, ``out`` row-parallel)
         self.tp = None
+        #: the sequence group (the dropout masks' slice)
+        self.sp = None
 
     def forward(self, x, dropout_seed: "int | None" = None):
         h = gelu_tanh(column_linear(self.fc, x, self.dtype, self.tp))
         return dropout(row_linear(self.out, h, self.dtype, self.tp),
-                       self.dropout, dropout_seed)
+                       self.dropout, dropout_seed, self.sp)
 
 
 class Block(nn.Module):
@@ -285,6 +288,8 @@ class GPT(nn.Module):
         self._remat = policy_object(self.remat_policy)
         self.moe_aux: "torch.Tensor | None" = None
         self.tp = None
+        #: the sequence group (positions, the loss's mean, predict)
+        self.sp = None
         tag = self.remat_policy in MOE_POLICIES
         with torch.device(resolve_device(device)):
             self.wte = nn.Embedding(config.vocab_size, config.n_embd)
@@ -331,11 +336,15 @@ class GPT(nn.Module):
         return gather_from((x.to(dt) @ table.to(dt).t()).float(), self.tp)
 
     def _embed(self, idx, table: "torch.Tensor | None" = None):
+        """The token and position embeddings; on a ``sequence`` axis over
+        1 ``idx`` is this rank's slice of the sequence, so its positions
+        start at ``rank * T_local``."""
         dt = self.config.dtype
         T = idx.shape[1]
+        start = 0 if self.sp is None else self.sp.rank * T
         table = self.table() if table is None else table
         return vocab_embed(table, idx, dt, self.tp) \
-            + gathered(self.wpe)[:T].to(dt)
+            + gathered(self.wpe)[start:start + T].to(dt)
 
     def hidden(self, idx, dropout_seed: "int | None" = None):
         """Pre-head representation ``[B, T, C]`` in the compute dtype;
@@ -560,21 +569,29 @@ class GPTLightningModule(LightningModule):
     def _loss(self, ctx, batch):
         """Fused full-vocab CE by default; the chunked CE when
         ``chunked_ce > 0``; the fp32-logits CE under ``RLT_FUSED_CE=0``
-        (ops/losses.py)."""
+        (ops/losses.py).  On a ``sequence`` axis over 1 each rank's mean
+        over its slice is averaged over the sequence ranks
+        (parallel/tensor.py ``mean_from``)."""
         x, y = batch
         model = ctx.model
         seed = ctx.dropout_seed(self.config.dropout)
+        sp = model.sp
+        if sp is not None and self.config.n_experts > 0:
+            raise NotImplementedError(
+                "a routed (MoE) GPT on a sequence axis: its capacity slots "
+                "and load-balance loss count over the whole sequence, "
+                "which no rank holds")
         if self.config.chunked_ce > 0:
             h, table = model.hidden_and_table(x, seed)
-            return chunked_softmax_cross_entropy(h, table, y,
-                                                 self.config.chunked_ce,
-                                                 tp=model.tp)
+            return mean_from(chunked_softmax_cross_entropy(
+                h, table, y, self.config.chunked_ce, tp=model.tp), sp)
         if os.environ.get("RLT_FUSED_CE", "1") != "0":
             h, table = model.hidden_and_table(x, seed)
-            return fused_lm_cross_entropy(h, table, y, tp=model.tp)
+            return mean_from(fused_lm_cross_entropy(h, table, y,
+                                                    tp=model.tp), sp)
         logits = model(x, seed)
-        return (torch.logsumexp(logits, dim=-1)
-                - logits.gather(-1, y.long()[..., None])[..., 0]).mean()
+        return mean_from((torch.logsumexp(logits, dim=-1) - logits.gather(
+            -1, y.long()[..., None])[..., 0]).mean(), sp)
 
     def training_step(self, ctx, batch):
         """The LM loss; with routed layers plus ``moe_aux_weight`` times
@@ -595,9 +612,12 @@ class GPTLightningModule(LightningModule):
         ctx.log("test_loss", self._loss(ctx, batch))
 
     def predict_step(self, ctx, batch):
-        """The argmax token at every position of the full forward."""
+        """The argmax token at every position of the full forward (on a
+        ``sequence`` axis over 1, the ranks' slices joined)."""
         x = batch[0] if isinstance(batch, (tuple, list)) else batch
-        return torch.argmax(ctx.model(x), dim=-1)
+        out = torch.argmax(ctx.model(x), dim=-1)
+        sp = ctx.model.sp
+        return out if sp is None else all_gather_along(out, 1, sp.group)
 
     def _loader(self, seed):
         ds = synthetic_lm_dataset(self.dataset_size, self.config.block_size,

@@ -8,6 +8,15 @@ Counterpart of ``ray_lightning_tpu/ops/attention.py``:
   (ops/flash_attention.py: forward and, under autograd, backward), a
   CPU tensor the plain attention (differentiable by autograd), as the
   JAX package picks the Pallas kernels on the TPU only;
+- ``"local"`` — the same choice (the JAX ``local_attention``: a
+  pipeline stage's attention, which never reads the mesh;
+  parallel/pipeline.py);
+- ``"ring"`` — ring attention over the ``sequence`` group
+  (parallel/ring.py): a model's, which the sharded layout sets on the
+  modules (``sp``, as ``tp``; a remat recompute runs on the autograd
+  engine's thread, where the trainer's published mesh is not seen),
+  else the current mesh's; with a sequence group every other choice
+  raises, since it would see this rank's slice of the sequence only;
 - :func:`cached_attention` — attention against the slot KV cache (the
   decode core; its multi-query form is the speculative verify): the
   flash-decode kernel, its paged form, or the dense path;
@@ -68,15 +77,15 @@ def auto_attention(q, k, v, **kw):
 
 
 def resolve_attention(impl: str) -> Callable:
-    if impl == "auto":
+    if impl in ("auto", "local"):
         return auto_attention
     if impl == "dot":
         return dot_product_attention
     if impl == "flash":
         return flash_attention
-    if impl in ("ring", "local"):
-        raise NotImplementedError(
-            f"attention_impl={impl!r} is not ported yet")
+    if impl == "ring":
+        from ray_lightning_tpu_torch.parallel.ring import ring_attention
+        return ring_attention
     raise ValueError(f"Unknown attention_impl {impl!r}")
 
 
@@ -225,17 +234,26 @@ def dropout_keep_mask(shape, keep_prob: float, seed: "Key | int",
     return as_key(seed, device).uniform(shape) < keep_prob
 
 
-def dropout(x, rate: float, seed: "Key | int | None"):
+def dropout(x, rate: float, seed: "Key | int | None", sp=None):
     """flax ``nn.Dropout(rate)`` in training: ``where(keep, x / keep_prob,
     0)`` in ``x``'s dtype, the mask from ``seed``
     (:func:`dropout_keep_mask`); the identity when ``seed`` is ``None``
-    (flax's ``deterministic=True``) or ``rate`` is 0."""
+    (flax's ``deterministic=True``) or ``rate`` is 0.  With ``sp`` (the
+    sequence group: ``x`` [B, T_local, ...] is this rank's slice of dim
+    1) the mask is the whole sequence's, drawn whole and sliced, so it
+    equals the unsharded one."""
     if seed is None or rate <= 0:
         return x
     if rate >= 1:
         return torch.zeros_like(x)
     keep_prob = 1.0 - rate
-    keep = dropout_keep_mask(x.shape, keep_prob, seed, x.device)
+    if sp is None:
+        keep = dropout_keep_mask(x.shape, keep_prob, seed, x.device)
+    else:
+        t = x.shape[1]
+        whole = (x.shape[0], t * sp.size) + tuple(x.shape[2:])
+        keep = dropout_keep_mask(whole, keep_prob, seed,
+                                 x.device).narrow(1, sp.rank * t, t)
     # divide, as flax does: x * (1 / keep_prob) rounds otherwise in bf16
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                           device=x.device))
@@ -310,6 +328,8 @@ class MultiHeadAttention(nn.Module):
         self.qkv = nn.Linear(n_embd, 3 * n_embd)
         self.proj = nn.Linear(n_embd, n_embd)
         self.tp = None
+        #: the sequence group (ring attention, the dropout masks' slice)
+        self.sp = None
 
     def _qkv(self, x):
         B, T, C = x.shape
@@ -325,11 +345,18 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x, dropout_seed: "int | None" = None):
         B, T, C = x.shape
+        sp = self.sp
+        if sp is not None and self.attention_impl != "ring":
+            raise ValueError(
+                f"attention_impl={self.attention_impl!r} on a mesh with "
+                f"sequence={sp.size} attends over this rank's slice of "
+                f"the sequence only; use attention_impl='ring'")
         q, k, v = self._qkv(x)
         attend = resolve_attention(self.attention_impl)
-        y = attend(q, k, v, causal=self.causal, dtype=self.dtype)
+        kw = {} if sp is None else {"group": sp}
+        y = attend(q, k, v, causal=self.causal, dtype=self.dtype, **kw)
         y = row_linear(self.proj, y.reshape(B, T, -1), self.dtype, self.tp)
-        return dropout(y, self.dropout, dropout_seed), (k, v)
+        return dropout(y, self.dropout, dropout_seed, sp), (k, v)
 
     def decode(self, x, k_cache, v_cache, positions,
                impl: "str | None" = None, page_table=None,

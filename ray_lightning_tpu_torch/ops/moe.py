@@ -27,9 +27,21 @@ carry their names (core/remat.py ``checkpoint_name``) when the model's
 remat policy is one of the MoE save lists.  Under a sharded layout the
 weights are gathered at use (parallel/layout.py), and on a ``tensor``
 axis (``moe_partition_rules``) each expert's FFN is Megatron-split:
-``w1`` column-, ``w2`` row-parallel, the router whole.  Expert
-*parallelism* (the experts on an ``expert`` axis over 1) is not ported:
-``SpmdStrategy`` raises on that axis.
+``w1`` column-, ``w2`` row-parallel, the router whole.
+
+Expert parallelism keeps the JAX layout (``moe_partition_rules``: ``w1``
+and ``w2`` split on ``expert`` along dim 0, the batch on ``data`` only),
+so every rank of an expert group holds the same tokens and ``E / ep``
+experts (``ep``, the expert group the sharded layout sets).  Each rank
+routes over all ``E`` with the whole router, runs its own experts'
+capacity slots and combines over them; the combine is summed over the
+group (parallel/tensor.py ``reduce_from``, the partial sums in fp32,
+rounded once).  The tokens and the gates that enter the local experts
+pass ``copy_to``, so their gradients (and the router's, through the
+combine) are summed over the group in the backward; the load-balance
+loss comes from the replicated gates and counts once.  Where GSPMD
+lowers the JAX layer's einsums to a token exchange, this one moves no
+token: a token all-to-all is a later speed item.
 """
 
 from __future__ import annotations
@@ -70,6 +82,14 @@ class MoEMLP(nn.Module):
         self.w2 = nn.Parameter(torch.empty(n_experts, d_ff, n_embd))
         #: the tensor-parallel group (``w1`` column-, ``w2`` row-split)
         self.tp = None
+        #: the expert-parallel group (``w1`` / ``w2`` this rank's experts)
+        self.ep = None
+        #: the last forward's top-k choices [G, S, k]; with ``pinned_idx``
+        #: set, :meth:`route` takes those choices instead of its own top k
+        #: (a check holding two runs to one routing: near-tied gates flip
+        #: under bf16 rounding)
+        self.last_idx: "torch.Tensor | None" = None
+        self.pinned_idx: "torch.Tensor | None" = None
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -101,6 +121,10 @@ class MoEMLP(nn.Module):
         probs = torch.softmax(torch.einsum(
             "gsm,me->gse", x.float(), gathered(self.router).float()), -1)
         gate_vals, gate_idx = torch.topk(probs, k, dim=-1)
+        if self.pinned_idx is not None:
+            gate_idx = self.pinned_idx
+            gate_vals = probs.gather(-1, gate_idx)
+        self.last_idx = gate_idx.detach()
         if k > 1:
             gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
         dispatch = x.new_zeros((G, S, E, cap))
@@ -122,17 +146,26 @@ class MoEMLP(nn.Module):
 
     def forward(self, x: torch.Tensor):
         from ray_lightning_tpu_torch.models.gpt import gelu_tanh
-        dt = self.dtype
+        dt, ep = self.dtype, self.ep
         dispatch, combine, aux = self.route(x)
+        if ep is not None:
+            # this rank's experts: the tokens and gates that enter them
+            # take their gradient summed over the expert group
+            n = self.n_experts // ep.size
+            dispatch = dispatch.narrow(2, ep.rank * n, n)
+            combine = copy_to(combine, ep).narrow(2, ep.rank * n, n)
+            x = copy_to(x, ep)
         dispatch = self._name(dispatch, "moe_dispatch")
         xe = torch.einsum("gsec,gsm->egcm", dispatch, copy_to(x, self.tp))
         h = torch.einsum("egcm,emh->egch", xe, gathered(self.w1).to(dt))
         h = self._name(gelu_tanh(h), "moe_hact")
         out = reduce_from(torch.einsum("egch,ehm->egcm", h,
                                        gathered(self.w2).to(dt)), self.tp)
-        return torch.einsum("gsec,egcm->gsm",
-                            self._name(combine.to(dt), "moe_combine"),
-                            out), aux
+        combine = self._name(combine.to(dt), "moe_combine")
+        if ep is None:
+            return torch.einsum("gsec,egcm->gsm", combine, out), aux
+        part = torch.einsum("gsec,egcm->gsm", combine.float(), out.float())
+        return reduce_from(part, ep).to(dt), aux
 
 
 def total_aux_loss(model) -> "torch.Tensor | None":
@@ -147,10 +180,8 @@ def moe_partition_rules(expert_axis: str = "expert",
                         tensor_axis: str = "tensor"):
     """``SpmdStrategy`` rules for the routed layers (prepended to the
     model's own), the JAX function's: the expert dim on ``expert``,
-    each expert's FFN Megatron-split on ``tensor``, the router whole.
-    An ``expert`` axis over 1 is not ported (``SpmdStrategy`` raises,
-    ROADMAP.md queue 1 item 9); the ``tensor`` split runs (module
-    docstring)."""
+    each expert's FFN Megatron-split on ``tensor``, the router whole
+    (module docstring)."""
     return [
         (r"moe/w1$", P(expert_axis, None, tensor_axis)),
         (r"moe/w2$", P(expert_axis, tensor_axis, None)),

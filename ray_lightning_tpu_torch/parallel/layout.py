@@ -28,10 +28,20 @@ flax layout, and lays it onto the torch tensor:
   recompute gathers again: nothing gathered outlives its block.  The
   ``tensor`` axis is not gathered: the model computes on its piece
   (parallel/tensor.py), and raises at set-up (:meth:`ShardLayout.
-  check_tensor_plan`) when a rule set splits anything it cannot;
+  check_tensor_plan`) when a rule set splits anything it cannot.  Nor
+  are the ``expert`` and ``stage`` axes: a rank holds its experts
+  (ops/moe.py) or its stage's layers (parallel/pipeline.py) and uses
+  them as they are;
 - :meth:`grad_sync` averages the gradients of the parameters that are
   not gathered (whole on every batch shard) over the batch group in one
-  fp32 buffer, as DDP does.
+  fp32 buffer, as DDP does.  On a ``sequence`` axis over 1 the mean
+  runs over the batch axes and the sequence: each sequence rank's
+  gradient is its slice's share of the whole sequence's (the loss is
+  averaged over the sequence ranks forward, the identity backward,
+  parallel/tensor.py ``mean_from``).  Over ``expert``, ``tensor`` and
+  ``stage`` no gradient is averaged: their ranks compute the same
+  gradients of what they share (the routed layer's and the pipeline's
+  collectives sum the parts in their backward).
 
 So without a clip ``"fsdp"`` equals ``"ddp"`` bit for bit: at W=2 every
 gradient element is ``(a + b) / 2`` of the same two fp32 terms either
@@ -65,9 +75,15 @@ from ray_lightning_tpu_torch.parallel.mesh import (Mesh, all_gather_along,
                                                    reduce_scatter_along)
 
 #: parameters whose leading dim is three heads' worth of columns (q|k|v)
-_FUSED_QKV = re.compile(r"(^|\.)attn\.qkv\.(weight|bias)$")
-#: the ROADMAP.md queue 1 item the unported axes belong to
+#: (a layer-stacked ``blocks.`` tensor's leading dim is its layers)
+_FUSED_QKV = re.compile(r"^(?!blocks\.)(.*\.)?attn\.qkv\.(weight|bias)$")
+#: the ROADMAP.md queue 1 item the unported parts belong to
 ITEM = 9
+#: axes a rank's piece is used on as it is (never gathered): its
+#: experts, its pipeline stage's layers
+LOCAL_AXES = ("expert", "stage")
+#: the parameters whose dim 0 is a routed layer's experts
+_EXPERTS = re.compile(r"(^|\.)moe\.w[12]$")
 
 
 def _entries(spec, ndim: int) -> "list[tuple[str, ...]]":
@@ -119,6 +135,12 @@ class ParamShard:
     @property
     def sharded(self) -> bool:
         return self.local_storage != self.storage
+
+
+def _seq(mesh: Mesh) -> "tuple[str, ...]":
+    """``("sequence",)`` when the mesh has that axis: the one axis
+    beside the batch's that a gradient is averaged over."""
+    return ("sequence",) if "sequence" in mesh.axis_names else ()
 
 
 def _torch_shape(shape: tuple, storage: tuple, block: tuple) -> tuple:
@@ -229,10 +251,10 @@ class ShardLayout:
                     tensor_dim = d
                 elif a in mesh.batch_axes:
                     gather.append((a, d))
-                else:
-                    raise NotImplementedError(
-                        f"{name}: parameters split over {a!r} are not "
-                        f"ported (ROADMAP.md queue 1 item {ITEM})")
+                elif a not in LOCAL_AXES:
+                    raise ValueError(
+                        f"{name}: spec {spec} splits a parameter over "
+                        f"{a!r}; an {a!r} axis splits activations only")
         split = {a for names in axes for a in names}
         owner = all(mesh.coords.get(a, 0) == 0 for a in mesh.axis_names
                     if a not in split and mesh.shape[a] > 1)
@@ -241,10 +263,10 @@ class ShardLayout:
                           owner)
         if mesh._groups or mesh.world == 1:
             info.groups = {a: mesh.group(a) for a, _ in gather}
-            rest = [a for a in mesh.batch_axes
+            rest = [a for a in mesh.batch_axes + _seq(mesh)
                     if a not in {g for g, _ in gather}]
             info.grad_group = mesh.group(*rest) if gather else None
-            info.denom = mesh.batch_size
+            info.denom = mesh.batch_size * mesh.size(*_seq(mesh))
         return info
 
     # -- the model ---------------------------------------------------------
@@ -287,29 +309,66 @@ class ShardLayout:
                 f"not {missing[:4]}: the model's forward needs all of "
                 f"{len(want)} split, or none")
 
+    def check_local_plan(self, model: nn.Module) -> None:
+        """Raise unless every parameter split on ``expert`` or ``stage``
+        (over 1) is one the model uses in pieces along dim 0: a routed
+        layer's ``w1`` / ``w2`` (its experts, ops/moe.py), a pipelined
+        model's stacked ``blocks.`` tensors (its layers,
+        models/pipeline_gpt.py)."""
+        for name, info in self.params.items():
+            for d, names in enumerate(info.axes):
+                for a in names:
+                    if a not in LOCAL_AXES or self.mesh.shape[a] <= 1:
+                        continue
+                    ok = d == 0 and (
+                        _EXPERTS.search(name) if a == "expert" else
+                        name.startswith("blocks.")
+                        and getattr(model, "stacked_blocks", False))
+                    if not ok:
+                        raise ValueError(
+                            f"the rule set splits {name} (flax "
+                            f"{info.path}) on {a!r} along dim {d}; "
+                            f"{type(model).__name__} uses pieces on "
+                            f"{a!r} only of "
+                            + ("its routed layers' w1 / w2, dim 0"
+                               if a == "expert" else
+                               "a pipelined model's stacked blocks, "
+                               "dim 0"))
+
     def apply(self, model: nn.Module) -> None:
         """Cut every parameter of ``model`` (full size, initialised) to
         this rank's block in place, tag it for :func:`gathered`, and give
-        the model's tensor-parallel modules their group."""
+        the model's tensor-parallel, sequence-parallel and routed modules
+        their groups (``tp``, ``sp``, ``ep``)."""
         if self.any_sharded and not getattr(model, "shardable", False):
             raise NotImplementedError(
                 f"{type(model).__name__} does not gather sharded "
-                f"parameters at its use sites; shard GPT, BERT or the "
+                f"parameters at its use sites; shard GPT, PipelinedGPT, BERT or the "
                 f"test models (ROADMAP.md queue 1 item {ITEM})")
         self.check_tensor_plan(model)
+        self.check_local_plan(model)
         with torch.no_grad():
             for name, p in model.named_parameters():
                 info = self.params[name]
                 p.data = self.local_of(name, p.data)
                 p._rlt_shard = info
+        from ray_lightning_tpu_torch.parallel.mesh import axis_group
         if self.tensor_parallel:
-            from ray_lightning_tpu_torch.parallel.tensor import TensorGroup
-            tp = TensorGroup(self.mesh.group("tensor"),
-                             self.mesh.shape["tensor"],
-                             self.mesh.coords["tensor"])
+            tp = axis_group("tensor", self.mesh)
             for mod in model.modules():
                 if hasattr(mod, "tp"):
                     mod.tp = tp
+        sp = axis_group("sequence", self.mesh)
+        for mod in model.modules():
+            if hasattr(mod, "sp"):
+                mod.sp = sp
+        ep = axis_group("expert", self.mesh)
+        for prefix, mod in model.named_modules():
+            # a routed layer whose experts this rank holds a part of
+            if hasattr(mod, "ep") and any(
+                    "expert" in names for names in
+                    self.params[f"{prefix}.w1"].axes):
+                mod.ep = ep
 
     def local_of(self, name: str, full: torch.Tensor) -> torch.Tensor:
         """This rank's block of the whole tensor ``full`` (a copy)."""
@@ -349,14 +408,16 @@ class ShardLayout:
 
     def grad_sync(self) -> Optional[Callable]:
         """``grads -> grads`` for the parameters :func:`gathered` leaves
-        whole: their mean over the batch shards in one fp32 buffer, as
-        DDP's (the gathered ones are synced in their gather's backward);
-        ``None`` with one batch shard."""
-        group = self.mesh.group(*self.mesh.batch_axes)
+        whole: their mean over the batch shards (and the sequence ranks)
+        in one fp32 buffer, as DDP's (the gathered ones are synced in
+        their gather's backward); ``None`` with one batch shard and one
+        sequence rank."""
+        mesh = self.mesh
+        group = mesh.group(*mesh.batch_axes + _seq(mesh))
         if group is None:
             return None
         whole = [not self.params[n].gather for n in self.names]
-        denom = self.mesh.batch_size
+        denom = mesh.batch_size * mesh.size(*_seq(mesh))
 
         def sync(grads):
             idx = [i for i, w in enumerate(whole) if w]

@@ -22,7 +22,17 @@ list ``all_gather``, and on CUDA tensors the reduce-scatter composed as
 an ``all_reduce`` and the rank's slice (gloo has no reduce-scatter of
 CUDA tensors; the JAX package's CPU lowering composes it the same way,
 ``ray_lightning_tpu/parallel/strategy.py:289-293``).  Gloo reduces
-bf16 and fp16 in fp32.  Each form is logged once, when it first runs.
+bf16 and fp16 in fp32.  :func:`ppermute_along` is ``lax.ppermute``'s
+ring shift along one axis (ring attention, the pipeline's hops): under
+NCCL one ``batch_isend_irecv`` of the send and the receive, so a ring of
+two cannot deadlock; under gloo the same pair on host copies (gloo's
+``send`` / ``recv`` take CPU tensors).  Each form is logged once, when
+it first runs.
+
+The axes follow the JAX order, ``("data", "fsdp", "expert",
+"sequence", "tensor")`` for ``SpmdStrategy`` and ``("data", "stage")``
+for the pipeline; the batch axes and ``sequence`` get one more group
+together, the group a sequence-parallel gradient is averaged over.
 """
 
 from __future__ import annotations
@@ -229,6 +239,12 @@ def build_device_mesh(axis_names: Sequence[str] = ("data",),
     batch = tuple(a for a in BATCH_AXES if a in names and mesh.shape[a] > 1)
     if len(batch) > 1:
         groups.update(_axis_groups(mesh, batch))
+    if mesh.shape.get("sequence", 1) > 1:
+        # a sequence-parallel gradient's mean runs over the batch axes
+        # and the sequence (with those a use site gathered left out)
+        for sub in ((batch[:1], batch[1:], batch) if len(batch) > 1
+                    else (batch,) if batch else ()):
+            groups.update(_axis_groups(mesh, sub + ("sequence",)))
     mesh._groups = {k: v for k, v in groups.items()
                     if mesh.size(*k) > 1}
     return mesh
@@ -258,6 +274,19 @@ def set_current_mesh(mesh: Optional[Mesh]) -> None:
 
 def get_current_mesh() -> Optional[Mesh]:
     return getattr(_MESH_TLS, "mesh", None)
+
+
+def axis_group(axis: str, mesh: "Mesh | None" = None):
+    """This rank's group along ``axis`` of ``mesh`` (default: the current
+    mesh) as a ``parallel.tensor.TensorGroup`` (group, size, this rank's
+    coordinate), or ``None`` when there is no mesh, no such axis or it
+    has size 1."""
+    from ray_lightning_tpu_torch.parallel.tensor import TensorGroup
+    mesh = get_current_mesh() if mesh is None else mesh
+    if mesh is None or mesh.shape.get(axis, 1) <= 1:
+        return None
+    return TensorGroup(mesh.group(axis), mesh.shape[axis],
+                       mesh.coords[axis], tuple(mesh.members(axis)))
 
 
 # -- collectives ---------------------------------------------------------
@@ -335,6 +364,43 @@ def reduce_scatter_along(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     return out.movedim(0, dim)
 
 
+def ppermute(t: torch.Tensor, g, shift: int = 1) -> torch.Tensor:
+    """``lax.ppermute`` over ``g`` (a ``parallel.tensor.TensorGroup``,
+    :func:`axis_group`'s): this rank sends ``t`` to the rank ``shift``
+    places on, cyclically, and returns what the rank ``shift`` places
+    back sent (``t`` itself when ``g`` is ``None``).  Every rank of the
+    group calls it with tensors of one shape and dtype."""
+    if g is None:
+        return t
+    dst = g.members[(g.rank + shift) % g.size]
+    src = g.members[(g.rank - shift) % g.size]
+    if _gloo(g.group):
+        # gloo's isend / irecv take host tensors only
+        _note("ppermute", "isend / irecv of host tensors", t, g.group)
+        send = t.contiguous().cpu()
+        out = torch.empty_like(send)
+        reqs = [dist.isend(send, dst, group=g.group),
+                dist.irecv(out, src, group=g.group)]
+    else:
+        _note("ppermute", "batch_isend_irecv", t, g.group)
+        send = t.contiguous()
+        out = torch.empty_like(send)
+        reqs = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, send, dst, g.group),
+            dist.P2POp(dist.irecv, out, src, g.group)])
+    for r in reqs:
+        r.wait()
+    return out.to(t.device)
+
+
+def ppermute_along(t: torch.Tensor, axis: str, shift: int = 1,
+                   mesh: "Mesh | None" = None) -> torch.Tensor:
+    """:func:`ppermute` along ``axis`` of ``mesh`` (default: the current
+    mesh)."""
+    return ppermute(t, axis_group(axis, mesh), shift)
+
+
 __all__ = ["BATCH_AXES", "Mesh", "all_gather_along", "all_reduce",
+           "axis_group", "ppermute", "ppermute_along",
            "build_device_mesh", "data_and_tensor_axes", "get_current_mesh",
            "mesh_axis_size", "reduce_scatter_along", "set_current_mesh"]

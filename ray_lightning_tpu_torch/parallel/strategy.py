@@ -46,14 +46,18 @@ Beyond data parallelism (parallel/layout.py, parallel/tensor.py):
   ``data`` and of its optimizer state; a use site all-gathers it and
   the backward reduce-scatters its gradient.  Without a clip it equals
   DDP bit for bit.
-- :class:`SpmdStrategy` (``"spmd"``): a mesh of ``data``, ``fsdp`` and
-  ``tensor`` axes (``expert`` and ``sequence`` are ROADMAP.md item 9's
-  and raise above 1) and regex rules over the flax parameter paths
-  (``gpt_partition_rules``, ``bert_partition_rules``): ``fsdp`` pieces
-  are gathered at use as under FSDP, ``tensor`` pieces are computed on
-  by the model (Megatron's column- and row-parallel products, the
-  vocab-parallel embedding and loss), the batch is split over ``data``
-  and ``fsdp``.
+- :class:`SpmdStrategy` (``"spmd"``): a mesh of ``data``, ``fsdp``,
+  ``expert``, ``sequence`` and ``tensor`` axes and regex rules over the
+  flax parameter paths (``gpt_partition_rules``,
+  ``bert_partition_rules``): ``fsdp`` pieces are gathered at use as
+  under FSDP, ``tensor`` pieces are computed on by the model (Megatron's
+  column- and row-parallel products, the vocab-parallel embedding and
+  loss), ``expert`` pieces are each rank's experts (ops/moe.py), the
+  batch is split over ``data`` and ``fsdp`` and, with
+  ``shard_sequence_dim``, its dim 1 over ``sequence`` (ring attention,
+  parallel/ring.py; the gradients then averaged over data x sequence);
+- :class:`~ray_lightning_tpu_torch.parallel.pipeline.PipelineStrategy`
+  (parallel/pipeline.py): the layer-stacked blocks on ``stage``.
 
 Each strategy answers the JAX package's ``param_spec`` / ``opt_spec`` /
 ``batch_spec`` as tuples equal to JAX's (:class:`PartitionSpec`), for
@@ -381,8 +385,9 @@ class SpmdStrategy(_ParamSharded):
     PartitionSpec)`` searched in the ``/``-joined flax parameter path;
     the first match wins, a rule naming only axes the mesh lacks is
     skipped; no match: whole, or split on ``fsdp`` when that axis is
-    over 1.  An ``expert`` or ``sequence`` axis over 1 raises
-    (ROADMAP.md queue 1 item 9: expert parallelism, ring attention)."""
+    over 1.  On an ``expert`` axis over 1 the routed layers' experts
+    are split (``moe_partition_rules``; the batch is not), on a
+    ``sequence`` axis over 1 the batch's dim 1 (module docstring)."""
 
     name = "spmd"
 
@@ -395,14 +400,6 @@ class SpmdStrategy(_ParamSharded):
         self.rules = [(re.compile(r), P(*spec)) for r, spec in rules]
         self.axis_names = tuple(axis_names)
         self._axis_sizes = dict(axis_sizes or {})
-        for axis, what in (("expert", "expert parallelism"),
-                           ("sequence", "the sequence axis (ring "
-                                        "attention)")):
-            size = self._axis_sizes.get(axis)
-            if size not in (None, 1):
-                raise NotImplementedError(
-                    f"SpmdStrategy: {what} ({axis}={size}) is not ported "
-                    f"yet (ROADMAP.md queue 1 item 9)")
         self.shard_sequence_dim = shard_sequence_dim and (
             "sequence" in self.axis_names)
         self.min_shard_elements = min_shard_elements

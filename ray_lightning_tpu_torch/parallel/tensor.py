@@ -46,12 +46,15 @@ from ray_lightning_tpu_torch.parallel.mesh import all_gather_along, all_reduce
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class TensorGroup:
-    """This rank's tensor-parallel group: ``size`` ranks, this one at
-    ``rank`` (its coordinate on the ``tensor`` axis)."""
+    """This rank's group along one mesh axis (``tensor``; ``expert`` for
+    the routed layers' expert parallelism, ``sequence`` for ring
+    attention): ``size`` ranks, this one at ``rank`` (its coordinate on
+    the axis); ``members`` their global ranks in axis order."""
 
     group: object
     size: int
     rank: int
+    members: tuple = ()
 
 
 class _CopyTo(torch.autograd.Function):
@@ -69,6 +72,16 @@ class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, tp):
         return all_reduce(x.contiguous(), tp.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _MeanFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        return all_reduce(x.contiguous(), tp.group) / tp.size
 
     @staticmethod
     def backward(ctx, g):
@@ -183,6 +196,15 @@ def reduce_from(x: torch.Tensor, tp: "TensorGroup | None") -> torch.Tensor:
     return x if tp is None else _ReduceFrom.apply(x, tp)
 
 
+def mean_from(x: torch.Tensor, g: "TensorGroup | None") -> torch.Tensor:
+    """The mean over the group forward, the identity backward: a
+    sequence-parallel rank's loss over its slice becomes the whole
+    sequence's mean (the slices are the same size), while each rank's
+    gradient stays its own slice's, which the gradient sync then
+    averages over the sequence ranks (parallel/layout.py)."""
+    return x if g is None else _MeanFrom.apply(x, g)
+
+
 def slice_of(p: torch.Tensor, tp: "TensorGroup | None", view: tuple,
              dim: int) -> torch.Tensor:
     """This rank's 1/size of the 1-d ``p`` seen as ``view`` along
@@ -238,5 +260,5 @@ def target_logit(logits: torch.Tensor, targets: torch.Tensor,
 
 
 __all__ = ["TensorGroup", "column_parallel", "copy_to", "gather_from",
-           "mm32", "reduce_from", "row_parallel", "slice_of",
+           "mean_from", "mm32", "reduce_from", "row_parallel", "slice_of",
            "target_logit", "vocab_embed", "vocab_max"]

@@ -2031,3 +2031,83 @@ def test_cuda_sharded_strategies_graph_their_chunks(strategy, cuda_device,
     assert runs[4][2]["captures"] == 1 and runs[4][2]["replays"] == 2
     assert runs[4][0] == runs[1][0]
     assert all(torch.equal(runs[4][1][n], runs[1][1][n]) for n in runs[1][1])
+
+
+# -- the sequence, stage and expert axes (ring, pipeline, experts) ---------
+
+def _close_fits(got, want, lr: float, steps: int, C: int) -> None:
+    """Losses within 2e-2 and each weight (a pipelined model's layer by
+    layer) within 2e-2 in relative L2, the k third of each qkv bias
+    apart, no entry more than 2 x lr x steps away (ROADMAP.md F5)."""
+    from ray_lightning_tpu_torch.convert import unstack_blocks
+    (gl, gw), (wl, ww) = got, want
+    np.testing.assert_allclose(gl, wl, rtol=2e-2, atol=2e-2)
+    gw, ww = unstack_blocks(gw), unstack_blocks(ww)
+    assert {k: v.shape for k, v in gw.items()} == \
+        {k: v.shape for k, v in ww.items()}
+    for k in ww:
+        a, b = gw[k].float().reshape(-1), ww[k].float().reshape(-1)
+        assert (a - b).abs().max() <= 2 * lr * steps, k
+        if k.endswith("attn.qkv.bias"):
+            a, b = torch.cat([a[:C], a[2 * C:]]), torch.cat([b[:C], b[2 * C:]])
+        if b.norm() > 0:
+            assert _rel_l2(a, b) <= 2e-2, k
+
+
+@pytest.mark.cuda
+def test_cuda_ring_sequence_matches_one_rank(cards, tmp_path):
+    """``attention_impl="ring"`` on (data=1, sequence=2) over NCCL, one
+    worker a card, the tiny GPT in bf16: each rank its half of every
+    sequence; against one worker (a ring of one: blockwise) within
+    2e-2."""
+    from ray_lightning_tpu_torch import RayPlugin, RaySpmdPlugin
+    from ray_lightning_tpu_torch.parallel.strategy import SpmdStrategy
+    seq = SpmdStrategy(axis_names=("data", "sequence"),
+                       axis_sizes={"sequence": 2})
+    got = _plugin_fit(RaySpmdPlugin(num_workers=2, strategy=seq,
+                                    timeout_s=300),
+                      _tiny_gpt(attention_impl="ring"), tmp_path / "ring")
+    want = _plugin_fit(RayPlugin(num_workers=1, timeout_s=300),
+                       _tiny_gpt(attention_impl="ring"), tmp_path / "one")
+    _close_fits(got, want, 3e-4, 6, 64)
+
+
+@pytest.mark.cuda
+def test_cuda_pipeline_stages_match_one_rank(cards, tmp_path):
+    """``PipelinedGPT`` (tiny, bf16 compute, the flash kernels inside each
+    stage) under ``PipelineStrategy(stages=2)`` over NCCL against one
+    worker (no stage axis: a loop over the layers) within 2e-2."""
+    from ray_lightning_tpu_torch import RayPlugin, RaySpmdPlugin
+    from ray_lightning_tpu_torch.models.pipeline_gpt import PipelinedGPT
+    from ray_lightning_tpu_torch.parallel.pipeline import PipelineStrategy
+
+    def module():
+        return PipelinedGPT(GPTConfig(vocab_size=512, block_size=64,
+                                      n_layer=2, n_head=2, n_embd=64),
+                            n_microbatches=2, batch_size=4,
+                            dataset_size=64)
+
+    got = _plugin_fit(RaySpmdPlugin(num_workers=2,
+                                    strategy=PipelineStrategy(stages=2),
+                                    timeout_s=300), module(),
+                      tmp_path / "pipe")
+    want = _plugin_fit(RayPlugin(num_workers=1, timeout_s=300), module(),
+                       tmp_path / "one")
+    _close_fits(got, want, 3e-4, 6, 64)
+
+
+@pytest.mark.cuda
+def test_cuda_expert_parallel_matches_one_rank(cards, tmp_path):
+    """moe-tiny (bf16) at expert=2 over NCCL, each worker two of the four
+    experts of every routed layer, against one worker within 2e-2."""
+    from ray_lightning_tpu_torch import RayPlugin, RaySpmdPlugin
+    from ray_lightning_tpu_torch.models.gpt import gpt_partition_rules
+    from ray_lightning_tpu_torch.parallel.strategy import SpmdStrategy
+    ep = SpmdStrategy(gpt_partition_rules(), ("data", "expert"),
+                      {"expert": 2})
+    got = _plugin_fit(RaySpmdPlugin(num_workers=2, strategy=ep,
+                                    timeout_s=300),
+                      _tiny_gpt(n_experts=4), tmp_path / "ep")
+    want = _plugin_fit(RayPlugin(num_workers=1, timeout_s=300),
+                       _tiny_gpt(n_experts=4), tmp_path / "one")
+    _close_fits(got, want, 3e-4, 6, 64)

@@ -16,6 +16,9 @@ EXAMPLES = [
     "ray_lightning_tpu_torch.examples.ray_ddp_tune",
     "ray_lightning_tpu_torch.examples.ray_ddp_sharded_example",
     "ray_lightning_tpu_torch.examples.ray_spmd_example",
+    "ray_lightning_tpu_torch.examples.ray_longcontext_example",
+    "ray_lightning_tpu_torch.examples.ray_pipeline_example",
+    "ray_lightning_tpu_torch.examples.ray_moe_example",
 ]
 
 

@@ -13,7 +13,8 @@ numpy-seeded inputs and converted weights.
 - (c) the slice: a ``moe-tiny`` GPT train step under remat "dots"
   against the JAX step (loss, ``moe_aux``, gradients at 2e-5, and two
   optimizer steps' losses), a fit whose loss falls, a checkpoint round
-  trip, and what stays refused (serving, expert parallelism).
+  trip, and what stays refused (serving, a router split on
+  ``expert``).
 
 Tolerance: fp32 2e-5 as ``atol = rtol`` (the JAX package's own,
 tests/test_ops.py).
@@ -341,8 +342,9 @@ def test_moe_configs_build_and_what_stays_refused():
     """gpt2-moe-8e builds (meta device: no storage) with its routed
     blocks every second layer and "dots"; serving and speculation reject
     MoE, as in the JAX package; ``moe_partition_rules`` are the JAX
-    function's (patterns and specs), and expert parallelism (an
-    ``expert`` axis over 1) raises naming the queue item."""
+    function's (patterns and specs), and a rule set that splits the
+    router on ``expert`` (expert parallelism is tests/test_torch_expert.
+    py's) raises at set-up."""
     cfg = CONFIGS["gpt2-moe-8e"]
     module = GPTLightningModule("gpt2-moe-8e")
     model = module.configure_model("meta")
@@ -358,8 +360,17 @@ def test_moe_configs_build_and_what_stays_refused():
     from ray_lightning_tpu_torch.parallel.strategy import SpmdStrategy
     assert [(r, tuple(spec)) for r, spec in moe_partition_rules()] == \
         [(r, tuple(spec)) for r, spec in jax_rules()]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        SpmdStrategy(moe_partition_rules(), axis_sizes={"expert": 2})
+    from ray_lightning_tpu_torch.parallel.layout import ShardLayout
+    from ray_lightning_tpu_torch.parallel.mesh import Mesh
+    tiny = GPTLightningModule("moe-tiny").configure_model("meta")
+    names = ("data", "expert")
+    with pytest.raises(ValueError, match="expert"):
+        ShardLayout({k: tuple(p.shape) for k, p in tiny.named_parameters()},
+                    SpmdStrategy([("moe/router$", (None, "expert"))]
+                                 + moe_partition_rules(), names,
+                                 {"expert": 2}),
+                    Mesh.abstract(names, {"data": 1, "expert": 2})
+                    ).check_local_plan(tiny)
     with pytest.raises(ValueError, match="top_k"):
         MoEMLP(8, 2, 16, top_k=3)
     tagged = GPTLightningModule(dataclasses.replace(

@@ -27,9 +27,9 @@ where W > 1.
   F5), as tests/test_torch_bert.py and the DDP parity test hold it;
 - ``tensor=2`` at dropout 0.1 equals ``tensor=1`` (the masks fall on
   the whole activations, drawn alike on both ranks), within the same
-  bar; a tensor-parallel fit's ``_trained_state`` has whole shapes; an
-  ``expert`` or ``sequence`` axis over 1 raises naming item 9; a rule
-  set the model cannot honour raises at set-up; ``steps_per_execution=2``
+  bar; a tensor-parallel fit's ``_trained_state`` has whole shapes; a
+  rule set the model cannot honour (a LayerNorm split on ``expert``, a
+  parameter on ``sequence``, a partial tensor plan) raises at set-up; ``steps_per_execution=2``
   under tensor parallelism (two eager steps a chunk on the CPU) equals
   k=1 bit for bit; the JAX params carried to each rank's blocks
   (``convert.flax_to_shards``) tile the whole tensors.
@@ -315,17 +315,23 @@ def test_rule_sets_equal_the_jax_functions():
 
 
 def test_unported_axes_and_unhonoured_rules_raise():
-    """An ``expert`` or ``sequence`` axis over 1 raises naming item 9; a
-    rule set that splits what the forward cannot (only ``qkv``, or a
-    LayerNorm) raises at set-up; the strategy names resolve."""
+    """A rule set that splits a LayerNorm on ``expert`` (a rank's pieces
+    there are only its routed layers' experts) or any parameter on
+    ``sequence`` (an axis of activations) raises at set-up; so does one
+    that splits what the tensor-parallel forward cannot (only ``qkv``,
+    or a LayerNorm); the strategy names resolve."""
+    model = GPTLightningModule(GPTConfig(**TINY)).configure_model("meta")
+    shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
     for axis in ("expert", "sequence"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            SpmdStrategy(gpt_partition_rules(), axis_sizes={axis: 2})
+        rules = [("ln1/scale", (axis,))] + gpt_partition_rules()
+        with pytest.raises(ValueError, match=axis):
+            ShardLayout(shapes, SpmdStrategy(rules, ("data", axis),
+                                             {axis: 2}),
+                        Mesh.abstract(("data", axis), {"data": 1, axis: 2})
+                        ).check_local_plan(model)
     assert isinstance(resolve_strategy("zero3"), FullyShardedStrategy)
     assert resolve_strategy("spmd").name == "spmd"
-    model = GPTLightningModule(GPTConfig(**TINY)).configure_model("meta")
     mesh = Mesh.abstract(("data", "tensor"), {"data": 1, "tensor": 2})
-    shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
     for rules in ([("attn/qkv/kernel", (None, "tensor"))],
                   gpt_partition_rules() + [("ln1/scale", ("tensor",))],
                   [("ln1/scale", ("tensor",))] + gpt_partition_rules()):
