@@ -305,8 +305,8 @@ Phases, each fatal on failure:
    (e) ``csrc/philox.cu`` against its plain version bit for bit (on the
    card and on the CPU) at the main path's shapes, timed beside
    ``torch.rand`` and its bound.
-18. Sharded: gpt2-1p3b at full width, its depth cut to 8 of its 24
-    layers so the whole run fits its time limit with phase 19
+18. Sharded: gpt2-1p3b at full width, its depth cut to 4 of its 24
+    layers so the whole run fits its time limit with phases 19 and 20
     (``SHARD_LAYERS``; T=2048, bf16,
     remat "full"). (a) ``RaySpmdPlugin(num_workers=1, strategy="fsdp")``
     at B=8 for one epoch of 3 steps, its weights bit for bit with the
@@ -325,19 +325,21 @@ Phases, each fatal on failure:
     from the checkpoint within 2e-2.  Its launches ((a), (c), both ranks
     of (b); not the references' or the checks') go to rows 3 and 9 under
     ``sharded``, with their B=2 H=16 shape timed.
-19. The parallel axes (last; everything earlier freed first): the three
+19. The parallel axes (everything earlier freed first): the three
     examples at their defaults, each over four ranks (NCCL with four
     cards, else all on card 0 over gloo, ``RLT_ONE_CARD_GLOO=1``, a
     host-bound correctness leg; the log says which), bf16, seeded
-    weights, synthetic tokens, 3 steps a leg.  (a) The long-context
-    example: gpt2-small, T=8192, ``attention_impl="ring"``,
+    weights, synthetic tokens, 3 steps a leg, (a) and (c) with their
+    depth cut to 6 of their 12 layers (``PAR_LAYERS``: the run fits its
+    time limit with phase 20).  (a) The long-context example:
+    gpt2-small, T=8192, ``attention_impl="ring"``,
     ``SpmdStrategy(("data", "sequence"), sequence=4)``, B=1, each rank
     its 2048 positions.  (b) The pipeline example: ``PipelinedGPT(
     "gpt2-small", n_microbatches=4)``, ``PipelineStrategy(stages=4)``,
     B=8, T=1024; each rank launches flash_fwd and flash_bwd (3 layers) x
     4 microbatches a step, asserted.  (c) The MoE example: gpt2-moe-8e,
-    (expert=2, tensor=2), B=8, T=1024; each rank 12 + 12 ("dots"
-    recomputes the forward) flash_fwd and 12 flash_bwd a step at 6
+    (expert=2, tensor=2), B=8, T=1024; each rank 6 + 6 ("dots"
+    recomputes the forward) flash_fwd and 6 flash_bwd a step at 6
     heads, asserted.  In each, rank 0 holds the first step's loss and
     whole gradients (and (c)'s ``moe_aux``) against the one-process step
     from the same weights (the ring's with ``attention_impl="flash"``)
@@ -346,6 +348,41 @@ Phases, each fatal on failure:
     ring and (b)'s pipeline bytes a step counted from the shapes.  (b)'s
     and (c)'s launches go to rows 1 and 6 under ``pipeline`` and
     ``moe_ep``, with their B=2 H=12 and B=8 H=6 shapes timed.
+20. The comm plane (last): gpt2-small at full width (12 x 768, vocab
+    50304, bf16, T=1024), random weights from the seed, over four ranks
+    (NCCL with four cards, else all on card 0 over gloo), B=2 a rank,
+    3 steps a leg, every policy on ``axes=("data",)``, all under one
+    ``Trainer(plugins=[RayPlugin(num_workers=4)])``: its own fit is the
+    off leg (``comm_policy=CommPolicy()``); then in each of its workers
+    (``CommLegs``, start-up paid once) every other leg is a ``Trainer(
+    comm_policy=...)`` fit nested inside the ranks' process group: no
+    policy, int8 flat (one collective a gradient), int8 bucketed at 32
+    MiB and its ``barrier_sync`` twin, int8 / fp8 / int4 with
+    ``hierarchy=2`` (fp32 within pairs) and int8 with stochastic
+    rounding (these in 32 MiB buckets), ZeRO-1 int8 with
+    ``param_gather="bf16"`` in 32 MiB gather buckets, and over NCCL int8
+    at ``steps_per_execution=2``, graphed; then ``comm.calibrate`` times
+    the intra-host link and writes its cache under
+    ``build/comm_calibration``.  Checks: the off leg's end state
+    equals the no-policy leg's bit for bit (state digests); each
+    compressed leg's first-step synced gradients within the codec's
+    bound (the JAX tests' ``PSUM_TOL`` times the largest local
+    gradient) of DDP's fp32 mean of the same gradients (ZeRO-1: the
+    shards its own compressed reduce-scatter produced in that step,
+    against the same slices of the mean); the last step's
+    recorded collectives (comm/audit.py) equal ``GradSync``'s byte
+    model by tag, exactly, on every rank, and the hierarchical legs
+    move no codec bytes inside a pair and fp32 there; the residual
+    nonzero after step 1; the three losses within 5% of the no-policy
+    leg's; the calibration measured the intra-host link; the graphed
+    leg captured once; each rank launched 12 flash_fwd and 12
+    flash_bwd a step, and the stochastic rounding leg one
+    ``philox_uniform`` a bucket for each of its two compressed phases.  Printed per leg: the median step ms of steps
+    2-3 over the ranks, the exposed comm (that minus the no-policy
+    leg's), the wire bytes a rank a step, peak memory, beside the
+    card's name and power limit.  Its launches (every leg's ranks, not
+    the checks') go to rows 1 and 6 and ``philox_uniform`` under
+    ``comm``.
 
 The next-to-last line is the ``{"kernels": [...]}`` JSON record, one
 entry per TPU kernel row, 1 to 16 (``launches`` from the path phases
@@ -398,6 +435,9 @@ then checks and times rows 3 and 9 at its shapes and prints their
 kernels line (its launches) and the last line.  ``--parallel-only``
 runs phase 19 alone, then checks and times rows 1 and 6 at its shapes
 and prints their kernels line (its launches) and the last line.
+``--comm-only`` does the same for phase 20 (rows 1 and 6 at B=2 T=1024
+H=12, and ``philox_uniform``, whose launches there are the stochastic
+rounding leg's draws).
 """
 
 from __future__ import annotations
@@ -5436,14 +5476,18 @@ def native_mnist(seed: int) -> dict:
 def kernel_philox(gen: torch.Generator) -> dict:
     """(e) ``csrc/philox.cu`` against its plain version bit for bit at
     the main path's shapes (gpt2-small's dropout site, bert-base's MLM
-    mask, odd sizes), on the card and on the CPU; timed at gpt2-small's
+    mask, phase 20's stochastic rounding of a 32 MiB bucket: its
+    reduce-scatter's ``[W, blocks, 64]`` rows and its all-gather's one
+    row, odd sizes), on the card and on the CPU; timed at gpt2-small's
     dropout site beside ``torch.rand`` of the shape (the yardstick) and
     the bound: 4 bytes written an element (and 16 read) over HBM."""
     from ray_lightning_tpu_torch.ops import random as trandom
     key = torch.randint(0, 2 ** 32, (2,), generator=gen, device="cuda",
                         dtype=torch.int64)
     stream = 0x1234_5678_9ABC
-    for shape in (PHILOX_SHAPE, (BERT_B, 512), (3,), (1023, 5)):
+    blocks = COMM_BUCKET // 4 // COMM_RANKS // 64
+    for shape in (PHILOX_SHAPE, (BERT_B, 512), (COMM_RANKS, blocks, 64),
+                  (1, blocks, 64), (3,), (1023, 5)):
         got = trandom.philox_uniform(key, stream, shape)
         want = trandom.philox_uniform_plain(key, stream, shape)
         torch.cuda.synchronize()
@@ -5512,8 +5556,8 @@ def ladder_phase(seed: int, card: str) -> dict:
 
 SHARD_MODEL = "gpt2-1p3b"
 #: its depth in phase 18, cut from 24 so the whole run fits its time
-#: limit with phase 19 (full width: C=2048, 32 heads, T=2048)
-SHARD_LAYERS = 8
+#: limit with phases 19 and 20 (full width: C=2048, 32 heads, T=2048)
+SHARD_LAYERS = 4
 
 
 def shard_config():
@@ -5931,6 +5975,8 @@ PAR_STEPS = 3
 PAR_TOL = 2e-2
 #: (a)'s context: the long-context example's default
 RING_T = 8192
+#: (a)'s and (c)'s depth, cut from 12 so the run fits its time limit
+PAR_LAYERS = 6
 #: (b)'s schedule: the pipeline example's defaults
 PIPE_STAGES, PIPE_MICRO, PIPE_B = 4, 4, 8
 #: the reports of ``ParallelProbe``, relayed to this process
@@ -6075,7 +6121,7 @@ def parallel_leg(this, name: str, train, local_module, seed: int,
     """One leg of phase 19: ``train`` (an example's entry point) over
     ``PAR_RANKS`` workers for ``PAR_STEPS`` steps with the probes, then
     ``local_module`` fit in this process for as many steps; the first
-    step's loss and gradients and the three losses held within
+    step's loss and gradients and the losses held within
     ``PAR_TOL``.  Returns the per-rank reports and the checks."""
     this.PROBES.clear()
     this.PAR_REPORTS.clear()
@@ -6162,16 +6208,17 @@ def parallel_phase(seed: int, card: str) -> dict:
             **({} if nccl else {"RLT_ONE_CARD_GLOO": "1"})):
         free_cuda()
         T = RING_T
-        log(f"  (a) ring attention: gpt2-small, T={T}, sequence="
-            f"{PAR_RANKS}, B=1 ({leg})")
+        log(f"  (a) ring attention: gpt2-small at {PAR_LAYERS} layers, "
+            f"T={T}, sequence={PAR_RANKS}, B=1 ({leg})")
         out["a"] = parallel_leg(
             this, "a", ray_longcontext_example.train,
             GPTLightningModule(dataclasses.replace(
-                small, block_size=T, attention_impl="flash"),
-                dataset_size=8, batch_size=1), seed, base, leg, seq_len=T)
+                small, block_size=T, n_layer=PAR_LAYERS,
+                attention_impl="flash"), dataset_size=8, batch_size=1),
+            seed, base, leg, seq_len=T, n_layer=PAR_LAYERS)
         Tl, R = T // PAR_RANKS, PAR_RANKS
         kv = 1 * Tl * small.n_embd * 4          # one of k / v, fp32
-        out["a"]["ring_bytes_a_step_a_rank"] = small.n_layer * kv * (
+        out["a"]["ring_bytes_a_step_a_rank"] = PAR_LAYERS * kv * (
             2 * (R - 1) + 4 * (R - 1) + 2)
 
         L, S, M, B = small.n_layer, PIPE_STAGES, PIPE_MICRO, PIPE_B
@@ -6196,13 +6243,14 @@ def parallel_phase(seed: int, card: str) -> dict:
             "p2p": 2 * (M + S - 1) * act,
             "all_reduce": 2 * B * small.block_size * small.n_embd * 2}
 
-        moe = CONFIGS["gpt2-moe-8e"]
-        log(f"  (c) experts: gpt2-moe-8e, expert=2, tensor=2, B=8, "
-            f"T={moe.block_size} ({leg})")
+        moe = dataclasses.replace(CONFIGS["gpt2-moe-8e"],
+                                  n_layer=PAR_LAYERS)
+        log(f"  (c) experts: gpt2-moe-8e at {PAR_LAYERS} layers, expert=2, "
+            f"tensor=2, B=8, T={moe.block_size} ({leg})")
         out["c"] = parallel_leg(
             this, "c", ray_moe_example.train,
             GPTLightningModule(moe, dataset_size=64, batch_size=8), seed,
-            base, leg)
+            base, leg, n_layer=PAR_LAYERS)
         # every layer's attention on H/2 heads; "dots" recomputes it in
         # the backward
         fwd = moe.n_layer * (2 if moe.remat and moe.remat_policy != "off"
@@ -6236,6 +6284,476 @@ def parallel_kernel_entries(gen) -> "dict[int, dict]":
         e["by_shape"] = {s: r[key] for s, r in res.items()}
         entries[row] = e
     return entries
+
+
+# -- phase 20: the comm plane --------------------------------------------------
+
+COMM_RANKS = 4
+COMM_STEPS = 3
+COMM_B = 2
+COMM_BUCKET = 32 << 20
+COMM_TIMEOUT_S = 900
+#: the JAX convergence bar: each loss within 5% of the uncompressed
+#: fit's (``tests/test_comm.py:331-470``)
+COMM_LOSS_BAR = 0.05
+#: the fast groups of the hierarchical legs: pairs of ranks
+COMM_PAIR = 2
+#: the reports of ``CommProbe``, relayed to (or recorded in) this process
+COMM_REPORTS: list = []
+
+
+def record_comm(report: dict) -> None:
+    COMM_REPORTS.append(report)
+
+
+def comm_legs(nccl: bool) -> list:
+    """Phase 20's legs: ``(name, zero1, policy kwargs or None, k)``, every
+    policy on ``axes=("data",)`` (auto is inert on one host).  int8 flat
+    syncs one gradient a collective; the hierarchical and stochastic
+    legs sync in the 32 MiB buckets, as a run would (one card's gloo
+    pays its host copies and Python on each of gpt2-small's 148
+    gradients: 3-5 s a step on an H100)."""
+    hier = dict(hierarchy=COMM_PAIR, bucket_bytes=COMM_BUCKET)
+    legs = [("none", False, None, 1),
+            ("int8", False, dict(compress="int8"), 1),
+            ("int8_hier2", False, dict(compress="int8", **hier), 1),
+            ("fp8_hier2", False, dict(compress="fp8", **hier), 1),
+            ("int4_hier2", False, dict(compress="int4", **hier), 1),
+            ("int8_bkt32M", False, dict(compress="int8",
+                                        bucket_bytes=COMM_BUCKET), 1),
+            ("int8_bkt32M_barrier", False, dict(
+                compress="int8", bucket_bytes=COMM_BUCKET,
+                barrier_sync=True), 1),
+            ("int8_sr", False, dict(compress="int8",
+                                    bucket_bytes=COMM_BUCKET,
+                                    stochastic_rounding=True), 1),
+            ("zero1_int8_pg_bf16", True, dict(
+                compress="int8", param_gather="bf16",
+                gather_bucket_bytes=COMM_BUCKET), 1)]
+    if nccl:
+        legs.append(("int8_k2_graphed", False, dict(compress="int8"), 2))
+    return legs
+
+
+def comm_module(cfg=None):
+    """gpt2-small at full width (12 x 768, vocab 50304, bf16, T=1024;
+    ``cfg``: this process's ``CONFIGS["gpt2-small"]``), random weights
+    from the seed, B=2 a rank, one epoch of 3 steps a rank."""
+    return GPTLightningModule(cfg or CONFIGS["gpt2-small"],
+                              batch_size=COMM_B,
+                              dataset_size=COMM_B * COMM_RANKS * COMM_STEPS)
+
+
+def state_digest(state: dict) -> str:
+    """sha256 of every tensor's bytes, by name: bit-for-bit equality of
+    two states without moving them."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(state):
+        t = state[k].detach().to("cpu").contiguous()
+        h.update(k.encode())
+        h.update(t.view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+class CommProbe(Callback):
+    """(20) in each rank of a leg: per step the synced wall time and the
+    loss; at the first step's start the leg's codec over that step's
+    local gradients against DDP's fp32 mean of the same gradients (both
+    in this rank, the check's launches taken back); the last step's
+    collectives recorded (comm/audit.py) beside the byte model of the
+    leg's ``GradSync``; the residual's max after the first step; peak
+    memory, launches, graph stats, and rank 0's end-state digest.
+    Module level, referred to as ``chip_smoke.CommProbe``: a worker
+    imports it."""
+
+    def __init__(self, seed: int):
+        self.seed = seed
+
+    def _sync(self, trainer):
+        if trainer.device.type == "cuda":
+            torch.cuda.synchronize(trainer.device)
+
+    def on_fit_start(self, trainer, module):
+        _kernels.reset_launches()
+        if trainer.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(trainer.device)
+        self.losses, self.step_ms = [], []
+        self.grad_check, self.res_max = None, None
+        self.window = self.log = None
+
+    def _first_step_check(self, trainer, module, batch) -> dict:
+        import torch.distributed as dist
+
+        from ray_lightning_tpu_torch.ops.random import Key, key_words
+        from ray_lightning_tpu_torch.parallel.strategy import average_grads
+        before = _kernels.launch_counts()
+        dev = trainer.device
+        batch = tuple(x.to(dev) for x in batch)
+        _, grads = _grads(module, batch, self.seed, trainer.state.step)
+        local = list(grads.values())
+        ref = average_grads(local)
+        sync, out = trainer._grad_sync, {}
+        if sync is not None:
+            residual = ([torch.zeros(g.shape, dtype=torch.float32, device=dev)
+                         for g in local] if sync.error_feedback else None)
+            key = (Key(torch.from_numpy(key_words(
+                self.seed, 1 << 20, trainer.global_rank)).to(dev))
+                if sync.policy.stochastic_rounding else None)
+            got, _ = sync.sync_step(local, residual, key=key)
+            amax = torch.stack([g.float().abs().max() for g in local]).max()
+            if dist.get_backend() == "gloo":
+                amax = amax.cpu()
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX)
+            amax = float(amax)
+            errs = [float((a.float() - b.float()).abs().max())
+                    for a, b in zip(got, ref)]
+            worst = int(np.argmax(errs))
+            out = {"max_abs": errs[worst], "tensor": list(grads)[worst],
+                   "local_max": amax, "ratio": errs[worst] / amax}
+            del got, residual
+        del grads, local, ref
+        after = _kernels.launch_counts()
+        _kernels.add_launches({k: before.get(k, 0) - v
+                               for k, v in after.items()})
+        return out
+
+    def _zero1_check(self, trainer) -> None:
+        """ZeRO-1: the first step's own compressed reduce-scatter
+        (``Zero1Optimizer._comm_grad_shards``, wrapped for that one
+        call) read back: each group's shard it produced against the same
+        slice of DDP's fp32 mean of the step's local gradients."""
+        import torch.distributed as dist
+
+        from ray_lightning_tpu_torch.parallel.strategy import average_grads
+        opt = trainer._tx.tx
+
+        def capture(grads, d):
+            del opt._comm_grad_shards                 # this call only
+            local = list(grads.values())
+            ref = dict(zip(grads, average_grads([g.float() for g in local])))
+            amax = torch.stack([g.float().abs().max() for g in local]).max()
+            shards = opt._comm_grad_shards(grads, d)
+            if dist.get_backend() == "gloo":
+                amax = amax.cpu()
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX)
+            errs = {}
+            for g, k in zip(opt.groups, opt.keys):
+                want = g.flatten([ref[n] for n in g.names])
+                if g.shards > 1:
+                    want = want[g.lo:g.hi]
+                errs[k] = float((shards[k].float() - want).abs().max())
+            worst = max(errs, key=errs.get)
+            self.grad_check = {"max_abs": errs[worst], "tensor": worst,
+                               "local_max": float(amax),
+                               "ratio": errs[worst] / float(amax)}
+            return shards
+
+        opt._comm_grad_shards = capture
+
+    def on_train_batch_start(self, trainer, module, batch, batch_idx):
+        if self.grad_check is None:
+            sync = trainer._grad_sync
+            if sync is not None and sync.zero1:
+                self.grad_check = {}        # filled by the step itself
+                self._zero1_check(trainer)
+            else:
+                self.grad_check = self._first_step_check(trainer, module,
+                                                         batch)
+        if trainer.global_step == COMM_STEPS - 1:
+            from ray_lightning_tpu_torch.comm import audit
+            self.window = audit.recording()
+            self.log = self.window.__enter__()
+        self._sync(trainer)
+        self.t0 = time.perf_counter()
+
+    def on_train_batch_end(self, trainer, module, outputs, batch, batch_idx):
+        self._sync(trainer)
+        self.step_ms.append((time.perf_counter() - self.t0) * 1e3)
+        self.losses.extend(outputs["loss"].float().reshape(-1).tolist())
+        if self.window is not None:
+            self.window.__exit__(None, None, None)
+            self.window = None
+        opt = trainer.state.opt_state
+        if self.res_max is None and getattr(opt, "residual", None):
+            self.res_max = max(float(r.abs().max())
+                               for r in opt.residual.values())
+
+    def on_fit_end(self, trainer, module):
+        from ray_lightning_tpu_torch.comm import audit
+        sync = trainer._grad_sync
+        recs = self.log.records if self.log is not None else []
+        tags = sorted({r.tag for r in recs})
+        model, draws = None, 0
+        if sync is not None:
+            if sync.policy.stochastic_rounding:
+                # a draw a bucket for each of its two compressed phases
+                from ray_lightning_tpu_torch.comm.collectives import (
+                    partition_buckets)
+                draws = 2 * len(self.step_ms) * len(partition_buckets(
+                    [4 * p.numel() for p in module.model.parameters()],
+                    sync.policy.bucket_bytes))
+            if sync.zero1:
+                model = trainer._tx.tx.comm_wire_bytes()
+            else:
+                model = {"grad_sync": sum(sync.step_wire_bytes(
+                    [p.numel() for p in module.model.parameters()]
+                ).values())}
+        report = {
+            "rank": trainer.global_rank,
+            "backend": str(trainer._mesh.backend),
+            "sync": None if sync is None else sync.describe(),
+            "losses": self.losses, "step_ms": self.step_ms,
+            "peak_bytes": (torch.cuda.max_memory_allocated(trainer.device)
+                           if trainer.device.type == "cuda" else 0),
+            "launches": {k: _kernels.launch_counts().get(k, 0)
+                         for k in ("flash_fwd", "flash_bwd",
+                                   "philox_uniform")},
+            "draws_model": draws,
+            "grad_check": self.grad_check, "residual_max": self.res_max,
+            "wire_bytes": audit.total_wire_bytes(recs),
+            "bytes_by_tag": {t: audit.total_wire_bytes(recs, tags=(t,))
+                             for t in tags},
+            "model_bytes": model,
+            "codec_by_link": audit.wire_bytes_by_link(
+                recs, COMM_PAIR, dtypes=("s8", "u8", "bf16"),
+                tags=("grad_sync",)),
+            "f32_by_link": audit.wire_bytes_by_link(
+                recs, COMM_PAIR, dtypes=("f32",), ops=(
+                    "all-to-all", "all-gather"), tags=("grad_sync",)),
+            "graph": {k: trainer.graph_stats.get(k) for k in (
+                "captures", "replays", "ungraphed")},
+        }
+        if trainer.is_global_zero:
+            report["digest"] = state_digest(trainer._full_state(
+                module.model))
+        if trainer.plugin.remote:
+            from ray_lightning_tpu_torch import session
+            session.put_queue(functools.partial(record_comm, report))
+        else:
+            record_comm(report)
+
+
+#: each rank's nested legs, relayed to this process by ``CommLegs``
+COMM_RANK_RESULTS: list = []
+
+
+def record_comm_rank(result: dict) -> None:
+    COMM_RANK_RESULTS.append(result)
+
+
+class CommLegs(Callback):
+    """(20) in each ``RayPlugin`` worker, after the off leg's fit: every
+    other leg as a ``Trainer(comm_policy=...)`` fit nested in this
+    worker, inside the ranks' process group (start-up paid once, as the
+    JAX package's worker-side nested fits run), then the link
+    calibration (comm/calibrate.py, collective); each rank's
+    ``CommProbe`` reports and the calibration go to
+    ``record_comm_rank``.  Module level, referred to as
+    ``chip_smoke.CommLegs``: a worker imports it."""
+
+    def __init__(self, legs: list, seed: int, cache_dir: str):
+        self.legs, self.seed, self.cache_dir = legs, seed, cache_dir
+        # this process's config rides to the workers with the callback
+        self.cfg = CONFIGS["gpt2-small"]
+
+    def on_fit_end(self, trainer, module):
+        from ray_lightning_tpu_torch import session
+        from ray_lightning_tpu_torch.comm import CommPolicy
+        from ray_lightning_tpu_torch.comm.calibrate import calibrated
+        dev, out = trainer.device, {"rank": trainer.global_rank}
+        with tempfile.TemporaryDirectory() as root:
+            for name, zero1, pol, k in self.legs:
+                COMM_REPORTS.clear()
+                t0 = time.monotonic()
+                Trainer(device=dev, strategy="zero1" if zero1 else "ddp",
+                        comm_policy=(None if pol is None else CommPolicy(
+                            axes=("data",), **pol)),
+                        max_steps=COMM_STEPS, steps_per_execution=k,
+                        seed=self.seed, callbacks=[CommProbe(self.seed)],
+                        enable_checkpointing=False, logger=False,
+                        num_sanity_val_steps=0, limit_val_batches=0,
+                        default_root_dir=root).fit(comm_module(self.cfg))
+                out[name] = {**COMM_REPORTS[-1],
+                             "fit_s": time.monotonic() - t0}
+                COMM_REPORTS.clear()
+                free_cuda()
+        out["calibrate"] = calibrated(self.cache_dir, force=True,
+                                      device=dev)
+        session.put_queue(functools.partial(record_comm_rank, out))
+
+
+def _median_ms(reports: list) -> float:
+    """The median over the ranks of steps 2 to the last (the first pays
+    set-up)."""
+    return float(np.median([m for r in reports for m in r["step_ms"][1:]]))
+
+
+def comm_phase(seed: int, card: str, platform: str = "cuda") -> dict:
+    """Phase 20 (module docstring): gpt2-small at full width over four
+    ranks (NCCL with four cards, else all on card 0 over gloo) under
+    ``RayPlugin(num_workers=4)``: the off leg's fit, then every other
+    leg nested in its workers (``CommLegs``); the checks raise.  Its
+    launches are every leg's ranks' (rows 1 and 6 under ``comm``), not
+    the checks'.  ``platform="cpu"``: every rank a CPU process over
+    gloo (a dry run of the phase's code)."""
+    import chip_smoke as this
+    from ray_lightning_tpu_torch import RayPlugin
+    from ray_lightning_tpu_torch.comm import CommPolicy
+    from ray_lightning_tpu_torch.comm.selfcheck import PSUM_TOL
+    t_phase = time.monotonic()
+    nccl = platform != "cpu" and torch.cuda.device_count() >= COMM_RANKS
+    leg = ("nccl, one rank a card" if nccl else
+           "gloo, all four ranks on card 0: every exchange through the "
+           "host (a correctness leg, host-bound)")
+    legs = comm_legs(nccl)
+    out: dict = {"card": card, "leg": leg, "legs": {}}
+    cache_dir = str(ROOT / "build" / "comm_calibration")
+    with tempfile.TemporaryDirectory() as base, scoped_env(
+            **({} if nccl else {"RLT_ONE_CARD_GLOO": "1"})):
+        this.COMM_REPORTS.clear()
+        this.COMM_RANK_RESULTS.clear()
+        module = comm_module()
+        Trainer(plugins=[RayPlugin(num_workers=COMM_RANKS, platform=platform,
+                                   timeout_s=COMM_TIMEOUT_S)],
+                comm_policy=CommPolicy(), max_steps=COMM_STEPS, seed=seed,
+                callbacks=[this.CommProbe(seed),
+                           this.CommLegs(legs, seed, cache_dir)],
+                enable_checkpointing=False, logger=False,
+                num_sanity_val_steps=0, limit_val_batches=0,
+                default_root_dir=base).fit(module)
+        off = sorted(this.COMM_REPORTS, key=lambda r: r["rank"])
+        ranks = sorted(this.COMM_RANK_RESULTS, key=lambda r: r["rank"])
+        this.COMM_REPORTS.clear()
+        this.COMM_RANK_RESULTS.clear()
+        off_digest = state_digest(module._trained_state)
+        del module
+    if len(off) != COMM_RANKS or len(ranks) != COMM_RANKS:
+        raise AssertionError(f"comm phase: {len(off)} off-leg and "
+                             f"{len(ranks)} leg reports, want "
+                             f"{COMM_RANKS} each")
+    out["wall_s"] = time.monotonic() - t_phase
+    # -- the checks
+    problems = []
+    none = [r["none"] for r in ranks]
+    if off[0].get("digest") != off_digest or none[0]["digest"] != off_digest:
+        problems.append("the off leg's end state differs from the fit "
+                        "without a policy")
+    if any(r["sync"] is not None for r in off + none):
+        problems.append("the off / no-policy legs built a GradSync")
+    ref_ms = _median_ms(none)
+    base_loss = none[0]["losses"]
+    total = {"flash_fwd": 0, "flash_bwd": 0, "philox_uniform": 0}
+    for r in off + [x[name] for x in ranks for name, *_ in legs]:
+        for k in total:
+            total[k] += r["launches"][k]
+    for name, zero1, pol, k in legs:
+        reps = [x[name] for x in ranks]
+        r0 = reps[0]
+        res = {"sync": r0["sync"], "backend": r0["backend"],
+               "step_ms_median": _median_ms(reps),
+               "exposed_comm_ms": _median_ms(reps) - ref_ms,
+               "wire_bytes_a_rank_a_step": [r["wire_bytes"] for r in reps],
+               "bytes_by_tag": r0["bytes_by_tag"],
+               "model_bytes": r0["model_bytes"],
+               "peak_gb": [r["peak_bytes"] / 1e9 for r in reps],
+               "losses": r0["losses"], "grad_check": r0["grad_check"],
+               "residual_max": r0["residual_max"], "graph": r0["graph"],
+               "fit_s": [r["fit_s"] for r in reps],
+               "launches": [r["launches"] for r in reps]}
+        out["legs"][name] = res
+        # a graphed leg's capture runs one eager warm-up step first
+        n = CONFIGS["gpt2-small"].n_layer * (COMM_STEPS + (k > 1))
+        for i, r in enumerate(reps):
+            want = {"flash_fwd": n, "flash_bwd": n,
+                    "philox_uniform": r["draws_model"]}
+            if r["launches"] != want:
+                problems.append(f"{name} rank {i}: launches {r['launches']}"
+                                f", want {want}")
+        if pol is None:
+            continue
+        mode = pol["compress"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], base_loss)]
+        if len(rel) != COMM_STEPS or not max(rel) <= COMM_LOSS_BAR:
+            problems.append(f"{name}: losses {r0['losses']} off the "
+                            f"uncompressed {base_loss} beyond "
+                            f"{COMM_LOSS_BAR}")
+        for i, r in enumerate(reps):
+            g = r["grad_check"]
+            if not g or not g["ratio"] <= PSUM_TOL[mode]:
+                problems.append(f"{name} rank {i}: first-step synced "
+                                f"gradients {g} beyond {PSUM_TOL[mode]}")
+        if not (r0["residual_max"] or 0) > 0:
+            problems.append(f"{name}: residual zero after the first step")
+        if k == 1:
+            for i, r in enumerate(reps):
+                got = {t: r["bytes_by_tag"].get(t, 0)
+                       for t in r["model_bytes"]}
+                if got != r["model_bytes"]:
+                    problems.append(f"{name} rank {i}: recorded bytes {got}"
+                                    f" != the model {r['model_bytes']}")
+                if pol.get("hierarchy") and not (
+                        r["codec_by_link"]["ici"] == 0
+                        and r["f32_by_link"]["ici"] > 0):
+                    problems.append(
+                        f"{name} rank {i}: codec {r['codec_by_link']}, "
+                        f"f32 {r['f32_by_link']} by link: the pairs' "
+                        f"phases must stay fp32")
+        elif not (r0["graph"]["captures"] == 1
+                  and r0["graph"]["ungraphed"] is None):
+            problems.append(f"{name}: graph stats {r0['graph']}")
+        log(f"  {name} ({r0['sync']}, {r0['backend']}): step "
+            f"{res['step_ms_median']:.1f} ms, exposed comm "
+            f"{res['exposed_comm_ms']:+.1f} ms, wire "
+            f"{res['wire_bytes_a_rank_a_step'][0] / 1e6:.2f} MB a rank a "
+            f"step (model {r0['model_bytes']}), peak "
+            f"{max(res['peak_gb']):.2f} GB; first-step gradients "
+            f"{r0['grad_check']}; losses {r0['losses']} vs {base_loss} "
+            f"[{card}]")
+    cal = ranks[0]["calibrate"]
+    out["calibrate"] = cal
+    if "ici" not in cal.get("measured", ()) or not os.path.exists(
+            cal.get("cache") or ""):
+        problems.append(f"calibrate measured {cal.get('measured')} "
+                        f"({cal.get('ici_error') or cal.get('error')}), "
+                        f"cache {cal.get('cache')}")
+    log(f"  none: step {ref_ms:.1f} ms; off through RayPlugin: step "
+        f"{_median_ms(off):.1f} ms, digest equal: "
+        f"{off[0].get('digest') == off_digest == none[0]['digest']}; "
+        f"calibrated intra-host {cal.get('ici_gbps')} GB/s over "
+        f"{cal.get('backend')} ({cal.get('measured')}) [{card}]")
+    out["launches"] = {"comm": total}
+    out["seconds"] = time.monotonic() - t_phase
+    log("comm " + json.dumps(out, default=str))
+    if problems:
+        raise AssertionError("comm phase: " + "; ".join(problems))
+    return out
+
+
+def comm_kernel_entries(gen) -> "dict[int, dict]":
+    """Rows 1 and 6 at phase 20's shape: a rank's B=2 T=1024 H=12."""
+    src = "ray_lightning_tpu/ops/flash_attention.py"
+    r = long_kernel_shape(gen, COMM_B, 1024, 12)
+    entries = {}
+    for row, name, line, key in ((1, "flash_fwd", ":298", "fwd"),
+                                 (6, "flash_bwd", ":329", "bwd")):
+        e = record(name, row, src + line, r[key]["shape"],
+                   r[key]["max_abs_err"], r[key], tol=r[key]["tol"])
+        e.update({k: v for k, v in r[key].items() if k not in e})
+        e["by_shape"] = {f"B={COMM_B} H=12": r[key]}
+        entries[row] = e
+    return entries
+
+
+def check_actor_starts() -> None:
+    """Every actor of the run forked from the backend's fork server
+    (cluster/forkserver.py): none fell back to a fresh interpreter."""
+    from ray_lightning_tpu_torch.cluster import get_backend
+    stats = get_backend().start_stats()
+    log(f"actor starts: {stats['forked']} forked, {stats['spawned']} "
+        f"spawned; the fork server's imports {stats['preload_s']:.1f} s")
+    if stats["spawned"] or not stats["forked"]:
+        raise AssertionError(f"actors spawned past the fork server: {stats}")
 
 
 def main(argv=None) -> int:
@@ -6302,6 +6820,12 @@ def main(argv=None) -> int:
                          "pipeline and expert parallelism over four ranks), "
                          "then check and time flash_fwd and flash_bwd at "
                          "its shapes (rows 1 and 6)")
+    ap.add_argument("--comm-only", action="store_true",
+                    help="build, run phase 20 (the comm plane: gpt2-small "
+                         "over four ranks under every codec, hierarchy, "
+                         "bucketing and ZeRO-1 leg), then check and time "
+                         "flash_fwd and flash_bwd at its shape (rows 1 and "
+                         "6) and philox_uniform")
     ap.add_argument("--tune-only", action="store_true",
                     help="build, run phase 12 (Tune: PBT over MNIST, "
                          "gpt2-small trials under RayPlugin, in-process "
@@ -6322,7 +6846,7 @@ def main(argv=None) -> int:
     full = not (driver_off_cuda or args.fwd_only or args.bwd_only
                 or args.decode_only or args.trainer_only
                 or args.ladder_only or args.sharded_only
-                or args.parallel_only)
+                or args.parallel_only or args.comm_only)
     if not (driver_off_cuda or full):  # the device's name initialises CUDA
         log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
             f"{torch.cuda.get_device_name(0)}")
@@ -6448,6 +6972,24 @@ def main(argv=None) -> int:
                                      for path in ("pipeline", "moe_ep")}
             e["launches"] = sum(e["launches_by_path"].values())
         log(json.dumps({"kernels": [entries[1], entries[6]]}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if args.comm_only:
+        log("comm phase")
+        comm = comm_phase(args.seed, card_line())
+        log(f"comm phase: {comm['seconds']:.1f} s")
+        free_cuda()
+        log("kernel phase (rows 1 and 6 at the comm shape, "
+            "philox_uniform)")
+        entries = comm_kernel_entries(gen)
+        entries = [entries[1], entries[6], kernel_philox(gen)]
+        for e in entries:
+            e["launches_by_path"] = {"comm": comm["launches"]["comm"][
+                e["name"]]}
+            e["launches"] = e["launches_by_path"]["comm"]
+        log(json.dumps({"kernels": entries}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -6646,6 +7188,20 @@ def main(argv=None) -> int:
             e["launches_by_path"][path] = par["launches"][path][e["name"]]
         e["launches"] = sum(e["launches_by_path"].values())
     log(f"parallel phase: {par['seconds']:.1f} s")
+
+    log("comm phase")
+    free_cuda()
+    comm = comm_phase(args.seed, card)
+    free_cuda()
+    for row in (1, 6):
+        e = by_row[row]
+        e["launches_by_path"]["comm"] = comm["launches"]["comm"][e["name"]]
+        e["launches"] = sum(e["launches_by_path"].values())
+    philox["launches_by_path"]["comm"] = comm["launches"]["comm"][
+        "philox_uniform"]
+    philox["launches"] = sum(philox["launches_by_path"].values())
+    log(f"comm phase: {comm['seconds']:.1f} s")
+    check_actor_starts()
     log("speed order (rows slower than their library call by that factor, "
         "then by launches x (ms - bound)): " + ", ".join(
             f"{e['name'] if e['row'] is None else 'row %d' % e['row']} "

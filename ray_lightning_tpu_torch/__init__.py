@@ -20,6 +20,9 @@ checkpoints with ``ModelCheckpoint`` and resume with ``ckpt_path=``,
 ``CSVLogger``), data-parallel over subprocess actors with
 ``Trainer(plugins=[RayPlugin(num_workers=N)])`` (DDP) or
 ``RayShardedPlugin`` (ZeRO-1), NCCL on the card and gloo on the CPU,
+their gradient sync compressed with ``Trainer(comm_policy=CommPolicy(
+...))`` (int8 / fp8 / int4 / bf16 collectives with error feedback,
+hierarchical and bucketed),
 sharded training (``Trainer(strategy="fsdp")``, ``SpmdStrategy`` with
 ``gpt_partition_rules`` / ``bert_partition_rules`` for tensor
 parallelism, ``RaySpmdPlugin``) with sharded checkpoints
@@ -43,6 +46,7 @@ This package imports ``torch`` and never ``jax`` or the JAX package.
 """
 
 from ray_lightning_tpu_torch._device import resolve_device
+from ray_lightning_tpu_torch.comm import CommPolicy
 from ray_lightning_tpu_torch.convert import (flax_opt_state_to_torch,
                                              flax_to_torch,
                                              jax_checkpoint_to_torch)
@@ -82,6 +86,7 @@ __all__ = [
     "CONFIGS",
     "CSVLogger",
     "Callback",
+    "CommPolicy",
     "DataLoader",
     "EarlyStopping",
     "FleetServer",

@@ -11,7 +11,9 @@ object transport, the queue.
 A worker starts in the driver's working directory with the driver's
 ``sys.path`` as its ``PYTHONPATH``: stdlib pickle sends classes and
 functions by import path, so the worker must import every module the
-driver's payload names (a test module included).
+driver's payload names (a test module included).  Workers are forked
+from a server that has imported torch once (cluster/forkserver.py), or
+spawned as fresh interpreters when that server cannot start.
 
 Large payloads (the pickled trainer and module) go through a
 shared-memory object store: :meth:`LocalBackend.put` writes the pickled
@@ -35,6 +37,7 @@ import threading
 import uuid
 from typing import Any, Optional
 
+from ray_lightning_tpu_torch.cluster import forkserver
 from ray_lightning_tpu_torch.cluster.backend import (ActorHandle,
                                                      ClusterBackend, Future)
 from ray_lightning_tpu_torch.cluster.protocol import Connection
@@ -82,7 +85,8 @@ class LocalActorHandle(ActorHandle):
         self._backend = backend
         #: set by ``create_actor`` after the spawn (the handle registers
         #: first, so a hello that races ahead of the spawn finds it)
-        self._proc: Optional[subprocess.Popen] = None
+        self._proc: "Optional[subprocess.Popen | forkserver.ForkedProcess]" \
+            = None
         self.log_path = log_path
         self._conn: Optional[Connection] = None
         self._conn_ready = threading.Event()
@@ -218,6 +222,10 @@ class LocalBackend(ClusterBackend):
         self._queue: "list[tuple[str, Any]]" = []
         self._queue_lock = threading.Lock()
         self._closed = False
+        #: made at the first actor (``_fork_server``)
+        self._forkserver: Optional[forkserver.ForkServer] = None
+        self._forkserver_lock = threading.Lock()
+        self._started = {"forked": 0, "spawned": 0}
         threading.Thread(target=self._accept_loop, daemon=True,
                          name="rlt-accept").start()
 
@@ -293,17 +301,37 @@ class LocalBackend(ClusterBackend):
         log_path = os.path.join(self._dir, f"{actor_id}.log")
         handle = LocalActorHandle(self, actor_id, log_path)
         self._actors[actor_id] = handle
-        with open(log_path, "ab") as log_file:
-            try:
-                handle._proc = subprocess.Popen(
-                    [sys.executable, "-m",
-                     "ray_lightning_tpu_torch.cluster.worker_main"],
-                    env=child_env, cwd=os.getcwd(), stdout=log_file,
-                    stderr=subprocess.STDOUT)
-            except BaseException:
-                self._actors.pop(actor_id, None)
-                raise
+        try:
+            handle._proc = self._fork_server().spawn(child_env, os.getcwd(),
+                                                     log_path)
+            if handle._proc is None:
+                with open(log_path, "ab") as log_file:
+                    handle._proc = subprocess.Popen(
+                        [sys.executable, "-m",
+                         "ray_lightning_tpu_torch.cluster.worker_main"],
+                        env=child_env, cwd=os.getcwd(), stdout=log_file,
+                        stderr=subprocess.STDOUT)
+        except BaseException:
+            self._actors.pop(actor_id, None)
+            raise
+        self._started["spawned" if isinstance(handle._proc, subprocess.Popen)
+                      else "forked"] += 1
         return handle
+
+    def start_stats(self) -> dict:
+        """How the actors so far started: forked from the server or
+        spawned as fresh interpreters, and the server's import seconds
+        (None before it is ready)."""
+        server = self._forkserver
+        return {**self._started,
+                "preload_s": None if server is None else server.preload_s}
+
+    def _fork_server(self) -> forkserver.ForkServer:
+        with self._forkserver_lock:
+            if self._forkserver is None:
+                self._forkserver = forkserver.ForkServer(
+                    os.path.join(self._dir, "forkserver.log"))
+            return self._forkserver
 
     # -- shared-memory object store -----------------------------------------
 
@@ -343,8 +371,8 @@ class LocalBackend(ClusterBackend):
                 pass
 
     def shutdown(self) -> None:
-        """Kill every actor, delete the stored objects, close the
-        listener and remove the backend's directory."""
+        """Kill every actor, delete the stored objects, end the fork
+        server, close the listener and remove the backend's directory."""
         self._closed = True
         for handle in list(self._actors.values()):
             handle.kill()
@@ -355,6 +383,8 @@ class LocalBackend(ClusterBackend):
             except OSError:
                 pass
         self._objects.clear()
+        if self._forkserver is not None:
+            self._forkserver.close()
         self._listener.close()
         shutil.rmtree(self._dir, ignore_errors=True)
 

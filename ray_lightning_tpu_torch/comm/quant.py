@@ -29,9 +29,15 @@ decoded outputs, as XLA flushes them on the CPU and the TPU: a
 subnormal block encodes as a zero block, so the bytes stay the JAX
 package's.
 
-Stochastic rounding, which belongs with the compressed collectives and
-their error-feedback residual, is not ported: asking for it raises,
-naming its ROADMAP.md item.
+Stochastic rounding (``stochastic=True``, the compressed collectives'
+unbiased quantizer): one uniform draw an element, ``floor(x / scale +
+u)`` for the integer codecs and, for fp8, the lower or upper e4m3 grid
+neighbour with probability proportional to the distance, as the JAX
+codec draws them.  The draws come from ``key`` (ops/random.py ``Key``,
+the keyed Philox), never a ``torch.Generator``, so they replay inside a
+CUDA graph; their bits differ from ``jax.random``'s, and the two
+packages agree in distribution only.  bf16 is a plain cast in either
+mode, as in the JAX codec.
 """
 
 from __future__ import annotations
@@ -48,11 +54,16 @@ FP8_MAX = 448.0          # float8_e4m3fn max finite value
 CODEC_MODES = ("int8", "bf16", "fp8", "int4")
 
 
-def _deterministic(stochastic: bool) -> None:
-    if stochastic:
-        raise NotImplementedError(
-            "stochastic rounding belongs with the compressed collectives "
-            "and is not ported yet (ROADMAP.md queue 1 item 7)")
+FP8_MANT_BITS = 3
+FP8_MIN_EXP = -6         # smallest normal exponent of e4m3
+
+
+def _uniform(key, shape) -> torch.Tensor:
+    """The quantizer's draws: uniform [0, 1) of ``shape`` from ``key``."""
+    if key is None:
+        raise ValueError("stochastic rounding needs a key "
+                         "(ops/random.py Key)")
+    return key.uniform(tuple(shape))
 
 
 _TINY = torch.finfo(torch.float32).tiny
@@ -72,31 +83,67 @@ def _block_view(x: torch.Tensor, block_size: int) -> torch.Tensor:
                      + (x.shape[-1] // block_size, block_size))
 
 
-def _block_scale(blocks: torch.Tensor, levels: float):
-    """(scale, inv_scale) per block in fp32; zero blocks get zero for
-    both."""
-    scale = _ftz(blocks.abs().amax(dim=-1) / levels)
+def _block_scale(blocks: torch.Tensor, levels: float) -> torch.Tensor:
+    """The per-block fp32 scale ``max|x| / levels`` (zero for a zero
+    block)."""
+    return _ftz(blocks.abs().amax(dim=-1) / levels)
+
+
+def _inverse(scale: torch.Tensor) -> torch.Tensor:
+    """``1 / scale`` per block, zero where the scale is zero."""
     pos = scale > 0
-    inv = torch.where(pos, 1.0 / torch.where(pos, scale,
-                                             torch.ones_like(scale)),
-                      torch.zeros_like(scale))
-    return scale, inv
+    return torch.where(pos, 1.0 / torch.where(pos, scale,
+                                              torch.ones_like(scale)),
+                       torch.zeros_like(scale))
 
 
-def _int_round(val: torch.Tensor, levels: float) -> torch.Tensor:
-    return torch.clamp(torch.round(val), -levels, levels)
+def _int_round(val: torch.Tensor, levels: float, stochastic: bool = False,
+               key=None) -> torch.Tensor:
+    if stochastic:
+        val = torch.floor(val + _uniform(key, val.shape))
+    else:
+        val = torch.round(val)
+    return torch.clamp(val, -levels, levels)
+
+
+#: the levels each scaled codec divides a block's ``max|x|`` by
+LEVELS = {"int8": INT8_LEVELS, "fp8": FP8_MAX, "int4": INT4_LEVELS}
+
+
+def _encode(blocks: torch.Tensor, scale: torch.Tensor, mode: str,
+            shape, stochastic: bool = False, key=None) -> torch.Tensor:
+    """The payload of ``blocks`` ``[..., n_blocks, block_size]`` (fp32,
+    subnormals flushed) at the per-block ``scale``, for the flat
+    ``shape``: int8 levels, the e4m3 bit pattern as uint8, or int4
+    nibble pairs (``[..., n // 2]``)."""
+    val = blocks * _inverse(scale)[..., None]
+    if mode == "int8":
+        return _int_round(val, INT8_LEVELS, stochastic,
+                          key).to(torch.int8).reshape(shape)
+    if mode == "fp8":
+        if stochastic:
+            val = _fp8_stochastic_round(val, key)
+        # round to nearest even; |val| <= 448, so it never overflows
+        return val.to(torch.float8_e4m3fn).view(torch.uint8).reshape(shape)
+    q = (_int_round(val, INT4_LEVELS, stochastic, key) + 8.0).to(
+        torch.uint8).reshape(shape)
+    pairs = q.reshape(tuple(shape[:-1]) + (shape[-1] // 2, 2))
+    return pairs[..., 0] | (pairs[..., 1] << 4)
+
+
+def _quantize(x: torch.Tensor, mode: str, block_size: int,
+              stochastic: bool, key):
+    blocks = _block_view(_ftz(x.to(torch.float32)), block_size)
+    scale = _block_scale(blocks, LEVELS[mode])
+    return _encode(blocks, scale, mode, x.shape, stochastic, key), scale
 
 
 def blockwise_quantize(x: torch.Tensor, block_size: int = 64, *,
-                       stochastic: bool = False):
+                       stochastic: bool = False, key=None):
     """Quantize ``x`` (last dim a multiple of ``block_size``) to int8:
     ``(q, scale)``, ``q`` int8 shaped like ``x``, ``scale`` fp32 shaped
     ``[..., n_blocks]``."""
-    _deterministic(stochastic)
-    blocks = _block_view(_ftz(x.to(torch.float32)), block_size)
-    scale, inv = _block_scale(blocks, INT8_LEVELS)
-    q = _int_round(blocks * inv[..., None], INT8_LEVELS).to(torch.int8)
-    return q.reshape(x.shape), scale
+    return _quantize(x, "int8", block_size, stochastic, key)
 
 
 def blockwise_dequantize(q: torch.Tensor, scale: torch.Tensor,
@@ -106,17 +153,31 @@ def blockwise_dequantize(q: torch.Tensor, scale: torch.Tensor,
     return _ftz(blocks * scale[..., None]).reshape(q.shape)
 
 
+def _fp8_stochastic_round(v: torch.Tensor, key) -> torch.Tensor:
+    """Stochastic rounding onto the e4m3 grid: the lower or upper
+    neighbouring representable value with probability proportional to
+    the fractional distance (``E[result] == v``).  ``v`` is already
+    scaled into [-FP8_MAX, FP8_MAX]; the result is representable, so the
+    round-to-nearest cast after it is exact."""
+    a = v.abs()
+    e = torch.floor(torch.log2(torch.where(a > 0, a, torch.ones_like(a))))
+    e = torch.clamp(e, FP8_MIN_EXP, 8)        # subnormals share 2^-6's ulp
+    ulp = torch.exp2(e - FP8_MANT_BITS)
+    lower = torch.floor(a / ulp) * ulp
+    frac = (a - lower) / ulp
+    u = _uniform(key, v.shape)
+    a_sr = torch.clamp(lower + torch.where(u < frac, ulp,
+                                           torch.zeros_like(ulp)),
+                       max=FP8_MAX)
+    return torch.sign(v) * a_sr
+
+
 def fp8_blockwise_quantize(x: torch.Tensor, block_size: int = 64, *,
-                           stochastic: bool = False):
+                           stochastic: bool = False, key=None):
     """Quantize to e4m3 with per-block range scaling: ``(payload,
     scale)``, ``payload`` the f8 bit pattern as uint8 shaped like
     ``x``."""
-    _deterministic(stochastic)
-    blocks = _block_view(_ftz(x.to(torch.float32)), block_size)
-    scale, inv = _block_scale(blocks, FP8_MAX)
-    # round to nearest even; |val| <= 448, so it never overflows
-    q8 = (blocks * inv[..., None]).to(torch.float8_e4m3fn)
-    return q8.view(torch.uint8).reshape(x.shape), scale
+    return _quantize(x, "fp8", block_size, stochastic, key)
 
 
 def fp8_blockwise_dequantize(payload: torch.Tensor, scale: torch.Tensor,
@@ -127,20 +188,14 @@ def fp8_blockwise_dequantize(payload: torch.Tensor, scale: torch.Tensor,
 
 
 def int4_blockwise_quantize(x: torch.Tensor, block_size: int = 64, *,
-                            stochastic: bool = False):
+                            stochastic: bool = False, key=None):
     """Quantize to 4-bit levels [-7, 7] with per-block scales, two
     values a byte (low nibble first, offset q + 8): ``(payload,
     scale)``, ``payload`` uint8 shaped ``[..., n // 2]``.
     ``block_size`` must be even."""
     if block_size % 2:
         raise ValueError(f"int4 needs an even block size, got {block_size}")
-    _deterministic(stochastic)
-    blocks = _block_view(_ftz(x.to(torch.float32)), block_size)
-    scale, inv = _block_scale(blocks, INT4_LEVELS)
-    q = _int_round(blocks * inv[..., None], INT4_LEVELS)
-    q = (q + 8.0).to(torch.uint8).reshape(x.shape)
-    pairs = q.reshape(tuple(x.shape[:-1]) + (x.shape[-1] // 2, 2))
-    return pairs[..., 0] | (pairs[..., 1] << 4), scale
+    return _quantize(x, "int4", block_size, stochastic, key)
 
 
 def int4_blockwise_dequantize(payload: torch.Tensor, scale: torch.Tensor,
@@ -154,20 +209,21 @@ def int4_blockwise_dequantize(payload: torch.Tensor, scale: torch.Tensor,
 
 
 def compress_cast(x: torch.Tensor, mode: str, block_size: int = 64, *,
-                  stochastic: bool = False):
+                  stochastic: bool = False, key=None):
     """Uniform ``(payload, scale)`` encode for every codec: int8/fp8
     return a 1-byte payload shaped like ``x`` plus per-block scales,
     int4 a half-length packed payload, bf16 the cast with
-    ``scale=None``."""
+    ``scale=None``.  ``stochastic`` draws from ``key`` (module
+    docstring)."""
     if mode == "bf16":
-        _deterministic(stochastic)
         return x.to(torch.bfloat16), None
+    kw = dict(stochastic=stochastic, key=key)
     if mode == "int8":
-        return blockwise_quantize(x, block_size, stochastic=stochastic)
+        return blockwise_quantize(x, block_size, **kw)
     if mode == "fp8":
-        return fp8_blockwise_quantize(x, block_size, stochastic=stochastic)
+        return fp8_blockwise_quantize(x, block_size, **kw)
     if mode == "int4":
-        return int4_blockwise_quantize(x, block_size, stochastic=stochastic)
+        return int4_blockwise_quantize(x, block_size, **kw)
     raise ValueError(f"unknown compression mode {mode!r}; "
                      f"options: {CODEC_MODES}")
 
@@ -185,6 +241,22 @@ def decompress_cast(q: torch.Tensor, scale: Optional[torch.Tensor],
         return int4_blockwise_dequantize(q, scale, block_size)
     raise ValueError(f"unknown compression mode {mode!r}; "
                      f"options: {CODEC_MODES}")
+
+
+def decode_levels(q: torch.Tensor, mode: str) -> torch.Tensor:
+    """The codec's unscaled fp32 values of ``q`` (int8 / fp8 / int4;
+    int4 unpacked to the full length): :func:`decompress_cast` before
+    the per-block scale multiplies in."""
+    if mode == "int8":
+        return q.to(torch.float32)
+    if mode == "fp8":
+        return q.contiguous().view(torch.float8_e4m3fn).to(torch.float32)
+    if mode == "int4":
+        lo = (q & 0xF).to(torch.float32) - 8.0
+        hi = (q >> 4).to(torch.float32) - 8.0
+        return torch.stack([lo, hi], dim=-1).reshape(
+            tuple(q.shape[:-1]) + (q.shape[-1] * 2,))
+    raise ValueError(f"no scaled levels for mode {mode!r}")
 
 
 def payload_bytes(n_elements: int, mode: str, block_size: int = 64) -> int:
@@ -233,8 +305,9 @@ def dequantize_blob(payload, scale, mode: str, shape,
     return flat[:n].reshape(tuple(shape)).to(dtype)
 
 
-__all__ = ["CODEC_MODES", "FP8_MAX", "INT4_LEVELS", "INT8_LEVELS",
-           "blockwise_dequantize", "blockwise_quantize", "compress_cast",
+__all__ = ["CODEC_MODES", "FP8_MANT_BITS", "FP8_MAX", "FP8_MIN_EXP",
+           "INT4_LEVELS", "INT8_LEVELS", "LEVELS", "blockwise_dequantize",
+           "blockwise_quantize", "compress_cast", "decode_levels",
            "decompress_cast", "dequantize_blob", "fp8_blockwise_dequantize",
            "fp8_blockwise_quantize", "int4_blockwise_dequantize",
            "int4_blockwise_quantize", "payload_bytes", "quantize_blob"]

@@ -351,9 +351,38 @@ def _as_state(node: Mapping):
     raise KeyError(f"no optax state has the entries {sorted(node)}")
 
 
+def comm_state_to_torch(residual, inner_state_dict: dict) -> dict:
+    """A JAX ``CommState``'s parts as the ``state_dict`` of the port's
+    ``comm.CommState``: ``residual``, the ``[W, *param]`` leaves of every
+    rank's error-feedback residual (a param tree of numpy arrays, or
+    empty with error feedback off), each row through
+    :func:`flax_to_torch` and stacked back to ``[W, *torch shape]``;
+    ``inner_state_dict`` the wrapped optimizer's, already converted.
+    Each rank's ``load_state_dict`` takes its row, so both packages can
+    start from the same residual."""
+    leaves = _flatten(residual) if residual else {}
+    if not leaves:
+        return {"residual": {}, "inner": inner_state_dict}
+    world = int(np.asarray(next(iter(leaves.values()))).shape[0])
+
+    def row(tree, w):
+        if isinstance(tree, Mapping):
+            return {k: row(v, w) for k, v in tree.items()}
+        return np.asarray(tree)[w]
+
+    rows = [flax_to_torch(row(residual, w)) for w in range(world)]
+    return {"residual": {k: torch.stack([r[k] for r in rows])
+                         for k in rows[0]},
+            "inner": inner_state_dict}
+
+
 def _opt_state_dict(node: Mapping) -> dict:
     """An optax state in flax's dict form as the ``state_dict`` of the
-    port's counterpart (:func:`flax_opt_state_to_torch`)."""
+    port's counterpart (:func:`flax_opt_state_to_torch`; a comm plane's
+    ``CommState`` through :func:`comm_state_to_torch`)."""
+    if isinstance(node, Mapping) and set(node) == {"residual", "inner"}:
+        return comm_state_to_torch(node["residual"],
+                                   _opt_state_dict(node["inner"]))
     return flax_opt_state_to_torch(_as_state(node)).state_dict()
 
 
@@ -387,6 +416,7 @@ def jax_checkpoint_to_torch(ckpt: Mapping) -> dict:
     }
 
 
-__all__ = ["flax_opt_state_to_torch", "flax_path", "flax_to_shards",
+__all__ = ["comm_state_to_torch", "flax_opt_state_to_torch", "flax_path",
+           "flax_to_shards",
            "flax_to_torch", "jax_checkpoint_to_torch", "shards_to_flax",
            "stack_blocks", "to_tensor", "torch_to_flax", "unstack_blocks"]

@@ -24,9 +24,13 @@ and exist once.
   batch on the device by index: only indices cross the host link.  A
   trailing partial batch (``drop_last=False``) cannot ride the
   fixed-shape cache and goes through the single-step path as a host
-  batch.  Across ranks each process holds only its own rows of the set
-  (rank r the rows ``[r N/W, (r+1) N/W)``), and the repack is one
-  all-to-all (parallel/strategy.py ``exchange_rows``).
+  batch.  Across ranks each batch shard holds only its own rows of the
+  set (shard b the rows ``[b N/W, (b+1) N/W)``), and the repack is one
+  all-to-all among the shards (parallel/strategy.py ``exchange_rows``).
+  On a mesh with a tensor, expert, sequence or stage axis over 1 every
+  rank of such a group is one batch shard and holds the same rows (its
+  sequence slice of them, under a ``sequence`` axis), and the
+  all-to-all runs over the group of the batch axes.
 
 At world size > 1 with ``RLT_DATA_CHECK=1`` the stream source relays a
 fingerprint of every batch to the driver, which checks the ranks
@@ -257,6 +261,9 @@ class CachedSource:
                 host = ds.take(ids)
         else:
             host = self._loader.collate_fn([ds[int(i)] for i in ids])
+        seq_slice = getattr(self._loader, "_seq_slice", None)
+        if seq_slice is not None:
+            host = seq_slice(host)
         return self._trainer._host_cast(host)
 
     @property
@@ -319,13 +326,16 @@ class CachedSource:
         """This epoch's ``[nb, B, ...]`` batches into persistent buffers
         (a graphed chunk holds their addresses)."""
         B = self._loader.batch_size
+        mesh = self._trainer._mesh
+        group = mesh.group(*mesh.batch_axes) if mesh is not None else None
 
         def fill(flat, old):
             shape = (nb, B) + tuple(flat.shape[1:])
             out = old if old is not None and tuple(old.shape) == shape \
                 and old.dtype == flat.dtype else flat.new_empty(shape)
             if nb:
-                exchange_rows(flat, want, out.view(nb * B, *shape[2:]))
+                exchange_rows(flat, want, out.view(nb * B, *shape[2:]),
+                              group)
             return out
 
         old = tree_leaves(self._repacked) if self._repacked is not None \

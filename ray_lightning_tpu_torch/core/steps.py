@@ -75,7 +75,8 @@ def _split_loss(out) -> "tuple[torch.Tensor, dict]":
 def build_train_step(module, tx, accumulate_grad_batches: int = 1,
                      grad_sync: "Callable | None" = None,
                      rank: "int | None" = None,
-                     metric_sync: "Callable | None" = None) -> Callable:
+                     metric_sync: "Callable | None" = None,
+                     comm=None) -> Callable:
     """``(state, batch, scalars=None, keys=None) -> (state, metrics)``:
     one optimizer step.
 
@@ -96,6 +97,15 @@ def build_train_step(module, tx, accumulate_grad_batches: int = 1,
     the seed, the step and the microbatch).  ``scalars`` is the
     optimizer's count-dependent scalars on the device (``tx.update``'s;
     ``None``: made from the host count).
+
+    ``comm`` (a ``comm.GradSync``, the comm plane) takes the place of
+    ``grad_sync``: the gradients (accumulated first, so one sync an
+    optimizer step) go through ``comm.sync_step`` with the residual of
+    the optimizer state (``CommState``), and the new residual is copied
+    back into it in place; its stochastic rounding draws from the
+    step's key (``keys[0]``, folded under ``comm.COMM_STREAM``), so a
+    graphed chunk draws each step's own numbers (the JAX step derives
+    its comm key from the state's key the same way).
     """
     k = max(1, int(accumulate_grad_batches))
 
@@ -155,7 +165,10 @@ def build_train_step(module, tx, accumulate_grad_batches: int = 1,
             loss = torch.stack(losses).mean()
             logged = {n: torch.stack([d[n] for d in logs]).mean()
                       for n in logs[0]}
-        if grad_sync is not None:
+        if comm is not None:
+            grads = _comm_sync(comm, state, list(params), list(grads),
+                               keys, ranked)
+        elif grad_sync is not None:
             grads = grad_sync(list(grads))
         tx.update(dict(zip(params, grads)), state.opt_state, params,
                   scalars)
@@ -167,6 +180,33 @@ def build_train_step(module, tx, accumulate_grad_batches: int = 1,
 
     step_fn.key_words = key_words
     return step_fn
+
+
+def _comm_sync(comm, state: TrainState, names: "list[str]",
+               grads: "list[torch.Tensor]", keys, ranked: tuple):
+    """The comm plane's sync of one step's gradients (``build_train_step``
+    docstring): the residual read from and written back to the
+    optimizer state."""
+    from ray_lightning_tpu_torch.ops.random import Key
+    res = getattr(state.opt_state, "residual", None) or None
+    residual = [res[n] for n in names] if res else None
+    key = None
+    if comm.policy.stochastic_rounding:
+        words = keys[0] if keys is not None else torch.from_numpy(
+            random.key_words(state.generator.initial_seed(), state.step, 0,
+                             *ranked)).to(grads[0].device)
+        key = Key(words)
+    if comm.zero1:
+        # ZeRO-1 reduce-scatters over its own shard layout
+        # (parallel/strategy.py ``Zero1Optimizer``)
+        comm.defer(res, key)
+        return grads
+    synced, new_res = comm.sync_step(grads, residual, key=key)
+    if new_res is not None:
+        with torch.no_grad():
+            for r, e in zip(residual, new_res):
+                r.copy_(e)
+    return synced
 
 
 #: eager steps a capture runs first (on a side stream, then undone):
@@ -327,35 +367,41 @@ class ChunkRunner:
     The steps' key words (``step_fn.key_words``) ride a static input
     too, so a step's keyed draws (``StepContext.make_key``: dropout, the
     masked LM's mask; ops/random.py) are the eager step's bit for bit.
-    On the CPU a chunk is k eager steps.  A step that draws from a
-    ``torch.Generator`` (``StepContext.make_rng``) raises inside a
-    capture.
+    On the CPU a chunk is k eager steps, and so it is on the card when
+    ``ungraphed`` gives the reason it cannot be captured (the steps'
+    collectives run over gloo, whose collectives a CUDA graph cannot
+    hold).  A step that draws from a ``torch.Generator``
+    (``StepContext.make_rng``) raises inside a capture.
 
     ``stats``: ``captures``, ``replays``, ``warmup_steps``, per capture
     its ``capture_ms`` and ``pool_bytes`` (device memory reserved by the
-    capture), ``launches_per_replay`` of the last capture.
+    capture), ``launches_per_replay`` of the last capture, and
+    ``ungraphed``: ``None``, or why the chunks on the card run eagerly
+    (``eager_chunks`` counts them).
     """
 
     def __init__(self, step_fn: Callable, tx, k: int, model: torch.nn.Module,
-                 device: torch.device):
+                 device: torch.device, ungraphed: "str | None" = None):
         self.step_fn = step_fn
         self.tx = tx
         self.k = int(k)
         self.model = model
         self.device = torch.device(device)
+        self.ungraphed = ungraphed
         self._graphs: "dict[Any, _ChunkGraph]" = {}
         self.stats: dict = {"captures": 0, "replays": 0, "warmup_steps": 0,
                             "capture_ms": [], "pool_bytes": [],
-                            "launches_per_replay": {}}
+                            "launches_per_replay": {},
+                            "ungraphed": ungraphed, "eager_chunks": 0}
 
     # -- entry points --------------------------------------------------
 
     def run(self, state: TrainState, stacked: Any):
         """k steps over ``stacked``: host batches stacked to ``[k, B,
         ...]`` (CPU tensors, already cast)."""
-        if self.device.type != "cuda":
+        if not self._graphed():
             return self._eager(state, lambda i: tree_map(
-                lambda x: x[i], stacked))
+                lambda x: x[i].to(self.device), stacked))
         key = ("stream", signature(stacked))
         entry = self._graphs.get(key)
         if entry is None:
@@ -374,7 +420,7 @@ class ChunkRunner:
         ``dataset`` (``[n_batches, B, ...]`` leaves): each step gathers
         its batch on the device by index, so only indices cross the
         host link."""
-        if self.device.type != "cuda":
+        if not self._graphed():
             return self._eager(state, lambda i: tree_map(
                 lambda d: d[int(idxs[i])], dataset))
         key = ("cached", tuple((d.data_ptr(), tuple(d.shape), d.dtype)
@@ -389,7 +435,12 @@ class ChunkRunner:
 
     # -- the two ways ----------------------------------------------------
 
+    def _graphed(self) -> bool:
+        return self.device.type == "cuda" and self.ungraphed is None
+
     def _eager(self, state, batch_of):
+        if self.device.type == "cuda":
+            self.stats["eager_chunks"] += 1
         outs = []
         for i in range(self.k):
             state, metrics = self.step_fn(state, batch_of(i))

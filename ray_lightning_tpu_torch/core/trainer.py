@@ -67,9 +67,15 @@ single-device, so a lease of n > 1 cards trains on its first card.
 train steps' values (published mid-epoch every ``log_every_n_steps``
 steps) and the batch-size-weighted mean of the last validation;
 ``global_step`` counts optimizer steps and ``current_epoch`` the epochs
-run.  The telemetry, compile-cache, comm, elastic and planner planes
-raise ``NotImplementedError`` when given a value other than their
-default.
+run.  ``comm_policy`` (a ``CommPolicy``, a codec name or a dict; the
+``RLT_COMM*`` knobs when ``None``) routes DDP's and ZeRO-1's gradient
+sync through the comm plane's compressed collectives
+(comm/collectives.py ``GradSync``, wrapped outermost around the
+optimizer: its state carries each rank's error-feedback residual,
+checkpointed gathered to ``[W, ...]``); off, the step issues exactly
+the collectives it issues without a policy.  The telemetry,
+compile-cache, elastic and planner planes raise
+``NotImplementedError`` when given a value other than their default.
 
 The epoch engine (one loop over a batch source, core/loop_engine.py):
 a chunk never crosses ``max_steps`` or a ``val_check_interval``
@@ -106,6 +112,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ray_lightning_tpu_torch.comm.collectives import (CommState, CommTx,
+                                                      inner_state_dict)
+from ray_lightning_tpu_torch.comm.policy import CommPolicy
 from ray_lightning_tpu_torch.parallel import strategy as _parallel
 from ray_lightning_tpu_torch.parallel.gather import fetch_tree
 from ray_lightning_tpu_torch.parallel.layout import (ShardLayout,
@@ -135,7 +144,7 @@ from ray_lightning_tpu_torch.utils.states import (load_state_stream,
 #: arguments of the JAX ``Trainer`` that are not ported: name -> default
 _NOT_PORTED = {
     "telemetry": None,
-    "compile_cache": None, "comm_policy": None, "elastic": None,
+    "compile_cache": None, "elastic": None,
     "plan": None,
 }
 
@@ -194,12 +203,16 @@ class Trainer:
                 f"Unknown precision {precision!r}; use one of "
                 f"{_BF16_PRECISIONS + _FP32_PRECISIONS}")
         given = dict(telemetry=telemetry, compile_cache=compile_cache,
-                     comm_policy=comm_policy, elastic=elastic, plan=plan)
+                     elastic=elastic, plan=plan)
         for name, default in _NOT_PORTED.items():
             if given[name] != default:
                 raise NotImplementedError(
                     f"Trainer({name}={given[name]!r}) is not ported yet "
                     f"(ROADMAP.md queue 1)")
+        #: the resolved comm policy (comm/policy.py) and, while a stage
+        #: runs with it active, its ``GradSync``
+        self.comm_policy = CommPolicy.resolve(comm_policy)
+        self._grad_sync = None
         runners = [p for p in (plugins or []) if hasattr(p, "run")]
         if len(runners) > 1:
             raise ValueError("At most one execution plugin is supported.")
@@ -270,6 +283,7 @@ class Trainer:
         #: host copy; the write runs behind) and restore's (``restore_s``)
         self.checkpoint_stats: dict = {}
         self._train_step = None
+        self._tx = None
         #: k steps a dispatch (``steps_per_execution`` > 1 or the cache)
         self._multi_train_step = None
         self._cache_source = None
@@ -378,7 +392,18 @@ class Trainer:
             tx = tx["optimizer"]
         if self.gradient_clip_val:
             tx = chain(clip_by_global_norm(self.gradient_clip_val), tx)
-        tx = strategy.wrap_optimizer(tx)
+        # the comm plane: None (off, or inert on this strategy and mesh)
+        # keeps the step's collectives as they are without a policy
+        sync = self._grad_sync = strategy.grad_transform(
+            self._mesh, self.comm_policy)
+        if sync is None:
+            tx = strategy.wrap_optimizer(tx)
+        else:
+            sync.setup(self.device)
+            # outermost: the optimizer state becomes a CommState
+            tx = CommTx(strategy.wrap_optimizer(tx, comm=sync), sync)
+        #: the optimizer the step runs (its wraps included)
+        self._tx = tx
         generator = torch.Generator(device=self.device).manual_seed(seed)
         self._layout = None
 
@@ -402,17 +427,19 @@ class Trainer:
             module, tx, self.accumulate_grad_batches,
             grad_sync=strategy.grad_sync(self._layout),
             rank=mesh.batch_index if mesh.batch_size > 1 else None,
-            metric_sync=_parallel.mean_over_ranks)
+            metric_sync=_parallel.mean_over_ranks, comm=sync)
         if stage == "fit" and (self.steps_per_execution > 1
                                or self.cache_train_dataset):
-            if self.device.type == "cuda" and mesh.backend == "gloo":
-                raise NotImplementedError(
-                    "steps_per_execution / cache_train_dataset on the card "
-                    "over gloo: gloo's collectives cannot be captured in a "
-                    "CUDA graph (NCCL's are); ROADMAP.md queue 1 item 9")
+            # gloo's collectives cannot be captured in a CUDA graph
+            # (NCCL's are): such a chunk runs as k eager steps on the
+            # card, and graph_stats says so
+            ungraphed = ("gloo's collectives cannot be captured in a "
+                         "CUDA graph: k eager steps a chunk"
+                         if self.device.type == "cuda"
+                         and mesh.backend == "gloo" else None)
             self._multi_train_step = ChunkRunner(
                 self._train_step, tx, self.steps_per_execution,
-                module.model, self.device)
+                module.model, self.device, ungraphed=ungraphed)
             self.graph_stats = self._multi_train_step.stats
         self._cache_disabled = False
         self._eval_steps = {s: build_eval_step(module, s)
@@ -578,12 +605,6 @@ class Trainer:
         resident set when enabled and buildable (built once a fit,
         repacked each epoch in the loader's order), else the loader."""
         if self.cache_train_dataset and not self._cache_disabled:
-            if self._mesh.batch_size != self.world_size:
-                raise NotImplementedError(
-                    "cache_train_dataset with a tensor, expert, sequence "
-                    "or stage axis over 1 (the cached set is repacked "
-                    "over every rank as a batch shard): ROADMAP.md queue "
-                    "1 item 9")
             if self._cache_source is None \
                     and CachedSource.usable(train_loader):
                 src = CachedSource(self, train_loader)
@@ -947,7 +968,11 @@ class Trainer:
                 f"{saved[wrong[0]].dtype}, the model holds "
                 f"{live[wrong[0]].dtype}; restore would cast them")
         self._load_full_state(model, saved)
-        self.state.opt_state.load_state_dict(st["opt_state"])
+        opt = self.state.opt_state
+        # a CommState takes a save with or without a residual; a state
+        # without the plane drops a saved residual
+        opt.load_state_dict(st["opt_state"] if isinstance(opt, CommState)
+                            else inner_state_dict(st["opt_state"]))
         self._restore_counters(int(st["step"]), int(st["rng"]), ckpt,
                                module)
 
@@ -991,11 +1016,19 @@ class Trainer:
         layout = self._checkpoint_layout()
         model = self.lightning_module.model
         opt = self.state.opt_state
-        if isinstance(opt, ShardedOptState):
-            opt_sd = opt.sharded_state_dict(stage)
+        inner = opt.inner if isinstance(opt, CommState) else opt
+        if isinstance(inner, ShardedOptState):
+            opt_sd = inner.sharded_state_dict(stage)
         else:
-            opt_sd = map_param_dicts(opt.state_dict(), layout.names,
+            opt_sd = map_param_dicts(inner.state_dict(), layout.names,
                                      lambda k, v: layout.dtensor(k, stage(v)))
+        if isinstance(opt, CommState):
+            # each rank's residual is row ``index`` of a [W, ...] tensor
+            sync = self._grad_sync
+            opt_sd = {"residual": {
+                k: _row_dtensor(stage(r)[None], sync.index, sync.world,
+                                self._mesh)
+                for k, r in opt.residual.items()}, "inner": opt_sd}
         return {"params": {k: layout.dtensor(k, stage(p))
                            for k, p in model.named_parameters()},
                 "model_state": {k: stage(b)
@@ -1041,6 +1074,11 @@ class Trainer:
             "step": int(self.state.step),
             "rng": int(self.state.generator.initial_seed()),
         }
+        opt = self.state.opt_state
+        if isinstance(opt, CommState) and opt.residual:
+            # the residual's stacked world: a restore into another world
+            # re-buckets it (``_restore_sharded``)
+            meta["comm_world"] = int(opt.world)
         t0 = time.perf_counter()
         ckpt.save(step, self.sharded_state_dict(), meta)
         self.checkpoint_stats["save_stage_s"] = time.perf_counter() - t0
@@ -1072,10 +1110,28 @@ class Trainer:
         t0 = time.perf_counter()
         root, step = ShardedCheckpointer.split_step_dir(directory)
         ckpt = ShardedCheckpointer(root, mesh=self._mesh)
+        opt = self.state.opt_state
         try:
             saved = ckpt.saved_state_metadata(step) or {}
-            state, meta = ckpt.restore(self.sharded_state_dict(
-                stage=lambda t: torch.empty(t.shape, dtype=t.dtype)), step)
+            template = self.sharded_state_dict(
+                stage=lambda t: torch.empty(t.shape, dtype=t.dtype))
+            res_keys = {k[len("opt_state/residual/"):]: v for k, v in
+                        saved.items() if k.startswith("opt_state/residual/")}
+            if isinstance(opt, CommState):
+                # the saved [N, ...] rows whole on every rank (re-bucketed
+                # below); a save without the plane restores the inner
+                # state alone and error feedback starts from zero
+                if res_keys:
+                    template["opt_state"]["residual"] = {
+                        k: torch.empty(shape, dtype=dt)
+                        for k, (shape, dt) in res_keys.items()}
+                else:
+                    template["opt_state"] = template["opt_state"]["inner"]
+            elif res_keys:
+                # saved with the plane, restored where it is inert: the
+                # residual is dropped
+                template["opt_state"] = {"inner": template["opt_state"]}
+            state, meta = ckpt.restore(template, step)
         finally:
             ckpt.close()
         layout = self._checkpoint_layout()
@@ -1093,18 +1149,48 @@ class Trainer:
                 p.copy_(layout.from_storage(k, state["params"][k]))
             for k, b in model.named_buffers():
                 b.copy_(state["model_state"][k])
-        opt = self.state.opt_state
-        if isinstance(opt, ShardedOptState):
-            opt.load_sharded_state_dict(state["opt_state"], self.device)
+        opt_sd = state["opt_state"]
+        if isinstance(opt, CommState):
+            if res_keys:
+                opt.load_residual(opt_sd["residual"])
+                opt_sd = opt_sd["inner"]
+            else:
+                opt.zero_residual()
+            inner = opt.inner
         else:
-            opt.load_state_dict(map_param_dicts(
-                state["opt_state"], layout.names,
+            inner = opt
+            if res_keys:
+                opt_sd = opt_sd["inner"]
+        if isinstance(inner, ShardedOptState):
+            inner.load_sharded_state_dict(opt_sd, self.device)
+        else:
+            inner.load_state_dict(map_param_dicts(
+                opt_sd, layout.names,
                 lambda k, v: layout.from_storage(k, v).to(self.device)))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.checkpoint_stats["restore_s"] = time.perf_counter() - t0
         self._restore_counters(int(meta["step"]), int(meta["rng"]), meta,
                                module)
+
+
+def _row_dtensor(row: torch.Tensor, index: int, world: int, mesh):
+    """``row`` ([1, ...], this rank's) as row ``index`` of a ``[world,
+    ...]`` DTensor sharded on dim 0 along the mesh's ``data`` axis (the
+    comm plane's residual in a sharded checkpoint)."""
+    if world == 1 or mesh.world == 1:
+        return row
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    ckpt_mesh, _ = mesh.checkpoint_mesh()
+    placements = [Shard(0) if a == "data" else Replicate()
+                  for a in mesh.axis_names]
+    shape = (world,) + tuple(row.shape[1:])
+    stride = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        stride[d] = stride[d + 1] * shape[d + 1]
+    return DTensor.from_local(row.contiguous(), ckpt_mesh, placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=tuple(stride))
 
 
 def _remote(filepath: str) -> bool:

@@ -39,11 +39,15 @@ def train(sequence: int = 4,
           limit_train_batches: Optional[int] = None,
           max_steps: int = -1,
           callbacks=(),
-          default_root_dir: Optional[str] = None) -> Trainer:
+          default_root_dir: Optional[str] = None,
+          n_layer: Optional[int] = None) -> Trainer:
     """One fit of ``model_size`` at context ``seq_len`` over a ring of
-    ``sequence`` workers."""
+    ``sequence`` workers; ``n_layer`` cuts its depth (None keeps the
+    model's)."""
     cfg = dataclasses.replace(CONFIGS[model_size], block_size=seq_len,
                               attention_impl="ring")
+    if n_layer is not None:
+        cfg = dataclasses.replace(cfg, n_layer=n_layer)
     module = GPTLightningModule(cfg, dataset_size=dataset_size,
                                 batch_size=batch_size)
     strategy = SpmdStrategy(rules=gpt_partition_rules(),

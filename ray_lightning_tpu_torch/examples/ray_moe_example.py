@@ -20,6 +20,7 @@ tensor 2), eight CPU workers, batch 4, for two steps.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 from typing import Optional
 
 from ray_lightning_tpu_torch import RaySpmdPlugin, Trainer
@@ -40,10 +41,14 @@ def train(expert: int = 2,
           limit_train_batches: Optional[int] = None,
           max_steps: int = -1,
           callbacks=(),
-          default_root_dir: Optional[str] = None) -> Trainer:
+          default_root_dir: Optional[str] = None,
+          n_layer: Optional[int] = None) -> Trainer:
     """One fit of ``model_size`` over ``data x expert x tensor``
-    workers."""
-    module = GPTLightningModule(CONFIGS[model_size],
+    workers; ``n_layer`` cuts its depth (None keeps the model's)."""
+    cfg = CONFIGS[model_size]
+    if n_layer is not None:
+        cfg = dataclasses.replace(cfg, n_layer=n_layer)
+    module = GPTLightningModule(cfg,
                                 dataset_size=dataset_size,
                                 batch_size=batch_size)
     strategy = SpmdStrategy(rules=gpt_partition_rules(),

@@ -27,7 +27,9 @@ ring shift along one axis (ring attention, the pipeline's hops): under
 NCCL one ``batch_isend_irecv`` of the send and the receive, so a ring of
 two cannot deadlock; under gloo the same pair on host copies (gloo's
 ``send`` / ``recv`` take CPU tensors).  Each form is logged once, when
-it first runs.
+it first runs, and each call is recorded in an active
+``comm.audit.CollectiveLog`` (tag ``"mesh"``: the layout, tensor, ring
+and pipeline collectives all run here).
 
 The axes follow the JAX order, ``("data", "fsdp", "expert",
 "sequence", "tensor")`` for ``SpmdStrategy`` and ``("data", "stage")``
@@ -45,6 +47,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from ray_lightning_tpu_torch.comm import audit
 
 _log = logging.getLogger(__name__)
 
@@ -323,6 +327,7 @@ def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM
     w = _wide(t, group)
     out = w.clone() if w is t else w
     dist.all_reduce(out, op=op, group=group)
+    audit.note("all-reduce", out, group, "mesh")
     return out if out.dtype == t.dtype else out.to(t.dtype)
 
 
@@ -342,6 +347,7 @@ def all_gather_along(t: torch.Tensor, dim: int, group) -> torch.Tensor:
         _note("all_gather", "all_gather_into_tensor", t, group)
         out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
         dist.all_gather_into_tensor(out, src, group=group)
+    audit.note("all-gather", out, group, "mesh")
     return out.movedim(0, dim)
 
 
@@ -360,6 +366,7 @@ def reduce_scatter_along(t: torch.Tensor, dim: int, group) -> torch.Tensor:
         w = _wide(src, group)
         out = w.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
         dist.reduce_scatter_tensor(out, w, group=group)
+        audit.note("reduce-scatter", w, group, "mesh")
         out = out.to(src.dtype)
     return out.movedim(0, dim)
 
@@ -390,6 +397,7 @@ def ppermute(t: torch.Tensor, g, shift: int = 1) -> torch.Tensor:
             dist.P2POp(dist.irecv, out, src, g.group)])
     for r in reqs:
         r.wait()
+    audit.note("collective-permute", out, g.group, "mesh")
     return out.to(t.device)
 
 

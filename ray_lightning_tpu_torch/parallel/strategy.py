@@ -76,8 +76,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ray_lightning_tpu_torch.ops.optim import (SGD, AdamW, EmptyState,
-                                               add_decayed_weights, chain,
+from ray_lightning_tpu_torch.comm import audit
+from ray_lightning_tpu_torch.ops.optim import (EmptyState, chain,
                                                clip_by_global_norm,
                                                fp32_master)
 
@@ -105,6 +105,7 @@ def mean_over_ranks(values: "list[torch.Tensor]") -> "list[torch.Tensor]":
         return values
     buf = torch.stack([v.detach().float().reshape(()) for v in values])
     dist.all_reduce(buf)
+    audit.note("all-reduce", buf, None, "metrics")
     buf.div_(dist.get_world_size())
     return [b.to(v.dtype) for b, v in zip(buf, values)]
 
@@ -116,6 +117,7 @@ def sum_over_ranks(t: torch.Tensor) -> torch.Tensor:
         return t
     t = t.clone()
     dist.all_reduce(t)
+    audit.note("all-reduce", t, None, "metrics")
     return t
 
 
@@ -128,12 +130,14 @@ class _SumOverRanks(torch.autograd.Function):
     def forward(ctx, t: torch.Tensor) -> torch.Tensor:
         t = t.clone()
         dist.all_reduce(t)
+        audit.note("all-reduce", t, None, "moments")
         return t
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
         grad = grad.clone()
         dist.all_reduce(grad)
+        audit.note("all-reduce", grad, None, "moments")
         return grad
 
 
@@ -166,7 +170,7 @@ def gather_objects(obj) -> list:
 
 
 def exchange_rows(flat: torch.Tensor, want: "list[np.ndarray]",
-                  out: torch.Tensor) -> None:
+                  out: torch.Tensor, group=None) -> None:
     """``out[j]`` = row ``want[rank][j]`` of a set of rows spread over the
     ranks, rank r holding rows ``[r n, (r+1) n)`` as ``flat`` (``n =
     flat.shape[0]``): the per-epoch repack of the device-resident train
@@ -175,13 +179,17 @@ def exchange_rows(flat: torch.Tensor, want: "list[np.ndarray]",
     ``index_select``; across ranks one ``all_to_all_single`` brings
     each rank the rows it needs from each other (NCCL on the card, gloo
     on the CPU), so no rank holds more than its own rows and its own
-    batches."""
+    batches.  ``group`` (default: every rank) is the ranks that share
+    the set, one a batch shard: on a mesh with a tensor, expert,
+    sequence or stage axis over 1, the group of the batch axes, in
+    whose rank numbers ``want`` and the row ranges are read."""
     dev = flat.device
-    if world_size() == 1:
+    W = len(want)
+    if W == 1:
         idx = torch.from_numpy(np.asarray(want[0], np.int64)).to(dev)
         torch.index_select(flat, 0, idx, out=out)
         return
-    W, r, n = world_size(), global_rank(), flat.shape[0]
+    r, n = dist.get_rank(group), flat.shape[0]
     owner = [np.asarray(w, np.int64) // n for w in want]
     send = np.concatenate([np.asarray(want[d], np.int64)[owner[d] == r]
                            - r * n for d in range(W)])
@@ -190,7 +198,7 @@ def exchange_rows(flat: torch.Tensor, want: "list[np.ndarray]",
     sendbuf = flat.index_select(0, torch.from_numpy(send).to(dev))
     recvbuf = out.new_empty(out.shape)
     dist.all_to_all_single(recvbuf, sendbuf, [len(p) for p in recv_pos],
-                           send_sizes)
+                           send_sizes, group=group)
     out.index_copy_(0, torch.from_numpy(np.concatenate(recv_pos)).to(dev),
                     recvbuf)
 
@@ -202,6 +210,7 @@ def average_grads(grads: "list[torch.Tensor]") -> "list[torch.Tensor]":
     rank and a divide by 1: the values come back unchanged."""
     flat = torch.cat([g.reshape(-1).float() for g in grads])
     dist.all_reduce(flat)
+    audit.note("all-reduce", flat, None, "ddp")
     flat.div_(dist.get_world_size())
     out, off = [], 0
     for g in grads:
@@ -264,6 +273,10 @@ class ShardingStrategy:
     axis_names: "tuple[str, ...]" = ("data",)
     #: axes the batch's leading dim is split over
     data_axis_names: "tuple[str, ...]" = ("data",)
+    #: whether the gradient sync can route through the comm plane's
+    #: compressed collectives (comm/collectives.py): params whole on
+    #: every rank
+    comm_compressible: bool = False
 
     def axis_sizes(self, n_devices: int) -> dict:
         return {"data": n_devices}
@@ -304,10 +317,58 @@ class ShardingStrategy:
         ``None``."""
         return None
 
-    def wrap_optimizer(self, tx):
+    def wrap_optimizer(self, tx, comm=None):
         """The optimizer the step runs, given the module's (chained with
-        the clip when ``gradient_clip_val`` is set)."""
+        the clip when ``gradient_clip_val`` is set) and the comm plane's
+        ``GradSync`` (``None``: off)."""
         return tx
+
+    # -- the comm plane ------------------------------------------------------
+
+    def grad_transform(self, mesh, policy, local: "int | None" = None,
+                       hosts: "int | None" = None):
+        """Resolve a comm policy against this strategy on this mesh: a
+        ``comm.GradSync`` the step routes the gradient reduction
+        through, or ``None`` (the uncompressed step: the same
+        collectives as without a policy); comm/collectives.py
+        ``build_grad_sync`` has the rules."""
+        if policy is None:
+            return None
+        from ray_lightning_tpu_torch.comm.collectives import build_grad_sync
+        return build_grad_sync(self, mesh, policy, local=local, hosts=hosts)
+
+    def data_parallel_size(self, mesh) -> int:
+        return mesh.size(*(a for a in self.data_axis_names
+                           if a in mesh.axis_names))
+
+    @staticmethod
+    def _tree_bytes(params: Mapping) -> int:
+        from ray_lightning_tpu_torch.comm.collectives import (_itemsize,
+                                                              _numel)
+        return sum(_numel(p) * _itemsize(p.dtype) for p in params.values())
+
+    @staticmethod
+    def _tree_elements(params: Mapping) -> int:
+        from ray_lightning_tpu_torch.comm.collectives import _numel
+        return sum(_numel(p) for p in params.values())
+
+    def step_collective_bytes(self, mesh, params: Mapping,
+                              comm=None) -> dict:
+        """op -> logical payload bytes ONE optimizer step moves (the JAX
+        declaration; ``params`` maps names to anything with ``shape``
+        and ``dtype``).  DDP: one gradient all-reduce the size of the
+        params; with an active comm plane the compressed wire payload,
+        split by link tier (``_dcn`` / ``_ici``) when hierarchical."""
+        if self.data_parallel_size(mesh) <= 1:
+            return {}
+        if comm is not None:
+            n = self._tree_elements(params)
+            if comm.hierarchical:
+                link = comm.psum_link_bytes(n)
+                return {"grad_all_reduce_dcn": link["dcn"],
+                        "grad_all_reduce_ici": link["ici"]}
+            return {"grad_all_reduce": comm.psum_wire_bytes(n)}
+        return {"grad_all_reduce": self._tree_bytes(params)}
 
     def __repr__(self):
         return f"{type(self).__name__}()"
@@ -318,6 +379,7 @@ class DataParallelStrategy(ShardingStrategy):
     over the ranks before the update (module docstring)."""
 
     name = "ddp"
+    comm_compressible = True
 
     def grad_sync(self, layout=None) -> Optional[Callable]:
         return average_grads if group_active() else None
@@ -330,6 +392,7 @@ class Zero1Strategy(ShardingStrategy):
     their gradients are all-reduced and every rank updates them whole."""
 
     name = "zero1"
+    comm_compressible = True
 
     def __init__(self, min_shard_elements: int = 0):
         self.min_shard_elements = int(min_shard_elements)
@@ -339,8 +402,40 @@ class Zero1Strategy(ShardingStrategy):
             return P()
         return _axis_spec(shape, "data", mesh.shape["data"])
 
-    def wrap_optimizer(self, tx):
-        return Zero1Optimizer(tx, self.min_shard_elements)
+    def wrap_optimizer(self, tx, comm=None):
+        return Zero1Optimizer(tx, self.min_shard_elements, comm=comm)
+
+    def step_collective_bytes(self, mesh, params: Mapping,
+                              comm=None) -> dict:
+        """ZeRO-1's step traffic (the JAX declaration): the gradient
+        reduce-scatter and the updated-param all-gather, each one
+        params' worth; with an active comm plane the gather at
+        ``param_gather``'s payload, keyed ``param_all_gather_bucketed``
+        when bucketed (same bytes, another schedule), and the gradient
+        phase at the codec's payload (per link when hierarchical).  One
+        difference on purpose: the JAX compressed step all-reduces the
+        gradients (reduce-scatter and all-gather, both declared) and
+        then slices its shard, where the port's ZeRO-1 reduce-scatters
+        over its shard layout and moves no gradient all-gather, so
+        ``grad_all_gather`` is not declared and a hierarchical sync
+        declares the reduce-scatter's phases only."""
+        if self.data_parallel_size(mesh) <= 1:
+            return {}
+        if comm is not None:
+            gather_key = ("param_all_gather_bucketed"
+                          if comm.policy.gather_bucket_bytes > 0
+                          and not comm.policy.barrier_sync
+                          else "param_all_gather")
+            n = self._tree_elements(params)
+            gather = comm.param_gather_wire_bytes(params)
+            if comm.hierarchical:
+                link = comm.reduce_scatter_link_bytes(n)
+                return {"grad_sync_dcn": link["dcn"],
+                        "grad_sync_ici": link["ici"], gather_key: gather}
+            return {"grad_reduce_scatter": comm.reduce_scatter_wire_bytes(n),
+                    gather_key: gather}
+        b = self._tree_bytes(params)
+        return {"grad_reduce_scatter": b, "param_all_gather": b}
 
 
 class _ParamSharded(ShardingStrategy):
@@ -369,11 +464,23 @@ class FullyShardedStrategy(_ParamSharded, Zero1Strategy):
     that W divides, stay whole on every rank (the JAX spec)."""
 
     name = "fsdp"
+    comm_compressible = False       # params sharded: the plane declines
 
     def param_spec(self, mesh, path: str, shape: Sequence[int]) -> P:
         if math.prod(shape) < max(2, self.min_shard_elements):
             return P()
         return _axis_spec(shape, "data", mesh.shape["data"])
+
+    def step_collective_bytes(self, mesh, params: Mapping,
+                              comm=None) -> dict:
+        """FSDP's step traffic (the JAX declaration): params gathered at
+        their use sites in the forward and the backward, the gradient
+        reduce-scattered; the comm plane declines FSDP."""
+        del comm
+        if self.data_parallel_size(mesh) <= 1:
+            return {}
+        b = self._tree_bytes(params)
+        return {"param_all_gather": 2 * b, "grad_reduce_scatter": b}
 
     def __repr__(self):
         return f"FullyShardedStrategy({self.min_shard_elements})"
@@ -468,6 +575,22 @@ class SpmdStrategy(_ParamSharded):
             return P(data, "sequence")
         return P(data)
 
+    def step_collective_bytes(self, mesh, params: Mapping,
+                              comm=None) -> dict:
+        """The JAX approximation: an ``fsdp`` axis over 1 gathers params
+        in the forward and the backward and reduce-scatters gradients, a
+        ``data`` axis over 1 all-reduces them; the comm plane declines
+        SPMD."""
+        del comm
+        out: dict = {}
+        b = self._tree_bytes(params)
+        if mesh.shape.get("fsdp", 1) > 1:
+            out["param_all_gather"] = 2 * b
+            out["grad_reduce_scatter"] = b
+        if mesh.shape.get("data", 1) > 1:
+            out["grad_all_reduce"] = b
+        return out
+
     def __repr__(self):
         return (f"SpmdStrategy({len(self.rules)} rules, "
                 f"{self.axis_names}, {self._axis_sizes})")
@@ -475,10 +598,12 @@ class SpmdStrategy(_ParamSharded):
 
 class _Flat:
     """Parameters laid end to end in one vector, padded to a multiple of
-    ``shards``; this rank holds ``[lo, hi)`` of it."""
+    ``shards``; this rank holds ``[lo, hi)`` of it.  ``itemsize``: the
+    bytes of an element of the resident params' shard (ZeRO-1's gather
+    dtype)."""
 
     def __init__(self, names: "list[str]", shapes: list, shards: int,
-                 rank: int):
+                 rank: int, itemsize: int = 4):
         self.names = names
         self.shapes = [torch.Size(s) for s in shapes]
         self.numels = [math.prod(s) for s in self.shapes]
@@ -487,6 +612,7 @@ class _Flat:
         self.shards = shards
         self.size = -(-self.n // shards)
         self.lo, self.hi = rank * self.size, (rank + 1) * self.size
+        self.itemsize = itemsize
 
     def flatten(self, tensors, dtype=torch.float32) -> torch.Tensor:
         """The tensors in ``dtype`` laid end to end, zero-padded to
@@ -515,21 +641,44 @@ class _Flat:
                 yield i, a - self.lo, b - self.lo
 
 
+#: the keys of :class:`Zero1Optimizer`'s two groups in the state of the
+#: transforms it runs: the sharded parameters and the small whole ones
+_SHARD, _WHOLE = "zero1/shard", "zero1/whole"
+
+
+def _regroup(tree, match, fn):
+    """``tree`` (a nested state dict) with every dict whose keys
+    ``match`` replaced by ``fn(that dict)``."""
+    if isinstance(tree, dict):
+        if tree and match(set(tree)):
+            return fn(tree)
+        return {k: _regroup(v, match, fn) for k, v in tree.items()}
+    return tree
+
+
 class Zero1State:
     """The state of :class:`Zero1Optimizer`: per group of parameters its
-    layout, this rank's shard of the fp32 master (``None`` when the
-    params are their own fp32 master) and the inner optimizer's state
-    over that shard, keyed ``"flat"``.  :meth:`state_dict` and
+    layout (``groups``: the sharded ones, then the small whole ones) and
+    the optimizer's state over the groups' flat vectors (``inner``: the
+    module optimizer's own state, whose per-parameter dicts are keyed by
+    group, each entry this rank's shard).  :meth:`state_dict` and
     :meth:`load_state_dict` speak the single-device layout (the state
     of the unwrapped optimizer, keyed by parameter name), so a
     checkpoint moves between world sizes; both are collective."""
 
-    def __init__(self, opt: "Zero1Optimizer", groups: "list[_Flat]",
-                 masters: list, inners: list):
-        self.opt = opt
+    def __init__(self, names: "list[str]", groups: "list[_Flat]",
+                 keys: "list[str]", inner):
+        self.names = list(names)
         self.groups = groups
-        self.masters = masters
-        self.inners = inners
+        self.keys = keys
+        self.inner = inner
+
+    @property
+    def masters(self) -> list:
+        """Each group's fp32 master shard, where the optimizer holds one
+        (an ``fp32_master``'s), else ``None``."""
+        found = _find_master(self.inner)
+        return [None if found is None else found.get(k) for k in self.keys]
 
     def _full(self, g: _Flat, shard: torch.Tensor) -> torch.Tensor:
         if g.shards == 1:
@@ -538,162 +687,243 @@ class Zero1State:
         dist.all_gather_into_tensor(full, shard)
         return full
 
-    def _by_name(self, shards) -> "dict[str, torch.Tensor]":
+    def _by_name(self, entry: dict) -> "dict[str, torch.Tensor]":
         out = {}
-        for g, s in zip(self.groups, shards):
-            out.update({k: v.clone() for k, v in
-                        g.unflatten(self._full(g, s)).items()})
-        return {k: out[k] for k in self.opt.names}
+        for g, k in zip(self.groups, self.keys):
+            out.update({n: v.clone() for n, v in
+                        g.unflatten(self._full(g, entry[k])).items()})
+        return {k: out[k] for k in self.names}
 
     def state_dict(self) -> dict:
-        inner = self.opt.inner
-        if isinstance(inner, AdamW):
-            sd = {"count": self.inners[0].count,
-                  "mu": self._by_name([s.mu["flat"] for s in self.inners]),
-                  "nu": self._by_name([s.nu["flat"] for s in self.inners])}
-        elif inner.momentum is not None:
-            sd = {"trace": self._by_name([s.trace["flat"]
-                                          for s in self.inners])}
-        else:
-            sd = {}
-        if self.opt.has_master:
-            sd = {"inner": sd, "master": self._by_name(self.masters)}
-        return _nest(self.opt.tx, sd)
+        keys = set(self.keys)
+        return _regroup(self.inner.state_dict(), lambda ks: ks == keys,
+                        self._by_name)
 
     def load_state_dict(self, state: dict) -> None:
-        state = _unnest(self.opt.tx, state)
-        if self.opt.has_master:
-            master = _named(state["master"], self.opt.names, "master")
-            self.masters = [g.shard_of([master[k] for k in g.names])
-                            for g in self.groups]
-            state = state["inner"]
-        inner = self.opt.inner
-        if isinstance(inner, SGD) and inner.momentum is None:
-            EmptyState().load_state_dict(state)
-            return
-        if isinstance(inner, SGD):
-            trace = _named(state["trace"], self.opt.names, "trace")
-            for g, s in zip(self.groups, self.inners):
-                s.trace = {"flat": g.shard_of([trace[k] for k in g.names],
-                                              s.trace["flat"].dtype)}
-            return
-        mu = _named(state["mu"], self.opt.names, "mu")
-        nu = _named(state["nu"], self.opt.names, "nu")
-        for g, s in zip(self.groups, self.inners):
-            s.count = int(state["count"])
-            s.mu = {"flat": g.shard_of([mu[k] for k in g.names],
-                                       s.mu["flat"].dtype)}
-            s.nu = {"flat": g.shard_of([nu[k] for k in g.names])}
+        names = set(self.names)
+
+        def shard(entry: dict) -> dict:
+            if set(entry) != names:
+                raise ValueError(
+                    f"the saved state names other parameters (missing "
+                    f"{sorted(names - set(entry))[:4]}, unexpected "
+                    f"{sorted(set(entry) - names)[:4]})")
+            dtype = entry[self.names[0]].dtype
+            return {k: g.shard_of([entry[n] for n in g.names], dtype)
+                    for g, k in zip(self.groups, self.keys)}
+
+        self.inner.load_state_dict(_regroup(
+            state, lambda ks: bool(ks & names), shard))
 
 
-def _transforms(tx) -> list:
-    """``tx``'s transforms in the order they run, nested chains laid
-    flat."""
+def _find_master(state):
+    """The ``master`` dict of the first ``FP32MasterState`` inside an
+    optimizer state, else ``None``."""
+    if hasattr(state, "master") and hasattr(state, "inner"):
+        return state.master
+    for attr in ("states", "inner"):
+        sub = getattr(state, attr, None)
+        for s in (sub if isinstance(sub, tuple) else (sub,)):
+            if s is not None:
+                found = _find_master(s)
+                if found is not None:
+                    return found
+    return None
+
+
+class _Zero1Clip:
+    """``clip_by_global_norm`` on ZeRO-1's shards: the norm is taken from
+    the per-parameter sums of squares, all-reduced (the pad left out),
+    rounded to the gradients' dtype and summed in parameter order as
+    the unsharded clip sums them (a parameter whole on one rank gets
+    the unsharded clip's sum exactly); each shard scaled as the clip
+    scales a gradient."""
+
+    def __init__(self, clip: clip_by_global_norm, opt: "Zero1Optimizer"):
+        self.max_norm = clip.max_norm
+        self.opt = opt
+
+    def init(self, params):
+        return EmptyState()
+
+    @torch.no_grad()
+    def update(self, grads, state, params=None):
+        opt = self.opt
+        index = {k: i for i, k in enumerate(opt.names)}
+        first = next(iter(grads.values()))
+        d = first.dtype
+        sq = torch.zeros(len(opt.names), dtype=torch.float32,
+                         device=first.device)
+        for g, k in zip(opt.groups, opt.keys):
+            if g.shards == 1 and global_rank() != 0:
+                continue                # replicated: rank 0 counts it
+            s = grads[k]
+            for i, a, b in g.pieces():
+                piece = s[a:b]
+                # a whole parameter's sum as the unsharded clip takes it
+                # (in d, accumulated in fp32), a part's in fp32
+                sq[index[g.names[i]]] = (
+                    torch.sum(piece * piece) if b - a == g.numels[i]
+                    else (piece * piece).sum(dtype=torch.float32))
+        sq = sum_over_ranks(sq).to(d)
+        norm = torch.sqrt(sum(sq.unbind()))
+        trigger = norm < self.max_norm
+        return {k: torch.where(trigger, s, (s / norm) * self.max_norm)
+                for k, s in grads.items()}
+
+
+def _swap_clips(tx, fn):
+    """``tx`` with every ``clip_by_global_norm`` inside its chains and
+    ``fp32_master`` wraps replaced by ``fn(clip)``."""
+    if isinstance(tx, clip_by_global_norm):
+        return fn(tx)
     if isinstance(tx, chain):
-        return [t for sub in tx.transforms for t in _transforms(sub)]
-    return [tx]
-
-
-def _nest(tx, sd: dict) -> dict:
-    """The last transform's state dict ``sd`` inside ``tx``'s chains, as
-    the unsharded optimizer's ``state_dict`` nests it (a gradient map's
-    state is empty)."""
-    if not isinstance(tx, chain):
-        return sd
-    *maps, last = tx.transforms
-    return {**{str(i): {} for i in range(len(maps))},
-            str(len(maps)): _nest(last, sd)}
-
-
-def _unnest(tx, state: dict) -> dict:
-    """The inverse of :func:`_nest`, checking the chain's entries."""
-    if not isinstance(tx, chain):
-        return state
-    n = len(tx.transforms)
-    if sorted(state) != sorted(str(i) for i in range(n)) \
-            or any(state[str(i)] for i in range(n - 1)):
-        raise ValueError(f"a chain of {n} transforms: the state has "
-                         f"{sorted(state)}")
-    return _unnest(tx.transforms[-1], state[str(n - 1)])
-
-
-def _named(saved: Mapping, names: "list[str]", what: str) -> dict:
-    if set(saved) != set(names):
-        raise ValueError(
-            f"{what}: the saved state names other parameters (missing "
-            f"{sorted(set(names) - set(saved))[:4]}, unexpected "
-            f"{sorted(set(saved) - set(names))[:4]})")
-    return dict(saved)
+        return chain(*(_swap_clips(t, fn) for t in tx.transforms))
+    if isinstance(tx, fp32_master):
+        return fp32_master(_swap_clips(tx.inner, fn))
+    return tx
 
 
 class Zero1Optimizer:
-    """ZeRO-1 around the optimizer the ``Trainer`` builds: ``AdamW``,
-    ``SGD`` (with or without momentum) or ``fp32_master`` of either,
-    behind an optional ``clip_by_global_norm`` and any number of
-    ``add_decayed_weights`` (a :class:`chain`, nested or not, in that
-    order).
+    """ZeRO-1 around any chain of the port's transforms (ops/optim.py:
+    ``AdamW``, ``SGD``, ``fp32_master`` of anything, ``chain`` nested or
+    not, ``add_decayed_weights``, ``clip_by_global_norm`` at any place,
+    or a transform of the caller's with ``init`` / ``update`` and
+    per-parameter tensors in its state).  Each group of parameters is
+    one flat vector and the whole optimizer runs on this rank's shard of
+    it, as on one parameter per group, so every per-parameter state
+    tensor is sharded and anything else (a count) is held by every rank
+    (the JAX ``opt_spec`` walk over any optax state).  A transform must
+    act element by element, as every optax transform but the clip does;
+    the clip is swapped for :class:`_Zero1Clip`, which takes the global
+    norm.
 
     Per step: the gradients (in their dtype ``d``) are laid into one fp32
     vector and reduce-scattered (summed, then divided by W) and the
     rank's shard is rounded to ``d``, which is what DDP's mean is cast
-    back to; the clip, if any, scales the shard by a norm taken from the
-    per-parameter sums of squares, all-reduced (the pad left out), then
-    rounded to ``d`` and summed in parameter order as the clip sums them
-    (a parameter whole on one rank gets the unsharded clip's sum
-    exactly); the weight decay adds ``wd`` times the rank's shard of the
-    resident params; the inner optimizer updates the rank's shard of the
-    fp32 master (the params themselves when they are fp32 and there is
-    no ``fp32_master``); the shards are all-gathered and copied into the
-    resident params, which casts them to their dtype.  Every step but
-    the clip is elementwise, so without a clip ZeRO-1 equals DDP bit
-    for bit."""
+    back to.  With an active comm plane (``comm``, a ``GradSync``) the
+    same reduce-scatter runs compressed, over the same shard boundaries:
+    the vector plus the error-feedback residual, cut into the W shards
+    and each zero-padded to whole blocks, goes through
+    ``GradSync.zero1_reduce_scatter`` (a small whole group through the
+    compressed psum), and the quantization error becomes the next
+    residual.  The optimizer
+    updates the rank's shard of the resident params (in their dtype; an
+    ``fp32_master`` inside keeps its fp32 master shard in its state and
+    writes it back cast), and the shards are all-gathered into the
+    resident params: one ``all_gather_into_tensor``, or with the comm
+    plane's ``param_gather`` / ``gather_bucket_bytes`` its explicit
+    gather (``GradSync.regather_params``).  Every step but the clip is
+    elementwise, so without a clip ZeRO-1 equals DDP bit for bit."""
 
-    def __init__(self, tx, min_shard_elements: int = 0):
+    def __init__(self, tx, min_shard_elements: int = 0, comm=None):
         self.tx = tx
-        *maps, last = _transforms(tx)
-        self.clip = None
-        if maps and isinstance(maps[0], clip_by_global_norm):
-            self.clip = maps.pop(0)
-        if not all(isinstance(m, add_decayed_weights) for m in maps):
-            raise NotImplementedError(
-                "ZeRO-1 takes chain(clip_by_global_norm, "
-                "add_decayed_weights..., optimizer) only, got "
-                f"{[type(t).__name__ for t in _transforms(tx)]}")
-        self.maps = maps
-        self.has_master = isinstance(last, fp32_master)
-        self.inner = last.inner if self.has_master else last
-        if not isinstance(self.inner, (AdamW, SGD)):
-            raise NotImplementedError(
-                f"ZeRO-1 shards AdamW and SGD states, not "
-                f"{type(self.inner).__name__}")
+        self._tx = _swap_clips(tx, lambda c: _Zero1Clip(c, self))
         self.min_shard_elements = min_shard_elements
+        self.comm = comm
         self.names: "list[str]" = []
+        self.groups: "list[_Flat]" = []
+        self.keys: "list[str]" = []
+        self._dtype = torch.float32
+        self._plans: list = []
 
     def init(self, params: Mapping[str, torch.Tensor]) -> Zero1State:
         self.names = list(params)
+        dtypes = {p.dtype for p in params.values()}
+        self._dtype = dtypes.pop() if len(dtypes) == 1 else torch.float32
         small = max(2, self.min_shard_elements)
         W, rank = world_size(), global_rank()
-        groups = []
-        for shards, r, keep in ((W, rank, lambda n: n >= small),
-                                (1, 0, lambda n: n < small)):
+        item = torch.empty((), dtype=self._dtype).element_size()
+        self.groups, self.keys = [], []
+        for shards, r, keep, key in ((W, rank, lambda n: n >= small, _SHARD),
+                                     (1, 0, lambda n: n < small, _WHOLE)):
             names = [k for k in self.names if keep(params[k].numel())]
             if names:
-                groups.append(_Flat(names, [params[k].shape for k in names],
-                                    shards, r))
-        masters, inners = [], []
-        for g in groups:
-            shard = g.shard_of([params[k].detach() for k in g.names])
-            masters.append(shard if self.has_master else None)
-            inners.append(self.inner.init({"flat": shard}))
-        return Zero1State(self, groups, masters, inners)
+                self.groups.append(_Flat(names, [params[k].shape
+                                                 for k in names],
+                                         shards, r, item))
+                self.keys.append(key)
+        self._plans = [
+            self.comm.zero1_gather_plan(g)
+            if self.comm is not None and self.comm.explicit_gather
+            and g.shards > 1 else None for g in self.groups]
+        pseudo = {k: g.shard_of([params[n].detach() for n in g.names])
+                  for g, k in zip(self.groups, self.keys)}
+        return Zero1State(self.names, self.groups, self.keys,
+                          self._tx.init(pseudo))
 
     def host_scalars(self, state: Zero1State, ahead: int = 0):
-        """The inner optimizer's (every group's state counts alike)."""
-        return self.inner.host_scalars(state.inners[0], ahead)
+        return self._tx.host_scalars(state.inner, ahead)
 
     def advance(self, state: Zero1State, n: int) -> None:
-        for s in state.inners:
-            self.inner.advance(s, n)
+        self._tx.advance(state.inner, n)
+
+    def _grad_shards(self, grads, d) -> "dict[str, torch.Tensor]":
+        if self.comm is not None:
+            return self._comm_grad_shards(grads, d)
+        W = world_size()
+        out = {}
+        for g, k in zip(self.groups, self.keys):
+            flat = g.flatten([grads[n] for n in g.names])
+            if group_active() and g.shards > 1:
+                shard = flat.new_empty(g.size)
+                dist.reduce_scatter_tensor(shard, flat)
+                audit.note("reduce-scatter", flat, None, "zero1")
+            else:
+                shard = flat
+                if group_active():
+                    dist.all_reduce(shard)
+                    audit.note("all-reduce", shard, None, "zero1")
+            out[k] = shard.div_(W).to(d)
+        return out
+
+    def _comm_grad_shards(self, grads, d) -> "dict[str, torch.Tensor]":
+        """The comm plane's sync (class docstring): each sharded group's
+        gradients plus residual, as rows of the shard layout, through
+        ``GradSync.zero1_reduce_scatter``, divided by W; a whole group's
+        through the compressed psum; the new errors back into the
+        residual."""
+        comm = self.comm
+        residual, key = comm.take()
+        W = comm.world
+        out = {}
+        for i, (g, k) in enumerate(zip(self.groups, self.keys)):
+            xs = [grads[n].float() + residual[n] if residual
+                  else grads[n].float() for n in g.names]
+            flat = g.flatten(xs)
+            gkey = comm.group_key(key, i)
+            if g.shards > 1:
+                rows = flat.new_zeros(W, comm.zero1_chunk(g.size))
+                rows[:, :g.size] = flat.view(W, g.size)
+                shard, err = comm.zero1_reduce_scatter(rows, gkey,
+                                                       bool(residual))
+                out[k] = (shard[:g.size] / W).to(d)
+                if residual:
+                    err = err[:, :g.size].reshape(-1)
+            else:
+                res = comm.mean_psum(flat[:g.n], gkey, bool(residual))
+                mean, err = res if residual else (res, None)
+                out[k] = mean.to(d)
+            if residual:
+                for n, e in g.unflatten(err).items():
+                    residual[n].copy_(e)
+        return out
+
+    def comm_wire_bytes(self) -> "dict[str, int]":
+        """What one step of the comm plane records, by tag: the gradient
+        sync (``"grad_sync"``) and, with an explicit gather,
+        ``"param_gather"``; else the plain gather (``"zero1"``)."""
+        comm = self.comm
+        grads = comm.zero1_grad_wire_bytes([(g.shards, g.size)
+                                            for g in self.groups])
+        out = {"grad_sync": grads["ici"] + grads["dcn"],
+               "param_gather": 0, "zero1": 0}
+        for g, plan in zip(self.groups, self._plans):
+            if plan is not None:
+                out["param_gather"] += comm.zero1_gather_wire_bytes(g, plan)
+            elif g.shards > 1:
+                out["zero1"] += g.size * g.shards * g.itemsize
+        return out
 
     @torch.no_grad()
     def update(self, grads: Mapping[str, torch.Tensor], state: Zero1State,
@@ -704,59 +934,21 @@ class Zero1Optimizer:
             raise ValueError(f"ZeRO-1 takes gradients of one dtype, got "
                              f"{sorted(map(str, dtypes))}")
         d = dtypes.pop()
-        if not self.has_master and any(p.dtype != torch.float32
-                                       for p in params.values()):
-            raise ValueError("ZeRO-1 updates an fp32 master: wrap the "
-                             "optimizer of low-precision params in "
-                             "fp32_master")
-        W = world_size()
-        shards = []
-        for g in state.groups:
-            flat = g.flatten([grads[k] for k in g.names])
-            if group_active() and g.shards > 1:
-                out = flat.new_empty(g.size)
-                dist.reduce_scatter_tensor(out, flat)
+        resident = {k: g.shard_of([params[n] for n in g.names], self._dtype)
+                    for g, k in zip(self.groups, self.keys)}
+        self._tx.update(self._grad_shards(grads, d), state.inner, resident,
+                        scalars)
+        for g, k, plan in zip(self.groups, self.keys, self._plans):
+            shard = resident[k]
+            if plan is None:
+                full = state._full(g, shard)
+                if g.shards > 1:
+                    audit.note("all-gather", full, None, "zero1")
             else:
-                out = flat
-                if group_active():
-                    dist.all_reduce(out)
-            shards.append(out.div_(W).to(d))
-        if self.clip is not None:
-            shards = self._clip(state.groups, shards, d)
-        for i, (g, gs) in enumerate(zip(state.groups, shards)):
-            resident = None
-            if self.maps or not self.has_master:
-                resident = g.shard_of([params[k] for k in g.names],
-                                      params[g.names[0]].dtype)
-            for m in self.maps:
-                gs = m.update({"flat": gs}, EmptyState(),
-                              {"flat": resident})["flat"]
-            master = state.masters[i] if self.has_master else resident
-            self.inner.update({"flat": gs.float()}, state.inners[i],
-                              {"flat": master}, scalars)
-            for k, v in g.unflatten(state._full(g, master)).items():
-                params[k].copy_(v)
-
-    def _clip(self, groups, shards, d):
-        """``clip_by_global_norm`` on the shards (class docstring)."""
-        index = {k: i for i, k in enumerate(self.names)}
-        sq = torch.zeros(len(self.names), dtype=torch.float32,
-                         device=shards[0].device)
-        for g, s in zip(groups, shards):
-            if g.shards == 1 and global_rank() != 0:
-                continue                # replicated: rank 0 counts it
-            for i, a, b in g.pieces():
-                piece = s[a:b]
-                # a whole parameter's sum as the unsharded clip takes it
-                # (in d, accumulated in fp32), a part's in fp32
-                sq[index[g.names[i]]] = (
-                    torch.sum(piece * piece) if b - a == g.numels[i]
-                    else (piece * piece).sum(dtype=torch.float32))
-        sq = sum_over_ranks(sq).to(d)
-        norm = torch.sqrt(sum(sq.unbind()))
-        trigger = norm < self.clip.max_norm
-        return [torch.where(trigger, s, (s / norm) * self.clip.max_norm)
-                for s in shards]
+                full = shard.new_empty(g.size * g.shards)
+                self.comm.regather_params(g, plan, shard, full)
+            for n, v in g.unflatten(full).items():
+                params[n].copy_(v)
 
 
 _STRATEGIES = {

@@ -229,6 +229,9 @@ class RayPlugin(ExecutionPlugin):
         backend = get_backend()
         self._backend = backend
         env = self._worker_env_base()
+        # the comm plane's knobs, so a nested fit in a worker resolves
+        # the same policy (the trainer carries the resolved one)
+        env.update(trainer.comm_policy.worker_env())
         tag = uuid.uuid4().hex[:8]
         try:
             self._workers = [

@@ -1896,7 +1896,9 @@ class SaveShardedAtEnd(Callback):
         trainer.save_sharded_checkpoint(self.path)
 
 
-def _tiny_gpt(**kw):
+def _plugin_gpt(**kw):
+    """The tiny GPT of the plugin-path tests below (its own name: the
+    engine tests above keep their ``_tiny_gpt``)."""
     return GPTLightningModule(GPTConfig(**{
         **dict(vocab_size=512, block_size=64, n_layer=2, n_head=2,
                n_embd=64), **kw}), batch_size=2, dataset_size=64)
@@ -1930,10 +1932,10 @@ def test_cuda_fsdp_equals_ddp_across_cards(cards, tmp_path):
     order)."""
     from ray_lightning_tpu_torch import RayPlugin, RaySpmdPlugin
     dl, dw = _plugin_fit(RayPlugin(num_workers=2, timeout_s=300),
-                         _tiny_gpt(), tmp_path / "ddp")
+                         _plugin_gpt(), tmp_path / "ddp")
     fl, fw = _plugin_fit(RaySpmdPlugin(num_workers=2, strategy="fsdp",
                                        timeout_s=300),
-                         _tiny_gpt(), tmp_path / "fsdp")
+                         _plugin_gpt(), tmp_path / "fsdp")
     assert fl == dl and np.isfinite(dl).all()
     assert all(torch.equal(fw[k], dw[k]) for k in dw)
 
@@ -1963,10 +1965,10 @@ def test_cuda_tensor_parallel_matches_one_rank(one_card, cuda_device,
         monkeypatch.setenv("RLT_ONE_CARD_GLOO", "1")
     tl, tw = _plugin_fit(RaySpmdPlugin(num_workers=2, strategy=_tp(tensor=2),
                                        timeout_s=300),
-                         _tiny_gpt(n_head=4), tmp_path / "tp")
+                         _plugin_gpt(n_head=4), tmp_path / "tp")
     monkeypatch.delenv("RLT_ONE_CARD_GLOO", raising=False)
     ol, ow = _plugin_fit(RayPlugin(num_workers=1, timeout_s=300),
-                         _tiny_gpt(n_head=4), tmp_path / "one")
+                         _plugin_gpt(n_head=4), tmp_path / "one")
     np.testing.assert_allclose(tl, ol, rtol=2e-2, atol=2e-2)
     assert {k: v.shape for k, v in tw.items()} == \
         {k: v.shape for k, v in ow.items()}
@@ -1990,9 +1992,9 @@ def test_cuda_sharded_checkpoint_two_cards_to_one(cards, tmp_path):
     ckdir = str(tmp_path / "sharded")
     _, saved = _plugin_fit(RaySpmdPlugin(num_workers=2, strategy="fsdp",
                                          timeout_s=300),
-                           _tiny_gpt(), tmp_path / "a",
+                           _plugin_gpt(), tmp_path / "a",
                            callbacks=[SaveShardedAtEnd(ckdir)])
-    module = _tiny_gpt()
+    module = _plugin_gpt()
     trainer = Trainer(max_steps=6, seed=0, num_sanity_val_steps=0,
                       limit_val_batches=0, enable_checkpointing=False,
                       logger=False, default_root_dir=str(tmp_path / "b"),
@@ -2019,7 +2021,7 @@ def test_cuda_sharded_strategies_graph_their_chunks(strategy, cuda_device,
 
     runs = {}
     for k in (1, 4):
-        module = _tiny_gpt()
+        module = _plugin_gpt()
         rec = Losses()
         trainer = Trainer(max_steps=8, seed=0, num_sanity_val_steps=0,
                           limit_val_batches=0, enable_checkpointing=False,
@@ -2066,9 +2068,9 @@ def test_cuda_ring_sequence_matches_one_rank(cards, tmp_path):
                        axis_sizes={"sequence": 2})
     got = _plugin_fit(RaySpmdPlugin(num_workers=2, strategy=seq,
                                     timeout_s=300),
-                      _tiny_gpt(attention_impl="ring"), tmp_path / "ring")
+                      _plugin_gpt(attention_impl="ring"), tmp_path / "ring")
     want = _plugin_fit(RayPlugin(num_workers=1, timeout_s=300),
-                       _tiny_gpt(attention_impl="ring"), tmp_path / "one")
+                       _plugin_gpt(attention_impl="ring"), tmp_path / "one")
     _close_fits(got, want, 3e-4, 6, 64)
 
 
@@ -2107,7 +2109,131 @@ def test_cuda_expert_parallel_matches_one_rank(cards, tmp_path):
                       {"expert": 2})
     got = _plugin_fit(RaySpmdPlugin(num_workers=2, strategy=ep,
                                     timeout_s=300),
-                      _tiny_gpt(n_experts=4), tmp_path / "ep")
+                      _plugin_gpt(n_experts=4), tmp_path / "ep")
     want = _plugin_fit(RayPlugin(num_workers=1, timeout_s=300),
-                       _tiny_gpt(n_experts=4), tmp_path / "one")
+                       _plugin_gpt(n_experts=4), tmp_path / "one")
     _close_fits(got, want, 3e-4, 6, 64)
+
+
+# -- the comm plane (compressed gradient collectives) -------------------------
+
+#: graph stats the workers relayed, appended on the driver
+RELAYED_GRAPHS: list = []
+
+
+def _record_graphs(stats):
+    RELAYED_GRAPHS.append(stats)
+
+
+class RelayGraphs(Callback):
+    """Rank 0 relays its chunk graphs' stats at the fit's end."""
+
+    def on_fit_end(self, trainer, module):
+        from ray_lightning_tpu_torch import session
+        if trainer.is_global_zero:
+            session.put_queue(functools.partial(_record_graphs, {
+                k: trainer.graph_stats.get(k) for k in (
+                    "captures", "replays", "ungraphed", "eager_chunks")}))
+
+
+def _comm_psums(rank, world, x, device):
+    """The comm plane's collectives on this rank's row of ``x`` on
+    ``device`` ("cuda": this process's card), returned on the host."""
+    from ray_lightning_tpu_torch.comm import collectives as tc
+    dev = torch.device(device, rank) if device == "cuda" else \
+        torch.device("cpu")
+    t = torch.from_numpy(x[rank]).to(dev)
+    out = {}
+    for mode in ("int8", "bf16", "fp8", "int4"):
+        shard, _, err = tc.compressed_reduce_scatter(t, None, world,
+                                                     mode=mode,
+                                                     with_error=True)
+        ps, pe = tc.compressed_psum(t, None, world, mode=mode, mean=True,
+                                    with_error=True)
+        out[mode] = [a.cpu().numpy() for a in (shard, err, ps, pe)]
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_compressed_psum_over_nccl_equals_gloo_cpu(cards):
+    """The compressed reduce-scatter and psum (with their errors) in all
+    four codecs over NCCL on two cards equal the gloo CPU ranks' bit for
+    bit: the same codec bytes, the same fp32 sums in rank order."""
+    from torch_gloo import run_gloo
+    x = np.random.default_rng(1).standard_normal((2, 4099)).astype(
+        np.float32)
+    got = run_gloo(_comm_psums, 2, x, "cuda", backend="nccl")
+    want = run_gloo(_comm_psums, 2, x, "cpu")
+    for r in range(2):
+        for mode, arrays in want[r].items():
+            for i, a in enumerate(arrays):
+                assert np.array_equal(got[r][mode][i], a), (r, mode, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero1", [False, True], ids=["ddp", "zero1"])
+def test_cuda_graphed_compressed_fit_equals_eager(zero1, cards, tmp_path):
+    """Two workers over NCCL, the tiny GPT under int8 with stochastic
+    rounding (ZeRO-1: with the bf16 param gather in buckets): 6 steps at
+    ``steps_per_execution=2`` (the sync, the residual's update and the
+    keyed draws captured in each chunk's graph) equal the eager fit bit
+    for bit."""
+    from ray_lightning_tpu_torch import (CommPolicy, RayPlugin,
+                                         RayShardedPlugin)
+    pol = CommPolicy("int8", axes=("data",), stochastic_rounding=True,
+                     **(dict(param_gather="bf16", gather_bucket_bytes=1 << 14)
+                        if zero1 else {}))
+    cls = RayShardedPlugin if zero1 else RayPlugin
+
+    def fit(k, root):
+        RELAYED_GRAPHS.clear()
+        trainer = Trainer(plugins=[cls(num_workers=2, timeout_s=300)],
+                          max_steps=6, seed=0, limit_val_batches=0,
+                          num_sanity_val_steps=0, enable_checkpointing=False,
+                          logger=False, default_root_dir=str(root),
+                          comm_policy=pol, steps_per_execution=k,
+                          callbacks=[RelayLosses(), RelayGraphs()])
+        RELAYED_LOSSES.clear()
+        module = _plugin_gpt()
+        trainer.fit(module)
+        [losses], [graphs] = RELAYED_LOSSES, RELAYED_GRAPHS
+        return losses, module._trained_state, graphs
+
+    el, ew, _ = fit(1, tmp_path / "eager")
+    gl, gw, graphs = fit(2, tmp_path / "graphed")
+    assert graphs["captures"] == 1 and graphs["replays"] == 3, graphs
+    assert graphs["ungraphed"] is None
+    assert gl == el
+    assert all(torch.equal(gw[k], ew[k]) for k in ew)
+
+
+@pytest.mark.cuda
+def test_cuda_gloo_chunk_on_card_equals_k1(cuda_device, tmp_path,
+                                           monkeypatch):
+    """Both workers on card 0 over gloo (``RLT_ONE_CARD_GLOO=1``), whose
+    collectives a graph cannot hold: ``steps_per_execution=2`` with the
+    cached train set runs each chunk as 2 eager steps, says so in
+    ``graph_stats``, and equals the k=1 fit bit for bit, under the comm
+    plane too."""
+    from ray_lightning_tpu_torch import CommPolicy, RayPlugin
+    monkeypatch.setenv("RLT_ONE_CARD_GLOO", "1")
+    for pol in (None, CommPolicy("int8", axes=("data",))):
+        runs = []
+        for kw in (dict(), dict(steps_per_execution=2,
+                                cache_train_dataset=True)):
+            RELAYED_GRAPHS.clear()
+            RELAYED_LOSSES.clear()
+            module = _plugin_gpt()
+            Trainer(plugins=[RayPlugin(num_workers=2, timeout_s=300)],
+                    max_steps=6, seed=0, limit_val_batches=0,
+                    num_sanity_val_steps=0, enable_checkpointing=False,
+                    logger=False, default_root_dir=str(tmp_path),
+                    comm_policy=pol, callbacks=[RelayLosses(), RelayGraphs()],
+                    **kw).fit(module)
+            runs.append((RELAYED_LOSSES[0], module._trained_state,
+                         RELAYED_GRAPHS[0]))
+        (el, ew, _), (gl, gw, graphs) = runs
+        assert graphs["captures"] == 0 and graphs["eager_chunks"] == 3
+        assert "gloo" in graphs["ungraphed"]
+        assert gl == el
+        assert all(torch.equal(gw[k], ew[k]) for k in ew)

@@ -124,12 +124,15 @@ def test_payload_bytes_equal_jax(mode, n):
 
 
 def test_codec_refusals():
-    """Stochastic rounding is not ported (it names its ROADMAP item); an
+    """Stochastic rounding without a key raises (its draws come from the
+    keyed Philox); bf16 is a plain cast in either mode, as in JAX; an
     unknown mode and an odd int4 block raise as in JAX."""
     x = torch.ones(64)
-    for mode in ("int8", "fp8", "int4", "bf16"):
-        with pytest.raises(NotImplementedError, match="item 7"):
+    for mode in ("int8", "fp8", "int4"):
+        with pytest.raises(ValueError, match="needs a key"):
             tq.compress_cast(x, mode, stochastic=True)
+    p, s = tq.compress_cast(x, "bf16", stochastic=True)
+    assert s is None and torch.equal(p, x.to(torch.bfloat16))
     with pytest.raises(ValueError, match="unknown compression mode"):
         tq.compress_cast(x, "zstd")
     with pytest.raises(ValueError, match="even block"):
