@@ -283,16 +283,20 @@ Phases, each fatal on failure:
    serving paths for the request, replayed in process (fp8's are
    counted, not held); every replica's launches (rows 1, 13, 14) from
    its worker stats, no capture after setup;
-17. the one-card training ladder, before phase 18: (a) gpt2-medium (24
-   x 1024, 16 heads) at B=8, T=1024, bf16: one step's gradients under remat "off",
+17. the one-card training ladder, before phase 18: (a) gpt2-medium at
+   its full width (1024, 16 heads) cut to 8 of its 24 layers
+   (``LADDER_MEDIUM_LAYERS``, so that phase 21 fits the run's time
+   limit) at B=8, T=1024, bf16: one step's gradients under remat "off",
    "dots", "dots_no_batch" and "full" bit for bit with "off"'s, the
    step's peak memory ordered off >= dots >= dots_no_batch >= full,
    then a 6-step fit under each (rows 1 and 6; step ms, MFU by PERF.md
    section 2's formula, peak memory) and two more steps under
    torch.profiler (device ms by category, busy share), and "dots" at
    ``steps_per_execution=4`` (the selective checkpoint captured in a CUDA
-   graph) against its eager fit bit for bit; (b) gpt2-moe-8e (12 x 768, 8
-   experts, top-2, capacity 1.25, every second block routed) the same
+   graph) against its eager fit bit for bit; (b) gpt2-moe-8e (768 wide,
+   cut to 6 of its 12 layers, ``LADDER_MOE_LAYERS``, as gpt2-medium for
+   phase 21; 8 experts, top-2, capacity 1.25, every second block
+   routed) the same
    under "off", "dots", "dots_moe_act", "dots_moe" and "full" (peak
    memory off >= dots_moe >= dots_moe_act >= dots >= full), with
    ``moe_aux`` and MFU over the active parameters; (c) gpt2-small at
@@ -348,8 +352,9 @@ Phases, each fatal on failure:
     ring and (b)'s pipeline bytes a step counted from the shapes.  (b)'s
     and (c)'s launches go to rows 1 and 6 under ``pipeline`` and
     ``moe_ep``, with their B=2 H=12 and B=8 H=6 shapes timed.
-20. The comm plane (last): gpt2-small at full width (12 x 768, vocab
-    50304, bf16, T=1024), random weights from the seed, over four ranks
+20. The comm plane: gpt2-small at full width (768, vocab 50304, bf16,
+    T=1024) cut to 6 of its 12 layers (``COMM_LAYERS``, so that phase 21
+    fits the run's time limit), random weights from the seed, over four ranks
     (NCCL with four cards, else all on card 0 over gloo), B=2 a rank,
     3 steps a leg, every policy on ``axes=("data",)``, all under one
     ``Trainer(plugins=[RayPlugin(num_workers=4)])``: its own fit is the
@@ -383,6 +388,42 @@ Phases, each fatal on failure:
     card's name and power limit.  Its launches (every leg's ranks, not
     the checks') go to rows 1 and 6 and ``philox_uniform`` under
     ``comm``.
+21. Serving under the training strategies (last): gpt2-1p3b at full
+    width (2048, 32 heads of 64, vocab 50304, context 2048, bf16),
+    seeded weights built whole on each rank and cut to its pieces,
+    ``max_batch_slots=8``, the buckets ``resolve_buckets`` gives for
+    2048, 16 requests with prompts of 100-1,500 tokens from the seed, 24
+    new tokens each; every rank on card 0 over gloo
+    (``RLT_ONE_CARD_GLOO=1``: eager programs, every exchange through
+    host copies), or with four cards one rank a card over NCCL (every
+    program one CUDA graph).  (ref) the unsharded engine in this process
+    on card 0.  (a) ``Server(num_workers=2, strategy=SpmdStrategy(
+    gpt_partition_rules(), tensor=2))`` at 24 layers; (c) the same with
+    paged prefix reuse (page 16, the paged kernel) and speculation (k=4,
+    a 2-layer draft sharing the target's pieces) on prompts that share
+    a 512-token prefix; (b) ``Server(num_workers=1, devices_per_worker=2,
+    strategy="fsdp")``, (d) ``data=2 x tensor=2`` over four ranks and
+    (e) a disaggregated ``FleetServer`` of two tensor=2 replicas (raw
+    KV ships), each at 4 layers over gloo on one card with its own
+    (ref) at that depth (24 over NCCL).  Checks: every rank's pieces
+    equal (ref)'s slices bit for bit (fingerprints of the bits); every
+    leg's tokens equal (ref)'s or leave them only at a near-tie within
+    F1's 0.036; (a)'s first decode step's logits (eager, their argmax
+    the served decode program's tokens) no farther from the fp32
+    forward of the same weights than the largest of 0.036 and (ref)'s
+    own two bf16 routes (flash kernels, plain attention); each rank's
+    KV bytes its block's share of (ref)'s (half under tensor=2); (c)
+    reused prefixes; (e)'s shipped rows installed bit for bit; each
+    rank's launches match its calls (flash_fwd n_layer a prefill, the
+    decode kernel n_layer a decode or suffix step, the draft's and the
+    verify's per query); the NCCL legs graphed, the gloo legs ungraphed
+    with the reason; no leg on fewer ranks than it asked for.  Printed per leg beside the card: TTFT p50,
+    decode step ms, tokens/s, start s, KV bytes and peak memory a rank.
+    Then rows 1, 13 and 14 at its shapes (flash_fwd at B=1, T up to
+    2048, H=16 and 32; the decode kernels at S=4 and 8, L=2048, H=16 and
+    32 against their plain versions and the split plan's arithmetic),
+    their launches under ``serve_parallel`` (by rank in
+    ``serve_parallel_by_rank``).
 
 The next-to-last line is the ``{"kernels": [...]}`` JSON record, one
 entry per TPU kernel row, 1 to 16 (``launches`` from the path phases
@@ -437,7 +478,14 @@ runs phase 19 alone, then checks and times rows 1 and 6 at its shapes
 and prints their kernels line (its launches) and the last line.
 ``--comm-only`` does the same for phase 20 (rows 1 and 6 at B=2 T=1024
 H=12, and ``philox_uniform``, whose launches there are the stochastic
-rounding leg's draws).
+rounding leg's draws).  ``--serve-parallel-only`` runs phase 21 alone,
+then checks and times rows 1, 13 and 14 at its shapes and prints their
+kernels line (its ranks' launches) and the last line; with four cards
+(``python chip_smoke.py --serve-parallel-only`` on a four-card host) its
+legs run over NCCL.  ``--serve-parallel-logits 0,1,2`` reads phase 21's
+check of (a)'s first-step logits at each seed given, beside a control
+with bf16 row-parallel sums (``serve_parallel_logits``), and prints the
+last line.
 """
 
 from __future__ import annotations
@@ -483,7 +531,8 @@ from ray_lightning_tpu_torch.ops.flash_decode import (  # noqa: E402
     flash_decode_attention, flash_decode_attention_plain,
     flash_decode_paged_attention, flash_decode_paged_attention_plain)
 from ray_lightning_tpu_torch.serve import (  # noqa: E402
-    PageConfig, Scheduler, ServeEngine, Server, ServeWorker, SpecConfig)
+    PageConfig, Scheduler, ServeEngine, Server, ServeWorker, SpecConfig,
+    bucket_for, pad_to_bucket)
 from ray_lightning_tpu_torch.serve.fleet import (  # noqa: E402
     FleetReplicaLost, FleetServer)
 from ray_lightning_tpu_torch import tune  # noqa: E402
@@ -5184,6 +5233,20 @@ PHILOX_SRC = "ray_lightning_tpu_torch/csrc/philox.cu"
 PHILOX_SHAPE = (TRAIN_B, TRAIN_T, C)
 
 
+#: gpt2-medium's depth in (a) and gpt2-moe-8e's in (b), cut from 24 and
+#: 12 at their full widths to pay for phase 21 inside the run's time
+#: limit
+LADDER_MEDIUM_LAYERS = 8
+LADDER_MOE_LAYERS = 6
+
+
+def ladder_config(name: str):
+    """``CONFIGS[name]`` cut to its ladder depth."""
+    depth = {"gpt2-medium": LADDER_MEDIUM_LAYERS,
+             "gpt2-moe-8e": LADDER_MOE_LAYERS}
+    return dataclasses.replace(CONFIGS[name], n_layer=depth[name])
+
+
 def add_counts(total: dict, counts: dict) -> dict:
     """``total`` with each kernel's ``counts`` added to it."""
     for k, v in counts.items():
@@ -5192,7 +5255,8 @@ def add_counts(total: dict, counts: dict) -> dict:
 
 
 def ladder_module(name: str, policy: str, steps: int = LADDER_STEPS):
-    cfg = dataclasses.replace(CONFIGS[name], remat=True, remat_policy=policy)
+    cfg = dataclasses.replace(ladder_config(name), remat=True,
+                              remat_policy=policy)
     return GPTLightningModule(cfg, batch_size=LADDER_B, warmup_steps=2,
                               dataset_size=LADDER_B * steps)
 
@@ -5235,7 +5299,7 @@ def ladder_policies(name: str, policies: tuple, seed: int, card: str,
     ``LADDER_STEPS`` fit under each policy (finite losses, rows 1 and 6
     once a layer a step, twice for flash_fwd under remat): step ms, MFU
     and peak memory."""
-    cfg = CONFIGS[name]
+    cfg = ladder_config(name)
     rows = tpu_rows(cfg.block_size, cfg.n_head, cfg.head_dim, True)
     if rows != (1, (6,)):
         raise AssertionError(f"{name}: rows {rows}, want (1, (6,))")
@@ -5312,7 +5376,7 @@ def graphed_dots(this, seed: int, base: str) -> dict:
     checkpoint inside a CUDA graph) against its eager k=1 fit bit for
     bit, 8 steps: a replay runs no Python, so this is the step without
     the checkpoint's host cost."""
-    cfg = CONFIGS["gpt2-medium"]
+    cfg = ladder_config("gpt2-medium")
     free_cuda()
     ref = loop_fit(this, ladder_module("gpt2-medium", "dots", DRAW_STEPS),
                    os.path.join(base, "m_ref"), True, 10 ** 9,
@@ -6289,6 +6353,10 @@ def parallel_kernel_entries(gen) -> "dict[int, dict]":
 # -- phase 20: the comm plane --------------------------------------------------
 
 COMM_RANKS = 4
+#: gpt2-small's depth here, cut from 12 at its full width (phase 21 fits
+#: the run's time limit): a step's time is its collectives, one a
+#: gradient tensor or bucket
+COMM_LAYERS = 6
 COMM_STEPS = 3
 COMM_B = 2
 COMM_BUCKET = 32 << 20
@@ -6311,8 +6379,8 @@ def comm_legs(nccl: bool) -> list:
     policy on ``axes=("data",)`` (auto is inert on one host).  int8 flat
     syncs one gradient a collective; the hierarchical and stochastic
     legs sync in the 32 MiB buckets, as a run would (one card's gloo
-    pays its host copies and Python on each of gpt2-small's 148
-    gradients: 3-5 s a step on an H100)."""
+    pays its host copies and Python on each gradient: gpt2-small has
+    148, 76 at ``COMM_LAYERS``)."""
     hier = dict(hierarchy=COMM_PAIR, bucket_bytes=COMM_BUCKET)
     legs = [("none", False, None, 1),
             ("int8", False, dict(compress="int8"), 1),
@@ -6335,11 +6403,17 @@ def comm_legs(nccl: bool) -> list:
     return legs
 
 
+def comm_config():
+    """gpt2-small at full width (768, vocab 50304, bf16, T=1024) cut to
+    ``COMM_LAYERS``."""
+    return dataclasses.replace(CONFIGS["gpt2-small"], n_layer=COMM_LAYERS)
+
+
 def comm_module(cfg=None):
-    """gpt2-small at full width (12 x 768, vocab 50304, bf16, T=1024;
-    ``cfg``: this process's ``CONFIGS["gpt2-small"]``), random weights
-    from the seed, B=2 a rank, one epoch of 3 steps a rank."""
-    return GPTLightningModule(cfg or CONFIGS["gpt2-small"],
+    """``comm_config()`` (``cfg``: the driver's, carried to the workers),
+    random weights from the seed, B=2 a rank, one epoch of 3 steps a
+    rank."""
+    return GPTLightningModule(cfg or comm_config(),
                               batch_size=COMM_B,
                               dataset_size=COMM_B * COMM_RANKS * COMM_STEPS)
 
@@ -6555,7 +6629,7 @@ class CommLegs(Callback):
     def __init__(self, legs: list, seed: int, cache_dir: str):
         self.legs, self.seed, self.cache_dir = legs, seed, cache_dir
         # this process's config rides to the workers with the callback
-        self.cfg = CONFIGS["gpt2-small"]
+        self.cfg = comm_config()
 
     def on_fit_end(self, trainer, module):
         from ray_lightning_tpu_torch import session
@@ -6590,8 +6664,9 @@ def _median_ms(reports: list) -> float:
 
 
 def comm_phase(seed: int, card: str, platform: str = "cuda") -> dict:
-    """Phase 20 (module docstring): gpt2-small at full width over four
-    ranks (NCCL with four cards, else all on card 0 over gloo) under
+    """Phase 20 (module docstring): gpt2-small at full width and
+    ``COMM_LAYERS`` over four ranks (NCCL with four cards, else all on
+    card 0 over gloo) under
     ``RayPlugin(num_workers=4)``: the off leg's fit, then every other
     leg nested in its workers (``CommLegs``); the checks raise.  Its
     launches are every leg's ranks' (rows 1 and 6 under ``comm``), not
@@ -6663,7 +6738,7 @@ def comm_phase(seed: int, card: str, platform: str = "cuda") -> dict:
                "launches": [r["launches"] for r in reps]}
         out["legs"][name] = res
         # a graphed leg's capture runs one eager warm-up step first
-        n = CONFIGS["gpt2-small"].n_layer * (COMM_STEPS + (k > 1))
+        n = comm_config().n_layer * (COMM_STEPS + (k > 1))
         for i, r in enumerate(reps):
             want = {"flash_fwd": n, "flash_bwd": n,
                     "philox_uniform": r["draws_model"]}
@@ -6741,6 +6816,786 @@ def comm_kernel_entries(gen) -> "dict[int, dict]":
                    r[key]["max_abs_err"], r[key], tol=r[key]["tol"])
         e.update({k: v for k, v in r[key].items() if k not in e})
         e["by_shape"] = {f"B={COMM_B} H=12": r[key]}
+        entries[row] = e
+    return entries
+
+
+# -- phase 21: serving under the training strategies -----------------------
+
+SP_MODEL = "gpt2-1p3b"
+SP_SLOTS = 8
+SP_REQUESTS = 16
+#: (b)'s and (c)'s requests: one wave of the 8 slots.  Over gloo on one
+#: card FSDP moves the model through host copies each step, and (c)'s
+#: prefix hits replay their tails a token a step, each a full forward
+SP_SLOW_REQUESTS = 8
+SP_NEW_TOKENS = 24
+#: the main legs' prompt lengths; (c)'s prompts share one SP_PREFIX-token
+#: prefix, then SP_TAIL tokens of their own
+SP_PROMPT_LENS = (100, 1500)
+SP_PREFIX = 512
+SP_TAIL = (4, 16)
+SP_SPEC_K, SP_DRAFT_LAYERS = 4, 2
+SP_PAGE = 16
+#: (b), (d) and (e)'s depth over gloo on one card, where every exchange
+#: runs through host copies and FSDP moves the model each step (full
+#: depth over NCCL)
+SP_SHALLOW = 4
+#: F1's dot-vs-flash spread at gpt2-small width: a leg's tokens may leave
+#: (ref)'s only at a near-tie this close; (a)'s first-step logits lie no
+#: farther from the fp32 forward of the same weights than the larger of
+#: it and (ref)'s own two bf16 routes (``sp_dot_logits``)
+SP_SPREAD = 0.036
+SP_TIMEOUT_S = 600.0
+
+
+def sp_paged_spec() -> dict:
+    """(c)'s options: paging (page 16) and speculation (k=4, a 2-layer
+    draft)."""
+    return {"paged": PageConfig(True, SP_PAGE),
+            "spec": SpecConfig(True, k=SP_SPEC_K,
+                               draft_layers=SP_DRAFT_LAYERS)}
+
+
+def sp_tensor2(data: int = 1):
+    from ray_lightning_tpu_torch.models.gpt import gpt_partition_rules
+    from ray_lightning_tpu_torch.parallel.strategy import SpmdStrategy
+    return SpmdStrategy(gpt_partition_rules(), ("data", "tensor"),
+                        {"data": data, "tensor": 2})
+
+
+def sp_prompts(seed: int, vocab: int, shared: bool = False) -> list:
+    rng = np.random.default_rng(seed + 2100 + shared)
+    if shared:
+        prefix = rng.integers(0, vocab, SP_PREFIX)
+        return [np.concatenate([prefix, rng.integers(0, vocab, int(n))])
+                for n in rng.integers(*SP_TAIL, SP_SLOW_REQUESTS)]
+    return [rng.integers(0, vocab, int(n))
+            for n in rng.integers(*SP_PROMPT_LENS, SP_REQUESTS)]
+
+
+def param_digest(t: torch.Tensor) -> int:
+    """An exact fingerprint of ``t``'s bits: the int64 sum (wrapping) of
+    each element's bits times a weight of its position, on its device.
+    Equal bits give equal fingerprints; any change, two elements
+    swapped included, changes it but for a ~2^-64 chance."""
+    flat = t.detach().contiguous().view(-1)
+    bits = flat.view({2: torch.int16, 4: torch.int32}[
+        flat.element_size()]).long()
+    pos = torch.arange(flat.numel(), device=flat.device, dtype=torch.long)
+    return int((bits * (pos * 2654435761 % 4294967291 + 1)).sum())
+
+
+def sp_digests(engine) -> dict:
+    """(in a rank, ``Server.call_ranks``) name -> (shape, fingerprint)
+    of this rank's pieces."""
+    return {n: (tuple(p.shape), param_digest(p))
+            for n, p in engine.model.named_parameters()}
+
+
+def sp_ref_digests(model, strategy, shape: dict, rank: int) -> dict:
+    """The same of (ref)'s whole weights as ``rank``'s layout on a mesh
+    of ``shape`` cuts them."""
+    from ray_lightning_tpu_torch.parallel.mesh import Mesh
+    names = tuple(shape)
+    layout = strategy.layout(model, Mesh(names, [shape[a] for a in names],
+                                         rank))
+    out = {}
+    for n, p in model.named_parameters():
+        local = p.data if layout is None else layout.local_of(n, p.data)
+        out[n] = (tuple(local.shape), param_digest(local))
+        del local
+    return out
+
+
+def sp_first_logits(engine, prompts: list, served: bool = True):
+    """(in a rank, and in process) slot s of this rank's block prefilled
+    with prompt ``lo + s`` by the engine's prefill programs, then one
+    decode step at the first tokens, eager: its fp32 logits over the
+    whole vocab ``[S, V]`` (under tensor the ranks' vocab-split logits
+    gathered); with ``served``, the engine's decode program (the one
+    that serves) on the same inputs must give their argmax.  Returns
+    ``(first tokens, logits)`` from a leader, ``None`` from the others.
+    The slots are free again after it (the next prefill rewrites
+    them)."""
+    lo, _ = engine.slot_block
+    firsts, lens = [], []
+    for s in range(engine.slots):
+        p = prompts[lo + s]
+        b = bucket_for(len(p), engine.buckets)
+        firsts.append(engine.prefill(s, pad_to_bucket(p, b), len(p), b))
+        lens.append(len(p))
+    dev = engine.device
+    with torch.inference_mode():
+        logits = engine.model.decode(
+            torch.tensor(firsts, dtype=torch.int32, device=dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev),
+            engine._k, engine._v, impl=engine.decode_kernel,
+            page_table=engine.page_table)
+        out = logits.float().cpu().numpy()
+    if served:
+        # the program rewrites the rows the eager step wrote, the same
+        tokens = engine.decode(np.array(firsts, np.int32),
+                               np.array(lens, np.int32))
+        if not np.array_equal(tokens, out.argmax(-1)):
+            raise AssertionError(
+                f"rank {engine.mesh.rank if engine.mesh else 0}: the "
+                f"served decode gave {tokens.tolist()}, the eager "
+                f"logits' argmax {out.argmax(-1).tolist()}")
+    return (firsts, out) if engine.leader else None
+
+
+def sp_first_logits_bf16_sum(engine, prompts: list):
+    """The control of (a)'s logits bar: :func:`sp_first_logits` with
+    every row-parallel sum done as bf16 arithmetic would do it (each
+    rank's partial rounded to bf16, their sum rounded to bf16) instead
+    of the port's fp32 sum rounded once (parallel/tensor.py
+    ``row_parallel``).  Eager forwards only see the change: over NCCL
+    the prefill's graph keeps the fp32 sum."""
+    from ray_lightning_tpu_torch.parallel import tensor as pt
+    forward = pt._RowParallel.__dict__["forward"]
+
+    def bf16_sum(ctx, x, w, tp):
+        part = pt.mm32(x, w.t()).to(x.dtype).float()
+        return pt.all_reduce(part, tp.group).to(x.dtype).float()
+
+    pt._RowParallel.forward = staticmethod(bf16_sum)
+    try:
+        return sp_first_logits(engine, prompts, served=False)
+    finally:
+        pt._RowParallel.forward = forward
+
+
+def sp_dot_logits(model, prompts: list, firsts: list,
+                  dtype: "torch.dtype | None" = None) -> np.ndarray:
+    """(ref)'s weights through the whole-sequence forward with plain
+    attention (``attention_impl="dot"``), teacher-forced over each
+    prompt and its first token: the next token's fp32 logits ``[S,
+    V]``, F1's "dot" side of the first decode step; with ``dtype``
+    (fp32) that forward computed in it, the same bf16 weights upcast."""
+    dev = model.wte.weight.device
+    cfg = dataclasses.replace(model.config, attention_impl="dot")
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    ref = GPT(cfg, device=dev)
+    ref.load_state_dict(model.state_dict())
+    ref.requires_grad_(False)
+    out = []
+    with torch.inference_mode():
+        for p, t in zip(prompts, firsts):
+            x, _ = ref.hidden_with_kv(torch.tensor(
+                [[int(v) for v in p] + [int(t)]], device=dev))
+            out.append(ref.head(x[0, -1]).float().cpu().numpy())
+    del ref
+    free_cuda()
+    return np.stack(out)
+
+
+def sp_ref_logits(ref: "SpRef", prompts: list) -> tuple:
+    """(ref)'s first decode step's logits at its first ``SP_SLOTS``
+    prompts: through its programs (the flash kernels), and through
+    plain attention in bf16 and in fp32 (``sp_dot_logits``)."""
+    firsts, flash = sp_first_logits(ref.engine, prompts)
+    model, head = ref.engine.model, prompts[:SP_SLOTS]
+    return (flash, sp_dot_logits(model, head, firsts),
+            sp_dot_logits(model, head, firsts, torch.float32))
+
+
+def sp_logits_check(this, what: str, server, prompts: list,
+                    ref_logits: tuple, survey: bool = False) -> dict:
+    """A tensor=2 ``Server``'s first decode step's logits
+    (``sp_first_logits``) against (ref)'s (``sp_ref_logits``).  Each
+    bf16 route's distance from the fp32 forward of the same weights:
+    the server's may be no larger than the largest of (ref)'s own two
+    routes' (flash kernels, plain attention) and F1's 0.036.  A
+    ``survey`` only reads it, and reads beside it the control, the same
+    step with bf16 row-parallel sums (``sp_first_logits_bf16_sum``):
+    whether the bar sees that change."""
+    def leader(fn):
+        return next(o for o in server.call_ranks(fn, prompts)
+                    if o is not None)[1]
+
+    routes = {"tensor2": leader(this.sp_first_logits)}
+    if survey:
+        routes["control_bf16_sum"] = leader(this.sp_first_logits_bf16_sum)
+    got = routes["tensor2"]
+    flash, dot, exact = ref_logits
+    routes.update(ref_flash=flash, ref_dot=dot)
+    far = {k: float(np.abs(v - exact).max()) for k, v in routes.items()}
+    bar = max(SP_SPREAD, far["ref_flash"], far["ref_dot"])
+    res = {"max_abs_diff": float(np.abs(got - flash).max()),
+           "ref_dot_vs_flash": float(np.abs(dot - flash).max()),
+           "from_fp32": far, "bar": bar,
+           "argmax_equal": int((got.argmax(-1) == flash.argmax(-1)).sum())}
+    if survey:
+        res["control_within_bar"] = far["control_bf16_sum"] <= bar
+    elif not np.isfinite(got).all() or not far["tensor2"] <= bar:
+        raise AssertionError(f"{what}: first-step logits {res}")
+    return res
+
+
+def serve_parallel_logits(seeds: list, card: str) -> dict:
+    """``--serve-parallel-logits``: phase 21's check of (a)'s first-step
+    logits, and its control, read at each seed: (ref) at full depth in
+    process, then (a)'s ``Server`` (tensor=2) started for the probes
+    alone.  Read, not gated, so that every seed reports."""
+    import chip_smoke as this
+    from ray_lightning_tpu_torch.serve.buckets import resolve_buckets
+    cfg = CONFIGS[SP_MODEL]
+    buckets = resolve_buckets(None, cfg.block_size)
+    nccl = torch.cuda.device_count() >= 4
+    out: dict = {"card": card, "seeds": {}}
+    with scoped_env(**({} if nccl else {"RLT_ONE_CARD_GLOO": "1"})):
+        for seed in seeds:
+            prompts = sp_prompts(seed, cfg.vocab_size)
+            ref = SpRef(seed, cfg.n_layer, buckets)
+            ref_logits = sp_ref_logits(ref, prompts)
+            del ref
+            free_cuda()
+            server = Server(GPTLightningModule(cfg), num_workers=2,
+                            strategy=sp_tensor2(), buckets=buckets,
+                            max_batch_slots=SP_SLOTS, seed=seed)
+            server.start()
+            try:
+                res = sp_logits_check(this, f"seed {seed}", server,
+                                      prompts, ref_logits, survey=True)
+            finally:
+                server.shutdown()
+            log(f"  [{card}] seed {seed}: {res}")
+            out["seeds"][seed] = res
+    log("serve_parallel_logits " + json.dumps(out))
+    return out
+
+
+class SpRef:
+    """(ref): the unsharded engine in this process on card 0, from the
+    legs' seed, its programs captured, with (c)'s paging and speculation
+    (their programs idle unless a scheduler plans them) on the paged
+    decode kernel, which equals the flat one bit for bit; serves prompts
+    through its own scheduler, plain or with (c)'s options, and gives
+    teacher-forced logits for the near-tie rule."""
+
+    def __init__(self, seed: int, layers: int, buckets: tuple):
+        cfg = dataclasses.replace(CONFIGS[SP_MODEL], n_layer=layers)
+        with decode_impl("paged"):
+            self.engine = ServeEngine(
+                GPTLightningModule(cfg), buckets=buckets, slots=SP_SLOTS,
+                max_seq_len=cfg.block_size, seed=seed, device="cuda",
+                **sp_paged_spec()).setup()
+        self.layers = layers
+
+    def serve(self, prompts: list, paged_spec: bool = False
+              ) -> "tuple[list, dict]":
+        eng = self.engine
+        sched = Scheduler(buckets=eng.buckets, slots=SP_SLOTS,
+                          max_seq_len=eng.max_seq_len,
+                          default_max_new_tokens=SP_NEW_TOKENS,
+                          **(sp_paged_spec() if paged_spec else {}))
+        worker = ServeWorker(eng)
+        calls0, secs0 = dict(eng.calls), dict(eng.seconds)
+        t0 = time.monotonic()
+        reqs = [sched.submit(p) for p in prompts]
+        while not sched.idle():
+            plan = sched.plan()
+            if plan is not None:
+                sched.apply(plan, worker.serve_step(plan))
+        wall = time.monotonic() - t0
+        calls, secs = calls_since(eng, calls0, secs0)
+        return [r.result(0).tolist() for r in reqs], {
+            "ttft_p50_ms": ttft_ms(reqs), "wall_s": wall,
+            "decode_step_ms": per_call_ms(secs, calls, "decode"),
+            "tokens_per_s": len(reqs) * SP_NEW_TOKENS / wall,
+            "kv_bytes": eng.stats()["kv_bytes"],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    def gap(self, prompt, got: list, want: list) -> "tuple[int, float]":
+        """The first step where ``got`` leaves ``want`` and, teacher-forced
+        over their shared prefix, the two tokens' logits apart."""
+        n = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+        model = self.engine.model
+        seq = torch.tensor([[int(t) for t in prompt] + list(got[:n])],
+                           device=self.engine.device)
+        with torch.inference_mode():
+            x, _ = model.hidden_with_kv(seq)
+            lg = model.head(x[0, -1]).float()
+        return n, abs(float(lg[got[n]] - lg[want[n]]))
+
+
+def sp_check_tokens(what: str, ref: SpRef, prompts: list, got: list,
+                    want: list) -> dict:
+    """Each request's tokens equal (ref)'s, or leave them only at a
+    near-tie within ``SP_SPREAD`` (F1: bf16 row-parallel sums order
+    their terms unlike one GEMM)."""
+    equal, gaps = 0, []
+    for prompt, a, b in zip(prompts, got, want):
+        if len(a) != SP_NEW_TOKENS:
+            raise AssertionError(f"{what}: {len(a)} tokens, want "
+                                 f"{SP_NEW_TOKENS}")
+        if a == b:
+            equal += 1
+            continue
+        n, gap = ref.gap(prompt, a, b)
+        gaps.append(gap)
+        if not gap <= SP_SPREAD:
+            raise AssertionError(
+                f"{what}: a request (prompt {len(prompt)}) leaves (ref)'s "
+                f"tokens at step {n}, its logits {gap:.4f} apart "
+                f"(> {SP_SPREAD})")
+    return {"equal": equal, "near_ties": len(gaps),
+            "max_gap": max(gaps, default=0.0)}
+
+
+def sp_check_ranks(what: str, setup: list, final: list, n_layer: int,
+                   nccl: bool, spec: bool,
+                   require: tuple = ("prefill", "decode")
+                   ) -> "tuple[dict, list]":
+    """Every rank's serving launches (counted from after its probes)
+    match its calls, it ran the ``require``d programs, and its programs
+    are graphed over NCCL, eager over gloo with the reason said; returns
+    the launches summed and by rank."""
+    total = {k: 0 for k in ServeEngine.KERNELS}
+    by_rank = []
+    for w0, w in zip(setup, final):
+        got = {k: w["kernel_launches"][k] - w0["kernel_launches"][k]
+               for k in ServeEngine.KERNELS}
+        calls = {k: w["calls"][k] - w0["calls"][k] for k in w["calls"]}
+        fwd = n_layer * calls["prefill"]
+        dec = n_layer * (calls["decode"] + calls["suffix"])
+        if spec:
+            k1, dl = SP_SPEC_K + 1, SP_DRAFT_LAYERS
+            fwd += dl * calls["draft_prefill"]
+            dec += k1 * dl * calls["draft"] + k1 * n_layer * calls["verify"]
+        paged = w["decode_kernel"] == "paged"
+        want = {"flash_fwd": fwd,
+                "flash_decode": 0 if paged else dec,
+                "flash_decode_paged": dec if paged else 0}
+        ran = {"prefill": calls["prefill"],
+               "decode": calls["decode"] + calls["verify"]}
+        if got != want or not all(ran[k] for k in require):
+            raise AssertionError(f"{what}: rank {w['rank']} launched "
+                                 f"{got}, its calls {calls} want {want}")
+        if nccl and (w["ungraphed"] or not w["captures"]
+                     or any(w["recaptures"].values())):
+            raise AssertionError(f"{what}: rank {w['rank']} over NCCL: "
+                                 f"ungraphed {w['ungraphed']}, captures "
+                                 f"{w['captures']}, recaptures "
+                                 f"{w['recaptures']}")
+        if not nccl and (not w["ungraphed"] or w["captures"]):
+            raise AssertionError(f"{what}: rank {w['rank']} over gloo: "
+                                 f"ungraphed {w['ungraphed']!r}, captures "
+                                 f"{w['captures']}")
+        add_counts(total, got)
+        by_rank.append(got)
+    return total, by_rank
+
+
+def sp_rank_lines(what: str, card: str, stats: dict, ranks: list) -> None:
+    log(f"  [{card}] {what}: TTFT p50 {stats['ttft_p50_ms']:.2f} ms, "
+        f"decode step {stats['decode_step_ms']:.3f} ms, "
+        f"{stats['tokens_per_s']:.1f} tokens/s, start "
+        f"{stats['start_s']:.2f} s, serving {stats['wall_s']:.2f} s; KV "
+        + ", ".join(f"{w['kv_bytes'] / 2 ** 20:.1f} MiB" for w in ranks)
+        + " a rank; peak memory "
+        + ", ".join(f"{w.get('max_memory_allocated', 0) / 1e9:.2f} GB"
+                    for w in ranks)
+        + "; " + (ranks[0]["ungraphed"] or
+                  f"graphed: {sum(ranks[0]['captures'].values())} "
+                  f"captures a rank"))
+
+
+def sp_weights(this, what: str, server, ref: SpRef) -> int:
+    """Each rank's pieces equal the matching slices of (ref)'s weights
+    bit for bit (fingerprints); the tensors checked."""
+    got = server.call_ranks(this.sp_digests)
+    n = 0
+    for rank, dig in enumerate(got):
+        want = sp_ref_digests(ref.engine.model, server.strategy,
+                              server.mesh_shape, rank)
+        bad = sorted(k for k in want if dig.get(k) != want[k])
+        if bad or set(dig) != set(want):
+            raise AssertionError(f"{what}: rank {rank}'s pieces differ "
+                                 f"from (ref)'s slices: {bad[:6]}")
+        n += len(dig)
+    free_cuda()
+    return n
+
+
+def sp_kv_share(what: str, ranks: list, ref_kv: int) -> None:
+    """Each rank's KV bytes are its block's share of (ref)'s cache."""
+    for w in ranks:
+        lo, hi = w["slot_block"]
+        hlo, hhi = w["head_block"] or (0, CONFIGS[SP_MODEL].n_head)
+        share = ref_kv * (hi - lo) * (hhi - hlo) // (
+            SP_SLOTS * CONFIGS[SP_MODEL].n_head)
+        if w["kv_bytes"] != share:
+            raise AssertionError(f"{what}: rank {w['rank']} holds "
+                                 f"{w['kv_bytes']} KV bytes, its share of "
+                                 f"(ref)'s {ref_kv} is {share}")
+
+
+def sp_server_leg(this, what: str, server, ref: SpRef, prompts: list,
+                  want: list, card: str, nccl: bool, ranks: int,
+                  spec: bool = False, ref_logits=None) -> dict:
+    """One ``Server`` leg: start, every rank's pieces against (ref)'s,
+    (with ``ref_logits``) the first decode step's logits against
+    (ref)'s, then the prompts; tokens, launches, graphs, KV share and
+    the figures."""
+    t0 = time.monotonic()
+    server.start()
+    start_s = time.monotonic() - t0
+    try:
+        setup = server.stats()["workers"]
+        if len(setup) != ranks or len({w["pid"] for w in setup}) != ranks:
+            raise AssertionError(f"{what}: {len(setup)} ranks, want "
+                                 f"{ranks}")
+        t_chk = time.monotonic()
+        tensors = sp_weights(this, what, server, ref)
+        res: dict = {"ranks": ranks, "mesh": dict(server.mesh_shape),
+                     "tensors_bitwise": tensors}
+        if ref_logits is not None:
+            res["first_logits"] = sp_logits_check(this, what, server,
+                                                  prompts, ref_logits)
+        checks_s = time.monotonic() - t_chk
+        base = server.stats()["workers"]
+        t1 = time.monotonic()
+        reqs = [server.submit(p) for p in prompts]
+        tokens = [r.result(SP_TIMEOUT_S).tolist() for r in reqs]
+        wall = time.monotonic() - t1
+        server.drain()
+        st = server.stats()
+    finally:
+        server.shutdown()
+    final = st["workers"]
+    n_layer = server.module.config.n_layer
+    launches, by_rank = sp_check_ranks(what, base, final, n_layer, nccl,
+                                       spec)
+    lead = next(w for w in final if w["leader"])
+    w0 = next(w for w in base if w["rank"] == lead["rank"])
+    dec = lead["calls"]["decode"] - w0["calls"]["decode"]
+    dsec = lead["seconds"]["decode"] - w0["seconds"]["decode"]
+    if spec:
+        dec = lead["calls"]["verify"] - w0["calls"]["verify"]
+        dsec = sum(lead["seconds"][k] - w0["seconds"][k]
+                   for k in ("draft", "verify", "decode"))
+    res.update(
+        card=card, start_s=start_s, checks_s=checks_s, wall_s=wall,
+        ttft_p50_ms=ttft_ms(reqs),
+        decode_step_ms=dsec / dec * 1e3 if dec else None,
+        tokens_per_s=len(reqs) * SP_NEW_TOKENS / wall,
+        kv_bytes=[w["kv_bytes"] for w in final],
+        peak_memory=[w.get("max_memory_allocated") for w in final],
+        ungraphed=final[0]["ungraphed"], launches=launches,
+        launches_by_rank=by_rank,
+        tokens=sp_check_tokens(what, ref, prompts, tokens, want),
+        scheduler={k: st["scheduler"].get(k) for k in ("pages", "spec")})
+    sp_kv_share(what, final, ref.engine.stats()["kv_bytes"])
+    sp_rank_lines(what, card, res, final)
+    log(f"  {what}: {res['tokens']['equal']} of {len(prompts)} requests "
+        f"equal to (ref)'s, {res['tokens']['near_ties']} past a near-tie "
+        f"(widest {res['tokens']['max_gap']:.4f}); {tensors} pieces bit "
+        f"for bit with (ref)'s slices; launches by rank {by_rank}"
+        + (f"; first-step logits {res['first_logits']}"
+           if "first_logits" in res else ""))
+    return res
+
+
+def sp_fleet_leg(this, what: str, fleet, ref: SpRef, prompts: list,
+                 want: list, card: str, nccl: bool) -> dict:
+    """(e): the disaggregated fleet; each replica's ranks as a
+    ``Server`` leg's, the shipped rows installed bit for bit."""
+    t0 = time.monotonic()
+    fleet.start()
+    start_s = time.monotonic() - t0
+    try:
+        reps = sorted(fleet._replicas.values(), key=lambda r: r.role)
+        tensors = sum(sp_weights(this, f"{what} {r.role}", r.server, ref)
+                      for r in reps)
+        base = [r.server.stats()["workers"] for r in reps]
+        t1 = time.monotonic()
+        handles = [fleet.submit(p) for p in prompts]
+        tokens = [h.result(SP_TIMEOUT_S).tolist() for h in handles]
+        wall = time.monotonic() - t1
+        kv = dict(fleet.status()["fleet"]["kvship"])
+        bits = raw_bits(fleet, CONFIGS[SP_MODEL].vocab_size)
+        final = [r.server.stats()["workers"] for r in reps]
+    finally:
+        fleet.shutdown()
+    if not kv["ships"] or kv["failovers"]:
+        raise AssertionError(f"{what}: kvship {kv}")
+    launches, by_rank = {k: 0 for k in ServeEngine.KERNELS}, []
+    n_layer = fleet.module.config.n_layer
+    for rep, b, f in zip(reps, base, final):
+        got, ranks = sp_check_ranks(f"{what} {rep.role}", b, f, n_layer,
+                                    nccl, False, require=())
+        add_counts(launches, got)
+        by_rank += ranks
+        sp_kv_share(f"{what} {rep.role}", f, ref.engine.stats()["kv_bytes"])
+    ttfts = [h.ttft_s for h in handles if h.ttft_s is not None]
+    res = {"card": card, "start_s": start_s, "wall_s": wall,
+           "ttft_p50_ms": float(np.percentile(ttfts, 50)) * 1e3,
+           "decode_step_ms": None,
+           "tokens_per_s": len(handles) * SP_NEW_TOKENS / wall,
+           "kvship": {k: kv[k] for k in ("ships", "skipped", "bytes_wire",
+                                         "bytes_raw")},
+           "bitwise_rows": bits["bitwise_rows"], "tensors_bitwise": tensors,
+           "kv_bytes": [w["kv_bytes"] for f in final for w in f],
+           "peak_memory": [w.get("max_memory_allocated") for f in final
+                           for w in f],
+           "launches": launches, "launches_by_rank": by_rank,
+           "tokens": sp_check_tokens(what, ref, prompts, tokens, want)}
+    dec = [(w["seconds"]["decode"] - w0["seconds"]["decode"],
+            w["calls"]["decode"] - w0["calls"]["decode"])
+           for rep, b, f in zip(reps, base, final) if rep.role == "decode"
+           for w0, w in zip(b, f) if w["leader"]]
+    if dec and dec[0][1]:
+        res["decode_step_ms"] = dec[0][0] / dec[0][1] * 1e3
+    sp_rank_lines(what, card, res, [w for f in final for w in f])
+    log(f"  {what}: ships {kv['ships']} (skipped {kv['skipped']}); "
+        f"{res['tokens']['equal']} of {len(prompts)} equal to (ref)'s, "
+        f"{res['tokens']['near_ties']} near-ties; launches by rank "
+        f"{by_rank}")
+    return res
+
+
+def serve_parallel_phase(seed: int, card: str) -> dict:
+    """Phase 21 (module docstring): ``Server`` under the training
+    strategies at gpt2-1p3b's full width.  Its launches are the legs'
+    ranks' while serving, summed (and by rank), not (ref)'s or the
+    probes'."""
+    import chip_smoke as this
+    from ray_lightning_tpu_torch.serve.buckets import resolve_buckets
+    t_phase = time.monotonic()
+    nccl = torch.cuda.device_count() >= 4
+    leg = ("nccl, one rank a card: every program one CUDA graph" if nccl
+           else "gloo, every rank on card 0 (RLT_ONE_CARD_GLOO=1): eager "
+                "programs, every exchange through host copies")
+    cfg = CONFIGS[SP_MODEL]
+    vocab = cfg.vocab_size
+    shallow = cfg.n_layer if nccl else SP_SHALLOW
+    buckets = resolve_buckets(None, cfg.block_size)
+    prompts = sp_prompts(seed, vocab)
+    shared = sp_prompts(seed, vocab, shared=True)
+    out: dict = {"card": card, "leg": leg, "legs": {},
+                 "buckets": list(buckets)}
+    kw = dict(buckets=buckets, max_batch_slots=SP_SLOTS,
+              max_new_tokens=SP_NEW_TOKENS, seed=seed)
+    log(f"  (ref) the unsharded engine in process, {cfg.n_layer} layers")
+    ref = SpRef(seed, cfg.n_layer, buckets)
+    want, out["ref"] = ref.serve(prompts)
+    want_shared, out["ref_paged_spec"] = ref.serve(shared, paged_spec=True)
+    ref_logits = sp_ref_logits(ref, prompts)
+    log(f"  [{card}] (ref): TTFT p50 {out['ref']['ttft_p50_ms']:.2f} ms, "
+        f"decode step {out['ref']['decode_step_ms']:.3f} ms, "
+        f"{out['ref']['tokens_per_s']:.1f} tokens/s, KV "
+        f"{out['ref']['kv_bytes'] / 2 ** 20:.1f} MiB, peak memory "
+        f"{out['ref']['peak_memory_gb']:.2f} GB")
+
+    def module(layers):
+        return GPTLightningModule(dataclasses.replace(cfg, n_layer=layers))
+
+    with scoped_env(**({} if nccl else {"RLT_ONE_CARD_GLOO": "1"})):
+        log(f"  (a) Server(num_workers=2, tensor=2), {cfg.n_layer} layers "
+            f"({leg})")
+        out["legs"]["a"] = sp_server_leg(
+            this, "(a) tensor=2", Server(module(cfg.n_layer), num_workers=2,
+                                         strategy=sp_tensor2(), **kw),
+            ref, prompts, want, card, nccl, 2, ref_logits=ref_logits)
+        log(f"  (c) tensor=2, paged prefix reuse, speculation k="
+            f"{SP_SPEC_K} with a {SP_DRAFT_LAYERS}-layer draft")
+        out["legs"]["c"] = sp_server_leg(
+            this, "(c) tensor=2 paged+spec", Server(
+                module(cfg.n_layer), num_workers=2, strategy=sp_tensor2(),
+                worker_env={"RLT_DECODE_IMPL": "paged"}, **sp_paged_spec(),
+                **kw),
+            ref, shared, want_shared, card, nccl, 2, spec=True)
+        pages = out["legs"]["c"]["scheduler"]["pages"]
+        if not pages or not pages["reused_prefills"]:
+            raise AssertionError(f"(c): no prefix was reused: {pages}")
+        if shallow != ref.layers:
+            del ref
+            free_cuda()
+            log(f"  (ref) again at {shallow} layers")
+            ref = SpRef(seed, shallow, buckets)
+            want, out["ref_shallow"] = ref.serve(prompts)
+        log(f"  (b) Server(num_workers=1, devices_per_worker=2, "
+            f"strategy='fsdp'), {shallow} layers")
+        n = SP_SLOW_REQUESTS
+        out["legs"]["b"] = sp_server_leg(
+            this, "(b) fsdp", Server(module(shallow), num_workers=1,
+                                     devices_per_worker=2, strategy="fsdp",
+                                     **kw),
+            ref, prompts[:n], want[:n], card, nccl, 2)
+        log(f"  (d) Server(num_workers=4, data=2 x tensor=2), {shallow} "
+            f"layers")
+        out["legs"]["d"] = sp_server_leg(
+            this, "(d) data=2 x tensor=2", Server(
+                module(shallow), num_workers=4,
+                strategy=sp_tensor2(data=2), **kw),
+            ref, prompts, want, card, nccl, 4)
+        log(f"  (e) FleetServer(roles=(prefill, decode)) of two tensor=2 "
+            f"replicas, {shallow} layers")
+        out["legs"]["e"] = sp_fleet_leg(
+            this, "(e) disaggregated tensor=2", FleetServer(
+                module(shallow), replicas=2, autoscale=False,
+                fleet={"roles": ("prefill", "decode"),
+                       "kvship_codec": "raw"},
+                num_workers=2, strategy=sp_tensor2(), **kw),
+            ref, prompts, want, card, nccl)
+    del ref
+    free_cuda()
+    total = {k: 0 for k in ServeEngine.KERNELS}
+    for name, res in out["legs"].items():
+        add_counts(total, res["launches"])
+    for k in ("flash_fwd", "flash_decode", "flash_decode_paged"):
+        if not total[k]:
+            raise AssertionError(f"phase 21 launched {k} no time")
+    out.update(launches=total, seconds=time.monotonic() - t_phase,
+               launches_by_rank={k: v["launches_by_rank"]
+                                 for k, v in out["legs"].items()})
+    log("serve_parallel " + json.dumps(out, default=str))
+    return out
+
+
+def sp_positions(gen, S: int, L: int) -> torch.Tensor:
+    """Decode positions over a cache of ``L`` rows: the ends and tile
+    edges first, the rest random."""
+    fixed = [0, L - 1, 1023, 1024, 127, 128, 2000, 500][:S]
+    rand = torch.randint(0, L, (S - len(fixed),), generator=gen,
+                         device="cuda")
+    return torch.cat([torch.tensor(fixed, device="cuda"),
+                      rand]).to(torch.int32)
+
+
+def sp_decode_shape(gen, flush, S: int, heads: int, L: int) -> dict:
+    """flash_decode and flash_decode_paged (page 16, identity table) at
+    one of phase 21's per-rank shapes: each within ``BF16_TOL`` of its
+    plain version, the flat kernel within ``SPLIT_TOL`` of the split
+    plan's plain arithmetic (L=2048 is new to the plan), the paged one
+    equal to it bit for bit; timed with L2 flushed beside SDPA."""
+    c = heads * D
+    positions = sp_positions(gen, S, L)
+    q = torch.randn(S, 1, heads, D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kc = torch.randn(S, L, heads, D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    vc = torch.randn(S, L, heads, D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    flat = flash_decode_attention(q, kc, vc, positions)
+    want = flash_decode_attention_plain(q, kc, vc, positions)
+    plan = fd.decode_split_plan(S, heads, L, fd._sm_count(0))
+    split = fd.flash_decode_split_plain(q, kc, vc, positions,
+                                        plan[0]).float()
+    P = L // 16
+    ident = torch.arange(S * P, dtype=torch.int32, device="cuda").view(S, P)
+    kp, vp = kc.view(S * P, 16, heads, D), vc.view(S * P, 16, heads, D)
+    paged = flash_decode_paged_attention(q, kp, vp, positions, ident)
+    paged_ref = flash_decode_paged_attention_plain(q, kp, vp, positions,
+                                                   ident)
+    torch.cuda.synchronize()
+    err = (flat.float() - want.float()).abs().max().item()
+    perr = (paged.float() - paged_ref.float()).abs().max().item()
+    split_err = ((flat.float() - split).abs() - SPLIT_TOL[0]
+                 - SPLIT_TOL[1] * split.abs()).max().item()
+    shape = f"S={S} L={L} H={heads} D={D}"
+    log(f"  {shape}: flash_decode max_abs_err {err:.3e}, split plan "
+        f"{plan} excess over the split tolerance {split_err:.3e}; "
+        f"flash_decode_paged {perr:.3e}, equal to flash_decode "
+        f"{torch.equal(paged, flat)}")
+    check_close(f"flash_decode {shape}", err, BF16_TOL)
+    check_close(f"flash_decode_paged {shape}", perr, BF16_TOL)
+    if not split_err <= 0 or not torch.equal(paged, flat) \
+            or not bool(torch.isfinite(flat.float()).all()):
+        raise AssertionError(f"{shape}: split excess {split_err}, paged "
+                             f"equal {torch.equal(paged, flat)}")
+    mask = (torch.arange(L, device="cuda")[None, :]
+            <= positions[:, None].long())[:, None, None, :]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, kc, vc))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask), flush=flush)
+    live = int((positions.long() + 1).sum())
+    pages = int((positions.long() // 16 + 1).sum())
+    rows = {}
+    for name, fn, plain, extra, e in (
+            ("flash_decode",
+             lambda: flash_decode_attention(q, kc, vc, positions),
+             lambda: flash_decode_attention_plain(q, kc, vc, positions),
+             0, err),
+            ("flash_decode_paged",
+             lambda: flash_decode_paged_attention(q, kp, vp, positions,
+                                                  ident),
+             lambda: flash_decode_paged_attention_plain(q, kp, vp,
+                                                        positions, ident),
+             pages * 4, perr)):
+        b_ms, b_by = bound(2 * S * c * 2 + 2 * live * c * 2 + S * 4 + extra,
+                           4 * live * c)
+        rows[name] = dict(shape=shape, max_abs_err=e,
+                          ms=time_ms(fn, flush=flush),
+                          plain_ms=time_ms(plain, flush=flush),
+                          library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                          live_rows=live)
+        log(f"  {name} {shape}: kernel {rows[name]['ms']:.4f} ms, plain "
+            f"{rows[name]['plain_ms']:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+            f"{b_ms:.5f} ms ({b_by}); {live} live rows, L2 flushed")
+    return rows
+
+
+def sp_fwd_shape(gen, T: int, heads: int) -> dict:
+    """flash_fwd (row 1) at a prefill of phase 21: B=1, ``T`` tokens,
+    ``heads`` heads (16 a tensor rank's, 32 (ref)'s) of the fused qkv,
+    causal, against its plain version; timed warm beside SDPA."""
+    c = heads * D
+    qkv = torch.randn(1, T, 3 * c, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q, k, v = (x.view(1, T, heads, D) for x in qkv.split(c, dim=-1))
+    o, lse = flash_attention_fwd(q, k, v, causal=True)
+    o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = (o.float() - o_ref.float()).abs().max().item()
+    lse_err = (lse - lse_ref).abs().max().item()
+    shape = f"B=1 T={T} H={heads} D={D} causal"
+    check_close(f"flash_fwd {shape}", err, BF16_TOL)
+    check_close(f"flash_fwd lse {shape}", lse_err, LSE_TOL)
+    ms = time_ms(lambda: flash_attention_fwd(q, k, v, causal=True))
+    plain_ms = time_ms(lambda: flash_attention_fwd_plain(q, k, v,
+                                                         causal=True))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    b_ms, b_by = bound(4 * T * c * 2 + heads * T * 4,
+                       4 * heads * D * T * (T + 1) / 2)
+    log(f"  flash_fwd {shape}: max_abs_err {err:.3e}, lse {lse_err:.3e}; "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} "
+        f"ms, bound {b_ms:.5f} ms ({b_by})")
+    return dict(shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def sp_kernel_entries(gen) -> "dict[int, dict]":
+    """Rows 1, 13 and 14 at phase 21's shapes: flash_fwd at B=1, T=512,
+    1024 and 2048, H=16 (a tensor rank's prefill) and T=2048 H=32
+    ((ref)'s); the decode kernels at S=8 and 4, L=2048, H=16 and 32, one
+    entry a row with its first shape's numbers and ``by_shape``."""
+    L = CONFIGS[SP_MODEL].block_size
+    fwd = {f"T={t} H={h}": sp_fwd_shape(gen, t, h)
+           for t, h in ((2048, 16), (1024, 16), (512, 16), (2048, 32))}
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    dec = {f"S={s} H={h}": sp_decode_shape(gen, flush, s, h, L)
+           for s, h in ((8, 16), (8, 32), (4, 16), (4, 32))}
+    del flush
+    entries = {}
+    for row, name, src, by in (
+            (1, "flash_fwd", "ray_lightning_tpu/ops/flash_attention.py:298",
+             fwd),
+            (13, "flash_decode", "ray_lightning_tpu/ops/flash_decode.py:158",
+             {k: v["flash_decode"] for k, v in dec.items()}),
+            (14, "flash_decode_paged",
+             "ray_lightning_tpu/ops/flash_decode.py:166",
+             {k: v["flash_decode_paged"] for k, v in dec.items()})):
+        first = next(iter(by.values()))
+        e = record(name, row, src, first["shape"], first["max_abs_err"],
+                   first, source="ray_lightning_tpu_torch/csrc/"
+                   + ("flash_fwd.cu" if row == 1 else "flash_decode.cu"))
+        e["by_shape"] = by
         entries[row] = e
     return entries
 
@@ -6826,6 +7681,19 @@ def main(argv=None) -> int:
                          "bucketing and ZeRO-1 leg), then check and time "
                          "flash_fwd and flash_bwd at its shape (rows 1 and "
                          "6) and philox_uniform")
+    ap.add_argument("--serve-parallel-only", action="store_true",
+                    help="build, run phase 21 (Server under the training "
+                         "strategies at gpt2-1p3b width: tensor=2, FSDP "
+                         "by devices, paged reuse and speculation under "
+                         "tensor=2, data=2 x tensor=2, a disaggregated "
+                         "tensor=2 fleet), then check and time flash_fwd, "
+                         "flash_decode and flash_decode_paged at its "
+                         "shapes (rows 1, 13 and 14)")
+    ap.add_argument("--serve-parallel-logits", metavar="SEEDS",
+                    help="build, then read phase 21's check of (a)'s "
+                         "first-step logits and its control (bf16 "
+                         "row-parallel sums) at each of the comma-"
+                         "separated seeds")
     ap.add_argument("--tune-only", action="store_true",
                     help="build, run phase 12 (Tune: PBT over MNIST, "
                          "gpt2-small trials under RayPlugin, in-process "
@@ -6846,7 +7714,8 @@ def main(argv=None) -> int:
     full = not (driver_off_cuda or args.fwd_only or args.bwd_only
                 or args.decode_only or args.trainer_only
                 or args.ladder_only or args.sharded_only
-                or args.parallel_only or args.comm_only)
+                or args.parallel_only or args.comm_only
+                or args.serve_parallel_only or args.serve_parallel_logits)
     if not (driver_off_cuda or full):  # the device's name initialises CUDA
         log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
             f"{torch.cuda.get_device_name(0)}")
@@ -6990,6 +7859,35 @@ def main(argv=None) -> int:
                 e["name"]]}
             e["launches"] = e["launches_by_path"]["comm"]
         log(json.dumps({"kernels": entries}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if args.serve_parallel_logits:
+        serve_parallel_logits([int(x) for x in
+                               args.serve_parallel_logits.split(",")],
+                              card_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if args.serve_parallel_only:
+        log("serve parallel phase")
+        sp = serve_parallel_phase(args.seed, card_line())
+        log(f"serve parallel phase: {sp['seconds']:.1f} s")
+        free_cuda()
+        log("kernel phase (rows 1, 13 and 14 at the serve parallel "
+            "shapes)")
+        entries = sp_kernel_entries(gen)
+        for e in entries.values():
+            e["launches_by_path"] = {"serve_parallel":
+                                     sp["launches"][e["name"]]}
+            e["launches"] = e["launches_by_path"]["serve_parallel"]
+            e["serve_parallel_by_rank"] = {
+                leg: [r[e["name"]] for r in ranks]
+                for leg, ranks in sp["launches_by_rank"].items()}
+        check_actor_starts()
+        log(json.dumps({"kernels": [entries[1], entries[13], entries[14]]}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -7201,6 +8099,23 @@ def main(argv=None) -> int:
         "philox_uniform"]
     philox["launches"] = sum(philox["launches_by_path"].values())
     log(f"comm phase: {comm['seconds']:.1f} s")
+
+    log("serve parallel phase")
+    free_cuda()
+    sp = serve_parallel_phase(args.seed, card)
+    free_cuda()
+    shapes = sp_kernel_entries(gen)
+    for row in (1, 13, 14):
+        e = by_row[row]
+        e.setdefault("by_shape", {}).update(
+            {f"serve_parallel {k}": v
+             for k, v in shapes[row]["by_shape"].items()})
+        e["launches_by_path"]["serve_parallel"] = sp["launches"][e["name"]]
+        e["serve_parallel_by_rank"] = {
+            leg: [r[e["name"]] for r in ranks]
+            for leg, ranks in sp["launches_by_rank"].items()}
+        e["launches"] = sum(e["launches_by_path"].values())
+    log(f"serve parallel phase: {sp['seconds']:.1f} s")
     check_actor_starts()
     log("speed order (rows slower than their library call by that factor, "
         "then by launches x (ms - bound)): " + ", ".join(

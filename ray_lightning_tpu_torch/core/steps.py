@@ -571,9 +571,10 @@ def build_prefill_step(model: torch.nn.Module,
         if tokens.shape != (1, bucket_len):
             raise ValueError(f"prefill_{bucket_len} takes tokens "
                              f"[1, {bucket_len}], got {tuple(tokens.shape)}")
-        x, kvs = model.hidden_with_kv(tokens)
+        table = model.table()       # gathered once under FSDP
+        x, kvs = model.hidden_with_kv(tokens, table)
         # only row length-1 feeds the first token: no [T, V] logits
-        logits = model.head(x[0].index_select(0, length - 1)[0])
+        logits = model.head(x[0].index_select(0, length - 1)[0], table)
         for i, (k, v) in enumerate(kvs):
             k_caches[i, :, :bucket_len].index_copy_(0, slot, k)
             v_caches[i, :, :bucket_len].index_copy_(0, slot, v)

@@ -32,8 +32,13 @@ parameter through ``gathered`` (the pieces on batch axes all-gathered),
 and under :func:`gpt_partition_rules` on a ``tensor`` axis over 1 the
 training forward is Megatron's (parallel/tensor.py): the vocab-parallel
 ``wte`` lookup and tied loss, column-parallel ``qkv`` / ``fc`` (and the
-routed ``w1``), row-parallel ``proj`` / ``out`` (and ``w2``); the serve
-paths raise there.
+routed ``w1``), row-parallel ``proj`` / ``out`` (and ``w2``).  The serve
+paths (the prefill ``hidden_with_kv``, ``decode``, ``verify`` and the
+draft's decode) are the same on this rank's ``n_head / tp`` heads: the
+vocab-parallel lookup, the attention on its heads of the KV cache, and
+the tied head's vocab-split logits gathered along the vocab in rank
+order into the whole fp32 ``[S, V]`` before any argmax, so a tie goes
+to the lowest id as on one rank.
 """
 
 from __future__ import annotations
@@ -374,14 +379,12 @@ class GPT(nn.Module):
         self.moe_aux = functools.reduce(torch.add, aux) if aux else None
         return self.ln_f(x), table
 
-    def hidden_with_kv(self, idx):
+    def hidden_with_kv(self, idx, table: "torch.Tensor | None" = None):
         """The prefill's forward: :meth:`hidden` without remat, and every
-        layer's ``(k, v)`` [B, T, H, D]."""
-        if self.tp is not None:
-            raise NotImplementedError(
-                "the prefill under tensor parallelism is not ported yet "
-                "(ROADMAP.md queue 1 item 9: Server's strategies)")
-        x = self._embed(idx)
+        layer's ``(k, v)`` [B, T, H, D] (under ``tp`` this rank's
+        ``H / tp`` heads); ``table`` is :meth:`table`'s, when the caller
+        keeps it for the head (one gather a step under FSDP)."""
+        x = self._embed(idx, table)
         kvs = []
         for blk in self.h:
             x, kv = blk.forward_with_kv(x)
@@ -419,13 +422,14 @@ class GPT(nn.Module):
         not depend on which slots are live: insertion and eviction are
         slot-index changes in the host-side scheduler."""
         dt = self.config.dtype
-        x = gathered(self.wte.weight)[tokens.long()].to(dt)[:, None, :]
+        table = self.table()        # one gather a step under FSDP
+        x = vocab_embed(table, tokens, dt, self.tp)[:, None, :]
         x = x + self._pos_embed(positions)[:, None, :]
         write = CacheWrite(positions, k_caches.shape[2], drop_past_end)
         for i, blk in enumerate(self.h):
             x = blk.decode(x, k_caches[i], v_caches[i], positions, impl,
                            page_table, write)
-        return self.head(self.ln_f(x))[:, 0]
+        return self.head(self.ln_f(x), table)[:, 0]
 
     def verify(self, tokens, positions, k_caches, v_caches,
                impl: "str | None" = None, page_table=None):
@@ -441,13 +445,14 @@ class GPT(nn.Module):
         token plain decode would emit after accepting drafts 1..j.
         Returns fp32 logits ``[S, T, V]``."""
         dt = self.config.dtype
-        x = gathered(self.wte.weight)[tokens.long()].to(dt)
+        table = self.table()
+        x = vocab_embed(table, tokens, dt, self.tp)
         x = x + self._pos_embed(positions)
         write = CacheWrite(positions, k_caches.shape[2], drop_past_end=True)
         for i, blk in enumerate(self.h):
             x = blk.decode(x, k_caches[i], v_caches[i], positions, impl,
                            page_table, write)
-        return self.head(self.ln_f(x))
+        return self.head(self.ln_f(x), table)
 
 
 def gpt_partition_rules(tensor_axis: str = "tensor") -> list:

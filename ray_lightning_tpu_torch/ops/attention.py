@@ -310,7 +310,8 @@ class MultiHeadAttention(nn.Module):
     training forward runs this rank's ``n_head / tp.size`` heads:
     ``qkv`` column-parallel (its rows hold those heads of q, k and v),
     ``proj`` row-parallel, its output summed over the group before the
-    bias; the decode branch does not take tensor parallelism.
+    bias; the decode branch likewise, on this rank's heads of the KV
+    cache.
     """
 
     def __init__(self, n_embd: int, n_head: int, *, causal: bool = True,
@@ -372,12 +373,11 @@ class MultiHeadAttention(nn.Module):
         bound: query j never sees rows of queries after it).  Slots with
         no live request write a dummy row (position 0, or ``L - 1`` under
         paging) that no live query reads before it is overwritten
-        (serve/worker.py ``serve_step``)."""
+        (serve/worker.py ``serve_step``).  Under ``tp`` the caches hold
+        this rank's ``n_head / tp`` heads: ``qkv`` gives those heads'
+        q, k and v (column-parallel), the attention runs on them, and
+        ``proj`` is row-parallel (one all-reduce)."""
         S, T, C = x.shape
-        if self.tp is not None:
-            raise NotImplementedError(
-                "decode under tensor parallelism is not ported yet "
-                "(ROADMAP.md queue 1 item 9: Server's strategies)")
         q, k, v = self._qkv(x)
         if write is None:
             write = CacheWrite(positions, k_cache.shape[1])
@@ -386,7 +386,8 @@ class MultiHeadAttention(nn.Module):
         y = cached_attention(q, k_cache, v_cache, positions,
                              dtype=self.dtype, impl=impl,
                              page_table=page_table)
-        return linear(self.proj, y.reshape(S, T, C), self.dtype)
+        return row_linear(self.proj, y.reshape(S, T, -1), self.dtype,
+                          self.tp)
 
 
 __all__ = ["CacheWrite", "MultiHeadAttention", "auto_attention",

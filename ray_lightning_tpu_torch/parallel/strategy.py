@@ -60,8 +60,10 @@ Beyond data parallelism (parallel/layout.py, parallel/tensor.py):
   (parallel/pipeline.py): the layer-stacked blocks on ``stage``.
 
 Each strategy answers the JAX package's ``param_spec`` / ``opt_spec`` /
-``batch_spec`` as tuples equal to JAX's (:class:`PartitionSpec`), for
-the flax path of a port parameter (``convert.flax_path``).  ``"auto"``
+``batch_spec`` / ``kv_cache_spec`` as tuples equal to JAX's
+(:class:`PartitionSpec`), for the flax path of a port parameter
+(``convert.flax_path``); ``kv_cache_block`` is the serve engine's block
+of slots and heads on one rank (serve/engine.py).  ``"auto"``
 and ``"mpmd"`` raise ``NotImplementedError`` naming their ROADMAP.md
 item; other names raise ``ValueError``, as in the JAX package.
 """
@@ -281,12 +283,76 @@ class ShardingStrategy:
     def axis_sizes(self, n_devices: int) -> dict:
         return {"data": n_devices}
 
-    def build_mesh(self):
+    def build_mesh(self, batch_hint: "int | None" = None):
         """The mesh of the default process group (parallel/mesh.py):
-        every rank takes part; one rank without a group."""
+        every rank takes part; one rank without a group.  ``batch_hint``
+        (a global batch: the serve engine's slots) must divide by the
+        data shards (:meth:`mesh_shape`)."""
         from ray_lightning_tpu_torch.parallel.mesh import build_device_mesh
-        return build_device_mesh(self.axis_names,
-                                 self.axis_sizes(world_size()))
+        shape = self.mesh_shape(world_size(), batch_hint)
+        return build_device_mesh(self.axis_names, shape)
+
+    def mesh_shape(self, n_ranks: int, batch_hint: "int | None" = None
+                   ) -> dict:
+        """Axis name -> size of this strategy's mesh over ``n_ranks``
+        ranks.  With ``batch_hint`` the batch must divide by the data
+        shards (the axes in ``data_axis_names``): the JAX ``build_mesh``
+        clamps the data axis in a single process, where the port's one
+        rank has one data shard and nothing to clamp, and over several
+        processes spans them all, so here it raises, naming both
+        numbers."""
+        from ray_lightning_tpu_torch.parallel.mesh import _infer_axis_sizes
+        shape = dict(zip(self.axis_names, _infer_axis_sizes(
+            n_ranks, dict(self.axis_sizes(n_ranks)), self.axis_names)))
+        shards = math.prod(shape.get(a, 1) for a in self.data_axis_names)
+        if batch_hint is not None and int(batch_hint) % shards:
+            raise ValueError(
+                f"global batch {batch_hint} does not divide across "
+                f"{shards} data shards of the mesh {shape}: make it a "
+                f"multiple of {shards}")
+        return shape
+
+    def kv_cache_spec(self, mesh, ndim: int = 5) -> P:
+        """The serve plane's slot-indexed KV cache ``[n_layer, slot, pos,
+        head, dim]`` as the JAX package shards it (its two
+        ``kv_cache_spec``\\s in one): the slots over the data axes, as
+        the batch's leading dim, and the heads over ``tensor`` when the
+        mesh has that axis over 1 (the decode attention is head-parallel
+        as the training attention is)."""
+        if ndim < 2:
+            return P()
+        spec: list = [None] * ndim
+        spec[1] = (self.data_axis_names if len(self.data_axis_names) > 1
+                   else self.data_axis_names[0])
+        if ndim >= 4 and mesh.shape.get("tensor", 1) > 1:
+            spec[3] = "tensor"
+        return P(*spec)
+
+    def kv_cache_block(self, mesh, slots: int, heads: int
+                       ) -> "tuple[tuple[int, int], tuple[int, int]]":
+        """What this rank of ``mesh`` holds of a KV cache of ``slots``
+        slots and ``heads`` heads (:meth:`kv_cache_spec`): ``((slot_lo,
+        slot_hi), (head_lo, head_hi))``, its block of slots by its
+        coordinates on the data axes (row-major, the first outermost)
+        and its block of heads by its coordinate on ``tensor``.  Each
+        must divide evenly."""
+        spec = tuple(self.kv_cache_spec(mesh))
+        out = []
+        for dim, total in ((1, slots), (3, heads)):
+            names = spec[dim]
+            names = () if names is None else (
+                tuple(names) if isinstance(names, tuple) else (names,))
+            names = tuple(a for a in names if a in mesh.axis_names)
+            n = mesh.size(*names)
+            if total % n:
+                raise ValueError(
+                    f"{('slots', 'heads')[dim == 3]}={total} do not "
+                    f"divide across {n} shards of {names} on the mesh "
+                    f"{mesh.shape}")
+            per = total // n
+            i = mesh.index(*names)
+            out.append((i * per, (i + 1) * per))
+        return out[0], out[1]
 
     # -- per-parameter specs (the JAX package's override points) -----------
 

@@ -50,8 +50,35 @@ and its page size tiles ``max_seq_len``, and degrades to the
 slot-contiguous ``flash_decode`` kernel otherwise, as the JAX engine
 does; ``decode_kernel`` says which runs.
 
-The JAX engine's strategy/mesh and compile cache are not ported yet,
-and asking for them raises.
+Under a training strategy (``strategy=``, the JAX engine's mesh) the
+serving layout is the training layout, as in the JAX engine: the mesh
+is ``strategy.build_mesh(batch_hint=slots)`` over the default process
+group (``Server``'s ranks, serve/worker.py), the model is built and
+initialised (or loaded) whole on this rank and cut to its pieces by the
+strategy's layout (parallel/layout.py: FSDP pieces gathered at use,
+``tensor`` pieces computed on by the model's Megatron forward), and the
+cache holds this rank's block of ``strategy.kv_cache_block``: its data
+shard's slots and its ``n_head / tensor`` heads, ``[n_layer,
+slots / data, L, H / tensor, D]``.  Every rank builds, warms and
+captures the same programs in the same order, and every rank of a mesh
+runs every program of each plan (serve/worker.py), so the collectives
+inside them match.  When a program gathers parameters over the data
+shards (FSDP), a rank also runs another shard's admissions, through
+the same programs, at a scratch slot past its block
+(:meth:`shadow_prefill`).  Over NCCL each
+program is one CUDA graph with its collectives inside, every
+communicator made by the warm-up's collectives before the first
+capture; gloo's collectives cannot be captured, so over gloo on the
+card the programs with collectives run eagerly and ``stats()``'s
+``ungraphed`` says why.  ``export_kv`` gathers the tensor group's heads
+in rank order (a collective of that group) and ``import_kv`` takes this
+rank's heads of whole rows, so engines of any layout ship to each
+other.  The sequence, stage and expert axes split nothing a dense decode
+model holds: their ranks serve the same slots as replicas, and only the
+rank at coordinate 0 on every axis but the data axes (``leader``)
+reports its block's results.
+
+The compile cache is not ported yet, and asking for it raises.
 """
 
 from __future__ import annotations
@@ -78,6 +105,8 @@ from ray_lightning_tpu_torch.core.steps import (CapturedGraph,
                                                 capture_graph, copy_in)
 from ray_lightning_tpu_torch.ops import _kernels
 from ray_lightning_tpu_torch.ops.flash_decode import resolve_decode_impl
+from ray_lightning_tpu_torch.parallel.mesh import all_gather_along
+from ray_lightning_tpu_torch.parallel.strategy import resolve_strategy
 from ray_lightning_tpu_torch.serve.fleet.pages import identity_page_table
 from ray_lightning_tpu_torch.serve.kvcache import KVCacheSpec
 from ray_lightning_tpu_torch.telemetry import metrics as _metrics
@@ -86,7 +115,9 @@ _log = logging.getLogger(__name__)
 
 
 class ServeEngine:
-    """Generation executor bound to one device."""
+    """Generation executor bound to one device: the whole model and every
+    slot, or under ``strategy=`` this rank's pieces and block (module
+    docstring)."""
 
     def __init__(self, module, buckets: Sequence[int], slots: int,
                  max_seq_len: int, seed: int = 0,
@@ -95,11 +126,13 @@ class ServeEngine:
                  strategy: Any = None, compile_cache: Any = None,
                  paged: Any = None, spec: Any = None,
                  kvship: bool = False):
-        for name, value in (("strategy", strategy),
-                            ("compile_cache", compile_cache)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"ServeEngine({name}=...) is not ported yet")
+        if compile_cache is not None:
+            raise NotImplementedError(
+                "ServeEngine(compile_cache=...) is not ported yet "
+                "(ROADMAP.md queue 1 item 12)")
+        #: the training strategy served under (``None``: one rank)
+        self.strategy = None if strategy is None \
+            else resolve_strategy(strategy)
         #: PageConfig (serve/fleet/pages.py): when enabled the engine also
         #: builds the page copy and the one-slot suffix step that make
         #: prefix-cache hits executable
@@ -114,7 +147,24 @@ class ServeEngine:
         self.device = resolve_device(device)
         self.module = module
         self.buckets = tuple(buckets)
-        self.slots = int(slots)
+        #: the fleet's slots, and (after setup) this rank's block of them
+        #: ``[lo, hi)`` and its size; every slot without a strategy
+        self.fleet_slots = int(slots)
+        self.slot_block = (0, self.fleet_slots)
+        self.slots = self.fleet_slots
+        #: this rank's heads ``[lo, hi)`` of the cache (all without one)
+        self.head_block: "Optional[tuple[int, int]]" = None
+        #: the mesh and the model's layout (``None``: whole, one rank)
+        self.mesh = None
+        self.layout = None
+        #: whether this rank reports its block's results (module
+        #: docstring): coordinate 0 on every axis but the data axes
+        self.leader = True
+        #: whether another data shard's admissions run here too (their
+        #: programs gather parameters over the data shards)
+        self.lockstep = False
+        #: why the programs run eagerly on the card (``None``: graphed)
+        self.ungraphed: "Optional[str]" = None
         self.max_seq_len = int(max_seq_len)
         self.seed = int(seed)
         self._weights = weights
@@ -132,6 +182,10 @@ class ServeEngine:
         self._decode = None
         self._kv_copy = None
         self._suffix = None
+        #: the caches ``(k, v)``: this rank's slots, and under lockstep
+        #: one scratch slot past them (:meth:`shadow_prefill`)
+        self._kv: "Optional[tuple]" = None
+        #: views of this rank's slots of them
         self._k: Optional[torch.Tensor] = None
         self._v: Optional[torch.Tensor] = None
         #: the paged kernel's tables on the device (None: not paged)
@@ -144,6 +198,7 @@ class ServeEngine:
         self._draft_prefills: dict = {}
         self._draft = None
         self._verify = None
+        self._dkv: "Optional[tuple]" = None
         self._dk: Optional[torch.Tensor] = None
         self._dv: Optional[torch.Tensor] = None
         #: int8 draft residency (``draft_quant="int8"``): name -> the
@@ -177,7 +232,7 @@ class ServeEngine:
             # default for matmuls, not for cuDNN convolutions)
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        model = self.module.configure_decode_model(device=dev)
+        model = decode_model_of(self.module, dev)
         model.requires_grad_(False)
         model.eval()
         if self._weights is not None:
@@ -197,18 +252,29 @@ class ServeEngine:
         pd = getattr(self.module, "param_dtype", None)
         if pd is not None:
             model.to(dtype=pd)     # casts the floating params only
+        if self.strategy is not None:
+            self._shard(model)
         self.model = model
 
         # cache geometry from one prefill capture at the smallest bucket
+        # (under a strategy this rank's heads; collective like any
+        # program, so every rank runs it here)
         probe = torch.zeros((1, self.buckets[0]), dtype=torch.long,
                             device=dev)
         _, kvs = model.hidden_with_kv(probe)
         k0 = kvs[0][0]
         self.kv_spec = KVCacheSpec.from_capture(
             [k for k, _ in kvs], self.slots, self.max_seq_len)
-        self._k = torch.zeros(self.kv_spec.shape, dtype=k0.dtype,
-                              device=dev)
-        self._v = torch.zeros_like(self._k)
+        if self.head_block is not None and self.kv_spec != KVCacheSpec(
+                self.kv_spec.n_layer, self.fleet_slots, self.max_seq_len,
+                model.config.n_head, self.kv_spec.head_dim).block(
+                    self.slot_block, self.head_block):
+            raise RuntimeError(
+                f"the prefill gave the cache {self.kv_spec.shape}, not "
+                f"the layout's block of slots {self.slot_block} and "
+                f"heads {self.head_block}")
+        self._kv = self._caches(self.kv_spec, k0.dtype)
+        self._k, self._v = (c[:, :self.slots] for c in self._kv)
 
         for b in self.buckets:
             self._prefills[b] = build_prefill_step(model, b)
@@ -235,19 +301,44 @@ class ServeEngine:
             self._setup_draft(model, impl)
         self._define_programs()
         self._warm()
-        if dev.type == "cuda":
+        if dev.type == "cuda" and self.ungraphed is None:
             self._capture_all()
         self._zero_caches()
         self._captures_at_setup = dict(self.captures)
         _log.info(
             "serve engine ready in %.2fs: device=%s buckets=%s slots=%d "
-            "kv=%s (%.1f MB) decode=%s graphs=%d (%.0f ms, pool %.1f MB)",
-            time.monotonic() - t0, dev, self.buckets, self.slots,
-            self.kv_spec.shape,
+            "kv=%s (%.1f MB) decode=%s graphs=%d (%.0f ms, pool %.1f MB)"
+            " mesh=%s%s", time.monotonic() - t0, dev, self.buckets,
+            self.slots, self.kv_spec.shape,
             self.kv_spec.nbytes(self._k.element_size()) / 2**20,
             self.decode_kernel, len(self._graphs), self.capture_ms,
-            self.pool_bytes / 2**20)
+            self.pool_bytes / 2**20,
+            None if self.mesh is None else self.mesh.shape,
+            "" if self.ungraphed is None else f" ({self.ungraphed})")
         return self
+
+    def _shard(self, model) -> None:
+        """The strategy's mesh over the process group, ``model`` (whole,
+        initialised) cut to this rank's pieces by its layout, and this
+        rank's block of the slots and heads (module docstring)."""
+        strategy = self.strategy
+        mesh = self.mesh = strategy.build_mesh(batch_hint=self.fleet_slots)
+        layout = self.layout = strategy.layout(model, mesh)
+        if layout is not None:
+            layout.apply(model)     # the whole tensors are freed here
+        _replicate_sequence(model)
+        self.slot_block, self.head_block = strategy.kv_cache_block(
+            mesh, self.fleet_slots, model.config.n_head)
+        self.slots = self.slot_block[1] - self.slot_block[0]
+        self.leader = mesh.rank in mesh.batch_leaders()
+        gathers = layout is not None and any(
+            i.gather for i in layout.params.values())
+        self.lockstep = gathers and mesh.batch_size > 1
+        collective = gathers or model.tp is not None
+        if self.device.type == "cuda" and collective \
+                and mesh.backend == "gloo":
+            self.ungraphed = ("gloo's collectives cannot be captured in a "
+                              "CUDA graph: every program runs eagerly")
 
     def _setup_draft(self, model, impl: str) -> None:
         """The draft plane (serve/spec.py): the module's draft, made
@@ -263,7 +354,13 @@ class ServeEngine:
                 f"spec= requires {type(self.module).__name__}."
                 f"configure_draft() to return a draft module "
                 f"(core/module.py hook); it returned None")
+        if self.layout is not None:
+            # the draft's blocks are the target's first ones: the same
+            # layout cuts them, and sets its tensor group
+            self.strategy.layout(draft, self.mesh).apply(draft)
+        _replicate_sequence(draft)
         target = model.state_dict()
+        pieces = dict(model.named_parameters())
         shared = {}
         for name, p in draft.state_dict().items():
             if name not in target:
@@ -276,6 +373,12 @@ class ServeEngine:
                     f"target {tuple(target[name].shape)}")
             shared[name] = target[name]
         draft.load_state_dict(shared, strict=True, assign=True)
+        for name, p in draft.named_parameters():
+            # the tags the assignment dropped: a sharded piece is
+            # gathered at use as the target's is
+            info = getattr(pieces[name], "_rlt_shard", None)
+            if info is not None:
+                p._rlt_shard = info
         draft.requires_grad_(False)
         draft.eval()
         self.draft_model = draft
@@ -307,9 +410,8 @@ class ServeEngine:
         _, kvs = draft.hidden_with_kv(probe)
         self.draft_kv_spec = KVCacheSpec.from_capture(
             [k for k, _ in kvs], self.slots, self.max_seq_len)
-        self._dk = torch.zeros(self.draft_kv_spec.shape,
-                               dtype=kvs[0][0].dtype, device=self.device)
-        self._dv = torch.zeros_like(self._dk)
+        self._dkv = self._caches(self.draft_kv_spec, kvs[0][0].dtype)
+        self._dk, self._dv = (c[:, :self.slots] for c in self._dkv)
         wrap = wrap or (lambda step: step)
         for b in self.buckets:
             self._draft_prefills[b] = wrap(build_prefill_step(draft, b))
@@ -317,9 +419,21 @@ class ServeEngine:
                                             self.page_table))
         self._verify = build_verify_step(model, impl, self.page_table)
 
+    def _caches(self, spec: KVCacheSpec, dtype: torch.dtype) -> tuple:
+        """Zeroed ``(k, v)`` of ``spec``'s shape, with one slot more
+        under lockstep: the scratch slot of :meth:`shadow_prefill`."""
+        shape = list(spec.shape)
+        shape[1] += self.lockstep
+        return tuple(torch.zeros(shape, dtype=dtype, device=self.device)
+                     for _ in range(2))
+
     def _define_programs(self) -> None:
         """Each program's step on its caches, and its static inputs
-        (zeros, slot 0, length 1: valid values for the warm-up)."""
+        (zeros, slot 0, length 1: valid values for the warm-up).  The
+        admissions' programs (the prefills, the suffix, the draft
+        prefills) take the whole caches, so under lockstep they reach
+        the scratch slot too; a suffix graph is one a slot, scratch
+        included."""
         dev, S = self.device, self.slots
 
         def longs(*shape, fill=0):
@@ -335,18 +449,18 @@ class ServeEngine:
         kv = (self._k, self._v)
         slot, length = longs(1), longs(1, fill=1)
         for b, step in self._prefills.items():
-            add(f"prefill_{b}", step, kv, (longs(1, b), slot, length))
+            add(f"prefill_{b}", step, self._kv, (longs(1, b), slot, length))
         add("decode", self._decode, kv, (ints(S), ints(S)))
         if self.paged is not None:
             add("kv_copy", self._kv_copy, kv, (longs(1), longs(1, fill=S - 1)))
             token, pos = ints(1), ints(1)
-            for s in range(S):
+            for s in range(S + self.lockstep):
                 add("suffix", lambda k, v, t, p, s=s: self._suffix(
-                    k, v, t, p, s), kv, (token, pos), variant=s)
+                    k, v, t, p, s), self._kv, (token, pos), variant=s)
         if self.spec is not None:
             dkv = (self._dk, self._dv)
             for b, step in self._draft_prefills.items():
-                add(f"draft_prefill_{b}", step, dkv,
+                add(f"draft_prefill_{b}", step, self._dkv,
                     (longs(1, b), slot, length))
             add("draft", self._draft, dkv, (ints(S), ints(S)))
             k1 = self.spec.k + 1
@@ -377,9 +491,8 @@ class ServeEngine:
             torch.cuda.current_stream(dev).wait_stream(self._stream)
 
     def _zero_caches(self) -> None:
-        for c in (self._k, self._v, self._dk, self._dv):
-            if c is not None:
-                c.zero_()
+        for c in (*self._kv, *(self._dkv or ())):
+            c.zero_()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -420,6 +533,24 @@ class ServeEngine:
             copy_in(t, v)
             args.append(t)
         return fn(*args)
+
+    def close(self) -> None:
+        """Release the graphs (their captured collectives included), the
+        programs and the caches now, not when the collector reaches the
+        programs' reference cycles: a process group is destroyed only
+        after the graphs that use its communicators."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        for g in self._graphs.values():
+            g.graph.reset()
+        self._graphs.clear()
+        self._programs.clear()
+        self._prefills.clear()
+        self._draft_prefills.clear()
+        self._decode = self._draft = self._verify = None
+        self._suffix = self._kv_copy = None
+        self._kv = self._dkv = None
+        self._k = self._v = self._dk = self._dv = None
 
     # -- serving -----------------------------------------------------------
 
@@ -510,6 +641,38 @@ class ServeEngine:
         self._account("suffix", time.monotonic() - t0, n=length - first)
         return token
 
+    @torch.inference_mode()
+    def shadow_prefill(self, entry: dict) -> None:
+        """Another data shard's admission (a plan's prefill ``entry``,
+        serve/scheduler.py) run here at the scratch slot past this
+        rank's block, its results dropped: under lockstep (module
+        docstring) that admission's programs gather parameters over
+        every data shard, so every rank runs them, in the plan's order.
+        The owner's programs, counted as its calls are: the bucket's
+        prefill, or, for a prefix-cache hit, as many suffix steps (the
+        page copy moves no parameter); then the draft prefill when the
+        plan asks for one."""
+        if not self.lockstep:
+            raise RuntimeError("shadow_prefill without lockstep")
+        scratch = self.slots
+        bucket, length = entry["bucket"], entry["length"]
+        ids = self._prompt(0, entry["tokens"], length, bucket)
+        t0 = time.monotonic()
+        reuse = entry.get("reuse")
+        if reuse is not None:
+            toks = np.asarray(entry["tokens"], np.int64).reshape(-1)
+            first = min(int(reuse["matched"]), int(length) - 1)
+            for i in range(first, length):
+                self._run("suffix", [int(toks[i])], [i], variant=scratch)
+            self._account("suffix", time.monotonic() - t0, n=length - first)
+        else:
+            self._run(f"prefill_{bucket}", ids, [scratch], [length])
+            self._account("prefill", time.monotonic() - t0)
+        if entry.get("draft"):
+            t0 = time.monotonic()
+            self._run(f"draft_prefill_{bucket}", ids, [scratch], [length])
+            self._account("draft_prefill", time.monotonic() - t0)
+
     # -- KV-page shipping (fleet disaggregation, prefix federation) --------
 
     @torch.no_grad()
@@ -518,14 +681,23 @@ class ServeEngine:
         """Device-to-host copy of ``slot``'s cache rows ``[0, bucket)``
         in every layer: ``([n_layer, 1, bucket, H, D], same)`` CPU
         tensors in the cache dtype, the payload a prefill replica ships
-        to a decode replica.  Rows past the prompt are pad garbage; the
-        importer registers (and the reuse path copies) only the prompt's
-        whole pages, so they never reach a decode."""
+        to a decode replica; under ``tensor`` every head, gathered over
+        the tensor group (each of its ranks calls this together).  Rows
+        past the prompt are pad garbage; the importer registers (and the
+        reuse path copies) only the prompt's whole pages, so they never
+        reach a decode."""
         if bucket not in self.buckets or not 0 <= slot < self.slots:
             raise ValueError(f"bad export slot={slot} bucket={bucket}")
         t0 = time.monotonic()
-        rows = tuple(c[:, slot:slot + 1, :bucket].to("cpu", copy=True)
-                     for c in (self._k, self._v))
+        tp = self.model.tp
+        rows = []
+        for c in (self._k, self._v):
+            r = c[:, slot:slot + 1, :bucket]
+            if tp is not None:
+                # the tensor group's heads in rank order (collective)
+                r = all_gather_along(r.contiguous(), 3, tp.group)
+            rows.append(r.to("cpu", copy=True))
+        rows = tuple(rows)
         self._account("kv_export", time.monotonic() - t0)
         return rows
 
@@ -534,12 +706,17 @@ class ServeEngine:
         """Install shipped donor rows at ``slot`` through the bucket's
         ``kv_import_{b}`` program: the rows are cast to the cache dtype
         on the host, copied into the program's static buffers and the
-        program replays (nothing is captured again)."""
+        program replays (nothing is captured again).  Rows with every
+        head give this rank its block of them."""
         if not self.kvship:
             raise RuntimeError("engine built without kvship=; no import "
                                "programs")
         bucket = int(k_rows.shape[2])
         nl, _, _, nh, hd = self.kv_spec.shape
+        if self.head_block is not None and k_rows.ndim == 5 \
+                and k_rows.shape[3] == self.model.config.n_head != nh:
+            lo, hi = self.head_block
+            k_rows, v_rows = k_rows[:, :, :, lo:hi], v_rows[:, :, :, lo:hi]
         if bucket not in self.buckets or not 0 <= slot < self.slots \
                 or tuple(k_rows.shape) != (nl, 1, bucket, nh, hd) \
                 or tuple(v_rows.shape) != tuple(k_rows.shape):
@@ -607,7 +784,8 @@ class ServeEngine:
     #: the kernels the serve path runs (prefill; decode, suffix, draft
     #: and verify on one of the two decode kernels)
     KERNELS = ("flash_fwd", "flash_decode", "flash_decode_paged")
-    #: the engine's programs, counted in ``calls`` / ``seconds``
+    #: the engine's programs, counted in ``calls`` / ``seconds`` (under
+    #: lockstep another data shard's admissions too)
     PROGRAMS = ("prefill", "decode", "kv_copy", "suffix", "draft_prefill",
                 "draft", "verify")
     #: KV shipping's calls, counted beside them: a slot's rows read out
@@ -631,7 +809,12 @@ class ServeEngine:
           CPU), and ``recaptures``: those captured since setup, 0
           while serving (the JAX engine's ``traces`` / ``retraces``);
         - ``capture_ms``: the captures' host ms; ``pool_bytes``: the
-          device memory their shared pool reserved;
+          device memory their shared pool reserved; ``ungraphed``:
+          ``None``, or why the programs run eagerly on the card;
+        - ``mesh`` (``None`` without a strategy), ``slot_block``,
+          ``head_block``, ``leader`` (module docstring) and ``kv_bytes``:
+          this rank's share of the cache (both tensors; the draft's
+          besides, with ``spec=``);
         - ``programs``: the JAX engine's program count for the same
           options (its ``kv_init``, the decode, a prefill per bucket,
           with ``paged=`` the copy and the suffix, with ``spec=`` the
@@ -654,6 +837,14 @@ class ServeEngine:
                            for n, c in self.captures.items()},
             "capture_ms": self.capture_ms,
             "pool_bytes": self.pool_bytes,
+            "ungraphed": self.ungraphed,
+            "mesh": None if self.mesh is None else dict(self.mesh.shape),
+            "slot_block": list(self.slot_block),
+            "head_block": None if self.head_block is None
+            else list(self.head_block),
+            "leader": self.leader,
+            "kv_bytes": self.kv_spec.nbytes(self._k.element_size())
+            if self.kv_spec is not None else 0,
             "programs": 2 + len(self._prefills)
             + (2 if self.paged is not None else 0)
             + (3 + len(self._draft_prefills) if self.spec is not None
@@ -688,6 +879,9 @@ def _swapped_params(module: torch.nn.Module, tensors: dict):
         owner, _, leaf = name.rpartition(".")
         mod = module.get_submodule(owner)
         saved.append((mod, leaf, mod._parameters[leaf]))
+        info = getattr(mod._parameters[leaf], "_rlt_shard", None)
+        if info is not None:
+            t._rlt_shard = info      # a piece is gathered at use
         mod._parameters[leaf] = t
     try:
         yield
@@ -696,4 +890,28 @@ def _swapped_params(module: torch.nn.Module, tensors: dict):
             mod._parameters[leaf] = p
 
 
-__all__ = ["ServeEngine"]
+def decode_model_of(module, device) -> torch.nn.Module:
+    """``module.configure_decode_model(device=device)``, or
+    ``AttributeError`` when it has no decode model (``None``, or a model
+    without the ``hidden_with_kv`` / ``decode`` surface: a pipelined
+    GPT), the class the JAX engine raises on such a module."""
+    model = module.configure_decode_model(device=device)
+    missing = [n for n in ("hidden_with_kv", "decode")
+               if not hasattr(model, n)]
+    if missing:
+        raise AttributeError(
+            f"{type(module).__name__} has no decode model to serve: "
+            f"configure_decode_model() gave {type(model).__name__}, "
+            f"which has no {' or '.join(missing)}")
+    return model
+
+
+def _replicate_sequence(model: torch.nn.Module) -> None:
+    """A serve model never splits a sequence: drop the sequence group a
+    layout set, so a ``sequence`` axis's ranks serve as replicas."""
+    for mod in model.modules():
+        if hasattr(mod, "sp"):
+            mod.sp = None
+
+
+__all__ = ["ServeEngine", "decode_model_of"]

@@ -1,5 +1,5 @@
 """Slot-indexed, device-resident KV cache for continuous batching (a
-copy of ``ray_lightning_tpu/serve/kvcache.py``).
+copy of ``ray_lightning_tpu/serve/kvcache.py``, with a rank's block).
 
 The cache is two tensors ``[n_layer, S, L, H, D]`` (keys / values): ``S``
 batch slots x ``L`` max context, living on the device for the whole life
@@ -25,7 +25,10 @@ import numpy as np
 
 @dataclass(frozen=True)
 class KVCacheSpec:
-    """Host-side description of the device cache."""
+    """Host-side description of the device cache.  Under a strategy
+    (serve/engine.py) it describes one rank's block, ``[n_layer, slots /
+    data, L, H / tensor, D]``, and :meth:`nbytes` is that rank's share
+    (:meth:`block` cuts the whole cache's spec to it)."""
 
     n_layer: int
     slots: int
@@ -42,6 +45,15 @@ class KVCacheSpec:
         """Device residency of BOTH cache arrays (k and v) at the given
         element size (bf16 default)."""
         return 2 * int(np.prod(self.shape, dtype=np.int64)) * itemsize
+
+    def block(self, slots: "tuple[int, int]",
+              heads: "tuple[int, int]") -> "KVCacheSpec":
+        """The spec of the rank holding slots ``[lo, hi)`` and heads
+        ``[lo, hi)`` of this cache (parallel/strategy.py
+        ``kv_cache_block``)."""
+        return KVCacheSpec(self.n_layer, slots[1] - slots[0],
+                           self.max_seq_len, heads[1] - heads[0],
+                           self.head_dim)
 
     @classmethod
     def from_capture(cls, kv_shapes, slots: int,

@@ -2,10 +2,10 @@
 ``ray_lightning_tpu/serve/scheduler.py``: paged-KV prefix reuse,
 speculative decoding, the KV-ship hooks of disaggregated serving and
 the fleet router's withdraw and adoption hooks).  One addition: with
-``ranks=W`` (a ``Server`` of W serve actors, each over its block of
-S / W slots) a prefix-cache hit admits into a free slot of its donor's
-block, because the page copy cannot cross ranks; a hit whose donor's
-block has no free slot is admitted cold.
+``ranks=W`` (the W data shards of a ``Server``'s mesh, each block of
+ranks over S / W slots; serve/worker.py) a prefix-cache hit admits into
+a free slot of its donor's block, because the page copy cannot cross
+blocks; a hit whose donor's block has no free slot is admitted cold.
 
 
 Admission control and batch formation for the serve plane.  The
@@ -192,7 +192,7 @@ class Scheduler:
         self.buckets = tuple(buckets)
         if ranks < 1 or slots % ranks:
             raise ValueError(f"slots={slots} must divide by ranks={ranks}")
-        #: slots per serve rank: a reuse's donor and its admission share
+        #: slots per data shard: a reuse's donor and its admission share
         #: one block of this many slots
         self._block = slots // ranks
         self.max_seq_len = int(max_seq_len)

@@ -18,20 +18,33 @@ its engine's CUDA graphs::
     server.shutdown()                        # graceful drain first
 
 Weights come from ``checkpoint=`` (a port ``Trainer`` checkpoint), the
-module's ``_trained_state`` from a previous ``fit``, or the seeded init.
-With W workers the S slots split in contiguous blocks of S / W, one a
-rank (serve/worker.py); under ``paged=`` a prefix reuse takes its donor
-from the admitting rank's block (serve/scheduler.py ``ranks``).  A pump
-thread plans, broadcasts each plan to every worker, merges their
-results and applies them; a step that raises, or a worker that dies,
-fails every live and queued request, records ``failure_report`` (the
-cause; ``flight_paths`` stays empty until the flight recorder is
+module's ``_trained_state`` from a previous ``fit``, or the seeded init
+(built whole on each rank, then cut to its pieces).  ``strategy=`` is
+any strategy the training side takes (``"ddp"``, the default,
+``"zero1"``, ``"fsdp"``, ``SpmdStrategy`` on ``data`` / ``fsdp`` /
+``tensor`` axes with ``gpt_partition_rules()``, parallel/strategy.py),
+served as the JAX engine serves it (serve/engine.py): the serving
+layout is the training layout, over ``num_workers x
+devices_per_worker`` ranks, one card each (``devices_per_worker=2`` is
+twice the workers, as for ``RayPlugin``; on the CPU one process a
+rank), joined into one process group at ``start``.  The S slots split
+over the data shards in contiguous blocks (serve/worker.py); under
+``paged=`` a prefix reuse takes its donor from the admitting block
+(serve/scheduler.py ``ranks``, the data shards).  A model the JAX
+engine cannot serve is refused here before any actor starts, with the
+JAX engine's error class: a routed (MoE) GPT, ``ValueError``; a module
+with no decode model (``PipelinedGPT``), ``AttributeError``.  A pump
+thread plans, broadcasts each plan to every worker, merges the block
+leaders' results and applies them; a step that raises, or a worker that
+dies, fails every live and queued request, records ``failure_report``
+(the cause; ``flight_paths`` stays empty until the flight recorder is
 ported) and stops the pump.  With ``kvship=True`` (and ``paged=``) the
 server is one end of the fleet's KV-ship plane (serve/fleet/router.py):
-``export_kv`` hands out a donor's rows, ``import_kv`` adopts shipped
-ones.  The telemetry, goodput, profile and flight planes, the compile
-cache and strategies other than data-parallel are not ported yet:
-asking for them raises, naming the ROADMAP.md item.  Prompts and
+``export_kv`` hands out a donor's rows (every head: a tensor group
+gathers them), ``import_kv`` adopts shipped ones (each rank its heads),
+so servers of different layouts ship to each other.  The telemetry,
+goodput, profile and flight planes and the compile cache are not ported
+yet: asking for them raises, naming the ROADMAP.md item.  Prompts and
 completions are token-id arrays: tokenization lives with the caller.
 """
 
@@ -39,6 +52,7 @@ from __future__ import annotations
 
 import copy
 import logging
+import math
 import os
 import threading
 import time
@@ -50,11 +64,12 @@ import numpy as np
 
 from ray_lightning_tpu_torch.cluster.backend import get_backend
 from ray_lightning_tpu_torch.cluster.queue import WorkerQueueProxy
-from ray_lightning_tpu_torch.parallel.strategy import (DataParallelStrategy,
-                                                       resolve_strategy)
-from ray_lightning_tpu_torch.plugins.ray_ddp import RayPlugin
+from ray_lightning_tpu_torch.parallel.strategy import resolve_strategy
+from ray_lightning_tpu_torch.plugins.ray_ddp import (ONE_CARD_ENV, RayPlugin,
+                                                     one_card)
 from ray_lightning_tpu_torch.serve.buckets import (bucket_for,
                                                   resolve_buckets)
+from ray_lightning_tpu_torch.serve.engine import decode_model_of
 from ray_lightning_tpu_torch.serve.fleet.pages import PageConfig
 from ray_lightning_tpu_torch.serve.scheduler import Scheduler, ServeRequest
 from ray_lightning_tpu_torch.serve.spec import SpecConfig
@@ -74,13 +89,15 @@ CALL_TIMEOUT_S = 120.0
 @dataclass
 class ServeSpec:
     """Picklable engine configuration shipped to every serve worker;
-    ``slots`` is the fleet's, which each rank splits."""
+    ``slots`` is the fleet's, which the ranks split over the strategy's
+    data shards."""
 
     module: Any
     buckets: tuple
     slots: int
     max_seq_len: int
     seed: int
+    strategy: Any = None
     paged: Any = None
     spec: Any = None
     #: the KV import programs (``None``: the ``RLT_SERVE_KVSHIP``
@@ -131,18 +148,20 @@ class Server:
         if platform not in (None, "cuda", "gpu", "cpu"):
             raise ValueError(f"platform must be 'cuda' or 'cpu', got "
                              f"{platform!r}")
-        #: "cuda": one card a worker; "cpu": CPU workers
-        #: (``devices_per_worker`` torch threads each)
+        #: "cuda": one card a rank; "cpu": CPU ranks (one torch thread
+        #: each)
         self.platform = "cpu" if platform == "cpu" else "cuda"
-        if self.platform == "cuda" and (devices_per_worker or 1) != 1:
-            raise _not_ported("devices_per_worker > 1 on the card", 9)
         if telemetry not in (None, False):
             raise _not_ported("telemetry=...", 13)
         if compile_cache is not None:
             raise _not_ported("compile_cache=...", 12)
+        if (devices_per_worker or 1) < 1:
+            raise ValueError("devices_per_worker must be >= 1")
         self.strategy = resolve_strategy(strategy)
-        if type(self.strategy) is not DataParallelStrategy:
-            raise _not_ported(f"strategy={strategy!r}", 9)
+        # a module the JAX engine cannot serve raises its error class
+        # here, before any actor starts: the decode model made without
+        # storage (a routed GPT: ValueError; none: AttributeError)
+        decode_model_of(module, "meta")
         self.module = module
         if max_seq_len is None:
             max_seq_len = getattr(getattr(module, "config", None),
@@ -154,16 +173,19 @@ class Server:
         self.buckets = resolve_buckets(buckets, self.max_seq_len)
         self.max_batch_slots = int(max_batch_slots)
         self.num_workers = int(num_workers)
-        if self.max_batch_slots % self.num_workers:
-            raise ValueError(
-                f"max_batch_slots={self.max_batch_slots} must divide by "
-                f"num_workers={self.num_workers}: each rank serves a "
-                f"block of S / W slots")
+        self.devices_per_worker = devices_per_worker
+        #: the ranks: one actor (and one card) each
+        self.num_ranks = self.num_workers * int(devices_per_worker or 1)
+        #: the strategy's mesh over the ranks (the slots must divide by
+        #: its data shards: each block serves S / data of them)
+        self.mesh_shape = self.strategy.mesh_shape(self.num_ranks,
+                                                   self.max_batch_slots)
+        self.data_shards = math.prod(self.mesh_shape.get(a, 1) for a in
+                                     self.strategy.data_axis_names)
         self.paged = PageConfig.resolve(paged)
         self.spec = SpecConfig.resolve(spec)
         #: the per-bucket KV import programs (fleet KV shipping)
         self.kvship = bool(kvship)
-        self.devices_per_worker = devices_per_worker
         self.seed = int(seed)
         # default_root_dir holds the telemetry plane's files, not ported
         del default_root_dir
@@ -173,7 +195,7 @@ class Server:
             quotas=tenant_quotas,
             max_prefills_per_step=max_prefills_per_step,
             default_max_new_tokens=max_new_tokens, eos_token=eos_token,
-            paged=self.paged, spec=self.spec, ranks=self.num_workers)
+            paged=self.paged, spec=self.spec, ranks=self.data_shards)
         self._weights = self._resolve_weights(module, checkpoint)
         self._backend = None
         self._workers: list = []
@@ -233,7 +255,7 @@ class Server:
             backend.create_actor(
                 ServeWorker, env=env, resources=self._worker_resources(),
                 name=f"rlt-serve-{os.getpid()}-{tag}-{i}")
-            for i in range(self.num_workers)]
+            for i in range(self.num_ranks)]
         try:
             self._rendezvous()
             t1 = time.monotonic()
@@ -245,8 +267,8 @@ class Server:
             spec = ServeSpec(
                 module=shipped, buckets=self.buckets,
                 slots=self.max_batch_slots, max_seq_len=self.max_seq_len,
-                seed=self.seed, paged=self.paged, spec=self.spec,
-                kvship=self.kvship)
+                seed=self.seed, strategy=self.strategy, paged=self.paged,
+                spec=self.spec, kvship=self.kvship)
             ref = backend.put((spec, self._weights))
             try:
                 self._setup_info = process_results(
@@ -266,11 +288,11 @@ class Server:
             "total_s": t2 - t0}
         info = self._setup_info[0]
         _log.info("serve fleet ready in %.2f s (spawn %.2f, setup %.2f, "
-                  "captures %.2f): %d worker(s) on %s, buckets=%s, "
-                  "slots=%d a worker", t2 - t0, t1 - t0, t2 - t1,
-                  self.start_timing["capture_s"], self.num_workers,
-                  [i["device"] for i in self._setup_info], info["buckets"],
-                  info["slots"])
+                  "captures %.2f): %d rank(s) on %s, mesh=%s, buckets=%s, "
+                  "slots=%d a rank", t2 - t0, t1 - t0, t2 - t1,
+                  self.start_timing["capture_s"], self.num_ranks,
+                  [i["device"] for i in self._setup_info], info["mesh"],
+                  info["buckets"], info["slots"])
         self._started = True
         self._pump = threading.Thread(target=self._pump_loop, daemon=True,
                                       name="rlt-serve-pump")
@@ -279,12 +301,16 @@ class Server:
 
     def _worker_env_base(self) -> dict:
         """The workers' environment (plugins/ray_ddp.py's plumbing):
-        their count and platform; CPU workers see no card."""
-        env = {"RLT_NUM_PROCESSES": str(self.num_workers),
+        the ranks' count and platform; CPU workers see no card; under
+        ``RLT_ONE_CARD_GLOO=1`` every card rank takes card 0 over
+        gloo."""
+        env = {"RLT_NUM_PROCESSES": str(self.num_ranks),
                "RLT_PLATFORM": self.platform}
         if self.platform == "cpu":
             env["CUDA_VISIBLE_DEVICES"] = ""
-            env["RLT_CPU_THREADS"] = str(self.devices_per_worker or 1)
+            env["RLT_CPU_THREADS"] = "1"
+        if one_card():
+            env[ONE_CARD_ENV] = "1"
         if self.kvship:
             env["RLT_SERVE_KVSHIP"] = "1"
         env.update(self.worker_env)
@@ -298,18 +324,26 @@ class Server:
 
     def _rendezvous(self) -> None:
         """Each worker's node and local rank from the node addresses, as
-        a fit assigns them (``RayPlugin._assign_local_ranks``); a node
-        hosting more card workers than cards raises."""
+        a fit assigns them (``RayPlugin._assign_local_ranks``), and the
+        process group's address (worker 0's, a free port there); a node
+        hosting more card workers than cards raises (but on one card
+        under ``RLT_ONE_CARD_GLOO=1``)."""
+        w0 = self._workers[0]
+        addr, port = process_results(
+            [w0.call("get_node_ip"), w0.call("get_free_port")],
+            self._backend, CALL_TIMEOUT_S)
         info = process_results([w.call("get_node_and_device_info")
                                 for w in self._workers], self._backend,
                                CALL_TIMEOUT_S)
         ranks = RayPlugin._assign_local_ranks(info)
-        if self.platform == "cuda":
+        if self.platform == "cuda" and not one_card(
+                self._worker_env_base()):
             RayPlugin._check_gpu_fit(info, ranks)
-        process_results([w.call("set_env_var", "LOCAL_RANK",
-                                str(ranks[i][1]))
-                         for i, w in enumerate(self._workers)],
-                        self._backend, CALL_TIMEOUT_S)
+        process_results([w.call("set_env_vars", {
+            "MASTER_ADDR": addr, "MASTER_PORT": str(port),
+            "LOCAL_RANK": str(ranks[i][1])})
+            for i, w in enumerate(self._workers)],
+            self._backend, CALL_TIMEOUT_S)
 
     # -- request surface ---------------------------------------------------
 
@@ -381,9 +415,13 @@ class Server:
             sched.pages.pin(src)
         try:
             bucket = bucket_for(matched, self.buckets)
-            results = process_results(
-                [w.call("serve_export_kv", int(src), int(bucket))
-                 for w in self._workers], self._backend, CALL_TIMEOUT_S)
+            with self._dispatch:
+                # in the plans' order on every worker: a tensor group's
+                # export is a collective
+                futures = [w.call("serve_export_kv", int(src), int(bucket))
+                           for w in self._workers]
+            results = process_results(futures, self._backend,
+                                      CALL_TIMEOUT_S)
             rows = next(r for r in results if r is not None)
             return rows[0], rows[1], int(matched)
         finally:
@@ -424,6 +462,18 @@ class Server:
         self.scheduler.adopt_commit(slot, prompt_tokens)
         return True
 
+    def call_ranks(self, fn, *args, timeout: float = STEP_TIMEOUT_S
+                   ) -> list:
+        """``fn(engine, *args)`` on every rank's engine (serve/worker.py
+        ``serve_call``), in the plans' order on each; the results in
+        rank order."""
+        if not self._started:
+            raise RuntimeError("Server.start() first")
+        with self._dispatch:
+            futures = [w.call("serve_call", fn, *args)
+                       for w in self._workers]
+        return process_results(futures, self._backend, timeout)
+
     # -- the pump ----------------------------------------------------------
 
     def _pump_loop(self) -> None:
@@ -445,12 +495,14 @@ class Server:
             try:
                 results = process_results(futures, self._backend,
                                           STEP_TIMEOUT_S)
-                if not results or any(r is None for r in results):
+                blocks = [r for r in results if r is not None]
+                if len(blocks) != self.data_shards:
                     raise RuntimeError(
-                        "a serve worker returned no step result")
+                        f"{len(blocks)} serve ranks returned a step "
+                        f"result; the mesh has {self.data_shards} blocks")
                 merged: dict = {"prefill": {}, "decode": {},
                                 "kv_export": {}}
-                for r in results:      # each rank's block of slots
+                for r in blocks:       # each block's leader
                     for key in merged:
                         merged[key].update(r.get(key, {}))
                 sched.apply(plan, merged)

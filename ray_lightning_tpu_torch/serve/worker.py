@@ -12,12 +12,24 @@ driver-side rendezvous plumbing (node address, env vars) is the one the
 fit path uses.
 
 Lockstep contract: every worker of a fleet receives the IDENTICAL plan.
-With W workers the fleet's S slots split in contiguous blocks of S / W
-(the JAX ``kv_cache_spec`` shards the slots over the data axes the same
-way): each rank decodes, drafts and verifies its own block, runs the
-prefills of its own slots, and returns its block's results, which the
-driver merges.  The JAX ranks return nothing but rank 0's replicated
-outputs; here no collective is needed.
+The workers are the ranks of one process group (``setup_serve``: NCCL
+on the cards, gloo on the CPU or on one card under
+``RLT_ONE_CARD_GLOO=1``) and of the strategy's mesh over it
+(serve/engine.py).  The fleet's S slots split over the data shards in
+contiguous blocks, as the JAX ``kv_cache_spec`` shards them: a rank
+takes the block of its coordinates on the data axes (``data``,
+``fsdp``), not of its rank, and under ``tensor`` its heads of that
+block's cache.  Every rank runs every program of the plan, in the
+plan's order, whether or not a slot of its block is live: the decode
+(or the draft and the verify), and the prefills of its block; the
+ranks of a tensor group hold the same slots, so they run those
+together, and their collectives match.  Under FSDP a prefill gathers
+parameters over every data shard, so a rank runs the other shards'
+admissions too, on a scratch slot past its block
+(``ServeEngine.shadow_prefill``).
+Only the rank at coordinate 0 on every axis but the data axes returns
+its block's results, which the driver merges; the others of its tensor
+group return nothing, as the JAX ranks but rank 0 do.
 
 ``ServeWorker(engine)`` is the in-process form (the tests and the smoke
 script drive the loop without actors): it owns all the engine's slots.
@@ -31,6 +43,7 @@ ported yet.
 
 from __future__ import annotations
 
+import datetime
 import os
 import time
 from typing import Any, Optional
@@ -38,6 +51,9 @@ from typing import Any, Optional
 from ray_lightning_tpu_torch._device import worker_device
 from ray_lightning_tpu_torch.cluster.executor import RLTExecutor
 from ray_lightning_tpu_torch.telemetry import span
+
+#: the most a serving collective waits
+COLLECTIVE_TIMEOUT_S = 600.0
 
 
 class ServeWorker(RLTExecutor):
@@ -47,29 +63,48 @@ class ServeWorker(RLTExecutor):
 
     def __init__(self, engine=None, env: Optional[dict] = None):
         super().__init__(env)
-        self._engine = engine
         self._rank = 0
         #: the fleet's slots ``[lo, hi)`` this worker serves (``None``:
         #: every slot of its engine, the in-process form)
         self._block: "Optional[tuple[int, int]]" = None
+        #: whether this rank returns its block's results (module
+        #: docstring)
+        self._leader = True
+        #: whether this actor joined a process group
+        self._group = False
+        self._serve(engine)
+
+    def _serve(self, engine) -> None:
+        """Serve ``engine``: set up under a strategy, its block of the
+        fleet's slots, as its leader or not."""
+        self._engine = engine
+        if getattr(engine, "mesh", None) is not None:
+            self._block, self._leader = engine.slot_block, engine.leader
 
     # -- lifecycle ---------------------------------------------------------
 
     def setup_serve(self, payload: tuple, rank: int, queue=None) -> dict:
-        """Take this worker's device, build and capture its engine over
-        its block of slots, and return the setup facts the driver logs:
+        """Take this worker's device, join the fleet's process group,
+        build and capture its engine over its block of slots under the
+        spec's strategy, and return the setup facts the driver logs:
         rank, device, buckets, slots and their block, the KV shape, the
-        seconds it took and the engine's stats.
+        mesh, the seconds it took and the engine's stats.
 
         ``payload`` is ``(ServeSpec, weights)``.  The device is the
-        worker's local card ``LOCAL_RANK``, made current, or the CPU
-        under ``RLT_PLATFORM=cpu`` (``torch.set_num_threads`` of
-        ``RLT_CPU_THREADS``); a GPU worker without CUDA raises.
+        worker's local card ``LOCAL_RANK``, made current (card 0 under
+        ``RLT_ONE_CARD_GLOO=1``), or the CPU under ``RLT_PLATFORM=cpu``
+        (``torch.set_num_threads`` of ``RLT_CPU_THREADS``); a GPU worker
+        without CUDA raises.  With ``RLT_NUM_PROCESSES`` over 1 the
+        ranks rendezvous at ``MASTER_ADDR`` / ``MASTER_PORT``, as the
+        plugins' workers do (NCCL on the cards, gloo otherwise).
         ``queue`` (the worker-to-driver proxy) feeds the telemetry
         sinks, which are not ported yet.  ``spec`` and ``kvship`` ride
         the ``ServeSpec`` when the driver set them; otherwise the
         ``RLT_SPEC_*`` / ``RLT_SERVE_KVSHIP`` worker env decides (the
         fleet's replica round trip)."""
+        import torch.distributed as dist
+
+        from ray_lightning_tpu_torch.plugins.ray_ddp import one_card
         from ray_lightning_tpu_torch.serve.engine import ServeEngine
         from ray_lightning_tpu_torch.serve.spec import SpecConfig
 
@@ -77,37 +112,45 @@ class ServeWorker(RLTExecutor):
         spec, weights = payload
         self._rank = int(rank)
         n = int(os.environ.get("RLT_NUM_PROCESSES", "1"))
-        per = spec.slots // n
-        self._block = (self._rank * per, (self._rank + 1) * per)
+        shared = one_card()
         device = worker_device(
             os.environ.get("RLT_PLATFORM", "cuda") != "cpu",
-            int(os.environ.get("LOCAL_RANK", "0")),
+            0 if shared else int(os.environ.get("LOCAL_RANK", "0")),
             int(os.environ.get("RLT_CPU_THREADS", "1")),
             "Server", "platform='cpu'")
+        if n > 1:
+            dist.init_process_group(
+                "nccl" if device.type == "cuda" and not shared else "gloo",
+                rank=self._rank, world_size=n,
+                timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
+            self._group = True
         sp = spec.spec if spec.spec is not None else SpecConfig.resolve(None)
         kvship = spec.kvship
         if kvship is None:
             kvship = os.environ.get(
                 "RLT_SERVE_KVSHIP", "").strip() in ("1", "true", "True")
-        self._engine = ServeEngine(
-            spec.module, spec.buckets, per, spec.max_seq_len,
+        eng = ServeEngine(
+            spec.module, spec.buckets, spec.slots, spec.max_seq_len,
             seed=spec.seed, weights=weights, device=device,
-            paged=spec.paged, spec=sp, kvship=bool(kvship)).setup()
-        eng = self._engine
+            strategy=spec.strategy, paged=spec.paged, spec=sp,
+            kvship=bool(kvship)).setup()
+        self._serve(eng)
         return {
             "rank": self._rank,
             "device": str(device),
             "buckets": list(eng.buckets),
             "slots": eng.slots,
-            "slot_block": list(self._block),
+            "slot_block": list(eng.slot_block),
             "kv_shape": list(eng.kv_spec.shape),
+            "mesh": eng.mesh and dict(eng.mesh.shape),
+            "leader": eng.leader,
             "setup_s": time.monotonic() - t0,
             "stats": eng.stats(),
         }
 
     # -- the serving hot path ----------------------------------------------
 
-    def serve_step(self, plan: dict) -> dict:
+    def serve_step(self, plan: dict) -> "Optional[dict]":
         """Execute one scheduler plan: one decode over every live slot
         (or, under speculative decoding, one draft round and one verify),
         then the admitting prefills — fresh, or a prefix-cache hit's copy
@@ -126,7 +169,9 @@ class ServeWorker(RLTExecutor):
         every subsequent token (position 0 is always inside the mask).
         Free slots that are NOT admitted this step keep the dummy entry
         harmlessly: their next prefill rewrites the whole prefix
-        (kvcache.py invariant)."""
+        (kvcache.py invariant).  Another block's admission runs here
+        only under lockstep, on the scratch slot; a rank that is not its
+        block's leader returns ``None`` (module docstring)."""
         if plan.get("profile") is not None:
             raise NotImplementedError(
                 "profile windows are not ported yet")
@@ -167,6 +212,10 @@ class ServeWorker(RLTExecutor):
                 result["decode"][s] = int(toks[s - lo])
         for p in plan["prefills"]:
             if not mine(p["slot"]):
+                if getattr(engine, "lockstep", False):
+                    with span("shadow_prefill", bucket=p["bucket"],
+                              slot=p["slot"]):
+                        engine.shadow_prefill(p)
                 continue
             slot = p["slot"] - lo
             reuse = p.get("reuse")
@@ -199,7 +248,7 @@ class ServeWorker(RLTExecutor):
                           bucket=exp["bucket"]):
                     rows = engine.export_kv(slot, exp["bucket"])
                 result.setdefault("kv_export", {})[p["slot"]] = rows
-        return result
+        return result if self._leader else None
 
     # -- KV-page shipping (fleet disaggregation) ---------------------------
 
@@ -210,16 +259,18 @@ class ServeWorker(RLTExecutor):
 
     def serve_export_kv(self, slot: int, bucket: int):
         """Device-to-host donor rows for the router's KV-ship leg from
-        the rank that owns ``slot`` (``None`` from the others)."""
+        the leader of the block that owns ``slot`` (``None`` from the
+        others; its tensor group gathers the heads together)."""
         local = self._local(slot)
         if local is None:
             return None
         with span("kv_export", slot=slot, bucket=bucket):
-            return self._engine.export_kv(local, bucket)
+            rows = self._engine.export_kv(local, bucket)
+        return rows if self._leader else None
 
     def serve_import_kv(self, slot: int, k_rows, v_rows) -> None:
         """Install shipped donor rows (engine ``kv_import_{b}``) on the
-        rank that owns ``slot``."""
+        ranks that own ``slot``, each its heads of them."""
         local = self._local(slot)
         if local is None:
             return
@@ -228,10 +279,21 @@ class ServeWorker(RLTExecutor):
 
     # -- evidence / teardown -----------------------------------------------
 
+    def serve_call(self, fn, *args):
+        """``fn(engine, *args)`` on this rank's engine: a probe for tests
+        and tools (the weights' pieces, a step's logits).  ``fn`` is a
+        module-level function (pickled by name); every rank of the mesh
+        runs it, in its order among the plans, so collectives inside it
+        match."""
+        if self._engine is None:
+            raise RuntimeError("serve_call before setup_serve")
+        return fn(self._engine, *args)
+
     def serve_stats(self) -> dict:
         """The engine's stats (serve/engine.py ``stats``), this rank's
         block, its process id and, on the card, the device memory its
-        process holds (``memory_allocated`` / ``memory_reserved``)."""
+        process holds (``max_memory_allocated``, ``memory_allocated``,
+        ``memory_reserved``)."""
         if self._engine is None:
             return {}
         out = {**self._engine.stats(), "rank": self._rank,
@@ -240,14 +302,23 @@ class ServeWorker(RLTExecutor):
         dev = self._engine.device
         if dev.type == "cuda":
             import torch
+            out["max_memory_allocated"] = torch.cuda.max_memory_allocated(
+                dev)
             out["memory_allocated"] = torch.cuda.memory_allocated(dev)
             out["memory_reserved"] = torch.cuda.memory_reserved(dev)
         return out
 
     def teardown_serve(self) -> None:
-        """Drop the engine (its caches and graphs) before the actor is
-        stopped."""
-        self._engine = None
+        """Drop the engine (its caches and graphs) and leave the process
+        group before the actor is stopped."""
+        engine, self._engine = self._engine, None
+        if engine is not None:
+            engine.close()
+        del engine
+        if self._group:
+            import torch.distributed as dist
+            self._group = False
+            dist.destroy_process_group()
 
 
 __all__ = ["ServeWorker"]

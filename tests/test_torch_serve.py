@@ -181,16 +181,20 @@ def test_engine_without_device_needs_cuda(monkeypatch):
 
 
 def test_engine_rejects_what_is_not_ported():
-    """Paged KV, speculative decoding, KV shipping and int8-resident
-    drafts are ported (tests/test_torch_paged.py, tests/test_torch_spec.
-    py, tests/test_torch_kvship.py); the mesh and the compile cache
-    still raise.  A ship-bound submit is accepted, and a plan's export
-    needs a set-up worker like any other step."""
+    """Paged KV, speculative decoding, KV shipping, int8-resident drafts
+    and the strategies are ported (tests/test_torch_paged.py,
+    tests/test_torch_spec.py, tests/test_torch_kvship.py,
+    tests/test_torch_serve_parallel.py); the compile cache still
+    raises, and a strategy that is none raises as ``resolve_strategy``
+    does.  A ship-bound submit is accepted, and a plan's export needs a
+    set-up worker like any other step."""
     mod = GPTLightningModule(GPTConfig(**TINY))
-    for kw in ({"strategy": object()}, {"compile_cache": "dir"}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ServeEngine(mod, buckets=BUCKETS, slots=SLOTS,
-                        max_seq_len=32, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        ServeEngine(mod, buckets=BUCKETS, slots=SLOTS, max_seq_len=32,
+                    device="cpu", compile_cache="dir")
+    with pytest.raises(TypeError, match="Bad strategy"):
+        ServeEngine(mod, buckets=BUCKETS, slots=SLOTS, max_seq_len=32,
+                    device="cpu", strategy=object())
     eng = ServeEngine(mod, buckets=BUCKETS, slots=SLOTS, max_seq_len=32,
                       device="cpu", kvship=True,
                       spec=SpecConfig(True, draft_quant="int8")).setup()
