@@ -392,8 +392,9 @@ Phases, each fatal on failure:
     width (2048, 32 heads of 64, vocab 50304, context 2048, bf16),
     seeded weights built whole on each rank and cut to its pieces,
     ``max_batch_slots=8``, the buckets ``resolve_buckets`` gives for
-    2048, 16 requests with prompts of 100-1,500 tokens from the seed, 24
-    new tokens each; every rank on card 0 over gloo
+    2048, 16 requests with prompts of 100-1,500 tokens from the seed
+    ((b) and (c) serve 8, one wave of the slots, and over gloo (a)
+    too), 24 new tokens each; every rank on card 0 over gloo
     (``RLT_ONE_CARD_GLOO=1``: eager programs, every exchange through
     host copies), or with four cards one rank a card over NCCL (every
     program one CUDA graph).  (ref) the unsharded engine in this process
@@ -401,8 +402,11 @@ Phases, each fatal on failure:
     gpt_partition_rules(), tensor=2))`` at 24 layers; (c) the same with
     paged prefix reuse (page 16, the paged kernel) and speculation (k=4,
     a 2-layer draft sharing the target's pieces) on prompts that share
-    a 512-token prefix; (b) ``Server(num_workers=1, devices_per_worker=2,
-    strategy="fsdp")``, (d) ``data=2 x tensor=2`` over four ranks and
+    a 512-token prefix, then a one-token tail, or a 4-16 token tail for
+    the last (a prefix hit replays its tail one suffix call a token, so
+    the last one's suffix steps read rows its earlier ones wrote); (b)
+    ``Server(num_workers=1, devices_per_worker=2, strategy="fsdp")``,
+    (d) ``data=2 x tensor=2`` over four ranks and
     (e) a disaggregated ``FleetServer`` of two tensor=2 replicas (raw
     KV ships), each at 4 layers over gloo on one card with its own
     (ref) at that depth (24 over NCCL).  Checks: every rank's pieces
@@ -424,6 +428,31 @@ Phases, each fatal on failure:
     32 against their plain versions and the split plan's arithmetic),
     their launches under ``serve_parallel`` (by rank in
     ``serve_parallel_by_rank``).
+22. The elastic plane (``elastic_phase``): ``Trainer(max_steps=8,
+    elastic={...}).fit(GPTLightningModule("gpt2-small"))`` under
+    ``RayPlugin(num_workers=2, strategy="zero1")`` at full width and
+    depth (12 layers, C=768, T=1024, batch 2 a rank, the module's
+    AdamW), rank 1 killed at step 5 (``RLT_FAULT=kill:rank=1,step=5``);
+    NCCL with two cards, else both ranks on card 0 over gloo.  The
+    parity route (``redundancy=1``, a parity tick every step, so the
+    escrow is overwritten 4 times before the kill; snapshots every 2
+    steps): resumed at step 5 with 0 snapshot restores on one rank at
+    batch 4, rank 1's optimizer shard rebuilt from parity with the
+    digest rank 1 sent (both printed), a bf16 leaf among the rebuilt
+    ones, final params within 1e-6 (largest absolute difference) of a
+    clean mirror: two ranks to step 5 (the replay route's first fleet
+    saves its state there, before the fault fires), then one rank at
+    batch 4 in this process, the same program as the shrunk fleet's;
+    and a control, the mirror with rank 1's first moments zeroed at its
+    restore, past that bar.  The replay
+    route (redundancy off, run first): resumed at step 2 or 4 with one
+    restore.  Each
+    fleet's ranks launch rows 1 and 6 12 times a step they ran.
+    Printed beside the card: each parity tick's wire bytes and seconds
+    against the declared bytes, each snapshot's blocking seconds, the
+    recovery's seconds (from the driver's catch and from the kill to
+    the shrunk fleet's first step).  Then rows 1 and 6 at the shrunk
+    fleet's B=4 T=1024 H=12, their launches under ``elastic``.
 
 The next-to-last line is the ``{"kernels": [...]}`` JSON record, one
 entry per TPU kernel row, 1 to 16 (``launches`` from the path phases
@@ -484,8 +513,14 @@ kernels line (its ranks' launches) and the last line; with four cards
 (``python chip_smoke.py --serve-parallel-only`` on a four-card host) its
 legs run over NCCL.  ``--serve-parallel-logits 0,1,2`` reads phase 21's
 check of (a)'s first-step logits at each seed given, beside a control
-with bf16 row-parallel sums (``serve_parallel_logits``), and prints the
-last line.
+with bf16 row-parallel sums (``serve_parallel_logits``), then F16's fp32
+leg there: gpt2-1p3b in fp32 with TF32 off (plain attention and the
+dense decode: the kernels take bf16), a tensor=2 ``Server``'s
+first-step logits against the unsharded fp32 forward, beside the bar of
+(ref)'s own two fp32 routes (its programs, the whole-sequence forward)
+(``sp_fp32_logits``), and prints the last line.  ``--elastic-only`` runs phase 22 alone, then checks and times
+rows 1 and 6 at the shrunk fleet's shape and prints their kernels line
+(the elastic fits' launches) and the last line.
 """
 
 from __future__ import annotations
@@ -5234,8 +5269,8 @@ PHILOX_SHAPE = (TRAIN_B, TRAIN_T, C)
 
 
 #: gpt2-medium's depth in (a) and gpt2-moe-8e's in (b), cut from 24 and
-#: 12 at their full widths to pay for phase 21 inside the run's time
-#: limit
+#: 12 at their full widths to pay for phases 21 and 22 inside the run's
+#: time limit
 LADDER_MEDIUM_LAYERS = 8
 LADDER_MOE_LAYERS = 6
 
@@ -6353,8 +6388,8 @@ def parallel_kernel_entries(gen) -> "dict[int, dict]":
 # -- phase 20: the comm plane --------------------------------------------------
 
 COMM_RANKS = 4
-#: gpt2-small's depth here, cut from 12 at its full width (phase 21 fits
-#: the run's time limit): a step's time is its collectives, one a
+#: gpt2-small's depth here, cut from 12 at its full width (phases 21 and
+#: 22 fit the run's time limit): a step's time is its collectives, one a
 #: gradient tensor or bucket
 COMM_LAYERS = 6
 COMM_STEPS = 3
@@ -6825,16 +6860,22 @@ def comm_kernel_entries(gen) -> "dict[int, dict]":
 SP_MODEL = "gpt2-1p3b"
 SP_SLOTS = 8
 SP_REQUESTS = 16
-#: (b)'s and (c)'s requests: one wave of the 8 slots.  Over gloo on one
-#: card FSDP moves the model through host copies each step, and (c)'s
-#: prefix hits replay their tails a token a step, each a full forward
+#: (b)'s and (c)'s requests, and (a)'s over gloo: one wave of the 8
+#: slots.  Over gloo on one card each of (a)'s steps is its host-staged
+#: collectives, FSDP moves the model through host copies each step, and
+#: each of (c)'s speculative rounds is a draft and a verify
 SP_SLOW_REQUESTS = 8
 SP_NEW_TOKENS = 24
 #: the main legs' prompt lengths; (c)'s prompts share one SP_PREFIX-token
-#: prefix, then SP_TAIL tokens of their own
+#: prefix (whole pages), then a tail of their own: a prefix hit replays
+#: its tail through the suffix step, one call of (c)'s 24 layers over
+#: gloo a token.  ``SP_TAIL``'s range for all but the last request
+#: (one token: one call), ``SP_LONG_TAIL``'s for the last, whose suffix
+#: steps then read the KV rows its own earlier suffix steps wrote
 SP_PROMPT_LENS = (100, 1500)
 SP_PREFIX = 512
-SP_TAIL = (4, 16)
+SP_TAIL = (1, 2)
+SP_LONG_TAIL = (4, 17)
 SP_SPEC_K, SP_DRAFT_LAYERS = 4, 2
 SP_PAGE = 16
 #: (b), (d) and (e)'s depth over gloo on one card, where every exchange
@@ -6868,8 +6909,10 @@ def sp_prompts(seed: int, vocab: int, shared: bool = False) -> list:
     rng = np.random.default_rng(seed + 2100 + shared)
     if shared:
         prefix = rng.integers(0, vocab, SP_PREFIX)
+        tails = rng.integers(*SP_TAIL, SP_SLOW_REQUESTS)
+        tails[-1] = rng.integers(*SP_LONG_TAIL)
         return [np.concatenate([prefix, rng.integers(0, vocab, int(n))])
-                for n in rng.integers(*SP_TAIL, SP_SLOW_REQUESTS)]
+                for n in tails]
     return [rng.integers(0, vocab, int(n))
             for n in rng.integers(*SP_PROMPT_LENS, SP_REQUESTS)]
 
@@ -7034,11 +7077,69 @@ def sp_logits_check(this, what: str, server, prompts: list,
     return res
 
 
+def sp_no_tf32(engine=None) -> tuple:
+    """(in a rank, and in process) TF32 off for matmuls and cuDNN: the
+    fp32 leg's products in fp32; the flags as set."""
+    del engine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+def sp_fp32_logits(this, seed: int, prompts: list, buckets: tuple,
+                   card: str) -> dict:
+    """F16's fp32 leg at one seed: gpt2-1p3b in fp32 (``dtype=float32``,
+    ``RLT_BF16_PARAMS=0``) with TF32 off, (ref) unsharded in process and
+    a tensor=2 ``Server``.  The flash kernels take bf16 only, so an fp32
+    model serves through plain attention (``attention_impl="dot"``) and
+    the dense decode (``RLT_DECODE_IMPL=dense``).  The tensor=2 first
+    decode step's logits (``sp_first_logits``: its prefill and decode
+    programs) against the unsharded fp32 forward over the whole sequence
+    (``sp_dot_logits``); the bar is (ref)'s own two fp32 routes' distance:
+    its engine programs (prefill, then the cached decode) against that
+    forward.  Also read: the tensor=2 logits against (ref)'s programs
+    (the same route, the row-parallel sums apart), beside the CPU tests'
+    fp32 bar of 2e-5.  Read, not gated."""
+    cfg = dataclasses.replace(CONFIGS[SP_MODEL], dtype=torch.float32,
+                              attention_impl="dot")
+    with scoped_env(RLT_BF16_PARAMS="0", RLT_DECODE_IMPL="dense",
+                    NVIDIA_TF32_OVERRIDE="0"):
+        flags = {"driver": sp_no_tf32()}
+        ref = SpRef(seed, cfg.n_layer, buckets, cfg=cfg, decode="dense")
+        firsts, engine = sp_first_logits(ref.engine, prompts)
+        dot = sp_dot_logits(ref.engine.model, prompts[:SP_SLOTS], firsts)
+        del ref
+        free_cuda()
+        server = Server(GPTLightningModule(cfg), num_workers=2,
+                        strategy=sp_tensor2(), buckets=buckets,
+                        max_batch_slots=SP_SLOTS, seed=seed)
+        server.start()
+        try:
+            flags["ranks"] = server.call_ranks(this.sp_no_tf32)
+            got = next(o for o in server.call_ranks(this.sp_first_logits,
+                                                    prompts)
+                       if o is not None)[1]
+        finally:
+            server.shutdown()
+    far = float(np.abs(got - dot).max())
+    bar = float(np.abs(engine - dot).max())
+    res = {"from_fp32_forward": far, "bar_ref_programs_vs_forward": bar,
+           "within_bar": far <= bar,
+           "tensor2_vs_ref_programs": float(np.abs(got - engine).max()),
+           "cpu_bar": 2e-5,
+           "argmax_equal": int((got.argmax(-1) == dot.argmax(-1)).sum()),
+           "finite": bool(np.isfinite(got).all()), "tf32": flags}
+    log(f"  [{card}] seed {seed} fp32: {res}")
+    return res
+
+
 def serve_parallel_logits(seeds: list, card: str) -> dict:
     """``--serve-parallel-logits``: phase 21's check of (a)'s first-step
     logits, and its control, read at each seed: (ref) at full depth in
     process, then (a)'s ``Server`` (tensor=2) started for the probes
-    alone.  Read, not gated, so that every seed reports."""
+    alone; then F16's fp32 leg (``sp_fp32_logits``).  Read, not gated,
+    so that every seed reports."""
     import chip_smoke as this
     from ray_lightning_tpu_torch.serve.buckets import resolve_buckets
     cfg = CONFIGS[SP_MODEL]
@@ -7063,6 +7164,9 @@ def serve_parallel_logits(seeds: list, card: str) -> dict:
                 server.shutdown()
             log(f"  [{card}] seed {seed}: {res}")
             out["seeds"][seed] = res
+            free_cuda()
+            res["fp32"] = sp_fp32_logits(this, seed, prompts, buckets, card)
+            free_cuda()
     log("serve_parallel_logits " + json.dumps(out))
     return out
 
@@ -7071,13 +7175,15 @@ class SpRef:
     """(ref): the unsharded engine in this process on card 0, from the
     legs' seed, its programs captured, with (c)'s paging and speculation
     (their programs idle unless a scheduler plans them) on the paged
-    decode kernel, which equals the flat one bit for bit; serves prompts
+    decode kernel, which equals the flat one bit for bit (``cfg`` and
+    ``decode``: another config and decode route); serves prompts
     through its own scheduler, plain or with (c)'s options, and gives
     teacher-forced logits for the near-tie rule."""
 
-    def __init__(self, seed: int, layers: int, buckets: tuple):
-        cfg = dataclasses.replace(CONFIGS[SP_MODEL], n_layer=layers)
-        with decode_impl("paged"):
+    def __init__(self, seed: int, layers: int, buckets: tuple,
+                 cfg=None, decode: str = "paged"):
+        cfg = dataclasses.replace(cfg or CONFIGS[SP_MODEL], n_layer=layers)
+        with decode_impl(decode):
             self.engine = ServeEngine(
                 GPTLightningModule(cfg), buckets=buckets, slots=SP_SLOTS,
                 max_seq_len=cfg.block_size, seed=seed, device="cuda",
@@ -7393,13 +7499,17 @@ def serve_parallel_phase(seed: int, card: str) -> dict:
     def module(layers):
         return GPTLightningModule(dataclasses.replace(cfg, n_layer=layers))
 
+    # over gloo on one card (a) serves one wave of the slots, as (b) and
+    # (c) do: its 24 layers' host-staged collectives set the phase's clock
+    n_a = len(prompts) if nccl else SP_SLOW_REQUESTS
     with scoped_env(**({} if nccl else {"RLT_ONE_CARD_GLOO": "1"})):
-        log(f"  (a) Server(num_workers=2, tensor=2), {cfg.n_layer} layers "
-            f"({leg})")
+        log(f"  (a) Server(num_workers=2, tensor=2), {cfg.n_layer} layers, "
+            f"{n_a} requests ({leg})")
         out["legs"]["a"] = sp_server_leg(
             this, "(a) tensor=2", Server(module(cfg.n_layer), num_workers=2,
                                          strategy=sp_tensor2(), **kw),
-            ref, prompts, want, card, nccl, 2, ref_logits=ref_logits)
+            ref, prompts[:n_a], want[:n_a], card, nccl, 2,
+            ref_logits=ref_logits)
         log(f"  (c) tensor=2, paged prefix reuse, speculation k="
             f"{SP_SPEC_K} with a {SP_DRAFT_LAYERS}-layer draft")
         out["legs"]["c"] = sp_server_leg(
@@ -7408,9 +7518,16 @@ def serve_parallel_phase(seed: int, card: str) -> dict:
                 worker_env={"RLT_DECODE_IMPL": "paged"}, **sp_paged_spec(),
                 **kw),
             ref, shared, want_shared, card, nccl, 2, spec=True)
+        # the first request prefills whole; every later one is a prefix
+        # hit that computes its tail alone, the long one's included
         pages = out["legs"]["c"]["scheduler"]["pages"]
-        if not pages or not pages["reused_prefills"]:
-            raise AssertionError(f"(c): no prefix was reused: {pages}")
+        tails = [len(p) - SP_PREFIX for p in shared]
+        if not pages or pages["reused_prefills"] != len(shared) - 1 \
+                or pages["prefill_tokens_computed"] \
+                != SP_PREFIX + sum(tails):
+            raise AssertionError(f"(c): want {len(shared) - 1} prefix hits "
+                                 f"computing their tails {tails[1:]}: "
+                                 f"{pages}")
         if shallow != ref.layers:
             del ref
             free_cuda()
@@ -7600,6 +7717,432 @@ def sp_kernel_entries(gen) -> "dict[int, dict]":
     return entries
 
 
+# -- phase 22: the elastic plane ------------------------------------------------
+
+ELASTIC_MODEL = "gpt2-small"
+ELASTIC_RANKS = 2
+#: a rank's batch; the shrunk fleet's one rank takes both ranks' (4)
+ELASTIC_B = 2
+ELASTIC_STEPS = 8
+ELASTIC_KILL_STEP = 5
+ELASTIC_FAULT = f"kill:rank=1,step={ELASTIC_KILL_STEP}"
+ELASTIC_SNAPSHOT_EVERY = 2
+#: the JAX chaos tests' bar on the final params (``tests/test_failure.py``):
+#: bf16 sums in another order across one rank or two; printed beside
+#: the bar held here
+ELASTIC_TOL = 2e-2
+#: the bar held here, on the largest absolute difference: the parity
+#: route's shrunk fleet and the clean mirror run the same one-rank
+#: program from the same step-5 state (the kernels sum in a fixed
+#: order), so they agree to the bit; a step's AdamW update at lr 3e-4
+#: in warm-up moves a parameter up to ~2e-4, and a restore that loses
+#: the rebuilt moments lies past this bar (``LoseMoments``, the control)
+ELASTIC_MIRROR_TOL = 1e-6
+ELASTIC_TIMEOUT_S = 600
+#: each rank's latest ``ElasticProbe`` report, relayed to this process
+ELASTIC_REPORTS: list = []
+
+
+def record_elastic(report: dict) -> None:
+    ELASTIC_REPORTS.append(report)
+
+
+class ElasticProbe(Callback):
+    """(22) in each rank of every fleet: after each step, the rank's
+    launches since its fleet started, the step's batch and synced
+    seconds, the wall time, and the snapshotter's and the parity
+    manager's stats, relayed to the driver (a rank's latest wins, so a
+    rank killed at a step's end has sent that step's).  Module level,
+    referred to as ``chip_smoke.ElasticProbe``: a worker imports it."""
+
+    def __init__(self, leg: str):
+        self.leg = leg
+
+    def _sync(self, trainer):
+        if trainer.device.type == "cuda":
+            torch.cuda.synchronize(trainer.device)
+
+    def on_fit_start(self, trainer, module):
+        _kernels.reset_launches()
+        self.step_s: list = []
+        self.first = None
+        self.fit_start = time.time()
+
+    def on_train_batch_start(self, trainer, module, batch, batch_idx):
+        self._sync(trainer)
+        if self.first is None:
+            self.first = trainer.global_step
+        self.t0 = time.perf_counter()
+
+    def on_train_batch_end(self, trainer, module, outputs, batch, batch_idx):
+        self._sync(trainer)
+        self.step_s.append(time.perf_counter() - self.t0)
+        es = trainer._elastic_state or {}
+        snap = trainer._snapshotter
+        red = trainer._redundancy
+        report = {
+            "leg": self.leg, "attempt": es.get("restarts", 0),
+            "rank": trainer.global_rank, "world": trainer.world_size,
+            "first_step": self.first, "step": trainer.global_step,
+            "batch": int(batch[0].shape[0]), "step_s": list(self.step_s),
+            "wall": time.time(), "fit_start": self.fit_start,
+            "launches": {k: _kernels.launch_counts().get(k, 0)
+                         for k in ("flash_fwd", "flash_bwd")},
+            "snapshot": None if snap is None else dict(snap.stats),
+            "parity": None if red is None else dict(red.stats),
+        }
+        if trainer.plugin.remote:
+            from ray_lightning_tpu_torch import session
+            session.put_queue(functools.partial(record_elastic, report))
+        else:
+            record_elastic(report)
+
+
+def elastic_module(batch: int = ELASTIC_B):
+    """gpt2-small at full width and depth (12 layers, C=768, T=1024),
+    random weights from the seed, its own AdamW (fp32 master, bf16 first
+    moments), one epoch of ``ELASTIC_STEPS`` global batches."""
+    return GPTLightningModule(
+        ELASTIC_MODEL, batch_size=batch,
+        dataset_size=ELASTIC_B * ELASTIC_RANKS * ELASTIC_STEPS)
+
+
+def elastic_fit(this, leg: str, root: str, seed: int, *, workers: int,
+                max_steps: int, elastic: dict, fault: "str | None" = None,
+                platform: str = "cuda", callbacks: tuple = ()):
+    """One ``Trainer(elastic=...).fit`` of ``elastic_module()`` under
+    ``RayPlugin(num_workers=workers, strategy="zero1")``."""
+    from ray_lightning_tpu_torch import RayPlugin
+    module = elastic_module()
+    trainer = Trainer(
+        plugins=[RayPlugin(num_workers=workers, strategy="zero1",
+                           platform=platform,
+                           timeout_s=ELASTIC_TIMEOUT_S,
+                           worker_env={"RLT_FAULT": fault} if fault else {})],
+        max_epochs=10, max_steps=max_steps, seed=seed,
+        callbacks=[this.ElasticProbe(leg), *callbacks], elastic=elastic,
+        enable_checkpointing=False,
+        logger=False, num_sanity_val_steps=0, limit_val_batches=0,
+        log_every_n_steps=1, default_root_dir=root)
+    t0 = time.monotonic()
+    trainer.fit(module)
+    return trainer, module, time.monotonic() - t0
+
+
+def elastic_reports(this, leg: str) -> "dict[tuple, dict]":
+    """``(attempt, rank) -> the rank's last report`` of one leg (relayed
+    to ``this``, the module a worker's relay names)."""
+    out: dict = {}
+    for r in this.ELASTIC_REPORTS:
+        if r["leg"] == leg:
+            out[(r["attempt"], r["rank"])] = r
+    return out
+
+
+def check_elastic_fleets(leg: str, reps: dict, resumed: int,
+                         problems: list) -> dict:
+    """Each fleet's ranks: the batch and world it ran at (2 ranks at
+    ``ELASTIC_B``, then one at twice that), and rows 1 and 6 launched
+    ``n_layer`` times a step it ran; their launches, summed."""
+    n_layer = CONFIGS[ELASTIC_MODEL].n_layer
+    fleets = {0: (ELASTIC_RANKS, ELASTIC_B),
+              1: (1, ELASTIC_B * ELASTIC_RANKS)}
+    total = {"flash_fwd": 0, "flash_bwd": 0}
+    for attempt, (world, batch) in fleets.items():
+        ranks = sorted(r for a, r in reps if a == attempt)
+        if ranks != list(range(world)):
+            problems.append(f"{leg} fleet {attempt}: reports from ranks "
+                            f"{ranks}, want {world}")
+            continue
+        for rank in ranks:
+            r = reps[(attempt, rank)]
+            ran = r["step"] - r["first_step"]
+            want = {"flash_fwd": n_layer * ran, "flash_bwd": n_layer * ran}
+            if (r["world"], r["batch"]) != (world, batch) \
+                    or r["launches"] != want or not ran:
+                problems.append(
+                    f"{leg} fleet {attempt} rank {rank}: world {r['world']}"
+                    f" batch {r['batch']} launches {r['launches']} over "
+                    f"{ran} steps, want world {world} batch {batch} "
+                    f"launches {want}")
+            for k in total:
+                total[k] += r["launches"][k]
+        first = reps[(attempt, 0)]["first_step"]
+        if attempt == 1 and first != resumed:
+            problems.append(f"{leg}: the shrunk fleet started at step "
+                            f"{first}, resumed at {resumed}")
+    return total
+
+
+def elastic_tick_lines(leg: str, rep: dict, reps: dict, card: str) -> None:
+    """The parity ticks' wire bytes and seconds against the declared
+    bytes, each snapshot's seconds, and the recovery's seconds."""
+    for (attempt, rank), r in sorted(reps.items()):
+        par, snap = r["parity"], r["snapshot"]
+        if par:
+            ticks = ", ".join(
+                f"{b / 1e6:.1f} MB in {s:.3f} s ("
+                + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) + ")"
+                for b, s, parts in zip(
+                    par["parity_tick_bytes"], par["parity_tick_seconds"],
+                    par["parity_tick_parts"]))
+            log(f"  {leg} fleet {attempt} rank {rank}: parity ticks [{ticks}]"
+                f" against {par.get('declared_parity_bytes', 0) / 1e6:.1f} "
+                f"MB declared a step; skipped {par['parity_skipped']} "
+                f"[{card}]")
+        if snap:
+            log(f"  {leg} fleet {attempt} rank {rank}: snapshots "
+                f"{snap['snapshots']} (skipped {snap['skipped']}, failed "
+                f"{snap['failed']}), blocking seconds each "
+                f"{[round(x, 3) for x in snap['save_seconds_each']]}, stalls "
+                f"{snap['stall_seconds']:.3f} s; step seconds "
+                f"{[round(x, 3) for x in r['step_s']]} [{card}]")
+
+
+class MirrorSave(Callback):
+    """(22) in each rank of the replay route's first fleet: at the kill
+    step, before the fault fires (the fault injector runs after the
+    caller's callbacks), a sharded save of the state, waited for: the
+    first half of the parity route's clean mirror (two ranks, no fault
+    yet, to that step).  The fleet's snapshot in flight is waited for
+    first, so the two checkpointers' collectives do not interleave."""
+
+    needs_batch = False
+
+    def __init__(self, step: int, directory: str):
+        self.step, self.directory = step, directory
+
+    def on_train_batch_end(self, trainer, module, outputs, batch, batch_idx):
+        if trainer.global_step == self.step \
+                and not (trainer._elastic_state or {}).get("restarts"):
+            trainer.wait_for_checkpoints()
+            trainer.save_sharded_checkpoint(self.directory)
+            trainer.wait_for_checkpoints()
+
+
+class LoseMoments(Callback):
+    """(22) the mirror's planted control: after the restore, rank 1's
+    half of the first moments (the second half of each ZeRO-1 flat
+    vector, rank 1's shard at two ranks) set to 0, as a recovery that
+    lost the rebuilt shard's moments would leave them."""
+
+    needs_batch = False
+
+    def on_train_start(self, trainer, module):
+        state = trainer.state.opt_state
+        while not hasattr(state, "mu"):
+            state = state.inner
+        for flat in state.mu.values():
+            flat = flat.view(-1)
+            flat[flat.numel() - flat.numel() // 2:].zero_()
+
+
+def elastic_mirror(seed: int, platform: str, mirror: str, root: str,
+                   control: bool = False) -> "dict[str, torch.Tensor]":
+    """The clean mirror's second half, in this process: one rank at the
+    doubled batch from the two-rank step-5 state to step 8; its final
+    params (``control``: with ``LoseMoments``)."""
+    module = elastic_module(ELASTIC_B * ELASTIC_RANKS)
+    Trainer(device=platform, strategy="zero1", max_epochs=10,
+            max_steps=ELASTIC_STEPS, seed=seed,
+            resume_from_checkpoint=os.path.join(mirror,
+                                                str(ELASTIC_KILL_STEP)),
+            callbacks=[LoseMoments()] if control else [],
+            enable_checkpointing=False, logger=False,
+            num_sanity_val_steps=0, limit_val_batches=0,
+            default_root_dir=root).fit(module)
+    return {k: v.float().cpu() for k, v in module._trained_state.items()}
+
+
+def max_abs_gap(got: dict, want: dict) -> "tuple[float, str | None]":
+    """The largest absolute difference over the tensors of ``got`` and
+    ``want`` (which must name the same tensors), and its tensor's
+    name."""
+    if set(got) != set(want):
+        raise AssertionError(f"the states name other tensors: "
+                             f"{sorted(set(got) ^ set(want))[:4]}")
+    worst, worst_k = -1.0, None
+    for k, w in want.items():
+        d = float((got[k] - w).abs().max())
+        if d > worst:
+            worst, worst_k = d, k
+    return worst, worst_k
+
+
+def elastic_phase(seed: int, card: str, platform: str = "cuda") -> dict:
+    """Phase 22 (module docstring): ``Trainer(max_steps=8, elastic=...)``
+    of gpt2-small under ``RayPlugin(num_workers=2, strategy="zero1")``
+    with rank 1 killed at step 5 (``RLT_FAULT``), over NCCL with two
+    cards, else both ranks on card 0 over gloo.  The replay route
+    (redundancy off), held to its route, resumed step and restore count;
+    its first fleet also saves its state at step 5, before the kill
+    (``MirrorSave``).  The parity route (``redundancy=1``), against a
+    clean mirror: that step-5 state (two ranks, fault-free to there),
+    then one rank at batch 4 in this process to step 8.  The checks
+    raise.  ``platform="cpu"``: every rank a CPU process over gloo (a
+    dry run of the phase's code)."""
+    import chip_smoke as this
+    t_phase = time.monotonic()
+    nccl = platform != "cpu" \
+        and torch.cuda.device_count() >= ELASTIC_RANKS
+    out: dict = {"card": card, "model": ELASTIC_MODEL,
+                 "leg": ("nccl, one rank a card" if nccl else
+                         "gloo, both ranks on card 0"), "legs": {}}
+    problems: list = []
+    total = {"flash_fwd": 0, "flash_bwd": 0}
+    this.ELASTIC_REPORTS.clear()
+    with tempfile.TemporaryDirectory() as base, scoped_env(
+            **({} if nccl else {"RLT_ONE_CARD_GLOO": "1"})):
+        # -- the replay route, and the mirror's first half
+        mirror = os.path.join(base, "mirror")
+        trainer, module, fit_s = elastic_fit(
+            this, "replay", os.path.join(base, "replay"), seed,
+            workers=ELASTIC_RANKS, max_steps=ELASTIC_STEPS,
+            fault=ELASTIC_FAULT, platform=platform,
+            elastic={"snapshot_every_n_steps": ELASTIC_SNAPSHOT_EVERY,
+                     "snapshot_dir": os.path.join(base, "replay_snap"),
+                     "max_restarts": 2},
+            callbacks=[this.MirrorSave(ELASTIC_KILL_STEP, mirror)])
+        del module
+        rep = trainer._elastic_report
+        reps = elastic_reports(this, "replay")
+        if rep.get("recovery") != "replay" \
+                or rep.get("resumed_step") not in (2, 4) \
+                or rep.get("snapshot_restores", 0) != 1 \
+                or trainer.global_step != ELASTIC_STEPS:
+            problems.append(f"replay route: report {rep}, global step "
+                            f"{trainer.global_step}")
+        else:
+            counts = check_elastic_fleets("replay", reps,
+                                          rep["resumed_step"], problems)
+            for k in total:
+                total[k] += counts[k]
+        log(f"  replay route: fit {fit_s:.1f} s; recovery "
+            f"{rep.get('recovery')} from step {rep.get('resumed_step')}, "
+            f"snapshot restores {rep.get('snapshot_restores', 0)}, "
+            f"recovery {rep.get('recovery_seconds', float('nan')):.2f} s "
+            f"[{card}]")
+        elastic_tick_lines("replay", rep, reps, card)
+        out["legs"]["replay"] = {
+            "fit_s": fit_s, "report": rep,
+            "fleets": {f"{a}/{r}": v for (a, r), v in reps.items()}}
+        free_cuda()
+
+        # -- the parity route
+        trainer, module, fit_s = elastic_fit(
+            this, "parity", os.path.join(base, "parity"), seed,
+            workers=ELASTIC_RANKS, max_steps=ELASTIC_STEPS,
+            fault=ELASTIC_FAULT, platform=platform,
+            elastic={"snapshot_every_n_steps": ELASTIC_SNAPSHOT_EVERY,
+                     "snapshot_dir": os.path.join(base, "parity_snap"),
+                     "max_restarts": 2, "redundancy": 1})
+        rep = trainer._elastic_report
+        reps = elastic_reports(this, "parity")
+        got = {k: v.float().cpu() for k, v in module._trained_state.items()}
+        del module
+        if (rep.get("recovery"), rep.get("resumed_step"),
+                rep.get("snapshot_restores", 0), trainer.global_step,
+                rep.get("workers"), rep.get("failed_fleet_parity_ticks")
+                ) != ("parity", ELASTIC_KILL_STEP, 0, ELASTIC_STEPS, 1,
+                      ELASTIC_KILL_STEP):
+            problems.append(f"parity route: report {rep}, global step "
+                            f"{trainer.global_step}")
+        if not rep.get("dead_digest") \
+                or rep.get("dead_digest") != rep.get("escrowed_digest"):
+            problems.append(f"parity route: rebuilt shard "
+                            f"{rep.get('dead_digest')} != escrowed "
+                            f"{rep.get('escrowed_digest')}")
+        rebuilt = rep.get("rebuilt_leaves") or {}
+        if "bfloat16" not in rebuilt.values():
+            problems.append(f"parity route: no bf16 moment among the "
+                            f"rebuilt leaves {rebuilt}")
+        counts = check_elastic_fleets("parity", reps, ELASTIC_KILL_STEP,
+                                      problems)
+        for k in total:
+            total[k] += counts[k]
+        dead = reps.get((0, 1))
+        first_wall = trainer.first_step_wall
+        from_kill = (first_wall - dead["wall"]
+                     if dead and first_wall else None)
+        log(f"  parity route: fit {fit_s:.1f} s; recovery "
+            f"{rep.get('recovery')} at step {rep.get('resumed_step')}, "
+            f"snapshot restores {rep.get('snapshot_restores', 0)}; rank 1's "
+            f"shard rebuilt {rep.get('dead_digest')} vs escrowed "
+            f"{rep.get('escrowed_digest')} (leaves {rebuilt}); recovery "
+            f"{rep.get('recovery_seconds', float('nan')):.2f} s from the "
+            f"driver's catch (probe and harvest "
+            f"{rep.get('probe_and_harvest_seconds') or 0:.2f} s, rebuild "
+            f"{rep.get('reconstruct_seconds') or 0:.2f} s), "
+            f"{from_kill if from_kill is None else round(from_kill, 2)} s "
+            f"from the kill to the shrunk fleet's first step [{card}]")
+        elastic_tick_lines("parity", rep, reps, card)
+        out["legs"]["parity"] = {
+            "fit_s": fit_s, "report": rep, "from_kill_s": from_kill,
+            "fleets": {f"{a}/{r}": v for (a, r), v in reps.items()}}
+        free_cuda()
+
+        # -- the mirror's second half: one rank at the doubled batch from
+        # the replay fleet's step-5 state, here; then the control, which
+        # the bar must see
+        t0 = time.monotonic()
+        want = elastic_mirror(seed, platform, mirror,
+                              os.path.join(base, "mirror_fit"))
+        ref_s = time.monotonic() - t0
+        worst, worst_k = max_abs_gap(got, want)
+        if worst > ELASTIC_MIRROR_TOL:
+            problems.append(f"parity route: params {worst:.3e} ({worst_k}) "
+                            f"from the clean mirror, past "
+                            f"{ELASTIC_MIRROR_TOL}")
+        del want
+        t0 = time.monotonic()
+        lost, lost_k = max_abs_gap(got, elastic_mirror(
+            seed, platform, mirror, os.path.join(base, "control_fit"),
+            control=True))
+        control_s = time.monotonic() - t0
+        if lost <= ELASTIC_MIRROR_TOL:
+            problems.append(f"parity route: the control (rank 1's first "
+                            f"moments lost) lies {lost:.3e} from it, within "
+                            f"the bar {ELASTIC_MIRROR_TOL}")
+        log(f"  parity route against the clean mirror (two ranks to step "
+            f"{ELASTIC_KILL_STEP}, saved by the replay route's first fleet "
+            f"before its kill; one rank at batch "
+            f"{ELASTIC_B * ELASTIC_RANKS} to {ELASTIC_STEPS} here, "
+            f"{ref_s:.1f} s): max abs diff {worst:.3e} ({worst_k}), bar "
+            f"{ELASTIC_MIRROR_TOL} (the JAX chaos tests' {ELASTIC_TOL} as "
+            f"atol = rtol); the control, rank 1's first moments lost at "
+            f"the restore ({control_s:.1f} s): {lost:.3e} ({lost_k}) "
+            f"[{card}]")
+        out["legs"]["parity"].update(
+            max_abs_diff=worst, worst=worst_k, mirror_s=ref_s,
+            control_max_abs_diff=lost, control_worst=lost_k,
+            control_s=control_s)
+        del got
+    this.ELASTIC_REPORTS.clear()
+    out["launches"] = total
+    out["seconds"] = time.monotonic() - t_phase
+    log("elastic " + json.dumps(out, default=str))
+    if problems:
+        raise AssertionError("elastic phase: " + "; ".join(problems))
+    return out
+
+
+def elastic_kernel_entries(gen) -> "dict[int, dict]":
+    """Rows 1 and 6 at the shrunk fleet's shape: one rank's B=4 T=1024
+    H=12 (the two-rank fleet's B=2 is phase 20's)."""
+    src = "ray_lightning_tpu/ops/flash_attention.py"
+    B = ELASTIC_B * ELASTIC_RANKS
+    r = long_kernel_shape(gen, B, 1024, 12)
+    entries = {}
+    for row, name, line, key in ((1, "flash_fwd", ":298", "fwd"),
+                                 (6, "flash_bwd", ":329", "bwd")):
+        e = record(name, row, src + line, r[key]["shape"],
+                   r[key]["max_abs_err"], r[key], tol=r[key]["tol"])
+        e.update({k: v for k, v in r[key].items() if k not in e})
+        e["by_shape"] = {f"B={B} H=12": r[key]}
+        entries[row] = e
+    return entries
+
+
 def check_actor_starts() -> None:
     """Every actor of the run forked from the backend's fork server
     (cluster/forkserver.py): none fell back to a fresh interpreter."""
@@ -7700,6 +8243,13 @@ def main(argv=None) -> int:
                          "leases) with the driver off CUDA until its actor "
                          "trials end, then check and time flash_fwd and "
                          "flash_bwd (rows 1 and 6)")
+    ap.add_argument("--elastic-only", action="store_true",
+                    help="build, run phase 22 (the elastic plane: gpt2-"
+                         "small under RayPlugin(num_workers=2, strategy="
+                         "'zero1') with rank 1 killed at step 5, recovered "
+                         "by parity and by snapshot replay), then check and "
+                         "time flash_fwd and flash_bwd at the shrunk "
+                         "fleet's shape (rows 1 and 6)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -7715,10 +8265,15 @@ def main(argv=None) -> int:
                 or args.decode_only or args.trainer_only
                 or args.ladder_only or args.sharded_only
                 or args.parallel_only or args.comm_only
-                or args.serve_parallel_only or args.serve_parallel_logits)
+                or args.serve_parallel_only or args.serve_parallel_logits
+                or args.elastic_only)
     if not (driver_off_cuda or full):  # the device's name initialises CUDA
         log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
             f"{torch.cuda.get_device_name(0)}")
+    if full or args.elastic_only:
+        # the actors' fork server imports torch while the kernels build
+        from ray_lightning_tpu_torch.cluster import get_backend
+        get_backend().start_fork_server()
     build_s = _kernels.build()
     log(f"build: {build_s:.2f} s for {sorted(_kernels.REGISTRY)}")
     by_source = {k.source: k for k in _kernels.REGISTRY.values()}
@@ -7859,6 +8414,22 @@ def main(argv=None) -> int:
                 e["name"]]}
             e["launches"] = e["launches_by_path"]["comm"]
         log(json.dumps({"kernels": entries}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    if args.elastic_only:
+        log("elastic phase")
+        el = elastic_phase(args.seed, card_line())
+        log(f"elastic phase: {el['seconds']:.1f} s")
+        free_cuda()
+        log("kernel phase (rows 1 and 6 at the shrunk fleet's shape)")
+        entries = elastic_kernel_entries(gen)
+        for e in entries.values():
+            e["launches_by_path"] = {"elastic": el["launches"][e["name"]]}
+            e["launches"] = e["launches_by_path"]["elastic"]
+        check_actor_starts()
+        log(json.dumps({"kernels": [entries[1], entries[6]]}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -8116,6 +8687,19 @@ def main(argv=None) -> int:
             for leg, ranks in sp["launches_by_rank"].items()}
         e["launches"] = sum(e["launches_by_path"].values())
     log(f"serve parallel phase: {sp['seconds']:.1f} s")
+
+    log("elastic phase")
+    free_cuda()
+    el = elastic_phase(args.seed, card)
+    free_cuda()
+    shapes = elastic_kernel_entries(gen)
+    for row in (1, 6):
+        e = by_row[row]
+        e.setdefault("by_shape", {}).update(
+            {f"elastic {k}": v for k, v in shapes[row]["by_shape"].items()})
+        e["launches_by_path"]["elastic"] = el["launches"][e["name"]]
+        e["launches"] = sum(e["launches_by_path"].values())
+    log(f"elastic phase: {el['seconds']:.1f} s")
     check_actor_starts()
     log("speed order (rows slower than their library call by that factor, "
         "then by launches x (ms - bound)): " + ", ".join(

@@ -22,7 +22,9 @@ checkpoints with ``ModelCheckpoint`` and resume with ``ckpt_path=``,
 ``RayShardedPlugin`` (ZeRO-1), NCCL on the card and gloo on the CPU,
 their gradient sync compressed with ``Trainer(comm_policy=CommPolicy(
 ...))`` (int8 / fp8 / int4 / bf16 collectives with error feedback,
-hierarchical and bucketed),
+hierarchical and bucketed), surviving a dead worker with
+``Trainer(elastic=...)`` (async snapshots, parity of the ZeRO-1
+optimizer shards, a shrunk fleet resumed in memory or from a snapshot),
 sharded training (``Trainer(strategy="fsdp")``, ``SpmdStrategy`` with
 ``gpt_partition_rules`` / ``bert_partition_rules`` for tensor
 parallelism, ``RaySpmdPlugin``) with sharded checkpoints
@@ -57,6 +59,7 @@ from ray_lightning_tpu_torch.core.data import ArrayDataset, DataLoader
 from ray_lightning_tpu_torch.core.datamodule import LightningDataModule
 from ray_lightning_tpu_torch.core.module import LightningModule
 from ray_lightning_tpu_torch.core.trainer import Trainer
+from ray_lightning_tpu_torch.elastic import ElasticConfig
 from ray_lightning_tpu_torch.models.bert import (BertConfig,
                                                  BertLightningModule,
                                                  BertMLMModule)
@@ -89,6 +92,7 @@ __all__ = [
     "CommPolicy",
     "DataLoader",
     "EarlyStopping",
+    "ElasticConfig",
     "FleetServer",
     "GPT",
     "GPTConfig",

@@ -6,7 +6,9 @@ one implementation, :class:`~ray_lightning_tpu_torch.cluster.local.
 LocalBackend` (subprocess actors on this node); the Ray backend is not
 ported (ROADMAP.md queue 1 item 5), so :func:`get_backend` returns the
 local one.  Only control, pickled payloads and results ride this plane:
-gradients ride ``torch.distributed``.
+gradients ride ``torch.distributed``.  Worker-to-worker payloads (the
+elastic parity tick's, elastic/redundancy.py) ride it as ``peer``
+frames, which the driver routes (:meth:`ClusterBackend.peer_route`).
 """
 
 from __future__ import annotations
@@ -71,6 +73,25 @@ class ActorHandle:
         captures none)."""
         return ""
 
+    def process_alive(self) -> Optional[bool]:
+        """Strict process-level liveness for the elastic driver's death
+        classifier (elastic/driver.py): True or False only when the
+        backend can tell precisely, and a busy actor reads True (a
+        False turns a failure into a restartable death); None when it
+        cannot tell."""
+        return None
+
+    def harvest_escrow(self, timeout: float = 15.0) -> Optional[dict]:
+        """Best-effort fetch of the worker's recovery escrow
+        (cluster/worker_state.py, deposited by the elastic parity tick)
+        without the main thread's call queue: at harvest time a
+        survivor is usually wedged in a collective whose peer died.
+        None when the backend cannot harvest, the worker never
+        escrowed, or the fetch times out (the elastic driver then falls
+        back to snapshot replay)."""
+        del timeout
+        return None
+
 
 class ClusterBackend:
     """Actor lifecycle + object transport + worker-to-driver queue."""
@@ -88,6 +109,14 @@ class ClusterBackend:
 
     def free(self, ref: Any) -> None:
         """Release a stored object when the fan-out is done."""
+
+    def peer_route(self, dst_actor_id: str, item) -> bool:
+        """The driver's hop of the worker-to-worker peer channel: deliver
+        ``item`` to ``dst_actor_id``'s process.  False when the
+        destination is unknown (the receiver's timeout names the
+        failure)."""
+        del dst_actor_id, item
+        return False
 
     def queue_get_nowait(self, actors: set):
         """Pop the oldest worker-to-driver queue item sent by one of

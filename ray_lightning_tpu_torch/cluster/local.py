@@ -34,6 +34,7 @@ import subprocess
 import sys
 import tempfile
 import threading
+import time
 import uuid
 from typing import Any, Optional
 
@@ -41,6 +42,11 @@ from ray_lightning_tpu_torch.cluster import forkserver
 from ray_lightning_tpu_torch.cluster.backend import (ActorHandle,
                                                      ClusterBackend, Future)
 from ray_lightning_tpu_torch.cluster.protocol import Connection
+
+
+#: how long ``process_alive`` waits for a process whose connection
+#: dropped to be reported gone
+EXIT_WAIT_S = 2.0
 
 
 class RemoteActorError(RuntimeError):
@@ -93,6 +99,8 @@ class LocalActorHandle(ActorHandle):
         self._pending: "dict[str, Future]" = {}
         self._lock = threading.Lock()
         self._dead = False
+        #: the reader saw the connection drop: the process is exiting
+        self._conn_lost = False
         self._death_error: Optional[BaseException] = None
 
     def _error(self, text: str) -> RemoteActorError:
@@ -117,6 +125,10 @@ class LocalActorHandle(ActorHandle):
                 kind = msg.get("type")
                 if kind == "queue":
                     self._backend._queue_push(self.actor_id, msg["item"])
+                elif kind == "peer":
+                    # worker-to-worker: routed here, so peer traffic
+                    # flows while the other actors compute
+                    self._backend.peer_route(msg["dst"], msg["item"])
                 elif kind == "result":
                     with self._lock:
                         fut = self._pending.pop(msg["call_id"], None)
@@ -129,6 +141,7 @@ class LocalActorHandle(ActorHandle):
                         # the constructor's failure: no call awaits it
                         self._fail_pending(self._error(msg["error"]))
         except (ConnectionError, OSError, EOFError):
+            self._conn_lost = True
             rc = self._proc.poll() if self._proc is not None else None
             self._fail_pending(self._error(
                 f"actor {self.actor_id} died (connection lost); "
@@ -174,6 +187,42 @@ class LocalActorHandle(ActorHandle):
             self._fail_pending(self._error(str(e)))
         return fut
 
+    def harvest_escrow(self, timeout: float = 15.0) -> Optional[dict]:
+        """The worker's recovery escrow over an ``escrow`` frame, which
+        its frame reader answers (worker_main.py): a survivor wedged in
+        a dead collective still yields it.  None on any failure."""
+        if self._dead or self._conn is None:
+            return None
+        fut = Future(self.actor_id)
+        call_id = uuid.uuid4().hex
+        with self._lock:
+            self._pending[call_id] = fut
+        try:
+            self._conn.send({"type": "escrow", "call_id": call_id})
+            return fut.result(timeout)
+        except Exception:           # noqa: BLE001 - the harvest is best-effort
+            with self._lock:
+                self._pending.pop(call_id, None)
+            return None
+
+    def process_alive(self) -> Optional[bool]:
+        """Whether the actor's process lives.  A busy actor reads True.
+        A forked actor is the fork server's child, whose exit the server
+        reports a moment later, so a process whose connection dropped is
+        probed by its pid (gone or a zombie: False) and waited for up to
+        ``EXIT_WAIT_S``."""
+        proc = self._proc
+        if proc is None:
+            return None
+        deadline = time.monotonic() + (EXIT_WAIT_S if self._conn_lost
+                                       else 0.0)
+        while True:
+            if proc.poll() is not None or not _pid_running(proc.pid):
+                return False
+            if time.monotonic() >= deadline:
+                return True
+            time.sleep(0.02)
+
     def log_tail(self, max_bytes: int = 4096) -> str:
         try:
             with open(self.log_path, "rb") as f:
@@ -204,6 +253,17 @@ class LocalActorHandle(ActorHandle):
         if self._conn is not None:
             self._conn.close()
         self._backend._queue_discard(self.actor_id)
+
+
+def _pid_running(pid: int) -> bool:
+    """Whether ``pid`` names a process that has not exited (a zombie has:
+    it waits only for its parent to reap it)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            state = f.read().rsplit(")", 1)[1].split()[0]
+    except (OSError, IndexError):
+        return False
+    return state not in ("Z", "X")
 
 
 class LocalBackend(ClusterBackend):
@@ -268,6 +328,21 @@ class LocalBackend(ClusterBackend):
         with self._queue_lock:
             self._queue = [e for e in self._queue if e[0] != actor_id]
 
+    def peer_route(self, dst_actor_id: str, item) -> bool:
+        """Route one peer payload to ``dst_actor_id``'s connection (its
+        frame reader puts it into the worker's peer mailbox)."""
+        handle = self._actors.get(dst_actor_id)
+        if handle is None or handle._conn is None:
+            print(f"[rlt-backend] dropping a peer payload for unknown or "
+                  f"unattached actor {dst_actor_id!r}", file=sys.stderr,
+                  flush=True)
+            return False
+        try:
+            handle._conn.send({"type": "peer", "item": item})
+            return True
+        except (ConnectionError, OSError):
+            return False
+
     def queue_get_nowait(self, actors: set):
         with self._queue_lock:
             for i, (actor_id, item) in enumerate(self._queue):
@@ -325,6 +400,11 @@ class LocalBackend(ClusterBackend):
         server = self._forkserver
         return {**self._started,
                 "preload_s": None if server is None else server.preload_s}
+
+    def start_fork_server(self) -> None:
+        """Start the fork server now, so that its imports overlap the
+        caller's work (it otherwise starts with the first actor)."""
+        self._fork_server()
 
     def _fork_server(self) -> forkserver.ForkServer:
         with self._forkserver_lock:

@@ -8,9 +8,12 @@ ITS tag), and a receive that outlives its timeout raises
 of hanging.  The fleet router uses one as its KV-ship channel
 (serve/fleet/router.py: the router is both ends' driver, so a put can
 be chaos-dropped and a take retries under the same policy as a
-worker-to-worker receive).  The worker-to-worker frame routing of the
-cluster backend, which the pipeline and the elastic plane use, is not
-ported yet (ROADMAP.md queue 1 items 10 and 11).
+worker-to-worker receive).  Worker-to-worker payloads ride the cluster
+backend: ``worker_state.peer_send`` writes a ``peer`` frame to the
+driver, which routes it to the destination's connection
+(``LocalBackend.peer_route``), whose frame reader puts it into that
+worker's mailbox (``worker_state.peer_push``); the elastic parity tick
+(elastic/redundancy.py) rides it.
 
 **Retry/backoff** (``RLT_PEER_RETRIES`` / ``RLT_PEER_BACKOFF_S``): by
 default a receive makes ONE attempt of ``timeout`` seconds.  With

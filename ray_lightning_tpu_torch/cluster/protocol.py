@@ -12,9 +12,17 @@ functions the worker can import.  Messages are dicts with a ``type``:
   worker -> driver: {type: hello, actor_id}
                     {type: result, call_id, ok, value | error}
                     {type: queue, item}       (unsolicited, session relay)
+                    {type: peer, dst, item}   (routed to actor ``dst``)
+  driver -> worker: {type: peer, item}, {type: escrow, call_id}
 
-Both ends are this program's own processes, so unpickling a frame runs
-only what this program or its workers wrote.
+A frame is a header (the pickle's length and the count of out-of-band
+buffers, then each buffer's length), the pickle (protocol 5), then the
+buffers: a numpy array or a ``pickle.PickleBuffer`` in a message leaves
+out of band, written from its own memory and read into one buffer of
+the receiver's, so a large payload (the elastic parity tick's blobs) is
+not copied into and out of the pickle.  Both ends are this program's
+own processes, so unpickling a frame runs only what this program or its
+workers wrote.
 """
 
 from __future__ import annotations
@@ -26,7 +34,8 @@ import struct
 import threading
 from typing import Any
 
-_LEN = struct.Struct(">Q")
+#: a frame's pickle length and its count of out-of-band buffers
+_HEAD = struct.Struct(">QQ")
 MAX_FRAME = 1 << 36  # 64 GiB guard
 
 
@@ -39,10 +48,16 @@ class Connection:
         self._rlock = threading.Lock()
 
     def send(self, msg: Any) -> None:
-        payload = pickle.dumps(msg, protocol=pickle.HIGHEST_PROTOCOL)
+        bufs: list = []
+        payload = pickle.dumps(msg, protocol=5, buffer_callback=bufs.append)
+        views = [b.raw() for b in bufs]
+        head = struct.pack(f">QQ{len(views)}Q", len(payload), len(views),
+                           *(v.nbytes for v in views))
         with self._wlock:
-            self._sock.sendall(_LEN.pack(len(payload)))
+            self._sock.sendall(head)
             self._sock.sendall(payload)
+            for v in views:
+                self._sock.sendall(v)
 
     def _recv_exact(self, n: int) -> bytearray:
         buf = bytearray(n)
@@ -57,11 +72,14 @@ class Connection:
 
     def recv(self) -> Any:
         with self._rlock:
-            (length,) = _LEN.unpack(self._recv_exact(_LEN.size))
-            if length > MAX_FRAME:
-                raise ValueError(f"frame too large: {length}")
+            length, n = _HEAD.unpack(self._recv_exact(_HEAD.size))
+            sizes = struct.unpack(f">{n}Q", self._recv_exact(8 * n)) \
+                if n else ()
+            if length + sum(sizes) > MAX_FRAME:
+                raise ValueError(f"frame too large: {length + sum(sizes)}")
             payload = self._recv_exact(length)
-        return pickle.loads(payload)
+            bufs = [self._recv_exact(k) for k in sizes]
+        return pickle.loads(payload, buffers=bufs)
 
     def close(self) -> None:
         try:

@@ -3,22 +3,34 @@
     python -m ray_lightning_tpu_torch.cluster.worker_main
 
 Counterpart of ``ray_lightning_tpu/cluster/worker_main.py`` without the
-heartbeats (the telemetry plane is not ported) and without the peer and
-escrow frames.  Connects back to the driver's unix socket (its path in
+heartbeats (the telemetry plane is not ported, ROADMAP.md queue 1 item
+13).  Connects back to the driver's unix socket (its path in
 ``RLT_DRIVER_SOCKET``), builds the actor from its pickled spec
 (``RLT_ACTOR_SPEC``), then serves calls one after another on the main
 thread.  Unsolicited ``queue`` frames may leave mid-call through
 ``worker_state.queue_send``: the transport under ``session.put_queue``.
 A call that raises is answered with its traceback, which also goes to
 the worker's captured log, so the driver's error carries both.
+
+Inbound frames are read by a thread of their own, started here in the
+actor process (a forked actor starts it after the fork,
+cluster/forkserver.py): ``call`` and ``shutdown`` frames queue for the
+main thread, while ``peer`` frames (the worker-to-worker channel the
+elastic parity tick rides) go straight into this process's peer
+mailbox, so a payload arrives while the main thread runs the call that
+waits for it.  ``escrow`` frames (the elastic driver's harvest) are
+answered on the reader thread itself: at harvest time the main thread
+is often wedged in a collective whose peer died.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
+import queue
 import socket
 import sys
+import threading
 import time
 import traceback
 
@@ -59,11 +71,36 @@ def main() -> int:
         return 1
     _trace("actor constructed; serving")
 
+    inbox: "queue.Queue" = queue.Queue()
+
+    def reader() -> None:
+        while True:
+            try:
+                msg = conn.recv()
+            except (ConnectionError, OSError, EOFError) as e:
+                _trace(f"connection closed ({type(e).__name__}: {e}); "
+                       f"exiting")
+                inbox.put(None)
+                return
+            kind = msg.get("type")
+            if kind == "peer":
+                worker_state.peer_push(msg["item"])
+            elif kind == "escrow":
+                try:
+                    conn.send({"type": "result", "call_id": msg["call_id"],
+                               "ok": True,
+                               "value": worker_state.escrow_export()})
+                except (ConnectionError, OSError):
+                    pass
+            else:
+                inbox.put(msg)
+
+    threading.Thread(target=reader, daemon=True,
+                     name="rlt-worker-reader").start()
+
     while True:
-        try:
-            msg = conn.recv()
-        except (ConnectionError, OSError) as e:
-            _trace(f"connection closed ({type(e).__name__}: {e}); exiting")
+        msg = inbox.get()
+        if msg is None:
             return 0
         kind = msg.get("type")
         if kind == "shutdown":

@@ -73,9 +73,19 @@ sync through the comm plane's compressed collectives
 (comm/collectives.py ``GradSync``, wrapped outermost around the
 optimizer: its state carries each rank's error-feedback residual,
 checkpointed gathered to ``[W, ...]``); off, the step issues exactly
-the collectives it issues without a policy.  The telemetry,
-compile-cache, elastic and planner planes raise
-``NotImplementedError`` when given a value other than their default.
+the collectives it issues without a policy.  ``elastic`` (an
+``ElasticConfig``, ``True`` or a dict; the ``RLT_ELASTIC*`` knobs when
+``None``, elastic/config.py) turns on the elastic plane: async sharded
+snapshots on a step cadence (elastic/snapshot.py), parity of the ZeRO-1
+optimizer shards over the workers' peer channel (elastic/redundancy.py),
+and, under ``RayPlugin``, the shrink-to-continue driver that answers a
+dead rank with a smaller fleet resumed from the parity escrows or the
+latest snapshot (elastic/driver.py; the report in ``_elastic_report``,
+the worker's numbers in ``elastic_stats()``); ``RLT_FAULT`` in a
+worker's environment arms the deterministic faults of
+elastic/faults.py.  The telemetry, compile-cache and planner planes
+raise ``NotImplementedError`` when given a value other than their
+default.
 
 The epoch engine (one loop over a batch source, core/loop_engine.py):
 a chunk never crosses ``max_steps`` or a ``val_check_interval``
@@ -104,6 +114,7 @@ again, a ``save_checkpoint`` after a fit starts the next one.
 
 from __future__ import annotations
 
+import logging
 import os
 import tempfile
 import time
@@ -115,6 +126,7 @@ import torch
 from ray_lightning_tpu_torch.comm.collectives import (CommState, CommTx,
                                                       inner_state_dict)
 from ray_lightning_tpu_torch.comm.policy import CommPolicy
+from ray_lightning_tpu_torch.elastic.config import ElasticConfig
 from ray_lightning_tpu_torch.parallel import strategy as _parallel
 from ray_lightning_tpu_torch.parallel.gather import fetch_tree
 from ray_lightning_tpu_torch.parallel.layout import (ShardLayout,
@@ -141,10 +153,12 @@ from ray_lightning_tpu_torch.utils.seed import (SEED_ENV_VAR, reset_seed,
 from ray_lightning_tpu_torch.utils.states import (load_state_stream,
                                                   to_state_stream)
 
+_log = logging.getLogger(__name__)
+
 #: arguments of the JAX ``Trainer`` that are not ported: name -> default
 _NOT_PORTED = {
     "telemetry": None,
-    "compile_cache": None, "elastic": None,
+    "compile_cache": None,
     "plan": None,
 }
 
@@ -203,7 +217,7 @@ class Trainer:
                 f"Unknown precision {precision!r}; use one of "
                 f"{_BF16_PRECISIONS + _FP32_PRECISIONS}")
         given = dict(telemetry=telemetry, compile_cache=compile_cache,
-                     elastic=elastic, plan=plan)
+                     plan=plan)
         for name, default in _NOT_PORTED.items():
             if given[name] != default:
                 raise NotImplementedError(
@@ -213,6 +227,24 @@ class Trainer:
         #: runs with it active, its ``GradSync``
         self.comm_policy = CommPolicy.resolve(comm_policy)
         self._grad_sync = None
+        #: the resolved elastic config (elastic/config.py)
+        self.elastic = ElasticConfig.resolve(elastic)
+        #: a stage's snapshotter and parity manager (elastic/), the
+        #: driver's restart bookkeeping that rides the pickled trainer to
+        #: the workers (the loader rescale reads it), its report, rank
+        #: 0's elastic numbers, and the one-shot in-memory recovery
+        #: package of a parity route
+        self._snapshotter = None
+        self._redundancy = None
+        self._elastic_state: Optional[dict] = None
+        self._elastic_report: Optional[dict] = None
+        self._elastic_worker_stats: Optional[dict] = None
+        self._elastic_recovery: Optional[dict] = None
+        self._snapshot_restores = 0
+        self._warned_rescale = False
+        #: the wall time (``time.time()``) of this stage's first step,
+        #: from rank 0 under a remote plugin
+        self.first_step_wall: Optional[float] = None
         runners = [p for p in (plugins or []) if hasattr(p, "run")]
         if len(runners) > 1:
             raise ValueError("At most one execution plugin is supported.")
@@ -370,6 +402,17 @@ class Trainer:
         strategy = self.plugin.strategy
         self._mesh = strategy.build_mesh()
         set_current_mesh(self._mesh)
+        self.first_step_wall = None
+        # deterministic fault injection (elastic/faults.py): RLT_FAULT in
+        # this process's environment arms its faults
+        from ray_lightning_tpu_torch.elastic.faults import (
+            FaultInjector, maybe_injector_from_env)
+        if not any(isinstance(c, FaultInjector) for c in self.callbacks):
+            injector = maybe_injector_from_env()
+            if injector is not None:
+                self.callbacks.append(injector)
+        self._snapshotter = self._redundancy = None
+        self._snapshot_restores = 0
         if module.model is not None and any(
                 getattr(getattr(p, "_rlt_shard", None), "sharded", False)
                 for p in module.model.parameters()):
@@ -415,7 +458,16 @@ class Trainer:
 
         self.state = build_init_fn(module, tx, shard)(generator)
         trained = getattr(module, "_trained_state", None)
-        if ckpt_path:
+        recovery = self._elastic_recovery if stage == "fit" else None
+        if recovery:
+            # the parity route (elastic/redundancy.py): the driver rebuilt
+            # the dead rank's shard; restore the package at its escrowed
+            # step, reading no snapshot and no ``ckpt_path``
+            from ray_lightning_tpu_torch.elastic.redundancy import \
+                apply_recovery
+            apply_recovery(self, recovery, module)
+            self._elastic_recovery = None       # one-shot
+        elif ckpt_path:
             self._restore_checkpoint(ckpt_path, module)
         elif trained is not None:
             # reuse the weights of a previous fit with this module, as the
@@ -445,6 +497,14 @@ class Trainer:
         self._eval_steps = {s: build_eval_step(module, s)
                             for s in ("validate", "test")}
         self._predict_step = build_predict_step(module)
+
+        if stage == "fit" and self.elastic.enabled:
+            if self.elastic.snapshot_every_n_steps > 0:
+                from ray_lightning_tpu_torch.elastic.snapshot import \
+                    Snapshotter
+                self._snapshotter = Snapshotter(self, self.elastic)
+            if self.elastic.redundancy > 0:
+                self._redundancy = self._build_redundancy()
 
         for cb in self.callbacks:
             cb.setup(self, module, stage)
@@ -479,6 +539,8 @@ class Trainer:
             src = getattr(self.datamodule, f"{name}_dataloader")()
         if src is None:
             src = getattr(self.lightning_module, f"{name}_dataloader")()
+        if src is not None:
+            src = self._elastic_rescale_loader(src, name)
         mesh = self._mesh
         if src is not None and self.use_distributed_sampler \
                 and mesh.batch_size > 1 and hasattr(src, "shard"):
@@ -501,6 +563,66 @@ class Trainer:
                     f"slice_sequence (use core.data.DataLoader)")
             src = src.slice_sequence(seq, mesh.coords["sequence"])
         return src
+
+    def _build_redundancy(self):
+        """This stage's parity manager (elastic/redundancy.py), or None
+        where parity cannot run: one process, no rank-to-actor map (an
+        in-process fit has no peer channel), or a model cut by a sharded
+        layout (parity covers DDP and ZeRO-1)."""
+        from ray_lightning_tpu_torch.elastic import redundancy as _red
+        world = self.world_size
+        if world < 2:
+            _log.debug("elastic redundancy: one process, parity off "
+                      "(snapshot replay only)")
+            return None
+        names = [n for n in os.environ.get("RLT_PEER_NAMES", "").split(",")
+                 if n]
+        if len(names) != world:
+            _log.warning("elastic redundancy: no rank-to-actor map for %d "
+                        "ranks (RLT_PEER_NAMES); parity off, snapshot "
+                        "replay only", world)
+            return None
+        if self._layout is not None:
+            _log.warning("elastic redundancy: parity covers DDP and ZeRO-1, "
+                        "not %s's cut model; snapshot replay only",
+                        self.strategy.name)
+            return None
+        transport = _red.PeerParityTransport(names, self.global_rank,
+                                             _red.parity_timeout_s())
+        return _red.RedundancyManager(self, self.elastic, self.global_rank,
+                                      world, transport)
+
+    def _elastic_rescale_loader(self, src, name: str):
+        """After a shrink the fleet has fewer workers than the run started
+        with: keep the global batch (the world times a worker's batch,
+        what the trajectory depends on) by scaling each survivor's
+        loader batch by ``initial_workers / current_workers``, the batch
+        half of what the sharded restore does for the state.  A no-op
+        outside an elastic restart, or where the global batch does not
+        divide (a warning)."""
+        es = self._elastic_state
+        if not es or not self.elastic.enabled \
+                or not self.elastic.preserve_global_batch:
+            return src
+        initial = es.get("initial_workers") or 0
+        current = self.world_size
+        if initial <= 0 or initial == current:
+            return src
+        bs = getattr(src, "batch_size", None)
+        total = int(bs) * initial if bs is not None else None
+        if bs is None or not hasattr(src, "shard") or total % current:
+            if not self._warned_rescale:
+                self._warned_rescale = True
+                _log.warning(
+                    "elastic: cannot rescale the %s loader %r to keep the "
+                    "global batch across %d -> %d workers (no batch_size, "
+                    "or it does not divide); keeping its batch", name,
+                    type(src).__name__, initial, current)
+            return src
+        import copy
+        clone = copy.copy(src)
+        clone.batch_size = total // current
+        return clone
 
     def _build_loaders(self, stage: str) -> dict:
         if stage == "fit":
@@ -685,6 +807,7 @@ class Trainer:
                 cb.on_train_batch_start(self, module, batch, item.batch_idx)
         metrics = source.run_one(self, item)
         self.global_step += 1
+        self._after_step()
         self._accumulate_metrics(metrics)
         if self.global_step % self.log_every_n_steps == 0:
             self._publish_metrics(metrics)
@@ -706,6 +829,7 @@ class Trainer:
         before = self.global_step
         metrics = source.run_chunk(self, items)
         self.global_step += len(items)
+        self._after_step()
         self._accumulate_metrics(metrics)
         self._publish_if_crossed(before, {k: v[-1]
                                           for k, v in metrics.items()})
@@ -715,6 +839,18 @@ class Trainer:
                     self, module, metrics,
                     items[-1].batch() if want_batch else None,
                     items[-1].batch_idx)
+
+    def _after_step(self) -> None:
+        """The elastic plane after a dispatch: the parity tick, then the
+        snapshot (a rank that dies inside its save has escrowed the step
+        already); a chunk coarsens both cadences to its end, as it does
+        the batch hooks."""
+        if self.first_step_wall is None:
+            self.first_step_wall = time.time()
+        if self._redundancy is not None:
+            self._redundancy.maybe_tick()
+        if self._snapshotter is not None:
+            self._snapshotter.maybe_snapshot()
 
     def _accumulate_metrics(self, metrics: dict) -> None:
         for k, v in metrics.items():
@@ -1105,8 +1241,9 @@ class Trainer:
         reads the chunks that overlap its blocks.  The hooks receive the
         checkpoint's meta (``dump_checkpoint``'s keys without
         ``state``)."""
-        from ray_lightning_tpu_torch.utils.checkpoint import \
-            ShardedCheckpointer
+        from ray_lightning_tpu_torch.elastic.reshard import _verify_shapes
+        from ray_lightning_tpu_torch.utils.checkpoint import (
+            ShardedCheckpointer, flatten)
         t0 = time.perf_counter()
         root, step = ShardedCheckpointer.split_step_dir(directory)
         ckpt = ShardedCheckpointer(root, mesh=self._mesh)
@@ -1131,6 +1268,8 @@ class Trainer:
                 # saved with the plane, restored where it is inert: the
                 # residual is dropped
                 template["opt_state"] = {"inner": template["opt_state"]}
+            # another model's save raises naming the leaf, before a read
+            _verify_shapes(saved, flatten(template))
             state, meta = ckpt.restore(template, step)
         finally:
             ckpt.close()
@@ -1170,8 +1309,27 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.checkpoint_stats["restore_s"] = time.perf_counter() - t0
+        # the replay counter a parity recovery must leave at 0
+        self._snapshot_restores += 1
         self._restore_counters(int(meta["step"]), int(meta["rng"]), meta,
                                module)
+
+    def elastic_stats(self) -> Optional[dict]:
+        """This process's elastic numbers: the snapshotter's and the
+        parity manager's counters, the sharded restores of the stage
+        (``snapshot_restores``) and the driver's restart bookkeeping.
+        Rank 0's copy rides its result to the driver, which folds it into
+        ``_elastic_report``; None with nothing to say."""
+        out: dict = {}
+        if self._snapshotter is not None:
+            out.update(self._snapshotter.stats)
+        if self._redundancy is not None:
+            out.update(self._redundancy.stats)
+        if self._snapshot_restores:
+            out["snapshot_restores"] = self._snapshot_restores
+        if self._elastic_state:
+            out.update(self._elastic_state)
+        return out or None
 
 
 def _row_dtensor(row: torch.Tensor, index: int, world: int, mesh):

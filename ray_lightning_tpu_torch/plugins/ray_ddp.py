@@ -5,7 +5,7 @@ over subprocess actors, one rank a worker.
 names (``ray_lightning/ray_ddp.py``, ``ray_ddp_sharded.py``); their JAX
 counterparts are ``RayXlaPlugin`` and ``RayXlaShardedPlugin``
 (``ray_lightning_tpu/plugins/xla.py``), without its telemetry,
-compile-cache, elastic, planner and MPMD branches.  ``RaySpmdPlugin``
+compile-cache, planner and MPMD branches.  ``RaySpmdPlugin``
 (JAX ``RayXlaSpmdPlugin``, ``plugins/xla.py:696-703``) defaults to
 ``strategy="spmd"``; one rank is one card, so the JAX
 ``devices_per_worker=2`` is twice the workers here.  Driver side, a
@@ -26,6 +26,19 @@ run:
      divergent loader), and rehydrates the module from rank 0's state
      stream, with the metrics, counters and best checkpoint;
   5. kills every actor, whatever happened.
+
+An elastic fit (``Trainer(elastic=...)`` with ``max_restarts > 0``)
+goes through ``run_elastic_fit`` (elastic/driver.py), which calls
+:meth:`RayPlugin._run_attempt`, one fleet's lifecycle, until a fleet
+finishes: when an attempt fails, the plugin first probes which ranks'
+processes died (``process_alive``, never a busy survivor) and harvests
+the survivors' parity escrows from their frame readers, then tears the
+fleet down; the driver shrinks it and starts the next attempt, with a
+fresh ``MASTER_PORT``.  A survivor blocked in a collective whose peer
+died (NCCL) is never waited for past ``util.FAILURE_GRACE_S``: the dead
+actor's failed call decides the attempt.  Each worker gets the
+rank-ordered actor names (``RLT_PEER_NAMES``), so rank r reaches rank s
+over the peer channel.
 
 Worker side (:func:`_worker_run`), each actor takes its device (its
 local GPU, ``cuda:<local rank>``, or the CPU), joins the default process
@@ -79,6 +92,9 @@ RUN_TIMEOUT_S = 3600.0
 COLLECTIVE_TIMEOUT_S = 600.0
 #: every GPU worker on card 0 over gloo (module docstring)
 ONE_CARD_ENV = "RLT_ONE_CARD_GLOO"
+#: the bound of one survivor's escrow harvest (a blob of its optimizer
+#: shard, the params and a parity block through the driver's socket)
+ESCROW_TIMEOUT_S = 60.0
 
 
 def one_card(env=None) -> bool:
@@ -116,7 +132,10 @@ def _worker_run(payload: tuple, rank: int, queue) -> Optional[dict]:
         "epoch": int(trainer.current_epoch),
         "global_step": int(trainer.global_step),
     }
+    package["first_step_wall"] = trainer.first_step_wall
     if stage == "fit":
+        # the elastic plane's numbers, for the driver's report
+        package["elastic"] = trainer.elastic_stats()
         # the weights return in-band as a state stream: a temp-file
         # handoff breaks across nodes (the reference's ray_ddp.py)
         package["stream_t0"] = time.time()
@@ -189,6 +208,7 @@ class RayPlugin(ExecutionPlugin):
         state["_workers"] = []
         state["_backend"] = None
         state["init_hook"] = None       # already run before shipping
+        state["_last_escrows"] = {}     # the driver's, never shipped
         return state
 
     def __setstate__(self, state):
@@ -226,22 +246,60 @@ class RayPlugin(ExecutionPlugin):
             ckpt_path: Optional[str]):
         if self._is_remote:
             raise RuntimeError("plugin.run called inside a worker")
+        elastic = trainer.elastic
+        if stage == "fit" and elastic.enabled and elastic.max_restarts > 0:
+            # shrink-to-continue (elastic/driver.py)
+            from ray_lightning_tpu_torch.elastic.driver import \
+                run_elastic_fit
+            return run_elastic_fit(self, trainer, module, datamodule,
+                                   ckpt_path)
+        return self._run_attempt(trainer, module, datamodule, stage,
+                                 ckpt_path)
+
+    def _run_attempt(self, trainer, module, datamodule, stage: str,
+                     ckpt_path: Optional[str]):
+        """One fleet's lifecycle: create the actors, rendezvous, run the
+        stage, tear down.  On a failure, before teardown: the ranks
+        whose processes died (``_last_dead_ranks``) and, for an elastic
+        fit with parity, the survivors' escrows (``_last_escrows``)."""
         backend = get_backend()
         self._backend = backend
         env = self._worker_env_base()
-        # the comm plane's knobs, so a nested fit in a worker resolves
-        # the same policy (the trainer carries the resolved one)
+        # the comm and elastic planes' knobs, so a nested fit in a worker
+        # resolves the same config (the trainer carries the resolved one)
         env.update(trainer.comm_policy.worker_env())
+        env.update(trainer.elastic.worker_env())
         tag = uuid.uuid4().hex[:8]
+        names = [f"rlt-worker-{os.getpid()}-{tag}-{i}"
+                 for i in range(self.num_workers)]
+        # rank-ordered actor names: rank r sends to rank s by name over
+        # the peer channel (elastic/redundancy.py)
+        env["RLT_PEER_NAMES"] = ",".join(names)
+        self._last_dead_ranks, self._last_escrows = [], {}
+        self._last_harvest_s = None
         try:
             self._workers = [
                 backend.create_actor(
                     RLTExecutor, env=env,
-                    resources=self._worker_resources(),
-                    name=f"rlt-worker-{os.getpid()}-{tag}-{i}")
-                for i in range(self.num_workers)]
+                    resources=self._worker_resources(), name=name)
+                for name in names]
             return self._execution_loop(trainer, module, datamodule, stage,
                                         ckpt_path, backend)
+        except BaseException:
+            # the strict probe: a busy survivor reads alive
+            self._last_dead_ranks = [
+                i for i, w in enumerate(self._workers)
+                if w.process_alive() is False]
+            t0 = time.monotonic()
+            if stage == "fit" and trainer.elastic.enabled \
+                    and trainer.elastic.redundancy > 0:
+                for i, w in enumerate(self._workers):
+                    if i not in self._last_dead_ranks:
+                        esc = w.harvest_escrow(timeout=ESCROW_TIMEOUT_S)
+                        if esc is not None:
+                            self._last_escrows[i] = esc
+            self._last_harvest_s = time.monotonic() - t0
+            raise
         finally:
             for w in self._workers:
                 w.kill()
@@ -315,6 +373,8 @@ class RayPlugin(ExecutionPlugin):
 
     def _post_dispatch(self, trainer, module, stage, results):
         rank0 = results[0]
+        trainer.first_step_wall = rank0.get("first_step_wall")
+        trainer._elastic_worker_stats = rank0.get("elastic")
         trainer.callback_metrics.update(rank0["callback_metrics"])
         trainer.current_epoch = rank0["epoch"]
         trainer.global_step = rank0["global_step"]

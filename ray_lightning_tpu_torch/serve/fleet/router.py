@@ -56,8 +56,9 @@ KV-ship mailbox run in the driver on CPU tensors, so a fleet never
 initialises CUDA in the driver.  The telemetry plane (``telemetry=``,
 ``/metrics``, the aggregator's events), goodput and flight dumps are
 not ported yet (ROADMAP.md queue 1 item 13): ``telemetry=`` raises and
-``goodput_stats()`` is ``None``; so is the ``RLT_FAULT`` form of the
-``peerdrop`` chaos (item 10), while ``arm_kvship_drop()`` is ported.
+``goodput_stats()`` is ``None``.  Chaos: ``arm_kvship_drop(n)``, or an
+``RLT_FAULT`` ``peerdrop`` spec (elastic/faults.py), drops the next n
+KV ships.
 """
 
 from __future__ import annotations
@@ -320,14 +321,17 @@ class FleetServer:
                            "fetches": 0, "ships": 0, "bytes_wire": 0,
                            "bytes_raw": 0, "retries": 0, "failovers": 0,
                            "skipped": 0}
-        # chaos: the RLT_FAULT peerdrop spec belongs to the elastic
-        # plane's fault injector, not ported yet; arm_kvship_drop() is
+        # chaos: an RLT_FAULT peerdrop spec arms the router's KV-ship
+        # mailbox as it arms the worker-to-worker peer channel
+        # (elastic/faults.py); serve workers install no training fault
+        # injector, so the spec is unambiguous here
         raw_fault = os.environ.get("RLT_FAULT", "").strip()
         if raw_fault and "peerdrop" in raw_fault \
                 and (cfg.roles or self.directory is not None):
-            raise NotImplementedError(
-                "RLT_FAULT peerdrop is not ported yet (ROADMAP.md queue 1 "
-                "item 10); use FleetServer.arm_kvship_drop()")
+            from ray_lightning_tpu_torch.elastic.faults import parse_faults
+            for spec in parse_faults(raw_fault):
+                if spec.kind == "peerdrop":
+                    self._kvship_drop += spec.count
 
     # -- construction ------------------------------------------------------
 

@@ -2333,3 +2333,43 @@ def test_cuda_graphed_tensor_parallel_decode_equals_eager(cards):
     for o in outs:
         assert o["decode"] == (True, True) and o["prefill_32"] == (True,
                                                                    True), o
+
+
+# -- the elastic plane ----------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_parity_recovery_round_trips_the_escrow(cuda_device, tmp_path,
+                                                     monkeypatch):
+    """The parity route on one card: two ZeRO-1 workers on card 0 over
+    gloo (``RLT_ONE_CARD_GLOO=1``) train gpt2-small's width at 2 layers,
+    rank 1 is killed at step 3, and the fit ends on one worker at step 5,
+    resumed at step 3 with no snapshot read.  The escrow round trip is
+    bit for bit: the shard rebuilt from parity hashes to the digest rank
+    1 sent with its blob, and its bf16 first moments are among the
+    rebuilt leaves as bf16."""
+    from ray_lightning_tpu_torch import RayPlugin
+    from ray_lightning_tpu_torch.models.gpt import CONFIGS
+    monkeypatch.setenv("RLT_ONE_CARD_GLOO", "1")
+    cfg = dataclasses.replace(CONFIGS["gpt2-small"], n_layer=2)
+    module = GPTLightningModule(cfg, batch_size=2, dataset_size=2 * 2 * 5)
+    trainer = Trainer(
+        plugins=[RayPlugin(num_workers=2, strategy="zero1", timeout_s=300,
+                           worker_env={"RLT_FAULT": "kill:rank=1,step=3"})],
+        max_epochs=10, max_steps=5, seed=0, limit_val_batches=0,
+        num_sanity_val_steps=0, enable_checkpointing=False, logger=False,
+        default_root_dir=str(tmp_path),
+        elastic={"snapshot_every_n_steps": 2, "max_restarts": 1,
+                 "redundancy": 1, "snapshot_dir": str(tmp_path / "snap")})
+    trainer.fit(module)
+    rep = trainer._elastic_report
+    assert trainer.global_step == 5
+    assert (rep["recovery"], rep["resumed_step"], rep["workers"]) \
+        == ("parity", 3, 1)
+    assert rep.get("snapshot_restores", 0) == 0
+    assert rep["dead_digest"] == rep["escrowed_digest"]
+    rebuilt = rep["rebuilt_leaves"]
+    mu = [k for k in rebuilt if "/mu/" in k]
+    assert mu and all(rebuilt[k] == "bfloat16" for k in mu), rebuilt
+    assert all(torch.isfinite(v.float()).all()
+               for v in module._trained_state.values())

@@ -13,7 +13,8 @@ Three tiers:
   pool and the scale threads run in the test's thread, so each step is
   deterministic; for mixed load, quotas, failover, grow and shrink,
   drain, prefix affinity, federated fetches, a stale donor, peerdrop
-  chaos and disaggregated roles the decision log (which replica took
+  chaos (armed by ``arm_kvship_drop`` or by an ``RLT_FAULT`` spec) and
+  disaggregated roles the decision log (which replica took
   each request, what was exported, imported, requeued, failed, shipped
   or skipped, the counters) equals the JAX ``FleetServer``'s;
 - real fleets of ``platform="cpu"`` serve actors: pooled, with the JAX
@@ -399,7 +400,7 @@ class _Script:
     """One package's router over fakes, stepped by hand."""
 
     def __init__(self, name, monkeypatch, n=2, slots=2, paged=None,
-                 **kw):
+                 fault=None, **kw):
         self.pkg = PACKAGES[name]()
         monkeypatch.setattr(self.pkg.router, "threading", types.SimpleNamespace(
             Thread=_SyncThread, RLock=threading.RLock, Event=threading.Event,
@@ -415,9 +416,13 @@ class _Script:
             self.fakes[rid] = _Fake(self.pkg, self.log, rid, slots, paged)
             return self.fakes[rid]
 
+        if fault is not None:           # RLT_FAULT, read at construction
+            monkeypatch.setenv("RLT_FAULT", fault)
         self.fleet = self.pkg.router.FleetServer(
             object(), replicas=n, telemetry=False, replica_factory=factory,
             **kw)
+        if fault is not None:
+            monkeypatch.delenv("RLT_FAULT")
         self.fleet._pump_loop = lambda: None
         self.fleet._kvship_executor = lambda: _Inline()
         self.fleet.start()
@@ -620,6 +625,9 @@ SCRIPTS = {
     "chaos-peerdrop": (_chaos, {"paged": PAGED,
                                 "fleet": {"prefix_fed": True,
                                           "sticky_slack": 0}}),
+    "chaos-peerdrop-env": (_federated, {
+        "paged": PAGED, "fault": "peerdrop:rank=0,step=1,count=1",
+        "fleet": {"prefix_fed": True, "sticky_slack": 0}}),
     "disagg-fp8": (_disagg, {"paged": PAGED, "fleet": {
         "roles": ("prefill", "decode"), "kvship_codec": "fp8"}}),
     "disagg-raw": (_disagg, {"paged": PAGED, "fleet": {
@@ -665,7 +673,7 @@ def test_router_decisions_equal_jax(script, monkeypatch):
     elif script == "stale-donor":
         assert f.federation["ships"] == 0 and f.directory.stats()[
             "invalidations"] == 1
-    elif script == "chaos-peerdrop":
+    elif script.startswith("chaos-peerdrop"):
         assert f.federation["failovers"] == 1 \
             and f.federation["retries"] == 2
         assert f.directory.affinity(SHARED).get(0) == 16
@@ -680,12 +688,23 @@ def test_router_decisions_equal_jax(script, monkeypatch):
 
 
 def test_router_refuses_what_is_not_ported(monkeypatch):
-    """The telemetry plane and the RLT_FAULT form of peerdrop raise,
-    naming their ROADMAP.md items."""
+    """The telemetry plane raises, naming its ROADMAP.md item.  The
+    RLT_FAULT form of peerdrop is ported: it arms the KV-ship drop as
+    the JAX router's does, equal to ``arm_kvship_drop`` (the chaos
+    script above, tests/test_torch_fleet.py), and a malformed spec
+    raises naming its clause."""
     with pytest.raises(NotImplementedError, match="item 13"):
         FleetServer(object(), telemetry={"metrics_port": 0})
-    monkeypatch.setenv("RLT_FAULT", "peerdrop:rank=0,step=1,count=1")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    import ray_lightning_tpu.serve.fleet.router as jax_router
+    monkeypatch.setenv("RLT_FAULT", "peerdrop:rank=0,step=1,count=2;"
+                       "peerdrop:rank=1,step=3,count=1;kill:rank=1,step=9")
+    for cls in (FleetServer, jax_router.FleetServer):
+        fleet = cls(object(), fleet={"roles": ("prefill", "decode")})
+        assert fleet._kvship_drop == 3
+    # without a ship plane (no roles, no federation) nothing is armed
+    assert FleetServer(object(), replicas=2)._kvship_drop == 0
+    monkeypatch.setenv("RLT_FAULT", "peerdrop:rank=0")
+    with pytest.raises(ValueError, match="peerdrop:rank=0"):
         FleetServer(object(), fleet={"roles": ("prefill", "decode")})
     monkeypatch.delenv("RLT_FAULT")
     fleet = FleetServer(object(), replicas=2)

@@ -454,10 +454,11 @@ def test_lm_loss_routes_agree(route, monkeypatch):
 def test_trainer_refuses_what_is_not_ported():
     """Arguments of the JAX Trainer that the port does not honour yet
     raise instead of being ignored: the planner's and MPMD's strategies
-    and the telemetry, compile-cache, elastic and planner planes.
+    and the telemetry, compile-cache and planner planes.
     (The strategies beyond DDP and ZeRO-1,
     ``"fsdp"`` and ``"spmd"``, are ported: tests/test_torch_sharded.py;
-    so is ``comm_policy``: tests/test_torch_comm.py.)
+    so is ``comm_policy``: tests/test_torch_comm.py; so is ``elastic``:
+    tests/test_torch_elastic.py, tests/test_torch_failure.py.)
     (gpt2-medium's remat "dots" is ported: tests/test_torch_remat.py.)
     Checkpointing,
     clipping, the bf16 batch cast, dropout, the plugins and the loop
@@ -467,7 +468,6 @@ def test_trainer_refuses_what_is_not_ported():
     tests/test_torch_loop_engine.py)."""
     for kw in (dict(strategy="auto"), dict(strategy="mpmd"),
                dict(telemetry=True), dict(compile_cache=True),
-               dict(elastic=True),
                dict(plan=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             Trainer(device="cpu", **kw)
