@@ -121,7 +121,8 @@ def _main(argv) -> int:   # noqa: ARG001 - argv kept for parity
 
     # 1. policy resolution per ported strategy, on a 4-rank data mesh
     expect = {"ddp": True, "dp": True, "zero1": True, "sharded": True,
-              "fsdp": False, "zero3": False, "spmd": False}
+              "fsdp": False, "zero3": False, "spmd": False,
+              "auto": False}
     for name in sorted(_STRATEGIES):
         strat = resolve_strategy(name)
         mesh = Mesh.abstract(strat.axis_names, {"data": WORLD})

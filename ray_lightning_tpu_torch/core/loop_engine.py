@@ -32,6 +32,11 @@ and exist once.
   sequence slice of them, under a ``sequence`` axis), and the
   all-to-all runs over the group of the batch axes.
 
+Both sources' programs submit their kernels' builds to the trainer's
+precompiler (compile/aot.py) when the compile cache is active: the
+chunk runner where the trainer builds it, the cached step here, behind
+the upload.
+
 At world size > 1 with ``RLT_DATA_CHECK=1`` the stream source relays a
 fingerprint of every batch to the driver, which checks the ranks
 against the shared-loader contract (core/datacheck.py).
@@ -292,6 +297,11 @@ class CachedSource:
                 "cache_train_dataset: the collated dataset is not [N, ...] "
                 "shaped; streaming instead.")
             return False
+        pre = getattr(self._trainer, "_precompiler", None)
+        if pre is not None:
+            # the cached-step programs' kernels build behind the upload
+            # (compile/aot.py; a no-op once built)
+            pre.submit_kernels("cached_step")
         self._flat = self._trainer._to_device(flat)
         return True
 

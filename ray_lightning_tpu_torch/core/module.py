@@ -218,6 +218,16 @@ class LightningModule:
         reference)."""
         return None
 
+    def configure_remat(self):
+        """Planner hook (core/remat.py): a ``RematSpec`` naming this
+        module's remat ladder, its current default, how to reconfigure
+        it in place and a per-policy cost probe, so
+        ``Trainer(strategy="auto")`` sweeps recompute against memory as
+        a scored axis.  Default: ``None`` (no remat lever; the planner
+        records the axis as ``remat_unsupported`` when a sweep was asked
+        for).  models/gpt.py has the reference."""
+        return None
+
     def setup_model(self, device=None) -> None:
         """Materialize ``self.model`` on ``device`` (idempotent)."""
         if self.model is None:

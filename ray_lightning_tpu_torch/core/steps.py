@@ -293,7 +293,8 @@ def capture_graph(fn: Callable, device: torch.device, pool=None,
     capture.  ``thread_local``: the NCCL watchdog's event queries on
     other threads stay legal during the capture.  The capture runs the
     Python but no kernel, so the launches its wrappers counted are
-    taken back; :meth:`CapturedGraph.replay` adds them again."""
+    taken back; :meth:`CapturedGraph.replay` adds them again.  Its
+    seconds count as compile seconds (compile/cache.py)."""
     before = launch_counts()
     # the capture empties the allocator's cache first; so does this,
     # so the reserved bytes' growth is the graph's pool
@@ -309,6 +310,8 @@ def capture_graph(fn: Callable, device: torch.device, pool=None,
     launches = {n: c - before.get(n, 0) for n, c in launch_counts().items()
                 if c != before.get(n, 0)}
     add_launches({n: -c for n, c in launches.items()})
+    from ray_lightning_tpu_torch.compile import cache as compile_cache
+    compile_cache.note_capture(capture_ms / 1e3)
     return CapturedGraph(graph, out, launches, capture_ms,
                          torch.cuda.memory_reserved(device) - reserved)
 

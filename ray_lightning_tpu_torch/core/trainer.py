@@ -83,9 +83,21 @@ dead rank with a smaller fleet resumed from the parity escrows or the
 latest snapshot (elastic/driver.py; the report in ``_elastic_report``,
 the worker's numbers in ``elastic_stats()``); ``RLT_FAULT`` in a
 worker's environment arms the deterministic faults of
-elastic/faults.py.  The telemetry, compile-cache and planner planes
-raise ``NotImplementedError`` when given a value other than their
-default.
+elastic/faults.py.  ``compile_cache`` (a root, ``True``, a dict or a
+``CompileCacheConfig``; the ``RLT_COMPILE_CACHE*`` knobs or the live
+Tune trial's shared root when ``None``, compile/cache.py) puts the
+nvcc-built kernel libraries in a namespaced directory every later
+process of the run finds, and engages the precompiler (compile/aot.py:
+the kernel builds on a background thread during set-up, a barrier
+before the first step); ``time_to_first_step`` is the stage's seconds
+to its first step.  ``strategy="auto"`` (``plan=``: a ``PlanConfig``
+or a dict; the ``RLT_PLAN_*`` knobs when ``None``) runs the planner
+(plan/) before the mesh is built: it picks the strategy, the comm
+policy, the microbatch and the remat policy (applied to the module
+through its ``configure_remat()``) for the train step, and leaves its
+report on ``_plan_report``; other stages fall back to DDP.  The
+telemetry plane raises ``NotImplementedError`` when given a value
+other than its default.
 
 The epoch engine (one loop over a batch source, core/loop_engine.py):
 a chunk never crosses ``max_steps`` or a ``val_check_interval``
@@ -126,7 +138,11 @@ import torch
 from ray_lightning_tpu_torch.comm.collectives import (CommState, CommTx,
                                                       inner_state_dict)
 from ray_lightning_tpu_torch.comm.policy import CommPolicy
+from ray_lightning_tpu_torch.compile import cache as compile_cache
+from ray_lightning_tpu_torch.compile.aot import AotPrecompiler
+from ray_lightning_tpu_torch.compile.cache import CompileCacheConfig
 from ray_lightning_tpu_torch.elastic.config import ElasticConfig
+from ray_lightning_tpu_torch.plan.config import PlanConfig
 from ray_lightning_tpu_torch.parallel import strategy as _parallel
 from ray_lightning_tpu_torch.parallel.gather import fetch_tree
 from ray_lightning_tpu_torch.parallel.layout import (ShardLayout,
@@ -158,8 +174,6 @@ _log = logging.getLogger(__name__)
 #: arguments of the JAX ``Trainer`` that are not ported: name -> default
 _NOT_PORTED = {
     "telemetry": None,
-    "compile_cache": None,
-    "plan": None,
 }
 
 #: the JAX ``Trainer``'s precision spellings: every one of the first
@@ -216,13 +230,21 @@ class Trainer:
             raise ValueError(
                 f"Unknown precision {precision!r}; use one of "
                 f"{_BF16_PRECISIONS + _FP32_PRECISIONS}")
-        given = dict(telemetry=telemetry, compile_cache=compile_cache,
-                     plan=plan)
+        given = dict(telemetry=telemetry)
         for name, default in _NOT_PORTED.items():
             if given[name] != default:
                 raise NotImplementedError(
                     f"Trainer({name}={given[name]!r}) is not ported yet "
                     f"(ROADMAP.md queue 1)")
+        #: the compile plane (compile/cache.py) and the planner's config
+        #: (plan/config.py), its last report and the precompiler
+        self.compile_cache = CompileCacheConfig.resolve(compile_cache)
+        self.plan = PlanConfig.resolve(plan)
+        self._plan_report: Optional[dict] = None
+        self._precompiler: Optional[AotPrecompiler] = None
+        #: seconds from the stage's start to its first step (synced)
+        self.time_to_first_step: Optional[float] = None
+        self._stage_t0: Optional[float] = None
         #: the resolved comm policy (comm/policy.py) and, while a stage
         #: runs with it active, its ``GradSync``
         self.comm_policy = CommPolicy.resolve(comm_policy)
@@ -399,10 +421,11 @@ class Trainer:
                        "global_rank": _parallel.global_rank(),
                        "local_rank": int(env.get("LOCAL_RANK", 0)),
                        "node_rank": int(env.get("NODE_RANK", 0))}
-        strategy = self.plugin.strategy
-        self._mesh = strategy.build_mesh()
-        set_current_mesh(self._mesh)
         self.first_step_wall = None
+        self._stage_t0 = time.monotonic()
+        self.time_to_first_step = None
+        # the kernel libraries' cache, before anything builds one
+        compile_cache.activate(self.compile_cache)
         # deterministic fault injection (elastic/faults.py): RLT_FAULT in
         # this process's environment arms its faults
         from ray_lightning_tpu_torch.elastic.faults import (
@@ -425,16 +448,20 @@ class Trainer:
             datamodule._call_setup(stage)
         module.prepare_data()
         module.setup(stage)
+        strategy = self.plugin.strategy
+        if getattr(strategy, "name", "") == "auto":
+            # the planner: module, example batch and world are known
+            # here, one line before the mesh is built
+            strategy = self._resolve_auto_strategy(module, strategy, stage)
+            self.plugin.strategy = strategy
+        self._mesh = strategy.build_mesh()
+        set_current_mesh(self._mesh)
         module.setup_model(self.device)
         loaders = self._build_loaders(stage)
         if loaders[_LOADER_OF_STAGE[stage]] is None:
             raise ValueError(f"No dataloader available for stage {stage!r}")
 
-        tx = module.configure_optimizers()
-        if isinstance(tx, dict):
-            tx = tx["optimizer"]
-        if self.gradient_clip_val:
-            tx = chain(clip_by_global_norm(self.gradient_clip_val), tx)
+        tx = self._module_tx(module)
         # the comm plane: None (off, or inert on this strategy and mesh)
         # keeps the step's collectives as they are without a policy
         sync = self._grad_sync = strategy.grad_transform(
@@ -447,6 +474,10 @@ class Trainer:
             tx = CommTx(strategy.wrap_optimizer(tx, comm=sync), sync)
         #: the optimizer the step runs (its wraps included)
         self._tx = tx
+        # the kernel builds, behind state init and the rendezvous
+        self._precompiler = AotPrecompiler.resolve()
+        if stage == "fit":
+            self._precompiler.submit_kernels("train_step")
         generator = torch.Generator(device=self.device).manual_seed(seed)
         self._layout = None
 
@@ -493,6 +524,7 @@ class Trainer:
                 self._train_step, tx, self.steps_per_execution,
                 module.model, self.device, ungraphed=ungraphed)
             self.graph_stats = self._multi_train_step.stats
+            self._precompiler.submit_kernels("multi_step")
         self._cache_disabled = False
         self._eval_steps = {s: build_eval_step(module, s)
                             for s in ("validate", "test")}
@@ -530,6 +562,72 @@ class Trainer:
             for cb in self.callbacks:
                 cb.teardown(self, module, stage)
             set_current_mesh(None)
+
+    # -- auto-parallelism (plan/) ------------------------------------------
+
+    def _example_batch(self, module):
+        """A rank's first train batch, cast as the steps take it, read
+        from a fresh iterator of the datamodule's or the module's train
+        loader (the planner's shapes; the fit's own iterator starts at
+        the beginning as always)."""
+        src = None
+        if self.datamodule is not None:
+            src = self.datamodule.train_dataloader()
+        if src is None:
+            src = module.train_dataloader()
+        if src is None:
+            raise ValueError("strategy='auto' needs a train dataloader to "
+                             "plan from")
+        return self._host_cast(next(iter(src)))
+
+    def _module_tx(self, module):
+        """The module's optimizer before the strategy wraps it, the clip
+        chained ahead (the stage's, and the planner's candidates')."""
+        tx = module.configure_optimizers()
+        if isinstance(tx, dict):
+            tx = tx["optimizer"]
+        if self.gradient_clip_val:
+            tx = chain(clip_by_global_norm(self.gradient_clip_val), tx)
+        return tx
+
+    def _resolve_auto_strategy(self, module, auto, stage: str):
+        """Run the planner and apply its winner (JAX
+        ``core/trainer.py:729``): the concrete strategy is returned; the
+        comm policy, the microbatch and the remat policy land on the
+        trainer and the module; the report on ``_plan_report``.  Only the
+        train step is planned: other stages fall back to DDP."""
+        if stage != "fit":
+            _log.info("strategy='auto' plans the train step; %s stage "
+                      "falls back to ddp", stage)
+            return resolve_strategy("ddp")
+        from ray_lightning_tpu_torch.plan import Planner
+        cfg = auto.plan if getattr(auto, "plan", None) is not None \
+            else self.plan
+        batch = self._example_batch(module)
+        lead = next((t.shape[0] for t in tree_leaves(batch)
+                     if t.dim() > 0), None)
+        world = _parallel.world_size()
+        mb = (self.accumulate_grad_batches,) \
+            if self.accumulate_grad_batches > 1 else None
+        report = Planner(cfg).plan(
+            module, batch, n_devices=world,
+            batch_hint=None if lead is None else int(lead) * world,
+            base_comm_policy=self.comm_policy, microbatch_options=mb,
+            tx_factory=lambda _gs: self._module_tx(module),
+            device=self.device)
+        self._plan_report = report.to_dict()
+        winner = report.winner_candidate
+        self.comm_policy = (report.winner_policy if winner.comm
+                            else CommPolicy())
+        self.accumulate_grad_batches = int(winner.microbatch)
+        if winner.remat:
+            spec = module.configure_remat()
+            if spec is not None and winner.remat != spec.default:
+                spec.apply(winner.remat)
+                _log.info("plan: remat policy %r applied (module default "
+                          "was %r)", winner.remat, spec.default)
+        _log.info("plan: %s", report.summary())
+        return winner.build_strategy()
 
     def _get_loader(self, name: str):
         """The datamodule's loader, else the module's; this rank's shard
@@ -746,6 +844,10 @@ class Trainer:
         singly, per chunk when k steps ride one dispatch) and the
         validation check after every dispatch (module docstring)."""
         source = self._train_source(train_loader)
+        if self._precompiler is not None:
+            # every kernel build submitted so far lands before the first
+            # step (instant from the second epoch on)
+            self._precompiler.barrier()
         k = self.steps_per_execution
         while not (self.should_stop or self._max_steps_reached()):
             allowed = self._allowed_chunk()
@@ -847,6 +949,12 @@ class Trainer:
         the batch hooks."""
         if self.first_step_wall is None:
             self.first_step_wall = time.time()
+        if self.time_to_first_step is None and self._stage_t0 is not None:
+            # once a stage: the first step's work included
+            if self.device is not None and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.time_to_first_step = time.monotonic() - self._stage_t0
+            compile_cache.note_first_step(self.time_to_first_step)
         if self._redundancy is not None:
             self._redundancy.maybe_tick()
         if self._snapshotter is not None:

@@ -253,6 +253,27 @@ def softmax_cross_entropy(logits, labels, tp=None):
     return lse - target_logit(logits, labels, tp)
 
 
+def _bert_remat_spec(module):
+    """``configure_remat()`` of both BERT modules (JAX
+    ``models/bert.py:145``): the generic ladder, probed on the encoder
+    layers both share."""
+    from ray_lightning_tpu_torch.core import remat as _rm
+    base: dict = {}
+
+    def block_probe(policy: str, B: int, T: int):
+        cfg = module.config
+
+        def make(_kind, _pol):
+            lyr = EncoderLayer(cfg)
+            return lyr, lyr
+        saved, flops = _rm.probe_blocks(
+            make, [(cfg.n_layer, "layer")], policy, B, T, cfg.n_embd,
+            cfg.dtype, getattr(module, "param_dtype", None), base)
+        return saved, flops, cfg.n_layer
+
+    return _rm.ladder_spec(module, _rm.POLICY_LADDER, block_probe)
+
+
 class BertMLMModule(LightningModule):
     """Masked-LM pretraining.  A Bernoulli(``mask_prob``) mask drawn from
     the step's key (``ctx.make_key()``, a keyed draw that a graphed chunk
@@ -276,6 +297,9 @@ class BertMLMModule(LightningModule):
         self.batch_size = batch_size
         self.train_size = train_size
         self.val_size = val_size
+
+    def configure_remat(self):
+        return _bert_remat_spec(self)
 
     def configure_model(self, device=None):
         return BertForMaskedLM(self.config, device=device)
@@ -375,6 +399,9 @@ class BertLightningModule(ClassificationModule):
         self.batch_size = batch_size
         self.train_size = train_size
         self.val_size = val_size
+
+    def configure_remat(self):
+        return _bert_remat_spec(self)
 
     def configure_model(self, device=None):
         return BertClassifier(self.config, device=device)

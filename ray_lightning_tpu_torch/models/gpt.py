@@ -549,6 +549,37 @@ class GPTLightningModule(LightningModule):
         return GPT(dataclasses.replace(cfg, n_layer=n, remat=False,
                                        dropout=0.0), device=device)
 
+    def configure_remat(self):
+        """The planner's remat surface (core/remat.py, JAX
+        ``models/gpt.py:373``): the ladder, plus the MoE save lists when
+        the config routes experts; ``apply`` folds a policy into the
+        config ("off" drops the wrap) and drops the model; the probe
+        prices a policy one block kind at a time (dense and routed),
+        over fake tensors at the example batch's shape."""
+        from ray_lightning_tpu_torch.core import remat as _rm
+
+        policies = list(_rm.POLICY_LADDER)
+        if self.config.n_experts > 0:
+            policies += list(_rm.MOE_POLICIES)
+        base: dict = {}
+
+        def block_probe(policy: str, B: int, T: int):
+            cfg = self.config
+            n_moe = sum(1 for i in range(cfg.n_layer)
+                        if cfg.n_experts > 0
+                        and i % cfg.moe_every == cfg.moe_every - 1)
+
+            def make(use_moe: bool, pol: str):
+                blk = Block(cfg, use_moe, pol in _rm.MOE_POLICIES)
+                return blk, lambda h: blk.train_forward(h)
+            saved, flops = _rm.probe_blocks(
+                make, [(cfg.n_layer - n_moe, False), (n_moe, True)],
+                policy, B, T, cfg.n_embd, cfg.dtype, self.param_dtype,
+                base)
+            return saved, flops, cfg.n_layer
+
+        return _rm.ladder_spec(self, tuple(policies), block_probe)
+
     @property
     def param_dtype(self) -> Optional[torch.dtype]:
         """bf16-resident params unless ``RLT_BF16_PARAMS=0``, as in the

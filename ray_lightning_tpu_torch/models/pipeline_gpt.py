@@ -164,10 +164,24 @@ class PipelinedGPT(LightningModule):
                      b2=0.95)
 
     def configure_remat(self):
-        raise NotImplementedError(
-            "PipelinedGPT's remat probes belong to the planner, which is "
-            "not ported yet (ROADMAP.md queue 1 item 12); the remat "
-            "policy itself runs (GPTConfig.remat / remat_policy)")
+        """The GPT ladder without the MoE save lists (this model rejects
+        MoE configs), probed on the one block kind every stage runs (JAX
+        ``models/pipeline_gpt.py:114``)."""
+        from ray_lightning_tpu_torch.core import remat as _rm
+        base: dict = {}
+
+        def block_probe(policy: str, B: int, T: int):
+            cfg = self.config
+
+            def make(_kind, _pol):
+                blk = Block(cfg)
+                return blk, blk
+            saved, flops = _rm.probe_blocks(
+                make, [(cfg.n_layer, "block")], policy, B, T, cfg.n_embd,
+                cfg.dtype, self.param_dtype, base)
+            return saved, flops, cfg.n_layer
+
+        return _rm.ladder_spec(self, _rm.POLICY_LADDER, block_probe)
 
     def configure_mpmd(self):
         raise NotImplementedError(

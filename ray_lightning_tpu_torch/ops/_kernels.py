@@ -11,6 +11,15 @@ starts one ``nvcc`` per source at once (the smoke script's set-up).
 A :class:`Kernel` also carries its launch counter: the wrapper bumps
 ``launches`` where it launches the kernel and nowhere else, so a run can
 show that the main path went through it.
+
+With the compile cache active (compile/cache.py) the libraries live in
+its namespaced directory instead (:func:`set_library_dir`), so every
+process pointed at one cache root finds the libraries the first one
+built: each library a process needs counts once, a hit when its key is
+found, a miss when nvcc runs (``compile.cache.stats``).  The same
+keyed-artifact path builds any C source with another compiler
+(``Kernel(compiler=, flags=, csrc=)``), which is how the CPU tests run
+it without nvcc.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -34,6 +44,32 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: every kernel the package defines, by name (filled by ``Kernel``)
 REGISTRY: "dict[str, Kernel]" = {}
+#: where libraries go: the compile cache's namespace while it is active
+#: (compile/cache.py ``activate``), else :data:`BUILD_DIR`
+_LIBRARY_DIR: "Path | None" = None
+#: the libraries this process has counted for the cache's stats
+_COUNTED: "set[Path]" = set()
+
+
+def set_library_dir(path: "str | Path | None") -> None:
+    """Build and load libraries under ``path`` (``None``: back to
+    :data:`BUILD_DIR`).  Kernels already bound keep their library."""
+    global _LIBRARY_DIR
+    _LIBRARY_DIR = Path(path) if path is not None else None
+
+
+def library_dir() -> Path:
+    return _LIBRARY_DIR if _LIBRARY_DIR is not None else BUILD_DIR
+
+
+def _count(path: Path, hit: bool, seconds: float = 0.0) -> None:
+    """One library this process needs, counted once (module
+    docstring)."""
+    if path in _COUNTED:
+        return
+    _COUNTED.add(path)
+    from ray_lightning_tpu_torch.compile import cache
+    cache.note_library(hit, seconds)
 #: one build at a time in this process: kernels that share a source
 #: share its library and its temporary output, and threads (Tune trials)
 #: may first use two of them at once
@@ -69,11 +105,16 @@ class Kernel:
     """
 
     def __init__(self, name: str, source: str, entry: str,
-                 signature: str):
+                 signature: str, compiler: str = "nvcc",
+                 flags: "Sequence[str]" = NVCC_FLAGS,
+                 csrc: "Path | None" = None, register: bool = True):
         self.name = name
         self.source = source
         self.entry = entry
         self.signature = signature
+        self.compiler = compiler
+        self.flags = tuple(flags)
+        self._csrc = Path(csrc) if csrc is not None else None
         self.launches = 0
         self._count_lock = threading.Lock()
         #: nvcc's output of the last build (``-Xptxas=-v``: registers,
@@ -81,27 +122,40 @@ class Kernel:
         self.build_log = ""
         self._fn = None
         self._lock = threading.Lock()
-        REGISTRY[name] = self
+        if register:
+            REGISTRY[name] = self
+
+    @property
+    def csrc(self) -> Path:
+        return self._csrc if self._csrc is not None else CSRC
 
     @property
     def path(self) -> Path:
-        return CSRC / self.source
+        return self.csrc / self.source
 
     def library_path(self) -> Path:
         """Build output, keyed by the sources and flags it depends on."""
         h = hashlib.sha256()
-        for src in sorted(CSRC.glob("*.cu*")):
-            if src.suffix == ".cuh" or src == self.path:
+        for src in sorted(self.csrc.glob("*.c*")):
+            if src.suffix in (".cuh", ".h") or src == self.path:
                 h.update(src.name.encode())
                 h.update(src.read_bytes())
-        h.update(" ".join(NVCC_FLAGS).encode())
+        h.update(" ".join((self.compiler,) + self.flags).encode())
         stem = Path(self.source).stem
-        return BUILD_DIR / f"lib{stem}-{h.hexdigest()[:16]}.so"
+        return library_dir() / f"lib{stem}-{h.hexdigest()[:16]}.so"
 
-    def build_command(self, nvcc: str) -> "tuple[list[str], Path, Path]":
+    def find_compiler(self) -> str:
+        if self.compiler == "nvcc":
+            return find_nvcc()
+        found = shutil.which(self.compiler)
+        if found is None:
+            raise RuntimeError(f"{self.compiler} not found on PATH")
+        return found
+
+    def build_command(self, compiler: str) -> "tuple[list[str], Path, Path]":
         out = self.library_path()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        return ([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(self.path)],
+        return ([compiler, *self.flags, "-o", str(tmp), str(self.path)],
                 tmp, out)
 
     def _bind(self):
@@ -119,7 +173,9 @@ class Kernel:
         if self._fn is None:
             with self._lock:
                 if self._fn is None:
-                    if not self.library_path().is_file():
+                    if self.library_path().is_file():
+                        _count(self.library_path(), hit=True)
+                    else:
                         build([self])
                     self._fn = self._bind()
         return self._fn
@@ -146,28 +202,30 @@ def build(kernels: "Optional[Sequence[Kernel]]" = None) -> float:
 
 
 def _build(kernels: "Optional[Sequence[Kernel]]") -> float:
-    import time
     t0 = time.monotonic()
     # kernels whose entry points share a source share its library: one
     # nvcc each library
     todo: "dict[Path, list[Kernel]]" = {}
     for k in (kernels if kernels is not None else REGISTRY.values()):
-        if not k.library_path().is_file():
-            todo.setdefault(k.library_path(), []).append(k)
+        path = k.library_path()
+        if not path.is_file():
+            todo.setdefault(path, []).append(k)
+        else:
+            _count(path, hit=True)
     if not todo:
         return 0.0
-    nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    library_dir().mkdir(parents=True, exist_ok=True)
     procs = []
     failures = []
     try:
         for group in todo.values():
             k = group[0]
-            cmd, tmp, out = k.build_command(nvcc)
-            procs.append((group, tmp, out, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
-        for group, tmp, out, p in procs:
+            cmd, tmp, out = k.build_command(k.find_compiler())
+            procs.append((group, tmp, out, time.monotonic(),
+                          subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True)))
+        for group, tmp, out, started, p in procs:
             k = group[0]
             log, _ = p.communicate()
             for g in group:
@@ -177,6 +235,7 @@ def _build(kernels: "Optional[Sequence[Kernel]]") -> float:
                 tmp.unlink(missing_ok=True)
             else:
                 os.replace(tmp, out)   # atomic: readers never see half
+                _count(out, hit=False, seconds=time.monotonic() - started)
     finally:
         for *_, p in procs:
             if p.poll() is None:
@@ -209,4 +268,5 @@ def launch_counts() -> "dict[str, int]":
 
 
 __all__ = ["Kernel", "REGISTRY", "add_launches", "build", "find_nvcc",
-           "launch_counts", "reset_launches"]
+           "launch_counts", "library_dir", "reset_launches",
+           "set_library_dir"]

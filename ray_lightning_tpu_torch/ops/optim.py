@@ -163,10 +163,14 @@ def device_scalars(values: np.ndarray, device: torch.device
                    ) -> torch.Tensor:
     """``values`` (float32, from the host) as a tensor on ``device``: on
     the card sent from pinned memory without a wait (the pinned block is
-    not reused until the copy ends)."""
+    not reused until the copy ends); under a fake-tensor mode (the
+    planner's verify step) a plain copy, as nothing is pinned there."""
     t = torch.from_numpy(np.ascontiguousarray(values, np.float32))
     if device.type != "cuda":
         return t
+    if torch._C._get_dispatch_mode(
+            torch._C._TorchDispatchModeKey.FAKE) is not None:
+        return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
 
 

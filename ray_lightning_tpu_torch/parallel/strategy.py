@@ -63,9 +63,12 @@ Each strategy answers the JAX package's ``param_spec`` / ``opt_spec`` /
 ``batch_spec`` / ``kv_cache_spec`` as tuples equal to JAX's
 (:class:`PartitionSpec`), for the flax path of a port parameter
 (``convert.flax_path``); ``kv_cache_block`` is the serve engine's block
-of slots and heads on one rank (serve/engine.py).  ``"auto"``
-and ``"mpmd"`` raise ``NotImplementedError`` naming their ROADMAP.md
-item; other names raise ``ValueError``, as in the JAX package.
+of slots and heads on one rank (serve/engine.py).  ``"auto"`` is
+:class:`AutoStrategy`, the sentinel the planner plane (plan/) resolves
+inside ``Trainer`` into a concrete strategy; each strategy describes
+the meshes it can plan over (``plan_mesh_options`` / ``from_plan``).
+``"mpmd"`` raises ``NotImplementedError`` naming its ROADMAP.md item;
+other names raise ``ValueError``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -282,6 +285,19 @@ class ShardingStrategy:
 
     def axis_sizes(self, n_devices: int) -> dict:
         return {"data": n_devices}
+
+    @classmethod
+    def plan_mesh_options(cls, n_devices: int) -> tuple:
+        """The mesh factorizations of ``n_devices`` this strategy can be
+        planned over, as axis-size dicts (the planner enumerates one
+        candidate each).  Single-axis strategies have one."""
+        return ({"data": n_devices},)
+
+    @classmethod
+    def from_plan(cls, axis_sizes: dict) -> "ShardingStrategy":
+        """The strategy for one :meth:`plan_mesh_options` entry."""
+        del axis_sizes
+        return cls()
 
     def build_mesh(self, batch_hint: "int | None" = None):
         """The mesh of the default process group (parallel/mesh.py):
@@ -586,6 +602,20 @@ class SpmdStrategy(_ParamSharded):
         if sizes.get("data") is None:
             sizes["data"] = -1
         return sizes
+
+    @classmethod
+    def plan_mesh_options(cls, n_devices: int) -> tuple:
+        """Every ``data x fsdp`` factorization with an fsdp axis over 1
+        (fsdp=1 would repeat the DDP candidate); the planner's SPMD
+        candidate is rule-less, so its parameters take the fsdp
+        fallback (the JAX hooks)."""
+        return tuple({"data": n_devices // f, "fsdp": f}
+                     for f in range(2, n_devices + 1) if n_devices % f == 0)
+
+    @classmethod
+    def from_plan(cls, axis_sizes: dict) -> "SpmdStrategy":
+        return cls(axis_names=("data", "fsdp"),
+                   axis_sizes={"fsdp": int(axis_sizes.get("fsdp", 1))})
 
     def _rule_spec(self, mesh, path: str) -> "P | None":
         for rx, spec in self.rules:
@@ -1017,7 +1047,35 @@ class Zero1Optimizer:
                 params[n].copy_(v)
 
 
+class AutoStrategy(ShardingStrategy):
+    """``Trainer(strategy="auto")``: the planner plane (plan/) resolves
+    it into a concrete strategy, plus a comm policy, a microbatch and a
+    remat policy, once the module, example batch and world are known
+    (core/trainer.py ``_resolve_auto_strategy``).  Carries an optional
+    ``PlanConfig`` override and nothing else, so it pickles to the
+    workers; used unresolved it raises."""
+
+    name = "auto"
+
+    def __init__(self, plan=None):
+        self.plan = plan
+
+    def mesh_shape(self, n_ranks: int, batch_hint: "int | None" = None
+                   ) -> dict:
+        raise RuntimeError(
+            "strategy='auto' must be resolved by the planner before a "
+            "mesh can be built (Trainer._resolve_auto_strategy); "
+            "constructing AutoStrategy outside a Trainer is unsupported")
+
+    def build_mesh(self, batch_hint: "int | None" = None):
+        return self.mesh_shape(0, batch_hint)
+
+    def __repr__(self):
+        return f"AutoStrategy({self.plan!r})"
+
+
 _STRATEGIES = {
+    "auto": AutoStrategy,
     "ddp": DataParallelStrategy,
     "dp": DataParallelStrategy,
     "zero1": Zero1Strategy,
@@ -1029,7 +1087,7 @@ _STRATEGIES = {
 
 #: strategy names of the JAX package not ported yet -> their ROADMAP.md
 #: queue 1 item
-_NOT_PORTED = {"auto": 12, "mpmd": 11}
+_NOT_PORTED = {"mpmd": 11}
 
 
 def strategy_names() -> "list[str]":
@@ -1061,7 +1119,7 @@ def resolve_strategy(strategy: "str | ShardingStrategy | None"
     raise TypeError(f"Bad strategy: {strategy!r}")
 
 
-__all__ = ["DataParallelStrategy", "FullyShardedStrategy", "P",
+__all__ = ["AutoStrategy", "DataParallelStrategy", "FullyShardedStrategy", "P",
            "PartitionSpec", "ShardingStrategy", "SpmdStrategy",
            "Zero1Optimizer",
            "Zero1State", "Zero1Strategy", "average_grads", "batch_moments",

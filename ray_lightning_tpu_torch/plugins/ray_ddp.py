@@ -4,8 +4,12 @@ over subprocess actors, one rank a worker.
 ``RayPlugin`` and ``RayShardedPlugin`` take the original reference's
 names (``ray_lightning/ray_ddp.py``, ``ray_ddp_sharded.py``); their JAX
 counterparts are ``RayXlaPlugin`` and ``RayXlaShardedPlugin``
-(``ray_lightning_tpu/plugins/xla.py``), without its telemetry,
-compile-cache, planner and MPMD branches.  ``RaySpmdPlugin``
+(``ray_lightning_tpu/plugins/xla.py``), without its telemetry and
+MPMD branches.  The workers get the compile cache's and the planner's
+env (``CompileCacheConfig.worker_env``, ``PlanConfig.worker_env``) and
+``RLT_REMAT_POLICY``; under ``strategy="auto"`` every rank plans alike
+and rank 0's report returns to ``trainer._plan_report``.
+``RaySpmdPlugin``
 (JAX ``RayXlaSpmdPlugin``, ``plugins/xla.py:696-703``) defaults to
 ``strategy="spmd"``; one rank is one card, so the JAX
 ``devices_per_worker=2`` is twice the workers here.  Driver side, a
@@ -73,6 +77,7 @@ from ray_lightning_tpu_torch._device import worker_device
 from ray_lightning_tpu_torch.cluster.backend import get_backend
 from ray_lightning_tpu_torch.cluster.executor import RLTExecutor
 from ray_lightning_tpu_torch.cluster.queue import WorkerQueueProxy
+from ray_lightning_tpu_torch.compile import cache as compile_cache
 from ray_lightning_tpu_torch.parallel.strategy import resolve_strategy
 from ray_lightning_tpu_torch.plugins.base import (ExecutionPlugin,
                                                    data_check_validator)
@@ -124,15 +129,22 @@ def _worker_run(payload: tuple, rank: int, queue) -> Optional[dict]:
         result = trainer._run_stage(module, datamodule, stage, ckpt_path)
     finally:
         dist.destroy_process_group()
+    # every rank's kernel-cache counters: how warm this process started
+    counters = compile_cache.stats().to_dict()
     if rank != 0:
-        return None
+        return {"compile_cache": counters}
     package: "dict[str, Any]" = {
+        "compile_cache": counters,
         "result": result,
         "callback_metrics": dict(trainer.callback_metrics),
         "epoch": int(trainer.current_epoch),
         "global_step": int(trainer.global_step),
     }
     package["first_step_wall"] = trainer.first_step_wall
+    # the planner's report (strategy="auto": every rank planned alike)
+    # and the first step's clock (compile plane)
+    package["plan_report"] = trainer._plan_report
+    package["time_to_first_step"] = trainer.time_to_first_step
     if stage == "fit":
         # the elastic plane's numbers, for the driver's report
         package["elastic"] = trainer.elastic_stats()
@@ -230,6 +242,11 @@ class RayPlugin(ExecutionPlugin):
             env["CUDA_VISIBLE_DEVICES"] = ""     # CPU workers stay off it
         if one_card():
             env[ONE_CARD_ENV] = "1"
+        if os.environ.get("RLT_REMAT_POLICY", "").strip():
+            # the model build's remat override (core/remat.py
+            # model_policy), which pins the planner's remat axis: the
+            # workers build the driver's program
+            env["RLT_REMAT_POLICY"] = os.environ["RLT_REMAT_POLICY"]
         env.update(self.worker_env)
         return env
 
@@ -269,6 +286,8 @@ class RayPlugin(ExecutionPlugin):
         # resolves the same config (the trainer carries the resolved one)
         env.update(trainer.comm_policy.worker_env())
         env.update(trainer.elastic.worker_env())
+        env.update(trainer.compile_cache.worker_env())
+        env.update(trainer.plan.worker_env())
         tag = uuid.uuid4().hex[:8]
         names = [f"rlt-worker-{os.getpid()}-{tag}-{i}"
                  for i in range(self.num_workers)]
@@ -373,7 +392,12 @@ class RayPlugin(ExecutionPlugin):
 
     def _post_dispatch(self, trainer, module, stage, results):
         rank0 = results[0]
+        for rank, r in enumerate(results):
+            compile_cache.note_remote((r or {}).get("compile_cache"),
+                                      f"{type(self).__name__} rank {rank}")
         trainer.first_step_wall = rank0.get("first_step_wall")
+        trainer._plan_report = rank0.get("plan_report")
+        trainer.time_to_first_step = rank0.get("time_to_first_step")
         trainer._elastic_worker_stats = rank0.get("elastic")
         trainer.callback_metrics.update(rank0["callback_metrics"])
         trainer.current_epoch = rank0["epoch"]

@@ -103,6 +103,8 @@ from ray_lightning_tpu_torch.core.steps import (CapturedGraph,
                                                 build_suffix_step,
                                                 build_verify_step,
                                                 capture_graph, copy_in)
+from ray_lightning_tpu_torch.compile import cache as compile_cache_mod
+from ray_lightning_tpu_torch.compile.cache import CompileCacheConfig
 from ray_lightning_tpu_torch.ops import _kernels
 from ray_lightning_tpu_torch.ops.flash_decode import resolve_decode_impl
 from ray_lightning_tpu_torch.parallel.mesh import all_gather_along
@@ -126,10 +128,11 @@ class ServeEngine:
                  strategy: Any = None, compile_cache: Any = None,
                  paged: Any = None, spec: Any = None,
                  kvship: bool = False):
-        if compile_cache is not None:
-            raise NotImplementedError(
-                "ServeEngine(compile_cache=...) is not ported yet "
-                "(ROADMAP.md queue 1 item 12)")
+        #: the kernel libraries' cache (compile/cache.py; ``None``: the
+        #: ``RLT_COMPILE_CACHE*`` env, which ``Server`` sets in its
+        #: workers), active from here on
+        self.compile_cache = CompileCacheConfig.resolve(compile_cache)
+        compile_cache_mod.activate(self.compile_cache)
         #: the training strategy served under (``None``: one rank)
         self.strategy = None if strategy is None \
             else resolve_strategy(strategy)
@@ -824,10 +827,14 @@ class ServeEngine:
           its parameters are the target's own tensors, ``draft_quant``,
           the bytes of a standalone draft copy (``draft_fp_bytes``), the
           bytes its residency adds (``draft_resident_bytes``: 0 when
-          shared, the int8 pairs otherwise) and their difference.
+          shared, the int8 pairs otherwise) and their difference;
+        - ``compile_cache``: whether the cache is active, its dir and
+          status word, and this process's hits, misses, nvcc and
+          capture seconds (compile/cache.py ``engine_stats``).
         """
         counts = _kernels.launch_counts()
         out = {
+            "compile_cache": compile_cache_mod.engine_stats(),
             "decode_kernel": self.decode_kernel,
             "calls": dict(self.calls),
             "seconds": dict(self.seconds),

@@ -18,12 +18,13 @@ would otherwise fail only deep inside a live fleet:
    ``tensor=2`` mesh, and on ``data=2 x tensor=2``, cover every (slot,
    head) of the cache exactly once, and a ``sequence`` axis's ranks
    hold the same block (replicas); the ranks' bytes add up to the
-   cache's.
+   cache's;
+6. the planner's speculative cost model (plan/cost.py
+   ``expected_accepted``, ``speculative_speedup``).
 
-The JAX selfcheck also checks the speculative cost model of the planner
-(``plan/cost.py``, ROADMAP.md queue 1 item 12) and the serve metric
-names on the metrics lint (item 13); neither plane is ported, so those
-checks wait for them.
+The JAX selfcheck also checks the serve metric names on the metrics
+lint; the serve metrics wait for the metrics plane (ROADMAP.md queue 1
+item 13).
 """
 
 from __future__ import annotations
@@ -221,12 +222,24 @@ def _check_kv_blocks() -> None:
           "cache exactly once")
 
 
+def _check_spec_cost_model() -> None:
+    from ray_lightning_tpu_torch.plan.cost import (expected_accepted,
+                                                   speculative_speedup)
+    assert expected_accepted(1.0, 4) == 4.0
+    assert expected_accepted(0.0, 4) == 0.0
+    assert abs(expected_accepted(0.5, 2) - 0.75) < 1e-12
+    assert speculative_speedup(0.9, 4, 0.25) > 1.0
+    assert speculative_speedup(0.05, 4, 0.5) < 1.0
+    print("serve selfcheck: speculative cost model OK")
+
+
 def run() -> int:
     _check_buckets()
     _check_scheduler()
     _check_spec_fold()
     _check_programs_run()
     _check_kv_blocks()
+    _check_spec_cost_model()
     return 0
 
 

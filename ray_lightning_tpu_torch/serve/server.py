@@ -42,9 +42,11 @@ ported) and stops the pump.  With ``kvship=True`` (and ``paged=``) the
 server is one end of the fleet's KV-ship plane (serve/fleet/router.py):
 ``export_kv`` hands out a donor's rows (every head: a tensor group
 gathers them), ``import_kv`` adopts shipped ones (each rank its heads),
-so servers of different layouts ship to each other.  The telemetry,
-goodput, profile and flight planes and the compile cache are not ported
-yet: asking for them raises, naming the ROADMAP.md item.  Prompts and
+so servers of different layouts ship to each other.
+``compile_cache=`` (compile/cache.py) rides to every serve actor as its
+env, and each engine reports the cache in its stats.  The telemetry,
+goodput, profile and flight planes are not ported yet: asking for them
+raises, naming the ROADMAP.md item.  Prompts and
 completions are token-id arrays: tokenization lives with the caller.
 """
 
@@ -64,6 +66,7 @@ import numpy as np
 
 from ray_lightning_tpu_torch.cluster.backend import get_backend
 from ray_lightning_tpu_torch.cluster.queue import WorkerQueueProxy
+from ray_lightning_tpu_torch.compile.cache import CompileCacheConfig
 from ray_lightning_tpu_torch.parallel.strategy import resolve_strategy
 from ray_lightning_tpu_torch.plugins.ray_ddp import (ONE_CARD_ENV, RayPlugin,
                                                      one_card)
@@ -153,8 +156,9 @@ class Server:
         self.platform = "cpu" if platform == "cpu" else "cuda"
         if telemetry not in (None, False):
             raise _not_ported("telemetry=...", 13)
-        if compile_cache is not None:
-            raise _not_ported("compile_cache=...", 12)
+        #: the workers' kernel cache (compile/cache.py): its env rides
+        #: to every serve actor, whose engine activates it
+        self.compile_cache = CompileCacheConfig.resolve(compile_cache)
         if (devices_per_worker or 1) < 1:
             raise ValueError("devices_per_worker must be >= 1")
         self.strategy = resolve_strategy(strategy)
@@ -313,6 +317,7 @@ class Server:
             env[ONE_CARD_ENV] = "1"
         if self.kvship:
             env["RLT_SERVE_KVSHIP"] = "1"
+        env.update(self.compile_cache.worker_env())
         env.update(self.worker_env)
         return env
 

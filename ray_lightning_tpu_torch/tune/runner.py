@@ -1,9 +1,12 @@
 """The trial runner: ``tune.run`` in this process, no Ray needed.
 
 Counterpart of ``ray_lightning_tpu/tune/runner.py`` without the
-compile-cache, planner and telemetry hooks (the experiment's shared
-compile cache, ``Trial.plan_report``, ``Trial.metrics_url``,
-``Trial.telemetry_dir``).  The reference's shape (SURVEY.md §3.3):
+telemetry hooks (``Trial.metrics_url``, ``Trial.telemetry_dir``: ROADMAP.md
+queue 1 item 13).  Every trial of an experiment shares one compile cache
+under ``<exp_dir>/compile_cache`` (``RLT_COMPILE_CACHE=0`` opts out):
+trial 0 builds the kernel libraries and every later trial, and every
+retry, reads them; ``Trial.plan_report`` holds the plan a
+``strategy="auto"`` trial trained under.  The reference's shape (SURVEY.md §3.3):
 ``tune.run(train_fn, config, num_samples, scheduler,
 resources_per_trial)`` runs ``train_fn(config)`` per trial; it builds a
 ``Trainer`` (in process, or with a ``RayPlugin`` whose actors train) and
@@ -66,6 +69,9 @@ class Trial:
         #: the cards an in-process trial leased (``"cuda:0"``, ...), set
         #: when its fit takes the lease (tune/session.py)
         self.leased_devices: "list[str]" = []
+        #: the planner's report dict of a ``strategy="auto"`` fit in this
+        #: trial (tune/session.py ``note_plan_report``)
+        self.plan_report: Optional[dict] = None
 
     def __repr__(self):
         return f"Trial({self.trial_id}, {self.status})"
@@ -261,6 +267,11 @@ def run(
     local_dir = local_dir or os.path.join(os.getcwd(), "rlt_tune")
     exp_dir = os.path.join(local_dir, name or f"exp_{int(time.time())}")
     os.makedirs(exp_dir, exist_ok=True)
+    # one kernel cache for the experiment (module docstring); an
+    # explicit RLT_COMPILE_CACHE_DIR outranks it at resolution
+    compile_cache_dir = (
+        None if os.environ.get("RLT_COMPILE_CACHE", "").strip() == "0"
+        else os.path.join(exp_dir, "compile_cache"))
 
     variants = generate_variants(dict(config or {}), num_samples, seed)
     trials = []
@@ -313,7 +324,8 @@ def run(
             if abort.is_set():
                 return     # fail_fast tripped: the trial stays PENDING
             trial.status = "RUNNING"
-            session = TrialSession(trial, on_report, device_leaser=leaser)
+            session = TrialSession(trial, on_report, device_leaser=leaser,
+                                   compile_cache_dir=compile_cache_dir)
             set_session(session)
             restore_from: Optional[str] = None
             failures = 0

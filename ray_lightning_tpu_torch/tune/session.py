@@ -1,10 +1,9 @@
 """Per-trial session: the thread-local context that makes ``report``
 and ``checkpoint_dir`` work inside a running trial.
 
-Counterpart of ``ray_lightning_tpu/tune/session.py`` without the
+Counterpart of ``ray_lightning_tpu/tune/session.py``, with the
 compile-cache and planner hooks (``compile_cache_dir``,
-``get_compile_cache_dir``, ``note_plan_report``: those planes are not
-ported).  As in the reference, ``tune.report`` and
+``get_compile_cache_dir``, ``note_plan_report``).  As in the reference, ``tune.report`` and
 ``tune.checkpoint_dir`` work only where the trial runs
 (``ray_lightning/tune.py:130-134, 161-178``): the runner runs each trial
 on its own thread, and the distributed plugins relay a worker's calls
@@ -33,8 +32,12 @@ class TrialSession:
     the tune driver stays off CUDA for them.  ``None``: no lease (yet).
     """
 
-    def __init__(self, trial, on_report, device_leaser=None):
+    def __init__(self, trial, on_report, device_leaser=None,
+                 compile_cache_dir=None):
         self.trial = trial
+        #: the experiment's shared compile-cache root (tune/runner.py),
+        #: which ``CompileCacheConfig.resolve`` takes inside the trial
+        self.compile_cache_dir = compile_cache_dir
         self._on_report = on_report
         self._step = 0
         self._leaser = device_leaser
@@ -161,6 +164,22 @@ def get_trial_devices():
 def get_trial_id() -> str:
     s = _get()
     return s.trial.trial_id if s else "default"
+
+
+def note_plan_report(report: dict) -> None:
+    """Record the planner's report dict on the live trial (no-op outside
+    a trial); plan/planner.py calls it after every plan, a reused one
+    too."""
+    s = _get()
+    if s is not None:
+        s.trial.plan_report = report
+
+
+def get_compile_cache_dir() -> Optional[str]:
+    """The experiment's shared compile-cache root, or None outside a
+    trial (or with sharing turned off)."""
+    s = _get()
+    return getattr(s, "compile_cache_dir", None) if s is not None else None
 
 
 def get_trial_dir() -> Optional[str]:

@@ -2373,3 +2373,96 @@ def test_cuda_parity_recovery_round_trips_the_escrow(cuda_device, tmp_path,
     assert mu and all(rebuilt[k] == "bfloat16" for k in mu), rebuilt
     assert all(torch.isfinite(v.float()).all()
                for v in module._trained_state.values())
+
+
+# -- the planner and the compile plane -----------------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_fake_verified_peak_matches_the_step(cuda_device):
+    """The planner's verify (one fake-tensor train step under
+    ``MemTracker``, no launch) against the card: a tiny GPT's step,
+    widened to a step of about 1 GB, holds its fake-verified peak
+    within 0.8-1.25x of the measured ``max_memory_allocated`` of the
+    same fit's first step (flash route), above what the process held
+    before the fit."""
+    from ray_lightning_tpu_torch.plan import PlanConfig, Planner
+    cfg = dataclasses.replace(GPTConfig(vocab_size=8192, block_size=512,
+                                        n_layer=4, n_head=8, n_embd=512),
+                              remat=False)
+    module = GPTLightningModule(cfg, batch_size=8, dataset_size=16)
+    batch = next(iter(module.train_dataloader()))
+    report = Planner(PlanConfig(strategies=("ddp",), remat=("off",),
+                                topk=1)).plan(module, batch, n_devices=1,
+                                              batch_hint=8, device="cuda")
+    verified = next(e for e in report.to_dict()["candidates"]
+                    if e["status"] == "winner")["measured"]["peak_bytes"]
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    # what earlier tests of this process still hold is not the step's
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(max_steps=1, enable_checkpointing=False, logger=False,
+                      num_sanity_val_steps=0, limit_val_batches=0, seed=0,
+                      device="cuda")
+    trainer.fit(GPTLightningModule(cfg, batch_size=8, dataset_size=16))
+    measured = torch.cuda.max_memory_allocated() - base
+    assert 0.8 <= verified / measured <= 1.25, (verified, measured, base)
+
+
+@pytest.mark.cuda
+def test_cuda_probe_traces_the_flash_route(cuda_device):
+    """On the card the probes' fake tensors take the flash ops (no
+    launch, no flop formula): gpt2-medium's "dots" and "off" recompute
+    no product; "full" recomputes the block's linears but its last (the
+    checkpoint's recompute stops at the last tensor the backward needs:
+    qkv, proj and fc, 8 C^2 a token), and the kept bytes order off >
+    dots > full = 0."""
+    before = _kernels.launch_counts()
+    spec = GPTLightningModule("gpt2-medium").configure_remat()
+    batch = np.zeros((8, 1024), np.int32)
+    probes = {p: spec.probe(p, batch) for p in ("off", "dots", "full")}
+    assert _kernels.launch_counts() == before
+    B, T, C, L = 8, 1024, 1024, 24
+    assert probes["dots"].recompute_flops == 0
+    assert probes["full"].recompute_flops == L * 2 * B * T * 8 * C * C
+    assert probes["off"].saved_bytes > probes["dots"].saved_bytes \
+        > probes["full"].saved_bytes == 0
+
+
+_CACHE_CHILD = """
+import json, sys
+from ray_lightning_tpu_torch.compile import cache
+from ray_lightning_tpu_torch.ops import _kernels
+cache.activate(cache.CompileCacheConfig(enabled=True, dir=sys.argv[1]))
+_kernels.build()
+print(json.dumps(cache.stats().to_dict()))
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_cache_cold_then_warm(cuda_device, tmp_path):
+    """Two processes over one empty cache root: the first builds every
+    kernel library with nvcc (one miss a ``csrc/*.cu``: 4), the second
+    finds them all by their keys (4 hits, 0 misses, no nvcc second)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    sources = len({k.source for k in _kernels.REGISTRY.values()})
+    runs = []
+    for _ in range(2):
+        out = subprocess.run([sys.executable, "-c", _CACHE_CHILD,
+                              str(tmp_path)], capture_output=True,
+                             text=True, env=env, timeout=600)
+        assert out.returncode == 0, out.stdout + out.stderr
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    assert sources == 4
+    assert (runs[0]["misses"], runs[0]["hits"]) == (sources, 0)
+    assert runs[0]["build_seconds"] > 0
+    assert (runs[1]["misses"], runs[1]["hits"]) == (0, sources)
+    assert runs[1]["build_seconds"] == 0

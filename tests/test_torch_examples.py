@@ -55,8 +55,12 @@ def test_ddp_example_tune_smoke(tmp_path):
     assert proc.returncode == 0, (
         f"tune sweep failed\nstdout:\n{proc.stdout}\nstderr:\n{proc.stderr}")
     assert "Best hyperparameters found were" in proc.stdout
-    trials = sorted(os.listdir(tmp_path / "sweep" / "tune_mnist"))
+    # the experiment's shared kernel cache lives beside its trials
+    # (tune/runner.py <exp_dir>/compile_cache)
+    entries = sorted(os.listdir(tmp_path / "sweep" / "tune_mnist"))
+    trials = [e for e in entries if e != "compile_cache"]
     assert trials == ["trial_00000", "trial_00001"]
+    assert entries == ["compile_cache", *trials]
     for t in trials:
         assert os.path.isfile(tmp_path / "sweep" / "tune_mnist" / t /
                               "logs" / "metrics.csv")

@@ -178,9 +178,12 @@ def test_config_errors_and_local_attention():
     assert PipelinedGPT("tiny").config.attention_impl == "local"
     cfg = GPTConfig(**{**PIPE_TINY, "attention_impl": "ring"})
     assert PipelinedGPT(cfg).config.attention_impl == "local"
-    for name in ("configure_mpmd", "configure_remat"):
-        with pytest.raises(NotImplementedError, match="item 1[12]"):
-            getattr(PipelinedGPT("tiny"), name)()
+    with pytest.raises(NotImplementedError, match="item 11"):
+        PipelinedGPT("tiny").configure_mpmd()
+    # the remat probes are ported (tests/test_torch_remat.py)
+    from ray_lightning_tpu_torch.core.remat import POLICY_LADDER
+    spec = PipelinedGPT("tiny").configure_remat()
+    assert spec.policies == POLICY_LADDER and spec.default == "off"
 
 
 def test_remat_gives_the_same_gradients():

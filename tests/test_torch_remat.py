@@ -269,3 +269,138 @@ def test_dots_configs_build(name):
     cfg = CONFIGS[name]
     assert len(model.h) == cfg.n_layer
     assert model.wte.weight.shape == (cfg.vocab_size, cfg.n_embd)
+
+
+# -- (e) the planner's probes (configure_remat) against the JAX ones ---------
+#
+# Both packages probe one block kind at a time at tiny width, B=8, T=64,
+# on the CPU, where both trace the plain attention: the recompute flops
+# (products only) equal the JAX ones for every policy, but for the routed
+# layer's "dots_no_batch", where the port's router product is batched (a
+# ``bmm``, recomputed) and the JAX one is not (524,288 flops = 2 x 1024
+# tokens x 64 x 4 experts).  The kept bytes order the policies as the
+# JAX ones do; torch's and XLA's saved sets differ in what they save
+# (XLA keeps its casts of the parameters, autograd a LayerNorm's
+# statistics), so their ratio is printed and held to 0.5-2.0 (0.76-1.15
+# measured).
+
+PROBE_B = 8
+RATIO_BAND = (0.5, 2.0)
+
+
+def _probe_pair(family):
+    from ray_lightning_tpu.models import bert as jbert
+    from ray_lightning_tpu.models import gpt as jgpt
+    from ray_lightning_tpu.models import pipeline_gpt as jpipe
+    from ray_lightning_tpu_torch.models.pipeline_gpt import PipelinedGPT
+    b = PROBE_B
+    if family == "gpt":
+        return (jgpt.GPTLightningModule("tiny", batch_size=b),
+                GPTLightningModule("tiny", batch_size=b))
+    if family == "moe":
+        return (jgpt.GPTLightningModule("moe-tiny", batch_size=b),
+                GPTLightningModule("moe-tiny", batch_size=b))
+    if family == "bert":
+        return (jbert.BertMLMModule("tiny", batch_size=b),
+                tbert.BertMLMModule("tiny", batch_size=b))
+    return (jpipe.PipelinedGPT(jgpt.CONFIGS["tiny"], batch_size=b),
+            PipelinedGPT("tiny", batch_size=b))
+
+
+@pytest.mark.parametrize("family", ["gpt", "moe", "bert", "pipeline"])
+def test_probes_match_the_jax_probes(family):
+    jmod, tmod = _probe_pair(family)
+    batch = (np.zeros((PROBE_B, 64), np.int32),
+             np.zeros((PROBE_B, 64), np.int32))
+    jspec, tspec = jmod.configure_remat(), tmod.configure_remat()
+    assert tspec.policies == jspec.policies
+    assert tspec.default == jspec.default
+    jp = {p: jspec.probe(p, batch) for p in jspec.policies}
+    tp = {p: tspec.probe(p, batch) for p in tspec.policies}
+    for p in tspec.policies:
+        if not (family == "moe" and p == "dots_no_batch"):
+            assert tp[p].recompute_flops == jp[p].recompute_flops, p
+        assert tp[p].n_blocks == jp[p].n_blocks
+        assert tp[p].batch == jp[p].batch == PROBE_B
+    if family == "moe":
+        assert tp["dots_no_batch"].recompute_flops \
+            - jp["dots_no_batch"].recompute_flops == 2 * PROBE_B * 64 * 64 * 4
+    order = sorted(tspec.policies, key=lambda p: tp[p].saved_bytes)
+    assert order == sorted(jspec.policies, key=lambda p: jp[p].saved_bytes)
+    assert tp["full"].saved_bytes == jp["full"].saved_bytes == 0
+    for p in tspec.policies:
+        if p == "full":
+            continue
+        ratio = tp[p].saved_bytes / jp[p].saved_bytes
+        print(f"{family} {p}: port/JAX kept bytes {ratio:.3f}")
+        assert RATIO_BAND[0] <= ratio <= RATIO_BAND[1], (p, ratio)
+
+
+def test_probes_scale_with_the_batch():
+    """The probes are linear in the batch (plan/cost.py rescales by it):
+    twice the batch keeps twice the bytes and recomputes twice the
+    products."""
+    spec = GPTLightningModule("tiny", batch_size=8).configure_remat()
+    one = spec.probe("dots_no_batch", np.zeros((8, 64), np.int32))
+    two = spec.probe("dots_no_batch", np.zeros((16, 64), np.int32))
+    assert two.saved_bytes == 2 * one.saved_bytes
+    assert two.recompute_flops == 2 * one.recompute_flops
+
+
+def test_probe_primitives():
+    """One linear: its kept bytes are the computed output's (the input
+    and the weight are arguments), its products the forward's and the
+    backward's two; "full" keeps none and recomputes the forward's; no
+    flop formula is registered for the flash ops (the card's probe
+    counts them as zero, tests/test_torch_cuda.py) while the plain
+    attention's products count."""
+    from ray_lightning_tpu_torch.core import remat as rm
+    with rm.fake_mode():
+        w = torch.empty(32, 16, requires_grad=True)
+        x = torch.empty(8, 16, requires_grad=True)
+
+        def fn(w, x):
+            return torch.nn.functional.gelu(x @ w.t())
+
+        assert rm.saved_activation_bytes(fn, w, x) == 8 * 32 * 4
+        assert rm.grad_dot_flops(fn, w, x) == 3 * 2 * 8 * 32 * 16
+        assert rm.saved_activation_bytes(fn, w, x, policy="full") == 0
+        assert rm.saved_activation_bytes(fn, w, x, policy="dots") \
+            == 8 * 32 * 4
+        assert rm.block_cost(fn, w, x, policy="full") \
+            == (0, 2 * 8 * 32 * 16)
+    from torch.utils.flop_counter import flop_registry
+    assert not any("rlt" in str(op) for op in flop_registry)
+    with rm.fake_mode():
+        q = torch.empty(2, 128, 2, 64, dtype=torch.bfloat16,
+                        requires_grad=True)
+        from ray_lightning_tpu_torch.ops.attention import \
+            dot_product_attention
+        # scores and PV, forward and backward: six products of 2 B H T T D
+        assert rm.grad_dot_flops(
+            lambda q: dot_product_attention(q, q, q), q) \
+            == 6 * 2 * 2 * 2 * 128 * 128 * 64
+
+
+def test_apply_is_in_place_and_clone_safe():
+    import copy
+    module = GPTLightningModule("gpt2-medium")
+    spec = module.configure_remat()
+    assert spec.default == "dots"
+    module.model = object()
+    spec.apply("full")
+    assert module.config.remat and module.config.remat_policy == "full"
+    assert module.model is None
+    spec.apply("off")
+    assert module.config.remat is False
+    clone = copy.copy(module)
+    clone.configure_remat().apply("dots_no_batch")
+    assert clone.config.remat_policy == "dots_no_batch"
+    assert module.config.remat is False
+    with pytest.raises(ValueError, match="ladder"):
+        spec.apply("warp")
+    assert "dots_moe" in GPTLightningModule(
+        "gpt2-moe-8e").configure_remat().policies
+    assert "dots_moe" not in spec.policies
+    from ray_lightning_tpu_torch.models.boring import BoringModel
+    assert BoringModel().configure_remat() is None

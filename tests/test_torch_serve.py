@@ -11,8 +11,10 @@ the teacher-forced near-tie rule at 2e-2 against the JAX package's
 whole-sequence forward, as the JAX engine's own do.
 """
 
+import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import jax
@@ -184,14 +186,24 @@ def test_engine_rejects_what_is_not_ported():
     """Paged KV, speculative decoding, KV shipping, int8-resident drafts
     and the strategies are ported (tests/test_torch_paged.py,
     tests/test_torch_spec.py, tests/test_torch_kvship.py,
-    tests/test_torch_serve_parallel.py); the compile cache still
-    raises, and a strategy that is none raises as ``resolve_strategy``
-    does.  A ship-bound submit is accepted, and a plan's export needs a
-    set-up worker like any other step."""
+    tests/test_torch_serve_parallel.py), and so is the compile cache
+    (an engine given a root activates it and reports it in its stats);
+    a strategy that is none raises as ``resolve_strategy`` does.  A
+    ship-bound submit is accepted, and a plan's export needs a set-up
+    worker like any other step."""
+    from ray_lightning_tpu_torch.compile import cache as compile_cache
     mod = GPTLightningModule(GPTConfig(**TINY))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ServeEngine(mod, buckets=BUCKETS, slots=SLOTS, max_seq_len=32,
-                    device="cpu", compile_cache="dir")
+    root = tempfile.mkdtemp(prefix="rlt_cc_")
+    try:
+        cached = ServeEngine(mod, buckets=BUCKETS, slots=SLOTS,
+                             max_seq_len=32, device="cpu",
+                             compile_cache=root)
+        cc = cached.stats()["compile_cache"]
+        assert cc["active"] and cc["dir"].startswith(root), cc
+        assert cached.compile_cache.root == root
+    finally:
+        compile_cache.deactivate()
+        shutil.rmtree(root, ignore_errors=True)
     with pytest.raises(TypeError, match="Bad strategy"):
         ServeEngine(mod, buckets=BUCKETS, slots=SLOTS, max_seq_len=32,
                     device="cpu", strategy=object())

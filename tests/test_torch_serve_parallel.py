@@ -236,6 +236,66 @@ def test_ranks_match_the_jax_engine_under_the_strategy(jax_layout):
             3 * TINY["n_embd"] // 2, TINY["n_embd"])
 
 
+def _rank_first_step(rank, world, strategy, weights, prompts, slots):
+    """One tensor=2 rank: its block's prefills (the engine's own first
+    tokens) and one decode's fp32 logits, gathered whole over the
+    vocab."""
+    from ray_lightning_tpu_torch.serve import bucket_for, pad_to_bucket
+    eng = ServeEngine(_module(), BUCKETS, slots, L, weights=weights,
+                      device="cpu", strategy=strategy).setup()
+    lo, hi = eng.slot_block
+    first = []
+    with torch.inference_mode():
+        for s in range(lo, hi):
+            p = prompts[s]
+            b = bucket_for(len(p), BUCKETS)
+            first.append(eng.prefill(s - lo, pad_to_bucket(p, b), len(p), b))
+        dec = eng.model.decode(
+            torch.as_tensor(first, dtype=torch.int32),
+            torch.as_tensor([len(p) for p in prompts[lo:hi]],
+                            dtype=torch.int32), eng._k, eng._v).numpy()
+    return {"block": (lo, hi), "first": first, "dec": dec}
+
+
+def test_f16_tensor2_first_step_logits_hold_the_fp32_bar():
+    """F16's bar, on the CPU: two gloo ranks under tensor=2 at tiny
+    width in fp32 serve a first decode step whose logits lie within
+    fp32 2e-5 (atol = rtol) of the JAX package's unsharded forward over
+    the same tokens, with every slot's argmax equal.  A tensor=2
+    row-parallel product sums its K in two partial sums added by an
+    all-reduce, an order neither unsharded route uses; 2e-5 is the
+    port's fp32 bar, which the card's fp32 leg is held to too
+    (``chip_smoke.py --serve-parallel-logits``)."""
+    import jax
+    import jax.numpy as jnp
+    _, slots, (name, axes, sizes) = LAYOUTS["tensor2"]
+    prompts = _prompts(slots)
+    with pytest.MonkeyPatch.context() as mp:
+        for k, v in ENV.items():
+            mp.setenv(k, v)
+        module = _jax_module()
+        model = module.configure_decode_model()
+        params = jax.device_get(model.init(
+            jax.random.PRNGKey(3), np.zeros((1, L), np.int32),
+            True)["params"])
+    outs = run_gloo(_rank_first_step, 2,
+                    _port_strategy(name, axes, sizes),
+                    flax_to_torch(params), prompts, slots, timeout=240)
+    leaders = {o["block"]: o for o in outs}
+    assert sorted(leaders) == [(0, slots)], sorted(leaders)
+    got = leaders[(0, slots)]
+    seqs = np.zeros((slots, L), np.int32)
+    for i, (p, t) in enumerate(zip(prompts, got["first"])):
+        seqs[i, :len(p) + 1] = list(p) + [t]
+    logits = np.asarray(jnp.asarray(model.apply({"params": params}, seqs,
+                                                True), jnp.float32))
+    want = np.stack([logits[i, len(p)] for i, p in enumerate(prompts)])
+    np.testing.assert_allclose(got["dec"], want, rtol=TOL, atol=TOL)
+    assert (got["dec"].argmax(-1) == want.argmax(-1)).all()
+    for o in outs:      # both tensor ranks computed the same logits
+        np.testing.assert_array_equal(o["dec"], got["dec"])
+
+
 def _near_tie_equal(mine, theirs, prompts, params):
     """Equal up to the first step where the greedy choice is a near-tie
     within 2e-5 of the JAX whole-sequence forward (after it the

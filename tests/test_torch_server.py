@@ -262,13 +262,23 @@ def test_server_workers_run_on_the_card_unless_asked(monkeypatch):
     ({"strategy": "auto"}, 12),
 ], ids=["telemetry", "compile_cache", "auto"])
 def test_server_refuses_what_is_not_ported(kw, item):
-    """Each option the port lacks raises before any actor starts,
-    naming its ROADMAP.md item (the training strategies are ported:
-    tests/test_torch_serve_parallel.py; the planner's ``"auto"`` is
-    not)."""
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md queue 1 item {item}"):
-        _server(_module(), **kw)
+    """The option the port lacks (telemetry, item 13) raises before any
+    actor starts, naming its ROADMAP.md item.  Item 12's two are
+    answered now: ``compile_cache=`` is taken, its env riding to every
+    serve actor (compile/cache.py); ``strategy="auto"`` plans a training
+    step, so a server refuses it as the JAX one does when it builds the
+    mesh (``AutoStrategy``: "must be resolved by the planner")."""
+    if item == 13:
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md queue 1 item {item}"):
+            _server(_module(), **kw)
+    elif "compile_cache" in kw:
+        env = _server(_module(), **kw)._worker_env_base()
+        assert env["RLT_COMPILE_CACHE"] == "1"
+        assert env["RLT_COMPILE_CACHE_DIR"] == "cache"
+    else:
+        with pytest.raises(RuntimeError, match="resolved by the planner"):
+            _server(_module(), **kw)
 
 
 @pytest.mark.parametrize("kw", [

@@ -453,8 +453,8 @@ def test_lm_loss_routes_agree(route, monkeypatch):
 
 def test_trainer_refuses_what_is_not_ported():
     """Arguments of the JAX Trainer that the port does not honour yet
-    raise instead of being ignored: the planner's and MPMD's strategies
-    and the telemetry, compile-cache and planner planes.
+    raise instead of being ignored: MPMD's strategy and the telemetry
+    plane.
     (The strategies beyond DDP and ZeRO-1,
     ``"fsdp"`` and ``"spmd"``, are ported: tests/test_torch_sharded.py;
     so is ``comm_policy``: tests/test_torch_comm.py; so is ``elastic``:
@@ -466,11 +466,16 @@ def test_trainer_refuses_what_is_not_ported():
     honoured (tests/test_torch_checkpoint.py,
     tests/test_torch_trainer.py, tests/test_torch_plugin*.py,
     tests/test_torch_loop_engine.py)."""
-    for kw in (dict(strategy="auto"), dict(strategy="mpmd"),
-               dict(telemetry=True), dict(compile_cache=True),
-               dict(plan=True)):
+    for kw in (dict(strategy="mpmd"), dict(telemetry=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             Trainer(device="cpu", **kw)
+    # the planner and the compile cache are ported
+    # (tests/test_torch_plan.py, tests/test_torch_compile_cache.py): they
+    # construct, and a plan that is not a config raises as in JAX
+    assert Trainer(device="cpu", strategy="auto").strategy.name == "auto"
+    assert Trainer(device="cpu", compile_cache=True).compile_cache.enabled
+    with pytest.raises(TypeError, match="bad plan config"):
+        Trainer(device="cpu", plan=True)
 
 
 @pytest.mark.parametrize("precision", ["32", "32-true", "64", "bf16",
